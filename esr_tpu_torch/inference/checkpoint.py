@@ -1,0 +1,56 @@
+"""The port's checkpoint: a directory holding
+
+- ``params.npz``: the flax parameter tree, one array per leaf, keyed by the
+  flax path joined with ``/`` (``params/head/Conv_0/kernel``), in the flax
+  layouts (HWIO convs, ``[in, out]`` dense);
+- ``config.json``: the training config; ``model.name`` and ``model.args``
+  build the model, as in the reference's checkpoints.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+import torch.nn as nn
+
+from esr_tpu_torch.models import convert
+from esr_tpu_torch.models.esr import DeepRecurrNet
+
+
+def build_model(model_config: Dict) -> DeepRecurrNet:
+    """``{"name": "DeepRecurrNet", "args": {...}}`` -> the port's model."""
+    name = model_config.get("name")
+    if name != "DeepRecurrNet":
+        raise NotImplementedError(f"model {name!r} is not ported yet")
+    return DeepRecurrNet(**(model_config.get("args") or {}))
+
+
+def save_checkpoint(path: str, params: Dict, config: Dict) -> None:
+    """Write ``params`` (a flax tree of arrays) and ``config``."""
+    os.makedirs(path, exist_ok=True)
+    flat = convert.flatten_tree(params)
+    np.savez(os.path.join(path, "params.npz"),
+             **{"/".join(k): v for k, v in flat.items()})
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+
+
+def load_checkpoint(path: str) -> Tuple[nn.Module, Dict]:
+    """Rebuild ``(model, config)`` from a checkpoint directory (CPU
+    parameters; the caller moves the model to its device)."""
+    with open(os.path.join(path, "config.json")) as f:
+        config = json.load(f)
+    model = build_model(config["model"])
+    tree: Dict = {}
+    with np.load(os.path.join(path, "params.npz")) as npz:
+        for key in npz.files:
+            node = tree
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = npz[key]
+    convert.load_flax_params(model, tree)
+    return model, config

@@ -1,0 +1,268 @@
+"""Sequential inference over recordings: ESR vs bicubic metrics + reports
+(counterpart of ``esr_tpu/inference/harness.py``).
+
+- One :class:`InferenceRunner` per model; recurrent state is reset ONCE per
+  recording and persists across the whole stream.
+- Each length-L sequence contributes its FIRST seqn-window
+  (``inputs_seq[0]``); sequences are non-overlapping, batch 1, in order.
+- Per window: esr_{l1,mse,ssim,psnr} against the GT count image of the
+  middle frame, and the same for the bicubic-upsampled LR input; the
+  forward's latency is timed up to ``torch.cuda.synchronize()``.
+- The per-recording ``inference.yml`` and the datalist ``inference_all.yml``
+  keep the reference's schema.
+
+Not in this slice (each raises ``NotImplementedError``): LPIPS, PNG dumps,
+the batched streaming engine, and the bf16/int8 precision rungs, whether
+asked for by argument or by the checkpoint's config. A config with
+``inference.engine: true`` (the flagship's) needs ``engine=False``
+(``--no_engine``), as the reference's sequential harness does.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from collections import defaultdict, deque
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from esr_tpu_torch.data.loader import InferenceSequenceLoader
+from esr_tpu_torch.data.records import Recording, open_recording
+from esr_tpu_torch.device import DeviceLike, resolve_device, synchronize
+from esr_tpu_torch.losses.restore import l1_metric, mse_metric, psnr_metric, ssim_metric
+from esr_tpu_torch.ops.resize import interpolate
+from esr_tpu_torch.utils.trackers import MetricTracker, YamlLogger
+
+logger = logging.getLogger(__name__)
+
+
+def _num_params(model: torch.nn.Module) -> float:
+    return sum(p.numel() for p in model.parameters()) / 1e6
+
+
+def _metrics(pred, base, gt) -> Dict[str, torch.Tensor]:
+    return {
+        "esr_l1": l1_metric(pred, gt),
+        "esr_mse": mse_metric(pred, gt),
+        "esr_ssim": ssim_metric(pred, gt),
+        "esr_psnr": psnr_metric(pred, gt),
+        "bicubic_l1": l1_metric(base, gt),
+        "bicubic_mse": mse_metric(base, gt),
+        "bicubic_ssim": ssim_metric(base, gt),
+        "bicubic_psnr": psnr_metric(base, gt),
+    }
+
+
+class InferenceRunner:
+    def __init__(self, model: torch.nn.Module, seqn: int = 3, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.seqn = seqn
+        self.mid_idx = (seqn - 1) // 2
+
+    def run_recording(
+        self,
+        data_path,
+        dataset_config: Dict,
+        out_dir: Optional[str] = None,
+        save_images: bool = False,
+        report: bool = True,
+    ) -> Dict[str, float]:
+        """Stream one recording; returns the per-recording metric means."""
+        if save_images:
+            raise NotImplementedError(
+                "PNG dumps are not ported yet (they come with the "
+                "visualization slice); run without save_images"
+            )
+        recording = open_recording(data_path)
+        try:
+            result = self._stream(recording, dataset_config)
+        finally:
+            if recording is not data_path:  # opened here from a path
+                recording.close()
+        if report and out_dir is not None:
+            _write_recording_report(out_dir, str(data_path), dataset_config, result)
+        return result
+
+    @torch.no_grad()
+    def _stream(self, recording: Recording, dataset_config: Dict) -> Dict[str, float]:
+        loader = InferenceSequenceLoader(recording, dataset_config)
+        kh, kw = loader.gt_resolution
+        dev = self.device
+        track = MetricTracker([
+            "esr_l1", "esr_mse", "esr_ssim", "esr_psnr",
+            "bicubic_l1", "bicubic_mse", "bicubic_ssim", "bicubic_psnr",
+            "time", "params",
+        ])
+        track.update("params", _num_params(self.model))
+        # state persists across the WHOLE recording
+        states = self.model.init_states(1, kh, kw, device=dev)
+        ssim_samples: Dict[str, List[float]] = {"esr_ssim": [], "bicubic_ssim": []}
+        # the metrics of window i are read back while window i+1 runs
+        pending: deque = deque()
+
+        def resolve(metrics: Dict[str, torch.Tensor]) -> None:
+            for k, v in metrics.items():
+                track.update(k, float(v))
+                if k in ssim_samples:
+                    ssim_samples[k].append(float(v))
+
+        for batch in loader:
+            window = {k: v[:, : self.seqn] for k, v in batch.items()}  # inputs_seq[0]
+            inp = torch.from_numpy(window["inp_scaled_cnt"]).to(dev)
+            t0 = time.perf_counter()
+            pred, states = self.model(inp, states)
+            synchronize(dev)
+            track.update("time", time.perf_counter() - t0)
+
+            gt = torch.from_numpy(window["gt_cnt"][0, self.mid_idx]).to(dev)
+            inp_cnt = torch.from_numpy(window["inp_cnt"][0, self.mid_idx]).to(dev)
+            pred0 = pred[0]
+            if tuple(pred0.shape[:2]) != (kh, kw):
+                pred0 = interpolate(pred0, (kh, kw), "bicubic")
+            bicubic = interpolate(inp_cnt, (kh, kw), "bicubic")
+            pending.append(_metrics(pred0, bicubic, gt))
+            if len(pending) > 1:
+                resolve(pending.popleft())
+        while pending:
+            resolve(pending.popleft())
+
+        result = track.result()
+        _attach_rmse(result)
+        _attach_ssim_window_stats(result, ssim_samples)
+        return result
+
+
+def _attach_rmse(metrics: Dict[str, float]) -> None:
+    """rmse = sqrt(aggregated mse), in place (not a mean of per-window sqrts)."""
+    for side in ("esr", "bicubic"):
+        if f"{side}_mse" in metrics:
+            metrics[f"{side}_rmse"] = float(np.sqrt(metrics[f"{side}_mse"]))
+
+
+def _attach_ssim_window_stats(result: Dict[str, float],
+                              ssim_samples: Dict[str, List[float]]) -> None:
+    """Window count + paired-SSIM-delta diagnostics, in place."""
+    n_win = len(ssim_samples["esr_ssim"])
+    result["n_windows"] = float(n_win)
+    if n_win:
+        delta = np.asarray(ssim_samples["esr_ssim"]) - np.asarray(ssim_samples["bicubic_ssim"])
+        result["ssim_delta_mean"] = float(delta.mean())
+        result["ssim_delta_pos_frac"] = float((delta > 0).mean())
+        if n_win > 1:
+            result["ssim_delta_std"] = float(delta.std(ddof=1))
+            for k, vals in ssim_samples.items():
+                result[f"{k}_std"] = float(np.std(vals, ddof=1))
+
+
+def _write_recording_report(out_dir: str, data_path: str, dataset_config: Dict,
+                            result: Dict) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    with YamlLogger(os.path.join(out_dir, "inference.yml")) as yl:
+        yl.log_info(f"inference on {data_path}")
+        yl.log_dict(dataset_config, "eval_dataset_config")
+        yl.log_dict(result, "evaluation results")
+
+
+# window-level diagnostics: pooled by window count, not arithmetic-meaned
+_WINDOW_DIAG_KEYS = frozenset({
+    "n_windows", "esr_ssim_std", "bicubic_ssim_std",
+    "ssim_delta_mean", "ssim_delta_std", "ssim_delta_pos_frac",
+})
+
+
+def aggregate_results(results: List[Dict[str, float]], names: List[str]):
+    """Per-recording breakdown + datalist means; the paired SSIM delta is
+    pooled over all windows from per-recording (mean, std, n)."""
+    breakdown: Dict[str, Dict[str, float]] = defaultdict(dict)
+    means: Dict[str, List[float]] = defaultdict(list)
+    for name, entry in zip(names, results):
+        for k, v in entry.items():
+            breakdown[k][name] = v
+            if k not in _WINDOW_DIAG_KEYS:
+                means[k].append(v)
+    agg = {k: float(np.mean(v)) for k, v in means.items()}
+    _attach_rmse(agg)
+
+    total_n = float(sum(r.get("n_windows", 0.0) for r in results))
+    if total_n:
+        agg["n_windows"] = total_n
+        have = [r for r in results if r.get("n_windows") and "ssim_delta_mean" in r]
+        if have:
+            pooled_mean = sum(r["n_windows"] * r["ssim_delta_mean"] for r in have) / total_n
+            agg["ssim_delta_mean"] = float(pooled_mean)
+            agg["ssim_delta_pos_frac"] = float(sum(
+                r["n_windows"] * r.get("ssim_delta_pos_frac", 0.0) for r in have
+            ) / total_n)
+            if total_n > 1:
+                ss = sum(
+                    (r["n_windows"] - 1) * r.get("ssim_delta_std", 0.0) ** 2
+                    + r["n_windows"] * r["ssim_delta_mean"] ** 2
+                    for r in have
+                )
+                var = (ss - total_n * pooled_mean ** 2) / (total_n - 1)
+                agg["ssim_delta_std"] = float(np.sqrt(max(var, 0.0)))
+    return dict(breakdown), agg
+
+
+def run_inference(
+    checkpoint_path: str,
+    data_list: Sequence[str],
+    output_path: str,
+    dataset_config: Optional[Dict] = None,
+    save_images: bool = False,
+    lpips_backbone_npz: Optional[str] = None,
+    allow_uncalibrated_lpips: bool = False,
+    engine: Optional[bool] = None,
+    precision: Optional[str] = None,
+    device: DeviceLike = None,
+) -> Dict[str, float]:
+    """Checkpoint -> model, datalist -> per-recording + mean reports under
+    ``output_path``. Returns the datalist-mean metrics."""
+    from esr_tpu_torch.inference.checkpoint import load_checkpoint
+
+    if lpips_backbone_npz is not None or allow_uncalibrated_lpips:
+        raise NotImplementedError("LPIPS is not ported yet (a later slice)")
+    if engine:
+        raise NotImplementedError(
+            "the batched streaming engine is not ported yet (it comes with "
+            "serving); the port runs the sequential harness"
+        )
+    model, config = load_checkpoint(checkpoint_path)
+    precision = precision or (config.get("trainer") or {}).get("precision") or "f32"
+    if precision != "f32":
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported yet; the port runs f32"
+        )
+    if engine is None and (config.get("inference") or {}).get("engine", False):
+        raise NotImplementedError(
+            "the checkpoint config asks for the batched streaming engine "
+            "(inference.engine), which is not ported yet; pass --no_engine "
+            "(engine=False) to run the sequential harness"
+        )
+    if dataset_config is None:
+        dataset_config = config["valid_dataloader"]["dataset"]
+    seqn = int(dataset_config["sequence"].get("seqn", 3))
+    ck_seqn = config["model"].get("args", {}).get("num_frame", 3)
+    if ck_seqn != seqn:
+        raise ValueError(f"checkpoint num_frame={ck_seqn} != dataloader seqn={seqn}")
+
+    runner = InferenceRunner(model, seqn, device=device)
+    os.makedirs(output_path, exist_ok=True)
+    results, names = [], []
+    for data_path in data_list:
+        name = os.path.basename(data_path)
+        logger.info("processing %s", data_path)
+        results.append(runner.run_recording(
+            data_path, dataset_config, os.path.join(output_path, name)
+        ))
+        names.append(name)
+    breakdown, mean = aggregate_results(results, names)
+    with YamlLogger(os.path.join(output_path, "inference_all.yml")) as yl:
+        yl.log_info(f"inference {checkpoint_path} on {list(data_list)}")
+        yl.log_dict(breakdown, "breakdown results for each data")
+        yl.log_dict(mean, "mean results for the whole data")
+    return mean

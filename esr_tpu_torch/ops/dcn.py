@@ -1,0 +1,147 @@
+"""Modulated deformable convolution (DCNv2) — counterpart of
+``esr_tpu/ops/dcn.py``.
+
+Layouts are the reference's, channel-last:
+
+- ``x [B, H, W, Cin]``;
+- ``offsets [B, Ho, Wo, dg, K, 2]`` as (dy, dx) per output pixel,
+  deformable group and kernel tap (K = kh*kw, row-major taps);
+- ``mask [B, Ho, Wo, dg, K]`` (already sigmoid'd);
+- ``weight [kh, kw, Cin, Cout]`` (HWIO), ``bias [Cout]``.
+
+:func:`deform_conv2d` is the plain PyTorch version: a 4-corner bilinear
+gather with zero outside the image, the mask multiply, and one contraction.
+It is what runs on CPU tensors, and the reference the CUDA kernel
+(``esr_tpu_torch.ops.dcn_cuda``) is held against on the card.
+
+The choice by device is made in one place, the kernel wrapper
+:data:`esr_tpu_torch.ops.dcn_cuda.dcn_fwd`: CUDA tensors launch the kernel,
+CPU tensors take :func:`deform_conv2d`. :func:`deform_conv2d_auto`, the
+model's call, only adds the forced plain path that the tests and
+``chip_smoke.py`` compare against.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _sampling_positions(
+    offsets: torch.Tensor, kh: int, kw: int, stride: int, padding: int,
+    dilation: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Base grid + tap offset + learned offset: ``(ys, xs)`` each
+    ``[B, Ho, Wo, dg, K]`` f32."""
+    _, ho, wo, _, _, _ = offsets.shape
+    dev = offsets.device
+    oy = (torch.arange(ho, device=dev) * stride - padding).float()
+    ox = (torch.arange(wo, device=dev) * stride - padding).float()
+    ky, kx = torch.meshgrid(
+        torch.arange(kh, device=dev), torch.arange(kw, device=dev), indexing="ij"
+    )
+    tap_y = (ky * dilation).reshape(-1).float()
+    tap_x = (kx * dilation).reshape(-1).float()
+    base_y = oy[:, None, None, None] + tap_y[None, None, None, :]
+    base_x = ox[None, :, None, None] + tap_x[None, None, None, :]
+    return base_y[None] + offsets[..., 0], base_x[None] + offsets[..., 1]
+
+
+def deform_conv2d(
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    padding: int = 1,
+    dilation: int = 1,
+) -> torch.Tensor:
+    """Plain PyTorch DCNv2 forward. Returns ``[B, Ho, Wo, Cout]``."""
+    b, h, w, cin = x.shape
+    kh, kw, wcin, cout = weight.shape
+    _, ho, wo, dg, k, _ = offsets.shape
+    if wcin != cin or k != kh * kw or cin % dg:
+        raise ValueError(
+            f"DCN shapes disagree: x {tuple(x.shape)}, offsets "
+            f"{tuple(offsets.shape)}, weight {tuple(weight.shape)}"
+        )
+    cg = cin // dg
+    ys, xs = _sampling_positions(offsets, kh, kw, stride, padding, dilation)
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    dy = ys - y0
+    dx = xs - x0
+    y0i = y0.long()
+    x0i = x0.long()
+
+    # x regrouped [B, dg, H*W, Cg]; positions per group [B, dg, Ho*Wo*K]
+    xg = x.reshape(b, h * w, dg, cg).permute(0, 2, 1, 3)
+
+    def per_group(t: torch.Tensor) -> torch.Tensor:
+        return t.permute(0, 3, 1, 2, 4).reshape(b, dg, ho * wo * k)
+
+    cols = None
+    for oy, ox, wgt in (
+        (0, 0, (1 - dy) * (1 - dx)),
+        (0, 1, (1 - dy) * dx),
+        (1, 0, dy * (1 - dx)),
+        (1, 1, dy * dx),
+    ):
+        yi = y0i + oy
+        xi = x0i + ox
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = per_group(yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
+        v = torch.gather(xg, 2, idx[..., None].expand(-1, -1, -1, cg))
+        v = v * per_group(torch.where(inb, wgt, torch.zeros_like(wgt)))[..., None]
+        cols = v if cols is None else cols + v
+    # [B, dg, Ho, Wo, K, Cg] * mask
+    cols = cols.reshape(b, dg, ho, wo, k, cg)
+    cols = cols * mask.permute(0, 3, 1, 2, 4)[..., None]
+    wk = weight.reshape(k, dg, cg, cout)
+    out = torch.einsum("bgijkc,kgco->bijo", cols, wk)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def deform_conv2d_auto(
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    padding: int = 1,
+    dilation: int = 1,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """The model's DCN call. ``impl='auto'`` is the kernel wrapper
+    ``dcn_fwd``, which makes the device choice; ``impl='plain'`` forces the
+    plain version (tests and the on-card comparison only)."""
+    if impl == "auto":
+        from esr_tpu_torch.ops.dcn_cuda import dcn_fwd
+
+        return dcn_fwd(x, offsets, mask, weight, bias, stride, padding, dilation)
+    if impl == "plain":
+        return deform_conv2d(x, offsets, mask, weight, bias, stride, padding, dilation)
+    raise ValueError(f"unknown DCN impl {impl!r} (use 'auto' or 'plain')")
+
+
+def dcn_offsets_from_conv(
+    raw: torch.Tensor, deformable_groups: int, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split the offset/mask conv output ``[B, Ho, Wo, dg*3*K]`` into
+    ``offsets [B, Ho, Wo, dg, K, 2]`` (first third dy, second dx) and the
+    sigmoid'd ``mask [B, Ho, Wo, dg, K]`` (last third)."""
+    b, ho, wo, ch = raw.shape
+    dg = deformable_groups
+    if ch != dg * 3 * k:
+        raise ValueError(f"offset conv gives {ch} channels, expected {dg * 3 * k}")
+    o1, o2, m = torch.split(raw, dg * k, dim=-1)
+    offsets = torch.stack(
+        [o1.reshape(b, ho, wo, dg, k), o2.reshape(b, ho, wo, dg, k)], dim=-1
+    )
+    mask = torch.sigmoid(m.reshape(b, ho, wo, dg, k)).contiguous()
+    return offsets, mask

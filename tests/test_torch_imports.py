@@ -1,0 +1,68 @@
+"""The port stands alone: ``esr_tpu_torch`` imports no JAX and nothing of
+``esr_tpu``, loads ``h5py`` only when a recording is opened, and its entry
+points run on the card unless the CPU is asked for by name."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import esr_tpu_torch
+from esr_tpu_torch.device import resolve_device
+from esr_tpu_torch.inference.harness import InferenceRunner
+from esr_tpu_torch.models.esr import DeepRecurrNet
+
+PKG = Path(esr_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "esr_tpu")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_package_imports_no_jax_and_no_reference():
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = {str(f.relative_to(PKG.parent)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_importing_the_harness_loads_no_jax_and_no_h5py():
+    code = (
+        "import sys, esr_tpu_torch.inference.harness, esr_tpu_torch.infer, "
+        "esr_tpu_torch.ops.dcn_cuda\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'esr_tpu', 'h5py', 'triton')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(PKG.parent))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card refusal cannot be shown")
+
+
+def test_cuda_is_the_default_and_never_falls_back(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        InferenceRunner(DeepRecurrNet(inch=2, basech=2, num_frame=3), 3)
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")

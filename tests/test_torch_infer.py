@@ -1,0 +1,168 @@
+"""The port's sequential evaluation against the reference's, end to end on
+the CPU: one recording of the shared corpus through both
+``InferenceRunner.run_recording``s with the same weights, the data path's
+items bit for bit, the YAML reports, and the port's ``infer`` entry point
+on a port checkpoint.
+
+Metric tolerance: rtol 1e-4 + atol 1e-6 (measured ~1e-7 relative: the same
+f32 model and metrics summed in another order). ``time`` is a wall clock
+and is only checked for presence.
+"""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+import yaml
+
+from esr_tpu.data.dataset import EventWindowDataset as RefDataset
+from esr_tpu.inference.harness import InferenceRunner as RefRunner
+from esr_tpu.models.esr import DeepRecurrNet as FlaxNet
+from esr_tpu_torch import infer as port_infer
+from esr_tpu_torch.data.dataset import EventWindowDataset
+from esr_tpu_torch.inference.checkpoint import save_checkpoint
+from esr_tpu_torch.inference.harness import InferenceRunner, run_inference
+from esr_tpu_torch.models import convert
+from esr_tpu_torch.models.esr import DeepRecurrNet
+
+DATASET = {
+    "scale": 2, "ori_scale": "down8", "time_bins": 1, "mode": "events",
+    "window": 512, "sliding_window": 256, "need_gt_events": True,
+    "need_gt_frame": False,
+    "data_augment": {"enabled": False, "augment": [], "augment_prob": []},
+    "sequence": {"sequence_length": 4, "seqn": 3, "step_size": None,
+                 "pause": {"enabled": False}},
+}
+METRICS = ["esr_l1", "esr_mse", "esr_ssim", "esr_psnr", "esr_rmse",
+           "bicubic_l1", "bicubic_mse", "bicubic_ssim", "bicubic_psnr",
+           "bicubic_rmse", "params", "n_windows", "ssim_delta_mean",
+           "ssim_delta_pos_frac", "ssim_delta_std", "esr_ssim_std",
+           "bicubic_ssim_std"]
+TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def runs(shared_corpus_dir, tmp_path_factory):
+    """Both harnesses over rec0.h5 with the same seeded weights."""
+    out = tmp_path_factory.mktemp("torch_infer")
+    rec = str(shared_corpus_dir / "rec0.h5")
+    ref = FlaxNet(inch=2, basech=2, num_frame=3)
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
+                            np.zeros((1, 3, 16, 16, 2), np.float32),
+                            ref.init_states(1, 16, 16))
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(
+        lambda s: rng.uniform(-0.3, 0.3, s.shape).astype(np.float32)
+        / np.sqrt(max(np.prod(s.shape[:-1]), 1)), shapes)
+    port = DeepRecurrNet(inch=2, basech=2, num_frame=3)
+    convert.load_flax_params(port, params)
+    ref_result = RefRunner(ref, params, 3).run_recording(rec, DATASET, str(out / "ref"))
+    port_result = InferenceRunner(port, 3, device="cpu").run_recording(
+        rec, DATASET, str(out / "port"))
+    return {"rec": rec, "out": out, "params": params,
+            "ref": ref_result, "port": port_result}
+
+
+def test_report_keys_identical(runs):
+    assert sorted(runs["port"]) == sorted(runs["ref"])
+    assert runs["port"]["n_windows"] >= 3
+    assert runs["port"]["time"] > 0
+
+
+@pytest.mark.parametrize("key", METRICS)
+def test_metric_matches_reference(runs, key):
+    np.testing.assert_allclose(runs["port"][key], runs["ref"][key], **TOL)
+
+
+def test_yaml_reports_parse_to_the_same_structure(runs):
+    def load(side):
+        with open(runs["out"] / side / "inference.yml") as f:
+            return yaml.safe_load(f)
+
+    ref, port = load("ref"), load("port")
+    assert list(port) == list(ref)
+    assert port["info"] == ref["info"]
+    assert port["eval_dataset_config"] == ref["eval_dataset_config"]
+    assert sorted(port["evaluation results"]) == sorted(ref["evaluation results"])
+    for k in METRICS:
+        np.testing.assert_allclose(port["evaluation results"][k],
+                                   ref["evaluation results"][k], **TOL)
+
+
+@pytest.mark.parametrize("mode,window,sliding", [("events", 512, 256),
+                                                 ("time", 0.2, 0.1),
+                                                 ("frame", 0, 0)])
+def test_dataset_items_match_reference(runs, mode, window, sliding):
+    cfg = {**DATASET, "mode": mode, "window": window, "sliding_window": sliding,
+           "item_keys": ["inp_cnt", "inp_scaled_cnt", "gt_cnt"]}
+    ref = RefDataset(runs["rec"], cfg)
+    port = EventWindowDataset(runs["rec"], cfg)
+    assert len(port) == len(ref) > 1
+    np.testing.assert_array_equal(port.event_indices, ref.event_indices)
+    for i in (0, len(ref) - 1):
+        a, b = port.get_item(i), ref.get_item(i, seed=0)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_infer_entry_point_on_a_port_checkpoint(runs):
+    ckpt = runs["out"] / "ckpt"
+    save_checkpoint(str(ckpt), runs["params"], {
+        "model": {"name": "DeepRecurrNet",
+                  "args": {"inch": 2, "basech": 2, "num_frame": 3}},
+        "trainer": {"precision": "f32"},
+        "valid_dataloader": {"dataset": DATASET},
+        # the flagship config's engine request; --no_engine overrides it
+        "inference": {"engine": True},
+    })
+    out = runs["out"] / "cli"
+    mean = port_infer.main([
+        "--model_path", str(ckpt), "--data_path", runs["rec"],
+        "--output_path", str(out), "--device", "cpu", "--scale", "2",
+        "--ori_scale", "down8", "--window", "512", "--sliding_window", "256",
+        "--seql", "4", "--no_need_gt_frame", "--no_engine",
+    ])
+    with open(out / "inference_all.yml") as f:
+        report = yaml.safe_load(f)
+    assert set(report) == {"info", "breakdown results for each data",
+                           "mean results for the whole data"}
+    name = os.path.basename(runs["rec"])
+    for k in ("esr_psnr", "esr_ssim", "bicubic_mse", "n_windows"):
+        np.testing.assert_allclose(mean[k], runs["port"][k], **TOL)
+        np.testing.assert_allclose(report["breakdown results for each data"][k][name],
+                                   runs["port"][k], **TOL)
+
+
+@pytest.mark.parametrize("request_", ["save_images", "engine", "config_engine",
+                                      "bf16", "lpips", "augment", "dcn_impl_arg"])
+def test_unported_requests_raise(runs, request_):
+    ckpt = runs["out"] / "ckpt_refusals"
+    config = {"model": {"name": "DeepRecurrNet",
+                        "args": {"inch": 2, "basech": 2, "num_frame": 3}}}
+    if request_ == "config_engine":
+        config["inference"] = {"engine": True}
+    save_checkpoint(str(ckpt), runs["params"], config)
+    if request_ == "dcn_impl_arg":
+        # no model argument can take a run off the DCN kernel
+        with pytest.raises(TypeError):
+            DeepRecurrNet(inch=2, basech=2, num_frame=3, dcn_impl="plain")
+        return
+    port = DeepRecurrNet(inch=2, basech=2, num_frame=3)
+    with pytest.raises(NotImplementedError):
+        if request_ == "save_images":
+            InferenceRunner(port, 3, device="cpu").run_recording(
+                runs["rec"], DATASET, str(runs["out"] / "x"), save_images=True)
+        elif request_ == "augment":
+            cfg = {**DATASET, "data_augment": {"enabled": True,
+                                               "augment": ["Horizontal"],
+                                               "augment_prob": [0.5]}}
+            EventWindowDataset(runs["rec"], cfg)
+        else:
+            run_inference(
+                str(ckpt), [runs["rec"]], str(runs["out"] / "y"), DATASET,
+                engine=True if request_ == "engine" else None,
+                precision="bf16" if request_ == "bf16" else None,
+                allow_uncalibrated_lpips=request_ == "lpips", device="cpu",
+            )
