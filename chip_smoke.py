@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``esr_tpu_torch``) runs on the
-card: builds the DCN kernel from ``esr_tpu_torch/csrc``, holds it against its
-plain PyTorch version, and drives the sequential inference harness at the
-flagship width.
+card: builds the DCN kernels from ``esr_tpu_torch/csrc``, holds each against
+its plain PyTorch version, drives sequential inference and then training at
+the flagship width.
 
     python3 chip_smoke.py
 
@@ -10,18 +10,42 @@ Phases (any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``), the device
    count;
-2. build: ``nvcc`` of the DCN kernel, its time and ``-Xptxas -v`` lines;
-3. kernel: ``dcn_fwd`` against the plain ``deform_conv2d`` on the card at
-   the flagship shape (B=1 and B=4) and over an odd-size / group / stride /
+2. build: ``nvcc`` of ``dcn_fwd.cu`` and ``dcn_train.cu``, started
+   together; their times and ``-Xptxas -v`` lines;
+3. kernel, forward: ``dcn_fwd`` against the plain ``deform_conv2d`` at the
+   flagship shape (B=1 as in evaluation, B=4, B=8 as in the trainer's
+   validation, B=32 as in training) and over an odd-size / group / stride /
    dilation / large-offset matrix, within 1e-3 * max(|ref|, 1); CUDA-event
    times of both next to the roofline bound;
-4. slice: ``InferenceRunner.run_recording`` at basech 8, seqn 3, scale 2,
-   down16 -> down8 (90x160 HR grid), window 2048/1024, L 9, on a seeded
-   720x1280 synthetic recording with seeded random weights brought in
-   through the flax weight bridge (non-zero offset/mask conv). The DCN
-   launch count must be exactly 2 per window, and every window's output
-   and states must be finite and match the same model with
-   ``dcn_impl='plain'`` within 1e-3 * max(|ref|, 1).
+4. kernel, train direction: ``dcn_train_fwd`` against ``deform_conv2d``,
+   ``dcn_bwd`` (gx, goffsets, gmask) and ``dcn_wgrad`` (gW) against
+   ``deform_conv2d_backward``, at the flagship training shape (B=32), B=1
+   and the same matrix, each cotangent within 1e-3 * max(|ref|, 1); the
+   atomic ``gx`` twice at B=32, its run-to-run difference printed; times
+   and bounds;
+5. autograd: a loss through the model's DCN (``dcn_cuda.dcn``) on the card
+   gives gradients for x, offsets, mask, weight and bias that match the
+   plain path, through the kernels;
+6. inference slice: ``InferenceRunner.run_recording`` at basech 8, seqn 3,
+   scale 2, down16 -> down8 (90x160 HR grid), window 2048/1024, L 9, on a
+   seeded 720x1280 synthetic recording with seeded random weights brought
+   in through the flax weight bridge (non-zero offset/mask conv). The DCN
+   launch count must be exactly 2 ``dcn_fwd`` per window, and every
+   window's output and states must be finite and match the same model with
+   ``dcn_impl='plain'`` within 1e-3 * max(|ref|, 1);
+7. training: ``esr_tpu_torch.training.trainer.Trainer`` from
+   ``configs/train_esr_2x.yml`` as written (batch 32), with overrides only
+   for the unported keys (tensorboard, vis) and the run's length
+   (iterations 4, valid_step 2, save_period 2), fed in-memory synthetic
+   720x1280 recordings. Each train step must launch ``dcn_train_fwd``,
+   ``dcn_bwd`` and ``dcn_wgrad`` 14 times each (2 per window x 7 windows)
+   and nothing else; validation only ``dcn_fwd``, 2 per window; losses
+   and grad norms finite; a committed checkpoint that loads and runs.
+   Then one validation pass (batch 8) on the kernel path and on the plain
+   path, and one train step from the same params and batch on both: the
+   validation losses, the per-window losses and every parameter's grad
+   within 1e-3 of their own scale (max |plain|). Step time, batch-build
+   time and a ``torch.profiler`` breakdown of one step are printed.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -29,10 +53,14 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,6 +69,14 @@ from pathlib import Path
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 TOL = 1e-3  # scale-normalized, the reference's off-TPU f32 DCN bound
+TINY = 1e-30  # the least scale a loss or gradient is normalized by
+TRAIN_WINDOWS = 7  # L 9 - seqn 3 + 1
+REPLACES = {
+    "dcn_fwd": "esr_tpu/ops/dcn_pallas.py:326",
+    "dcn_train_fwd": "esr_tpu/ops/dcn_pallas.py:551",
+    "dcn_bwd": "esr_tpu/ops/dcn_pallas.py:1222",
+    "dcn_wgrad": "esr_tpu/ops/dcn_pallas.py:1222",
+}
 
 
 def fail(msg: str) -> None:
@@ -69,6 +105,26 @@ def dcn_inputs(torch, rng, b, h, w, cin, cout, dg, ho=None, wo=None,
     )
 
 
+def kernel_cases():
+    """(name, dcn_inputs shape kwargs, geometry kwargs): the dg / size /
+    mask / stride / dilation / large-offset matrix."""
+    cases = []
+    for dg in (1, 2, 4):
+        for h, w in ((7, 9), (13, 5), (4, 150)):
+            for with_mask in (True, False):
+                cases.append((f"dg{dg}_{h}x{w}_mask{int(with_mask)}",
+                              dict(b=2, h=h, w=w, cin=4 * dg, cout=8, dg=dg,
+                                   offset_scale=3.0, with_mask=with_mask,
+                                   with_bias=False), {}))
+    cases.append(("large_offsets", dict(b=1, h=6, w=7, cin=16, cout=8, dg=2,
+                                        offset_scale=10.0), {}))
+    # stride 2, padding 2, dilation 2: (9, 11) -> (5, 6)
+    cases.append(("stride2_pad2_dil2", dict(b=1, h=9, w=11, cin=8, cout=6, dg=2,
+                                            ho=5, wo=6),
+                  dict(stride=2, padding=2, dilation=2)))
+    return cases
+
+
 def time_ms(torch, fn, iters: int, warmup: int = 10) -> float:
     for _ in range(warmup):
         fn()
@@ -83,22 +139,68 @@ def time_ms(torch, fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(inp: dict, out_numel: int):
-    """Least time for the same work: every input read once and the output
-    written once, vs the contraction's f32 FLOPs."""
-    tensors = [v for v in inp.values() if v is not None]
-    nbytes = 4 * (sum(t.numel() for t in tensors) + out_numel)
-    b, ho, wo, _, k, _ = inp["offsets"].shape
-    _, _, cin, cout = inp["weight"].shape
-    flops = 2.0 * b * ho * wo * k * cin * cout
+def roofline(nbytes: float, flops: float):
+    """Least time (ms) for the work: the larger of bytes at the HBM rate and
+    f32 FLOPs at the f32 rate, and which of the two it is."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def contraction_flops(inp: dict) -> float:
+    b, ho, wo, _, k, _ = inp["offsets"].shape
+    _, _, cin, cout = inp["weight"].shape
+    return 2.0 * b * ho * wo * k * cin * cout
+
+
+def gather_flops(inp: dict) -> float:
+    """The bilinear gather: per (row, tap, channel) 4 corner FMAs + the mask."""
+    b, ho, wo, _, k, _ = inp["offsets"].shape
+    cin = inp["x"].shape[-1]
+    return 10.0 * b * ho * wo * k * cin
+
+
+def nbytes(*tensors) -> float:
+    return 4.0 * sum(t.numel() for t in tensors if t is not None)
+
+
+def err_of(torch, got, ref):
+    """(max abs err, limit) under the scale-normalized bound."""
+    err = float((got - ref).abs().max())
+    return err, TOL * max(float(ref.abs().max()), 1.0)
+
+
+def rel_err_of(torch, got, ref):
+    """(max abs err, the reference's own scale max|ref|, limit TOL * scale):
+    for losses and gradients, whose scale may be far below 1."""
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    return err, scale, TOL * max(scale, TINY)
+
+
+def device_time_breakdown(torch, prof, n: int, wall_ms: float, what: str, card: str):
+    """Device busy / idle share and the top kernels of a ``torch.profiler``
+    capture over ``n`` units of ``what``."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    # device-side entries only (kernels, copies): a CPU op's own device time
+    # repeats the kernels it launched
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda and dev_us(e) > 0]
+    if not events:
+        print(f"profile {what}: device time not measured (the profiler saw no device events)")
+        return
+    busy_ms = sum(dev_us(e) for e in events) / 1e3 / n
+    print(f"profile on {card}: {n} {what}s, wall {wall_ms:.3f} ms/{what}, device busy "
+          f"{busy_ms:.3f} ms/{what}, idle share {1 - busy_ms / wall_ms:.3f}")
+    for e in sorted(events, key=dev_us, reverse=True)[:10]:
+        print(f"profile kernel: {dev_us(e) / 1e3 / n:.4f} ms/{what}, "
+              f"{e.count / n:g} calls/{what}: {e.key[:90]}")
+
+
 def profile_windows(torch, model, loader, dev, card, n: int = 3) -> None:
-    """Where one window's time goes: device busy time by kernel over ``n``
-    forwards (``torch.profiler``), against the host wall clock."""
+    """Where one inference window's time goes over ``n`` forwards."""
     from torch.profiler import ProfilerActivity, profile
 
     batches = [torch.from_numpy(b["inp_scaled_cnt"][:, :3]).to(dev)
@@ -113,114 +215,199 @@ def profile_windows(torch, model, loader, dev, card, n: int = 3) -> None:
                 _, states = model(x, states)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
-    # device-side entries only (kernels, copies): a CPU op's own device time
-    # repeats the kernels it launched
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages()
-              if e.device_type == cuda and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3 / len(batches)
-    if not events:
-        print("profile: device time not measured (the profiler saw no device events)")
-        return
-    print(f"profile on {card}: {len(batches)} windows, wall {wall_ms:.3f} ms/window, "
-          f"device busy {busy_ms:.3f} ms/window, idle share {1 - busy_ms / wall_ms:.3f}")
-    for e in sorted(events, key=dev_us, reverse=True)[:10]:
-        print(f"profile kernel: {dev_us(e) / 1e3 / len(batches):.4f} ms/window, "
-              f"{e.count // len(batches)} calls/window: {e.key[:90]}")
+    device_time_breakdown(torch, prof, len(batches), wall_ms, "window", card)
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    repo = Path(__file__).resolve().parent
-    if not (repo / "esr_tpu_torch" / "csrc" / "dcn_fwd.cu").is_file():
-        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(repo))
-    import numpy as np
-
-    from esr_tpu_torch.device import resolve_device
+def phase_fwd_kernel(torch, np, card):
+    """Phase 3: ``dcn_fwd`` against the plain version, at the evaluation
+    batch (1), 4, the trainer's validation batch (8) and the training batch
+    (32, where it runs the same body as ``dcn_train_fwd``)."""
     from esr_tpu_torch.ops.dcn import deform_conv2d
     from esr_tpu_torch.ops.dcn_cuda import dcn_fwd
 
-    # -- 1. device ---------------------------------------------------------
-    dev = resolve_device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    print(card)
-    print(f"device: {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    # -- 2. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    dcn_fwd.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {dcn_fwd.build_seconds} s) "
-          f"-> {dcn_fwd.library_path.name}")
-    for line in dcn_fwd.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
-
-    # -- 3. kernel phase ---------------------------------------------------
     rng = np.random.default_rng(0)
     flagship = {}
     worst_rel = 0.0
-    cases = [("flagship_b1", dict(b=1, h=12, w=20, cin=64, cout=64, dg=8), {}),
-             ("flagship_b4", dict(b=4, h=12, w=20, cin=64, cout=64, dg=8), {})]
-    for dg in (1, 2, 4):
-        for h, w in ((7, 9), (13, 5), (4, 150)):
-            for with_mask in (True, False):
-                cases.append((f"dg{dg}_{h}x{w}_mask{int(with_mask)}",
-                              dict(b=2, h=h, w=w, cin=4 * dg, cout=8, dg=dg,
-                                   offset_scale=3.0, with_mask=with_mask,
-                                   with_bias=False), {}))
-    cases.append(("large_offsets", dict(b=1, h=6, w=7, cin=16, cout=8, dg=2,
-                                        offset_scale=10.0), {}))
-    # stride 2, padding 2, dilation 2: (9, 11) -> (5, 6)
-    cases.append(("stride2_pad2_dil2", dict(b=1, h=9, w=11, cin=8, cout=6, dg=2,
-                                            ho=5, wo=6),
-                  dict(stride=2, padding=2, dilation=2)))
-    for name, shape, geom in cases:
+    cases = [(f"flagship_b{b}", dict(b=b, h=12, w=20, cin=64, cout=64, dg=8), {})
+             for b in (1, 4, 8, 32)]
+    for name, shape, geom in cases + kernel_cases():
         inp = dcn_inputs(torch, rng, **shape)
         out = dcn_fwd(**inp, **geom)
         ref = deform_conv2d(**inp, **geom)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        scale = max(float(ref.abs().max()), 1.0)
-        finite = bool(torch.isfinite(out).all())
-        print(f"kernel {name}: out {tuple(out.shape)} max_abs_err {err:.3e} "
-              f"(limit {TOL * scale:.3e})")
-        if not finite or not err <= TOL * scale:
+        err, limit = err_of(torch, out, ref)
+        print(f"kernel {name}: out {tuple(out.shape)} max_abs_err {err:.3e} (limit {limit:.3e})")
+        if not bool(torch.isfinite(out).all()) or not err <= limit:
             fail(f"dcn_fwd disagrees with the plain version on {name}")
-        worst_rel = max(worst_rel, err / scale)
+        worst_rel = max(worst_rel, err * TOL / limit)
         if name.startswith("flagship"):
-            ms = time_ms(torch, lambda: dcn_fwd(**inp, **geom), iters=500)
-            plain_ms = time_ms(torch, lambda: deform_conv2d(**inp, **geom), iters=100)
-            bound_ms, bound_by = bound(inp, out.numel())
-            flagship[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by)
+            ms = time_ms(torch, lambda: dcn_fwd(**inp, **geom), iters=300)
+            plain_ms = time_ms(torch, lambda: deform_conv2d(**inp, **geom), iters=50)
+            bound_ms, bound_by = roofline(nbytes(*inp.values(), out),
+                                          contraction_flops(inp) + gather_flops(inp))
+            flagship[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by)
             print(f"time {name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
                   f"bound {bound_ms:.6f} ms ({bound_by}) on {card}")
+            tile_sweep(torch, inp, card)
+    return flagship, worst_rel
 
-    # -- 4. slice phase ----------------------------------------------------
+
+def tile_sweep(torch, inp, card):
+    """The forward body's time over rows per block, straight through the C
+    entry point (not counted), beside the tile the wrapper picks."""
+    from esr_tpu_torch.ops import dcn_cuda
+
+    lib = dcn_cuda.FWD_LIBRARY.load()
+    x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
+    b, ho, wo, dg, k, _ = off.shape
+    h, w, cin = x.shape[1:]
+    kh, kw, _, cout = wt.shape
+    out = torch.empty((b, ho, wo, cout), device=x.device)
+    pick = dcn_cuda.DcnFwdKernel._tile_rows(b * ho * wo, cout, k * (cin // dg),
+                                            lib.dcn_fwd_threads(), lib.dcn_fwd_acc_per_thread())
+    times = {}
+    for tile in (1, 2, 4, 8, 16, 32):
+        def launch():
+            rc = lib.dcn_fwd_f32(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+                                 bias.data_ptr(), out.data_ptr(), b, h, w, cin, ho, wo, cout,
+                                 dg, kh, kw, 1, 1, 1, tile, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                fail(f"dcn_fwd_f32 at tile {tile} returned cudaError {rc}")
+        times[tile] = time_ms(torch, launch, iters=200)
+    print(f"tile sweep B={b} on {card}: " + ", ".join(
+        f"{t} rows {ms:.5f} ms" for t, ms in times.items())
+        + f"; the wrapper picks {pick} rows")
+
+
+def phase_train_kernels(torch, np, card):
+    """Phase 4: the train-direction kernels against their plain versions."""
+    from esr_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_backward
+    from esr_tpu_torch.ops.dcn_cuda import dcn_bwd, dcn_train_fwd, dcn_wgrad
+
+    rng = np.random.default_rng(1)
+    worst_rel = {"dcn_train_fwd": 0.0, "dcn_bwd": 0.0, "dcn_wgrad": 0.0}
+    record = {}
+    cases = [("train_flagship_b32", dict(b=32, h=12, w=20, cin=64, cout=64, dg=8), {}),
+             ("train_flagship_b1", dict(b=1, h=12, w=20, cin=64, cout=64, dg=8), {})]
+    for name, shape, geom in cases + kernel_cases():
+        inp = dcn_inputs(torch, rng, **shape)
+        x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
+        b, ho, wo = off.shape[:3]
+        g = torch.from_numpy(rng.standard_normal(
+            (b, ho, wo, wt.shape[-1])).astype(np.float32)).cuda()
+        out = dcn_train_fwd(**inp, **geom)
+        gx, goff, gmask = dcn_bwd(x, off, mask, wt, g, **geom)
+        gw = dcn_wgrad(x, off, mask, wt.shape, g, **geom)
+        ref_out = deform_conv2d(**inp, **geom)
+        rgx, rgoff, rgmask, rgw, _ = deform_conv2d_backward(x, off, mask, wt, g, **geom)
+        torch.cuda.synchronize()
+        errs = {}
+        for kname, what, got, ref in (("dcn_train_fwd", "out", out, ref_out),
+                                      ("dcn_bwd", "gx", gx, rgx),
+                                      ("dcn_bwd", "goffsets", goff, rgoff),
+                                      ("dcn_bwd", "gmask", gmask, rgmask),
+                                      ("dcn_wgrad", "gweight", gw, rgw)):
+            err, limit = err_of(torch, got, ref)
+            if not bool(torch.isfinite(got).all()) or not err <= limit:
+                fail(f"{kname} {what} disagrees with the plain version on {name}: "
+                     f"{err:.3e} > {limit:.3e}")
+            worst_rel[kname] = max(worst_rel[kname], err * TOL / limit)
+            errs[kname] = max(errs.get(kname, 0.0), err)
+            print(f"kernel {name} {kname} {what}: max_abs_err {err:.3e} (limit {limit:.3e})")
+        if name != "train_flagship_b32":
+            continue
+        # gx is scattered with atomicAdd: its bits may change run to run
+        gx2, goff2, gmask2 = dcn_bwd(x, off, mask, wt, g, **geom)
+        gw2 = dcn_wgrad(x, off, mask, wt.shape, g, **geom)
+        out2 = dcn_train_fwd(**inp, **geom)
+        torch.cuda.synchronize()
+        print("run-to-run max diff at B=32: " + ", ".join(
+            f"{n} {float((a - c).abs().max()):.3e}" for n, a, c in (
+                ("out", out, out2), ("gx", gx, gx2), ("goffsets", goff, goff2),
+                ("gmask", gmask, gmask2), ("gweight", gw, gw2))))
+
+        def plain_grad(*leaf_names):
+            leaves = {k: v.detach().clone().requires_grad_(k in leaf_names)
+                      for k, v in (("x", x), ("offsets", off), ("mask", mask), ("weight", wt))}
+            o = deform_conv2d(**leaves, **geom)
+            return torch.autograd.grad(o, [leaves[k] for k in leaf_names], g)
+
+        timings = {
+            "dcn_train_fwd": (lambda: dcn_train_fwd(**inp, **geom),
+                              lambda: deform_conv2d(**inp, **geom)),
+            "dcn_bwd": (lambda: dcn_bwd(x, off, mask, wt, g, **geom),
+                        lambda: plain_grad("x", "offsets", "mask")),
+            "dcn_wgrad": (lambda: dcn_wgrad(x, off, mask, wt.shape, g, **geom),
+                          lambda: plain_grad("weight")),
+        }
+        flops = contraction_flops(inp)
+        bounds = {
+            "dcn_train_fwd": roofline(nbytes(x, off, mask, wt, bias, out),
+                                      flops + gather_flops(inp)),
+            "dcn_bwd": roofline(nbytes(x, off, mask, wt, g, gx, goff, gmask),
+                                flops + 2 * gather_flops(inp)),
+            "dcn_wgrad": roofline(nbytes(x, off, mask, g, gw), flops + gather_flops(inp)),
+        }
+        for kname, (kernel_fn, plain_fn) in timings.items():
+            ms = time_ms(torch, kernel_fn, iters=200)
+            plain_ms = time_ms(torch, plain_fn, iters=20, warmup=3)
+            bound_ms, bound_by = bounds[kname]
+            record[kname] = dict(err=errs[kname], ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
+            print(f"time {name} {kname}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                  f"bound {bound_ms:.6f} ms ({bound_by}) on {card}")
+    return record, worst_rel
+
+
+def phase_autograd(torch, np):
+    """Phase 5: gradients through the model's DCN on the card."""
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.ops.dcn import deform_conv2d
+
+    rng = np.random.default_rng(2)
+    inp = dcn_inputs(torch, rng, b=2, h=12, w=20, cin=64, cout=64, dg=8)
+    grads = {}
+    for path in ("kernel", "plain"):
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in inp.items()}
+        dcn_cuda.reset_launches()
+        fn = dcn_cuda.dcn if path == "kernel" else deform_conv2d
+        out = fn(**leaves)
+        if path == "kernel" and out.grad_fn is None:
+            fail("the card's DCN output has no grad_fn")
+        (out ** 2).sum().backward()
+        torch.cuda.synchronize()
+        if path == "kernel":
+            counts = {k.name: k.launches for k in dcn_cuda.KERNELS}
+            if counts != {"dcn_fwd": 0, "dcn_train_fwd": 1, "dcn_bwd": 1, "dcn_wgrad": 1}:
+                fail(f"the autograd DCN launched {counts}")
+        grads[path] = {k: v.grad for k, v in leaves.items()}
+    for k, ref in grads["plain"].items():
+        got = grads["kernel"][k]
+        if got is None:
+            fail(f"no gradient reached {k} through the card's DCN")
+        err, limit = err_of(torch, got, ref)
+        print(f"autograd {k}: max_abs_err {err:.3e} (limit {limit:.3e})")
+        if not err <= limit:
+            fail(f"the autograd DCN's gradient of {k} differs from the plain path")
+    try:
+        dcn_cuda.dcn_fwd(**{k: v.detach().requires_grad_(True) for k, v in inp.items()})
+    except RuntimeError:
+        print("autograd: dcn_fwd refuses inputs that require grad")
+    else:
+        fail("dcn_fwd returned a tensor cut off from the graph")
+
+
+def phase_slice(torch, np, dev, card):
+    """Phase 6: sequential inference at the flagship width."""
     from esr_tpu_torch.data.loader import InferenceSequenceLoader
     from esr_tpu_torch.data.synthetic import make_synthetic_recording
     from esr_tpu_torch.inference.harness import InferenceRunner
     from esr_tpu_torch.models import convert
     from esr_tpu_torch.models.esr import DeepRecurrNet
+    from esr_tpu_torch.ops import dcn_cuda
 
+    rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     recording = make_synthetic_recording(
         (720, 1280), base_events=80_000, num_frames=2, rungs=("down8", "down16"),
@@ -244,18 +431,19 @@ def main() -> int:
     runner = InferenceRunner(model, seqn=3, device=dev)
     print(f"slice setup: {time.perf_counter() - t0:.2f} s")
 
-    dcn_fwd.launches = 0
+    dcn_cuda.reset_launches()
     t0 = time.perf_counter()
     result = runner.run_recording(recording, dataset_config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dcn_fwd.launches
+    counts = {k.name: k.launches for k in dcn_cuda.KERNELS}
     n_windows = int(result["n_windows"])
-    print(f"slice: {n_windows} windows in {wall:.3f} s, dcn_fwd launches {launches}")
+    print(f"slice: {n_windows} windows in {wall:.3f} s, launches {counts}")
     if n_windows < 8:
         fail(f"the recording gave {n_windows} windows, expected >= 8")
-    if launches != 2 * n_windows:
-        fail(f"dcn_fwd launched {launches} times for {n_windows} windows")
+    if counts != {"dcn_fwd": 2 * n_windows, "dcn_train_fwd": 0, "dcn_bwd": 0,
+                  "dcn_wgrad": 0}:
+        fail(f"the slice launched {counts} for {n_windows} windows")
     if not all(math.isfinite(v) for v in result.values()):
         fail(f"non-finite metrics: {result}")
     print("slice metrics: " + json.dumps({k: result[k] for k in sorted(result)}))
@@ -265,7 +453,7 @@ def main() -> int:
     kh, kw = loader.gt_resolution
     states_k = model.init_states(1, kh, kw, device=dev)
     states_p = model.init_states(1, kh, kw, device=dev)
-    worst_slice = 0.0
+    worst = 0.0
     lat = []
     with torch.no_grad():
         for i, batch in enumerate(loader):
@@ -282,10 +470,9 @@ def main() -> int:
                          (states_k[1], states_p[1])):
                 if not bool(torch.isfinite(a).all()):
                     fail(f"non-finite output or state in window {i}")
-                err = float((a - r).abs().max())
-                scale = max(float(r.abs().max()), 1.0)
-                worst_slice = max(worst_slice, err / scale)
-                if not err <= TOL * scale:
+                err, limit = err_of(torch, a, r)
+                worst = max(worst, err * TOL / limit)
+                if not err <= limit:
                     fail(f"window {i}: kernel path differs from plain by {err:.3e}")
             if tuple(out_k.shape) != (1, kh, kw, 2):
                 fail(f"window {i}: output shape {tuple(out_k.shape)}")
@@ -293,29 +480,298 @@ def main() -> int:
     profile_windows(torch, model, loader, dev, card)
     lat_sorted = sorted(lat)
     print(f"slice vs plain: {len(lat)} windows, worst scale-normalized err "
-          f"{worst_slice:.3e} (limit {TOL})")
+          f"{worst:.3e} (limit {TOL})")
     print(f"slice latency per window on {card}: mean harness {result['time'] * 1e3:.3f} ms; "
           f"replay p50 {lat_sorted[len(lat) // 2]:.3f} ms, max {lat_sorted[-1]:.3f} ms")
+    return counts["dcn_fwd"]
 
-    b1, b4 = flagship["flagship_b1"], flagship["flagship_b4"]
-    record = {
-        "name": "dcn_fwd",
-        "route": "cuda",
-        "source": "esr_tpu_torch/csrc/dcn_fwd.cu",
-        "replaces": "esr_tpu/ops/dcn_pallas.py:326",
-        "launches": launches,
-        "max_abs_err": b1["err"],
-        "ms": b1["ms"],
-        "plain_ms": b1["plain_ms"],
-        "bound_ms": b1["bound_ms"],
-        "bound_by": b1["bound_by"],
-        "library_ms": None,
-        "err": b1["err"],
-        "kernel_ms": b1["ms"],
-        "matrix_max_rel_err": worst_rel,
-        "b4": b4,
-    }
-    print(json.dumps({"kernels": [record]}))
+
+def training_recordings(np):
+    """In-memory 720x1280 recordings: 4 for training, each long enough for
+    32 sequences of L 9 at window 2048 / sliding 1024 (>= 288 windows at
+    down16), so one epoch holds 4 batches of 32; 1 short one to validate."""
+    from esr_tpu_torch.data.synthetic import make_synthetic_recording
+
+    def rec(events, seed):
+        return make_synthetic_recording((720, 1280), base_events=events, num_frames=2,
+                                        rungs=("down8", "down16"), seed=seed)
+
+    return [rec(300_000, 10 + i) for i in range(4)], [rec(40_000, 20)]
+
+
+def phase_train(torch, np, dev, card, repo: Path, out_root: str):
+    """Phase 7: the trainer at the flagship width."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.data.loader import collate_sequences
+    from esr_tpu_torch.inference.checkpoint import load_checkpoint
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.training.checkpoint import find_latest_checkpoint
+    from esr_tpu_torch.training.train_step import window_losses
+    from esr_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    train_recs, valid_recs = training_recordings(np)
+    print(f"train setup: recordings in {time.perf_counter() - t0:.2f} s")
+    run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"), overrides=[
+        "trainer;tensorboard=false", "trainer;vis;enabled=false",
+        f"trainer;output_path={out_root}",
+        "trainer;iteration_based_train;iterations=4",
+        "trainer;iteration_based_train;valid_step=2",
+        "trainer;iteration_based_train;save_period=2",
+        "trainer;iteration_based_train;train_log_step=1",
+    ], runid="chip_smoke", seed=0)
+    trainer = Trainer(run, device=dev, train_recordings=train_recs,
+                      valid_recordings=valid_recs)
+    batch_size = run.config["train_dataloader"]["batch_size"]
+    print(f"train: {len(trainer.train_loader)} batches of {batch_size} per epoch, "
+          f"{len(trainer.valid_loader)} validation batches")
+    if len(trainer.train_loader) < trainer.iterations:
+        fail("one epoch holds fewer batches than iterations")
+
+    per_step, per_valid, step_ms = [], [], []
+    train_step, valid = trainer.train_step, trainer._valid
+
+    def counts():
+        return {k.name: k.launches for k in dcn_cuda.KERNELS}
+
+    def delta(before):
+        return {n: c - before[n] for n, c in counts().items()}
+
+    def counted_step(batch):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append(delta(before))
+        return metrics
+
+    def counted_valid():
+        before = counts()
+        result = valid()
+        per_valid.append(delta(before))
+        return result
+
+    trainer.train_step, trainer._valid = counted_step, counted_valid
+    dcn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = counts()
+    trainer.train_step, trainer._valid = train_step, valid
+    print(f"train: {len(per_step)} steps + {len(per_valid)} validations in {wall:.3f} s; "
+          f"result {json.dumps(result)}")
+    print(f"train launches per step {per_step}; per validation {per_valid}")
+    want_step = {"dcn_fwd": 0, "dcn_train_fwd": 2 * TRAIN_WINDOWS,
+                 "dcn_bwd": 2 * TRAIN_WINDOWS, "dcn_wgrad": 2 * TRAIN_WINDOWS}
+    if len(per_step) != trainer.iterations or any(c != want_step for c in per_step):
+        fail(f"train steps launched {per_step}, each should be {want_step}")
+    n_valid_windows = len(trainer.valid_loader) * TRAIN_WINDOWS
+    want_valid = {"dcn_fwd": 2 * n_valid_windows, "dcn_train_fwd": 0, "dcn_bwd": 0,
+                  "dcn_wgrad": 0}
+    if len(per_valid) != 1 or per_valid != [want_valid]:
+        fail(f"validation launched {per_valid}, should be [{want_valid}]")
+
+    with open(trainer.log_path) as f:
+        log = [json.loads(line) for line in f]
+    train_log = [r for r in log if "train_loss" in r]
+    print("train log: " + json.dumps(log))
+    if (len(train_log) != trainer.iterations or not all(
+            math.isfinite(r[k]) for r in train_log for k in ("train_loss", "grad_norm"))
+            or not all(math.isfinite(v) for v in result.values())):
+        fail("non-finite or missing losses / grad norms")
+
+    ckpt = find_latest_checkpoint(os.path.dirname(run.save_dir))
+    if ckpt is None or not ckpt.endswith(f"checkpoint-iteration{trainer.iterations - 1}"):
+        fail(f"no committed final checkpoint (found {ckpt})")
+    files = {p.name: p.stat().st_mtime_ns for p in Path(ckpt).iterdir()}
+    if max(files, key=files.get) != "meta.json":
+        fail(f"the commit marker was not written last: {files}")
+    loaded, _ = load_checkpoint(ckpt)
+    loaded = loaded.to(dev).eval()
+    dataset = trainer.train_loader.dataset
+    t0 = time.perf_counter()
+    batch = collate_sequences([dataset.get_item(i, seed=i) for i in range(batch_size)])
+    build_ms = (time.perf_counter() - t0) * 1e3
+    sel = trainer._select(batch)
+    with torch.no_grad():
+        states = loaded.init_states(batch_size, *sel["inp"].shape[2:4], device=dev)
+        out, _ = loaded(sel["inp"][:, :3], states)
+    if not bool(torch.isfinite(out).all()):
+        fail("the loaded checkpoint's forward is not finite")
+    print(f"checkpoint {Path(ckpt).name}: loads, forward {tuple(out.shape)} finite")
+
+    # one validation pass (batch 8) on the kernel path and on the plain path
+    valid_out = {}
+    for path in ("kernel", "plain"):
+        trainer.model.spacetime_fuse.dcn_impl = "auto" if path == "kernel" else "plain"
+        dcn_cuda.reset_launches()
+        valid_out[path] = valid()
+        torch.cuda.synchronize()
+        if path == "kernel" and counts() != want_valid:
+            fail(f"the kernel-path validation launched {counts()}, should be {want_valid}")
+        if path == "plain" and any(counts().values()):
+            fail(f"the plain-path validation launched {counts()}")
+    trainer.model.spacetime_fuse.dcn_impl = "auto"
+    for key in ("valid_loss", "valid_mse_loss"):
+        e, scale, lim = rel_err_of(torch, torch.tensor(valid_out["kernel"][key]),
+                                   torch.tensor(valid_out["plain"][key]))
+        print(f"validation kernel vs plain (batch {trainer.valid_loader.sampler.batch_size}): "
+              f"{key} {valid_out['kernel'][key]!r} vs {valid_out['plain'][key]!r}, "
+              f"max_abs_err {e:.3e} (scale {scale:.3e}, limit {lim:.3e})")
+        if not e <= lim:
+            fail(f"the kernel path's {key} differs from the plain path's")
+
+    # one step from the same params and batch: the kernel path and the plain
+    losses, grads = {}, {}
+    for path in ("kernel", "plain"):
+        model = copy.deepcopy(trainer.model).train()
+        model.spacetime_fuse.dcn_impl = "auto" if path == "kernel" else "plain"
+        dcn_cuda.reset_launches()
+        per_window, _ = window_losses(model, sel, trainer.seqn)
+        per_window.sum().backward()
+        torch.cuda.synchronize()
+        launched = sum(k.launches for k in dcn_cuda.KERNELS)
+        if (launched == 0) != (path == "plain"):
+            fail(f"the {path} path launched {launched} DCN kernels")
+        losses[path] = per_window.detach()
+        grads[path] = {n: p.grad for n, p in model.named_parameters()}
+    err, scale, limit = rel_err_of(torch, losses["kernel"], losses["plain"])
+    print(f"step kernel vs plain: loss_per_window max_abs_err {err:.3e} "
+          f"(scale {scale:.3e}, limit {limit:.3e})")
+    if not err <= limit:
+        fail("the kernel path's losses differ from the plain path's")
+    # every parameter's grad, each against its own scale
+    rows = sorted(((e / max(s, TINY), n, e, s, lim) for n, ref in grads["plain"].items()
+                   for e, s, lim in [rel_err_of(torch, grads["kernel"][n], ref)]),
+                  reverse=True)
+    print(f"step kernel vs plain grads: {len(rows)} parameters; worst err/scale "
+          + "; ".join(f"{n} {e:.3e}/{s:.3e} = {r:.3e}" for r, n, e, s, _ in rows[:5]))
+    print("step kernel vs plain grads, DCN params: " + "; ".join(
+        f"{n} {e:.3e}/{s:.3e} = {r:.3e}" for r, n, e, s, _ in rows
+        if n.startswith(("spacetime_fuse.dcn_weight", "spacetime_fuse.dcn_bias",
+                         "spacetime_fuse.dcn_offset_mask"))))
+    bad = [n for _, n, e, _, lim in rows if not e <= lim]
+    if bad:
+        fail(f"the kernel path's grads differ from the plain path's beyond "
+             f"{TOL} of their own scale: {bad}")
+
+    # where a train step's time goes
+    for _ in range(2):  # warm
+        train_step(sel)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(sel)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    trainer.model.spacetime_fuse.dcn_impl = "plain"
+    plain_times = []
+    for i in range(4):  # the first warms the plain path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(sel)
+        torch.cuda.synchronize()
+        plain_times.append((time.perf_counter() - t0) * 1e3)
+    trainer.model.spacetime_fuse.dcn_impl = "auto"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(sel)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    print(f"train step on {card}: batch {batch_size}, step (host clock to synchronize) "
+          f"{sorted(times)[1]:.3f} ms median of {len(times)} ({', '.join(f'{t:.3f}' for t in times)}); "
+          f"in the run {', '.join(f'{t:.3f}' for t in step_ms)} ms; host batch build "
+          f"{build_ms:.3f} ms for {batch_size} sequences of L 9; the same step on the plain "
+          f"DCN path {sorted(plain_times[1:])[1]:.3f} ms median of 3 "
+          f"({', '.join(f'{t:.3f}' for t in plain_times[1:])}); the trainer's run "
+          f"{wall:.3f} s for {trainer.iterations} iterations, 1 validation, 3 saves")
+    device_time_breakdown(torch, prof, 1, prof_ms, "train step", card)
+    return totals
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    repo = Path(__file__).resolve().parent
+    if not (repo / "esr_tpu_torch" / "csrc" / "dcn_train.cu").is_file():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(repo))
+    import numpy as np
+
+    from esr_tpu_torch.device import resolve_device
+    from esr_tpu_torch.ops import dcn_cuda
+
+    # -- 1. device ---------------------------------------------------------
+    dev = resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(card)
+    print(f"device: {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    dcn_cuda.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(dcn_cuda.LIBRARIES)} "
+          "libraries, nvcc runs started together")
+    for lib in dcn_cuda.LIBRARIES:
+        print(f"build {lib.source.name}: nvcc {lib.build_seconds} s -> {lib.library_path.name}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas: {line.strip()}")
+
+    # -- 3.-5. kernels -----------------------------------------------------
+    fwd, fwd_worst = phase_fwd_kernel(torch, np, card)
+    train_kernels, train_worst = phase_train_kernels(torch, np, card)
+    phase_autograd(torch, np)
+
+    # -- 6. inference slice ------------------------------------------------
+    fwd_launches = phase_slice(torch, np, dev, card)
+
+    # -- 7. training -------------------------------------------------------
+    out_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        totals = phase_train(torch, np, dev, card, repo, out_root)
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+
+    b1 = fwd["flagship_b1"]
+    records = [{
+        "name": "dcn_fwd", "route": "cuda", "source": "esr_tpu_torch/csrc/dcn_fwd.cu",
+        "replaces": REPLACES["dcn_fwd"], "launches": fwd_launches,
+        "max_abs_err": b1["err"], "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+        "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"], "library_ms": None,
+        "matrix_max_rel_err": fwd_worst, "b4": fwd["flagship_b4"],
+        "validation_b8": fwd["flagship_b8"], "b32": fwd["flagship_b32"],
+        "train_run_launches": totals["dcn_fwd"],
+    }]
+    for name in ("dcn_train_fwd", "dcn_bwd", "dcn_wgrad"):
+        r = train_kernels[name]
+        records.append({
+            "name": name, "route": "cuda", "source": "esr_tpu_torch/csrc/dcn_train.cu",
+            "replaces": REPLACES[name], "launches": totals[name],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "matrix_max_rel_err": train_worst[name], "shape": "B=32 flagship training",
+        })
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -1,16 +1,24 @@
 """Windowed event dataset: one recording -> model-ready numpy dicts
 (counterpart of ``esr_tpu/data/dataset.py``).
 
-This slice covers evaluation: the three windowing modes (events / time /
-frame), the scale^2*N GT event windowing, and the items the inference
-harness reads (``inp_cnt``, ``inp_scaled_cnt``, ``gt_cnt``). Augmentation,
-noise injection, the hot-pixel filter, sensor pauses and the other item
-encodings belong to training and raise ``NotImplementedError`` here.
+Covered: the three windowing modes (events / time / frame), the scale^2*N
+GT event windowing, the seeded flip/polarity augmentation of the training
+recipe, and the items the harness and the trainer read (``inp_cnt``,
+``inp_scaled_cnt``, ``gt_cnt``; ``item_keys`` may ask for a subset). Noise
+injection, the hot-pixel filter, sensor pauses, custom resolutions and the
+other item encodings raise ``NotImplementedError``.
+
+Augmentation makes the reference's draws exactly: each mechanism flips when
+``random.Random(seed + i).random() < p`` (``i`` = 0, 1, 2 for Horizontal,
+Vertical, Polarity), applied to the raw input and GT windows, so a seeded
+item is bit for bit the reference's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+import random
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -18,13 +26,19 @@ from esr_tpu_torch.data import np_encodings as NE
 from esr_tpu_torch.data.records import Recording, open_recording, resolve_scale_ladder
 
 ITEM_KEYS = ("inp_cnt", "inp_scaled_cnt", "gt_cnt")
+AUGMENTS = ("Horizontal", "Vertical", "Polarity")
 
 
 def _refuse_training_options(config: Dict) -> None:
     enabled = [
-        name for name in ("data_augment", "add_noise", "hot_filter")
+        name for name in ("add_noise", "hot_filter")
         if (config.get(name) or {}).get("enabled", False)
     ]
+    augment = config.get("data_augment") or {}
+    if augment.get("enabled", False):
+        unknown = sorted(set(augment.get("augment", [])) - set(AUGMENTS))
+        if unknown:
+            enabled.append(f"data_augment mechanisms {unknown}")
     if (config.get("sequence") or {}).get("pause", {}).get("enabled", False):
         enabled.append("sequence.pause")
     if config.get("custom_resolution") is not None:
@@ -34,10 +48,18 @@ def _refuse_training_options(config: Dict) -> None:
         enabled.append(f"item_keys {sorted(extra)}")
     if enabled:
         raise NotImplementedError(
-            f"dataset options {enabled} belong to the training data path, "
-            "which is not ported yet (the evaluation slice builds "
-            f"{list(ITEM_KEYS)} only)"
+            f"dataset options {enabled} are not ported (the port builds "
+            f"{list(ITEM_KEYS)} with {list(AUGMENTS)} augmentation)"
         )
+
+
+@functools.lru_cache(maxsize=4096)
+def _flip_coin(seed: int, prob: float) -> bool:
+    """The reference's draw, ``random.seed(s); random.random() < p``, from a
+    private generator (the process-global one would race with the loader's
+    prefetch threads). Memoized: a sequence asks the same (seed, prob) for
+    each of its L windows."""
+    return random.Random(seed).random() < prob
 
 
 class EventWindowDataset:
@@ -53,6 +75,8 @@ class EventWindowDataset:
         self.recording: Recording = open_recording(recording)
         self.scale = int(config["scale"])
         self.need_gt_events = config.get("need_gt_events", False)
+        self.augment_cfg = config.get("data_augment") or {"enabled": False}
+        self.item_keys = tuple(config.get("item_keys") or ITEM_KEYS)
         ladder = resolve_scale_ladder(
             self.recording.sensor_resolution, self.scale, config["ori_scale"],
             need_gt_events=self.need_gt_events,
@@ -132,10 +156,31 @@ class EventWindowDataset:
             ev[2] = (ts - ts[0]) / (ts[-1] - ts[0] + 1e-6)
         return ev
 
-    def get_item(self, index: int) -> Dict[str, np.ndarray]:
-        """Count images of one window, channel-last float32 ``[H, W, 2]``."""
+    def _augment_events(self, events: np.ndarray, resolution, seed: int) -> np.ndarray:
+        xs, ys, ts, ps = events
+        for i, mechanism in enumerate(self.augment_cfg["augment"]):
+            prob = self.augment_cfg["augment_prob"][i]
+            if mechanism == "Horizontal" and _flip_coin(seed, prob):
+                xs = resolution[1] - 1 - xs
+            elif mechanism == "Vertical" and _flip_coin(seed + 1, prob):
+                ys = resolution[0] - 1 - ys
+            elif mechanism == "Polarity" and _flip_coin(seed + 2, prob):
+                ps = ps * -1
+        return np.stack([xs, ys, ts, ps])
+
+    def _window(self, stream, idx0: int, idx1: int, resolution, seed: int) -> np.ndarray:
+        ev = stream.window(idx0, idx1)
+        if self.augment_cfg.get("enabled", False):
+            ev = self._augment_events(ev, resolution, seed)
+        return self._format(ev)
+
+    def get_item(self, index: int, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Count images of one window, channel-last float32 ``[H, W, 2]``.
+        ``seed`` draws the augmentation (a random one when None)."""
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
         idx0, idx1 = (int(i) for i in self.event_indices[index])
-        inp_ev = self._format(self.inp_stream.window(idx0, idx1))
+        inp_ev = self._window(self.inp_stream, idx0, idx1, self.inp_resolution, seed)
         h, w = self.inp_resolution
         kh, kw = self.gt_resolution
         # the SR input: LR coordinates renormalized onto the HR grid
@@ -143,15 +188,17 @@ class EventWindowDataset:
         ys = inp_ev[1] / h * kh
         if self.need_gt_events:
             g0, g1 = (int(i) for i in self.gt_event_indices[index])
-            gt_ev = self._format(self.gt_stream.window(g0, g1))
+            gt_ev = self._window(self.gt_stream, g0, g1, self.gt_resolution, seed)
         else:
             gt_ev = np.zeros((4, 0), np.float32)
-        item = {
-            "inp_cnt": NE.events_to_channels_np(inp_ev[0], inp_ev[1], inp_ev[3], (h, w)),
-            "inp_scaled_cnt": NE.events_to_channels_np(xs, ys, inp_ev[3], (kh, kw)),
-            "gt_cnt": NE.events_to_channels_np(gt_ev[0], gt_ev[1], gt_ev[3], (kh, kw)),
+        encoders = {
+            "inp_cnt": lambda: NE.events_to_channels_np(
+                inp_ev[0], inp_ev[1], inp_ev[3], (h, w)),
+            "inp_scaled_cnt": lambda: NE.events_to_channels_np(xs, ys, inp_ev[3], (kh, kw)),
+            "gt_cnt": lambda: NE.events_to_channels_np(
+                gt_ev[0], gt_ev[1], gt_ev[3], (kh, kw)),
         }
-        return {k: np.ascontiguousarray(v, np.float32) for k, v in item.items()}
+        return {k: np.ascontiguousarray(encoders[k](), np.float32) for k in self.item_keys}
 
     __getitem__ = get_item
 
@@ -179,10 +226,14 @@ class SequenceDataset:
     def __len__(self) -> int:
         return self.length
 
-    def get_item(self, i: int) -> List[Dict[str, np.ndarray]]:
+    def get_item(self, i: int, seed: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+        """The L windows of sequence ``i``, all augmented with one ``seed``
+        (a random one when None), so flips agree across the sequence."""
         if not 0 <= i < self.length:
             raise IndexError(i)
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
         j = i * self.step_size
-        return [self.dataset.get_item(j + k) for k in range(self.L)]
+        return [self.dataset.get_item(j + k, seed=seed) for k in range(self.L)]
 
     __getitem__ = get_item

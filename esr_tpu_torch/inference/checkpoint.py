@@ -5,6 +5,10 @@
   layouts (HWIO convs, ``[in, out]`` dense);
 - ``config.json``: the training config; ``model.name`` and ``model.args``
   build the model, as in the reference's checkpoints.
+
+A training checkpoint (``esr_tpu_torch.training.checkpoint``) adds the
+optimizer state and its commit marker beside these two; this module reads
+either.
 """
 
 from __future__ import annotations
@@ -38,12 +42,8 @@ def save_checkpoint(path: str, params: Dict, config: Dict) -> None:
         json.dump(config, f, indent=1)
 
 
-def load_checkpoint(path: str) -> Tuple[nn.Module, Dict]:
-    """Rebuild ``(model, config)`` from a checkpoint directory (CPU
-    parameters; the caller moves the model to its device)."""
-    with open(os.path.join(path, "config.json")) as f:
-        config = json.load(f)
-    model = build_model(config["model"])
+def read_params(path: str) -> Dict:
+    """The flax tree of ``params.npz`` in a checkpoint directory."""
     tree: Dict = {}
     with np.load(os.path.join(path, "params.npz")) as npz:
         for key in npz.files:
@@ -52,5 +52,14 @@ def load_checkpoint(path: str) -> Tuple[nn.Module, Dict]:
             for part in parts[:-1]:
                 node = node.setdefault(part, {})
             node[parts[-1]] = npz[key]
-    convert.load_flax_params(model, tree)
+    return tree
+
+
+def load_checkpoint(path: str) -> Tuple[nn.Module, Dict]:
+    """Rebuild ``(model, config)`` from a checkpoint directory (CPU
+    parameters; the caller moves the model to its device)."""
+    with open(os.path.join(path, "config.json")) as f:
+        config = json.load(f)
+    model = build_model(config["model"])
+    convert.load_flax_params(model, read_params(path))
     return model, config

@@ -10,12 +10,17 @@ Public seam (the reference's, channel-last): ``forward(x [B, N, H, W, C],
 states) -> (out [B, H, W, C], states)`` with ConvGRU states
 ``[B, H/8, W/8, 8*basech]``. Inside, every convolution runs NCHW.
 
-The DCN alignment runs twice per window (once per non-middle frame) through
-the kernel wrapper :data:`esr_tpu_torch.ops.dcn_cuda.dcn_fwd`, which
-launches the CUDA kernel for CUDA tensors and takes the plain PyTorch
-version for CPU tensors. Nothing the model is built from (constructor
-arguments, a checkpoint's ``model.args``) can route a CUDA run off the
-kernel: only code that sets ``STFusion.dcn_impl = "plain"`` can.
+The DCN alignment runs twice per window (once per non-middle frame)
+through :func:`esr_tpu_torch.ops.dcn_cuda.dcn`, where the direction is
+decided from grad mode, as the reference decides it from ``train``: a
+training forward (grad on, parameters that require grad) on the card
+launches the train-direction kernel ``dcn_train_fwd`` and, in the
+backward, ``dcn_bwd`` and ``dcn_wgrad``; a forward under ``torch.no_grad()``
+(evaluation, validation) launches ``dcn_fwd``. CPU tensors take the plain
+PyTorch version in both directions. Nothing the model is built from
+(constructor arguments, a checkpoint's ``model.args``) can route a CUDA run
+off the kernels: only code that sets ``STFusion.dcn_impl = "plain"`` can,
+which the tests and ``chip_smoke.py`` alone do.
 """
 
 from __future__ import annotations

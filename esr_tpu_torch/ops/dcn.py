@@ -11,14 +11,20 @@ Layouts are the reference's, channel-last:
 
 :func:`deform_conv2d` is the plain PyTorch version: a 4-corner bilinear
 gather with zero outside the image, the mask multiply, and one contraction.
-It is what runs on CPU tensors, and the reference the CUDA kernel
-(``esr_tpu_torch.ops.dcn_cuda``) is held against on the card.
+:func:`deform_conv2d_backward` is the plain version of its backward (the five
+cotangents, by autograd through :func:`deform_conv2d`). On CPU tensors they
+are what runs; on the card they are the references the CUDA kernels
+(``esr_tpu_torch.ops.dcn_cuda``) are held against, in the tests and
+``chip_smoke.py``.
 
-The choice by device is made in one place, the kernel wrapper
-:data:`esr_tpu_torch.ops.dcn_cuda.dcn_fwd`: CUDA tensors launch the kernel,
-CPU tensors take :func:`deform_conv2d`. :func:`deform_conv2d_auto`, the
-model's call, only adds the forced plain path that the tests and
-``chip_smoke.py`` compare against.
+:func:`deform_conv2d_auto` is the model's call. With ``impl='auto'`` it is
+:func:`esr_tpu_torch.ops.dcn_cuda.dcn`, the one place where the direction
+is decided: with grad mode on and an input that requires grad, the train
+direction (on the card the ``torch.autograd.Function`` that launches
+``dcn_train_fwd`` and, in its backward, ``dcn_bwd`` and ``dcn_wgrad``; on
+the CPU this plain version under autograd); otherwise the forward kernel
+``dcn_fwd`` (on the CPU, this plain version). ``impl='plain'`` forces the
+plain version in both directions, for the tests and ``chip_smoke.py`` only.
 """
 
 from __future__ import annotations
@@ -106,6 +112,26 @@ def deform_conv2d(
     return out
 
 
+def deform_conv2d_backward(
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    g: torch.Tensor,
+    stride: int = 1,
+    padding: int = 1,
+    dilation: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain DCNv2 backward: ``(gx, goffsets, gmask, gweight, gbias)`` for
+    the output cotangent ``g [B, Ho, Wo, Cout]``, by autograd through
+    :func:`deform_conv2d` (``gbias`` is ``g`` summed over B, Ho, Wo)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, offsets, mask, weight)]
+        out = deform_conv2d(*leaves, None, stride, padding, dilation)
+        grads = torch.autograd.grad(out, leaves, g)
+    return (*grads, g.sum(dim=(0, 1, 2)))
+
+
 def deform_conv2d_auto(
     x: torch.Tensor,
     offsets: torch.Tensor,
@@ -117,13 +143,14 @@ def deform_conv2d_auto(
     dilation: int = 1,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """The model's DCN call. ``impl='auto'`` is the kernel wrapper
-    ``dcn_fwd``, which makes the device choice; ``impl='plain'`` forces the
-    plain version (tests and the on-card comparison only)."""
+    """The model's DCN call. ``impl='auto'`` is ``dcn_cuda.dcn``, which
+    decides the direction and, through the kernel wrappers, the device;
+    ``impl='plain'`` forces the plain version (tests and the on-card
+    comparison only)."""
     if impl == "auto":
-        from esr_tpu_torch.ops.dcn_cuda import dcn_fwd
+        from esr_tpu_torch.ops.dcn_cuda import dcn
 
-        return dcn_fwd(x, offsets, mask, weight, bias, stride, padding, dilation)
+        return dcn(x, offsets, mask, weight, bias, stride, padding, dilation)
     if impl == "plain":
         return deform_conv2d(x, offsets, mask, weight, bias, stride, padding, dilation)
     raise ValueError(f"unknown DCN impl {impl!r} (use 'auto' or 'plain')")

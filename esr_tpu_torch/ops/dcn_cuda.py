@@ -1,18 +1,41 @@
-"""The hand-written CUDA DCNv2 forward kernel and its wrapper.
+"""The hand-written CUDA DCNv2 kernels, their wrappers, and the direction
+dispatch of the model's DCN.
 
-Replaces the TPU kernel ``esr_tpu/ops/dcn_pallas.py:_dcn_fwd_kernel``; the
-source, its design and its bound are in ``esr_tpu_torch/csrc/dcn_fwd.cu``.
+Two sources under ``esr_tpu_torch/csrc``, each compiled on first use with
+``nvcc`` into a shared library with a plain C interface under
+``esr_tpu_torch/_build/`` (named by a hash of the source, the shared
+headers and the flags, so a changed source never meets a stale build) and
+bound with ``ctypes``:
 
-The kernel is compiled on first use with ``nvcc`` into a shared library with
-a plain C interface under ``esr_tpu_torch/_build/`` (named by a hash of the
-source and flags, so a changed source never meets a stale build) and bound
-with ``ctypes``. Nothing is imported or built when this module is imported.
+- ``dcn_fwd.cu``: :data:`dcn_fwd`, the forward kernel, which replaces the
+  TPU kernel ``esr_tpu/ops/dcn_pallas.py:_dcn_fwd_kernel``;
+- ``dcn_train.cu``: :data:`dcn_train_fwd` (replaces ``_dcn_kernel``) and the
+  two backward kernels :data:`dcn_bwd` (``gx``, ``goffsets``, ``gmask``) and
+  :data:`dcn_wgrad` (``gW``), which together replace ``_dcn_bwd_kernel``.
 
-:data:`dcn_fwd` is the wrapper, and the one place where the device decides
-the path. For CUDA tensors it launches the kernel on the current stream, or
-raises; for CPU tensors it computes the plain PyTorch version
-(``esr_tpu_torch.ops.dcn.deform_conv2d``); any other device raises.
+``dcn_fwd`` and ``dcn_train_fwd`` compute the same output and run the same
+device code (``dcn_common.cuh``), sized by the same rule
+(:meth:`DcnFwdKernel._tile_rows`); each has its own entry point and launch
+count.
+
+Nothing is imported or built when this module is imported; :func:`build`
+starts every ``nvcc`` at once.
+
+Every wrapper takes the plain PyTorch version (``esr_tpu_torch.ops.dcn``)
+for CPU tensors; for CUDA tensors it launches its kernel on the current
+stream, or raises (wrong device, type, layout or size, a failed build or
+launch, or inputs that need a gradient the kernel's output cannot carry).
 ``launches`` counts kernel launches and nothing else.
+
+:func:`dcn` is the model's DCN and the one place where the direction is
+decided, as the reference's ``train`` flag does (``esr_tpu/models/
+esr.py:267-277``): when grad mode is on and any input requires grad, the
+train direction runs — on CUDA tensors the ``torch.autograd.Function``
+:class:`DcnTrain`, whose forward launches ``dcn_train_fwd`` and whose
+backward launches ``dcn_bwd`` and ``dcn_wgrad`` (``gbias`` is a sum of the
+cotangent, outside the kernels as in the reference); on CPU tensors the
+plain version under autograd. Otherwise the forward direction runs:
+``dcn_fwd``.
 """
 
 from __future__ import annotations
@@ -25,14 +48,14 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from esr_tpu_torch.ops import dcn as _plain
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "dcn_fwd.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,136 +71,409 @@ def _find_nvcc() -> str:
     if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         nvcc = "/usr/local/cuda/bin/nvcc"
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the DCN kernel cannot be built")
+        raise RuntimeError("nvcc not found: the DCN kernels cannot be built")
     return nvcc
 
 
-class DcnFwdKernel:
-    """Wrapper of the CUDA DCNv2 forward kernel (see module docstring)."""
+class CudaLibrary:
+    """One ``csrc`` source built into a plain-C shared library and loaded
+    with ``ctypes``. ``declare`` sets the argument and return types."""
 
-    def __init__(self) -> None:
-        self.launches = 0
+    def __init__(self, source: Path, declare: Callable[[ctypes.CDLL], None]):
+        self.source = source
+        self.declare = declare
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self.library_path: Optional[Path] = None
-        self._lib = None
+        self._lib: Optional[ctypes.CDLL] = None
+        self._pending: Optional[Tuple[subprocess.Popen, str, float]] = None
+
+    def _path(self) -> Path:
+        # the shared headers are part of every source
+        headers = b"".join(p.read_bytes() for p in sorted(self.source.parent.glob("*.cuh")))
+        tag = hashlib.sha256(
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        return BUILD_DIR / f"lib{self.source.stem}_{tag}.so"
+
+    def start_build(self) -> None:
+        """Start ``nvcc`` in the background unless the library is built."""
+        if self._lib is not None or self._pending is not None or self._path().exists():
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        self._pending = (proc, tmp, time.perf_counter())
+
+    def _finish_build(self, lib_path: Path) -> None:
+        proc, tmp, t0 = self._pending
+        self._pending = None
+        try:
+            try:
+                out, _ = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                raise RuntimeError(f"nvcc of {self.source.name} timed out")
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc of {self.source.name} failed ({proc.returncode}):\n{out}"
+                )
+            lib_path.with_suffix(".log").write_text(out)
+            os.replace(tmp, lib_path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        self.build_seconds = time.perf_counter() - t0
 
     def load(self) -> ctypes.CDLL:
         """Build (if needed) and load the library; returns it."""
         if self._lib is not None:
             return self._lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"libdcn_fwd_{tag}.so"
-        log_path = lib_path.with_suffix(".log")
+        lib_path = self._path()
         if not lib_path.exists():
-            t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True, timeout=600,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                    )
-                log_path.write_text(proc.stdout + proc.stderr)
-                os.replace(tmp, lib_path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            self.build_seconds = time.perf_counter() - t0
+            self.start_build()
+        if self._pending is not None:
+            self._finish_build(lib_path)
+        log_path = lib_path.with_suffix(".log")
         self.build_log = log_path.read_text() if log_path.exists() else ""
         lib = ctypes.CDLL(str(lib_path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dcn_fwd_f32.argtypes = [p] * 6 + [i] * 14 + [p]
-        lib.dcn_fwd_f32.restype = i
-        lib.dcn_fwd_threads.restype = i
-        lib.dcn_fwd_acc_per_thread.restype = i
-        self._max_outputs = lib.dcn_fwd_threads() * lib.dcn_fwd_acc_per_thread()
-        self._threads = lib.dcn_fwd_threads()
+        self.declare(lib)
         self.library_path = lib_path
         self._lib = lib
         return lib
 
-    def _tile_pixels(self, cin: int, cout: int, dg: int, k: int) -> int:
-        """Output pixels per block: enough to give every thread an output,
-        within the register accumulator and shared memory."""
-        self.load()
-        tile_p = max(1, -(-self._threads // cout))
-        tile_p = min(tile_p, self._max_outputs // cout)
-        kc = k * (cin // dg)
-        while tile_p > 1 and (tile_p * kc + kc * cout) * 4 > _SMEM_DEFAULT:
-            tile_p //= 2
-        if tile_p < 1 or (tile_p * kc + kc * cout) * 4 > _SMEM_MAX:
-            raise ValueError(
-                f"DCN shape (Cin {cin}, Cout {cout}, dg {dg}, K {k}) exceeds "
-                "the kernel's register or shared-memory budget"
-            )
-        return tile_p
 
-    def __call__(
-        self,
-        x: torch.Tensor,
-        offsets: torch.Tensor,
-        mask: torch.Tensor,
-        weight: torch.Tensor,
-        bias: Optional[torch.Tensor] = None,
-        stride: int = 1,
-        padding: int = 1,
-        dilation: int = 1,
-    ) -> torch.Tensor:
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _declare_fwd(lib: ctypes.CDLL) -> None:
+    lib.dcn_fwd_f32.argtypes = [_P] * 6 + [_I] * 14 + [_P]
+    lib.dcn_fwd_f32.restype = _I
+    lib.dcn_fwd_threads.restype = _I
+    lib.dcn_fwd_acc_per_thread.restype = _I
+
+
+def _declare_train(lib: ctypes.CDLL) -> None:
+    lib.dcn_train_fwd_f32.argtypes = [_P] * 6 + [_I] * 14 + [_P]
+    lib.dcn_bwd_pixel_f32.argtypes = [_P] * 8 + [_I] * 14 + [_P]
+    lib.dcn_wgrad_f32.argtypes = [_P] * 5 + [_I] * 15 + [_P]
+    for fn in (lib.dcn_train_fwd_f32, lib.dcn_bwd_pixel_f32, lib.dcn_wgrad_f32,
+               lib.dcn_train_threads, lib.dcn_train_rows_per_tile,
+               lib.dcn_train_fwd_acc, lib.dcn_train_wgrad_acc,
+               lib.dcn_train_bwd_max_cg):
+        fn.restype = _I
+
+
+FWD_LIBRARY = CudaLibrary(_PKG / "csrc" / "dcn_fwd.cu", _declare_fwd)
+TRAIN_LIBRARY = CudaLibrary(_PKG / "csrc" / "dcn_train.cu", _declare_train)
+LIBRARIES = (FWD_LIBRARY, TRAIN_LIBRARY)
+
+
+def build() -> None:
+    """Build every DCN library, all ``nvcc`` runs started together."""
+    for lib in LIBRARIES:
+        lib.start_build()
+    for lib in LIBRARIES:
+        lib.load()
+
+
+def _wants_grad(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _check_cuda(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Device, type, layout, size and autograd checks of a CUDA launch."""
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{name} kernel needs CUDA tensors, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous tensors")
+    if max(t.numel() for t in tensors) >= 2**31:
+        raise ValueError(f"{name} kernel indexes with 32-bit ints; input too large")
+    if _wants_grad(tensors):
+        raise RuntimeError(
+            f"{name}: inputs require grad, but the kernel's output would have "
+            "no grad_fn; call esr_tpu_torch.ops.dcn_cuda.dcn, which routes "
+            "grad-requiring calls to the train direction"
+        )
+
+
+def _shapes(x, offsets, mask, weight_shape, bias=None):
+    """``(b, h, w, cin, ho, wo, cout, dg, kh, kw)``; raises on a mismatch."""
+    if x.dim() != 4 or offsets.dim() != 6 or len(weight_shape) != 4:
+        raise ValueError("DCN kernels take x [B,H,W,C], offsets "
+                         "[B,Ho,Wo,dg,K,2], weight [kh,kw,Cin,Cout]")
+    b, h, w, cin = x.shape
+    kh, kw, wcin, cout = weight_shape
+    ob, ho, wo, dg, k, two = offsets.shape
+    if (ob != b or two != 2 or wcin != cin or k != kh * kw or cin % dg
+            or tuple(mask.shape) != (b, ho, wo, dg, k)
+            or (bias is not None and tuple(bias.shape) != (cout,))):
+        raise ValueError(
+            f"DCN shapes disagree: x {tuple(x.shape)}, offsets "
+            f"{tuple(offsets.shape)}, mask {tuple(mask.shape)}, weight "
+            f"{tuple(weight_shape)}"
+        )
+    return b, h, w, cin, ho, wo, cout, dg, kh, kw
+
+
+def _same_device(tensors: Sequence[torch.Tensor]) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"DCN inputs are on different devices: {devices}")
+    return tensors[0].device
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+class DcnFwdKernel:
+    """Wrapper of the forward body (``csrc/dcn_common.cuh``) through the
+    forward direction's entry point (``csrc/dcn_fwd.cu``)."""
+
+    library = FWD_LIBRARY
+    name = "dcn_fwd"
+    entry = "dcn_fwd_f32"
+    # the least grid worth a smaller tile: 1.5 blocks per SM of the H100 (132)
+    _TARGET_BLOCKS = 198
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    @classmethod
+    def _tile_rows(cls, rows: int, cout: int, kc: int, threads: int, acc: int) -> int:
+        """Rows per block: the most that fit the register accumulator and
+        the default shared memory, halved while the grid stays under
+        ``_TARGET_BLOCKS``, but not below the tile that gives half the
+        threads an output (under it, more blocks restage W[g] for fewer
+        outputs each). ``chip_smoke.py`` prints the sweep over tiles that
+        this rule follows."""
+        tile = 1 << max(0, (threads * acc // cout).bit_length() - 1)
+        while tile > 1 and (tile * kc + kc * cout) * 4 > _SMEM_DEFAULT:
+            tile //= 2
+        least = max(1, threads // (2 * cout))
+        while tile > least and -(-rows // tile) < cls._TARGET_BLOCKS:
+            tile //= 2
+        if tile * cout > threads * acc or (tile * kc + kc * cout) * 4 > _SMEM_MAX:
+            raise ValueError(f"{cls.name}: the DCN shape (K*Cg {kc}, Cout {cout}) "
+                             "exceeds the kernel's register or shared-memory budget")
+        return tile
+
+    def _geometry(self, lib) -> Tuple[int, int]:
+        return lib.dcn_fwd_threads(), lib.dcn_fwd_acc_per_thread()
+
+    def __call__(self, x, offsets, mask, weight, bias=None, stride=1, padding=1,
+                 dilation=1) -> torch.Tensor:
         tensors = [x, offsets, mask, weight] + ([bias] if bias is not None else [])
-        devices = {t.device for t in tensors}
-        if len(devices) != 1:
-            raise ValueError(f"DCN inputs are on different devices: {devices}")
-        if x.device.type == "cpu":
+        if _same_device(tensors).type == "cpu":
             return _plain.deform_conv2d(
                 x, offsets, mask, weight, bias, stride, padding, dilation
             )
-        if x.device.type != "cuda":
-            raise ValueError(f"DCN kernel needs CUDA tensors, got {x.device}")
-        for t in tensors:
-            if t.dtype != torch.float32:
-                raise TypeError(f"DCN kernel takes float32, got {t.dtype}")
-            if not t.is_contiguous():
-                raise ValueError("DCN kernel takes contiguous tensors")
-        if x.dim() != 4 or offsets.dim() != 6 or weight.dim() != 4:
-            raise ValueError("DCN kernel takes x [B,H,W,C], offsets "
-                             "[B,Ho,Wo,dg,K,2], weight [kh,kw,Cin,Cout]")
-        b, h, w, cin = x.shape
-        kh, kw, wcin, cout = weight.shape
-        ob, ho, wo, dg, k, two = offsets.shape
-        if (ob != b or two != 2 or wcin != cin or k != kh * kw or cin % dg
-                or tuple(mask.shape) != (b, ho, wo, dg, k)
-                or (bias is not None and tuple(bias.shape) != (cout,))):
-            raise ValueError(
-                f"DCN shapes disagree: x {tuple(x.shape)}, offsets "
-                f"{tuple(offsets.shape)}, mask {tuple(mask.shape)}, weight "
-                f"{tuple(weight.shape)}"
-            )
-        if max(t.numel() for t in tensors) >= 2**31 or b * ho * wo * cout >= 2**31:
-            raise ValueError("DCN kernel indexes with 32-bit ints; input too large")
-        lib = self.load()
-        tile_p = self._tile_pixels(cin, cout, dg, k)
+        _check_cuda(self.name, tensors)
+        b, h, w, cin, ho, wo, cout, dg, kh, kw = _shapes(
+            x, offsets, mask, tuple(weight.shape), bias)
+        if b * ho * wo * cout >= 2**31:
+            raise ValueError(f"{self.name} kernel indexes with 32-bit ints; input too large")
+        lib = self.library.load()
+        tile = self._tile_rows(b * ho * wo, cout, kh * kw * (cin // dg), *self._geometry(lib))
         out = torch.empty((b, ho, wo, cout), dtype=torch.float32, device=x.device)
         if out.numel() == 0:
             return out
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = lib.dcn_fwd_f32(
-                x.data_ptr(), offsets.data_ptr(), mask.data_ptr(),
-                weight.data_ptr(), bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), b, h, w, cin, ho, wo, cout, dg, kh, kw,
-                stride, padding, dilation, tile_p, stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"dcn_fwd kernel launch failed: cudaError {rc}")
+        _launch(self.name, getattr(lib, self.entry), x.device,
+                x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                bias.data_ptr() if bias is not None else None, out.data_ptr(),
+                b, h, w, cin, ho, wo, cout, dg, kh, kw, stride, padding,
+                dilation, tile)
         self.launches += 1
         return out
 
 
+class DcnTrainFwdKernel(DcnFwdKernel):
+    """The same forward body through the train direction's entry point
+    (``csrc/dcn_train.cu``), launched and counted on its own from
+    :class:`DcnTrain`. Its plain version is
+    :func:`esr_tpu_torch.ops.dcn.deform_conv2d`."""
+
+    library = TRAIN_LIBRARY
+    name = "dcn_train_fwd"
+    entry = "dcn_train_fwd_f32"
+
+    def _geometry(self, lib) -> Tuple[int, int]:
+        return lib.dcn_train_threads(), lib.dcn_train_fwd_acc()
+
+
+class _TrainKernel:
+    """Common checks and sizing of the ``csrc/dcn_train.cu`` kernels."""
+
+    library = TRAIN_LIBRARY
+    name = ""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def _prepare(self, tensors, x, offsets, mask, weight_shape, bias=None):
+        """CUDA checks; returns the loaded library and the shape tuple."""
+        _check_cuda(self.name, tensors)
+        dims = _shapes(x, offsets, mask, tuple(weight_shape), bias)
+        b, _, _, _, ho, wo, cout, _, _, _ = dims
+        if b * ho * wo * cout >= 2**31:
+            raise ValueError(f"{self.name} kernel indexes with 32-bit ints; "
+                             "input too large")
+        return self.library.load(), dims
+
+    @staticmethod
+    def _smem_check(name: str, nbytes: int) -> None:
+        if nbytes > _SMEM_MAX:
+            raise ValueError(f"{name}: the DCN shape exceeds the kernel's "
+                             "shared-memory budget")
+
+
+class DcnBwdKernel(_TrainKernel):
+    """Wrapper of the per-pixel backward (``dcn_bwd_pixel_kernel``):
+    ``(gx, goffsets, gmask)`` for the output cotangent ``g``. Its plain
+    version is the first three of
+    :func:`esr_tpu_torch.ops.dcn.deform_conv2d_backward`."""
+
+    name = "dcn_bwd"
+
+    def __call__(self, x, offsets, mask, weight, g, stride=1, padding=1,
+                 dilation=1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        tensors = [x, offsets, mask, weight, g]
+        if _same_device(tensors).type == "cpu":
+            return _plain.deform_conv2d_backward(
+                x, offsets, mask, weight, g, stride, padding, dilation)[:3]
+        lib, (b, h, w, cin, ho, wo, cout, dg, kh, kw) = self._prepare(
+            tensors, x, offsets, mask, weight.shape)
+        if tuple(g.shape) != (b, ho, wo, cout):
+            raise ValueError(f"{self.name}: cotangent {tuple(g.shape)} does not "
+                             f"match the output {(b, ho, wo, cout)}")
+        if cin // dg > lib.dcn_train_bwd_max_cg():
+            raise ValueError(f"{self.name}: {cin // dg} channels per group exceed "
+                             f"the kernel's {lib.dcn_train_bwd_max_cg()}")
+        tile = lib.dcn_train_rows_per_tile()
+        self._smem_check(self.name, tile * (cout + 1) * 4)
+        gx = torch.zeros_like(x)
+        goff = torch.empty_like(offsets)
+        gmask = torch.empty_like(mask)
+        if goff.numel() == 0:
+            return gx, goff, gmask
+        _launch(self.name, lib.dcn_bwd_pixel_f32, x.device,
+                x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                g.data_ptr(), gx.data_ptr(), goff.data_ptr(), gmask.data_ptr(),
+                b, h, w, cin, ho, wo, cout, dg, kh, kw, stride, padding,
+                dilation, tile)
+        self.launches += 1
+        return gx, goff, gmask
+
+
+class DcnWgradKernel(_TrainKernel):
+    """Wrapper of the weight gradient (``dcn_wgrad_kernel``): ``gW``
+    ``[kh, kw, Cin, Cout]``. The kernel writes one partial per chunk of
+    rows; the partials are summed here in a fixed order. Its plain version
+    is the fourth of :func:`esr_tpu_torch.ops.dcn.deform_conv2d_backward`."""
+
+    name = "dcn_wgrad"
+    # blocks to aim for: two waves of the H100's 132 SMs
+    _TARGET_BLOCKS = 264
+
+    def __call__(self, x, offsets, mask, weight_shape: Sequence[int], g, stride=1,
+                 padding=1, dilation=1) -> torch.Tensor:
+        weight_shape = tuple(weight_shape)
+        tensors = [x, offsets, mask, g]
+        if _same_device(tensors).type == "cpu":
+            weight = torch.zeros(weight_shape, dtype=x.dtype)
+            return _plain.deform_conv2d_backward(
+                x, offsets, mask, weight, g, stride, padding, dilation)[3]
+        lib, (b, h, w, cin, ho, wo, cout, dg, kh, kw) = self._prepare(
+            tensors, x, offsets, mask, weight_shape)
+        if tuple(g.shape) != (b, ho, wo, cout):
+            raise ValueError(f"{self.name}: cotangent {tuple(g.shape)} does not "
+                             f"match the output {(b, ho, wo, cout)}")
+        kc = kh * kw * (cin // dg)
+        if kc * cout > lib.dcn_train_threads() * lib.dcn_train_wgrad_acc():
+            raise ValueError(f"{self.name}: K*Cg*Cout = {kc * cout} exceeds the "
+                             "kernel's register budget")
+        rows_per_tile = lib.dcn_train_rows_per_tile()
+        self._smem_check(self.name, rows_per_tile * (kc + cout) * 4)
+        rows = b * ho * wo
+        if rows == 0:
+            return torch.zeros(weight_shape, dtype=torch.float32, device=x.device)
+        n_chunks = max(1, min(-(-rows // rows_per_tile),
+                              -(-self._TARGET_BLOCKS // dg)))
+        chunk_rows = -(-rows // n_chunks)
+        n_chunks = -(-rows // chunk_rows)
+        partial = torch.empty((n_chunks, kh * kw * cin * cout), dtype=torch.float32,
+                              device=x.device)
+        _launch(self.name, lib.dcn_wgrad_f32, x.device,
+                x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                partial.data_ptr(), b, h, w, cin, ho, wo, cout, dg, kh, kw,
+                stride, padding, dilation, chunk_rows, n_chunks)
+        self.launches += 1
+        return partial.sum(dim=0).reshape(weight_shape)
+
+
 dcn_fwd = DcnFwdKernel()
+dcn_train_fwd = DcnTrainFwdKernel()
+dcn_bwd = DcnBwdKernel()
+dcn_wgrad = DcnWgradKernel()
+KERNELS = (dcn_fwd, dcn_train_fwd, dcn_bwd, dcn_wgrad)
+
+
+class DcnTrain(torch.autograd.Function):
+    """The train direction on CUDA tensors: ``dcn_train_fwd`` forward,
+    ``dcn_bwd`` + ``dcn_wgrad`` backward (the counterpart of the
+    reference's ``jax.custom_vjp`` at ``dcn_pallas.py:1190-1191,1445``)."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, mask, weight, bias, stride, padding, dilation):
+        ctx.save_for_backward(x, offsets, mask, weight)
+        ctx.geom = (stride, padding, dilation)
+        ctx.has_bias = bias is not None
+        return dcn_train_fwd(x, offsets, mask, weight, bias, stride, padding, dilation)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, offsets, mask, weight = ctx.saved_tensors
+        g = g.contiguous()
+        need = ctx.needs_input_grad
+        gx = goff = gmask = gw = gb = None
+        if any(need[:3]):
+            gx, goff, gmask = dcn_bwd(x, offsets, mask, weight, g, *ctx.geom)
+        if need[3]:
+            gw = dcn_wgrad(x, offsets, mask, weight.shape, g, *ctx.geom)
+        if ctx.has_bias and need[4]:
+            gb = g.sum(dim=(0, 1, 2))
+        return gx, goff, gmask, gw, gb, None, None, None
+
+
+def dcn(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
+        weight: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 1,
+        padding: int = 1, dilation: int = 1) -> torch.Tensor:
+    """The model's DCN; the direction is decided here (module docstring)."""
+    if not _wants_grad([x, offsets, mask, weight, bias]):
+        return dcn_fwd(x, offsets, mask, weight, bias, stride, padding, dilation)
+    if _same_device([x, offsets, mask, weight]).type == "cpu":
+        return _plain.deform_conv2d(x, offsets, mask, weight, bias, stride, padding,
+                                    dilation)
+    return DcnTrain.apply(x, offsets, mask, weight, bias, stride, padding, dilation)
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in KERNELS:
+        k.launches = 0

@@ -23,6 +23,11 @@ class MetricTracker:
         self._total: Dict[str, float] = {k: 0.0 for k in keys}
         self._count: Dict[str, int] = {k: 0 for k in self._total}
 
+    def reset(self) -> None:
+        for k in self._total:
+            self._total[k] = 0.0
+            self._count[k] = 0
+
     def update(self, key: str, value: float, n: int = 1) -> None:
         self._total[key] = self._total.get(key, 0.0) + float(value) * n
         self._count[key] = self._count.get(key, 0) + n

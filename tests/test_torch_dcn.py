@@ -1,9 +1,12 @@
-"""The port's DCNv2: the plain PyTorch version against the jnp reference
-and against the Pallas forward kernel run in interpret mode; the dispatch
-and the CUDA kernel's wrapper on CPU tensors; the kernel itself on a card.
+"""The port's DCNv2: the plain PyTorch version (forward and backward)
+against the jnp reference and against the Pallas kernels run in interpret
+mode; the direction dispatch and the CUDA kernels' wrappers on CPU
+tensors; the kernels themselves, and gradients through them, on a card.
 
-Bound: the reference's scale-normalized forward criterion
-(``dcn_fwd_parity_ok`` off-TPU), max|a - b| <= 1e-3 * max(max|ref|, 1).
+Bound: the reference's scale-normalized criterion (``dcn_parity_ok``
+off-TPU), max|a - b| <= 1e-3 * max(max|ref|, 1), per output and per
+cotangent. Measured on the CPU: forward ~1e-7; backward cotangents at most
+4.7e-7 (jnp autodiff) and 5.6e-7 (fused Pallas backward) of their scale.
 """
 
 import jax
@@ -13,9 +16,10 @@ import pytest
 import torch
 
 from esr_tpu.ops import dcn as JD
-from esr_tpu.ops.dcn_pallas import deform_conv2d_pallas_fwd
+from esr_tpu.ops.dcn_pallas import deform_conv2d_pallas, deform_conv2d_pallas_fwd
 from esr_tpu_torch.ops import dcn as TD
-from esr_tpu_torch.ops.dcn_cuda import dcn_fwd
+from esr_tpu_torch.ops import dcn_cuda
+from esr_tpu_torch.ops.dcn_cuda import dcn_bwd, dcn_fwd, dcn_train_fwd, dcn_wgrad
 
 TOL = 1e-3
 
@@ -149,3 +153,147 @@ def test_kernel_matches_plain_on_card(cuda_device, dg, h, w):
     with pytest.raises(ValueError):
         dcn_fwd(inp["x"].permute(0, 2, 1, 3), inp["offsets"], inp["mask"],
                 inp["weight"], inp["bias"])
+
+
+# -- the backward ---------------------------------------------------------
+
+GEOMETRIES = [(1, 1, 1), (2, 1, 1), (1, 2, 2)]  # (stride, padding, dilation)
+
+
+def _bwd_case(stride, padding, dilation, with_bias):
+    """The reference's fused-backward case (tests/test_dcn_pallas.py:
+    test_fused_backward_matches_jnp_backward): B 2, 9x11, Cin = Cout = 8,
+    dg 2, offsets * 1.5, sigmoid mask, a seeded output cotangent."""
+    rng = np.random.default_rng(9)
+    b, h, w, cin, cout, dg = 2, 9, 11, 8, 8, 2
+    ho = (h + 2 * padding - (dilation * 2 + 1)) // stride + 1
+    wo = (w + 2 * padding - (dilation * 2 + 1)) // stride + 1
+    f32 = np.float32
+    inp = dict(
+        x=rng.standard_normal((b, h, w, cin)).astype(f32),
+        offsets=(rng.standard_normal((b, ho, wo, dg, 9, 2)) * 1.5).astype(f32),
+        mask=(1 / (1 + np.exp(-rng.standard_normal((b, ho, wo, dg, 9))))).astype(f32),
+        weight=(rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(f32),
+        bias=rng.standard_normal(cout).astype(f32) if with_bias else None,
+    )
+    cot = rng.standard_normal((b, ho, wo, cout)).astype(f32)
+    return inp, cot, dict(stride=stride, padding=padding, dilation=dilation)
+
+
+def _jax_grads(fn, inp, cot, geom):
+    """Cotangents of (x, offsets, mask, weight[, bias]) by ``jax.grad``."""
+    args = [jnp.asarray(inp[k]) for k in ("x", "offsets", "mask", "weight")]
+    with_bias = inp["bias"] is not None
+    if with_bias:
+        args.append(jnp.asarray(inp["bias"]))
+
+    def loss(*a):
+        bias = a[4] if with_bias else None
+        return (fn(*a[:4], bias, **geom) * jnp.asarray(cot)).sum()
+
+    return jax.grad(loss, argnums=tuple(range(len(args))))(*args)
+
+
+def _pallas_train(x, offsets, mask, weight, bias, stride, padding, dilation):
+    # the train-direction op: _dcn_kernel forward, _dcn_bwd_kernel backward
+    return deform_conv2d_pallas(x, offsets, mask, weight, bias, stride, padding,
+                                dilation, True)
+
+
+@pytest.mark.parametrize("stride,padding,dilation", GEOMETRIES)
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_plain_backward_matches_jnp_autodiff(stride, padding, dilation, with_bias):
+    inp, cot, geom = _bwd_case(stride, padding, dilation, with_bias)
+    t = _torch(inp)
+    got = TD.deform_conv2d_backward(t["x"], t["offsets"], t["mask"], t["weight"],
+                                    torch.from_numpy(cot), **geom)
+    ref = _jax_grads(JD.deform_conv2d, inp, cot, geom)
+    for a, r in zip(got, ref):  # gbias only when there is a bias
+        assert a.shape == r.shape
+        _check(a.numpy(), r)
+
+
+@pytest.mark.parametrize("stride,padding,dilation", GEOMETRIES)
+def test_plain_backward_matches_fused_pallas_backward(stride, padding, dilation):
+    """Against the fused Pallas backward ``_dcn_bwd_kernel`` in interpret
+    mode (with the bias: its cotangent is summed outside the kernel)."""
+    inp, cot, geom = _bwd_case(stride, padding, dilation, True)
+    t = _torch(inp)
+    got = TD.deform_conv2d_backward(t["x"], t["offsets"], t["mask"], t["weight"],
+                                    torch.from_numpy(cot), **geom)
+    ref = _jax_grads(_pallas_train, inp, cot, geom)
+    for a, r in zip(got, ref):
+        _check(a.numpy(), r)
+
+
+def test_cpu_train_direction_is_the_plain_version_under_autograd():
+    """On the CPU the model's DCN runs the plain version with autograd in
+    the train direction, and every train kernel wrapper computes its plain
+    version without a launch."""
+    inp, cot, geom = _bwd_case(1, 1, 1, True)
+    t = _torch(inp)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in t.items()}
+    dcn_cuda.reset_launches()
+    out = dcn_cuda.dcn(**leaves, **geom)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(cot))
+    ref = TD.deform_conv2d_backward(t["x"], t["offsets"], t["mask"], t["weight"],
+                                    torch.from_numpy(cot), **geom)
+    for name, r in zip(("x", "offsets", "mask", "weight", "bias"), ref):
+        np.testing.assert_array_equal(leaves[name].grad.numpy(), r.numpy())
+    np.testing.assert_array_equal(dcn_train_fwd(**t, **geom).numpy(),
+                                  TD.deform_conv2d(**t, **geom).numpy())
+    gx, goff, gmask = dcn_bwd(t["x"], t["offsets"], t["mask"], t["weight"],
+                              torch.from_numpy(cot), **geom)
+    gw = dcn_wgrad(t["x"], t["offsets"], t["mask"], t["weight"].shape,
+                   torch.from_numpy(cot), **geom)
+    for a, r in zip((gx, goff, gmask, gw), ref):
+        np.testing.assert_array_equal(a.numpy(), r.numpy())
+    with torch.no_grad():
+        assert dcn_cuda.dcn(**leaves, **geom).grad_fn is None
+    assert [k.launches for k in dcn_cuda.KERNELS] == [0, 0, 0, 0]
+
+
+@pytest.mark.gpu
+def test_autograd_through_the_kernels_on_card(cuda_device):
+    """The repair of the DCN under autograd on the card: a loss through the
+    model's DCN reaches x, offsets, mask, weight and bias through the train
+    kernels, with the plain path's gradients; the forward kernel refuses
+    inputs that need a gradient instead of cutting them off the graph."""
+    inp = _torch(_inputs(8, 2, 12, 20, 64, 64, 8, with_bias=True), cuda_device)
+    grads = {}
+    for path in ("kernel", "plain"):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in inp.items()}
+        dcn_cuda.reset_launches()
+        fn = dcn_cuda.dcn if path == "kernel" else TD.deform_conv2d
+        out = fn(**leaves)
+        (out ** 2).sum().backward()
+        torch.cuda.synchronize()
+        if path == "kernel":
+            assert out.grad_fn is not None
+            assert [k.launches for k in dcn_cuda.KERNELS] == [0, 1, 1, 1]
+        grads[path] = {k: v.grad for k, v in leaves.items()}
+    for k, ref in grads["plain"].items():
+        assert grads["kernel"][k] is not None, k
+        _check(grads["kernel"][k].cpu().numpy(), ref.cpu().numpy())
+    with pytest.raises(RuntimeError, match="require grad"):
+        dcn_fwd(**{k: v.clone().requires_grad_(True) for k, v in inp.items()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dg,h,w", [(8, 12, 20), (1, 7, 9), (4, 4, 150)])
+def test_train_kernels_match_plain_on_card(cuda_device, dg, h, w):
+    cin = 64 if dg == 8 else 4 * dg
+    cout = cin if dg == 8 else 8
+    inp = _torch(_inputs(9, 2, h, w, cin, cout, dg, with_bias=True), cuda_device)
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (2, h, w, cout)).astype(np.float32)).to(cuda_device)
+    x, off, mask, wt = inp["x"], inp["offsets"], inp["mask"], inp["weight"]
+    out = dcn_train_fwd(**inp)
+    gx, goff, gmask = dcn_bwd(x, off, mask, wt, g)
+    gw = dcn_wgrad(x, off, mask, wt.shape, g)
+    torch.cuda.synchronize()
+    ref = TD.deform_conv2d_backward(x, off, mask, wt, g)
+    _check(out.cpu().numpy(), TD.deform_conv2d(**inp).cpu().numpy())
+    for a, r in zip((gx, goff, gmask, gw), ref):
+        _check(a.cpu().numpy(), r.cpu().numpy())

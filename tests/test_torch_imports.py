@@ -1,6 +1,7 @@
-"""The port stands alone: ``esr_tpu_torch`` imports no JAX and nothing of
-``esr_tpu``, loads ``h5py`` only when a recording is opened, and its entry
-points run on the card unless the CPU is asked for by name."""
+"""The port stands alone: ``esr_tpu_torch`` imports no JAX, nothing of
+``esr_tpu`` and no PyYAML, loads ``h5py`` only when a recording is opened,
+and its entry points (evaluation and training) run on the card unless the
+CPU is asked for by name."""
 
 import ast
 import subprocess
@@ -11,12 +12,13 @@ import pytest
 import torch
 
 import esr_tpu_torch
+from esr_tpu_torch import train
 from esr_tpu_torch.device import resolve_device
 from esr_tpu_torch.inference.harness import InferenceRunner
 from esr_tpu_torch.models.esr import DeepRecurrNet
 
 PKG = Path(esr_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "esr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "esr_tpu", "yaml")
 
 
 def _imported_roots(path: Path):
@@ -39,9 +41,10 @@ def test_package_imports_no_jax_and_no_reference():
 def test_importing_the_harness_loads_no_jax_and_no_h5py():
     code = (
         "import sys, esr_tpu_torch.inference.harness, esr_tpu_torch.infer, "
-        "esr_tpu_torch.ops.dcn_cuda\n"
+        "esr_tpu_torch.ops.dcn_cuda, esr_tpu_torch.train, "
+        "esr_tpu_torch.training.trainer, esr_tpu_torch.config.build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'esr_tpu', 'h5py', 'triton')]\n"
+        "('jax', 'flax', 'optax', 'esr_tpu', 'h5py', 'triton', 'yaml')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -56,13 +59,17 @@ def no_card():
         pytest.skip("a CUDA card is present: the no-card refusal cannot be shown")
 
 
-def test_cuda_is_the_default_and_never_falls_back(no_card):
+def test_cuda_is_the_default_and_never_falls_back(no_card, tmp_path, monkeypatch):
+    monkeypatch.chdir(PKG.parent)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         InferenceRunner(DeepRecurrNet(inch=2, basech=2, num_frame=3), 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["-c", "configs/train_esr_2x.yml", "-o", "trainer;tensorboard=false",
+                    "-o", "trainer;vis;enabled=false", "-o", f"trainer;output_path={tmp_path}"])
     with pytest.raises(ValueError):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")

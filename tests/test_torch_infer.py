@@ -155,9 +155,11 @@ def test_unported_requests_raise(runs, request_):
             InferenceRunner(port, 3, device="cpu").run_recording(
                 runs["rec"], DATASET, str(runs["out"] / "x"), save_images=True)
         elif request_ == "augment":
+            # Horizontal/Vertical/Polarity are ported; an unknown mechanism
+            # is refused rather than silently skipped
             cfg = {**DATASET, "data_augment": {"enabled": True,
-                                               "augment": ["Horizontal"],
-                                               "augment_prob": [0.5]}}
+                                               "augment": ["Horizontal", "Rotate"],
+                                               "augment_prob": [0.5, 0.5]}}
             EventWindowDataset(runs["rec"], cfg)
         else:
             run_inference(
