@@ -47,8 +47,33 @@ Phases (any failure exits non-zero):
    within 1e-3 of their own scale (max |plain|). Step time, batch-build
    time and a ``torch.profiler`` breakdown of one step are printed.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last line
-is ``{"ok": true, "device": {...}}``.
+8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
+   ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
+   truthful masks (all active, all inactive, half the images zeroed and
+   inactive, an explicit ``[B, n_tiles]`` mask, a NaN image kept active),
+   within 1e-3 * max(|ref|, 1) of the plain ``deform_conv2d_masked``; times
+   at 0, 50 and 100% active beside the dense kernel and the bound;
+9. streaming engine: ``StreamingEngine`` on the sparse flagship
+   (``dcn_sparse``) at lanes 4 x chunk_windows 8 over 6 seeded 720x1280
+   recordings of unequal length: only ``dcn_fwd_masked``, 2 per window
+   step; per-recording metrics within 1e-4 relative of the sequential
+   harness; the plain DCN path within 1e-3; windows/s, chunk time and a
+   profile of one chunk;
+10. serving: ``ServingEngine`` on the same model, lanes 4, classes
+   ``standard:8`` and ``gated:4:0.3``, 8 streams (4 bursty, 4 uniform) on a
+   Poisson schedule at 8/s, preemption quantum 2: every request done,
+   computed + skipped windows = the stream's windows, skips in ``gated``,
+   preemptions, each preempted stream within 1e-5 of itself served alone,
+   an ESRLANE1 round trip of a lane state bitwise;
+11. the sparse train step: one B=32 step from the flagship config with
+   ``model;args;dcn_sparse=true`` launches ``dcn_train_fwd_masked``,
+   ``dcn_bwd`` and ``dcn_wgrad`` 14 times each; its losses bitwise the dense
+   step's, every grad within 1e-5 of its scale (the dense step itself is
+   not bitwise run to run: atomics), the bitwise-equal count printed.
+
+The phases run in the order 1-5, 8, 6, 9, 10, 7 (with 11 inside 7). The
+line before the last is the ``{"kernels": [...]}`` record (six kernels);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -76,6 +101,21 @@ REPLACES = {
     "dcn_train_fwd": "esr_tpu/ops/dcn_pallas.py:551",
     "dcn_bwd": "esr_tpu/ops/dcn_pallas.py:1222",
     "dcn_wgrad": "esr_tpu/ops/dcn_pallas.py:1222",
+    "dcn_fwd_masked": "esr_tpu/ops/dcn_pallas.py:358",
+    "dcn_train_fwd_masked": "esr_tpu/ops/dcn_pallas.py:561",
+}
+ENGINE_TOL = 1e-4  # engine vs the sequential harness, relative
+SERVE_TOL = 1e-5  # a preempted stream vs the same stream served alone, relative
+LANES = 4
+CHUNK_WINDOWS = 8
+# the flagship's evaluation data config (configs/train_esr_2x.yml)
+FLAGSHIP_DATA = {
+    "scale": 2, "ori_scale": "down16", "time_bins": 1, "mode": "events",
+    "window": 2048, "sliding_window": 1024, "need_gt_events": True,
+    "need_gt_frame": False,
+    "data_augment": {"enabled": False, "augment": [], "augment_prob": []},
+    "sequence": {"sequence_length": 9, "seqn": 3, "step_size": None,
+                 "pause": {"enabled": False}},
 }
 
 
@@ -379,7 +419,8 @@ def phase_autograd(torch, np):
         torch.cuda.synchronize()
         if path == "kernel":
             counts = {k.name: k.launches for k in dcn_cuda.KERNELS}
-            if counts != {"dcn_fwd": 0, "dcn_train_fwd": 1, "dcn_bwd": 1, "dcn_wgrad": 1}:
+            if counts != {"dcn_fwd": 0, "dcn_train_fwd": 1, "dcn_bwd": 1, "dcn_wgrad": 1,
+                          "dcn_fwd_masked": 0, "dcn_train_fwd_masked": 0}:
                 fail(f"the autograd DCN launched {counts}")
         grads[path] = {k: v.grad for k, v in leaves.items()}
     for k, ref in grads["plain"].items():
@@ -441,8 +482,7 @@ def phase_slice(torch, np, dev, card):
     print(f"slice: {n_windows} windows in {wall:.3f} s, launches {counts}")
     if n_windows < 8:
         fail(f"the recording gave {n_windows} windows, expected >= 8")
-    if counts != {"dcn_fwd": 2 * n_windows, "dcn_train_fwd": 0, "dcn_bwd": 0,
-                  "dcn_wgrad": 0}:
+    if counts != only("dcn_fwd", 2 * n_windows):
         fail(f"the slice launched {counts} for {n_windows} windows")
     if not all(math.isfinite(v) for v in result.values()):
         fail(f"non-finite metrics: {result}")
@@ -514,14 +554,16 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
     t0 = time.perf_counter()
     train_recs, valid_recs = training_recordings(np)
     print(f"train setup: recordings in {time.perf_counter() - t0:.2f} s")
-    run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"), overrides=[
+    overrides = [
         "trainer;tensorboard=false", "trainer;vis;enabled=false",
         f"trainer;output_path={out_root}",
         "trainer;iteration_based_train;iterations=4",
         "trainer;iteration_based_train;valid_step=2",
         "trainer;iteration_based_train;save_period=2",
         "trainer;iteration_based_train;train_log_step=1",
-    ], runid="chip_smoke", seed=0)
+    ]
+    run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"),
+                              overrides=overrides, runid="chip_smoke", seed=0)
     trainer = Trainer(run, device=dev, train_recordings=train_recs,
                       valid_recordings=valid_recs)
     batch_size = run.config["train_dataloader"]["batch_size"]
@@ -567,12 +609,12 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
           f"result {json.dumps(result)}")
     print(f"train launches per step {per_step}; per validation {per_valid}")
     want_step = {"dcn_fwd": 0, "dcn_train_fwd": 2 * TRAIN_WINDOWS,
-                 "dcn_bwd": 2 * TRAIN_WINDOWS, "dcn_wgrad": 2 * TRAIN_WINDOWS}
+                 "dcn_bwd": 2 * TRAIN_WINDOWS, "dcn_wgrad": 2 * TRAIN_WINDOWS,
+                 "dcn_fwd_masked": 0, "dcn_train_fwd_masked": 0}
     if len(per_step) != trainer.iterations or any(c != want_step for c in per_step):
         fail(f"train steps launched {per_step}, each should be {want_step}")
     n_valid_windows = len(trainer.valid_loader) * TRAIN_WINDOWS
-    want_valid = {"dcn_fwd": 2 * n_valid_windows, "dcn_train_fwd": 0, "dcn_bwd": 0,
-                  "dcn_wgrad": 0}
+    want_valid = only("dcn_fwd", 2 * n_valid_windows)
     if len(per_valid) != 1 or per_valid != [want_valid]:
         fail(f"validation launched {per_valid}, should be [{want_valid}]")
 
@@ -660,6 +702,8 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
         fail(f"the kernel path's grads differ from the plain path's beyond "
              f"{TOL} of their own scale: {bad}")
 
+    sparse_launches = sparse_train_step(torch, dev, trainer, sel, repo, overrides)
+
     # where a train step's time goes
     for _ in range(2):  # warm
         train_step(sel)
@@ -693,7 +737,452 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
           f"({', '.join(f'{t:.3f}' for t in plain_times[1:])}); the trainer's run "
           f"{wall:.3f} s for {trainer.iterations} iterations, 1 validation, 3 saves")
     device_time_breakdown(torch, prof, 1, prof_ms, "train step", card)
-    return totals
+    return totals, sparse_launches
+
+
+def sparse_train_step(torch, dev, trainer, sel, repo: Path, overrides):
+    """One B=32 step of the flagship config with ``model;args;dcn_sparse=true``
+    against the dense kernel step, from the same params and batch: 14
+    launches each of ``dcn_train_fwd_masked``, ``dcn_bwd`` and ``dcn_wgrad``;
+    the mask is all active (the DCN input is never all zero), so the losses
+    are bitwise those of the dense step. The grads cannot all be: the dense
+    step does not repeat itself bitwise (``dcn_bwd`` scatters ``gx`` with
+    atomics, and so do the backward of the bilinear upsampling and some
+    cuDNN algorithms), so each is held within 1e-5 of its own scale, with
+    cuDNN held to deterministic algorithms, and the bitwise-equal count is
+    printed beside the dense step's own run-to-run count."""
+    from esr_tpu_torch.config.build import build_model
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.training.train_step import window_losses
+
+    run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"),
+                              overrides=overrides + ["model;args;dcn_sparse=true"],
+                              runid="chip_smoke_sparse", seed=0)
+    sparse = build_model(run.config["model"])
+    if not sparse.spacetime_fuse.dcn_sparse:
+        fail("the override model;args;dcn_sparse=true did not reach the model")
+    sparse.load_state_dict(trainer.model.state_dict())
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("dense", "dense_again", "sparse"):
+            model = (sparse if name == "sparse" else copy.deepcopy(trainer.model)).to(dev).train()
+            for p in model.parameters():
+                p.grad = None
+            dcn_cuda.reset_launches()
+            per_window, _ = window_losses(model, sel, trainer.seqn)
+            per_window.sum().backward()
+            torch.cuda.synchronize()
+            runs[name] = (counts_of(), per_window.detach(),
+                          {n: p.grad for n, p in model.named_parameters()})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    n = 2 * TRAIN_WINDOWS
+    want = {"sparse": dict(only("dcn_train_fwd_masked", n), dcn_bwd=n, dcn_wgrad=n),
+            "dense": dict(only("dcn_train_fwd", n), dcn_bwd=n, dcn_wgrad=n)}
+    print(f"sparse step launches {runs['sparse'][0]}; dense step {runs['dense'][0]}")
+    if runs["sparse"][0] != want["sparse"] or runs["dense"][0] != want["dense"]:
+        fail(f"the sparse / dense steps launched {runs['sparse'][0]} / {runs['dense'][0]}")
+    if not same_bits(torch, runs["sparse"][1], runs["dense"][1]):
+        fail("the sparse step's per-window losses are not bitwise the dense step's")
+    bitwise = repeated = 0
+    worst = (0.0, "")
+    for pname, g in runs["dense"][2].items():
+        gs, g2 = runs["sparse"][2][pname], runs["dense_again"][2][pname]
+        bitwise += same_bits(torch, gs, g)
+        repeated += same_bits(torch, g2, g)
+        e, scale, _ = rel_err_of(torch, gs, g)
+        e2, _, _ = rel_err_of(torch, g2, g)
+        worst = max(worst, (e / max(scale, TINY), f"{pname} {e:.3e} (dense run to run "
+                                                   f"{e2:.3e}, scale {scale:.3e})"))
+        if not e <= 1e-5 * max(scale, TINY):
+            fail(f"sparse step grad of {pname} differs from the dense step's by {e:.3e}")
+    print(f"sparse vs dense step: per-window losses bitwise; {bitwise} of "
+          f"{len(runs['dense'][2])} grads bitwise (the dense step against itself: "
+          f"{repeated}); every grad within {worst[0]:.3e} of its scale, worst {worst[1]}")
+    return runs["sparse"][0]["dcn_train_fwd_masked"]
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bitwise equality (NaNs included) of two f32 tensors."""
+    return tuple(a.shape) == tuple(b.shape) and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def nan_aware_err(torch, got, ref):
+    """(max abs err over finite reference values, limit, NaN positions agree)."""
+    fin = torch.isfinite(ref)
+    err = float((got[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+    limit = TOL * max(float(ref[fin].abs().max()) if bool(fin.any()) else 0.0, 1.0)
+    return err, limit, torch.equal(torch.isnan(got), torch.isnan(ref))
+
+
+def masked_bound(inp, out, share: float, n_tiles: int):
+    """The roofline of a masked call at this active share: the inactive
+    images' x, offsets and mask are not read and their contraction and
+    gather are not done; W, the bias, the bitmap and the output are."""
+    b = inp["x"].shape[0]
+    per_image = nbytes(inp["x"], inp["offsets"], inp["mask"])
+    rest = nbytes(inp["weight"], inp["bias"], out) + 4.0 * b * n_tiles
+    return roofline(share * per_image + rest,
+                    share * (contraction_flops(inp) + gather_flops(inp)))
+
+
+def entry_launch(torch, wrapper, inp, tm, direction):
+    """A launch of a masked kernel straight through its C entry point (not
+    counted), its int32 bitmap and output made once."""
+    from esr_tpu_torch.ops import dcn as plain
+    from esr_tpu_torch.ops import dcn_cuda
+
+    lib = wrapper.library.load()
+    x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
+    b, h, w, cin = x.shape
+    _, ho, wo, dg, k, _ = off.shape
+    kh, kw, _, cout = wt.shape
+    no_tile, n_tiles = plain.output_tiling(x, off, direction)
+    am = plain.tile_mask_grid(tm, b, n_tiles)
+    out = torch.empty((b, ho, wo, cout), device=x.device)
+    tile = dcn_cuda.DcnFwdKernel._tile_rows(b * ho * wo, cout, k * (cin // dg),
+                                            *wrapper._geometry(lib))
+    fn = getattr(lib, wrapper.entry)
+
+    def launch():
+        rc = fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), am.data_ptr(), b, h, w, cin, ho, wo, cout, dg, kh, kw, 1, 1, 1,
+                tile, n_tiles, no_tile, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"{wrapper.entry} returned cudaError {rc}")
+    return launch
+
+
+def phase_masked_kernels(torch, np, card):
+    """The masked kernels against their dense kernels (bitwise, on truthful
+    masks: an inactive image is all zero) and against the plain
+    ``deform_conv2d_masked`` (1e-3 * max(|ref|, 1)), at the flagship shape:
+    ``dcn_fwd_masked`` at B=1, 4 (the lanes), 8 and 32, ``dcn_train_fwd_masked``
+    at B=32 (tiles of 32 rows there straddle images: 240 % 32 != 0). Masks:
+    all active, all inactive, half of the images zeroed and inactive, an
+    explicit ``[B, n_tiles]`` mask, a NaN image kept active by
+    ``dcn_image_activity``; and an explicit multi-tile mask on a 64x64 image
+    whose masked-off tiles are not zero (bitwise to dense on active rows,
+    exactly the bias elsewhere). Times at 0, 50 and 100% active beside the
+    dense kernel and the bound."""
+    from esr_tpu_torch.ops import dcn as plain
+    from esr_tpu_torch.ops.dcn_cuda import (dcn_fwd, dcn_fwd_masked, dcn_train_fwd,
+                                            dcn_train_fwd_masked)
+
+    rng = np.random.default_rng(3)
+    pairs = {"fwd": (dcn_fwd_masked, dcn_fwd), "train": (dcn_train_fwd_masked, dcn_train_fwd)}
+    record = {"dcn_fwd_masked": {}, "dcn_train_fwd_masked": {}}
+    worst = {"dcn_fwd_masked": 0.0, "dcn_train_fwd_masked": 0.0}
+    runs = [("fwd", b) for b in (1, 4, 8, 32)] + [("train", 32)]
+    for direction, b in runs:
+        masked, dense = pairs[direction]
+        base = dcn_inputs(torch, rng, b=b, h=12, w=20, cin=64, cout=64, dg=8)
+        _, n_tiles = plain.output_tiling(base["x"], base["offsets"], direction)
+        half_x = base["x"].clone()
+        half_x[1::2] = 0.0
+        half_tm = (torch.arange(b, device=half_x.device) % 2 == 0).float()
+        nan_x = base["x"].clone()
+        nan_x[0, 3, 4, 5] = float("nan")
+        cases = {
+            "all_active": (base["x"], torch.ones(b, device=half_x.device)),
+            "all_inactive": (torch.zeros_like(base["x"]), torch.zeros(b, device=half_x.device)),
+            "half": (half_x, half_tm),
+            "explicit_tiles": (half_x, half_tm[:, None].expand(b, n_tiles).contiguous()),
+            "nan_image": (nan_x, plain.dcn_image_activity(nan_x)),
+        }
+        for case, (x, tm) in cases.items():
+            inp = dict(base, x=x)
+            got = masked(**inp, tile_mask=tm)
+            ref_dense = dense(**inp)
+            ref_plain = plain.deform_conv2d_masked(**inp, tile_mask=tm, direction=direction)
+            torch.cuda.synchronize()
+            err, limit, nan_ok = nan_aware_err(torch, got, ref_plain)
+            bitwise = same_bits(torch, got, ref_dense)
+            print(f"masked {masked.name} B={b} {case}: bitwise to {dense.name} {bitwise}; "
+                  f"max_abs_err vs plain {err:.3e} (limit {limit:.3e})")
+            if not (bitwise and nan_ok and err <= limit):
+                fail(f"{masked.name} at B={b} on {case}: bitwise {bitwise}, NaNs agree "
+                     f"{nan_ok}, err {err:.3e} > {limit:.3e}?")
+            if case == "nan_image" and not bool(torch.isnan(got[0]).any()):
+                fail(f"{masked.name}: the NaN image's output is not NaN")
+            worst[masked.name] = max(worst[masked.name], err * TOL / limit)
+            if case == "all_active":
+                record[masked.name][f"b{b}"] = {"err": err}
+        # times at 0, 50 and 100% active, beside the dense kernel: through
+        # the wrappers (what the model pays: the bitmap's conversion too)
+        # and through the C entry point alone, the bitmap ready
+        timing = {0.0: cases["all_inactive"], 0.5: cases["half"], 1.0: cases["all_active"]}
+        for share, (x, tm) in timing.items():
+            inp = dict(base, x=x)
+            out = masked(**inp, tile_mask=tm)
+            ms = time_ms(torch, lambda: masked(**inp, tile_mask=tm), iters=300)
+            dense_ms = time_ms(torch, lambda: dense(**inp), iters=300)
+            entry_ms = time_ms(torch, entry_launch(torch, masked, inp, tm, direction),
+                               iters=300)
+            bound_ms, bound_by = masked_bound(inp, out, share, n_tiles)
+            entry = {"ms": ms, "entry_ms": entry_ms, "dense_ms": dense_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+            plain_note = ""
+            if share == 1.0:
+                entry["plain_ms"] = time_ms(
+                    torch, lambda: plain.deform_conv2d_masked(
+                        **inp, tile_mask=tm, direction=direction), iters=50)
+                plain_note = f", plain {entry['plain_ms']:.5f} ms"
+            record[masked.name].setdefault(f"b{b}", {})[f"active{int(share * 100)}"] = entry
+            print(f"time {masked.name} B={b} {int(share * 100)}% active: masked {ms:.5f} ms "
+                  f"(entry point alone {entry_ms:.5f}), dense {dense_ms:.5f} ms{plain_note}, "
+                  f"bound {bound_ms:.6f} ms ({bound_by}) on {card}")
+
+    # an explicit multi-tile mask (64x64: 32 forward tiles of 128 pixels,
+    # 16 train tiles of 256): active rows bitwise to dense, the rest the bias
+    for direction in ("fwd", "train"):
+        masked, dense = pairs[direction]
+        inp = dcn_inputs(torch, rng, b=2, h=64, w=64, cin=16, cout=16, dg=2)
+        no_tile, n_tiles = plain.output_tiling(inp["x"], inp["offsets"], direction)
+        tm = torch.from_numpy((rng.random((2, n_tiles)) < 0.5).astype(np.float32)).cuda()
+        got = masked(**inp, tile_mask=tm)
+        ref_dense = dense(**inp)
+        ref_plain = plain.deform_conv2d_masked(**inp, tile_mask=tm, direction=direction)
+        torch.cuda.synchronize()
+        active = (tm[:, torch.arange(64 * 64, device=tm.device) // no_tile] > 0).reshape(2, 64, 64)
+        err, limit, _ = nan_aware_err(torch, got, ref_plain)
+        ok_active = same_bits(torch, got[active], ref_dense[active])
+        ok_bias = torch.equal(got[~active], (0.0 + inp["bias"]).expand_as(got[~active]))
+        print(f"masked {masked.name} 64x64 explicit [2, {n_tiles}] mask: active rows bitwise "
+              f"{ok_active}, masked-off rows the bias {ok_bias}, err vs plain {err:.3e}")
+        if not (ok_active and ok_bias and err <= limit):
+            fail(f"{masked.name} on an explicit multi-tile mask")
+        worst[masked.name] = max(worst[masked.name], err * TOL / limit)
+    try:
+        dcn_fwd_masked(**base, tile_mask=torch.ones(base["x"].shape[0], 2, device="cuda"))
+    except ValueError as e:
+        print(f"masked: a mask of the wrong shape raises: {e}")
+    else:
+        fail("dcn_fwd_masked took a mask of the wrong shape")
+    return record, worst
+
+
+def flagship_model(torch, np, dcn_sparse: bool):
+    """The flagship DeepRecurrNet (basech 8, seqn 3) with seeded random
+    weights brought in through the flax weight bridge, the offset/mask conv
+    made nonzero so the DCN really deforms."""
+    from esr_tpu_torch.models import convert
+    from esr_tpu_torch.models.esr import DeepRecurrNet
+
+    rng = np.random.default_rng(0)
+    torch.manual_seed(0)
+    tree = convert.export_flax_params(DeepRecurrNet(inch=2, basech=8, num_frame=3))
+    om = tree["params"]["spacetime_fuse"]["dcn_offset_mask"]
+    om["kernel"] = (rng.standard_normal(om["kernel"].shape) * 0.05).astype(np.float32)
+    om["bias"] = rng.standard_normal(om["bias"].shape).astype(np.float32)
+    model = DeepRecurrNet(inch=2, basech=8, num_frame=3, dcn_sparse=dcn_sparse)
+    convert.load_flax_params(model, tree)
+    return model
+
+
+def counts_of():
+    from esr_tpu_torch.ops import dcn_cuda
+
+    return {k.name: k.launches for k in dcn_cuda.KERNELS}
+
+
+def only(name: str, n: int):
+    """The launch counts of a run that launched ``n`` of ``name`` and
+    nothing else."""
+    return {k: (n if k == name else 0) for k in counts_of()}
+
+
+def phase_engine(torch, np, dev, card):
+    """The streaming engine on the sparse flagship at lanes 4 / chunk 8 over
+    6 seeded 720x1280 recordings of unequal length (lanes refill mid-run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esr_tpu_torch.data.loader import LanePackedChunks
+    from esr_tpu_torch.data.synthetic import make_synthetic_recording
+    from esr_tpu_torch.inference.engine import METRIC_KEYS, StreamingEngine
+    from esr_tpu_torch.inference.harness import InferenceRunner
+    from esr_tpu_torch.ops import dcn_cuda
+
+    t0 = time.perf_counter()
+    recs = [make_synthetic_recording((720, 1280), base_events=ev, num_frames=2,
+                                     rungs=("down8", "down16"), seed=30 + i,
+                                     name=f"engine{i}")
+            for i, ev in enumerate((120_000, 200_000, 80_000, 160_000, 100_000, 140_000))]
+    model = flagship_model(torch, np, dcn_sparse=True)
+    engine = StreamingEngine(model, 3, lanes=LANES, chunk_windows=CHUNK_WINDOWS, device=dev)
+    engine.run_datalist(recs[:1], FLAGSHIP_DATA)  # warm: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    print(f"engine setup: {time.perf_counter() - t0:.2f} s")
+
+    dcn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    results, names = engine.run_datalist(recs, FLAGSHIP_DATA)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counts_of()
+    n_chunks = len(engine.chunk_seconds)
+    n_windows = int(sum(r["n_windows"] for r in results))
+    print(f"engine: {n_windows} windows of {len(recs)} recordings "
+          f"({[int(r['n_windows']) for r in results]}) in {n_chunks} chunks of "
+          f"{LANES} lanes x {CHUNK_WINDOWS} windows, {wall:.3f} s; launches {counts}")
+    if counts != only("dcn_fwd_masked", 2 * CHUNK_WINDOWS * n_chunks):
+        fail(f"the engine launched {counts}, expected only dcn_fwd_masked, 2 per window "
+             f"step ({2 * CHUNK_WINDOWS * n_chunks})")
+    if n_chunks <= -(-len(recs) // LANES):
+        fail(f"{n_chunks} chunks: the lanes did not refill mid-run")
+    chunk_ms = sorted(s * 1e3 for s in engine.chunk_seconds)
+    print(f"engine on {card}: {n_windows / wall:.3f} windows/s; chunk (dispatch to "
+          f"readback) p50 {chunk_ms[len(chunk_ms) // 2]:.3f} ms, max {chunk_ms[-1]:.3f} ms")
+
+    runner = InferenceRunner(model, 3, device=dev)
+    worst = 0.0
+    for rec, res in zip(recs, results):
+        seq = runner.run_recording(rec, FLAGSHIP_DATA, report=False)
+        if res["n_windows"] != seq["n_windows"] or set(res) != set(seq):
+            fail(f"engine result of {rec.name} differs in schema or windows from the harness")
+        for k in METRIC_KEYS + ("esr_rmse", "bicubic_rmse"):
+            if not math.isfinite(res[k]):
+                fail(f"engine {rec.name}: {k} is not finite")
+            worst = max(worst, abs(res[k] - seq[k]) / max(abs(seq[k]), 1e-12))
+    print(f"engine vs sequential harness: worst relative metric difference {worst:.3e} "
+          f"(limit {ENGINE_TOL})")
+    if not worst <= ENGINE_TOL:
+        fail("the engine's metrics differ from the sequential harness's")
+
+    model.spacetime_fuse.dcn_impl = "plain"
+    dcn_cuda.reset_launches()
+    plain_results, _ = StreamingEngine(model, 3, lanes=LANES, chunk_windows=CHUNK_WINDOWS,
+                                       device=dev).run_datalist(recs, FLAGSHIP_DATA)
+    model.spacetime_fuse.dcn_impl = "auto"
+    if any(counts_of().values()):
+        fail(f"the plain engine launched {counts_of()}")
+    worst_plain = max(abs(a[k] - b[k]) / max(abs(b[k]), 1.0)
+                      for a, b in zip(results, plain_results) for k in METRIC_KEYS)
+    print(f"engine kernel path vs plain path: worst scale-normalized metric difference "
+          f"{worst_plain:.3e} (limit {TOL})")
+    if not worst_plain <= TOL:
+        fail("the engine's kernel path differs from its plain path")
+
+    # where one chunk's time goes
+    chunk = next(iter(LanePackedChunks(recs[1:2] * LANES, FLAGSHIP_DATA, lanes=LANES,
+                                       chunk_windows=CHUNK_WINDOWS)))
+    staged = engine._wait(engine._stage(chunk))
+    windows = {k: staged[k] for k in ("inp_scaled", "gt", "inp_mid", "valid")}
+    states = model.init_states(LANES, *chunk["windows"]["gt"].shape[2:4], device=dev)
+    engine._run_chunk(states, staged["reset_keep"], windows)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine._run_chunk(states, staged["reset_keep"], windows)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    device_time_breakdown(torch, prof, 1, prof_ms, "chunk", card)
+    return counts["dcn_fwd_masked"], {"windows_per_s": n_windows / wall,
+                                      "chunk_p50_ms": chunk_ms[len(chunk_ms) // 2]}
+
+
+# serving streams: time-mode windows (the reference's gating profile: a
+# bursty stream's tail windows are nearly idle), 1 s recordings at 720x1280;
+# sequences of L 3 (one window each) give 66 windows per stream, so streams
+# still hold their lanes when the last of the 8 arrivals (0.57 s) comes
+SERVE_DATA = dict(FLAGSHIP_DATA, mode="time", window=0.01, sliding_window=0.005,
+                  sequence=dict(FLAGSHIP_DATA["sequence"], sequence_length=3))
+SERVE_ACTIVITY_TILE = 16
+
+
+def phase_serving(torch, np, dev, card):
+    """The serving tier on the sparse flagship: lanes 4, classes standard:8
+    and gated:4:0.3, 8 streams (4 bursty, 4 uniform) arriving at 8/s,
+    preemption quantum 2."""
+    from esr_tpu_torch.data.loader import InferenceSequenceLoader
+    from esr_tpu_torch.inference.engine import METRIC_KEYS, extract_lane_state, inject_lane_state
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.serve import parse_classes
+    from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
+    from esr_tpu_torch.serving.server import ServingEngine
+    from esr_tpu_torch.serving.wire import pack_lane_state, unpack_lane_state
+
+    classes = parse_classes("standard:8,gated:4:0.3")
+    model = flagship_model(torch, np, dcn_sparse=True)
+    t0 = time.perf_counter()
+    streams = make_stream_corpus(n=8, seed=0, sensor_resolution=(720, 1280),
+                                 events_schedule=(60_000, 40_000, 80_000, 50_000),
+                                 burst_schedule=(0.35, 1.0), num_frames=2,
+                                 rungs=("down8", "down16"))
+    n_windows = {s.name: len(InferenceSequenceLoader(s, SERVE_DATA)) for s in streams}
+    # classes dealt round robin in sorted order: the bursty streams are gated
+    schedule = poisson_schedule(streams, rate_hz=8.0, seed=0, classes=tuple(sorted(classes)))
+    print(f"serving setup: {time.perf_counter() - t0:.2f} s; windows per stream {n_windows}")
+
+    def engine(**kw):
+        return ServingEngine(model, SERVE_DATA, lanes=LANES, classes=classes,
+                             default_class="standard", activity_tile=SERVE_ACTIVITY_TILE,
+                             device=dev, **kw)
+
+    engine(preempt_quantum=0).run(schedule[:1])  # warm
+    dcn_cuda.reset_launches()
+    server = engine(preempt_quantum=2)
+    summary = server.run(schedule, max_wall_s=600)
+    torch.cuda.synchronize()
+    counts = counts_of()
+    print("serving summary: " + json.dumps(summary))
+    print(f"serving launches {counts}")
+    reports = server.reports()
+    if summary["completed"] != len(streams) or any(r["status"] != "ok" for r in reports.values()):
+        fail(f"not every request ended done: {summary['statuses']}")
+    if counts != only("dcn_fwd_masked", 2 * summary["window_steps"]):
+        fail(f"serving launched {counts}, expected only dcn_fwd_masked, 2 per window "
+             f"step ({2 * summary['window_steps']})")
+    for r in reports.values():
+        if r["n_windows"] + r["n_windows_skipped"] != n_windows[r["path"]]:
+            fail(f"{r['request_id']}: {r['n_windows']} computed + {r['n_windows_skipped']} "
+                 f"skipped != {n_windows[r['path']]} windows")
+    gated_skipped = sum(r["n_windows_skipped"] for r in reports.values()
+                        if r["request_class"] == "gated")
+    if not gated_skipped > 0:
+        fail("the gated class skipped no window")
+    if not summary["preemptions"] > 0:
+        fail("8 streams on 4 lanes at quantum 2 and no preemption")
+
+    # every preempted stream against the same stream served alone
+    by_name = {s.name: s for s in streams}
+    worst = 0.0
+    for r in reports.values():
+        if not r["preemptions"]:
+            continue
+        alone = engine(preempt_quantum=0)
+        rid = alone.submit(by_name[r["path"]], r["request_class"])
+        alone.run()
+        a = alone.report(rid)
+        if (a["n_windows"], a["n_windows_skipped"]) != (r["n_windows"], r["n_windows_skipped"]):
+            fail(f"{r['request_id']} served alone computed/skipped differently")
+        for k in METRIC_KEYS:
+            worst = max(worst, abs(r[k] - a[k]) / max(abs(a[k]), 1e-12))
+    print(f"serving: preempted streams vs served alone, worst relative metric difference "
+          f"{worst:.3e} (limit {SERVE_TOL})")
+    if not worst <= SERVE_TOL:
+        fail("a preempted stream's metrics differ from the same stream served alone")
+
+    # ESRLANE1 round trip of a lane state, bitwise
+    states = server._states
+    host = extract_lane_state(states, 1)
+    back = unpack_lane_state(pack_lane_state(host), host)
+    copy_states = tuple(z.clone() for z in states)
+    copy_states = inject_lane_state(tuple(torch.zeros_like(z) for z in copy_states), 1, back)
+    if not all(same_bits(torch, a[1], b[1]) for a, b in zip(copy_states, states)):
+        fail("the lane state did not survive extract -> pack -> unpack -> inject bitwise")
+    print("serving: extract -> pack -> unpack -> inject of a lane state is bitwise")
+    for name, c in summary["classes"].items():
+        print(f"serving class {name} on {card}: window latency p50 {c['p50_window_ms']} ms, "
+              f"p99 {c['p99_window_ms']} ms over {c['windows']} windows")
+    print(f"serving on {card}: {summary['windows_per_sec']} windows/s computed, "
+          f"{summary['served_windows_per_sec']} served; {summary['preemptions']} preemptions; "
+          f"{counts['dcn_fwd_masked']} dcn_fwd_masked launches")
+    return counts["dcn_fwd_masked"], summary
 
 
 def main() -> int:
@@ -741,14 +1230,19 @@ def main() -> int:
     fwd, fwd_worst = phase_fwd_kernel(torch, np, card)
     train_kernels, train_worst = phase_train_kernels(torch, np, card)
     phase_autograd(torch, np)
+    masked, masked_worst = phase_masked_kernels(torch, np, card)
 
     # -- 6. inference slice ------------------------------------------------
     fwd_launches = phase_slice(torch, np, dev, card)
 
-    # -- 7. training -------------------------------------------------------
+    # -- 7. the streaming engine and serving (sparse flagship) -------------
+    engine_launches, engine_stats = phase_engine(torch, np, dev, card)
+    serve_launches, serve_summary = phase_serving(torch, np, dev, card)
+
+    # -- 8. training, and the sparse train step ----------------------------
     out_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        totals = phase_train(torch, np, dev, card, repo, out_root)
+        totals, sparse_launches = phase_train(torch, np, dev, card, repo, out_root)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
@@ -770,6 +1264,21 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "matrix_max_rel_err": train_worst[name], "shape": "B=32 flagship training",
+        })
+    for name, source, b, launches, extra in (
+            ("dcn_fwd_masked", "esr_tpu_torch/csrc/dcn_fwd.cu", "b4", engine_launches,
+             {"serving_launches": serve_launches, "shape": "B=4 lanes, 100% active"}),
+            ("dcn_train_fwd_masked", "esr_tpu_torch/csrc/dcn_train.cu", "b32",
+             sparse_launches, {"shape": "B=32 flagship training, 100% active"})):
+        r = masked[name][b]
+        full = r["active100"]
+        records.append({
+            "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
+            "launches": launches, "max_abs_err": r["err"], "ms": full["ms"],
+            "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
+            "bound_by": full["bound_by"], "library_ms": None,
+            "matrix_max_rel_err": masked_worst[name], **extra,
+            "by_batch_and_active_share": masked[name],
         })
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,6 +21,18 @@
 // as [K*Cg][Cout], and each thread accumulates its (row, out-channel)
 // outputs in registers with f32 FMAs (no TF32). The bias is added in the
 // epilogue; the column tensor never goes to global memory.
+//
+// The masked body (kMasked = true) is the activity-predicated twin of
+// esr_tpu/ops/dcn_pallas.py:_dcn_fwd_kernel_masked / _dcn_kernel_masked:
+// an int32 bitmap am[B][n_tiles] marks which (image, output tile) pairs
+// are active, output pixel n of an image lying in tile n / no_tile. Rows
+// are flattened across images, so a block's tile of rows may straddle
+// images and tiles: the predicate is per row. An inactive row builds no
+// column (x, offsets and mask are not read) and its output is selected as
+// 0 + bias, whatever the FMAs give (a non-finite W would make them NaN); a
+// block whose rows are all inactive skips W staging and the FMA loop. On
+// an active row the masked body runs the dense body's arithmetic, so on a
+// truthful mask (an inactive image is all zero) the two agree bitwise.
 
 #pragma once
 
@@ -35,6 +47,20 @@ constexpr int kFwdAcc = 8;  // outputs per thread in the forward
 struct Geom {
   int B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride, pad, dil;
 };
+
+// The activity bitmap of the masked body (unused by the dense one).
+struct Activity {
+  const int* am;  // [B][n_tiles], nonzero = active
+  int n_tiles;
+  int no_tile;    // output pixels per tile
+};
+
+__device__ __forceinline__ bool row_active(const Activity& A, const Geom& G,
+                                           int r) {
+  const int npix = G.Ho * G.Wo;
+  const int b = r / npix;
+  return A.am[b * A.n_tiles + (r - b * npix) / A.no_tile] != 0;
+}
 
 // Where one (row, group, tap) samples: the four corners' flat input pixel
 // (y*W + x, or -1 outside the image) in the reference's corner order
@@ -81,13 +107,16 @@ __device__ __forceinline__ Sample sample_at(const float* __restrict__ off,
 
 // cols[p][j], j = k*Cg + c, for rows r0 + p (< r_end) of group g: the
 // mask times the bilinear sample of channel g*Cg + c at tap k; zero past
-// r_end. One (row, tap, channel) element per thread step.
+// r_end and, when kMasked, on inactive rows. One (row, tap, channel)
+// element per thread step.
+template <bool kMasked>
 __device__ __forceinline__ void fill_cols(float* cols,
                                           const float* __restrict__ x,
                                           const float* __restrict__ off,
                                           const float* __restrict__ mask,
                                           const Geom& G, int g, int r0,
-                                          int r_end, int tile) {
+                                          int r_end, int tile,
+                                          const Activity& A) {
   const int K = G.kh * G.kw;
   const int cg = G.Cin / G.dg;
   const int KC = K * cg;
@@ -99,7 +128,7 @@ __device__ __forceinline__ void fill_cols(float* cols,
     const int c = j - k * cg;
     const int r = r0 + p;
     float v = 0.f;
-    if (r < r_end) {
+    if (r < r_end && (!kMasked || row_active(A, G, r))) {
       const Sample s = sample_at(off, G, r, g, k);
       const float* xb =
           x + (size_t)(r / npix) * G.H * G.W * G.Cin + g * cg + c;
@@ -113,11 +142,12 @@ __device__ __forceinline__ void fill_cols(float* cols,
   }
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 dcn_forward_kernel(const float* __restrict__ x, const float* __restrict__ off,
                    const float* __restrict__ mask, const float* __restrict__ w,
                    const float* __restrict__ bias, float* __restrict__ out,
-                   Geom G, int tile) {
+                   Geom G, int tile, Activity A) {
   extern __shared__ float smem[];
   const int K = G.kh * G.kw;
   const int cg = G.Cin / G.dg;
@@ -134,8 +164,18 @@ dcn_forward_kernel(const float* __restrict__ x, const float* __restrict__ off,
 #pragma unroll
   for (int i = 0; i < kFwdAcc; ++i) acc[i] = 0.f;
 
-  for (int g = 0; g < G.dg; ++g) {
-    fill_cols(cols, x, off, mask, G, g, r0, rows, tile);
+  // block-uniform: every thread of the block takes the same branch
+  bool any_active = true;
+  if (kMasked) {
+    int mine = 0;
+    for (int p = tid; p < tile; p += kThreads) {
+      mine |= (r0 + p < rows && row_active(A, G, r0 + p)) ? 1 : 0;
+    }
+    any_active = __syncthreads_or(mine) != 0;
+  }
+
+  for (int g = 0; any_active && g < G.dg; ++g) {
+    fill_cols<kMasked>(cols, x, off, mask, G, g, r0, rows, tile, A);
     for (int e = tid; e < KC * Cout; e += kThreads) {
       const int j = e / Cout;
       const int o = e - j * Cout;
@@ -167,7 +207,9 @@ dcn_forward_kernel(const float* __restrict__ x, const float* __restrict__ off,
       const int o = idx - p * Cout;
       const int r = r0 + p;
       if (r < rows) {
-        out[(size_t)r * Cout + o] = acc[i] + (bias != nullptr ? bias[o] : 0.f);
+        const float b = bias != nullptr ? bias[o] : 0.f;
+        out[(size_t)r * Cout + o] =
+            (!kMasked || row_active(A, G, r)) ? acc[i] + b : 0.f + b;
       }
     }
   }
@@ -187,21 +229,28 @@ cudaError_t allow_smem(F kernel, size_t bytes) {
 }
 
 // Launches the forward body; returns cudaGetLastError() (0 on success).
-// tile * Cout must not exceed kThreads * kFwdAcc.
+// tile * Cout must not exceed kThreads * kFwdAcc. The masked body needs a
+// bitmap whose n_tiles tiles of no_tile pixels cover Ho * Wo.
+template <bool kMasked>
 int launch_dcn_forward(const float* x, const float* off, const float* mask,
                        const float* w, const float* bias, float* out,
-                       const Geom& G, int tile, void* stream) {
+                       const Geom& G, int tile, const Activity& A,
+                       void* stream) {
   if (!geom_ok(G) || tile < 1 || tile * G.Cout > kThreads * kFwdAcc) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kMasked && (A.am == nullptr || A.n_tiles < 1 || A.no_tile < 1 ||
+                  (long long)A.n_tiles * A.no_tile < (long long)G.Ho * G.Wo)) {
     return (int)cudaErrorInvalidValue;
   }
   const int KC = G.kh * G.kw * (G.Cin / G.dg);
   const size_t smem = (size_t)(tile * KC + KC * G.Cout) * sizeof(float);
-  cudaError_t err = allow_smem(dcn_forward_kernel, smem);
+  cudaError_t err = allow_smem(dcn_forward_kernel<kMasked>, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = G.B * G.Ho * G.Wo;
-  dcn_forward_kernel<<<(rows + tile - 1) / tile, kThreads, smem,
-                       (cudaStream_t)stream>>>(x, off, mask, w, bias, out, G,
-                                               tile);
+  dcn_forward_kernel<kMasked><<<(rows + tile - 1) / tile, kThreads, smem,
+                                (cudaStream_t)stream>>>(x, off, mask, w, bias,
+                                                        out, G, tile, A);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 // the forward direction (inference and validation, no gradient).
 //
 // Replaces the TPU kernel esr_tpu/ops/dcn_pallas.py:_dcn_fwd_kernel (tile
-// body _dcn_fwd_tile_acc), reached through deform_conv2d_pallas_fwd. It
+// body _dcn_fwd_tile_acc), reached through deform_conv2d_pallas_fwd, and,
+// through dcn_fwd_masked_f32, its activity-predicated twin
+// _dcn_fwd_kernel_masked (the same body with kMasked = true). It
 // computes the same function, not the TPU's formulation: the Pallas kernel
 // recasts the bilinear gather as one-hot matrix products because a per-lane
 // scalar gather does not map to the TPU's vector units. On the GPU each
@@ -31,7 +33,23 @@ extern "C" int dcn_fwd_f32(const float* x, const float* off, const float* mask,
                            int Cout, int dg, int kh, int kw, int stride,
                            int pad, int dil, int tile, void* stream) {
   const Geom G{B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride, pad, dil};
-  return launch_dcn_forward(x, off, mask, w, bias, out, G, tile, stream);
+  return launch_dcn_forward<false>(x, off, mask, w, bias, out, G, tile,
+                                   Activity{}, stream);
+}
+
+// The activity-predicated forward (replaces _dcn_fwd_kernel_masked): am is
+// the int32 bitmap [B][n_tiles] of (image, output tile) activity, output
+// pixel n of an image in tile n / no_tile.
+extern "C" int dcn_fwd_masked_f32(const float* x, const float* off,
+                                  const float* mask, const float* w,
+                                  const float* bias, float* out, const int* am,
+                                  int B, int H, int W, int Cin, int Ho, int Wo,
+                                  int Cout, int dg, int kh, int kw, int stride,
+                                  int pad, int dil, int tile, int n_tiles,
+                                  int no_tile, void* stream) {
+  const Geom G{B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride, pad, dil};
+  return launch_dcn_forward<true>(x, off, mask, w, bias, out, G, tile,
+                                  Activity{am, n_tiles, no_tile}, stream);
 }
 
 // Launch geometry constants, so the Python wrapper sizes tiles from the

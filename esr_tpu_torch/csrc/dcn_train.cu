@@ -13,14 +13,16 @@
 //
 // Layouts, the bilinear sampling and the column tile are in dcn_common.cuh.
 //
-// Three entry points:
+// Three entry points (four with the masked forward):
 //   1. dcn_train_fwd_f32 launches the forward body dcn_forward_kernel of
 //      dcn_common.cuh, the same code as dcn_fwd.cu's entry: the two
 //      directions compute the same output and differ only in who launches
 //      them and in their launch counts. Nothing is saved for the backward,
 //      which recomputes the sampling (corner indices and weights are ~18 MB
 //      per B=32 call, and 14 calls per train step would hold ~250 MB for a
-//      few ALU ops each).
+//      few ALU ops each). dcn_train_fwd_masked_f32 launches the same body
+//      predicated on activity (replaces _dcn_kernel_masked); the backward
+//      stays dense, as in the reference: gx of a zero block is not zero.
 //   2. dcn_bwd_pixel_kernel: one thread per (row, group, tap), pixels
 //      fastest so a warp reads one W row (a broadcast). It forms
 //      gcols[c] = sum_o W[k, g*Cg+c, o] g[r, o], scatters m*w_corner*gcols
@@ -160,7 +162,7 @@ dcn_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ off,
   for (int i = 0; i < kWgradAcc; ++i) acc[i] = 0.f;
 
   for (int t0 = start; t0 < end; t0 += kRows) {
-    fill_cols(cols, x, off, mask, G, g, t0, end, kRows);
+    fill_cols<false>(cols, x, off, mask, G, g, t0, end, kRows, Activity{});
     for (int e = tid; e < kRows * Cout; e += kThreads) {
       const int p = e / Cout;
       const int o = e - p * Cout;
@@ -211,7 +213,20 @@ extern "C" int dcn_train_fwd_f32(const float* x, const float* off,
                                  int dg, int kh, int kw, int stride, int pad,
                                  int dil, int tile, void* stream) {
   const Geom G{B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride, pad, dil};
-  return launch_dcn_forward(x, off, mask, w, bias, out, G, tile, stream);
+  return launch_dcn_forward<false>(x, off, mask, w, bias, out, G, tile,
+                                   Activity{}, stream);
+}
+
+// The activity-predicated train forward (replaces _dcn_kernel_masked); the
+// bitmap as in dcn_fwd_masked_f32. Its backward is the dense pair below.
+extern "C" int dcn_train_fwd_masked_f32(
+    const float* x, const float* off, const float* mask, const float* w,
+    const float* bias, float* out, const int* am, int B, int H, int W,
+    int Cin, int Ho, int Wo, int Cout, int dg, int kh, int kw, int stride,
+    int pad, int dil, int tile, int n_tiles, int no_tile, void* stream) {
+  const Geom G{B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride, pad, dil};
+  return launch_dcn_forward<true>(x, off, mask, w, bias, out, G, tile,
+                                  Activity{am, n_tiles, no_tile}, stream);
 }
 
 extern "C" int dcn_bwd_pixel_f32(const float* x, const float* off,

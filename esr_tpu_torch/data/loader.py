@@ -6,19 +6,24 @@ epoch shuffle (``np.random.default_rng((seed, epoch))``), one derived
 augmentation seed per sequence, and batches built in order by a thread pool
 ``prefetch`` deep. Process workers (``num_workers > 0``) are not ported.
 The evaluation loader is synchronous: batch 1, in order, non-overlapping
-sequences. The lane-packed engine feed waits for the streaming-engine
-slice.
+sequences. :class:`LanePackedChunks` packs recordings into lanes for the
+streaming engine, and :class:`DevicePrefetcher` stages its chunks on a
+thread.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from esr_tpu_torch.data.dataset import SequenceDataset
+from esr_tpu_torch.data.np_encodings import activity_fraction_np, tile_activity_np
+from esr_tpu_torch.data.records import recording_name
 
 
 def read_datalist(path: str) -> List[str]:
@@ -177,3 +182,203 @@ class SequenceLoader:
             finally:
                 for fut in pending:
                     fut.cancel()
+
+
+def window_activity(inp_window: np.ndarray, tile: int = 8) -> float:
+    """Active-tile fraction of one model-input window ``[seqn, H, W, C]``
+    (or ``[H, W, C]``): the frames are summed, so a tile is active iff any
+    frame touched it."""
+    counts = np.asarray(inp_window, np.float32)
+    if counts.ndim > 3:
+        counts = counts.reshape((-1,) + counts.shape[-3:]).sum(axis=0)
+    return activity_fraction_np(tile_activity_np(counts, tile))
+
+
+def engine_windows(recording, config: Dict) -> InferenceSequenceLoader:
+    """The evaluation loader of one recording with ``item_keys`` set to the
+    three streams the engine reads (the values are the same)."""
+    cfg = dict(config)
+    cfg.setdefault("item_keys", ["inp_scaled_cnt", "gt_cnt", "inp_cnt"])
+    return InferenceSequenceLoader(recording, cfg)
+
+
+def window_tuple(batch: Dict[str, np.ndarray], seqn: int) -> tuple:
+    """``(inp_scaled [seqn,h,w,c], gt_mid, inp_mid)`` of one ``(1, L, ...)``
+    batch: the sequential harness's ``inputs_seq[0]`` window."""
+    mid = (seqn - 1) // 2
+    return (
+        np.asarray(batch["inp_scaled_cnt"][0, :seqn], np.float32),
+        np.asarray(batch["gt_cnt"][0, mid], np.float32),
+        np.asarray(batch["inp_cnt"][0, mid], np.float32),
+    )
+
+
+class LanePackedChunks:
+    """Lane-packed window chunks for the streaming engine (counterpart of
+    ``esr_tpu/data/loader.py:LanePackedChunks``).
+
+    ``lanes`` recordings stream at once, one per lane, ``chunk_windows``
+    consecutive windows per lane stacked into one ``{key: (W, B, ...)}``
+    chunk. Each recording rides one lane in window order; lanes refill only
+    at chunk boundaries (``reset_keep = 0`` there: the engine zeroes that
+    lane's state); a lane whose recording ends mid-chunk is zero-padded with
+    ``valid = 0``; a full chunk looks one window ahead, so a recording whose
+    length is a multiple of ``chunk_windows`` frees its lane at once. Every
+    recording must share one resolution ladder.
+
+    Each chunk: ``windows`` (``inp_scaled (W,B,seqn,h,w,c)``, ``gt``,
+    ``inp_mid``, ``valid (W,B)``), ``activity (W,B)`` (the window's
+    active fraction of 8x8 tiles, 0 on padding; host-side only), ``reset_keep (B,)``
+    and ``meta`` (per lane ``{"recording", "path", "windows"}`` or None).
+    """
+
+    def __init__(self, recordings: Sequence, config: Dict, lanes: int = 4,
+                 chunk_windows: int = 8):
+        if lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        if chunk_windows < 1:
+            raise ValueError(f"chunk_windows must be >= 1, got {chunk_windows}")
+        if not recordings:
+            raise ValueError("empty recording list")
+        self.recordings = list(recordings)
+        self.config = dict(config)
+        self.lanes = int(lanes)
+        self.chunk_windows = int(chunk_windows)
+        self.seqn = int(config["sequence"].get("seqn", 3))
+        probe = ConcatSequenceDataset([self.recordings[0]], self.config)
+        self.inp_resolution = probe.inp_resolution
+        self.gt_resolution = probe.gt_resolution
+
+    def _windows(self, recording) -> Iterator[tuple]:
+        loader = engine_windows(recording, self.config)
+        if (tuple(loader.gt_resolution) != tuple(self.gt_resolution)
+                or tuple(loader.inp_resolution) != tuple(self.inp_resolution)):
+            raise ValueError(
+                f"recording {recording_name(recording)} resolution "
+                f"{loader.inp_resolution}->{loader.gt_resolution} does not match "
+                f"the pack's {self.inp_resolution}->{self.gt_resolution}; "
+                "lane-packing needs a homogeneous datalist (run ragged "
+                "datalists in sequential mode)"
+            )
+        for batch in loader:
+            yield window_tuple(batch, self.seqn)
+
+    def __iter__(self) -> Iterator[Dict]:
+        W, B = self.chunk_windows, self.lanes
+        pending = deque(self.recordings)
+        lanes: List[Optional[Dict]] = [None] * B
+        shapes = None
+        while True:
+            reset_keep = np.ones(B, np.float32)
+            for i in range(B):
+                if lanes[i] is None:
+                    reset_keep[i] = 0.0  # refill or idle: zero the state
+                    if pending:
+                        rec = pending.popleft()
+                        lanes[i] = {"path": rec, "name": recording_name(rec),
+                                    "it": self._windows(rec)}
+            per_lane: List[List[tuple]] = [[] for _ in range(B)]
+            meta: List[Optional[Dict]] = [None] * B
+            for i in range(B):
+                lane = lanes[i]
+                if lane is None:
+                    continue
+                wins = per_lane[i]
+                while len(wins) < W:
+                    if "peek" in lane:
+                        wins.append(lane.pop("peek"))
+                        continue
+                    try:
+                        wins.append(next(lane["it"]))
+                    except StopIteration:
+                        lanes[i] = None  # refilled at the next boundary
+                        break
+                else:
+                    try:
+                        lane["peek"] = next(lane["it"])
+                    except StopIteration:
+                        lanes[i] = None
+                meta[i] = {"recording": lane["name"], "path": lane["path"],
+                           "windows": len(wins)}
+            if sum(len(w) for w in per_lane) == 0:
+                if not pending and all(lane is None for lane in lanes):
+                    return
+                continue  # every assigned recording was empty; refill
+            if shapes is None:
+                shapes = tuple(a.shape for a in next(w[0] for w in per_lane if w))
+            arrays = [np.zeros((W, B) + sh, np.float32) for sh in shapes]
+            valid = np.zeros((W, B), np.float32)
+            activity = np.zeros((W, B), np.float32)
+            for i, wins in enumerate(per_lane):
+                for t, win in enumerate(wins):
+                    for arr, a in zip(arrays, win):
+                        arr[t, i] = a
+                    valid[t, i] = 1.0
+                    activity[t, i] = window_activity(win[0])
+            yield {
+                "windows": {"inp_scaled": arrays[0], "gt": arrays[1],
+                            "inp_mid": arrays[2], "valid": valid},
+                "activity": activity,
+                "reset_keep": reset_keep,
+                "meta": meta,
+            }
+
+
+class DevicePrefetcher:
+    """Stages items of ``source`` on a thread ``depth`` ahead of the
+    consumer: ``stage_fn`` (pinned host copies and non-blocking uploads to
+    the card) runs while the card computes the previous item. Yields
+    ``(item, staged)`` in order; a producer exception re-raises in the
+    consumer; ``close`` (or leaving the ``with`` block) stops the thread.
+    """
+
+    _DONE = object()
+
+    def __init__(self, source, stage_fn: Callable, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self._source = source
+        self._stage = stage_fn
+        self._queue: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._produce, daemon=True,
+                                        name="device-prefetch")
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self) -> None:
+        try:
+            for item in self._source:
+                if self._stop.is_set() or not self._put((item, self._stage(item))):
+                    return
+        except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
+            self._put(e)
+            return
+        self._put(self._DONE)
+
+    def __iter__(self):
+        while True:
+            got = self._queue.get()
+            if got is self._DONE:
+                return
+            if isinstance(got, BaseException):
+                raise got
+            yield got
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def __enter__(self) -> "DevicePrefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -1,5 +1,5 @@
-"""Host-side (numpy) event rasterization and resize (counterpart of
-``esr_tpu/data/np_encodings.py``)."""
+"""Host-side (numpy) event rasterization, resize and tile activity
+(counterpart of ``esr_tpu/data/np_encodings.py``)."""
 
 from __future__ import annotations
 
@@ -40,3 +40,24 @@ def interpolate_np(x: np.ndarray, size: Tuple[int, int], mode: str) -> np.ndarra
     mw = _interp_matrix(w_in, size[1], mode)
     out = np.einsum("oh,hwc->owc", mh, x.astype(np.float32))
     return np.einsum("ow,hwc->hoc", mw, out)
+
+
+def tile_activity_np(counts: np.ndarray, tile: int = 8) -> np.ndarray:
+    """Per-tile activity sums of a ``[H, W, ...]`` count image ->
+    ``[ceil(H/tile), ceil(W/tile)]`` f32; a tile is active iff its sum is
+    ``> 0``."""
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    h, w = counts.shape[0], counts.shape[1]
+    c = counts.reshape(h, w, -1).sum(axis=-1)
+    ht = -(-h // tile)
+    wt = -(-w // tile)
+    c = np.pad(c, ((0, ht * tile - h), (0, wt * tile - w)))
+    return c.reshape(ht, tile, wt, tile).sum(axis=(1, 3)).astype(np.float32)
+
+
+def activity_fraction_np(act: np.ndarray) -> float:
+    """Fraction of active tiles of a :func:`tile_activity_np` map (the
+    statistic ``RequestClass.min_activity`` compares against)."""
+    act = np.asarray(act)
+    return float((act > 0).mean()) if act.size else 0.0

@@ -155,7 +155,8 @@ class H5Recording(Recording):
 
 
 class MemoryRecording(Recording):
-    """In-memory recording (synthetic data, no HDF5 round trip)."""
+    """In-memory recording (synthetic data, no HDF5 round trip); ``name``
+    stands for a file name in reports."""
 
     def __init__(
         self,
@@ -163,7 +164,9 @@ class MemoryRecording(Recording):
         streams: Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]],
         frames: Optional[Sequence[np.ndarray]] = None,
         frame_ts: Optional[Sequence[float]] = None,
+        name: str = "memory",
     ):
+        self.name = name
         self.sensor_resolution = tuple(int(i) for i in sensor_resolution)
         self._streams = {k: EventStream(*v) for k, v in streams.items()}
         self._frames = list(frames) if frames is not None else []
@@ -186,3 +189,11 @@ def open_recording(path_or_recording) -> Recording:
     if isinstance(path_or_recording, (str, os.PathLike)):
         return H5Recording(os.fspath(path_or_recording))
     raise TypeError(f"cannot open recording from {type(path_or_recording)!r}")
+
+
+def recording_name(path_or_recording) -> str:
+    """A recording's name in reports: a path's base name, or the in-memory
+    recording's ``name``."""
+    if isinstance(path_or_recording, (str, os.PathLike)):
+        return os.path.basename(os.fspath(path_or_recording))
+    return str(getattr(path_or_recording, "name", "memory"))

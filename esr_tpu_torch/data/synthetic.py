@@ -20,9 +20,16 @@ def synthesize_streams(
     rungs: Sequence[str] = ("ori", "down2", "down4", "down8", "down16"),
     num_sources: int = 6,
     rng: Optional[np.random.Generator] = None,
+    burst_frac: float = 1.0,
+    burst_events_frac: float = 0.98,
 ) -> Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
     """Event streams per rung: ``base_events`` at the coarsest rung, scaled
-    by factor^2 at finer rungs."""
+    by factor^2 at finer rungs. ``burst_frac < 1`` makes the scene bursty:
+    ``burst_events_frac`` of the events fall in the first ``burst_frac`` of
+    the duration and the rest trail out to its end, so time-mode windows see
+    an active head and a near-idle tail."""
+    if not 0.0 < burst_frac <= 1.0:
+        raise ValueError(f"burst_frac must be in (0, 1], got {burst_frac}")
     rng = rng or np.random.default_rng(0)
     H, W = sensor_resolution
     fmax = max(LADDER[r] for r in rungs)
@@ -34,7 +41,12 @@ def synthesize_streams(
         f = LADDER[rung]
         h, w = round(H / f), round(W / f)
         n = int(base_events * (fmax / f) ** 2)
-        ts = np.sort(rng.random(n)) * duration
+        u = rng.random(n)
+        if burst_frac < 1.0:
+            n_burst = int(n * burst_events_frac)
+            u[:n_burst] *= burst_frac
+            u[n_burst:] = burst_frac + u[n_burst:] * (1.0 - burst_frac)
+        ts = np.sort(u) * duration
         which = rng.integers(0, num_sources, n)
         pos = src_xy[which] + src_v[which] * (ts / duration)[:, None]
         pos += rng.normal(0, 0.02, (n, 2))  # sensor jitter
@@ -53,10 +65,18 @@ def make_synthetic_recording(
     duration: float = 1.0,
     rungs: Sequence[str] = ("ori", "down2", "down4", "down8", "down16"),
     seed: int = 0,
+    burst_frac: float = 1.0,
+    burst_events_frac: float = 0.995,
+    name: Optional[str] = None,
 ) -> MemoryRecording:
+    """The recording the reference's ``write_synthetic_h5`` writes for the
+    same arguments (its streams and frames), kept in memory."""
     rng = np.random.default_rng(seed)
-    streams = synthesize_streams(sensor_resolution, base_events, duration, rungs, rng=rng)
+    streams = synthesize_streams(sensor_resolution, base_events, duration, rungs, rng=rng,
+                                 burst_frac=burst_frac,
+                                 burst_events_frac=burst_events_frac)
     H, W = sensor_resolution
     frames = [(rng.random((H, W)) * 255).astype(np.uint8) for _ in range(num_frames)]
     return MemoryRecording(sensor_resolution, streams, frames,
-                           np.linspace(0, duration, num_frames))
+                           np.linspace(0, duration, num_frames),
+                           name=name or f"synthetic_seed{seed}")

@@ -4,12 +4,14 @@
         --output_path out/ --scale 2 --ori_scale down16 --no_engine [--device cuda]
 
 The checkpoint is a directory with ``params.npz`` and ``config.json``
-(``esr_tpu_torch.inference.checkpoint``). It runs the sequential harness
-(the reference's ``infer.py --no_engine``) on the CUDA card by default;
-``--device cpu`` runs it on the CPU. LPIPS, PNG dumps, the streaming engine
-and the bf16/int8 rungs are not ported yet and raise when asked for, by a
-flag or by the checkpoint's config. The flagship config sets
-``inference.engine: true``; ``--no_engine`` runs such a checkpoint.
+(``esr_tpu_torch.inference.checkpoint``). It runs on the CUDA card by
+default; ``--device cpu`` runs it on the CPU. ``--engine`` (or, without
+``--engine``/``--no_engine``, the checkpoint's ``inference.engine``, which
+the flagship config sets) streams the datalist through the batched
+streaming engine at ``--lanes`` x ``--chunk_windows`` (default: the
+checkpoint's ``inference`` block, else 4 x 8); ``--no_engine`` runs the
+sequential harness. LPIPS, PNG dumps and the bf16/int8 rungs are not ported
+yet and raise when asked for, by a flag or by the checkpoint's config.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--lpips_lins", type=str, default=None)
     p.add_argument("--allow_uncalibrated_lpips", action="store_true")
     p.add_argument("--engine", dest="engine", action="store_true", default=None,
-                   help="batched streaming engine (not ported yet: raises)")
+                   help="batched streaming engine (default: the checkpoint's "
+                        "inference.engine)")
     p.add_argument("--no_engine", dest="engine", action="store_false")
     p.add_argument("--lanes", type=int, default=None, help="engine mode only")
     p.add_argument("--chunk_windows", type=int, default=None, help="engine mode only")
@@ -96,6 +99,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     mean = run_inference(
         flags.model_path, data_list, flags.output_path, dataset_config,
         engine=flags.engine, precision=flags.precision, device=flags.device,
+        lanes=flags.lanes, chunk_windows=flags.chunk_windows,
     )
     print(json.dumps({k: round(v, 6) for k, v in mean.items()}))
     return mean

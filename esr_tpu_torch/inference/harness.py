@@ -11,11 +11,15 @@
 - The per-recording ``inference.yml`` and the datalist ``inference_all.yml``
   keep the reference's schema.
 
-Not in this slice (each raises ``NotImplementedError``): LPIPS, PNG dumps,
-the batched streaming engine, and the bf16/int8 precision rungs, whether
-asked for by argument or by the checkpoint's config. A config with
-``inference.engine: true`` (the flagship's) needs ``engine=False``
-(``--no_engine``), as the reference's sequential harness does.
+:func:`run_inference` routes a datalist through the batched
+:class:`esr_tpu_torch.inference.engine.StreamingEngine` when ``engine`` is
+true, or when it is None and the checkpoint's ``inference.engine`` is
+(the flagship's); ``lanes`` and ``chunk_windows`` default to the same
+block, else 4 and 8. The reports and their schema are the same.
+
+Not in this slice (each raises ``NotImplementedError``): LPIPS, PNG dumps
+and the bf16/int8 precision rungs, whether asked for by argument or by the
+checkpoint's config.
 """
 
 from __future__ import annotations
@@ -219,30 +223,28 @@ def run_inference(
     engine: Optional[bool] = None,
     precision: Optional[str] = None,
     device: DeviceLike = None,
+    lanes: Optional[int] = None,
+    chunk_windows: Optional[int] = None,
 ) -> Dict[str, float]:
     """Checkpoint -> model, datalist -> per-recording + mean reports under
-    ``output_path``. Returns the datalist-mean metrics."""
+    ``output_path``, through the sequential harness or the streaming engine
+    (module docstring). Returns the datalist-mean metrics."""
     from esr_tpu_torch.inference.checkpoint import load_checkpoint
 
     if lpips_backbone_npz is not None or allow_uncalibrated_lpips:
         raise NotImplementedError("LPIPS is not ported yet (a later slice)")
-    if engine:
-        raise NotImplementedError(
-            "the batched streaming engine is not ported yet (it comes with "
-            "serving); the port runs the sequential harness"
-        )
     model, config = load_checkpoint(checkpoint_path)
     precision = precision or (config.get("trainer") or {}).get("precision") or "f32"
     if precision != "f32":
         raise NotImplementedError(
             f"precision {precision!r} is not ported yet; the port runs f32"
         )
-    if engine is None and (config.get("inference") or {}).get("engine", False):
-        raise NotImplementedError(
-            "the checkpoint config asks for the batched streaming engine "
-            "(inference.engine), which is not ported yet; pass --no_engine "
-            "(engine=False) to run the sequential harness"
-        )
+    inf_cfg = config.get("inference") or {}
+    if engine is None:
+        engine = bool(inf_cfg.get("engine", False))
+    lanes = int(inf_cfg.get("lanes", 4) if lanes is None else lanes)
+    chunk_windows = int(inf_cfg.get("chunk_windows", 8) if chunk_windows is None
+                        else chunk_windows)
     if dataset_config is None:
         dataset_config = config["valid_dataloader"]["dataset"]
     seqn = int(dataset_config["sequence"].get("seqn", 3))
@@ -250,16 +252,28 @@ def run_inference(
     if ck_seqn != seqn:
         raise ValueError(f"checkpoint num_frame={ck_seqn} != dataloader seqn={seqn}")
 
-    runner = InferenceRunner(model, seqn, device=device)
     os.makedirs(output_path, exist_ok=True)
-    results, names = [], []
-    for data_path in data_list:
-        name = os.path.basename(data_path)
-        logger.info("processing %s", data_path)
-        results.append(runner.run_recording(
-            data_path, dataset_config, os.path.join(output_path, name)
-        ))
-        names.append(name)
+    if engine:
+        if save_images:
+            raise NotImplementedError("PNG dumps are not ported yet")
+        from esr_tpu_torch.inference.engine import StreamingEngine
+
+        eng = StreamingEngine(model, seqn, lanes=lanes, chunk_windows=chunk_windows,
+                              device=device)
+        results, names = eng.run_datalist(data_list, dataset_config)
+        for result, name, data_path in zip(results, names, data_list):
+            _write_recording_report(os.path.join(output_path, name), str(data_path),
+                                    dataset_config, result)
+    else:
+        runner = InferenceRunner(model, seqn, device=device)
+        results, names = [], []
+        for data_path in data_list:
+            name = os.path.basename(data_path)
+            logger.info("processing %s", data_path)
+            results.append(runner.run_recording(
+                data_path, dataset_config, os.path.join(output_path, name)
+            ))
+            names.append(name)
     breakdown, mean = aggregate_results(results, names)
     with YamlLogger(os.path.join(output_path, "inference_all.yml")) as yl:
         yl.log_info(f"inference {checkpoint_path} on {list(data_list)}")

@@ -21,6 +21,13 @@ PyTorch version in both directions. Nothing the model is built from
 (constructor arguments, a checkpoint's ``model.args``) can route a CUDA run
 off the kernels: only code that sets ``STFusion.dcn_impl = "plain"`` can,
 which the tests and ``chip_smoke.py`` alone do.
+
+``dcn_sparse`` (a ``model.args`` key, as in the reference) predicates the
+DCN on activity: each call passes the mask of
+:func:`esr_tpu_torch.ops.dcn.dcn_image_activity` (OR'd with the caller's
+optional ``activity [B]``), so the masked kernels ``dcn_fwd_masked`` /
+``dcn_train_fwd_masked`` run in place of the dense forwards. It has no
+parameters.
 """
 
 from __future__ import annotations
@@ -119,13 +126,14 @@ class STFusion(nn.Module):
 
     def __init__(self, channels: int, num_frame: int = 3,
                  norm: Optional[str] = None, activation: str = "relu",
-                 deformable_groups: int = 8):
+                 deformable_groups: int = 8, dcn_sparse: bool = False):
         super().__init__()
         if (num_frame + 1) % 2 or num_frame < 3:
             raise ValueError(f"num_frame must be odd and >= 3, got {num_frame}")
         c = channels
         self.num_frame = num_frame
         self.deformable_groups = deformable_groups
+        self.dcn_sparse = dcn_sparse
         # "plain" forces the plain PyTorch DCN; set only by the tests and
         # chip_smoke.py to hold the kernel path against it
         self.dcn_impl = "auto"
@@ -164,7 +172,8 @@ class STFusion(nn.Module):
     def mid_idx(self) -> int:
         return (self.num_frame - 1) // 2
 
-    def _fuse(self, feat0: torch.Tensor, feat1: torch.Tensor) -> torch.Tensor:
+    def _fuse(self, feat0: torch.Tensor, feat1: torch.Tensor,
+              activity: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Deformable-align ``feat0`` to ``feat1`` and gate-fuse."""
         c = feat0.shape[1]
         raw = self.dcn_offset_mask(self.offset_conv(torch.cat([feat0, feat1], 1)))
@@ -174,6 +183,7 @@ class STFusion(nn.Module):
         aligned = deform_conv2d_auto(
             feat0.permute(0, 2, 3, 1).contiguous(), offsets, mask,
             self.dcn_weight, self.dcn_bias, impl=self.dcn_impl,
+            sparse=self.dcn_sparse, activity=activity,
         )
         aligned = torch.relu(aligned).permute(0, 3, 1, 2)
         feat = self.post_dcn(torch.cat([aligned, feat1], 1))
@@ -184,20 +194,23 @@ class STFusion(nn.Module):
         y1 = feat1 * sk[:, 1:2] * ck[:, c:]
         return self.dcn_fusion(torch.cat([y0, y1], 1))
 
-    def _dense_fuse(self, x: torch.Tensor) -> torch.Tensor:
+    def _dense_fuse(self, x: torch.Tensor,
+                    activity: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Align every non-middle frame to the middle one, then fuse."""
         n = x.shape[1]
-        outs = [self._fuse(x[:, i], x[:, self.mid_idx])
+        outs = [self._fuse(x[:, i], x[:, self.mid_idx], activity)
                 for i in range(n) if i != self.mid_idx]
         outs.append(x[:, self.mid_idx])
         return self.dense_fusion(torch.cat(outs, 1))
 
-    def forward(self, x: torch.Tensor, feats_list: Sequence[torch.Tensor]) -> torch.Tensor:
-        """``x [B, N, C, H, W]``; ``feats_list[i] [B*N, C/2^i, 2^i H, 2^i W]``."""
+    def forward(self, x: torch.Tensor, feats_list: Sequence[torch.Tensor],
+                activity: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x [B, N, C, H, W]``; ``feats_list[i] [B*N, C/2^i, 2^i H, 2^i W]``;
+        ``activity [B]`` (optional) vetoes skipping when ``dcn_sparse``."""
         b, n = x.shape[:2]
         if n != self.num_frame:
             raise ValueError(f"expected {self.num_frame} frames, got {n}")
-        out = self._dense_fuse(x)
+        out = self._dense_fuse(x, activity)
         for idx, feats in enumerate(feats_list):
             # attention-weighted mean of the frames' skip features, then x2
             agg = (feats * self.atten[idx](feats)).reshape(
@@ -209,11 +222,12 @@ class STFusion(nn.Module):
 class DeepRecurrNet(nn.Module):
     """The ESR network. ``forward(x [B, N, H, W, inch], states) ->
     (out [B, H, W, inch], states)``; create states with :meth:`init_states`
-    and reset them per recording."""
+    and reset them per recording. ``dcn_sparse`` predicates the DCN on
+    activity (module docstring)."""
 
     def __init__(self, inch: int = 2, basech: int = 16, num_frame: int = 3,
                  norm: Optional[str] = None, activation: str = "relu",
-                 down_scale: int = 8):
+                 down_scale: int = 8, dcn_sparse: bool = False):
         super().__init__()
         c = down_scale * basech
         self.inch = inch
@@ -223,7 +237,8 @@ class DeepRecurrNet(nn.Module):
         self.head = ConvLayer(inch, basech, 3, padding=1, activation=activation, norm=norm)
         self.feat_extract = FeatsExtract(basech, norm, activation)
         self.time_propagate = TimePropagation(c, norm, activation)
-        self.spacetime_fuse = STFusion(c, num_frame, norm, activation)
+        self.spacetime_fuse = STFusion(c, num_frame, norm, activation,
+                                       dcn_sparse=dcn_sparse)
         self.tail = ConvLayer(basech, inch, 3, padding=1, activation="relu", norm=norm)
 
     def init_states(self, batch: int, height: int, width: int,
@@ -236,7 +251,8 @@ class DeepRecurrNet(nn.Module):
         z = torch.zeros(shape, dtype=torch.float32, device=device)
         return (z, z.clone())
 
-    def forward(self, x: torch.Tensor, states: States) -> Tuple[torch.Tensor, States]:
+    def forward(self, x: torch.Tensor, states: States,
+                activity: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, States]:
         b, n, h, w, cin = x.shape
         spec = model_util.compute_pad(h, w, self.down_scale, self.down_scale)
         need_crop = (spec.padded_height, spec.padded_width) != (h, w)
@@ -250,7 +266,7 @@ class DeepRecurrNet(nn.Module):
         seq = bottleneck.reshape(b, n, *bottleneck.shape[1:])
         nchw_states = tuple(s.permute(0, 3, 1, 2) for s in states)
         seq, (sf, sb) = self.time_propagate(seq, nchw_states)
-        out = self.tail(self.spacetime_fuse(seq, feats_list))
+        out = self.tail(self.spacetime_fuse(seq, feats_list, activity))
         out = out.permute(0, 2, 3, 1)
         if need_crop:
             out = model_util.crop_image(out, spec, scale=1)

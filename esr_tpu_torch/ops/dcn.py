@@ -25,11 +25,24 @@ direction (on the card the ``torch.autograd.Function`` that launches
 the CPU this plain version under autograd); otherwise the forward kernel
 ``dcn_fwd`` (on the CPU, this plain version). ``impl='plain'`` forces the
 plain version in both directions, for the tests and ``chip_smoke.py`` only.
+
+Activity masking (the reference's ``dcn_sparse``, ``esr_tpu/ops/
+dcn.py:252-265`` and ``dcn_pallas.py:388-422``): a ``tile_mask`` of
+``[B]`` per-image or ``[B, n_tiles]`` per-output-tile activity marks which
+(image, output tile) pairs are computed; an inactive one gives zeros before
+the bias. The tiles are the reference kernels' own (:func:`fwd_tiling`,
+:func:`train_tiling`), so an explicit ``[B, n_tiles]`` mask means the same
+output pixels as there. :func:`deform_conv2d_masked` is the plain version;
+on the card the masked kernels ``dcn_fwd_masked`` and
+``dcn_train_fwd_masked`` run (the backward stays dense). With ``sparse``,
+:func:`deform_conv2d_auto` derives the mask from the input
+(:func:`dcn_image_activity`: an all-zero image is inactive, a NaN image
+active), OR'd with the caller's ``activity``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -132,6 +145,91 @@ def deform_conv2d_backward(
     return (*grads, g.sum(dim=(0, 1, 2)))
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def train_tiling(hw: int, no: int) -> Tuple[int, int]:
+    """``(no_tile, n_tiles)`` of the reference's train-direction kernel
+    (``esr_tpu/ops/dcn_pallas.py:_tiling``): ``hw`` input and ``no`` output
+    pixels per image."""
+    hw_pad = _round_up(hw, 128)
+    cap = 512 if hw_pad <= 1024 else (256 if hw_pad <= 4096 else 128)
+    no_tile = min(cap, _round_up(no, 128))
+    return no_tile, _round_up(no, no_tile) // no_tile
+
+
+def fwd_tiling(h: int, w: int, no: int) -> Tuple[int, int]:
+    """``(no_tile, n_tiles)`` of the reference's forward kernel
+    (``dcn_pallas.py:_fwd_tiling``): rows padded to 8, columns to 128."""
+    return train_tiling(_round_up(h, 8) * _round_up(w, 128), no)
+
+
+def output_tiling(x: torch.Tensor, offsets: torch.Tensor, direction: str) -> Tuple[int, int]:
+    """``(no_tile, n_tiles)`` for a call in ``direction`` ('fwd' or 'train')."""
+    _, h, w, _ = x.shape
+    no = offsets.shape[1] * offsets.shape[2]
+    if direction == "fwd":
+        return fwd_tiling(h, w, no)
+    if direction == "train":
+        return train_tiling(h * w, no)
+    raise ValueError(f"unknown DCN direction {direction!r} (use 'fwd' or 'train')")
+
+
+def tile_mask_grid(tile_mask: torch.Tensor, b: int, n_tiles: int) -> torch.Tensor:
+    """A ``[B]`` or ``[B, n_tiles]`` activity mask as the kernels' int32
+    ``[b, n_tiles]`` bitmap (``> 0`` is active; ``[B]`` covers every tile)."""
+    am = torch.as_tensor(tile_mask)
+    if am.dim() == 1:
+        am = am[:, None].expand(am.shape[0], n_tiles)
+    if tuple(am.shape) != (b, n_tiles):
+        raise ValueError(
+            f"tile_mask shape {tuple(am.shape)} does not match the kernel grid "
+            f"({b}, {n_tiles}); pass [B] per-image activity or the exact "
+            f"[B, n_tiles] per-output-tile bitmap"
+        )
+    return (am > 0).to(torch.int32).contiguous()
+
+
+def dcn_image_activity(x: torch.Tensor) -> torch.Tensor:
+    """``[B]`` f32: 1.0 where any value of the image is nonzero. A NaN
+    image counts as active, so its NaN output is never replaced by zeros."""
+    # max |x| is >= 0 or NaN: "> 0 or NaN" is "!= 0"
+    return (x.abs().flatten(1).amax(dim=1) != 0).to(torch.float32)
+
+
+def deform_conv2d_masked(
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    tile_mask: torch.Tensor,
+    stride: int = 1,
+    padding: int = 1,
+    dilation: int = 1,
+    direction: str = "fwd",
+) -> torch.Tensor:
+    """Plain masked DCNv2: :func:`deform_conv2d` with the output pixels of
+    inactive (image, tile) pairs set to 0 before the bias."""
+    b, ho, wo = offsets.shape[:3]
+    no_tile, n_tiles = output_tiling(x, offsets, direction)
+    am = tile_mask_grid(tile_mask.to(x.device), b, n_tiles)
+    pix = torch.arange(ho * wo, device=x.device) // no_tile
+    active = (am[:, pix] > 0).reshape(b, ho, wo, 1)
+    out = deform_conv2d(x, offsets, mask, weight, None, stride, padding, dilation)
+    out = torch.where(active, out, torch.zeros_like(out))
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def wants_grad(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
+    """The train direction: grad mode on and an input that requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def deform_conv2d_auto(
     x: torch.Tensor,
     offsets: torch.Tensor,
@@ -142,18 +240,33 @@ def deform_conv2d_auto(
     padding: int = 1,
     dilation: int = 1,
     impl: str = "auto",
+    sparse: bool = False,
+    activity: Optional[torch.Tensor] = None,
+    tile_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The model's DCN call. ``impl='auto'`` is ``dcn_cuda.dcn``, which
     decides the direction and, through the kernel wrappers, the device;
     ``impl='plain'`` forces the plain version (tests and the on-card
-    comparison only)."""
+    comparison only). ``tile_mask`` is passed through as given; else, with
+    ``sparse``, the mask is :func:`dcn_image_activity` OR'd with
+    ``activity`` (``[B]``): a tile is skipped only when both call it idle."""
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown DCN impl {impl!r} (use 'auto' or 'plain')")
+    tm = tile_mask
+    if tm is None and sparse:
+        tm = dcn_image_activity(x)
+        if activity is not None:
+            tm = torch.maximum(tm, (activity.reshape(-1) > 0).to(tm))
     if impl == "auto":
         from esr_tpu_torch.ops.dcn_cuda import dcn
 
-        return dcn(x, offsets, mask, weight, bias, stride, padding, dilation)
-    if impl == "plain":
+        return dcn(x, offsets, mask, weight, bias, stride, padding, dilation,
+                   tile_mask=tm)
+    if tm is None:
         return deform_conv2d(x, offsets, mask, weight, bias, stride, padding, dilation)
-    raise ValueError(f"unknown DCN impl {impl!r} (use 'auto' or 'plain')")
+    direction = "train" if wants_grad([x, offsets, mask, weight, bias]) else "fwd"
+    return deform_conv2d_masked(x, offsets, mask, weight, bias, tm, stride, padding,
+                                dilation, direction)
 
 
 def dcn_offsets_from_conv(

@@ -8,15 +8,20 @@ headers and the flags, so a changed source never meets a stale build) and
 bound with ``ctypes``:
 
 - ``dcn_fwd.cu``: :data:`dcn_fwd`, the forward kernel, which replaces the
-  TPU kernel ``esr_tpu/ops/dcn_pallas.py:_dcn_fwd_kernel``;
-- ``dcn_train.cu``: :data:`dcn_train_fwd` (replaces ``_dcn_kernel``) and the
-  two backward kernels :data:`dcn_bwd` (``gx``, ``goffsets``, ``gmask``) and
+  TPU kernel ``esr_tpu/ops/dcn_pallas.py:_dcn_fwd_kernel``, and
+  :data:`dcn_fwd_masked`, its activity-predicated twin
+  (``_dcn_fwd_kernel_masked``);
+- ``dcn_train.cu``: :data:`dcn_train_fwd` (replaces ``_dcn_kernel``),
+  :data:`dcn_train_fwd_masked` (``_dcn_kernel_masked``) and the two
+  backward kernels :data:`dcn_bwd` (``gx``, ``goffsets``, ``gmask``) and
   :data:`dcn_wgrad` (``gW``), which together replace ``_dcn_bwd_kernel``.
 
-``dcn_fwd`` and ``dcn_train_fwd`` compute the same output and run the same
-device code (``dcn_common.cuh``), sized by the same rule
-(:meth:`DcnFwdKernel._tile_rows`); each has its own entry point and launch
-count.
+The four forward wrappers compute the same output and run the same device
+code (``dcn_common.cuh``, the masked ones with ``kMasked``), sized by the
+same rule (:meth:`DcnFwdKernel._tile_rows`); each has its own entry point
+and launch count. The masked ones take the activity mask of
+``esr_tpu_torch.ops.dcn`` (``[B]`` or ``[B, n_tiles]``, the tiles of
+``fwd_tiling`` or ``train_tiling``) and pass it as an int32 bitmap.
 
 Nothing is imported or built when this module is imported; :func:`build`
 starts every ``nvcc`` at once.
@@ -35,7 +40,9 @@ train direction runs — on CUDA tensors the ``torch.autograd.Function``
 backward launches ``dcn_bwd`` and ``dcn_wgrad`` (``gbias`` is a sum of the
 cotangent, outside the kernels as in the reference); on CPU tensors the
 plain version under autograd. Otherwise the forward direction runs:
-``dcn_fwd``.
+``dcn_fwd``. With a ``tile_mask`` the masked forwards run in their place
+(``dcn_fwd_masked``; ``dcn_train_fwd_masked`` in ``DcnTrain.forward``,
+whose backward stays the dense pair, as in the reference).
 """
 
 from __future__ import annotations
@@ -154,15 +161,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     lib.dcn_fwd_f32.argtypes = [_P] * 6 + [_I] * 14 + [_P]
     lib.dcn_fwd_f32.restype = _I
+    lib.dcn_fwd_masked_f32.argtypes = [_P] * 7 + [_I] * 16 + [_P]
+    lib.dcn_fwd_masked_f32.restype = _I
     lib.dcn_fwd_threads.restype = _I
     lib.dcn_fwd_acc_per_thread.restype = _I
 
 
 def _declare_train(lib: ctypes.CDLL) -> None:
     lib.dcn_train_fwd_f32.argtypes = [_P] * 6 + [_I] * 14 + [_P]
+    lib.dcn_train_fwd_masked_f32.argtypes = [_P] * 7 + [_I] * 16 + [_P]
     lib.dcn_bwd_pixel_f32.argtypes = [_P] * 8 + [_I] * 14 + [_P]
     lib.dcn_wgrad_f32.argtypes = [_P] * 5 + [_I] * 15 + [_P]
-    for fn in (lib.dcn_train_fwd_f32, lib.dcn_bwd_pixel_f32, lib.dcn_wgrad_f32,
+    for fn in (lib.dcn_train_fwd_f32, lib.dcn_train_fwd_masked_f32,
+               lib.dcn_bwd_pixel_f32, lib.dcn_wgrad_f32,
                lib.dcn_train_threads, lib.dcn_train_rows_per_tile,
                lib.dcn_train_fwd_acc, lib.dcn_train_wgrad_acc,
                lib.dcn_train_bwd_max_cg):
@@ -182,11 +193,6 @@ def build() -> None:
         lib.load()
 
 
-def _wants_grad(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
 def _check_cuda(name: str, tensors: Sequence[torch.Tensor]) -> None:
     """Device, type, layout, size and autograd checks of a CUDA launch."""
     if any(t.device.type != "cuda" for t in tensors):
@@ -199,7 +205,7 @@ def _check_cuda(name: str, tensors: Sequence[torch.Tensor]) -> None:
             raise ValueError(f"{name} kernel takes contiguous tensors")
     if max(t.numel() for t in tensors) >= 2**31:
         raise ValueError(f"{name} kernel indexes with 32-bit ints; input too large")
-    if _wants_grad(tensors):
+    if _plain.wants_grad(tensors):
         raise RuntimeError(
             f"{name}: inputs require grad, but the kernel's output would have "
             "no grad_fn; call esr_tpu_torch.ops.dcn_cuda.dcn, which routes "
@@ -248,6 +254,8 @@ class DcnFwdKernel:
     library = FWD_LIBRARY
     name = "dcn_fwd"
     entry = "dcn_fwd_f32"
+    # None: dense; else the direction whose tiles the activity mask marks
+    masked_direction: Optional[str] = None
     # the least grid worth a smaller tile: 1.5 blocks per SM of the H100 (132)
     _TARGET_BLOCKS = 198
 
@@ -277,9 +285,16 @@ class DcnFwdKernel:
         return lib.dcn_fwd_threads(), lib.dcn_fwd_acc_per_thread()
 
     def __call__(self, x, offsets, mask, weight, bias=None, stride=1, padding=1,
-                 dilation=1) -> torch.Tensor:
+                 dilation=1, tile_mask=None) -> torch.Tensor:
+        masked = self.masked_direction is not None
+        if masked != (tile_mask is not None):
+            raise ValueError(f"{self.name} {'needs' if masked else 'takes no'} tile_mask")
         tensors = [x, offsets, mask, weight] + ([bias] if bias is not None else [])
-        if _same_device(tensors).type == "cpu":
+        if _same_device(tensors + ([tile_mask] if masked else [])).type == "cpu":
+            if masked:
+                return _plain.deform_conv2d_masked(
+                    x, offsets, mask, weight, bias, tile_mask, stride, padding,
+                    dilation, self.masked_direction)
             return _plain.deform_conv2d(
                 x, offsets, mask, weight, bias, stride, padding, dilation
             )
@@ -288,6 +303,11 @@ class DcnFwdKernel:
             x, offsets, mask, tuple(weight.shape), bias)
         if b * ho * wo * cout >= 2**31:
             raise ValueError(f"{self.name} kernel indexes with 32-bit ints; input too large")
+        activity = []
+        if masked:
+            no_tile, n_tiles = _plain.output_tiling(x, offsets, self.masked_direction)
+            am = _plain.tile_mask_grid(tile_mask, b, n_tiles)
+            activity = [am.data_ptr()]
         lib = self.library.load()
         tile = self._tile_rows(b * ho * wo, cout, kh * kw * (cin // dg), *self._geometry(lib))
         out = torch.empty((b, ho, wo, cout), dtype=torch.float32, device=x.device)
@@ -296,10 +316,20 @@ class DcnFwdKernel:
         _launch(self.name, getattr(lib, self.entry), x.device,
                 x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                 bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                b, h, w, cin, ho, wo, cout, dg, kh, kw, stride, padding,
-                dilation, tile)
+                *activity, b, h, w, cin, ho, wo, cout, dg, kh, kw, stride, padding,
+                dilation, tile, *([n_tiles, no_tile] if masked else []))
         self.launches += 1
         return out
+
+
+class DcnFwdMaskedKernel(DcnFwdKernel):
+    """The forward body predicated on activity (``kMasked``) through
+    ``dcn_fwd_masked_f32``; its plain version is
+    :func:`esr_tpu_torch.ops.dcn.deform_conv2d_masked` ('fwd' tiles)."""
+
+    name = "dcn_fwd_masked"
+    entry = "dcn_fwd_masked_f32"
+    masked_direction = "fwd"
 
 
 class DcnTrainFwdKernel(DcnFwdKernel):
@@ -314,6 +344,16 @@ class DcnTrainFwdKernel(DcnFwdKernel):
 
     def _geometry(self, lib) -> Tuple[int, int]:
         return lib.dcn_train_threads(), lib.dcn_train_fwd_acc()
+
+
+class DcnTrainFwdMaskedKernel(DcnTrainFwdKernel):
+    """The train direction's forward predicated on activity, through
+    ``dcn_train_fwd_masked_f32``, launched only from :class:`DcnTrain`; its
+    plain version is ``deform_conv2d_masked`` ('train' tiles)."""
+
+    name = "dcn_train_fwd_masked"
+    entry = "dcn_train_fwd_masked_f32"
+    masked_direction = "train"
 
 
 class _TrainKernel:
@@ -430,20 +470,28 @@ dcn_fwd = DcnFwdKernel()
 dcn_train_fwd = DcnTrainFwdKernel()
 dcn_bwd = DcnBwdKernel()
 dcn_wgrad = DcnWgradKernel()
-KERNELS = (dcn_fwd, dcn_train_fwd, dcn_bwd, dcn_wgrad)
+dcn_fwd_masked = DcnFwdMaskedKernel()
+dcn_train_fwd_masked = DcnTrainFwdMaskedKernel()
+KERNELS = (dcn_fwd, dcn_train_fwd, dcn_bwd, dcn_wgrad, dcn_fwd_masked,
+           dcn_train_fwd_masked)
 
 
 class DcnTrain(torch.autograd.Function):
-    """The train direction on CUDA tensors: ``dcn_train_fwd`` forward,
-    ``dcn_bwd`` + ``dcn_wgrad`` backward (the counterpart of the
-    reference's ``jax.custom_vjp`` at ``dcn_pallas.py:1190-1191,1445``)."""
+    """The train direction on CUDA tensors: ``dcn_train_fwd`` forward
+    (``dcn_train_fwd_masked`` with a ``tile_mask``), ``dcn_bwd`` +
+    ``dcn_wgrad`` backward, dense either way (the counterpart of the
+    reference's ``jax.custom_vjp`` at ``dcn_pallas.py:1190-1191,1413-1418``)."""
 
     @staticmethod
-    def forward(ctx, x, offsets, mask, weight, bias, stride, padding, dilation):
+    def forward(ctx, x, offsets, mask, weight, bias, stride, padding, dilation,
+                tile_mask=None):
         ctx.save_for_backward(x, offsets, mask, weight)
         ctx.geom = (stride, padding, dilation)
         ctx.has_bias = bias is not None
-        return dcn_train_fwd(x, offsets, mask, weight, bias, stride, padding, dilation)
+        if tile_mask is None:
+            return dcn_train_fwd(x, offsets, mask, weight, bias, stride, padding, dilation)
+        return dcn_train_fwd_masked(x, offsets, mask, weight, bias, stride, padding,
+                                    dilation, tile_mask=tile_mask)
 
     @staticmethod
     @once_differentiable
@@ -458,19 +506,29 @@ class DcnTrain(torch.autograd.Function):
             gw = dcn_wgrad(x, offsets, mask, weight.shape, g, *ctx.geom)
         if ctx.has_bias and need[4]:
             gb = g.sum(dim=(0, 1, 2))
-        return gx, goff, gmask, gw, gb, None, None, None
+        return gx, goff, gmask, gw, gb, None, None, None, None
 
 
 def dcn(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
         weight: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 1,
-        padding: int = 1, dilation: int = 1) -> torch.Tensor:
-    """The model's DCN; the direction is decided here (module docstring)."""
-    if not _wants_grad([x, offsets, mask, weight, bias]):
-        return dcn_fwd(x, offsets, mask, weight, bias, stride, padding, dilation)
+        padding: int = 1, dilation: int = 1,
+        tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The model's DCN; the direction is decided here (module docstring).
+    ``tile_mask`` (``[B]`` or ``[B, n_tiles]``) selects the masked forwards;
+    ``None`` keeps the dense launches."""
+    if not _plain.wants_grad([x, offsets, mask, weight, bias]):
+        if tile_mask is None:
+            return dcn_fwd(x, offsets, mask, weight, bias, stride, padding, dilation)
+        return dcn_fwd_masked(x, offsets, mask, weight, bias, stride, padding, dilation,
+                              tile_mask=tile_mask)
     if _same_device([x, offsets, mask, weight]).type == "cpu":
-        return _plain.deform_conv2d(x, offsets, mask, weight, bias, stride, padding,
-                                    dilation)
-    return DcnTrain.apply(x, offsets, mask, weight, bias, stride, padding, dilation)
+        if tile_mask is None:
+            return _plain.deform_conv2d(x, offsets, mask, weight, bias, stride,
+                                        padding, dilation)
+        return _plain.deform_conv2d_masked(x, offsets, mask, weight, bias, tile_mask,
+                                           stride, padding, dilation, "train")
+    return DcnTrain.apply(x, offsets, mask, weight, bias, stride, padding, dilation,
+                          tile_mask)
 
 
 def reset_launches() -> None:

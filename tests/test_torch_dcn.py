@@ -2,6 +2,8 @@
 against the jnp reference and against the Pallas kernels run in interpret
 mode; the direction dispatch and the CUDA kernels' wrappers on CPU
 tensors; the kernels themselves, and gradients through them, on a card.
+The activity-masked DCN (``dcn_sparse``) against the reference's masked
+kernels, to 1e-5 of max |ref| and exactly on masked-off rows.
 
 Bound: the reference's scale-normalized criterion (``dcn_parity_ok``
 off-TPU), max|a - b| <= 1e-3 * max(max|ref|, 1), per output and per
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from esr_tpu.ops import dcn as JD
+from esr_tpu.ops.dcn_pallas import _tile_mask_grid as JD_tile_mask_grid
+from esr_tpu.ops.dcn_pallas import dcn_image_activity as JD_activity
 from esr_tpu.ops.dcn_pallas import deform_conv2d_pallas, deform_conv2d_pallas_fwd
 from esr_tpu_torch.ops import dcn as TD
 from esr_tpu_torch.ops import dcn_cuda
@@ -251,7 +255,7 @@ def test_cpu_train_direction_is_the_plain_version_under_autograd():
         np.testing.assert_array_equal(a.numpy(), r.numpy())
     with torch.no_grad():
         assert dcn_cuda.dcn(**leaves, **geom).grad_fn is None
-    assert [k.launches for k in dcn_cuda.KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in dcn_cuda.KERNELS] == [0, 0, 0, 0, 0, 0]
 
 
 @pytest.mark.gpu
@@ -271,7 +275,7 @@ def test_autograd_through_the_kernels_on_card(cuda_device):
         torch.cuda.synchronize()
         if path == "kernel":
             assert out.grad_fn is not None
-            assert [k.launches for k in dcn_cuda.KERNELS] == [0, 1, 1, 1]
+            assert [k.launches for k in dcn_cuda.KERNELS] == [0, 1, 1, 1, 0, 0]
         grads[path] = {k: v.grad for k, v in leaves.items()}
     for k, ref in grads["plain"].items():
         assert grads["kernel"][k] is not None, k
@@ -297,3 +301,130 @@ def test_train_kernels_match_plain_on_card(cuda_device, dg, h, w):
     _check(out.cpu().numpy(), TD.deform_conv2d(**inp).cpu().numpy())
     for a, r in zip((gx, goff, gmask, gw), ref):
         _check(a.cpu().numpy(), r.cpu().numpy())
+
+
+# -- activity masking (dcn_sparse) -----------------------------------------
+
+MASK_TOL = 1e-5  # masked DCN vs the reference's masked kernels, of max |ref|
+
+
+def _masked_case(case, b=3, h=7, w=9):
+    """Inputs with image 1 all zero (a truthful inactive image), or with a
+    NaN in image 0 (the case ``dcn_image_activity`` keeps active)."""
+    inp = _inputs(21, b, h, w, 8, 8, 2, with_bias=True)
+    inp["x"][1] = 0.0
+    if case == "nan_image":
+        inp["x"][0, 2, 3, 1] = np.nan
+    return inp
+
+
+def _ref_masked(direction, inp, tm):
+    fn = deform_conv2d_pallas_fwd if direction == "fwd" else deform_conv2d_pallas
+    j = [jnp.asarray(inp[k]) for k in ("x", "offsets", "mask", "weight", "bias")]
+    return np.asarray(fn(*j, 1, 1, 1, True, jnp.asarray(tm)))
+
+
+@pytest.mark.parametrize("direction", ["fwd", "train"])
+@pytest.mark.parametrize("form", ["per_image", "per_tile"])
+@pytest.mark.parametrize("case", ["zero_image", "nan_image"])
+def test_masked_plain_matches_pallas_masked_kernels(direction, form, case):
+    """``deform_conv2d_masked`` (and ``deform_conv2d_auto(sparse=True)``)
+    against ``deform_conv2d_pallas_fwd`` / ``deform_conv2d_pallas`` with a
+    ``tile_mask``, in interpret mode: masked-off rows are exactly the bias,
+    the rest within 1e-5 of max |ref|; a NaN image stays NaN."""
+    inp = _masked_case(case)
+    t = _torch(inp)
+    act = TD.dcn_image_activity(t["x"])
+    np.testing.assert_array_equal(act.numpy(), np.asarray(JD_activity(jnp.asarray(inp["x"]))))
+    _, n_tiles = TD.output_tiling(t["x"], t["offsets"], direction)
+    tm = act.numpy() if form == "per_image" else np.repeat(act.numpy()[:, None], n_tiles, 1)
+    ref = _ref_masked(direction, inp, tm)
+    got = TD.deform_conv2d_masked(**t, tile_mask=torch.from_numpy(tm),
+                                  direction=direction).numpy()
+    if direction == "fwd":
+        auto = TD.deform_conv2d_auto(**t, sparse=True).numpy()
+        np.testing.assert_array_equal(auto, got)
+    np.testing.assert_array_equal(got[1], np.broadcast_to(inp["bias"], got[1].shape))
+    np.testing.assert_array_equal(ref[1], got[1])
+    live = [i for i in range(3) if i != 1 and not (case == "nan_image" and i == 0)]
+    assert np.abs(got[live] - ref[live]).max() <= MASK_TOL * np.abs(ref[live]).max()
+    if case == "nan_image":
+        assert np.isnan(got[0]).any() and np.isnan(ref[0]).any()
+
+
+@pytest.mark.parametrize("direction", ["fwd", "train"])
+def test_explicit_multi_tile_mask_matches_pallas(direction):
+    """A ``[B, n_tiles]`` mask over a 40x40 output (13 forward tiles of 128
+    pixels, 7 train tiles of 256): the port's tiles are the reference's."""
+    rng = np.random.default_rng(22)
+    inp = _inputs(23, 2, 40, 40, 4, 4, 1, with_bias=True)
+    t = _torch(inp)
+    no_tile, n_tiles = TD.output_tiling(t["x"], t["offsets"], direction)
+    assert (no_tile, n_tiles) == ((128, 13) if direction == "fwd" else (256, 7))
+    tm = (rng.random((2, n_tiles)) < 0.5).astype(np.float32)
+    ref = _ref_masked(direction, inp, tm)
+    got = TD.deform_conv2d_masked(**t, tile_mask=torch.from_numpy(tm),
+                                  direction=direction).numpy()
+    off = ~(tm[:, np.arange(1600) // no_tile] > 0).reshape(2, 40, 40)
+    assert off.any() and (~off).any()
+    np.testing.assert_array_equal(got[off], ref[off])
+    np.testing.assert_array_equal(got[off], np.broadcast_to(inp["bias"], got[off].shape))
+    assert np.abs(got[~off] - ref[~off]).max() <= MASK_TOL * np.abs(ref[~off]).max()
+
+
+def test_mask_shape_error_and_activity_or():
+    inp = _torch(_masked_case("zero_image"))
+    with pytest.raises(ValueError, match="does not match the kernel grid") as port_err:
+        TD.tile_mask_grid(torch.ones(3, 2), 3, 1)
+    with pytest.raises(ValueError, match="does not match the kernel grid") as ref_err:
+        JD_tile_mask_grid(jnp.ones((3, 2)), 3, 1)
+    assert str(port_err.value) == str(ref_err.value)
+    # the caller's activity can only keep an image, never skip a live one
+    dense = TD.deform_conv2d(**inp).numpy()
+    kept = TD.deform_conv2d_auto(**inp, sparse=True,
+                                 activity=torch.tensor([0.0, 1.0, 0.0])).numpy()
+    np.testing.assert_array_equal(kept, dense)
+    assert np.abs(dense[1]).max() > 0  # the bias
+    with pytest.raises(ValueError, match="takes no tile_mask"):
+        dcn_fwd(**inp, tile_mask=torch.ones(3))
+    with pytest.raises(ValueError, match="needs tile_mask"):
+        dcn_cuda.dcn_fwd_masked(**inp)
+
+
+def test_masked_wrappers_on_cpu_take_the_plain_version():
+    """On CPU tensors the masked wrappers compute ``deform_conv2d_masked``
+    and launch nothing; under grad the masked train direction is the plain
+    masked version with autograd."""
+    inp = _torch(_masked_case("zero_image"))
+    tm = torch.tensor([1.0, 0.0, 1.0])
+    dcn_cuda.reset_launches()
+    for wrapper, direction in ((dcn_cuda.dcn_fwd_masked, "fwd"),
+                               (dcn_cuda.dcn_train_fwd_masked, "train")):
+        np.testing.assert_array_equal(
+            wrapper(**inp, tile_mask=tm).numpy(),
+            TD.deform_conv2d_masked(**inp, tile_mask=tm, direction=direction).numpy())
+    leaves = {k: v.clone().requires_grad_(True) for k, v in inp.items()}
+    out = dcn_cuda.dcn(**leaves, tile_mask=tm)
+    out.sum().backward()
+    assert leaves["x"].grad is not None and leaves["weight"].grad is not None
+    assert [k.launches for k in dcn_cuda.KERNELS] == [0, 0, 0, 0, 0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("direction", ["fwd", "train"])
+def test_masked_kernels_bitwise_to_dense_on_card(cuda_device, direction):
+    """On truthful masks the masked kernel equals its dense kernel bitwise,
+    also at B=32 where a block's 32 rows straddle two images (240 % 32 != 0);
+    a NaN image stays NaN."""
+    masked = dcn_cuda.dcn_fwd_masked if direction == "fwd" else dcn_cuda.dcn_train_fwd_masked
+    dense = dcn_fwd if direction == "fwd" else dcn_train_fwd
+    inp = _torch(_inputs(24, 32, 12, 20, 64, 64, 8, with_bias=True), cuda_device)
+    inp["x"][1::2] = 0.0
+    inp["x"][0, 1, 2, 3] = float("nan")
+    tm = TD.dcn_image_activity(inp["x"])
+    assert tm.tolist() == [1.0, 0.0] * 16
+    out = masked(**inp, tile_mask=tm)
+    ref = dense(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert bool(torch.isnan(out[0]).any())

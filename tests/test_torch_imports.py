@@ -33,6 +33,11 @@ def _imported_roots(path: Path):
 def test_package_imports_no_jax_and_no_reference():
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     assert len(files) > 15
+    # the serving tier and the engine are scanned too
+    names = {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
+    assert {"serving/server.py", "serving/scheduler.py", "serving/wire.py",
+            "serving/loadgen.py", "serving/recovery.py", "inference/engine.py",
+            "serve.py"} <= names
     bad = {str(f.relative_to(PKG.parent)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
@@ -42,7 +47,10 @@ def test_importing_the_harness_loads_no_jax_and_no_h5py():
     code = (
         "import sys, esr_tpu_torch.inference.harness, esr_tpu_torch.infer, "
         "esr_tpu_torch.ops.dcn_cuda, esr_tpu_torch.train, "
-        "esr_tpu_torch.training.trainer, esr_tpu_torch.config.build\n"
+        "esr_tpu_torch.training.trainer, esr_tpu_torch.config.build, "
+        "esr_tpu_torch.serving.server, esr_tpu_torch.serving.wire, "
+        "esr_tpu_torch.serving.loadgen, esr_tpu_torch.serve, "
+        "esr_tpu_torch.inference.engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'esr_tpu', 'h5py', 'triton', 'yaml')]\n"
         "print(bad)\n"

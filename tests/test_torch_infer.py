@@ -22,6 +22,7 @@ from esr_tpu.models.esr import DeepRecurrNet as FlaxNet
 from esr_tpu_torch import infer as port_infer
 from esr_tpu_torch.data.dataset import EventWindowDataset
 from esr_tpu_torch.inference.checkpoint import save_checkpoint
+from esr_tpu_torch.inference.engine import StreamingEngine
 from esr_tpu_torch.inference.harness import InferenceRunner, run_inference
 from esr_tpu_torch.models import convert
 from esr_tpu_torch.models.esr import DeepRecurrNet
@@ -151,7 +152,10 @@ def test_unported_requests_raise(runs, request_):
         return
     port = DeepRecurrNet(inch=2, basech=2, num_frame=3)
     with pytest.raises(NotImplementedError):
-        if request_ == "save_images":
+        if request_ == "engine":
+            # the streaming engine runs f32 only (the bf16 rung is A9)
+            StreamingEngine(port, 3, precision="bf16", device="cpu")
+        elif request_ == "save_images":
             InferenceRunner(port, 3, device="cpu").run_recording(
                 runs["rec"], DATASET, str(runs["out"] / "x"), save_images=True)
         elif request_ == "augment":
@@ -164,7 +168,9 @@ def test_unported_requests_raise(runs, request_):
         else:
             run_inference(
                 str(ckpt), [runs["rec"]], str(runs["out"] / "y"), DATASET,
-                engine=True if request_ == "engine" else None,
+                # the checkpoint's engine request runs the engine, which
+                # dumps no PNGs either
+                save_images=request_ == "config_engine",
                 precision="bf16" if request_ == "bf16" else None,
                 allow_uncalibrated_lpips=request_ == "lpips", device="cpu",
             )
