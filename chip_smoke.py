@@ -11,18 +11,24 @@ Phases (any failure exits non-zero):
 1. device: the card's name and power limit (``nvidia-smi``), the device
    count;
 2. build: ``nvcc`` of ``dcn_fwd.cu`` and ``dcn_train.cu``, started
-   together; their times and ``-Xptxas -v`` lines;
+   together; their times and ``-Xptxas -v`` lines (a register spill in any
+   instantiation fails);
 3. kernel, forward: ``dcn_fwd`` against the plain ``deform_conv2d`` at the
    flagship shape (B=1 as in evaluation, B=4, B=8 as in the trainer's
    validation, B=32 as in training) and over an odd-size / group / stride /
-   dilation / large-offset matrix, within 1e-3 * max(|ref|, 1); CUDA-event
-   times of both next to the roofline bound;
+   dilation / large-offset / Cg 16-Cout 6 matrix, within 1e-3 * max(|ref|,
+   1); CUDA-event times of both (the kernel through its wrapper and its C
+   entry point) next to the roofline bound; at B=1 and B=32 a sweep over
+   the launch chooser's candidates (``dcn_cuda.fwd_config``), each bitwise
+   equal to the picked one; every image of a B=4 and a B=32 call bitwise
+   equal to the same image alone at B=1;
 4. kernel, train direction: ``dcn_train_fwd`` against ``deform_conv2d``,
    ``dcn_bwd`` (gx, goffsets, gmask) and ``dcn_wgrad`` (gW) against
-   ``deform_conv2d_backward``, at the flagship training shape (B=32), B=1
-   and the same matrix, each cotangent within 1e-3 * max(|ref|, 1); the
-   atomic ``gx`` twice at B=32, its run-to-run difference printed; times
-   and bounds;
+   ``deform_conv2d_backward``, at the flagship training shape (B=32), B=1,
+   a 64x64 image whose slices do not fit shared memory (``dcn_bwd``'s
+   global-red path) and the same matrix, each cotangent within 1e-3 *
+   max(|ref|, 1); the atomic ``gx`` twice at B=32, its run-to-run
+   difference printed; wrapper and entry-point times and bounds;
 5. autograd: a loss through the model's DCN (``dcn_cuda.dcn``) on the card
    gives gradients for x, offsets, mask, weight and bias that match the
    plain path, through the kernels;
@@ -162,6 +168,9 @@ def kernel_cases():
     cases.append(("stride2_pad2_dil2", dict(b=1, h=9, w=11, cin=8, cout=6, dg=2,
                                             ho=5, wo=6),
                   dict(stride=2, padding=2, dilation=2)))
+    # 16 channels per group, 6 out-channels: W and the output take the
+    # scalar edge (Cout % 4 != 0), the backward its Cg 32 instantiation
+    cases.append(("cg16_cout6", dict(b=2, h=9, w=13, cin=32, cout=6, dg=2), {}))
     return cases
 
 
@@ -262,9 +271,11 @@ def phase_fwd_kernel(torch, np, card):
     """Phase 3: ``dcn_fwd`` against the plain version, at the evaluation
     batch (1), 4, the trainer's validation batch (8) and the training batch
     (32, where it runs the same body as ``dcn_train_fwd``)."""
+    from esr_tpu_torch.ops import dcn_cuda
     from esr_tpu_torch.ops.dcn import deform_conv2d
     from esr_tpu_torch.ops.dcn_cuda import dcn_fwd
 
+    lib = dcn_cuda.FWD_LIBRARY.load()
     rng = np.random.default_rng(0)
     flagship = {}
     worst_rel = 0.0
@@ -281,59 +292,170 @@ def phase_fwd_kernel(torch, np, card):
             fail(f"dcn_fwd disagrees with the plain version on {name}")
         worst_rel = max(worst_rel, err * TOL / limit)
         if name.startswith("flagship"):
+            b = shape["b"]
+            entry = fwd_entry(torch, lib, "dcn_fwd_f32", inp, torch.empty_like(out),
+                              dcn_cuda.fwd_config(b * 240, 64))
             ms = time_ms(torch, lambda: dcn_fwd(**inp, **geom), iters=300)
+            entry_ms = time_ms(torch, entry, iters=300)
             plain_ms = time_ms(torch, lambda: deform_conv2d(**inp, **geom), iters=50)
             bound_ms, bound_by = roofline(nbytes(*inp.values(), out),
                                           contraction_flops(inp) + gather_flops(inp))
-            flagship[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by)
-            print(f"time {name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-                  f"bound {bound_ms:.6f} ms ({bound_by}) on {card}")
-            tile_sweep(torch, inp, card)
+            flagship[name] = dict(err=err, ms=ms, entry_ms=entry_ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+            print(f"time {name}: kernel {ms:.5f} ms (entry point {entry_ms:.5f}), plain "
+                  f"{plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}")
+            if b in (1, 32):
+                config_sweep(torch, inp, card)
+    batch_invariance(torch, rng)
     return flagship, worst_rel
 
 
-def tile_sweep(torch, inp, card):
-    """The forward body's time over rows per block, straight through the C
-    entry point (not counted), beside the tile the wrapper picks."""
+def batch_invariance(torch, rng):
+    """Every image of a B=4 and a B=32 ``dcn_fwd`` call bitwise equal to
+    the same image alone at B=1 (each output is one FMA chain in a fixed
+    order, whatever the batch's configuration)."""
+    from esr_tpu_torch.ops.dcn_cuda import dcn_fwd
+
+    inp = dcn_inputs(torch, rng, b=32, h=12, w=20, cin=64, cout=64, dg=8)
+
+    def images(lo, n):
+        return {k: (v[lo:lo + n].contiguous() if k in ("x", "offsets", "mask") else v)
+                for k, v in inp.items()}
+
+    alone = torch.cat([dcn_fwd(**images(i, 1)) for i in range(32)])
+    for b, out in ((32, dcn_fwd(**inp)),
+                   (4, torch.cat([dcn_fwd(**images(i, 4)) for i in range(0, 32, 4)]))):
+        torch.cuda.synchronize()
+        if not same_bits(torch, out, alone):
+            fail(f"an image of a B={b} dcn_fwd call differs from the same image at B=1")
+    print("batch invariance: every image of the B=4 and B=32 dcn_fwd calls is bitwise "
+          "the same image at B=1")
+
+
+def fwd_entry(torch, lib, entry, inp, out, cfg, geom=None, am=None, tiling=None):
+    """A launch of a forward entry point straight through its C function
+    (not counted), at configuration ``cfg``; ``am`` and ``tiling`` (n_tiles,
+    no_tile) for the masked ones."""
+    x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
+    b, h, w, cin = x.shape
+    _, ho, wo, dg, _, _ = off.shape
+    kh, kw, _, cout = wt.shape
+    geom = geom or {}
+    stride, pad, dil = (geom.get(k, d) for k, d in (("stride", 1), ("padding", 1), ("dilation", 1)))
+    fn = getattr(lib, entry)
+    masked = [am.data_ptr()] if am is not None else []
+
+    def launch():
+        rc = fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+                bias.data_ptr() if bias is not None else None, out.data_ptr(), *masked,
+                b, h, w, cin, ho, wo, cout, dg, kh, kw, stride, pad, dil,
+                cfg.tm, cfg.tn, cfg.rm, *(tiling or ()), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"{entry} at {cfg} returned cudaError {rc}")
+    return launch
+
+
+def config_sweep(torch, inp, card):
+    """The forward body's time over the chooser's candidates, straight
+    through the C entry point (not counted), beside the one it picks; every
+    candidate's output must be bitwise the picked one's."""
     from esr_tpu_torch.ops import dcn_cuda
 
     lib = dcn_cuda.FWD_LIBRARY.load()
-    x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
-    b, ho, wo, dg, k, _ = off.shape
-    h, w, cin = x.shape[1:]
-    kh, kw, _, cout = wt.shape
-    out = torch.empty((b, ho, wo, cout), device=x.device)
-    pick = dcn_cuda.DcnFwdKernel._tile_rows(b * ho * wo, cout, k * (cin // dg),
-                                            lib.dcn_fwd_threads(), lib.dcn_fwd_acc_per_thread())
+    b, ho, wo, _, _, _ = inp["offsets"].shape
+    cout = inp["weight"].shape[-1]
+    pick = dcn_cuda.fwd_config(b * ho * wo, cout)
+    ref = torch.empty((b, ho, wo, cout), device="cuda")
+    fwd_entry(torch, lib, "dcn_fwd_f32", inp, ref, pick)()
     times = {}
-    for tile in (1, 2, 4, 8, 16, 32):
-        def launch():
-            rc = lib.dcn_fwd_f32(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-                                 bias.data_ptr(), out.data_ptr(), b, h, w, cin, ho, wo, cout,
-                                 dg, kh, kw, 1, 1, 1, tile, torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                fail(f"dcn_fwd_f32 at tile {tile} returned cudaError {rc}")
-        times[tile] = time_ms(torch, launch, iters=200)
-    print(f"tile sweep B={b} on {card}: " + ", ".join(
-        f"{t} rows {ms:.5f} ms" for t, ms in times.items())
-        + f"; the wrapper picks {pick} rows")
+    for cfg in dcn_cuda.fwd_candidates(cout):
+        out = torch.empty_like(ref)
+        launch = fwd_entry(torch, lib, "dcn_fwd_f32", inp, out, cfg)
+        times[cfg] = time_ms(torch, launch, iters=200)
+        torch.cuda.synchronize()
+        if not same_bits(torch, out, ref):
+            fail(f"dcn_fwd at {cfg} is not bitwise the picked configuration's output")
+    print(f"config sweep B={b} on {card}: " + "; ".join(
+        f"{c.tm}x{c.tn} rm{c.rm} {ms:.5f} ms" for c, ms in times.items())
+        + f"; the chooser picks {pick.tm}x{pick.tn} rm{pick.rm}; all bitwise equal")
+
+
+def bwd_config_of(inp):
+    from esr_tpu_torch.ops import dcn_cuda
+
+    _, h, w, cin = inp["x"].shape
+    _, ho, wo, dg, k, _ = inp["offsets"].shape
+    return dcn_cuda.bwd_config(h, w, ho, wo, cin, inp["weight"].shape[-1], dg, k)
+
+
+def geometry_args(inp):
+    """(B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride 1, padding 1, dilation 1)."""
+    b, h, w, cin = inp["x"].shape
+    _, ho, wo, dg, _, _ = inp["offsets"].shape
+    kh, kw, _, cout = inp["weight"].shape
+    return (b, h, w, cin, ho, wo, cout, dg, kh, kw, 1, 1, 1)
+
+
+def bwd_entry(torch, lib, inp, g, cfg):
+    """A launch of ``dcn_bwd_pixel_f32`` alone (not counted), its outputs
+    made once (the global path's gx zeroed once: the time is the kernel's)."""
+    x, off, mask, wt = (inp[k] for k in ("x", "offsets", "mask", "weight"))
+    gx = torch.empty_like(x) if cfg.own else torch.zeros_like(x)
+    goff, gmask = torch.empty_like(off), torch.empty_like(mask)
+
+    def launch():
+        rc = lib.dcn_bwd_pixel_f32(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+                                   g.data_ptr(), gx.data_ptr(), goff.data_ptr(), gmask.data_ptr(),
+                                   *geometry_args(inp), cfg.chunk_rows, cfg.tp, cfg.kt,
+                                   int(cfg.own), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"dcn_bwd_pixel_f32 returned cudaError {rc}")
+    return launch
+
+
+def wgrad_entry(torch, lib, inp, g):
+    """A launch of ``dcn_wgrad_f32`` alone (not counted; the partials'
+    sum, which the wrapper adds, left out)."""
+    from esr_tpu_torch.ops import dcn_cuda
+
+    x, off, mask, wt = (inp[k] for k in ("x", "offsets", "mask", "weight"))
+    args = geometry_args(inp)
+    chunk_rows, n_chunks = dcn_cuda.wgrad_chunks(args[0] * args[4] * args[5], args[7],
+                                                 lib.dcn_train_rows_per_tile())
+    partial = torch.empty((n_chunks, wt.numel()), device=x.device)
+
+    def launch():
+        rc = lib.dcn_wgrad_f32(x.data_ptr(), off.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                               partial.data_ptr(), *args, chunk_rows, n_chunks,
+                               torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"dcn_wgrad_f32 returned cudaError {rc}")
+    return launch
 
 
 def phase_train_kernels(torch, np, card):
     """Phase 4: the train-direction kernels against their plain versions."""
+    from esr_tpu_torch.ops import dcn_cuda
     from esr_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_backward
     from esr_tpu_torch.ops.dcn_cuda import dcn_bwd, dcn_train_fwd, dcn_wgrad
 
     rng = np.random.default_rng(1)
     worst_rel = {"dcn_train_fwd": 0.0, "dcn_bwd": 0.0, "dcn_wgrad": 0.0}
     record = {}
+    # the flagship's images fit shared memory (the ownership path); a 64x64
+    # image of 32 channels per group does not (the global vector-red path;
+    # Cout 16 keeps it inside the weight gradient's register budget)
     cases = [("train_flagship_b32", dict(b=32, h=12, w=20, cin=64, cout=64, dg=8), {}),
-             ("train_flagship_b1", dict(b=1, h=12, w=20, cin=64, cout=64, dg=8), {})]
+             ("train_flagship_b1", dict(b=1, h=12, w=20, cin=64, cout=64, dg=8), {}),
+             ("bwd_global_64x64", dict(b=1, h=64, w=64, cin=64, cout=16, dg=2), {})]
     for name, shape, geom in cases + kernel_cases():
         inp = dcn_inputs(torch, rng, **shape)
         x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
         b, ho, wo = off.shape[:3]
+        path = bwd_config_of(inp)
+        if name.startswith(("train_flagship", "bwd_global")) and path.own != (
+                name.startswith("train_flagship")):
+            fail(f"dcn_bwd on {name} took {path}")
         g = torch.from_numpy(rng.standard_normal(
             (b, ho, wo, wt.shape[-1])).astype(np.float32)).cuda()
         out = dcn_train_fwd(**inp, **geom)
@@ -354,7 +476,9 @@ def phase_train_kernels(torch, np, card):
                      f"{err:.3e} > {limit:.3e}")
             worst_rel[kname] = max(worst_rel[kname], err * TOL / limit)
             errs[kname] = max(errs.get(kname, 0.0), err)
-            print(f"kernel {name} {kname} {what}: max_abs_err {err:.3e} (limit {limit:.3e})")
+            print(f"kernel {name} {kname} {what}: max_abs_err {err:.3e} (limit {limit:.3e})"
+                  + (f" [{'ownership' if path.own else 'global red'} path]" if kname == "dcn_bwd"
+                     and what == "gx" else ""))
         if name != "train_flagship_b32":
             continue
         # gx is scattered with atomicAdd: its bits may change run to run
@@ -373,13 +497,17 @@ def phase_train_kernels(torch, np, card):
             o = deform_conv2d(**leaves, **geom)
             return torch.autograd.grad(o, [leaves[k] for k in leaf_names], g)
 
+        lib = dcn_cuda.TRAIN_LIBRARY.load()
         timings = {
             "dcn_train_fwd": (lambda: dcn_train_fwd(**inp, **geom),
-                              lambda: deform_conv2d(**inp, **geom)),
+                              lambda: deform_conv2d(**inp, **geom),
+                              fwd_entry(torch, lib, "dcn_train_fwd_f32", inp, torch.empty_like(out),
+                                        dcn_cuda.fwd_config(b * ho * wo, out.shape[-1]))),
             "dcn_bwd": (lambda: dcn_bwd(x, off, mask, wt, g, **geom),
-                        lambda: plain_grad("x", "offsets", "mask")),
+                        lambda: plain_grad("x", "offsets", "mask"),
+                        bwd_entry(torch, lib, inp, g, path)),
             "dcn_wgrad": (lambda: dcn_wgrad(x, off, mask, wt.shape, g, **geom),
-                          lambda: plain_grad("weight")),
+                          lambda: plain_grad("weight"), wgrad_entry(torch, lib, inp, g)),
         }
         flops = contraction_flops(inp)
         bounds = {
@@ -389,14 +517,15 @@ def phase_train_kernels(torch, np, card):
                                 flops + 2 * gather_flops(inp)),
             "dcn_wgrad": roofline(nbytes(x, off, mask, g, gw), flops + gather_flops(inp)),
         }
-        for kname, (kernel_fn, plain_fn) in timings.items():
+        for kname, (kernel_fn, plain_fn, entry_fn) in timings.items():
             ms = time_ms(torch, kernel_fn, iters=200)
+            entry_ms = time_ms(torch, entry_fn, iters=200)
             plain_ms = time_ms(torch, plain_fn, iters=20, warmup=3)
             bound_ms, bound_by = bounds[kname]
-            record[kname] = dict(err=errs[kname], ms=ms, plain_ms=plain_ms,
+            record[kname] = dict(err=errs[kname], ms=ms, entry_ms=entry_ms, plain_ms=plain_ms,
                                  bound_ms=bound_ms, bound_by=bound_by)
-            print(f"time {name} {kname}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-                  f"bound {bound_ms:.6f} ms ({bound_by}) on {card}")
+            print(f"time {name} {kname}: kernel {ms:.5f} ms (entry point {entry_ms:.5f}), "
+                  f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}")
     return record, worst_rel
 
 
@@ -836,25 +965,14 @@ def entry_launch(torch, wrapper, inp, tm, direction):
     from esr_tpu_torch.ops import dcn as plain
     from esr_tpu_torch.ops import dcn_cuda
 
-    lib = wrapper.library.load()
-    x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
-    b, h, w, cin = x.shape
-    _, ho, wo, dg, k, _ = off.shape
-    kh, kw, _, cout = wt.shape
+    x, off, wt = inp["x"], inp["offsets"], inp["weight"]
+    b, ho, wo = off.shape[:3]
     no_tile, n_tiles = plain.output_tiling(x, off, direction)
     am = plain.tile_mask_grid(tm, b, n_tiles)
-    out = torch.empty((b, ho, wo, cout), device=x.device)
-    tile = dcn_cuda.DcnFwdKernel._tile_rows(b * ho * wo, cout, k * (cin // dg),
-                                            *wrapper._geometry(lib))
-    fn = getattr(lib, wrapper.entry)
-
-    def launch():
-        rc = fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), am.data_ptr(), b, h, w, cin, ho, wo, cout, dg, kh, kw, 1, 1, 1,
-                tile, n_tiles, no_tile, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            fail(f"{wrapper.entry} returned cudaError {rc}")
-    return launch
+    out = torch.empty((b, ho, wo, wt.shape[-1]), device=x.device)
+    cfg = dcn_cuda.fwd_config(b * ho * wo, wt.shape[-1])
+    return fwd_entry(torch, wrapper.library.load(), wrapper.entry, inp, out, cfg, am=am,
+                     tiling=(n_tiles, no_tile))
 
 
 def phase_masked_kernels(torch, np, card):
@@ -1220,11 +1338,20 @@ def main() -> int:
     dcn_cuda.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(dcn_cuda.LIBRARIES)} "
           "libraries, nvcc runs started together")
+    spills = []
     for lib in dcn_cuda.LIBRARIES:
         print(f"build {lib.source.name}: nvcc {lib.build_seconds} s -> {lib.library_path.name}")
+        entry = ""
         for line in lib.build_log.splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas: {line.strip()}")
+            if "spill" in line and not line.strip().endswith(
+                    "0 bytes spill stores, 0 bytes spill loads"):
+                spills.append(entry)
+    if spills:
+        fail(f"ptxas spilled registers in {spills}")
 
     # -- 3.-5. kernels -----------------------------------------------------
     fwd, fwd_worst = phase_fwd_kernel(torch, np, card)
@@ -1250,7 +1377,8 @@ def main() -> int:
     records = [{
         "name": "dcn_fwd", "route": "cuda", "source": "esr_tpu_torch/csrc/dcn_fwd.cu",
         "replaces": REPLACES["dcn_fwd"], "launches": fwd_launches,
-        "max_abs_err": b1["err"], "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+        "max_abs_err": b1["err"], "ms": b1["ms"], "entry_ms": b1["entry_ms"],
+        "plain_ms": b1["plain_ms"],
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"], "library_ms": None,
         "matrix_max_rel_err": fwd_worst, "b4": fwd["flagship_b4"],
         "validation_b8": fwd["flagship_b8"], "b32": fwd["flagship_b32"],
@@ -1261,7 +1389,8 @@ def main() -> int:
         records.append({
             "name": name, "route": "cuda", "source": "esr_tpu_torch/csrc/dcn_train.cu",
             "replaces": REPLACES[name], "launches": totals[name],
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": r["err"], "ms": r["ms"], "entry_ms": r["entry_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "matrix_max_rel_err": train_worst[name], "shape": "B=32 flagship training",
         })
@@ -1275,6 +1404,7 @@ def main() -> int:
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": r["err"], "ms": full["ms"],
+            "entry_ms": full["entry_ms"],
             "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
             "bound_by": full["bound_by"], "library_ms": None,
             "matrix_max_rel_err": masked_worst[name], **extra,

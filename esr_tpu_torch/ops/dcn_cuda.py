@@ -18,10 +18,14 @@ bound with ``ctypes``:
 
 The four forward wrappers compute the same output and run the same device
 code (``dcn_common.cuh``, the masked ones with ``kMasked``), sized by the
-same rule (:meth:`DcnFwdKernel._tile_rows`); each has its own entry point
+same rule (:func:`fwd_config`); each has its own entry point
 and launch count. The masked ones take the activity mask of
 ``esr_tpu_torch.ops.dcn`` (``[B]`` or ``[B, n_tiles]``, the tiles of
 ``fwd_tiling`` or ``train_tiling``) and pass it as an int32 bitmap.
+:func:`bwd_config` picks the per-pixel backward's path: an image's x and
+gx slices in shared memory when they fit (gx is then written once, so it
+is allocated with ``torch.empty``), else a scatter into a zeroed gx in
+global memory.
 
 Nothing is imported or built when this module is imported; :func:`build`
 starts every ``nvcc`` at once.
@@ -48,12 +52,14 @@ whose backward stays the dense pair, as in the reference).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -68,9 +74,170 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the default dynamic shared-memory limit, and the most a Hopper block can opt into
-_SMEM_DEFAULT = 48 * 1024
+# the most dynamic shared memory a Hopper block can opt into
 _SMEM_MAX = 232448
+# the most threads a block of the DCN kernels has (kThreads in dcn_common.cuh)
+_THREADS = 256
+# the most channels per group the per-pixel backward takes (its MAXCG)
+_BWD_MAX_CG = 32
+# about one block per SM of the H100 (132): the least grid the forward
+# chooser wants; the weight gradient aims at two blocks per SM
+_TARGET_BLOCKS = 120
+_SMS = 132
+
+
+# -- launch configurations -------------------------------------------------
+#
+# Pure Python, so the CPU tests check them; the kernels validate what they
+# are given and return cudaErrorInvalidValue on anything else.
+
+
+@dataclass(frozen=True)
+class FwdConfig:
+    """The forward body's launch configuration (``FwdTile`` in
+    ``csrc/dcn_common.cuh``): ``tm`` rows x ``tn`` out-channels per block,
+    ``rm`` rows x 4 out-channels per thread. ``tn / 4`` is a multiple of
+    ``rm``, so each row gets whole gather slots (``tn / (4 rm)`` threads)."""
+
+    tm: int
+    tn: int
+    rm: int
+
+    @property
+    def threads(self) -> int:
+        return (self.tm // self.rm) * (self.tn // 4)
+
+    @property
+    def stage_columns(self) -> int:
+        """Columns of the column matrix per pipeline stage (4-channel items:
+        4 per thread when ``rm`` is 1, else 2)."""
+        return (4 if self.rm == 1 else 2) * 4 * (self.tn // (4 * self.rm))
+
+    def blocks(self, rows: int, cout: int) -> int:
+        return -(-rows // self.tm) * -(-cout // self.tn)
+
+
+# (tm, tn, rm) from the most rows per block to the fewest; tn is cut to
+# Cout rounded up to 4 (and rm to what divides tn / 4). Training's batch 32
+# takes the first, validation's 8 the second, the engine's 4 lanes and
+# evaluation's 1 image the last (a sweep over 45 configurations on an H100:
+# splitting Cout across blocks lost at every batch, as each block then
+# restages W for fewer outputs).
+_FWD_TILES = ((32, 64, 2), (16, 64, 1), (16, 64, 2), (8, 64, 1))
+
+
+def fwd_smem_bytes(cfg: FwdConfig) -> int:
+    """Dynamic shared memory of the forward body (``fwd_smem_bytes`` in
+    ``dcn_common.cuh``): two stages of columns and W."""
+    return 4 * 2 * cfg.stage_columns * (cfg.tm + cfg.tn)
+
+
+def fwd_config_ok(cfg: FwdConfig) -> bool:
+    """What the kernel takes (``fwd_tile_ok`` in ``dcn_common.cuh``)."""
+    return (cfg.rm in (1, 2, 4) and cfg.tm >= 4 and cfg.tm % 4 == 0
+            and cfg.tn >= 4 and cfg.tn % 4 == 0 and (cfg.tn // 4) % cfg.rm == 0
+            and cfg.threads <= _THREADS and fwd_smem_bytes(cfg) <= _SMEM_MAX)
+
+
+def fwd_candidates(cout: int) -> Tuple[FwdConfig, ...]:
+    """The chooser's candidates for ``cout`` out-channels, in its order of
+    preference."""
+    tn_cap = -(-cout // 4) * 4
+    out = []
+    for tm, tn, rm in _FWD_TILES:
+        tn = min(tn, tn_cap)
+        while (tn // 4) % rm:
+            rm //= 2
+        cfg = FwdConfig(tm, tn, rm)
+        if fwd_config_ok(cfg) and cfg not in out:
+            out.append(cfg)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_config(rows: int, cout: int) -> FwdConfig:
+    """The forward's launch configuration, the one rule that all four
+    forward entry points size by (so the dense and masked launches of one
+    shape get the same configuration): the first candidate whose grid
+    covers about every SM (``_TARGET_BLOCKS``), else the one with the most
+    blocks. Any two configurations give the same bits (each output is one
+    FMA chain over the columns in a fixed order), so this rule decides
+    speed only."""
+    cands = fwd_candidates(cout)
+    for cfg in cands:
+        if cfg.blocks(rows, cout) >= _TARGET_BLOCKS:
+            return cfg
+    return max(cands, key=lambda c: c.blocks(rows, cout))
+
+
+@dataclass(frozen=True)
+class BwdConfig:
+    """The per-pixel backward's launch configuration (``BwdTile`` in
+    ``csrc/dcn_train.cu``): ``chunk_rows`` rows per block (one image when
+    ``own``), ``tp`` cotangent rows per shared tile, ``kt`` taps per pass;
+    ``own``: the image's x and gx slices live in shared memory and gx is
+    written once (else scattered to global memory, which must be zeroed)."""
+
+    chunk_rows: int
+    tp: int
+    kt: int
+    own: bool
+
+
+def bwd_smem_bytes(h: int, w: int, cg: int, cout: int, cfg: BwdConfig) -> int:
+    """Dynamic shared memory of the per-pixel backward (``bwd_smem_bytes``
+    in ``dcn_train.cu``)."""
+    cgp = -(-cg // 4) * 4
+    coutp = -(-cout // 4) * 4
+    nbuf = 2 if -(-cfg.chunk_rows // cfg.tp) > 1 else 1
+    floats = cfg.kt * coutp * cgp + nbuf * cfg.tp * (coutp + 4)
+    if cfg.own:
+        floats += 2 * h * w * (cg + 1)
+    return 4 * floats
+
+
+def bwd_slices_fit(h: int, w: int, cg: int, cout: int, npix: int) -> bool:
+    """Whether an image's x and gx slices fit shared memory beside the
+    least staging (one tap of W^T, one tile of two cotangent rows)."""
+    return bwd_smem_bytes(h, w, cg, cout, BwdConfig(npix, 2, 1, True)) <= _SMEM_MAX
+
+
+# cotangent rows per shared tile: the most on the ownership path (the
+# flagship's 240-row image in one tile: 0.126 ms against 0.141 in two on an
+# H100), and the block of rows of the global path
+_BWD_TILE_ROWS = 256
+_BWD_GLOBAL_ROWS = 64
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_config(h: int, w: int, ho: int, wo: int, cin: int, cout: int, dg: int,
+               k: int) -> BwdConfig:
+    """The per-pixel backward's configuration: the ownership path exactly
+    when an image's slices fit (:func:`bwd_slices_fit`), the cotangent in
+    tiles of at most 256 rows split evenly over the image; else blocks of
+    64 rows scattering to global memory. Taps per pass and rows per tile
+    shrink until the staging fits."""
+    cg = cin // dg
+    if cg > _BWD_MAX_CG:
+        raise ValueError(f"dcn_bwd: {cg} channels per group exceed the kernel's "
+                         f"{_BWD_MAX_CG}")
+    npix = ho * wo
+    own = bwd_slices_fit(h, w, cg, cout, npix)
+    if own:
+        n_tiles = -(-npix // _BWD_TILE_ROWS)
+        tp = -(-npix // n_tiles)
+    else:
+        tp = _BWD_GLOBAL_ROWS
+    tp += tp % 2
+    while True:
+        for kt in range(k, 0, -1):
+            cfg = BwdConfig(npix if own else tp, tp, kt, own)
+            if bwd_smem_bytes(h, w, cg, cout, cfg) <= _SMEM_MAX:
+                return cfg
+        if tp == 2:
+            raise ValueError(f"dcn_bwd: the DCN shape (Cg {cg}, Cout {cout}) exceeds "
+                             "the kernel's shared-memory budget")
+        tp = max(2, tp // 2 + (tp // 2) % 2)
 
 
 def _find_nvcc() -> str:
@@ -159,24 +326,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
-    lib.dcn_fwd_f32.argtypes = [_P] * 6 + [_I] * 14 + [_P]
+    lib.dcn_fwd_f32.argtypes = [_P] * 6 + [_I] * 16 + [_P]
     lib.dcn_fwd_f32.restype = _I
-    lib.dcn_fwd_masked_f32.argtypes = [_P] * 7 + [_I] * 16 + [_P]
+    lib.dcn_fwd_masked_f32.argtypes = [_P] * 7 + [_I] * 18 + [_P]
     lib.dcn_fwd_masked_f32.restype = _I
-    lib.dcn_fwd_threads.restype = _I
-    lib.dcn_fwd_acc_per_thread.restype = _I
 
 
 def _declare_train(lib: ctypes.CDLL) -> None:
-    lib.dcn_train_fwd_f32.argtypes = [_P] * 6 + [_I] * 14 + [_P]
-    lib.dcn_train_fwd_masked_f32.argtypes = [_P] * 7 + [_I] * 16 + [_P]
-    lib.dcn_bwd_pixel_f32.argtypes = [_P] * 8 + [_I] * 14 + [_P]
+    lib.dcn_train_fwd_f32.argtypes = [_P] * 6 + [_I] * 16 + [_P]
+    lib.dcn_train_fwd_masked_f32.argtypes = [_P] * 7 + [_I] * 18 + [_P]
+    lib.dcn_bwd_pixel_f32.argtypes = [_P] * 8 + [_I] * 17 + [_P]
     lib.dcn_wgrad_f32.argtypes = [_P] * 5 + [_I] * 15 + [_P]
     for fn in (lib.dcn_train_fwd_f32, lib.dcn_train_fwd_masked_f32,
                lib.dcn_bwd_pixel_f32, lib.dcn_wgrad_f32,
                lib.dcn_train_threads, lib.dcn_train_rows_per_tile,
-               lib.dcn_train_fwd_acc, lib.dcn_train_wgrad_acc,
-               lib.dcn_train_bwd_max_cg):
+               lib.dcn_train_wgrad_acc):
         fn.restype = _I
 
 
@@ -256,33 +420,16 @@ class DcnFwdKernel:
     entry = "dcn_fwd_f32"
     # None: dense; else the direction whose tiles the activity mask marks
     masked_direction: Optional[str] = None
-    # the least grid worth a smaller tile: 1.5 blocks per SM of the H100 (132)
-    _TARGET_BLOCKS = 198
 
     def __init__(self) -> None:
         self.launches = 0
 
-    @classmethod
-    def _tile_rows(cls, rows: int, cout: int, kc: int, threads: int, acc: int) -> int:
-        """Rows per block: the most that fit the register accumulator and
-        the default shared memory, halved while the grid stays under
-        ``_TARGET_BLOCKS``, but not below the tile that gives half the
-        threads an output (under it, more blocks restage W[g] for fewer
-        outputs each). ``chip_smoke.py`` prints the sweep over tiles that
-        this rule follows."""
-        tile = 1 << max(0, (threads * acc // cout).bit_length() - 1)
-        while tile > 1 and (tile * kc + kc * cout) * 4 > _SMEM_DEFAULT:
-            tile //= 2
-        least = max(1, threads // (2 * cout))
-        while tile > least and -(-rows // tile) < cls._TARGET_BLOCKS:
-            tile //= 2
-        if tile * cout > threads * acc or (tile * kc + kc * cout) * 4 > _SMEM_MAX:
-            raise ValueError(f"{cls.name}: the DCN shape (K*Cg {kc}, Cout {cout}) "
-                             "exceeds the kernel's register or shared-memory budget")
-        return tile
-
-    def _geometry(self, lib) -> Tuple[int, int]:
-        return lib.dcn_fwd_threads(), lib.dcn_fwd_acc_per_thread()
+    @staticmethod
+    def launch_config(offsets: torch.Tensor, weight: torch.Tensor) -> FwdConfig:
+        """The configuration a launch at these shapes gets: the same for all
+        four forward wrappers, dense and masked."""
+        b, ho, wo = offsets.shape[:3]
+        return fwd_config(b * ho * wo, weight.shape[-1])
 
     def __call__(self, x, offsets, mask, weight, bias=None, stride=1, padding=1,
                  dilation=1, tile_mask=None) -> torch.Tensor:
@@ -309,7 +456,7 @@ class DcnFwdKernel:
             am = _plain.tile_mask_grid(tile_mask, b, n_tiles)
             activity = [am.data_ptr()]
         lib = self.library.load()
-        tile = self._tile_rows(b * ho * wo, cout, kh * kw * (cin // dg), *self._geometry(lib))
+        cfg = self.launch_config(offsets, weight)
         out = torch.empty((b, ho, wo, cout), dtype=torch.float32, device=x.device)
         if out.numel() == 0:
             return out
@@ -317,7 +464,8 @@ class DcnFwdKernel:
                 x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                 bias.data_ptr() if bias is not None else None, out.data_ptr(),
                 *activity, b, h, w, cin, ho, wo, cout, dg, kh, kw, stride, padding,
-                dilation, tile, *([n_tiles, no_tile] if masked else []))
+                dilation, cfg.tm, cfg.tn, cfg.rm,
+                *([n_tiles, no_tile] if masked else []))
         self.launches += 1
         return out
 
@@ -341,9 +489,6 @@ class DcnTrainFwdKernel(DcnFwdKernel):
     library = TRAIN_LIBRARY
     name = "dcn_train_fwd"
     entry = "dcn_train_fwd_f32"
-
-    def _geometry(self, lib) -> Tuple[int, int]:
-        return lib.dcn_train_threads(), lib.dcn_train_fwd_acc()
 
 
 class DcnTrainFwdMaskedKernel(DcnTrainFwdKernel):
@@ -401,23 +546,29 @@ class DcnBwdKernel(_TrainKernel):
         if tuple(g.shape) != (b, ho, wo, cout):
             raise ValueError(f"{self.name}: cotangent {tuple(g.shape)} does not "
                              f"match the output {(b, ho, wo, cout)}")
-        if cin // dg > lib.dcn_train_bwd_max_cg():
-            raise ValueError(f"{self.name}: {cin // dg} channels per group exceed "
-                             f"the kernel's {lib.dcn_train_bwd_max_cg()}")
-        tile = lib.dcn_train_rows_per_tile()
-        self._smem_check(self.name, tile * (cout + 1) * 4)
-        gx = torch.zeros_like(x)
+        cfg = bwd_config(h, w, ho, wo, cin, cout, dg, kh * kw)
         goff = torch.empty_like(offsets)
         gmask = torch.empty_like(mask)
         if goff.numel() == 0:
-            return gx, goff, gmask
+            return torch.zeros_like(x), goff, gmask
+        # the ownership path writes every element of gx once; the global
+        # path scatters into it
+        gx = torch.empty_like(x) if cfg.own else torch.zeros_like(x)
         _launch(self.name, lib.dcn_bwd_pixel_f32, x.device,
                 x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                 g.data_ptr(), gx.data_ptr(), goff.data_ptr(), gmask.data_ptr(),
                 b, h, w, cin, ho, wo, cout, dg, kh, kw, stride, padding,
-                dilation, tile)
+                dilation, cfg.chunk_rows, cfg.tp, cfg.kt, int(cfg.own))
         self.launches += 1
         return gx, goff, gmask
+
+
+def wgrad_chunks(rows: int, dg: int, rows_per_tile: int) -> Tuple[int, int]:
+    """``(chunk_rows, n_chunks)`` of the weight gradient: about two waves of
+    the H100's 132 SMs over (chunks x groups), whole tiles per chunk."""
+    n_chunks = max(1, min(-(-rows // rows_per_tile), -(-2 * _SMS // dg)))
+    chunk_rows = -(-rows // n_chunks)
+    return chunk_rows, -(-rows // chunk_rows)
 
 
 class DcnWgradKernel(_TrainKernel):
@@ -427,8 +578,6 @@ class DcnWgradKernel(_TrainKernel):
     is the fourth of :func:`esr_tpu_torch.ops.dcn.deform_conv2d_backward`."""
 
     name = "dcn_wgrad"
-    # blocks to aim for: two waves of the H100's 132 SMs
-    _TARGET_BLOCKS = 264
 
     def __call__(self, x, offsets, mask, weight_shape: Sequence[int], g, stride=1,
                  padding=1, dilation=1) -> torch.Tensor:
@@ -452,10 +601,7 @@ class DcnWgradKernel(_TrainKernel):
         rows = b * ho * wo
         if rows == 0:
             return torch.zeros(weight_shape, dtype=torch.float32, device=x.device)
-        n_chunks = max(1, min(-(-rows // rows_per_tile),
-                              -(-self._TARGET_BLOCKS // dg)))
-        chunk_rows = -(-rows // n_chunks)
-        n_chunks = -(-rows // chunk_rows)
+        chunk_rows, n_chunks = wgrad_chunks(rows, dg, rows_per_tile)
         partial = torch.empty((n_chunks, kh * kw * cin * cout), dtype=torch.float32,
                               device=x.device)
         _launch(self.name, lib.dcn_wgrad_f32, x.device,

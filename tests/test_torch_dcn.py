@@ -159,6 +159,85 @@ def test_kernel_matches_plain_on_card(cuda_device, dg, h, w):
                 inp["weight"], inp["bias"])
 
 
+# -- the launch configurations (pure Python) --------------------------------
+
+# (b, h, w, cin, cout, dg): the flagship bottleneck at the evaluation,
+# engine, validation and training batches; train_esr_4x's bottleneck (a
+# 180x320 HR grid padded to 192x320, /8) at its batch 8; the shapes of
+# chip_smoke.py's kernel matrix; a 64x64 image of 32 channels per group
+CONFIG_SHAPES = (
+    [(b, 12, 20, 64, 64, 8) for b in (1, 4, 8, 32)]
+    + [(8, 24, 40, 64, 64, 8)]
+    + [(2, h, w, 4 * dg, 8, dg) for dg in (1, 2, 4) for h, w in ((7, 9), (13, 5), (4, 150))]
+    + [(1, 6, 7, 16, 8, 2), (1, 9, 11, 8, 6, 2), (2, 9, 13, 32, 6, 2), (1, 64, 64, 64, 64, 2)]
+)
+
+
+def _fwd_cover(rows, cout, cfg):
+    """How many threads write each (row, out-channel): the kernel's grid,
+    thread and micro-tile mapping written out."""
+    count = np.zeros((rows, cout), np.int64)
+    nv = cfg.tn // 4
+    for bx in range(-(-rows // cfg.tm)):
+        for by in range(-(-cout // cfg.tn)):
+            for t in range(cfg.threads):
+                r = bx * cfg.tm + (t // nv) * cfg.rm + np.arange(cfg.rm)
+                o = by * cfg.tn + (t % nv) * 4 + np.arange(4)
+                r, o = r[r < rows], o[o < cout]
+                count[np.ix_(r, o)] += 1
+    return count
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,dg", CONFIG_SHAPES)
+def test_forward_config_fits_and_covers_every_output_once(b, h, w, cin, cout, dg):
+    rows = b * h * w
+    cfg = dcn_cuda.fwd_config(rows, cout)
+    cands = dcn_cuda.fwd_candidates(cout)
+    assert cfg in cands
+    for c in cands:
+        assert dcn_cuda.fwd_config_ok(c)
+        assert dcn_cuda.fwd_smem_bytes(c) <= 232448 and 1 <= c.threads <= 256
+        # each row gets whole gather slots: the block's threads are a
+        # multiple of its rows
+        assert c.threads % c.tm == 0 and c.tn % 4 == 0
+    # the chooser's rule: the first candidate that covers about every SM,
+    # else the most blocks
+    full = [c for c in cands if c.blocks(rows, cout) >= 120]
+    assert cfg == (full[0] if full else max(cands, key=lambda c: c.blocks(rows, cout)))
+    if rows * cout <= 600_000:
+        assert (_fwd_cover(rows, cout, cfg) == 1).all()
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,dg", CONFIG_SHAPES[:5])
+def test_dense_and_masked_forwards_get_one_configuration(b, h, w, cin, cout, dg):
+    offsets = torch.zeros(b, h, w, dg, 9, 2)
+    weight = torch.zeros(3, 3, cin, cout)
+    wrappers = (dcn_fwd, dcn_train_fwd, dcn_cuda.dcn_fwd_masked, dcn_cuda.dcn_train_fwd_masked)
+    cfgs = {wr.launch_config(offsets, weight) for wr in wrappers}
+    assert cfgs == {dcn_cuda.fwd_config(b * h * w, cout)}
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,dg", CONFIG_SHAPES)
+def test_backward_config_owns_exactly_when_the_slices_fit(b, h, w, cin, cout, dg):
+    cg = cin // dg
+    cfg = dcn_cuda.bwd_config(h, w, h, w, cin, cout, dg, 9)
+    smem = dcn_cuda.bwd_smem_bytes(h, w, cg, cout, cfg)
+    assert smem <= 232448
+    assert cfg.tp % 2 == 0 and 1 <= cfg.kt <= 9
+    # x + gx slices (rows padded to Cg + 1) beside one tap of W^T and two
+    # cotangent rows, counted independently of the chooser
+    cgp, coutp = -(-cg // 4) * 4, -(-cout // 4) * 4
+    slices = 4 * (2 * h * w * (cg + 1) + coutp * cgp + 2 * 2 * (coutp + 4))
+    assert cfg.own == (slices <= 232448)
+    if cfg.own:
+        assert cfg.chunk_rows == h * w  # one image per block: gx has one writer
+    else:
+        assert cfg.chunk_rows == cfg.tp
+    flagship = (h, w, cin, cout, dg) == (12, 20, 64, 64, 8)
+    if flagship or (h, w) == (64, 64):
+        assert cfg.own == flagship and cfg.kt == 9
+
+
 # -- the backward ---------------------------------------------------------
 
 GEOMETRIES = [(1, 1, 1), (2, 1, 1), (1, 2, 2)]  # (stride, padding, dilation)
@@ -285,10 +364,13 @@ def test_autograd_through_the_kernels_on_card(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dg,h,w", [(8, 12, 20), (1, 7, 9), (4, 4, 150)])
+@pytest.mark.parametrize("dg,h,w", [(8, 12, 20), (1, 7, 9), (4, 4, 150), (2, 64, 64)])
 def test_train_kernels_match_plain_on_card(cuda_device, dg, h, w):
-    cin = 64 if dg == 8 else 4 * dg
-    cout = cin if dg == 8 else 8
+    """The flagship and small shapes take the backward's ownership path; a
+    64x64 image of 32 channels per group its global vector-red path."""
+    cin = 64 if dg in (8, 2) else 4 * dg
+    cout = {8: 64, 2: 16}.get(dg, 8)  # Cout 16: inside dcn_wgrad's register budget
+    assert dcn_cuda.bwd_config(h, w, h, w, cin, cout, dg, 9).own == (dg != 2)
     inp = _torch(_inputs(9, 2, h, w, cin, cout, dg, with_bias=True), cuda_device)
     g = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (2, h, w, cout)).astype(np.float32)).to(cuda_device)
@@ -301,6 +383,20 @@ def test_train_kernels_match_plain_on_card(cuda_device, dg, h, w):
     _check(out.cpu().numpy(), TD.deform_conv2d(**inp).cpu().numpy())
     for a, r in zip((gx, goff, gmask, gw), ref):
         _check(a.cpu().numpy(), r.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [4, 32])
+def test_forward_batch_invariant_on_card(cuda_device, b):
+    """Every image of a B=4 and a B=32 call is bitwise the same image alone
+    at B=1, though the batches get other launch configurations."""
+    inp = _torch(_inputs(12, b, 12, 20, 64, 64, 8, with_bias=True), cuda_device)
+    assert dcn_cuda.fwd_config(b * 240, 64) != dcn_cuda.fwd_config(240, 64)
+    out = dcn_fwd(**inp)
+    for i in range(b):
+        alone = dcn_fwd(**{k: (v[i:i + 1].contiguous() if k in ("x", "offsets", "mask") else v)
+                           for k, v in inp.items()})
+        assert torch.equal(alone.view(torch.int32), out[i:i + 1].view(torch.int32)), i
 
 
 # -- activity masking (dcn_sparse) -----------------------------------------
