@@ -25,10 +25,12 @@ Phases (any failure exits non-zero):
 4. kernel, train direction: ``dcn_train_fwd`` against ``deform_conv2d``,
    ``dcn_bwd`` (gx, goffsets, gmask) and ``dcn_wgrad`` (gW) against
    ``deform_conv2d_backward``, at the flagship training shape (B=32), B=1,
-   a 64x64 image whose slices do not fit shared memory (``dcn_bwd``'s
-   global-red path) and the same matrix, each cotangent within 1e-3 *
-   max(|ref|, 1); the atomic ``gx`` twice at B=32, its run-to-run
-   difference printed; wrapper and entry-point times and bounds;
+   the bottlenecks of basech 16 and 32 at B=32 (Cin = Cout = 128 and 256,
+   Cg 16 and 32), a 64x64 image of Cg 32 / Cout 64 whose slices do not fit
+   shared memory (``dcn_bwd``'s global-red path) and the same matrix, each
+   cotangent within 1e-3 * max(|ref|, 1); at the four timed shapes every
+   output twice, the atomic ``gx``'s run-to-run difference printed and
+   ``gW`` bitwise equal or fail; wrapper and entry-point times and bounds;
 5. autograd: a loss through the model's DCN (``dcn_cuda.dcn``) on the card
    gives gradients for x, offsets, mask, weight and bias that match the
    plain path, through the kernels;
@@ -51,7 +53,11 @@ Phases (any failure exits non-zero):
    path, and one train step from the same params and batch on both: the
    validation losses, the per-window losses and every parameter's grad
    within 1e-3 of their own scale (max |plain|). Step time, batch-build
-   time and a ``torch.profiler`` breakdown of one step are printed.
+   time and a ``torch.profiler`` breakdown of one step are printed. Last,
+   one B=32 step at basech 16 (``model;args;basech=16``, seeded params,
+   the same batch): 14 launches of each train kernel, losses and grads
+   within 1e-3 of their scale of the plain path's, its step time beside
+   the basech-8 step's.
 
 8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
    ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
@@ -171,6 +177,8 @@ def kernel_cases():
     # 16 channels per group, 6 out-channels: W and the output take the
     # scalar edge (Cout % 4 != 0), the backward its Cg 32 instantiation
     cases.append(("cg16_cout6", dict(b=2, h=9, w=13, cin=32, cout=6, dg=2), {}))
+    # 3 channels per group: every kernel's gather takes its scalar path
+    cases.append(("cg3_cout5", dict(b=2, h=7, w=9, cin=6, cout=5, dg=2), {}))
     return cases
 
 
@@ -414,27 +422,36 @@ def bwd_entry(torch, lib, inp, g, cfg):
 
 
 def wgrad_entry(torch, lib, inp, g):
-    """A launch of ``dcn_wgrad_f32`` alone (not counted; the partials'
-    sum, which the wrapper adds, left out)."""
+    """A launch of ``dcn_wgrad_f32`` alone (not counted; the partials' sum,
+    which the wrapper adds, left out), at the chooser's configuration."""
     from esr_tpu_torch.ops import dcn_cuda
 
     x, off, mask, wt = (inp[k] for k in ("x", "offsets", "mask", "weight"))
     args = geometry_args(inp)
-    chunk_rows, n_chunks = dcn_cuda.wgrad_chunks(args[0] * args[4] * args[5], args[7],
-                                                 lib.dcn_train_rows_per_tile())
-    partial = torch.empty((n_chunks, wt.numel()), device=x.device)
+    cfg = dcn_cuda.dcn_wgrad.launch_config(x, off, wt.shape)
+    partial = torch.empty((cfg.chunks(args[0] * args[4] * args[5]), wt.numel()),
+                          device=x.device)
 
     def launch():
         rc = lib.dcn_wgrad_f32(x.data_ptr(), off.data_ptr(), mask.data_ptr(), g.data_ptr(),
-                               partial.data_ptr(), *args, chunk_rows, n_chunks,
+                               partial.data_ptr(), *args, cfg.tj, cfg.to, cfg.mo,
+                               cfg.chunk_rows,
                                torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            fail(f"dcn_wgrad_f32 returned cudaError {rc}")
+            fail(f"dcn_wgrad_f32 at {cfg} returned cudaError {rc}")
     return launch
 
 
+# the train-direction cases that are timed: the flagship at the training
+# batch and at B=1, and the bottlenecks of basech 16 and 32 at batch 32
+TIMED_TRAIN_CASES = ("train_flagship_b32", "train_flagship_b1", "train_basech16_b32",
+                     "train_basech32_b32")
+
+
 def phase_train_kernels(torch, np, card):
-    """Phase 4: the train-direction kernels against their plain versions."""
+    """Phase 4: the train-direction kernels against their plain versions;
+    returns the times of each timed case by kernel, and the worst
+    scale-normalized error of each kernel over all cases."""
     from esr_tpu_torch.ops import dcn_cuda
     from esr_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_backward
     from esr_tpu_torch.ops.dcn_cuda import dcn_bwd, dcn_train_fwd, dcn_wgrad
@@ -442,19 +459,20 @@ def phase_train_kernels(torch, np, card):
     rng = np.random.default_rng(1)
     worst_rel = {"dcn_train_fwd": 0.0, "dcn_bwd": 0.0, "dcn_wgrad": 0.0}
     record = {}
-    # the flagship's images fit shared memory (the ownership path); a 64x64
-    # image of 32 channels per group does not (the global vector-red path;
-    # Cout 16 keeps it inside the weight gradient's register budget)
+    # the flagship's and basech 16's and 32's images fit shared memory (the
+    # backward's ownership path); a 64x64 image of 32 channels per group
+    # does not (the global vector-red path)
     cases = [("train_flagship_b32", dict(b=32, h=12, w=20, cin=64, cout=64, dg=8), {}),
              ("train_flagship_b1", dict(b=1, h=12, w=20, cin=64, cout=64, dg=8), {}),
-             ("bwd_global_64x64", dict(b=1, h=64, w=64, cin=64, cout=16, dg=2), {})]
+             ("train_basech16_b32", dict(b=32, h=12, w=20, cin=128, cout=128, dg=8), {}),
+             ("train_basech32_b32", dict(b=32, h=12, w=20, cin=256, cout=256, dg=8), {}),
+             ("bwd_global_64x64", dict(b=1, h=64, w=64, cin=64, cout=64, dg=2), {})]
     for name, shape, geom in cases + kernel_cases():
         inp = dcn_inputs(torch, rng, **shape)
         x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
         b, ho, wo = off.shape[:3]
         path = bwd_config_of(inp)
-        if name.startswith(("train_flagship", "bwd_global")) and path.own != (
-                name.startswith("train_flagship")):
+        if name.startswith(("train_", "bwd_global")) and path.own != name.startswith("train_"):
             fail(f"dcn_bwd on {name} took {path}")
         g = torch.from_numpy(rng.standard_normal(
             (b, ho, wo, wt.shape[-1])).astype(np.float32)).cuda()
@@ -478,18 +496,23 @@ def phase_train_kernels(torch, np, card):
             errs[kname] = max(errs.get(kname, 0.0), err)
             print(f"kernel {name} {kname} {what}: max_abs_err {err:.3e} (limit {limit:.3e})"
                   + (f" [{'ownership' if path.own else 'global red'} path]" if kname == "dcn_bwd"
-                     and what == "gx" else ""))
-        if name != "train_flagship_b32":
+                     and what == "gx" else "")
+                  + (f" [{dcn_wgrad.launch_config(x, off, wt.shape)}]" if kname == "dcn_wgrad"
+                     else ""))
+        if name not in TIMED_TRAIN_CASES:
             continue
-        # gx is scattered with atomicAdd: its bits may change run to run
+        # gx is scattered with atomicAdd: its bits may change run to run;
+        # gW's must not
         gx2, goff2, gmask2 = dcn_bwd(x, off, mask, wt, g, **geom)
         gw2 = dcn_wgrad(x, off, mask, wt.shape, g, **geom)
         out2 = dcn_train_fwd(**inp, **geom)
         torch.cuda.synchronize()
-        print("run-to-run max diff at B=32: " + ", ".join(
+        print(f"run-to-run max diff on {name}: " + ", ".join(
             f"{n} {float((a - c).abs().max()):.3e}" for n, a, c in (
                 ("out", out, out2), ("gx", gx, gx2), ("goffsets", goff, goff2),
                 ("gmask", gmask, gmask2), ("gweight", gw, gw2))))
+        if not same_bits(torch, gw, gw2):
+            fail(f"dcn_wgrad's gweight on {name} is not bitwise equal from run to run")
 
         def plain_grad(*leaf_names):
             leaves = {k: v.detach().clone().requires_grad_(k in leaf_names)
@@ -517,13 +540,16 @@ def phase_train_kernels(torch, np, card):
                                 flops + 2 * gather_flops(inp)),
             "dcn_wgrad": roofline(nbytes(x, off, mask, g, gw), flops + gather_flops(inp)),
         }
+        record[name] = {}
         for kname, (kernel_fn, plain_fn, entry_fn) in timings.items():
             ms = time_ms(torch, kernel_fn, iters=200)
             entry_ms = time_ms(torch, entry_fn, iters=200)
-            plain_ms = time_ms(torch, plain_fn, iters=20, warmup=3)
+            plain_ms = (time_ms(torch, plain_fn, iters=20, warmup=3)
+                        if name.startswith("train_flagship") else
+                        time_ms(torch, plain_fn, iters=5, warmup=2))
             bound_ms, bound_by = bounds[kname]
-            record[kname] = dict(err=errs[kname], ms=ms, entry_ms=entry_ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by)
+            record[name][kname] = dict(err=errs[kname], ms=ms, entry_ms=entry_ms,
+                                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
             print(f"time {name} {kname}: kernel {ms:.5f} ms (entry point {entry_ms:.5f}), "
                   f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}")
     return record, worst_rel
@@ -866,7 +892,85 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
           f"({', '.join(f'{t:.3f}' for t in plain_times[1:])}); the trainer's run "
           f"{wall:.3f} s for {trainer.iterations} iterations, 1 validation, 3 saves")
     device_time_breakdown(torch, prof, 1, prof_ms, "train step", card)
+    basech16_step(torch, np, dev, trainer, sel, repo, overrides, card, sorted(times)[1])
     return totals, sparse_launches
+
+
+def basech16_step(torch, np, dev, trainer, sel, repo: Path, overrides, card, step8_ms):
+    """One B=32 step of the flagship config at basech 16 (the override
+    ``model;args;basech=16``: a 128-channel DCN bottleneck of 16 channels
+    per group) from seeded params, the offset/mask conv made nonzero, on
+    the basech-8 step's batch: 14 launches each of ``dcn_train_fwd``,
+    ``dcn_bwd`` and ``dcn_wgrad``, and the losses and every parameter's
+    grad within 1e-3 of their own scale of the plain path's. Then its step
+    time, optimizer included, beside the basech-8 step's."""
+    from esr_tpu_torch.config.build import build_model, build_optimizer
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.training.train_step import make_train_step, window_losses
+
+    run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"),
+                              overrides=overrides + ["model;args;basech=16"],
+                              runid="chip_smoke_basech16", seed=0)
+    torch.manual_seed(0)
+    model = build_model(run.config["model"])
+    if model.basech != 16:
+        fail("the override model;args;basech=16 did not reach the model")
+    rng = np.random.default_rng(16)
+    om = model.spacetime_fuse.dcn_offset_mask
+    with torch.no_grad():
+        om.weight.copy_(torch.from_numpy(
+            (rng.standard_normal(tuple(om.weight.shape)) * 0.05).astype(np.float32)))
+        om.bias.copy_(torch.from_numpy(rng.standard_normal(tuple(om.bias.shape)).astype(np.float32)))
+    model = model.to(dev)
+    n = 2 * TRAIN_WINDOWS
+    losses, grads = {}, {}
+    for path in ("kernel", "plain"):
+        m = copy.deepcopy(model).train()
+        m.spacetime_fuse.dcn_impl = "auto" if path == "kernel" else "plain"
+        dcn_cuda.reset_launches()
+        per_window, _ = window_losses(m, sel, trainer.seqn)
+        per_window.sum().backward()
+        torch.cuda.synchronize()
+        want = (dict(only("dcn_train_fwd", n), dcn_bwd=n, dcn_wgrad=n) if path == "kernel"
+                else only("dcn_train_fwd", 0))
+        if counts_of() != want:
+            fail(f"the basech-16 step on the {path} path launched {counts_of()}, "
+                 f"should be {want}")
+        losses[path] = per_window.detach()
+        grads[path] = {name: p.grad for name, p in m.named_parameters()}
+    print(f"basech-16 step launches {dict(only('dcn_train_fwd', n), dcn_bwd=n, dcn_wgrad=n)}")
+    err, scale, limit = rel_err_of(torch, losses["kernel"], losses["plain"])
+    print(f"basech-16 step kernel vs plain: loss_per_window max_abs_err {err:.3e} "
+          f"(scale {scale:.3e}, limit {limit:.3e})")
+    if not err <= limit:
+        fail("the basech-16 step's losses differ between the kernel and plain paths")
+    rows = sorted(((e / max(s, TINY), name, e, s, lim) for name, ref in grads["plain"].items()
+                   for e, s, lim in [rel_err_of(torch, grads["kernel"][name], ref)]),
+                  reverse=True)
+    print(f"basech-16 step kernel vs plain grads: {len(rows)} parameters; worst err/scale "
+          + "; ".join(f"{name} {e:.3e}/{s:.3e} = {r:.3e}" for r, name, e, s, _ in rows[:5]))
+    bad = [name for _, name, e, _, lim in rows if not e <= lim]
+    if bad:
+        fail(f"the basech-16 step's grads differ from the plain path's beyond {TOL} of "
+             f"their own scale: {bad}")
+
+    opt, _ = build_optimizer(run.config["optimizer"], model.parameters(),
+                             run.config.get("lr_scheduler"),
+                             run.config["trainer"]["iteration_based_train"].get("lr_change_rate"))
+    step = make_train_step(model, opt, trainer.seqn)
+    for _ in range(2):  # warm
+        step(sel)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(sel)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"train step on {card}: batch {sel['inp'].shape[0]}, basech 16 "
+          f"{sorted(times)[1]:.3f} ms median of 3 ({', '.join(f'{t:.3f}' for t in times)}); "
+          f"basech 8 {step8_ms:.3f} ms (host clock to synchronize, optimizer included)")
 
 
 def sparse_train_step(torch, dev, trainer, sel, repo: Path, overrides):
@@ -1385,7 +1489,7 @@ def main() -> int:
         "train_run_launches": totals["dcn_fwd"],
     }]
     for name in ("dcn_train_fwd", "dcn_bwd", "dcn_wgrad"):
-        r = train_kernels[name]
+        r = train_kernels["train_flagship_b32"][name]
         records.append({
             "name": name, "route": "cuda", "source": "esr_tpu_torch/csrc/dcn_train.cu",
             "replaces": REPLACES[name], "launches": totals[name],
@@ -1393,6 +1497,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "matrix_max_rel_err": train_worst[name], "shape": "B=32 flagship training",
+            "by_shape": {case: train_kernels[case][name] for case in TIMED_TRAIN_CASES[1:]},
         })
     for name, source, b, launches, extra in (
             ("dcn_fwd_masked", "esr_tpu_torch/csrc/dcn_fwd.cu", "b4", engine_launches,

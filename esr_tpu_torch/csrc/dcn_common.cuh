@@ -212,20 +212,18 @@ __device__ __forceinline__ void load_pref(Pref& P, const Row& R, const Geom& G,
   P.m = R.mask[g * K + k];
 }
 
-// The bilinear corners of one item, in the reference's corner order
-// (0,0), (0,1), (1,0), (1,1); zero weight and value outside the image
-// (float compares: a NaN or huge offset never reaches an int cast).
+// The bilinear corners of V channels at tap (ky, kx) of output pixel
+// (oh, ow), in the reference's corner order (0,0), (0,1), (1,0), (1,1);
+// src points at the first channel in its image. Zero weight and value
+// outside the image (float compares: a NaN or huge offset never reaches an
+// int cast).
 template <int V>
-__device__ __forceinline__ void issue_corners(Corners<V>& C, const Pref& P,
-                                              const Row& R, const Geom& G,
-                                              int col, int kct) {
-  if (!R.ok || col >= kct) return;
-  const int k = col / G.Cin;
-  const int ch = col - k * G.Cin;
-  const int ky = k / G.kw;
-  const int kx = k - ky * G.kw;
-  const float ys = (float)(R.oh * G.stride - G.pad + ky * G.dil) + P.oy;
-  const float xs = (float)(R.ow * G.stride - G.pad + kx * G.dil) + P.ox;
+__device__ __forceinline__ void sample_corners(Corners<V>& C, const Pref& P,
+                                               const float* src, int oh,
+                                               int ow, int ky, int kx,
+                                               const Geom& G) {
+  const float ys = (float)(oh * G.stride - G.pad + ky * G.dil) + P.oy;
+  const float xs = (float)(ow * G.stride - G.pad + kx * G.dil) + P.ox;
   const float fy = floorf(ys);
   const float fx = floorf(xs);
   const float dy = ys - fy;
@@ -241,18 +239,30 @@ __device__ __forceinline__ void issue_corners(Corners<V>& C, const Pref& P,
                     cx <= (float)(G.W - 1);
     C.cw[c] = ok ? cw[c] : 0.f;
     if (ok) {
-      const float* src = R.x + ((size_t)((int)cy * G.W + (int)cx)) * G.Cin + ch;
+      const float* at = src + ((size_t)((int)cy * G.W + (int)cx)) * G.Cin;
       if constexpr (V == 4) {
-        const float4 q = __ldg(reinterpret_cast<const float4*>(src));
+        const float4 q = __ldg(reinterpret_cast<const float4*>(at));
         C.v[c][0] = q.x; C.v[c][1] = q.y; C.v[c][2] = q.z; C.v[c][3] = q.w;
       } else {
-        C.v[c][0] = __ldg(src);
+        C.v[c][0] = __ldg(at);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < V; ++i) C.v[c][i] = 0.f;
     }
   }
+}
+
+// The bilinear corners of one item of the forward's gather.
+template <int V>
+__device__ __forceinline__ void issue_corners(Corners<V>& C, const Pref& P,
+                                              const Row& R, const Geom& G,
+                                              int col, int kct) {
+  if (!R.ok || col >= kct) return;
+  const int k = col / G.Cin;
+  const int ky = k / G.kw;
+  sample_corners<V>(C, P, R.x + (col - k * G.Cin), R.oh, R.ow, ky,
+                    k - ky * G.kw, G);
 }
 
 // cols[jj][p] = m * sum_corner w_corner x[corner] (zero for a row this

@@ -31,12 +31,14 @@
 //      reference: gmask = sum_corner w_corner <x[corner], gcols>, and
 //      d/d(dy, dx) of the bilinear weights times m <x[corner], gcols> for
 //      goffsets (zero outside the image).
-//   3. dcn_wgrad_kernel: grid (row chunks, groups). Each block walks its
-//      chunk in tiles of kRows rows, rebuilds cols for its group and
-//      accumulates gW[g] = sum_r cols[r, j] g[r, o] in registers, then
-//      writes one partial per chunk; the wrapper sums the partials in a
-//      fixed order (the second pass of the reduction over B*Ho*Wo rows that
-//      the TPU kernel carries across its sequential grid).
+//   3. dcn_wgrad_kernel: gW[k, g*Cg + c, o] = sum_r cols_g[r, k*Cg + c]
+//      g[r, o], cols the mask times the bilinear sample. Grid (row chunks,
+//      column tiles x out-channel tiles, groups): a block owns tj of its
+//      group's K*Cg columns x up to 128 out-channels, so any width runs,
+//      and writes one partial per chunk of rows; the wrapper sums the
+//      partials in a fixed order (the second pass of the reduction over
+//      B*Ho*Wo rows that the TPU kernel carries across its sequential
+//      grid). See "What bounds the weight gradient" below.
 // All accumulation is f32 FMAs (no TF32).
 //
 // What bounds the per-pixel backward on the H100, and its design. At the
@@ -69,6 +71,36 @@
 //     not fit, the taps run in passes (kt per pass), the cotangent streamed
 //     once per pass. The chooser in ops/dcn_cuda.py picks from the shape.
 //
+// What bounds the weight gradient on the H100, and its design. At the
+// flagship training call the work is the forward's, 610 MFLOP with the
+// gather (9.1 us at 67 TFLOP/s), against ~11 MB (3.2 us at 3.35 TB/s):
+// bound by operations.
+// The earlier kernel kept scattered single outputs per thread (32 in
+// registers, so K*Cg*Cout <= 8192 and basech >= 12 was refused), spent
+// two scalar shared loads per FMA, and rebuilt its columns one channel at
+// a time between two barriers: 0.161 ms at B=32. Here:
+//   - Register micro-tiles: a thread holds 4 columns x 8 out-channels (x 4
+//     at <= 32 out-channels). cols is stored [row][column], so per row a
+//     thread loads one float4 of its columns and two of the cotangent for
+//     32 FMAs; a thread's two quads of the cotangent lie to / 2 apart, so
+//     each load of a warp is contiguous.
+//   - The gather in the forward's pipeline: each thread owns two items of
+//     4 channels of one tap per stage (2 * to / mo rows), their offsets and
+//     mask loaded two stages ahead, their corners (float4) one stage ahead
+//     and issued before the current stage's FMAs, combined and stored after
+//     them; the cotangent rows by cp.async. Two buffers, one barrier a
+//     stage. The sampling is computed per (row, tap, 4 channels), as in the
+//     forward.
+//   - Deterministic split-K: each output of a chunk is one FMA chain over
+//     the chunk's rows in order, and the partials are summed in a fixed
+//     order, so gW is the same bits from run to run.
+//   - The launch configuration comes from ops/dcn_cuda.py:wgrad_config.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): the entry
+// point at B=32 0.046 ms (the earlier kernel 0.161 in the same run), B=1
+// 0.013-0.019, basech 16 (Cg 16, Cout 128) 0.106, basech 32 (Cg 32,
+// Cout 256) 0.446. At B=32 it takes 0.026 ms without its FMAs and 0.031
+// without its gather: the two overlap in part.
+//
 // Determinism: the forward, goffsets, gmask and gW are run-to-run
 // deterministic (fixed summation order; goffsets and gmask use the same
 // per-element operation order as the earlier kernel). gx is not: shared or
@@ -78,9 +110,6 @@
 #include "dcn_common.cuh"
 
 namespace {
-
-constexpr int kRows = 32;       // rows per tile in the weight gradient
-constexpr int kWgradAcc = 32;   // outputs per thread in the weight gradient
 
 // The per-pixel backward's launch configuration: chunk_rows rows per block
 // (one image when own), tp cotangent rows per shared tile, kt taps per
@@ -330,100 +359,276 @@ int launch_bwd_pixel(const float* x, const float* off, const float* mask,
   return (int)cudaGetLastError();
 }
 
-// cols[p][j], j = k*Cg + c, for rows r0 + p (< r_end) of group g: the mask
-// times the bilinear sample of channel g*Cg + c at tap k, zero past r_end.
-// One (row, tap, channel) element per thread step.
-__device__ __forceinline__ void fill_cols(float* cols,
-                                          const float* __restrict__ x,
-                                          const float* __restrict__ off,
-                                          const float* __restrict__ mask,
-                                          const Geom& G, int g, int r0,
-                                          int r_end, int tile) {
-  const int K = G.kh * G.kw;
-  const int cg = G.Cin / G.dg;
-  const int KC = K * cg;
-  const int npix = G.Ho * G.Wo;
-  for (int e = threadIdx.x; e < tile * KC; e += kThreads) {
-    const int p = e / KC;
-    const int j = e - p * KC;
-    const int k = j / cg;
-    const int c = j - k * cg;
-    const int r = r0 + p;
-    float v = 0.f;
-    if (r < r_end) {
-      const Sample s = sample_at(off, G, r, g, k);
-      const float* xb =
-          x + (size_t)(r / npix) * G.H * G.W * G.Cin + g * cg + c;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (s.pix[q] >= 0) v += xb[(size_t)s.pix[q] * G.Cin] * s.cw[q];
-      }
-      v *= mask[((size_t)r * G.dg + g) * K + k];
-    }
-    cols[e] = v;
-  }
+// The weight gradient's launch configuration: tj of the group's K*Cg
+// columns (group-local j = k*Cg + c) x to out-channels per block, each
+// thread a micro-tile of 4 columns x mo out-channels (mo / 4 quads, to / mo
+// apart); chunk_rows rows per block, one partial of gW per chunk. A stage
+// holds 2 * to / mo rows, so every thread gathers two 4-column items per
+// stage.
+struct WgradTile {
+  int tj, to, mo, chunk_rows;
+};
+
+// Two stages of columns and cotangent rows. Mirrored by wgrad_smem_bytes in
+// ops/dcn_cuda.py.
+size_t wgrad_smem_bytes(const WgradTile& T) {
+  const size_t stage_rows = 2 * (T.to / T.mo);
+  return 2 * stage_rows * (T.tj + T.to) * sizeof(float);
 }
 
+bool wgrad_tile_ok(const WgradTile& T) {
+  if (T.mo != 4 && T.mo != 8) return false;
+  if (T.tj < 4 || T.tj % 4 != 0 || T.to < T.mo || T.to % T.mo != 0 || T.chunk_rows < 1) {
+    return false;
+  }
+  return (T.tj / 4) * (T.to / T.mo) <= kThreads && wgrad_smem_bytes(T) <= 232448;
+}
+
+// Grid (row chunks, column tiles x out-channel tiles, groups). kVec: Cg % 4
+// == 0 and x 16-byte aligned, so an item's 4 columns are 4 channels of one
+// tap, sampled once and read as one float4 per corner, through the
+// forward's pipeline (offsets and mask two stages ahead, corners one stage
+// ahead and issued before the current stage's FMAs). Else an item's 4
+// columns are sampled one by one when they are stored (a slow path for odd
+// shapes).
+template <bool kVec, int MO>
 __global__ void __launch_bounds__(kThreads)
 dcn_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ off,
                  const float* __restrict__ mask,
                  const float* __restrict__ gout, float* __restrict__ partial,
-                 Geom G, int chunk_rows) {
+                 Geom G, WgradTile T) {
   extern __shared__ __align__(16) float smem[];
   const int K = G.kh * G.kw;
   const int cg = G.Cin / G.dg;
-  const int KC = K * cg;
-  const int Cout = G.Cout;
-  const int g = blockIdx.y;
-  float* cols = smem;               // [kRows][KC]
-  float* gs = smem + kRows * KC;    // [kRows][Cout]
-  const int rows = G.B * G.Ho * G.Wo;
-  const int start = blockIdx.x * chunk_rows;
-  const int end = min(rows, start + chunk_rows);
-  const int tid = threadIdx.x;
-  const int n_out = KC * Cout;
+  const int kc = K * cg;
+  const int tj = T.tj;
+  const int to = T.to;
+  const int nv = to / MO;    // threads along the out-channels
+  const int nqj = tj / 4;    // column quads of the block
+  const int tr = 2 * nv;     // rows per stage
+  const int n_jt = (kc + tj - 1) / tj;
+  const int g = blockIdx.z;
+  const int j0 = (blockIdx.y % n_jt) * tj;
+  const int o0 = (blockIdx.y / n_jt) * to;
+  const int npix = G.Ho * G.Wo;
+  const int rows = G.B * npix;
+  const int start = blockIdx.x * T.chunk_rows;
+  const int end = (int)min((long long)rows, (long long)start + T.chunk_rows);
+  const int n_stages = (end - start + tr - 1) / tr;
+  float* cs = smem;               // [2][tr][tj]
+  float* gs = smem + 2 * tr * tj; // [2][tr][to]
+  const bool vec_g = G.Cout % 4 == 0 && aligned16(gout);
+  const size_t img = (size_t)G.H * G.W * G.Cin;
+  const size_t rstride = (size_t)G.dg * K;  // a row's (group, tap) pairs
 
-  float acc[kWgradAcc];
-#pragma unroll
-  for (int i = 0; i < kWgradAcc; ++i) acc[i] = 0.f;
+  // The thread's two gather items: rows p0 and p0 + nv of each stage, the
+  // 4 columns j .. j+3 (fixed over the stages).
+  const int jq = threadIdx.x % nqj;
+  const int p0 = threadIdx.x / nqj;
+  const int j = j0 + 4 * jq;
+  const int k = j / cg;
+  const int c = j - k * cg;
+  const int ky = k / G.kw;
+  const int kx = k - ky * G.kw;
+  const int q = g * K + k;           // the item's (group, tap) in a row
+  const int ch = g * cg + c;         // its first channel of x
+  const bool col_ok = j < kc;
 
-  for (int t0 = start; t0 < end; t0 += kRows) {
-    fill_cols(cols, x, off, mask, G, g, t0, end, kRows);
-    for (int e = tid; e < kRows * Cout; e += kThreads) {
-      const int p = e / Cout;
-      const int o = e - p * Cout;
-      gs[e] = t0 + p < end ? gout[(size_t)(t0 + p) * Cout + o] : 0.f;
-    }
-    __syncthreads();
+  auto item_row = [&](int s, int u) { return start + s * tr + p0 + u * nv; };
+
+  auto load_pref_w = [&](Pref& P, int s, int u) {
+    const int r = item_row(s, u);
+    if (!col_ok || r >= end) return;
+    const size_t e = (size_t)r * rstride + q;
+    P.oy = off[2 * e];
+    P.ox = off[2 * e + 1];
+    P.m = mask[e];
+  };
+
+  auto issue_w = [&](Corners<4>& C, const Pref& P, int s, int u) {
+    const int r = item_row(s, u);
+    if (!col_ok || r >= end) return;
+    const int b = r / npix;
+    const int n = r - b * npix;
+    const int oh = n / G.Wo;
+    sample_corners<4>(C, P, x + b * img + ch, oh, n - oh * G.Wo, ky, kx, G);
+  };
+
+  // cs[p][j .. j+3] = m * sum_corner w_corner x[corner] (zero past the
+  // chunk's end and past the group's columns)
+  auto store_w = [&](float* cbuf, const Corners<4>& C, int s, int u) {
+    const int r = item_row(s, u);
+    const int p = p0 + u * nv;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < end) {
+      if constexpr (kVec) {
+        if (col_ok) {
 #pragma unroll
-    for (int i = 0; i < kWgradAcc; ++i) {
-      const int idx = tid + i * kThreads;
-      if (idx < n_out) {
-        const int j = idx / Cout;
-        const int o = idx - j * Cout;
-        float a = acc[i];
-#pragma unroll 8
-        for (int p = 0; p < kRows; ++p) {
-          a = fmaf(cols[p * KC + j], gs[p * Cout + o], a);
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int cr = 0; cr < 4; ++cr) v[i] += C.v[cr][i] * C.cw[cr];
+            v[i] *= C.m;
+          }
         }
-        acc[i] = a;
+      } else {
+        const float* xb = x + (size_t)(r / npix) * img + g * cg;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int jj = j + i;
+          if (jj >= kc) continue;
+          const int kk = jj / cg;
+          const Sample sm = sample_at(off, G, r, g, kk);
+#pragma unroll
+          for (int cr = 0; cr < 4; ++cr) {
+            if (sm.pix[cr] >= 0) {
+              v[i] += xb[(size_t)sm.pix[cr] * G.Cin + jj - kk * cg] * sm.cw[cr];
+            }
+          }
+          v[i] *= mask[(size_t)r * rstride + g * K + kk];
+        }
       }
     }
+    *reinterpret_cast<float4*>(cbuf + p * tj + 4 * jq) = make_float4(v[0], v[1], v[2], v[3]);
+  };
+
+  // the cotangent's rows of stage s, the block's out-channels, by
+  // cp.async; zero past the chunk's end and past Cout
+  auto stage_g = [&](float* gbuf, int s) {
+    const int nq = to / 4;
+    for (int e = threadIdx.x; e < tr * nq; e += blockDim.x) {
+      const int p = e / nq;
+      const int o4 = (e - p * nq) * 4;
+      const int r = start + s * tr + p;
+      const int o = o0 + o4;
+      float* dst = gbuf + p * to + o4;
+      const float* src = gout + (size_t)r * G.Cout + o;
+      if (r < end && vec_g && o < G.Cout) {
+        cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (r < end && o + i < G.Cout) {
+            cp_async4(dst + i, src + i);
+          } else {
+            dst[i] = 0.f;
+          }
+        }
+      }
+    }
+  };
+
+  float acc[4][MO];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int l = 0; l < MO; ++l) acc[i][l] = 0.f;
+  }
+  Pref P[2];
+  Corners<4> C[2];
+
+  if constexpr (kVec) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) load_pref_w(P[u], 0, u);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) issue_w(C[u], P[u], 0, u);
+    if (n_stages > 1) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) load_pref_w(P[u], 1, u);
+    }
+  }
+  stage_g(gs, 0);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) store_w(cs, C[u], 0, u);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int tx = threadIdx.x % nv;
+  const int ty = threadIdx.x / nv;
+  for (int s = 0; s < n_stages; ++s) {
+    const int nb = (s + 1) & 1;
+    if (s + 1 < n_stages) {
+      if constexpr (kVec) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) issue_w(C[u], P[u], s + 1, u);
+        if (s + 2 < n_stages) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) load_pref_w(P[u], s + 2, u);
+        }
+      }
+      stage_g(gs + nb * tr * to, s + 1);
+    }
+    // acc[i][4 m + l] += cols[p][4 ty + i] * g[p][4 tx + 4 nv m + l], rows
+    // in order
+    const float* cb = cs + (s & 1) * tr * tj + 4 * ty;
+    const float* gb = gs + (s & 1) * tr * to + 4 * tx;
+#pragma unroll(16 / MO)
+    for (int p = 0; p < tr; ++p) {
+      const float4 a = *reinterpret_cast<const float4*>(cb + p * tj);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int m = 0; m < MO / 4; ++m) {
+        const float4 bv = *reinterpret_cast<const float4*>(gb + p * to + 4 * nv * m);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * m + 0] = fmaf(av[i], bv.x, acc[i][4 * m + 0]);
+          acc[i][4 * m + 1] = fmaf(av[i], bv.y, acc[i][4 * m + 1]);
+          acc[i][4 * m + 2] = fmaf(av[i], bv.z, acc[i][4 * m + 2]);
+          acc[i][4 * m + 3] = fmaf(av[i], bv.w, acc[i][4 * m + 3]);
+        }
+      }
+    }
+    if (s + 1 < n_stages) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) store_w(cs + nb * tr * tj, C[u], s + 1, u);
+    }
+    cp_async_wait_all();
     __syncthreads();
   }
 
-  float* dst = partial + (size_t)blockIdx.x * K * G.Cin * Cout;
+  // partial[chunk][k][g*Cg + c][o], gW's own layout
+  float* dst0 = partial + (size_t)blockIdx.x * K * G.Cin * G.Cout;
 #pragma unroll
-  for (int i = 0; i < kWgradAcc; ++i) {
-    const int idx = tid + i * kThreads;
-    if (idx < n_out) {
-      const int j = idx / Cout;
-      const int o = idx - j * Cout;
-      const int k = j / cg;
-      const int c = j - k * cg;
-      dst[((size_t)k * G.Cin + g * cg + c) * Cout + o] = acc[i];
+  for (int i = 0; i < 4; ++i) {
+    const int jj = j0 + 4 * ty + i;
+    if (jj >= kc) continue;
+    const int kk = jj / cg;
+    float* dst = dst0 + ((size_t)kk * G.Cin + g * cg + jj - kk * cg) * G.Cout;
+#pragma unroll
+    for (int m = 0; m < MO / 4; ++m) {
+      const int ob = o0 + 4 * tx + 4 * nv * m;
+      if (G.Cout % 4 == 0 && aligned16(partial) && ob < G.Cout) {
+        *reinterpret_cast<float4*>(dst + ob) = make_float4(
+            acc[i][4 * m + 0], acc[i][4 * m + 1], acc[i][4 * m + 2], acc[i][4 * m + 3]);
+      } else {
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          if (ob + l < G.Cout) dst[ob + l] = acc[i][4 * m + l];
+        }
+      }
     }
   }
+}
+
+template <bool kVec, int MO>
+int launch_wgrad_mo(const float* x, const float* off, const float* mask,
+                    const float* gout, float* partial, const Geom& G,
+                    const WgradTile& T, const dim3& grid, void* stream) {
+  const size_t smem = wgrad_smem_bytes(T);
+  cudaError_t err = allow_smem(dcn_wgrad_kernel<kVec, MO>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = (T.tj / 4) * (T.to / MO);
+  dcn_wgrad_kernel<kVec, MO><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      x, off, mask, gout, partial, G, T);
+  return (int)cudaGetLastError();
+}
+
+template <bool kVec>
+int launch_wgrad(const float* x, const float* off, const float* mask,
+                 const float* gout, float* partial, const Geom& G,
+                 const WgradTile& T, const dim3& grid, void* stream) {
+  return T.mo == 8
+             ? launch_wgrad_mo<kVec, 8>(x, off, mask, gout, partial, G, T, grid, stream)
+             : launch_wgrad_mo<kVec, 4>(x, off, mask, gout, partial, G, T, grid, stream);
 }
 
 }  // namespace
@@ -431,7 +636,8 @@ dcn_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ off,
 // Plain C entry points (loaded with ctypes). Each returns cudaGetLastError()
 // after its launch: 0 on success, cudaErrorInvalidValue for a configuration
 // the kernel does not take. The caller allocates every output and picks the
-// launch configurations (ops/dcn_cuda.py: fwd_config, bwd_config).
+// launch configurations (ops/dcn_cuda.py: fwd_config, bwd_config,
+// wgrad_config).
 
 extern "C" int dcn_train_fwd_f32(const float* x, const float* off,
                                  const float* mask, const float* w,
@@ -489,25 +695,23 @@ extern "C" int dcn_wgrad_f32(const float* x, const float* off,
                              const float* mask, const float* gout,
                              float* partial, int B, int H, int W, int Cin,
                              int Ho, int Wo, int Cout, int dg, int kh, int kw,
-                             int stride, int pad, int dil, int chunk_rows,
-                             int n_chunks, void* stream) {
+                             int stride, int pad, int dil, int tj, int to,
+                             int mo, int chunk_rows, void* stream) {
   const Geom G{B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride, pad, dil};
-  if (!geom_ok(G) || chunk_rows < 1 || n_chunks < 1 ||
-      kh * kw * (Cin / dg) * Cout > kThreads * kWgradAcc) {
+  const WgradTile T{tj, to, mo, chunk_rows};
+  if (!geom_ok(G) || !wgrad_tile_ok(T) || B < 1 || Ho < 1 || Wo < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const int KC = kh * kw * (Cin / dg);
-  const size_t smem = (size_t)kRows * (KC + Cout) * sizeof(float);
-  cudaError_t err = allow_smem(dcn_wgrad_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dcn_wgrad_kernel<<<dim3(n_chunks, dg), kThreads, smem,
-                     (cudaStream_t)stream>>>(x, off, mask, gout, partial, G,
-                                             chunk_rows);
-  return (int)cudaGetLastError();
+  // rows and the grid's y (column x out-channel tiles) and z (groups) limits
+  const long long rows = (long long)B * Ho * Wo;
+  const long long kc = (long long)kh * kw * (Cin / dg);
+  const long long tiles = ((kc + tj - 1) / tj) * ((Cout + to - 1) / to);
+  if (rows >= (1LL << 31) || tiles > 65535 || dg > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((unsigned)((rows + chunk_rows - 1) / chunk_rows), (unsigned)tiles,
+                  (unsigned)dg);
+  const bool vec = (Cin / dg) % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  return vec ? launch_wgrad<true>(x, off, mask, gout, partial, G, T, grid, stream)
+             : launch_wgrad<false>(x, off, mask, gout, partial, G, T, grid, stream);
 }
-
-// Launch geometry constants of the weight gradient, so the Python wrapper
-// sizes its chunks from the library it actually loaded.
-extern "C" int dcn_train_threads(void) { return kThreads; }
-extern "C" int dcn_train_rows_per_tile(void) { return kRows; }
-extern "C" int dcn_train_wgrad_acc(void) { return kWgradAcc; }

@@ -25,7 +25,8 @@ and launch count. The masked ones take the activity mask of
 :func:`bwd_config` picks the per-pixel backward's path: an image's x and
 gx slices in shared memory when they fit (gx is then written once, so it
 is allocated with ``torch.empty``), else a scatter into a zeroed gx in
-global memory.
+global memory. :func:`wgrad_config` tiles the weight gradient's output
+over blocks, so it takes any width.
 
 Nothing is imported or built when this module is imported; :func:`build`
 starts every ``nvcc`` at once.
@@ -81,7 +82,7 @@ _THREADS = 256
 # the most channels per group the per-pixel backward takes (its MAXCG)
 _BWD_MAX_CG = 32
 # about one block per SM of the H100 (132): the least grid the forward
-# chooser wants; the weight gradient aims at two blocks per SM
+# chooser wants
 _TARGET_BLOCKS = 120
 _SMS = 132
 
@@ -240,6 +241,95 @@ def bwd_config(h: int, w: int, ho: int, wo: int, cin: int, cout: int, dg: int,
         tp = max(2, tp // 2 + (tp // 2) % 2)
 
 
+@dataclass(frozen=True)
+class WgradConfig:
+    """The weight gradient's launch configuration (``WgradTile`` in
+    ``csrc/dcn_train.cu``): ``tj`` of a group's ``K * Cg`` columns x ``to``
+    out-channels per block, each thread a micro-tile of 4 columns x ``mo``
+    out-channels; ``chunk_rows`` rows per block, one partial of gW per
+    chunk. A stage holds ``2 * to / mo`` rows (two 4-column gather items a
+    thread)."""
+
+    tj: int
+    to: int
+    mo: int
+    chunk_rows: int
+
+    @property
+    def threads(self) -> int:
+        return (self.tj // 4) * (self.to // self.mo)
+
+    @property
+    def stage_rows(self) -> int:
+        return 2 * (self.to // self.mo)
+
+    def chunks(self, rows: int) -> int:
+        return _cdiv(rows, self.chunk_rows)
+
+    def tiles(self, kc: int, cout: int) -> int:
+        """Column tiles x out-channel tiles of one group (the grid's y)."""
+        return _cdiv(kc, self.tj) * _cdiv(cout, self.to)
+
+
+def wgrad_smem_bytes(cfg: WgradConfig) -> int:
+    """Dynamic shared memory of the weight gradient (``wgrad_smem_bytes``
+    in ``dcn_train.cu``): two stages of columns and cotangent rows."""
+    return 4 * 2 * cfg.stage_rows * (cfg.tj + cfg.to)
+
+
+def wgrad_config_ok(cfg: WgradConfig) -> bool:
+    """What the kernel takes (``wgrad_tile_ok`` in ``dcn_train.cu``)."""
+    return (cfg.mo in (4, 8) and cfg.tj >= 4 and cfg.tj % 4 == 0
+            and cfg.to >= cfg.mo and cfg.to % cfg.mo == 0 and cfg.chunk_rows >= 1
+            and cfg.threads <= _THREADS and wgrad_smem_bytes(cfg) <= _SMEM_MAX)
+
+
+# the most blocks a grid's y (column x out-channel tiles) and z (groups) take
+_GRID_YZ_MAX = 65535
+# the weight gradient's grid aims at about two blocks per SM
+_WGRAD_TARGET_BLOCKS = 2 * _SMS
+# at most 16 threads along a block's out-channels, each with 2 quads of
+# them above 32 out-channels (a 4 x 8 micro-tile), else 1
+_WGRAD_MAX_NV = 16
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_config(rows: int, kc: int, cout: int, dg: int) -> WgradConfig:
+    """The weight gradient's configuration for ``rows`` output pixels,
+    ``kc = K * Cg`` columns and ``cout`` out-channels per group, any width:
+    micro-tiles of 4 columns x 8 out-channels above 32 out-channels (else
+    x 4), up to 128 out-channels per tile (16 threads); a group's columns
+    split evenly into the fewest tiles that keep a block at 256 threads;
+    the rows split into chunks of whole stages until the grid covers about
+    two blocks per SM, or four times that when one chunk's blocks are more
+    than a quarter of it (the last wave would be coarse). Each chunk's
+    partial is an FMA chain over its rows in order; the chunks only change
+    where the sums split. (A sweep on an H100: 4 x 16 micro-tiles with 256
+    out-channels per tile, which gather once at 256 out-channels, lost to
+    4 x 8 at 128 and 256 out-channels and tied at 64; 4 x 4 tied at 64 and
+    lost above; at 256 out-channels 1120 blocks took 0.446 ms, 320 blocks
+    0.542.)"""
+    quads = _cdiv(cout, 4)
+    n_o = 1 if quads <= 8 else 2
+    nv = min(_WGRAD_MAX_NV, _cdiv(quads, n_o))
+    to, mo = 4 * nv * n_o, 4 * n_o
+    n_jt = _cdiv(kc, 4 * (_THREADS // nv))
+    tj = _round_up(_cdiv(kc, n_jt), 4)
+    tr = 2 * nv
+    per_chunk = n_jt * _cdiv(cout, to) * dg
+    target = _WGRAD_TARGET_BLOCKS * (4 if 4 * per_chunk > _WGRAD_TARGET_BLOCKS else 1)
+    n_chunks = max(1, min(_cdiv(rows, tr), _cdiv(target, per_chunk)))
+    return WgradConfig(tj, to, mo, _round_up(_cdiv(rows, n_chunks), tr))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, m: int) -> int:
+    return _cdiv(a, m) * m
+
+
 def _find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
@@ -336,11 +426,9 @@ def _declare_train(lib: ctypes.CDLL) -> None:
     lib.dcn_train_fwd_f32.argtypes = [_P] * 6 + [_I] * 16 + [_P]
     lib.dcn_train_fwd_masked_f32.argtypes = [_P] * 7 + [_I] * 18 + [_P]
     lib.dcn_bwd_pixel_f32.argtypes = [_P] * 8 + [_I] * 17 + [_P]
-    lib.dcn_wgrad_f32.argtypes = [_P] * 5 + [_I] * 15 + [_P]
+    lib.dcn_wgrad_f32.argtypes = [_P] * 5 + [_I] * 17 + [_P]
     for fn in (lib.dcn_train_fwd_f32, lib.dcn_train_fwd_masked_f32,
-               lib.dcn_bwd_pixel_f32, lib.dcn_wgrad_f32,
-               lib.dcn_train_threads, lib.dcn_train_rows_per_tile,
-               lib.dcn_train_wgrad_acc):
+               lib.dcn_bwd_pixel_f32, lib.dcn_wgrad_f32):
         fn.restype = _I
 
 
@@ -520,12 +608,6 @@ class _TrainKernel:
                              "input too large")
         return self.library.load(), dims
 
-    @staticmethod
-    def _smem_check(name: str, nbytes: int) -> None:
-        if nbytes > _SMEM_MAX:
-            raise ValueError(f"{name}: the DCN shape exceeds the kernel's "
-                             "shared-memory budget")
-
 
 class DcnBwdKernel(_TrainKernel):
     """Wrapper of the per-pixel backward (``dcn_bwd_pixel_kernel``):
@@ -563,21 +645,20 @@ class DcnBwdKernel(_TrainKernel):
         return gx, goff, gmask
 
 
-def wgrad_chunks(rows: int, dg: int, rows_per_tile: int) -> Tuple[int, int]:
-    """``(chunk_rows, n_chunks)`` of the weight gradient: about two waves of
-    the H100's 132 SMs over (chunks x groups), whole tiles per chunk."""
-    n_chunks = max(1, min(-(-rows // rows_per_tile), -(-2 * _SMS // dg)))
-    chunk_rows = -(-rows // n_chunks)
-    return chunk_rows, -(-rows // chunk_rows)
-
-
 class DcnWgradKernel(_TrainKernel):
     """Wrapper of the weight gradient (``dcn_wgrad_kernel``): ``gW``
-    ``[kh, kw, Cin, Cout]``. The kernel writes one partial per chunk of
-    rows; the partials are summed here in a fixed order. Its plain version
+    ``[kh, kw, Cin, Cout]`` at any width. The kernel writes one partial per
+    chunk of rows (:func:`wgrad_config`); the partials are summed here in a
+    fixed order, so gW is the same bits from run to run. Its plain version
     is the fourth of :func:`esr_tpu_torch.ops.dcn.deform_conv2d_backward`."""
 
     name = "dcn_wgrad"
+
+    @staticmethod
+    def launch_config(x: torch.Tensor, offsets: torch.Tensor,
+                      weight_shape: Sequence[int]) -> WgradConfig:
+        b, ho, wo, dg, k, _ = offsets.shape
+        return wgrad_config(b * ho * wo, k * (x.shape[-1] // dg), weight_shape[-1], dg)
 
     def __call__(self, x, offsets, mask, weight_shape: Sequence[int], g, stride=1,
                  padding=1, dilation=1) -> torch.Tensor:
@@ -592,24 +673,23 @@ class DcnWgradKernel(_TrainKernel):
         if tuple(g.shape) != (b, ho, wo, cout):
             raise ValueError(f"{self.name}: cotangent {tuple(g.shape)} does not "
                              f"match the output {(b, ho, wo, cout)}")
-        kc = kh * kw * (cin // dg)
-        if kc * cout > lib.dcn_train_threads() * lib.dcn_train_wgrad_acc():
-            raise ValueError(f"{self.name}: K*Cg*Cout = {kc * cout} exceeds the "
-                             "kernel's register budget")
-        rows_per_tile = lib.dcn_train_rows_per_tile()
-        self._smem_check(self.name, rows_per_tile * (kc + cout) * 4)
         rows = b * ho * wo
         if rows == 0:
             return torch.zeros(weight_shape, dtype=torch.float32, device=x.device)
-        chunk_rows, n_chunks = wgrad_chunks(rows, dg, rows_per_tile)
-        partial = torch.empty((n_chunks, kh * kw * cin * cout), dtype=torch.float32,
+        cfg = self.launch_config(x, offsets, weight_shape)
+        kc = kh * kw * (cin // dg)
+        if cfg.tiles(kc, cout) > _GRID_YZ_MAX or dg > _GRID_YZ_MAX:
+            raise ValueError(f"{self.name}: {cfg.tiles(kc, cout)} column x out-channel "
+                             f"tiles or {dg} groups exceed the grid's limit of "
+                             f"{_GRID_YZ_MAX}")
+        partial = torch.empty((cfg.chunks(rows), *weight_shape), dtype=torch.float32,
                               device=x.device)
         _launch(self.name, lib.dcn_wgrad_f32, x.device,
                 x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), g.data_ptr(),
                 partial.data_ptr(), b, h, w, cin, ho, wo, cout, dg, kh, kw,
-                stride, padding, dilation, chunk_rows, n_chunks)
+                stride, padding, dilation, cfg.tj, cfg.to, cfg.mo, cfg.chunk_rows)
         self.launches += 1
-        return partial.sum(dim=0).reshape(weight_shape)
+        return partial.sum(dim=0)
 
 
 dcn_fwd = DcnFwdKernel()

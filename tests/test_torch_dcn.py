@@ -164,12 +164,15 @@ def test_kernel_matches_plain_on_card(cuda_device, dg, h, w):
 # (b, h, w, cin, cout, dg): the flagship bottleneck at the evaluation,
 # engine, validation and training batches; train_esr_4x's bottleneck (a
 # 180x320 HR grid padded to 192x320, /8) at its batch 8; the shapes of
-# chip_smoke.py's kernel matrix; a 64x64 image of 32 channels per group
+# chip_smoke.py's kernel matrix; a 64x64 image of 32 channels per group;
+# the bottlenecks of basech 16 and 32 at the training batch
 CONFIG_SHAPES = (
     [(b, 12, 20, 64, 64, 8) for b in (1, 4, 8, 32)]
     + [(8, 24, 40, 64, 64, 8)]
     + [(2, h, w, 4 * dg, 8, dg) for dg in (1, 2, 4) for h, w in ((7, 9), (13, 5), (4, 150))]
-    + [(1, 6, 7, 16, 8, 2), (1, 9, 11, 8, 6, 2), (2, 9, 13, 32, 6, 2), (1, 64, 64, 64, 64, 2)]
+    + [(1, 6, 7, 16, 8, 2), (1, 9, 11, 8, 6, 2), (2, 9, 13, 32, 6, 2), (2, 7, 9, 6, 5, 2),
+       (1, 64, 64, 64, 64, 2)]
+    + [(32, 12, 20, 128, 128, 8), (32, 12, 20, 256, 256, 8)]
 )
 
 
@@ -236,6 +239,56 @@ def test_backward_config_owns_exactly_when_the_slices_fit(b, h, w, cin, cout, dg
     flagship = (h, w, cin, cout, dg) == (12, 20, 64, 64, 8)
     if flagship or (h, w) == (64, 64):
         assert cfg.own == flagship and cfg.kt == 9
+
+
+def _wgrad_cover(kc, cin, cout, dg, cfg):
+    """How many threads write each (tap, in-channel, out-channel) of one
+    chunk's partial of gW: the kernel's grid (column x out-channel tiles,
+    groups), thread and 4 x mo micro-tile mapping written out."""
+    cg = cin // dg
+    count = np.zeros((kc // cg, cin, cout), np.int64)
+    nv = cfg.to // cfg.mo
+    n_jt = -(-kc // cfg.tj)
+    t = np.arange(cfg.threads)
+    jj = ((t // nv)[:, None] * 4 + np.arange(4))[:, :, None]  # [thread, i, 1]
+    # out-channel quad m of thread t: 4 (t % nv) + 4 nv m + l
+    oo = (4 * (t % nv)[:, None, None] + 4 * nv * np.arange(cfg.mo // 4)[:, None]
+          + np.arange(4)).reshape(cfg.threads, 1, cfg.mo)
+    for y in range(cfg.tiles(kc, cout)):
+        j, o = np.broadcast_arrays((y % n_jt) * cfg.tj + jj, (y // n_jt) * cfg.to + oo)
+        keep = (j < kc) & (o < cout)
+        j, o = j[keep], o[keep]
+        for g in range(dg):
+            np.add.at(count, (j // cg, g * cg + j % cg, o), 1)
+    return count
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,dg", CONFIG_SHAPES)
+def test_wgrad_config_fits_and_covers_every_weight_once(b, h, w, cin, cout, dg):
+    rows, kc = b * h * w, 9 * (cin // dg)
+    cfg = dcn_cuda.wgrad_config(rows, kc, cout, dg)
+    assert dcn_cuda.wgrad_config_ok(cfg)
+    assert dcn_cuda.wgrad_smem_bytes(cfg) <= 232448 and 1 <= cfg.threads <= 256
+    # out-channel tiles of up to 128, micro-tiles of 4 columns x mo
+    # out-channels, whole stages per chunk
+    assert cfg.to >= min(cout, 128) and cfg.to < min(cout, 128) + cfg.mo
+    assert cfg.mo == (8 if cout > 32 else 4) and cfg.chunk_rows % cfg.stage_rows == 0
+    assert cfg.tiles(kc, cout) <= 65535
+    # every weight has one writer in each chunk's partial
+    assert (_wgrad_cover(kc, cin, cout, dg, cfg) == 1).all()
+    # the chunks cover every row once
+    rows_seen = np.zeros(rows, np.int64)
+    for c in range(cfg.chunks(rows)):
+        rows_seen[c * cfg.chunk_rows:(c + 1) * cfg.chunk_rows] += 1
+    assert (rows_seen == 1).all() and cfg.chunks(rows) * cfg.chunk_rows >= rows
+    # a stage's gather items: thread t takes rows t // nqj and t // nqj + nv
+    # at column quad t % nqj, every (row, quad) of the stage once
+    nqj, nv = cfg.tj // 4, cfg.to // cfg.mo
+    items = np.zeros((cfg.stage_rows, nqj), np.int64)
+    for t in range(cfg.threads):
+        for u in range(2):
+            items[t // nqj + u * nv, t % nqj] += 1
+    assert (items == 1).all()
 
 
 # -- the backward ---------------------------------------------------------
@@ -309,6 +362,36 @@ def test_plain_backward_matches_fused_pallas_backward(stride, padding, dilation)
         _check(a.numpy(), r)
 
 
+@pytest.mark.parametrize("cg,cout", [(16, 128), (32, 256)])
+def test_plain_backward_matches_fused_pallas_backward_wide_groups(cg, cout):
+    """The widths of basech 16 and 32 (dg 8, Cin = 8 Cg): the plain
+    backward, gW and the other cotangents, against the interpret-mode fused
+    Pallas backward, which accumulates gW for any Cg and Cout, and jnp
+    autodiff, at B 1 on a 6x7 image."""
+    rng = np.random.default_rng(cg)
+    b, h, w, dg = 1, 6, 7, 8
+    cin = dg * cg
+    f32 = np.float32
+    inp = dict(
+        x=rng.standard_normal((b, h, w, cin)).astype(f32),
+        offsets=(rng.standard_normal((b, h, w, dg, 9, 2)) * 1.5).astype(f32),
+        mask=(1 / (1 + np.exp(-rng.standard_normal((b, h, w, dg, 9))))).astype(f32),
+        weight=(rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(f32),
+        bias=rng.standard_normal(cout).astype(f32),
+    )
+    cot = rng.standard_normal((b, h, w, cout)).astype(f32)
+    geom = dict(stride=1, padding=1, dilation=1)
+    t = _torch(inp)
+    got = TD.deform_conv2d_backward(t["x"], t["offsets"], t["mask"], t["weight"],
+                                    torch.from_numpy(cot), **geom)
+    for fn in (_pallas_train, JD.deform_conv2d):
+        ref = _jax_grads(fn, inp, cot, geom)
+        assert len(got) == len(ref) == 5
+        for a, r in zip(got, ref):
+            assert a.shape == r.shape
+            _check(a.numpy(), r)
+
+
 def test_cpu_train_direction_is_the_plain_version_under_autograd():
     """On the CPU the model's DCN runs the plain version with autograd in
     the train direction, and every train kernel wrapper computes its plain
@@ -364,13 +447,14 @@ def test_autograd_through_the_kernels_on_card(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dg,h,w", [(8, 12, 20), (1, 7, 9), (4, 4, 150), (2, 64, 64)])
-def test_train_kernels_match_plain_on_card(cuda_device, dg, h, w):
-    """The flagship and small shapes take the backward's ownership path; a
-    64x64 image of 32 channels per group its global vector-red path."""
-    cin = 64 if dg in (8, 2) else 4 * dg
-    cout = {8: 64, 2: 16}.get(dg, 8)  # Cout 16: inside dcn_wgrad's register budget
-    assert dcn_cuda.bwd_config(h, w, h, w, cin, cout, dg, 9).own == (dg != 2)
+@pytest.mark.parametrize("dg,h,w,cin,cout", [(8, 12, 20, 64, 64), (1, 7, 9, 4, 8),
+                                             (4, 4, 150, 16, 8), (2, 64, 64, 64, 64),
+                                             (8, 12, 20, 128, 128)])
+def test_train_kernels_match_plain_on_card(cuda_device, dg, h, w, cin, cout):
+    """The flagship, the basech-16 bottleneck and small shapes take the
+    backward's ownership path; a 64x64 image of 32 channels per group its
+    global vector-red path. The weight gradient takes every width."""
+    assert dcn_cuda.bwd_config(h, w, h, w, cin, cout, dg, 9).own == (h != 64)
     inp = _torch(_inputs(9, 2, h, w, cin, cout, dg, with_bias=True), cuda_device)
     g = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (2, h, w, cout)).astype(np.float32)).to(cuda_device)
