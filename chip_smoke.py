@@ -12,7 +12,8 @@ Phases (any failure exits non-zero):
    count;
 2. build: ``nvcc`` of ``dcn_fwd.cu`` and ``dcn_train.cu``, started
    together; their times and ``-Xptxas -v`` lines (a register spill in any
-   instantiation fails);
+   instantiation fails); ``g++`` of the native host kernels
+   (``host_kernels.cpp``), which must build;
 3. kernel, forward: ``dcn_fwd`` against the plain ``deform_conv2d`` at the
    flagship shape (B=1 as in evaluation, B=4, B=8 as in the trainer's
    validation, B=32 as in training) and over an odd-size / group / stride /
@@ -25,12 +26,14 @@ Phases (any failure exits non-zero):
 4. kernel, train direction: ``dcn_train_fwd`` against ``deform_conv2d``,
    ``dcn_bwd`` (gx, goffsets, gmask) and ``dcn_wgrad`` (gW) against
    ``deform_conv2d_backward``, at the flagship training shape (B=32), B=1,
-   the bottlenecks of basech 16 and 32 at B=32 (Cin = Cout = 128 and 256,
-   Cg 16 and 32), a 64x64 image of Cg 32 / Cout 64 whose slices do not fit
-   shared memory (``dcn_bwd``'s global-red path) and the same matrix, each
-   cotangent within 1e-3 * max(|ref|, 1); at the four timed shapes every
-   output twice, the atomic ``gx``'s run-to-run difference printed and
-   ``gW`` bitwise equal or fail; wrapper and entry-point times and bounds;
+   the bottlenecks of basech 16, 32, 48 and 64 at B=32 (Cin = Cout = 128 to
+   512, Cg 16 to 64) and of basech 128 at B=4 (Cin = Cout = 1024, Cg 128;
+   Cg 48 and more take ``dcn_bwd``'s wide kernel), a 64x64 image of Cg 32 /
+   Cout 64 whose slices do not fit shared memory (``dcn_bwd``'s global-red
+   path) and the same matrix, each cotangent within 1e-3 * max(|ref|, 1);
+   at the seven timed shapes every output twice, the atomic ``gx``'s
+   run-to-run difference printed and ``gW`` bitwise equal or fail; wrapper
+   and entry-point times and bounds;
 5. autograd: a loss through the model's DCN (``dcn_cuda.dcn``) on the card
    gives gradients for x, offsets, mask, weight and bias that match the
    plain path, through the kernels;
@@ -40,12 +43,20 @@ Phases (any failure exits non-zero):
    in through the flax weight bridge (non-zero offset/mask conv). The DCN
    launch count must be exactly 2 ``dcn_fwd`` per window, and every
    window's output and states must be finite and match the same model with
-   ``dcn_impl='plain'`` within 1e-3 * max(|ref|, 1);
+   ``dcn_impl='plain'`` within 1e-3 * max(|ref|, 1). Then the same weights
+   saved as a port checkpoint (the exporter's format) and evaluated through
+   ``run_inference`` (what ``python -m esr_tpu_torch.infer --save_images
+   --no_engine`` calls; the recording stays in memory, as this machine has
+   no h5py): metrics within 1e-5 of the run's, 6 PNG views per window in
+   the reference's tree, each decoded, window 0's count views equal to
+   their renders;
 7. training: ``esr_tpu_torch.training.trainer.Trainer`` from
-   ``configs/train_esr_2x.yml`` as written (batch 32), with overrides only
-   for the unported keys (tensorboard, vis) and the run's length
-   (iterations 4, valid_step 2, save_period 2), fed in-memory synthetic
-   720x1280 recordings. Each train step must launch ``dcn_train_fwd``,
+   ``configs/train_esr_2x.yml`` as written (batch 32, tensorboard and vis
+   on), with overrides only for the run's length and paths (iterations 4,
+   valid_step 2, save_period 2), fed in-memory synthetic 720x1280
+   recordings. The writer's JSONL records (every iteration's losses,
+   ``steps_per_sec``, the learning rate, the validation stamp, 5 images per
+   vis step) must be there. Each train step must launch ``dcn_train_fwd``,
    ``dcn_bwd`` and ``dcn_wgrad`` 14 times each (2 per window x 7 windows)
    and nothing else; validation only ``dcn_fwd``, 2 per window; losses
    and grad norms finite; a committed checkpoint that loads and runs.
@@ -53,11 +64,18 @@ Phases (any failure exits non-zero):
    path, and one train step from the same params and batch on both: the
    validation losses, the per-window losses and every parameter's grad
    within 1e-3 of their own scale (max |plain|). Step time, batch-build
-   time and a ``torch.profiler`` breakdown of one step are printed. Last,
-   one B=32 step at basech 16 (``model;args;basech=16``, seeded params,
-   the same batch): 14 launches of each train kernel, losses and grads
-   within 1e-3 of their scale of the plain path's, its step time beside
-   the basech-8 step's.
+   time and a ``torch.profiler`` breakdown of one step are printed. The B=32
+   batch build of the trainer's loader with the native host kernels and
+   with numpy, at ``num_workers`` 0, 2 and 4 (the native route must take
+   every encoder call; every first batch bitwise the same). One B=32 step
+   with ``trainer;device_rasterize=true``: its count images bitwise the
+   host's, 14/14/14 launches, its loss within 1e-6 relative of the host
+   step's from the same weights. Last, one B=32 step at basech 16 and one
+   B=4 step at basech 64 (``model;args;basech=...``, seeded params, the
+   same batch; basech 64 runs ``dcn_bwd``'s wide kernel): 14 launches of
+   each train kernel, losses and grads within 1e-3 of their scale of the
+   plain path's, their step times; at basech 64 both paths' grads against
+   the plain path in f64, printed.
 
 8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
    ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
@@ -69,8 +87,11 @@ Phases (any failure exits non-zero):
    (``dcn_sparse``) at lanes 4 x chunk_windows 8 over 6 seeded 720x1280
    recordings of unequal length: only ``dcn_fwd_masked``, 2 per window
    step; per-recording metrics within 1e-4 relative of the sequential
-   harness; the plain DCN path within 1e-3; windows/s, chunk time and a
-   profile of one chunk;
+   harness; the plain DCN path within 1e-3; the host data path on the native
+   route (its route counts); windows/s, chunk time and a profile of one
+   chunk; the same run on the numpy route and on the native route again
+   (metrics within 1e-6), each with its windows/s and the device idle share
+   of the run (1 - chunks x a chunk's device-busy time / wall);
 10. serving: ``ServingEngine`` on the same model, lanes 4, classes
    ``standard:8`` and ``gated:4:0.3``, 8 streams (4 bursty, 4 uniform) on a
    Poisson schedule at 8/s, preemption quantum 2: every request done,
@@ -95,10 +116,12 @@ import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the f32
@@ -247,13 +270,14 @@ def device_time_breakdown(torch, prof, n: int, wall_ms: float, what: str, card: 
     events = [e for e in prof.key_averages() if e.device_type == cuda and dev_us(e) > 0]
     if not events:
         print(f"profile {what}: device time not measured (the profiler saw no device events)")
-        return
+        return None
     busy_ms = sum(dev_us(e) for e in events) / 1e3 / n
     print(f"profile on {card}: {n} {what}s, wall {wall_ms:.3f} ms/{what}, device busy "
           f"{busy_ms:.3f} ms/{what}, idle share {1 - busy_ms / wall_ms:.3f}")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         print(f"profile kernel: {dev_us(e) / 1e3 / n:.4f} ms/{what}, "
               f"{e.count / n:g} calls/{what}: {e.key[:90]}")
+    return busy_ms
 
 
 def profile_windows(torch, model, loader, dev, card, n: int = 3) -> None:
@@ -415,7 +439,7 @@ def bwd_entry(torch, lib, inp, g, cfg):
         rc = lib.dcn_bwd_pixel_f32(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(),
                                    g.data_ptr(), gx.data_ptr(), goff.data_ptr(), gmask.data_ptr(),
                                    *geometry_args(inp), cfg.chunk_rows, cfg.tp, cfg.kt,
-                                   int(cfg.own), torch.cuda.current_stream().cuda_stream)
+                                   int(cfg.own), cfg.to, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             fail(f"dcn_bwd_pixel_f32 returned cudaError {rc}")
     return launch
@@ -443,9 +467,11 @@ def wgrad_entry(torch, lib, inp, g):
 
 
 # the train-direction cases that are timed: the flagship at the training
-# batch and at B=1, and the bottlenecks of basech 16 and 32 at batch 32
+# batch and at B=1, the bottlenecks of basech 16, 32, 48 and 64 at batch 32
+# and of basech 128 at batch 4 (Cg 48-128 take dcn_bwd's wide kernel)
 TIMED_TRAIN_CASES = ("train_flagship_b32", "train_flagship_b1", "train_basech16_b32",
-                     "train_basech32_b32")
+                     "train_basech32_b32", "train_basech48_b32", "train_basech64_b32",
+                     "train_basech128_b4")
 
 
 def phase_train_kernels(torch, np, card):
@@ -461,18 +487,24 @@ def phase_train_kernels(torch, np, card):
     record = {}
     # the flagship's and basech 16's and 32's images fit shared memory (the
     # backward's ownership path); a 64x64 image of 32 channels per group
-    # does not (the global vector-red path)
+    # does not (the global vector-red path); 48 channels per group and more
+    # take the wide kernel
     cases = [("train_flagship_b32", dict(b=32, h=12, w=20, cin=64, cout=64, dg=8), {}),
              ("train_flagship_b1", dict(b=1, h=12, w=20, cin=64, cout=64, dg=8), {}),
              ("train_basech16_b32", dict(b=32, h=12, w=20, cin=128, cout=128, dg=8), {}),
              ("train_basech32_b32", dict(b=32, h=12, w=20, cin=256, cout=256, dg=8), {}),
+             ("train_basech48_b32", dict(b=32, h=12, w=20, cin=384, cout=384, dg=8), {}),
+             ("train_basech64_b32", dict(b=32, h=12, w=20, cin=512, cout=512, dg=8), {}),
+             ("train_basech128_b4", dict(b=4, h=12, w=20, cin=1024, cout=1024, dg=8), {}),
              ("bwd_global_64x64", dict(b=1, h=64, w=64, cin=64, cout=64, dg=2), {})]
     for name, shape, geom in cases + kernel_cases():
         inp = dcn_inputs(torch, rng, **shape)
         x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
         b, ho, wo = off.shape[:3]
         path = bwd_config_of(inp)
-        if name.startswith(("train_", "bwd_global")) and path.own != name.startswith("train_"):
+        wide = shape["cin"] // shape["dg"] > 32
+        if name.startswith(("train_", "bwd_global")) and (
+                path.own != (name.startswith("train_") and not wide) or (path.to > 0) != wide):
             fail(f"dcn_bwd on {name} took {path}")
         g = torch.from_numpy(rng.standard_normal(
             (b, ho, wo, wt.shape[-1])).astype(np.float32)).cuda()
@@ -495,8 +527,8 @@ def phase_train_kernels(torch, np, card):
             worst_rel[kname] = max(worst_rel[kname], err * TOL / limit)
             errs[kname] = max(errs.get(kname, 0.0), err)
             print(f"kernel {name} {kname} {what}: max_abs_err {err:.3e} (limit {limit:.3e})"
-                  + (f" [{'ownership' if path.own else 'global red'} path]" if kname == "dcn_bwd"
-                     and what == "gx" else "")
+                  + (f" [{'wide' if path.to else 'ownership' if path.own else 'global red'}"
+                     f" path]" if kname == "dcn_bwd" and what == "gx" else "")
                   + (f" [{dcn_wgrad.launch_config(x, off, wt.shape)}]" if kname == "dcn_wgrad"
                      else ""))
         if name not in TIMED_TRAIN_CASES:
@@ -541,9 +573,10 @@ def phase_train_kernels(torch, np, card):
             "dcn_wgrad": roofline(nbytes(x, off, mask, g, gw), flops + gather_flops(inp)),
         }
         record[name] = {}
+        iters = 200 if flops < 1e10 else 20
         for kname, (kernel_fn, plain_fn, entry_fn) in timings.items():
-            ms = time_ms(torch, kernel_fn, iters=200)
-            entry_ms = time_ms(torch, entry_fn, iters=200)
+            ms = time_ms(torch, kernel_fn, iters=iters)
+            entry_ms = time_ms(torch, entry_fn, iters=iters)
             plain_ms = (time_ms(torch, plain_fn, iters=20, warmup=3)
                         if name.startswith("train_flagship") else
                         time_ms(torch, plain_fn, iters=5, warmup=2))
@@ -678,7 +711,89 @@ def phase_slice(torch, np, dev, card):
           f"{worst:.3e} (limit {TOL})")
     print(f"slice latency per window on {card}: mean harness {result['time'] * 1e3:.3f} ms; "
           f"replay p50 {lat_sorted[len(lat) // 2]:.3f} ms, max {lat_sorted[-1]:.3f} ms")
+    evaluate_checkpoint(np, dev, tree, recording, dataset_config, result)
     return counts["dcn_fwd"]
+
+
+def decode_png(np, path: str):
+    """The pixels of a PNG as the port writes it (8-bit RGB or gray, rows
+    unfiltered); every chunk's CRC checked."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(kind + body):
+            fail(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color, _, _, _ = header
+    ch = {2: 3, 0: 1}[color]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)
+    if depth != 8 or rows[:, 0].any():
+        fail(f"{path}: depth {depth} or filtered rows")
+    return rows[:, 1:].reshape((h, w, 3) if ch == 3 else (h, w))
+
+
+def evaluate_checkpoint(np, dev, tree, recording, dataset_config, want):
+    """The slice's weights saved as a port checkpoint (``params.npz`` +
+    ``config.json``, the exporter's output format) and evaluated through
+    ``run_inference``, the function ``python -m esr_tpu_torch.infer`` calls,
+    with ``save_images`` and no engine (this machine has no h5py, so the
+    recording stays in memory): the metrics those of the slice's run (the
+    same weights, data and kernels) within 1e-5 relative, 6 PNG views per
+    window in the reference's tree, each decoding to an image of its grid,
+    and window 0's views equal to their renders."""
+    from esr_tpu_torch.data.loader import InferenceSequenceLoader
+    from esr_tpu_torch.inference.checkpoint import save_checkpoint
+    from esr_tpu_torch.inference.harness import IMG_DIRS, run_inference
+    from esr_tpu_torch.utils.vis_events import render_event_cnt
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_infer_")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        save_checkpoint(ckpt, tree, {
+            "model": {"name": "DeepRecurrNet", "args": {"inch": 2, "basech": 8, "num_frame": 3}},
+            "inference": {"engine": True}})
+        t0 = time.perf_counter()
+        mean = run_inference(ckpt, [recording], os.path.join(root, "out"), dataset_config,
+                             save_images=True, engine=False, device=dev)
+        wall = time.perf_counter() - t0
+        worst = max(abs(mean[k] - want[k]) / max(abs(want[k]), 1e-12)
+                    for k in ("esr_mse", "esr_psnr", "esr_ssim", "bicubic_mse", "n_windows"))
+        if not worst <= 1e-5:
+            fail(f"the saved checkpoint evaluates {worst:.3e} away from the slice's run")
+        rec_dir = Path(root) / "out" / recording.name
+        n = int(want["n_windows"])
+        pngs = sorted(str(p.relative_to(rec_dir)) for p in rec_dir.rglob("*.png"))
+        want_tree = sorted([f"event_img/{d}/{i:09d}.png" for d in IMG_DIRS for i in range(n)]
+                           + [f"img/gt_img/{i:09d}.png" for i in range(n)])
+        if pngs != want_tree:
+            fail(f"infer --save_images wrote {len(pngs)} PNGs, not the reference's tree "
+                 f"of {len(want_tree)}")
+        loader = InferenceSequenceLoader(recording, dataset_config)
+        (h, w), (kh, kw) = loader.inp_resolution, loader.gt_resolution
+        for name in pngs:
+            img = decode_png(np, str(rec_dir / name))
+            grid = (h, w) if name.startswith("event_img/lr_") else (kh, kw)
+            if img.shape[:2] != grid:
+                fail(f"{name} decodes to {img.shape}, expected the {grid} grid")
+        window = next(iter(loader))
+        for d, key in (("lr_event_img", "inp_cnt"), ("hr_scaled_event_img", "inp_scaled_cnt"),
+                       ("hr_gt_event_img", "gt_cnt")):
+            got = decode_png(np, str(rec_dir / "event_img" / d / f"{0:09d}.png"))
+            if not np.array_equal(got, render_event_cnt(window[key][0, 1])):
+                fail(f"{d}/000000000.png does not decode to its render")
+        print(f"checkpoint -> infer --save_images --no_engine: {n} windows in {wall:.3f} s, "
+              f"metrics within {worst:.3e} of the slice's, {len(pngs)} PNGs in the "
+              f"reference's tree, each decoded, window 0's count views equal to their renders")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def training_recordings(np):
@@ -709,8 +824,8 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
     t0 = time.perf_counter()
     train_recs, valid_recs = training_recordings(np)
     print(f"train setup: recordings in {time.perf_counter() - t0:.2f} s")
+    # the flagship config as written: only the run's length and paths are set
     overrides = [
-        "trainer;tensorboard=false", "trainer;vis;enabled=false",
         f"trainer;output_path={out_root}",
         "trainer;iteration_based_train;iterations=4",
         "trainer;iteration_based_train;valid_step=2",
@@ -781,6 +896,7 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
             math.isfinite(r[k]) for r in train_log for k in ("train_loss", "grad_norm"))
             or not all(math.isfinite(v) for v in result.values())):
         fail("non-finite or missing losses / grad norms")
+    check_writer_records(run, trainer)
 
     ckpt = find_latest_checkpoint(os.path.dirname(run.save_dir))
     if ckpt is None or not ckpt.endswith(f"checkpoint-iteration{trainer.iterations - 1}"):
@@ -801,6 +917,8 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
     if not bool(torch.isfinite(out).all()):
         fail("the loaded checkpoint's forward is not finite")
     print(f"checkpoint {Path(ckpt).name}: loads, forward {tuple(out.shape)} finite")
+    batch_build(np, train_recs, dataset.config, batch_size, card)
+    device_rasterize_step(torch, dev, trainer, repo, overrides, train_recs, valid_recs)
 
     # one validation pass (batch 8) on the kernel path and on the plain path
     valid_out = {}
@@ -892,31 +1010,182 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
           f"({', '.join(f'{t:.3f}' for t in plain_times[1:])}); the trainer's run "
           f"{wall:.3f} s for {trainer.iterations} iterations, 1 validation, 3 saves")
     device_time_breakdown(torch, prof, 1, prof_ms, "train step", card)
-    basech16_step(torch, np, dev, trainer, sel, repo, overrides, card, sorted(times)[1])
+    basech_step(torch, np, dev, trainer, sel, repo, overrides, card, sorted(times)[1], 16)
+    # basech 64 (Cg 64: dcn_bwd's wide kernel) at batch 4
+    basech_step(torch, np, dev, trainer, {k: v[:4] for k, v in sel.items()}, repo,
+                overrides, card, None, 64, f64=True)
     return totals, sparse_launches
 
 
-def basech16_step(torch, np, dev, trainer, sel, repo: Path, overrides, card, step8_ms):
-    """One B=32 step of the flagship config at basech 16 (the override
-    ``model;args;basech=16``: a 128-channel DCN bottleneck of 16 channels
-    per group) from seeded params, the offset/mask conv made nonzero, on
-    the basech-8 step's batch: 14 launches each of ``dcn_train_fwd``,
-    ``dcn_bwd`` and ``dcn_wgrad``, and the losses and every parameter's
-    grad within 1e-3 of their own scale of the plain path's. Then its step
-    time, optimizer included, beside the basech-8 step's."""
+def check_writer_records(run, trainer):
+    """The writer's JSONL records of the trainer's run (the config as
+    written: tensorboard and vis on): every iteration's losses, the learning
+    rate at every log step, ``steps_per_sec``, the validation stamp, and the
+    five images of the vis steps (every ``train_img_writer_num``-th
+    iteration)."""
+    import importlib.util
+
+    with open(Path(run.log_dir) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    tags = {(r["step"], r["tag"]) for r in records}
+    images = [r for r in records if r.get("image")]
+    vis_steps = [i for i in range(trainer.iterations) if i % trainer.train_vis_step == 0]
+    missing = [(i, k) for i in range(trainer.iterations)
+               for k in ("train_loss/train", "train_mse_loss/train", "learning_rate/train")
+               if (i, k) not in tags]
+    if (missing or len(images) != 5 * len(vis_steps) or not any(
+            t == "steps_per_sec/train" for _, t in tags)
+            or not any(t.startswith("stamp_valid_loss") for _, t in tags)
+            or not all(math.isfinite(r["value"]) for r in records if "value" in r)):
+        fail(f"the writer's records are incomplete: missing {missing}, {len(images)} images "
+             f"for vis steps {vis_steps}")
+    print(f"writer: {len(records)} JSONL records, {len(images)} images rendered at steps "
+          f"{sorted({r['step'] for r in images})} ({sorted({r['tag'] for r in images})}); "
+          f"tensorboard importable: {importlib.util.find_spec('tensorboard') is not None}")
+
+
+def batch_build(np, train_recs, dataset_config, batch_size, card):
+    """The B=32 batch build of the trainer's loader (its item keys, its
+    augmentation), with the native host kernels and with numpy
+    (``ESR_TPU_NATIVE=0``), each at ``num_workers`` 0, 2 and 4: ms per batch
+    over two epochs after warm ones (the worker pool up), the warm epochs'
+    wall beside it. The native route must take every encoder call of the
+    in-process build and numpy none, and the reverse; every configuration's
+    first batch is bitwise the in-process native one."""
+    from esr_tpu_torch.data import np_encodings as NE
+    from esr_tpu_torch.data.loader import ConcatSequenceDataset, SequenceLoader
+
+    dataset = ConcatSequenceDataset(train_recs, dataset_config)
+    first, per_batch = {}, {}
+    for route in ("native", "numpy"):
+        if route == "numpy":
+            os.environ["ESR_TPU_NATIVE"] = "0"
+        try:
+            for workers in (0, 2, 4):
+                loader = SequenceLoader(dataset, batch_size, seed=0, prefetch=2,
+                                        num_workers=workers)
+                NE.ROUTES.reset()
+                try:
+                    t0 = time.perf_counter()
+                    # warm epochs first: the pool spawns a worker only when
+                    # none is idle, and a spawn (the recordings pickled to
+                    # it) takes seconds, so the last workers start within
+                    # the second or third epoch
+                    first[route, workers] = next(iter(list(loader)))
+                    warm = 3 if workers else 1
+                    for epoch in range(1, warm):
+                        loader.set_epoch(epoch)
+                        sum(1 for _ in loader)
+                    t1 = time.perf_counter()
+                    n = 0
+                    for epoch in range(warm, warm + 2):
+                        loader.set_epoch(epoch)
+                        n += sum(1 for _ in loader)
+                    t2 = time.perf_counter()
+                finally:
+                    loader.close()
+                routes = NE.ROUTES.snapshot()
+                if workers == 0 and (routes[route] == 0 or routes["numpy" if route == "native"
+                                                                 else "native"] != 0):
+                    fail(f"the {route} batch build took the routes {routes}")
+                per_batch[route, workers] = (t2 - t1) / n * 1e3
+                print(f"batch build on the host of {card}: B={batch_size} {route} "
+                      f"num_workers {workers}: {per_batch[route, workers]:.3f} ms per batch "
+                      f"over {n} batches of two epochs after {warm} warm ones (those, pool "
+                      f"start included, {(t1 - t0) * 1e3:.3f} ms); in-process routes {routes}")
+        finally:
+            os.environ.pop("ESR_TPU_NATIVE", None)
+    ref = first["native", 0]
+    for key, batch in first.items():
+        if sorted(batch) != sorted(ref) or not all(np.array_equal(batch[k], ref[k]) for k in ref):
+            fail(f"the batch of {key} differs from the in-process native batch")
+    print("batch build: every route and worker count gives the same first batch bitwise; "
+          "numpy / native at num_workers 0: "
+          f"{per_batch['numpy', 0] / per_batch['native', 0]:.3f}x; native 0 / 4 workers: "
+          f"{per_batch['native', 0] / per_batch['native', 4]:.3f}x")
+
+
+def device_rasterize_step(torch, dev, trainer, repo: Path, overrides, train_recs, valid_recs):
+    """One B=32 step of the flagship config with ``trainer;device_rasterize=
+    true`` from the basech-8 trainer's weights: the loader ships raw event
+    windows, the device rasterizes them, bitwise the host's count images of
+    the same sequences; 14/14/14 train launches; its loss within 1e-6
+    relative of the host-rasterized step's from the same weights."""
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.data.loader import ConcatSequenceDataset, collate_sequences
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.training.trainer import Trainer
+
+    run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"),
+                              overrides=overrides + ["trainer;device_rasterize=true"],
+                              runid="chip_smoke_device_rasterize", seed=0)
+    dtrainer = Trainer(run, device=dev, train_recordings=train_recs,
+                       valid_recordings=valid_recs)
+    if not dtrainer.device_rasterize:
+        fail("trainer;device_rasterize=true did not reach the trainer")
+    dtrainer.model.load_state_dict(trainer.model.state_dict())
+    loader = dtrainer.train_loader
+    t0 = time.perf_counter()
+    raw = next(iter(loader))
+    build_ms = (time.perf_counter() - t0) * 1e3
+    if "inp_norm_events" not in raw or "inp_scaled_cnt" in raw:
+        fail(f"the device-rasterize loader built {sorted(raw)}")
+    # the host's count images of the same sequences and seeds
+    indices = list(loader.sampler)[0]
+    host = collate_sequences([ConcatSequenceDataset(
+        train_recs, {**loader.dataset.config, "item_keys": ["inp_scaled_cnt", "gt_cnt"]}
+    ).get_item(int(i), seed=s) for i, s in zip(indices, loader._seeds(indices))])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dsel = dtrainer._select(raw)
+    torch.cuda.synchronize()
+    raster_ms = (time.perf_counter() - t0) * 1e3
+    hsel = {"inp": torch.from_numpy(host["inp_scaled_cnt"]).to(dev),
+            "gt": torch.from_numpy(host["gt_cnt"]).to(dev)}
+    for k in ("inp", "gt"):
+        if not same_bits(torch, dsel[k], hsel[k]):
+            fail(f"the device-rasterized {k} is not bitwise the host's")
+    state = copy.deepcopy(dtrainer.model.state_dict())
+    dcn_cuda.reset_launches()
+    loss_d = float(dtrainer.train_step(dsel)["loss"])
+    torch.cuda.synchronize()
+    n = 2 * TRAIN_WINDOWS
+    if counts_of() != dict(only("dcn_train_fwd", n), dcn_bwd=n, dcn_wgrad=n):
+        fail(f"the device-rasterized step launched {counts_of()}")
+    dtrainer.model.load_state_dict(state)
+    loss_h = float(dtrainer.train_step(hsel)["loss"])
+    rel = abs(loss_d - loss_h) / max(abs(loss_h), TINY)
+    print(f"device-rasterized step: raw batch build {build_ms:.3f} ms, rasterized on the card "
+          f"in {raster_ms:.3f} ms, inputs bitwise the host's; loss {loss_d!r} vs host "
+          f"{loss_h!r}, relative {rel:.3e} (limit 1e-6)")
+    if not rel <= 1e-6:
+        fail("the device-rasterized step's loss differs from the host-rasterized step's")
+
+
+def basech_step(torch, np, dev, trainer, sel, repo: Path, overrides, card, step8_ms,
+                basech: int, f64: bool = False):
+    """One step of the flagship config at ``basech`` (the override
+    ``model;args;basech=...``: a 8*basech-channel DCN bottleneck of basech
+    channels per group) from seeded params, the offset/mask conv made
+    nonzero, on ``sel`` (the basech-8 step's batch or its first images): 14
+    launches each of ``dcn_train_fwd``, ``dcn_bwd`` and ``dcn_wgrad``, and
+    the losses and every parameter's grad within 1e-3 of their own scale of
+    the plain path's; with ``f64`` both paths' grads against the plain path
+    run in f64. Then its step time, optimizer included, beside the basech-8
+    step's (when given)."""
     from esr_tpu_torch.config.build import build_model, build_optimizer
     from esr_tpu_torch.config.parser import RunConfig
     from esr_tpu_torch.ops import dcn_cuda
     from esr_tpu_torch.training.train_step import make_train_step, window_losses
 
     run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"),
-                              overrides=overrides + ["model;args;basech=16"],
-                              runid="chip_smoke_basech16", seed=0)
+                              overrides=overrides + [f"model;args;basech={basech}"],
+                              runid=f"chip_smoke_basech{basech}", seed=0)
     torch.manual_seed(0)
     model = build_model(run.config["model"])
-    if model.basech != 16:
-        fail("the override model;args;basech=16 did not reach the model")
-    rng = np.random.default_rng(16)
+    if model.basech != basech:
+        fail(f"the override model;args;basech={basech} did not reach the model")
+    rng = np.random.default_rng(basech)
     om = model.spacetime_fuse.dcn_offset_mask
     with torch.no_grad():
         om.weight.copy_(torch.from_numpy(
@@ -935,25 +1204,41 @@ def basech16_step(torch, np, dev, trainer, sel, repo: Path, overrides, card, ste
         want = (dict(only("dcn_train_fwd", n), dcn_bwd=n, dcn_wgrad=n) if path == "kernel"
                 else only("dcn_train_fwd", 0))
         if counts_of() != want:
-            fail(f"the basech-16 step on the {path} path launched {counts_of()}, "
+            fail(f"the basech-{basech} step on the {path} path launched {counts_of()}, "
                  f"should be {want}")
         losses[path] = per_window.detach()
         grads[path] = {name: p.grad for name, p in m.named_parameters()}
-    print(f"basech-16 step launches {dict(only('dcn_train_fwd', n), dcn_bwd=n, dcn_wgrad=n)}")
+    print(f"basech-{basech} step (batch {sel['inp'].shape[0]}) launches {dict(only('dcn_train_fwd', n), dcn_bwd=n, dcn_wgrad=n)}")
     err, scale, limit = rel_err_of(torch, losses["kernel"], losses["plain"])
-    print(f"basech-16 step kernel vs plain: loss_per_window max_abs_err {err:.3e} "
+    print(f"basech-{basech} step kernel vs plain: loss_per_window max_abs_err {err:.3e} "
           f"(scale {scale:.3e}, limit {limit:.3e})")
     if not err <= limit:
-        fail("the basech-16 step's losses differ between the kernel and plain paths")
+        fail(f"the basech-{basech} step's losses differ between the kernel and plain paths")
     rows = sorted(((e / max(s, TINY), name, e, s, lim) for name, ref in grads["plain"].items()
                    for e, s, lim in [rel_err_of(torch, grads["kernel"][name], ref)]),
                   reverse=True)
-    print(f"basech-16 step kernel vs plain grads: {len(rows)} parameters; worst err/scale "
+    print(f"basech-{basech} step kernel vs plain grads: {len(rows)} parameters; worst err/scale "
           + "; ".join(f"{name} {e:.3e}/{s:.3e} = {r:.3e}" for r, name, e, s, _ in rows[:5]))
     bad = [name for _, name, e, _, lim in rows if not e <= lim]
     if bad:
-        fail(f"the basech-16 step's grads differ from the plain path's beyond {TOL} of "
+        fail(f"the basech-{basech} step's grads differ from the plain path's beyond {TOL} of "
              f"their own scale: {bad}")
+    if f64:
+        # the plain path in f64 as the floor of f32 agreement: each f32
+        # path's distance from it, per DCN parameter and at worst
+        m = copy.deepcopy(model).double().train()
+        m.spacetime_fuse.dcn_impl = "plain"
+        per_window, _ = window_losses(m, {k: v.double() for k, v in sel.items()}, trainer.seqn)
+        per_window.sum().backward()
+        ref64 = {name: p.grad for name, p in m.named_parameters()}
+        del m
+        for path in ("kernel", "plain"):
+            errs = {name: float((grads[path][name].double() - ref).abs().max())
+                    / max(float(ref.abs().max()), TINY) for name, ref in ref64.items()}
+            worst = max(errs, key=errs.get)
+            print(f"basech-{basech} step, {path} path vs the plain path in f64: "
+                  + "; ".join(f"{n} {errs[n]:.3e}" for n in errs if n.startswith(
+                      "spacetime_fuse.dcn_")) + f"; worst {worst} {errs[worst]:.3e}")
 
     opt, _ = build_optimizer(run.config["optimizer"], model.parameters(),
                              run.config.get("lr_scheduler"),
@@ -968,9 +1253,10 @@ def basech16_step(torch, np, dev, trainer, sel, repo: Path, overrides, card, ste
         step(sel)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    print(f"train step on {card}: batch {sel['inp'].shape[0]}, basech 16 "
-          f"{sorted(times)[1]:.3f} ms median of 3 ({', '.join(f'{t:.3f}' for t in times)}); "
-          f"basech 8 {step8_ms:.3f} ms (host clock to synchronize, optimizer included)")
+    print(f"train step on {card}: batch {sel['inp'].shape[0]}, basech {basech} "
+          f"{sorted(times)[1]:.3f} ms median of 3 ({', '.join(f'{t:.3f}' for t in times)})"
+          + (f"; basech 8 {step8_ms:.3f} ms" if step8_ms is not None else "")
+          + " (host clock to synchronize, optimizer included)")
 
 
 def sparse_train_step(torch, dev, trainer, sel, repo: Path, overrides):
@@ -1223,6 +1509,7 @@ def phase_engine(torch, np, dev, card):
     6 seeded 720x1280 recordings of unequal length (lanes refill mid-run)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from esr_tpu_torch.data import np_encodings as NE
     from esr_tpu_torch.data.loader import LanePackedChunks
     from esr_tpu_torch.data.synthetic import make_synthetic_recording
     from esr_tpu_torch.inference.engine import METRIC_KEYS, StreamingEngine
@@ -1241,11 +1528,15 @@ def phase_engine(torch, np, dev, card):
     print(f"engine setup: {time.perf_counter() - t0:.2f} s")
 
     dcn_cuda.reset_launches()
+    NE.ROUTES.reset()
     t0 = time.perf_counter()
     results, names = engine.run_datalist(recs, FLAGSHIP_DATA)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = counts_of()
+    routes = NE.ROUTES.snapshot()
+    if routes["native"] == 0 or routes["numpy"] != 0:
+        fail(f"the engine's host data path took the routes {routes}, not the native one")
     n_chunks = len(engine.chunk_seconds)
     n_windows = int(sum(r["n_windows"] for r in results))
     print(f"engine: {n_windows} windows of {len(recs)} recordings "
@@ -1257,8 +1548,28 @@ def phase_engine(torch, np, dev, card):
     if n_chunks <= -(-len(recs) // LANES):
         fail(f"{n_chunks} chunks: the lanes did not refill mid-run")
     chunk_ms = sorted(s * 1e3 for s in engine.chunk_seconds)
-    print(f"engine on {card}: {n_windows / wall:.3f} windows/s; chunk (dispatch to "
-          f"readback) p50 {chunk_ms[len(chunk_ms) // 2]:.3f} ms, max {chunk_ms[-1]:.3f} ms")
+    print(f"engine on {card}: {n_windows / wall:.3f} windows/s (native rasterization, "
+          f"routes {routes}); chunk (dispatch to readback) p50 "
+          f"{chunk_ms[len(chunk_ms) // 2]:.3f} ms, max {chunk_ms[-1]:.3f} ms")
+    # the same run on the numpy route, then native again
+    walls = {"native": [wall]}
+    for route in ("numpy", "native"):
+        if route == "numpy":
+            os.environ["ESR_TPU_NATIVE"] = "0"
+        try:
+            NE.ROUTES.reset()
+            t0 = time.perf_counter()
+            again, _ = engine.run_datalist(recs, FLAGSHIP_DATA)
+            torch.cuda.synchronize()
+            walls.setdefault(route, []).append(time.perf_counter() - t0)
+        finally:
+            os.environ.pop("ESR_TPU_NATIVE", None)
+        if NE.ROUTES.snapshot()[route] == 0:
+            fail(f"the {route} engine run took the routes {NE.ROUTES.snapshot()}")
+        # the same inputs bit for bit; cuDNN may pick other algorithms
+        if any(abs(a[k] - b[k]) > 1e-6 * max(abs(b[k]), 1e-12)
+               for a, b in zip(again, results) for k in METRIC_KEYS):
+            fail(f"the engine's metrics on the {route} route differ from the first run's")
 
     runner = InferenceRunner(model, 3, device=dev)
     worst = 0.0
@@ -1302,7 +1613,14 @@ def phase_engine(torch, np, dev, card):
         engine._run_chunk(states, staged["reset_keep"], windows)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    device_time_breakdown(torch, prof, 1, prof_ms, "chunk", card)
+    busy_ms = device_time_breakdown(torch, prof, 1, prof_ms, "chunk", card)
+    for route, ws in walls.items():
+        idle = ("not measured" if busy_ms is None else
+                ", ".join(f"{1 - n_chunks * busy_ms / (w * 1e3):.3f}" for w in ws))
+        print(f"engine on {card}, {route} rasterization: "
+              + ", ".join(f"{n_windows / w:.3f}" for w in ws)
+              + f" windows/s; device idle share of the run (1 - {n_chunks} chunks x "
+              f"device-busy per chunk / wall): {idle}")
     return counts["dcn_fwd_masked"], {"windows_per_s": n_windows / wall,
                                       "chunk_p50_ms": chunk_ms[len(chunk_ms) // 2]}
 
@@ -1456,6 +1774,12 @@ def main() -> int:
                 spills.append(entry)
     if spills:
         fail(f"ptxas spilled registers in {spills}")
+    from esr_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if native.LIBRARY.load() is None:
+        fail(f"the native host kernels did not build:\n{native.LIBRARY.build_log}")
+    print(f"build host_kernels.cpp: g++ {time.perf_counter() - t0:.2f} s")
 
     # -- 3.-5. kernels -----------------------------------------------------
     fwd, fwd_worst = phase_fwd_kernel(torch, np, card)

@@ -48,11 +48,11 @@
 //     so each block stages only its tn columns of W and the card still
 //     gets enough blocks. The launch configuration (tm, tn, RM) comes from
 //     one chooser in esr_tpu_torch/ops/dcn_cuda.py (fwd_config).
-//   - No split-K and no atomics: each output is one FMA chain over the
-//     columns in that fixed order from 0, then + bias, whatever the
-//     configuration. So masked == dense bitwise on truthful masks, a row of
-//     a batch equals the same image alone bitwise, and any two
-//     configurations agree bitwise.
+//   - No split-K and no atomics: each output is a chain of FMA chains over
+//     blocks of kFwdBlock columns in that fixed order from 0, then + bias,
+//     whatever the configuration. So masked == dense bitwise on truthful
+//     masks, a row of a batch equals the same image alone bitwise, and any
+//     two configurations agree bitwise.
 //   - Ragged shapes: tn is a multiple of 4; W's columns past Cout are
 //     staged as zeros and their outputs not stored; W and the output move
 //     as float4 only when Cout % 4 == 0 and the pointers are aligned, x
@@ -79,6 +79,13 @@
 namespace {
 
 constexpr int kThreads = 256;  // the most threads a block of any kernel here has
+// The forward sums an output's columns in blocks of kFwdBlock (one FMA
+// chain each, in column order) and the block sums in order: one chain over
+// all K*Cin columns (4608 at basech 64) lost enough precision to put a
+// basech-64 train step's gradients 1e-3 of their scale from the plain
+// path's, against ~2e-4 between the plain path and f64. Fixed by the
+// column index, not the stage, so every configuration gives the same bits.
+constexpr int kFwdBlock = 32;
 
 struct Geom {
   int B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride, pad, dil;
@@ -318,6 +325,12 @@ __device__ __forceinline__ void forward_main(
     const float* __restrict__ mask, const float* __restrict__ w,
     const Geom& G, const FwdTile& T, const Activity& A, float* smem,
     float (&acc)[RM][4]) {
+  float part[RM][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int l = 0; l < 4; ++l) part[i][l] = 0.f;
+  }
   // gather items per thread per stage: small micro-tiles (RM 1) run at
   // small batches, where the stage count sets the latency
   constexpr int kU = RM == 1 ? 4 : 2;
@@ -396,6 +409,17 @@ __device__ __forceinline__ void forward_main(
     const float* wb = ws + (s & 1) * jsmax * tn + tx * 4;
 #pragma unroll 4
     for (int j = 0; j < jn; ++j) {
+      // a block of columns ends: its sum joins acc's chain of block sums
+      if (j + s * js > 0 && (j + s * js) % kFwdBlock == 0) {
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+#pragma unroll
+          for (int l = 0; l < 4; ++l) {
+            acc[i][l] += part[i][l];
+            part[i][l] = 0.f;
+          }
+        }
+      }
       float a[RM];
       if constexpr (RM == 4) {
         const float4 q = *reinterpret_cast<const float4*>(cb + j * tm);
@@ -409,10 +433,10 @@ __device__ __forceinline__ void forward_main(
       const float4 bw = *reinterpret_cast<const float4*>(wb + j * tn);
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
-        acc[i][0] = fmaf(a[i], bw.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i], bw.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i], bw.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i], bw.w, acc[i][3]);
+        part[i][0] = fmaf(a[i], bw.x, part[i][0]);
+        part[i][1] = fmaf(a[i], bw.y, part[i][1]);
+        part[i][2] = fmaf(a[i], bw.z, part[i][2]);
+        part[i][3] = fmaf(a[i], bw.w, part[i][3]);
       }
     }
     if (s + 1 < n_stages) {
@@ -424,6 +448,11 @@ __device__ __forceinline__ void forward_main(
     }
     cp_async_wait_all();
     __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int l = 0; l < 4; ++l) acc[i][l] += part[i][l];
   }
 }
 

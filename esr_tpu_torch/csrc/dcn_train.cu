@@ -70,6 +70,9 @@
 //     Cg % 4 == 0; the caller zeroes gx for it. When W^T of all taps does
 //     not fit, the taps run in passes (kt per pass), the cotangent streamed
 //     once per pass. The chooser in ops/dcn_cuda.py picks from the shape.
+//   - Groups of more than 32 channels, and a tap of W^T too wide for the
+//     staging above, take dcn_bwd_pixel_wide_kernel: channel chunks of 32,
+//     W^T and the cotangent staged in pieces of out-channels, gx to global.
 //
 // What bounds the weight gradient on the H100, and its design. At the
 // flagship training call the work is the forward's, 610 MFLOP with the
@@ -355,6 +358,206 @@ int launch_bwd_pixel(const float* x, const float* off, const float* mask,
   const int rows = G.B * G.Ho * G.Wo;
   const dim3 grid((rows + T.chunk_rows - 1) / T.chunk_rows, G.dg);
   dcn_bwd_pixel_kernel<MAXCG, kOwn><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      x, off, mask, w, gout, gx, goff, gmask, G, T);
+  return (int)cudaGetLastError();
+}
+
+// The per-pixel backward at any width: the groups of more than 32 channels
+// that the kernel above refuses (its gcols registers are sized by MAXCG),
+// and a tap of W^T too wide for its shared memory (Cout in the thousands).
+// Same results, other staging:
+//   - a block owns `rows` rows of one group and scatters gx to global memory
+//     (float4 red when Cg % 4 == 0; the caller zeroes gx); each thread owns
+//     one (row, tap) item of a pass of kt taps (rows * kt <= kThreads);
+//   - the group's channels run in chunks of kWideCC: per chunk a thread
+//     holds that chunk's gcols in registers, scatters it, and carries its
+//     four corner dots <x[corner], gcols> on to the next chunk, so goffsets
+//     and gmask are one FMA chain over the channels in order, as above;
+//   - W^T of the pass's taps and the cotangent rows are staged `to`
+//     out-channels at a time, so the contraction over Cout (one FMA chain
+//     per channel, out-channels ascending) takes any Cout.
+// The cotangent is staged once per (pass, chunk, piece): at Cg > 32 it is
+// read from L2 several times, against W^T staged once per block.
+constexpr int kWideCC = 32;
+
+struct BwdWideTile {
+  int rows, kt, to;
+};
+
+// Mirrored by bwd_smem_bytes in ops/dcn_cuda.py (its wide branch).
+size_t bwd_wide_smem_bytes(const BwdWideTile& T) {
+  return ((size_t)T.kt * T.to * (kWideCC + 4) + (size_t)T.rows * (T.to + 4)) *
+         sizeof(float);
+}
+
+bool bwd_wide_tile_ok(const BwdWideTile& T) {
+  return T.rows >= 1 && T.kt >= 1 && T.rows * T.kt <= kThreads && T.to >= 4 &&
+         T.to % 4 == 0 && bwd_wide_smem_bytes(T) <= 232448;
+}
+
+__global__ void __launch_bounds__(kThreads)
+dcn_bwd_pixel_wide_kernel(const float* __restrict__ x, const float* __restrict__ off,
+                          const float* __restrict__ mask,
+                          const float* __restrict__ w,
+                          const float* __restrict__ gout, float* gx,
+                          float* __restrict__ goff, float* __restrict__ gmask,
+                          Geom G, BwdWideTile T) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int wst = kWideCC + 4;  // a W^T row: the chunk's channels, padded
+  const int K = G.kh * G.kw;
+  const int cg = G.Cin / G.dg;
+  const int npix = G.Ho * G.Wo;
+  const int hw = G.H * G.W;
+  const int rows = G.B * npix;
+  const int g = blockIdx.y;
+  const int start = blockIdx.x * T.rows;
+  const int end = min(rows, start + T.rows);
+  const int ldg = T.to + 4;
+  float* wt = smem;                    // [kt][to][wst]
+  float* gs = wt + T.kt * T.to * wst;  // [rows][ldg]
+  const bool vec_g = G.Cout % 4 == 0 && aligned16(gout);
+  const bool vec_gx = cg % 4 == 0 && aligned16(gx);
+  // the thread's item: row start + pp, tap k0 + kk of each pass
+  const int pp = threadIdx.x % T.rows;
+  const int kk = threadIdx.x / T.rows;
+  const int r = start + pp;
+
+  for (int k0 = 0; k0 < K; k0 += T.kt) {
+    const int nk = min(T.kt, K - k0);
+    const int k = k0 + kk;
+    const bool active = kk < nk && r < end;
+    Sample s{};
+    float m = 0.f;
+    size_t q = 0, xrow = 0;
+    if (active) {
+      s = sample_at(off, G, r, g, k);
+      q = ((size_t)r * G.dg + g) * K + k;
+      m = mask[q];
+      xrow = (size_t)(r / npix) * hw * G.Cin + g * cg;
+    }
+    float dot[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < cg; c0 += kWideCC) {
+      const int nc = min(kWideCC, cg - c0);
+      // gcols[c] = sum_o W[k, g*Cg + c0 + c, o] * g[row, o], o ascending
+      float gc[kWideCC];
+#pragma unroll
+      for (int c = 0; c < kWideCC; ++c) gc[c] = 0.f;
+      for (int o0 = 0; o0 < G.Cout; o0 += T.to) {
+        const int no = min(T.to, G.Cout - o0);
+        const int nop = (no + 3) & ~3;
+        __syncthreads();  // every thread is done with the last piece
+        for (int e = threadIdx.x; e < nk * kWideCC * nop; e += blockDim.x) {
+          const int o = e % nop;
+          const int t = e / nop;
+          const int c = t % kWideCC;
+          const int j = t / kWideCC;
+          wt[(j * T.to + o) * wst + c] =
+              (o < no && c < nc)
+                  ? __ldg(w + ((size_t)(k0 + j) * G.Cin + g * cg + c0 + c) * G.Cout + o0 + o)
+                  : 0.f;
+        }
+        const int nv = nop / 4;
+        for (int e = threadIdx.x; e < T.rows * nv; e += blockDim.x) {
+          const int p = e / nv;
+          const int o = (e - p * nv) * 4;
+          const int rr = start + p;
+          float* dst = gs + p * ldg + o;
+          const float* src = gout + (size_t)rr * G.Cout + o0 + o;
+          if (rr < end && vec_g && o + 4 <= no) {
+            cp_async16(dst, src);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (rr < end && o + i < no) {
+                cp_async4(dst + i, src + i);
+              } else {
+                dst[i] = 0.f;
+              }
+            }
+          }
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        if (active) {
+          const float* wk = wt + kk * T.to * wst;
+          const float* gr = gs + pp * ldg;
+          for (int o = 0; o < nop; o += 4) {
+            const float4 u = *reinterpret_cast<const float4*>(gr + o);
+            const float gv[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+            for (int oo = 0; oo < 4; ++oo) {
+              const float* wr = wk + (o + oo) * wst;
+#pragma unroll
+              for (int c4 = 0; c4 < kWideCC / 4; ++c4) {
+                if (4 * c4 < nc) {
+                  const float4 wv = *reinterpret_cast<const float4*>(wr + 4 * c4);
+                  gc[4 * c4 + 0] = fmaf(wv.x, gv[oo], gc[4 * c4 + 0]);
+                  gc[4 * c4 + 1] = fmaf(wv.y, gv[oo], gc[4 * c4 + 1]);
+                  gc[4 * c4 + 2] = fmaf(wv.z, gv[oo], gc[4 * c4 + 2]);
+                  gc[4 * c4 + 3] = fmaf(wv.w, gv[oo], gc[4 * c4 + 3]);
+                }
+              }
+            }
+          }
+        }
+      }
+      if (!active) continue;
+      // scatter this chunk into gx and carry the corner dots on
+#pragma unroll
+      for (int corner = 0; corner < 4; ++corner) {
+        if (s.pix[corner] < 0) continue;
+        const float scale = m * s.cw[corner];
+        const size_t base = xrow + (size_t)s.pix[corner] * G.Cin + c0;
+        float d = dot[corner];
+#pragma unroll
+        for (int c4 = 0; c4 < kWideCC / 4; ++c4) {
+          if (4 * c4 >= nc) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = 4 * c4 + i;
+            if (c < nc) d = fmaf(__ldg(x + base + c), gc[c], d);
+          }
+          if (vec_gx) {
+            atomicAdd(reinterpret_cast<float4*>(gx + base + 4 * c4),
+                      make_float4(scale * gc[4 * c4 + 0], scale * gc[4 * c4 + 1],
+                                  scale * gc[4 * c4 + 2], scale * gc[4 * c4 + 3]));
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int c = 4 * c4 + i;
+              if (c < nc) atomicAdd(gx + base + c, scale * gc[c]);
+            }
+          }
+          asm volatile("" ::: "memory");
+        }
+        dot[corner] = d;
+      }
+    }
+    if (active) {
+      float gm = 0.f;
+#pragma unroll
+      for (int corner = 0; corner < 4; ++corner) {
+        if (s.pix[corner] >= 0) gm = fmaf(s.cw[corner], dot[corner], gm);
+      }
+      gmask[q] = gm;
+      const float a0 = m * dot[0], a1 = m * dot[1], a2 = m * dot[2], a3 = m * dot[3];
+      const float dy = s.dy, dx = s.dx;
+      goff[2 * q] = (1.f - dx) * (a2 - a0) + dx * (a3 - a1);
+      goff[2 * q + 1] = (1.f - dy) * (a1 - a0) + dy * (a3 - a2);
+    }
+  }
+}
+
+int launch_bwd_pixel_wide(const float* x, const float* off, const float* mask,
+                          const float* w, const float* gout, float* gx, float* goff,
+                          float* gmask, const Geom& G, const BwdWideTile& T,
+                          void* stream) {
+  const size_t smem = bwd_wide_smem_bytes(T);
+  cudaError_t err = allow_smem(dcn_bwd_pixel_wide_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = G.B * G.Ho * G.Wo;
+  const dim3 grid((rows + T.rows - 1) / T.rows, G.dg);
+  dcn_bwd_pixel_wide_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, off, mask, w, gout, gx, goff, gmask, G, T);
   return (int)cudaGetLastError();
 }
@@ -666,7 +869,9 @@ extern "C" int dcn_train_fwd_masked_f32(
 }
 
 // gx must be zeroed by the caller when own == 0 (global scatter); with
-// own == 1 every element of gx is written once.
+// own == 1 every element of gx is written once. to > 0 selects the wide
+// kernel (rows = chunk_rows = tp per block, kt taps per pass, W^T and the
+// cotangent staged to out-channels at a time; own must be 0).
 extern "C" int dcn_bwd_pixel_f32(const float* x, const float* off,
                                  const float* mask, const float* w,
                                  const float* gout, float* gx, float* goff,
@@ -674,8 +879,16 @@ extern "C" int dcn_bwd_pixel_f32(const float* x, const float* off,
                                  int Ho, int Wo, int Cout, int dg, int kh,
                                  int kw, int stride, int pad, int dil,
                                  int chunk_rows, int tp, int kt, int own,
-                                 void* stream) {
+                                 int to, void* stream) {
   const Geom G{B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride, pad, dil};
+  if (to > 0) {
+    const BwdWideTile T{tp, kt, to};
+    if (!geom_ok(G) || own != 0 || chunk_rows != tp || kt > kh * kw ||
+        !bwd_wide_tile_ok(T)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return launch_bwd_pixel_wide(x, off, mask, w, gout, gx, goff, gmask, G, T, stream);
+  }
   const BwdTile T{chunk_rows, tp, kt, own};
   const int cg = geom_ok(G) ? Cin / dg : 0;
   if (!geom_ok(G) || cg > 32 || tp < 2 || tp % 2 != 0 || kt < 1 ||

@@ -3,8 +3,13 @@
 
 Covered: the three windowing modes (events / time / frame), the scale^2*N
 GT event windowing, the seeded flip/polarity augmentation of the training
-recipe, and the items the harness and the trainer read (``inp_cnt``,
-``inp_scaled_cnt``, ``gt_cnt``; ``item_keys`` may ask for a subset). Noise
+recipe, and the items the harness and the trainer read: by default the
+count images ``inp_cnt``, ``inp_scaled_cnt`` and ``gt_cnt``; on request
+(``item_keys``) also ``gt_img`` (the GT frame at the window's middle, for
+the visualizations) and the fixed-capacity raw event windows of device
+rasterization (``inp_norm_events`` / ``inp_events_valid``: ``[window, 4]``
+rows (x/W, y/H, t, p) and their validity; ``gt_raw_events`` /
+``gt_events_valid``: ``[scale^2 * window, 4]`` raw GT-grid rows). Noise
 injection, the hot-pixel filter, sensor pauses, custom resolutions and the
 other item encodings raise ``NotImplementedError``.
 
@@ -26,6 +31,9 @@ from esr_tpu_torch.data import np_encodings as NE
 from esr_tpu_torch.data.records import Recording, open_recording, resolve_scale_ladder
 
 ITEM_KEYS = ("inp_cnt", "inp_scaled_cnt", "gt_cnt")
+# every key get_item can build
+KNOWN_KEYS = ITEM_KEYS + ("gt_img", "inp_norm_events", "inp_events_valid",
+                          "gt_raw_events", "gt_events_valid")
 AUGMENTS = ("Horizontal", "Vertical", "Polarity")
 
 
@@ -43,13 +51,13 @@ def _refuse_training_options(config: Dict) -> None:
         enabled.append("sequence.pause")
     if config.get("custom_resolution") is not None:
         enabled.append("custom_resolution")
-    extra = set(config.get("item_keys") or ITEM_KEYS) - set(ITEM_KEYS)
+    extra = set(config.get("item_keys") or ITEM_KEYS) - set(KNOWN_KEYS)
     if extra:
         enabled.append(f"item_keys {sorted(extra)}")
     if enabled:
         raise NotImplementedError(
             f"dataset options {enabled} are not ported (the port builds "
-            f"{list(ITEM_KEYS)} with {list(AUGMENTS)} augmentation)"
+            f"{list(KNOWN_KEYS)} with {list(AUGMENTS)} augmentation)"
         )
 
 
@@ -75,6 +83,7 @@ class EventWindowDataset:
         self.recording: Recording = open_recording(recording)
         self.scale = int(config["scale"])
         self.need_gt_events = config.get("need_gt_events", False)
+        self.need_gt_frame = config.get("need_gt_frame", False)
         self.augment_cfg = config.get("data_augment") or {"enabled": False}
         self.item_keys = tuple(config.get("item_keys") or ITEM_KEYS)
         ladder = resolve_scale_ladder(
@@ -168,6 +177,42 @@ class EventWindowDataset:
                 ps = ps * -1
         return np.stack([xs, ys, ts, ps])
 
+    def _augment_frame(self, img: np.ndarray, seed: int) -> np.ndarray:
+        for i, mechanism in enumerate(self.augment_cfg["augment"]):
+            prob = self.augment_cfg["augment_prob"][i]
+            if mechanism == "Horizontal" and _flip_coin(seed, prob):
+                img = np.flip(img, 1)
+            elif mechanism == "Vertical" and _flip_coin(seed + 1, prob):
+                img = np.flip(img, 0)
+        return img
+
+    def _gt_img(self, idx0: int, idx1: int, seed: int) -> np.ndarray:
+        """``[kH, kW, 1]``: the GT frame nearest after the window's middle
+        event, in [0, 1], bicubic onto the GT grid; zeros without
+        ``need_gt_frame``."""
+        kh, kw = self.gt_resolution
+        if not self.need_gt_frame:
+            return np.zeros((kh, kw, 1), np.float32)
+        t = self.inp_stream.ts[(idx0 + idx1) // 2]
+        fi = int(np.clip(np.searchsorted(self.recording.frame_ts, t, side="left"),
+                         0, self.recording.num_frames - 1))
+        raw = self.recording.frame(fi)
+        if self.augment_cfg.get("enabled", False):
+            raw = self._augment_frame(raw, seed)
+        return NE.interpolate_np(raw.astype(np.float32)[..., None] / 255.0, (kh, kw), "bicubic")
+
+    @staticmethod
+    def _padded(ev: np.ndarray, capacity: int):
+        """``[4, N]`` events -> ``[capacity, 4]`` rows and ``[capacity]``
+        validity (the static-shape feed of device rasterization)."""
+        out = np.zeros((capacity, 4), np.float32)
+        valid = np.zeros((capacity,), np.float32)
+        n = min(ev.shape[1], capacity)
+        if n:
+            out[:n] = ev[:, :n].T
+            valid[:n] = 1.0
+        return out, valid
+
     def _window(self, stream, idx0: int, idx1: int, resolution, seed: int) -> np.ndarray:
         ev = stream.window(idx0, idx1)
         if self.augment_cfg.get("enabled", False):
@@ -191,12 +236,25 @@ class EventWindowDataset:
             gt_ev = self._window(self.gt_stream, g0, g1, self.gt_resolution, seed)
         else:
             gt_ev = np.zeros((4, 0), np.float32)
+        window = int(self.config["window"])
+
+        def norm_ev():
+            ev = inp_ev.copy()
+            ev[0] = inp_ev[0] / w
+            ev[1] = inp_ev[1] / h
+            return ev
+
         encoders = {
             "inp_cnt": lambda: NE.events_to_channels_np(
                 inp_ev[0], inp_ev[1], inp_ev[3], (h, w)),
             "inp_scaled_cnt": lambda: NE.events_to_channels_np(xs, ys, inp_ev[3], (kh, kw)),
             "gt_cnt": lambda: NE.events_to_channels_np(
                 gt_ev[0], gt_ev[1], gt_ev[3], (kh, kw)),
+            "gt_img": lambda: self._gt_img(idx0, idx1, seed),
+            "inp_norm_events": lambda: self._padded(norm_ev(), window)[0],
+            "inp_events_valid": lambda: self._padded(inp_ev, window)[1],
+            "gt_raw_events": lambda: self._padded(gt_ev, self.scale**2 * window)[0],
+            "gt_events_valid": lambda: self._padded(gt_ev, self.scale**2 * window)[1],
         }
         return {k: np.ascontiguousarray(encoders[k](), np.float32) for k in self.item_keys}
 

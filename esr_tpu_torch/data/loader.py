@@ -4,7 +4,10 @@ evaluation loader (counterpart of ``esr_tpu/data/loader.py``).
 :class:`SequenceLoader` is the training loader: :class:`ShardedSampler`'s
 epoch shuffle (``np.random.default_rng((seed, epoch))``), one derived
 augmentation seed per sequence, and batches built in order by a thread pool
-``prefetch`` deep. Process workers (``num_workers > 0``) are not ported.
+``prefetch`` deep, or with ``num_workers > 0`` by a pool of that many
+spawned processes (each rebuilds the dataset once from the recordings and
+the config); the batches and their augmentation seeds are the same either
+way.
 The evaluation loader is synchronous: batch 1, in order, non-overlapping
 sequences. :class:`LanePackedChunks` packs recordings into lanes for the
 streaming engine, and :class:`DevicePrefetcher` stages its chunks on a
@@ -13,11 +16,13 @@ thread.
 
 from __future__ import annotations
 
+import multiprocessing
 import queue
 import threading
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from concurrent.futures import Future, ProcessPoolExecutor, ThreadPoolExecutor
+from multiprocessing import resource_tracker, shared_memory
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -41,7 +46,9 @@ class ConcatSequenceDataset:
     """Concatenation of per-recording :class:`SequenceDataset`s."""
 
     def __init__(self, recordings: Sequence, config: Dict):
-        self.datasets = [SequenceDataset(r, config) for r in recordings]
+        self.recordings = list(recordings)
+        self.config = config
+        self.datasets = [SequenceDataset(r, config) for r in self.recordings]
         if not self.datasets:
             raise ValueError("empty datalist")
         lengths = {d.L for d in self.datasets}
@@ -127,26 +134,112 @@ class InferenceSequenceLoader:
             yield collate_sequences([self.dataset.get_item(i)])
 
 
+# The dataset of a worker process, built once by _worker_init: recordings
+# with open HDF5 handles cannot be sent to a process, their paths can.
+_WORKER_DATASET: Optional[ConcatSequenceDataset] = None
+
+
+def _worker_init(recordings: Sequence, config: Dict) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = ConcatSequenceDataset(recordings, config)
+
+
+# (key, shape, dtype, byte offset) of each array of a batch in its block
+Layout = List[Tuple[str, Tuple[int, ...], str, int]]
+
+
+def _worker_build(indices: np.ndarray, seeds: List[int]) -> Tuple[str, Layout]:
+    """Build a batch into a new shared-memory block and return the block's
+    name and layout: through the pool's pipe a B=32 flagship batch (66 MB)
+    took longer to pickle, send and unpickle than a worker took to build
+    it. The parent copies it out and unlinks the block
+    (:func:`_read_shared`); a block whose batch is never read (the parent
+    killed first) stays in ``/dev/shm``."""
+    batch = collate_sequences([_WORKER_DATASET.get_item(int(i), seed=s)
+                               for i, s in zip(indices, seeds)])
+    shm = shared_memory.SharedMemory(create=True,
+                                     size=max(1, sum(v.nbytes for v in batch.values())))
+    try:
+        layout: Layout = []
+        offset = 0
+        for key, v in batch.items():
+            np.ndarray(v.shape, v.dtype, buffer=shm.buf, offset=offset)[...] = v
+            layout.append((key, v.shape, v.dtype.str, offset))
+            offset += v.nbytes
+    except BaseException:
+        shm.close()
+        shm.unlink()
+        raise
+    # the parent unlinks the block; this process's tracker must not at exit
+    resource_tracker.unregister(shm._name, "shared_memory")
+    shm.close()
+    return shm.name, layout
+
+
+def _read_shared(result: Tuple[str, Layout]) -> Dict[str, np.ndarray]:
+    """The batch in a worker's block, copied out; the block unlinked."""
+    name, layout = result
+    shm = shared_memory.SharedMemory(name=name)
+    try:
+        return {key: np.ndarray(shape, np.dtype(dtype), buffer=shm.buf, offset=off).copy()
+                for key, shape, dtype, off in layout}
+    finally:
+        shm.close()
+        shm.unlink()
+
+
+def _discard_shared(fut: Future) -> None:
+    """Unlink the block of a worker's batch that nobody will read."""
+    if not fut.cancelled() and fut.exception() is None:
+        name, _ = fut.result()
+        shm = shared_memory.SharedMemory(name=name)
+        shm.close()
+        shm.unlink()
+
+
 class SequenceLoader:
     """Collated ``{key: (B, L, ...)}`` training batches with epoch semantics.
 
     Batches come in the sampler's order; ``prefetch`` > 0 builds that many
-    ahead on a thread pool (the consumer still receives them in order).
+    ahead on a thread pool, ``num_workers`` > 0 at least ``num_workers``
+    ahead on a pool of spawned processes (the consumer still receives them
+    in order). :meth:`close` shuts the process pool down.
     """
 
     def __init__(self, dataset: ConcatSequenceDataset, batch_size: int,
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
                  prefetch: int = 2, num_workers: int = 0):
-        if num_workers > 0:
-            raise NotImplementedError(
-                "num_workers > 0 (process workers) is not ported; set the "
-                "loader's num_workers to 0")
+        # the stateful hot-pixel filter gathers its statistics across
+        # get_item calls: split over workers it would mask other pixels,
+        # batch by batch (the reference refuses the pair too)
+        if num_workers > 0 and (dataset.config.get("hot_filter") or {}).get("enabled"):
+            raise ValueError("num_workers > 0 is incompatible with the stateful hot_filter "
+                             "(each worker would gather its own hot-pixel statistics); "
+                             "use num_workers=0")
         self.dataset = dataset
         self.sampler = ShardedSampler(len(dataset), batch_size, shuffle, drop_last, seed)
         self.prefetch = prefetch
+        self.num_workers = num_workers
         self.seed = seed
         self.inp_resolution = dataset.inp_resolution
         self.gt_resolution = dataset.gt_resolution
+        self._pool: Optional[ProcessPoolExecutor] = None
+
+    def _get_pool(self) -> ProcessPoolExecutor:
+        if self._pool is None:
+            # spawn: the parent holds a CUDA context and threads, which a
+            # forked child must not inherit
+            self._pool = ProcessPoolExecutor(
+                self.num_workers, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_worker_init,
+                initargs=(self.dataset.recordings, self.dataset.config))
+        return self._pool
+
+    def close(self) -> None:
+        """Shut the worker pool down (nothing to do without workers)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
 
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
@@ -160,28 +253,51 @@ class SequenceLoader:
         return [int(np.random.default_rng((self.seed, epoch, int(i))).integers(2**31))
                 for i in indices]
 
+    def first_sequence(self, n: int) -> Tuple[int, int]:
+        """The dataset index and augmentation seed of the first sequence of
+        the current epoch's ``n``-th batch."""
+        index = int(list(self.sampler)[n][0])
+        return index, self._seeds(np.array([index]))[0]
+
     def _build(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
         return collate_sequences([self.dataset.get_item(int(i), seed=s)
                                   for i, s in zip(indices, self._seeds(indices))])
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = list(self.sampler)
+        if self.num_workers > 0:
+            yield from self._in_order(self._get_pool(), max(self.prefetch, self.num_workers),
+                                      batches, lambda pool, idx: pool.submit(
+                                          _worker_build, idx, self._seeds(idx)),
+                                      read=_read_shared, discard=_discard_shared)
+            return
         if self.prefetch <= 0:
             for idx in batches:
                 yield self._build(idx)
             return
         with ThreadPoolExecutor(max_workers=self.prefetch) as pool:
-            pending: deque = deque()
-            try:
-                for idx in batches:
-                    pending.append(pool.submit(self._build, idx))
-                    if len(pending) >= self.prefetch:
-                        yield pending.popleft().result()
-                while pending:
-                    yield pending.popleft().result()
-            finally:
-                for fut in pending:
-                    fut.cancel()
+            yield from self._in_order(pool, self.prefetch, batches,
+                                      lambda pool, idx: pool.submit(self._build, idx))
+
+    @staticmethod
+    def _in_order(pool, depth: int, batches, submit, read=None,
+                  discard=None) -> Iterator[Dict[str, np.ndarray]]:
+        """Up to ``depth`` batches in flight on ``pool``, yielded in order
+        (``read`` turns a task's result into the batch; ``discard`` is
+        called on the tasks left unread when the iteration stops early)."""
+        pending: deque = deque()
+        read = read or (lambda result: result)
+        try:
+            for idx in batches:
+                pending.append(submit(pool, idx))
+                if len(pending) >= depth:
+                    yield read(pending.popleft().result())
+            while pending:
+                yield read(pending.popleft().result())
+        finally:
+            for fut in pending:
+                if not fut.cancel() and discard is not None:
+                    fut.add_done_callback(discard)
 
 
 def window_activity(inp_window: np.ndarray, tile: int = 8) -> float:

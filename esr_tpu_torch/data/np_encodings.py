@@ -1,13 +1,45 @@
-"""Host-side (numpy) event rasterization, resize and tile activity
-(counterpart of ``esr_tpu/data/np_encodings.py``)."""
+"""Host-side event rasterization, resize and tile activity (counterpart
+of ``esr_tpu/data/np_encodings.py``).
+
+``events_to_channels_np`` and ``events_to_stack_np`` call the native host
+kernel (``esr_tpu_torch.native``) first and take their numpy twins only
+when it is unavailable, as the reference does; the two routes give the
+same bits. :data:`ROUTES` counts the calls each route took.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+import threading
+from typing import Dict, Tuple
 
 import numpy as np
 
+from esr_tpu_torch import native
 from esr_tpu_torch.ops.resize import _interp_matrix
+
+
+class RouteCounts:
+    """Calls that took the native kernel and calls that took numpy (the
+    loader's prefetch threads count concurrently)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counts = {"native": 0, "numpy": 0}
+
+    def add(self, route: str) -> None:
+        with self._lock:
+            self._counts[route] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = {"native": 0, "numpy": 0}
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+
+ROUTES = RouteCounts()
 
 
 def events_to_image_np(
@@ -25,10 +57,51 @@ def events_to_image_np(
 def events_to_channels_np(
     xs: np.ndarray, ys: np.ndarray, ps: np.ndarray, sensor_size: Tuple[int, int]
 ) -> np.ndarray:
-    """Two-channel count image ``[H, W, 2]`` (positive, negative)."""
+    """Two-channel count image ``[H, W, 2]`` (positive, negative): the
+    native kernel when available, else :func:`channels_numpy`."""
+    out = native.rasterize_counts(xs, ys, ps, sensor_size)
+    if out is not None:
+        ROUTES.add("native")
+        return out
+    ROUTES.add("numpy")
+    return channels_numpy(xs, ys, ps, sensor_size)
+
+
+def channels_numpy(xs, ys, ps, sensor_size: Tuple[int, int]) -> np.ndarray:
+    """The numpy twin of :func:`events_to_channels_np`."""
     pos = events_to_image_np(xs, ys, (ps > 0).astype(np.float32), sensor_size)
     neg = events_to_image_np(xs, ys, (ps < 0).astype(np.float32), sensor_size)
     return np.stack([pos, neg], axis=-1)
+
+
+def events_to_stack_np(xs: np.ndarray, ys: np.ndarray, ts: np.ndarray, ps: np.ndarray,
+                       num_bins: int, sensor_size: Tuple[int, int]) -> np.ndarray:
+    """Signed time-binned stack ``[H, W, B]``, half-open bins ``floor((t -
+    t0) / (t1 - t0 + 1e-6) * B)`` (the reference's default binning; its
+    ``inclusive`` one is not ported): the native kernel when available,
+    else :func:`stack_numpy`."""
+    if xs.size == 0:
+        return np.zeros((*sensor_size, num_bins), np.float32)
+    out = native.rasterize_stack(xs, ys, ts, ps, num_bins, sensor_size)
+    if out is not None:
+        ROUTES.add("native")
+        return out
+    ROUTES.add("numpy")
+    return stack_numpy(xs, ys, ts, ps, num_bins, sensor_size)
+
+
+def stack_numpy(xs, ys, ts, ps, num_bins: int, sensor_size: Tuple[int, int]) -> np.ndarray:
+    """The numpy twin of :func:`events_to_stack_np`."""
+    h, w = sensor_size
+    if xs.size == 0:
+        return np.zeros((h, w, num_bins), np.float32)
+    t0 = ts.min()
+    dt = ts.max() - t0 + 1e-6
+    b = np.clip(np.floor((ts - t0) / dt * num_bins).astype(np.int64), 0, num_bins - 1)
+    inb = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    flat = (ys[inb].astype(np.int64) * w + xs[inb].astype(np.int64)) * num_bins + b[inb]
+    binned = np.bincount(flat, weights=ps[inb], minlength=h * w * num_bins)
+    return binned.astype(np.float32).reshape(h, w, num_bins)
 
 
 def interpolate_np(x: np.ndarray, size: Tuple[int, int], mode: str) -> np.ndarray:

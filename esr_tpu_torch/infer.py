@@ -10,8 +10,10 @@ default; ``--device cpu`` runs it on the CPU. ``--engine`` (or, without
 the flagship config sets) streams the datalist through the batched
 streaming engine at ``--lanes`` x ``--chunk_windows`` (default: the
 checkpoint's ``inference`` block, else 4 x 8); ``--no_engine`` runs the
-sequential harness. LPIPS, PNG dumps and the bf16/int8 rungs are not ported
-yet and raise when asked for, by a flag or by the checkpoint's config.
+sequential harness. ``--save_images`` writes each window's PNG views in the
+reference's layout (sequential harness only; the engine warns and ignores
+it). LPIPS and the bf16/int8 rungs are not ported yet and raise when asked
+for, by a flag or by the checkpoint's config.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--output_path", type=str, required=True)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--save_images", dest="save_images", action="store_true", default=False,
-                   help="PNG dumps (not ported yet: raises)")
+                   help="PNG views of every window (sequential harness only)")
     p.add_argument("--no_save_images", dest="save_images", action="store_false")
     p.add_argument("--lpips_backbone", type=str, default=None,
                    help="LPIPS (not ported yet: raises)")
@@ -68,8 +70,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     flags = get_flags(argv)
     if (flags.data_path is None) == (flags.data_list is None):
         raise SystemExit("pass exactly one of --data_path / --data_list")
-    if flags.save_images:
-        raise NotImplementedError("PNG dumps are not ported yet")
     if flags.lpips_backbone is not None or flags.allow_uncalibrated_lpips:
         raise NotImplementedError("LPIPS is not ported yet")
     logging.basicConfig(level=logging.INFO)
@@ -98,7 +98,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                  else [flags.data_path])
     mean = run_inference(
         flags.model_path, data_list, flags.output_path, dataset_config,
-        engine=flags.engine, precision=flags.precision, device=flags.device,
+        save_images=flags.save_images, engine=flags.engine, precision=flags.precision, device=flags.device,
         lanes=flags.lanes, chunk_windows=flags.chunk_windows,
     )
     print(json.dumps({k: round(v, 6) for k, v in mean.items()}))

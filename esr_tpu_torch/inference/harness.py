@@ -10,6 +10,11 @@
   forward's latency is timed up to ``torch.cuda.synchronize()``.
 - The per-recording ``inference.yml`` and the datalist ``inference_all.yml``
   keep the reference's schema.
+- ``save_images`` dumps each window's views as PNGs in the reference's
+  layout under the recording's output directory:
+  ``event_img/{lr,hr_scaled,hr_esr,hr_bicubic,hr_gt}_event_img/<window
+  :09d>.png`` (``utils.vis_events.render_event_cnt``) and
+  ``img/gt_img/<window:09d>.png`` (the GT frame).
 
 :func:`run_inference` routes a datalist through the batched
 :class:`esr_tpu_torch.inference.engine.StreamingEngine` when ``engine`` is
@@ -17,9 +22,10 @@ true, or when it is None and the checkpoint's ``inference.engine`` is
 (the flagship's); ``lanes`` and ``chunk_windows`` default to the same
 block, else 4 and 8. The reports and their schema are the same.
 
-Not in this slice (each raises ``NotImplementedError``): LPIPS, PNG dumps
-and the bf16/int8 precision rungs, whether asked for by argument or by the
-checkpoint's config.
+The engine dumps no PNGs: with ``save_images`` it warns and ignores it, as
+the reference does. Not in this slice (each raises
+``NotImplementedError``): LPIPS and the bf16/int8 precision rungs, whether
+asked for by argument or by the checkpoint's config.
 """
 
 from __future__ import annotations
@@ -33,14 +39,20 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from esr_tpu_torch.data.dataset import ITEM_KEYS
 from esr_tpu_torch.data.loader import InferenceSequenceLoader
-from esr_tpu_torch.data.records import Recording, open_recording
+from esr_tpu_torch.data.records import Recording, open_recording, recording_name
 from esr_tpu_torch.device import DeviceLike, resolve_device, synchronize
 from esr_tpu_torch.losses.restore import l1_metric, mse_metric, psnr_metric, ssim_metric
 from esr_tpu_torch.ops.resize import interpolate
 from esr_tpu_torch.utils.trackers import MetricTracker, YamlLogger
+from esr_tpu_torch.utils.vis_events import render_event_cnt, render_frame, save_image
 
 logger = logging.getLogger(__name__)
+
+# the per-window views under <out_dir>/event_img/
+IMG_DIRS = ("lr_event_img", "hr_scaled_event_img", "hr_esr_event_img",
+            "hr_bicubic_event_img", "hr_gt_event_img")
 
 
 def _num_params(model: torch.nn.Module) -> float:
@@ -75,15 +87,12 @@ class InferenceRunner:
         save_images: bool = False,
         report: bool = True,
     ) -> Dict[str, float]:
-        """Stream one recording; returns the per-recording metric means."""
-        if save_images:
-            raise NotImplementedError(
-                "PNG dumps are not ported yet (they come with the "
-                "visualization slice); run without save_images"
-            )
+        """Stream one recording; returns the per-recording metric means.
+        ``save_images`` (with an ``out_dir``) writes the PNG views."""
         recording = open_recording(data_path)
+        img_dir = out_dir if save_images else None
         try:
-            result = self._stream(recording, dataset_config)
+            result = self._stream(recording, dataset_config, img_dir)
         finally:
             if recording is not data_path:  # opened here from a path
                 recording.close()
@@ -92,7 +101,16 @@ class InferenceRunner:
         return result
 
     @torch.no_grad()
-    def _stream(self, recording: Recording, dataset_config: Dict) -> Dict[str, float]:
+    def _stream(self, recording: Recording, dataset_config: Dict,
+                img_dir: Optional[str] = None) -> Dict[str, float]:
+        if img_dir is not None:
+            for d in IMG_DIRS:
+                os.makedirs(os.path.join(img_dir, "event_img", d), exist_ok=True)
+            os.makedirs(os.path.join(img_dir, "img", "gt_img"), exist_ok=True)
+            if dataset_config.get("item_keys") is None:
+                # the GT frame beside the count images, as the reference's
+                # loader builds it
+                dataset_config = {**dataset_config, "item_keys": ITEM_KEYS + ("gt_img",)}
         loader = InferenceSequenceLoader(recording, dataset_config)
         kh, kw = loader.gt_resolution
         dev = self.device
@@ -114,7 +132,7 @@ class InferenceRunner:
                 if k in ssim_samples:
                     ssim_samples[k].append(float(v))
 
-        for batch in loader:
+        for i, batch in enumerate(loader):
             window = {k: v[:, : self.seqn] for k, v in batch.items()}  # inputs_seq[0]
             inp = torch.from_numpy(window["inp_scaled_cnt"]).to(dev)
             t0 = time.perf_counter()
@@ -131,6 +149,8 @@ class InferenceRunner:
             pending.append(_metrics(pred0, bicubic, gt))
             if len(pending) > 1:
                 resolve(pending.popleft())
+            if img_dir is not None:
+                _save_views(img_dir, i, window, self.mid_idx, pred0, bicubic, gt, inp_cnt)
         while pending:
             resolve(pending.popleft())
 
@@ -138,6 +158,23 @@ class InferenceRunner:
         _attach_rmse(result)
         _attach_ssim_window_stats(result, ssim_samples)
         return result
+
+
+def _save_views(img_dir: str, i: int, window: Dict[str, np.ndarray], mid: int,
+                pred, bicubic, gt, inp_cnt) -> None:
+    """One window's PNGs, in the reference's layout and order."""
+    views = {
+        "lr_event_img": inp_cnt.cpu().numpy(),
+        "hr_scaled_event_img": window["inp_scaled_cnt"][0, mid],
+        "hr_esr_event_img": np.round(pred.cpu().numpy()),
+        "hr_bicubic_event_img": bicubic.cpu().numpy(),
+        "hr_gt_event_img": gt.cpu().numpy(),
+    }
+    for d, img in views.items():
+        save_image(os.path.join(img_dir, "event_img", d, f"{i:09d}.png"), render_event_cnt(img))
+    if "gt_img" in window:
+        save_image(os.path.join(img_dir, "img", "gt_img", f"{i:09d}.png"),
+                   render_frame(window["gt_img"][0, mid]))
 
 
 def _attach_rmse(metrics: Dict[str, float]) -> None:
@@ -255,7 +292,8 @@ def run_inference(
     os.makedirs(output_path, exist_ok=True)
     if engine:
         if save_images:
-            raise NotImplementedError("PNG dumps are not ported yet")
+            logger.warning("engine mode does not dump per-window images; "
+                           "--save_images ignored (use sequential mode for PNGs)")
         from esr_tpu_torch.inference.engine import StreamingEngine
 
         eng = StreamingEngine(model, seqn, lanes=lanes, chunk_windows=chunk_windows,
@@ -268,10 +306,11 @@ def run_inference(
         runner = InferenceRunner(model, seqn, device=device)
         results, names = [], []
         for data_path in data_list:
-            name = os.path.basename(data_path)
+            name = recording_name(data_path)
             logger.info("processing %s", data_path)
             results.append(runner.run_recording(
-                data_path, dataset_config, os.path.join(output_path, name)
+                data_path, dataset_config, os.path.join(output_path, name),
+                save_images=save_images,
             ))
             names.append(name)
     breakdown, mean = aggregate_results(results, names)

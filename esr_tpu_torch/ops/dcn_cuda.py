@@ -25,7 +25,8 @@ and launch count. The masked ones take the activity mask of
 :func:`bwd_config` picks the per-pixel backward's path: an image's x and
 gx slices in shared memory when they fit (gx is then written once, so it
 is allocated with ``torch.empty``), else a scatter into a zeroed gx in
-global memory. :func:`wgrad_config` tiles the weight gradient's output
+global memory; above 32 channels per group its wide kernel, so it takes
+any width. :func:`wgrad_config` tiles the weight gradient's output
 over blocks, so it takes any width.
 
 Nothing is imported or built when this module is imported; :func:`build`
@@ -79,8 +80,6 @@ NVCC_FLAGS = (
 _SMEM_MAX = 232448
 # the most threads a block of the DCN kernels has (kThreads in dcn_common.cuh)
 _THREADS = 256
-# the most channels per group the per-pixel backward takes (its MAXCG)
-_BWD_MAX_CG = 32
 # about one block per SM of the H100 (132): the least grid the forward
 # chooser wants
 _TARGET_BLOCKS = 120
@@ -183,11 +182,24 @@ class BwdConfig:
     tp: int
     kt: int
     own: bool
+    # > 0: the wide kernel (``dcn_bwd_pixel_wide_kernel``), for more than
+    # 32 channels per group or a tap of W^T too wide for the narrow one:
+    # one (row, tap) item per thread (``chunk_rows == tp``, ``tp * kt <=
+    # 256``), channel chunks of 32, W^T and the cotangent staged ``to``
+    # out-channels at a time, gx scattered to global memory
+    to: int = 0
+
+
+# channels per chunk of the wide kernel (kWideCC in dcn_train.cu), and the
+# most per group the narrow kernel takes (its MAXCG)
+_BWD_WIDE_CC = 32
 
 
 def bwd_smem_bytes(h: int, w: int, cg: int, cout: int, cfg: BwdConfig) -> int:
     """Dynamic shared memory of the per-pixel backward (``bwd_smem_bytes``
-    in ``dcn_train.cu``)."""
+    and ``bwd_wide_smem_bytes`` in ``dcn_train.cu``)."""
+    if cfg.to:
+        return 4 * (cfg.kt * cfg.to * (_BWD_WIDE_CC + 4) + cfg.tp * (cfg.to + 4))
     cgp = -(-cg // 4) * 4
     coutp = -(-cout // 4) * 4
     nbuf = 2 if -(-cfg.chunk_rows // cfg.tp) > 1 else 1
@@ -213,15 +225,16 @@ _BWD_GLOBAL_ROWS = 64
 @functools.lru_cache(maxsize=256)
 def bwd_config(h: int, w: int, ho: int, wo: int, cin: int, cout: int, dg: int,
                k: int) -> BwdConfig:
-    """The per-pixel backward's configuration: the ownership path exactly
-    when an image's slices fit (:func:`bwd_slices_fit`), the cotangent in
-    tiles of at most 256 rows split evenly over the image; else blocks of
-    64 rows scattering to global memory. Taps per pass and rows per tile
-    shrink until the staging fits."""
+    """The per-pixel backward's configuration, for any width. Up to 32
+    channels per group the narrow kernel: the ownership path exactly when
+    an image's slices fit (:func:`bwd_slices_fit`), the cotangent in tiles
+    of at most 256 rows split evenly over the image; else blocks of 64 rows
+    scattering to global memory; taps per pass and rows per tile shrink
+    until the staging fits. Wider groups, and a tap of W^T that does not
+    fit beside two cotangent rows, take the wide kernel (:func:`_bwd_wide`)."""
     cg = cin // dg
-    if cg > _BWD_MAX_CG:
-        raise ValueError(f"dcn_bwd: {cg} channels per group exceed the kernel's "
-                         f"{_BWD_MAX_CG}")
+    if cg > _BWD_WIDE_CC:
+        return _bwd_wide(cout, k)
     npix = ho * wo
     own = bwd_slices_fit(h, w, cg, cout, npix)
     if own:
@@ -236,9 +249,23 @@ def bwd_config(h: int, w: int, ho: int, wo: int, cin: int, cout: int, dg: int,
             if bwd_smem_bytes(h, w, cg, cout, cfg) <= _SMEM_MAX:
                 return cfg
         if tp == 2:
-            raise ValueError(f"dcn_bwd: the DCN shape (Cg {cg}, Cout {cout}) exceeds "
-                             "the kernel's shared-memory budget")
+            return _bwd_wide(cout, k)
         tp = max(2, tp // 2 + (tp // 2) % 2)
+
+
+def _bwd_wide(cout: int, k: int) -> BwdConfig:
+    """The wide kernel's configuration: blocks of 64 rows, the taps in the
+    fewest passes of at most 256 / 64 = 4 (split evenly: 3 + 3 + 3 for
+    K = 9), the out-channels in the fewest even pieces whose W^T and
+    cotangent fit shared memory (always: a piece of 4 takes ~3 KB)."""
+    tp = _BWD_GLOBAL_ROWS
+    kt = _cdiv(k, _cdiv(k, _THREADS // tp))
+    pieces = 1
+    while True:
+        cfg = BwdConfig(tp, tp, kt, False, _round_up(_cdiv(cout, pieces), 4))
+        if cfg.to == 4 or bwd_smem_bytes(0, 0, 0, cout, cfg) <= _SMEM_MAX:
+            return cfg
+        pieces += 1
 
 
 @dataclass(frozen=True)
@@ -425,7 +452,7 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
 def _declare_train(lib: ctypes.CDLL) -> None:
     lib.dcn_train_fwd_f32.argtypes = [_P] * 6 + [_I] * 16 + [_P]
     lib.dcn_train_fwd_masked_f32.argtypes = [_P] * 7 + [_I] * 18 + [_P]
-    lib.dcn_bwd_pixel_f32.argtypes = [_P] * 8 + [_I] * 17 + [_P]
+    lib.dcn_bwd_pixel_f32.argtypes = [_P] * 8 + [_I] * 18 + [_P]
     lib.dcn_wgrad_f32.argtypes = [_P] * 5 + [_I] * 17 + [_P]
     for fn in (lib.dcn_train_fwd_f32, lib.dcn_train_fwd_masked_f32,
                lib.dcn_bwd_pixel_f32, lib.dcn_wgrad_f32):
@@ -640,7 +667,7 @@ class DcnBwdKernel(_TrainKernel):
                 x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                 g.data_ptr(), gx.data_ptr(), goff.data_ptr(), gmask.data_ptr(),
                 b, h, w, cin, ho, wo, cout, dg, kh, kw, stride, padding,
-                dilation, cfg.chunk_rows, cfg.tp, cfg.kt, int(cfg.own))
+                dilation, cfg.chunk_rows, cfg.tp, cfg.kt, int(cfg.own), cfg.to)
         self.launches += 1
         return gx, goff, gmask
 

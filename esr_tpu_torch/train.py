@@ -1,7 +1,6 @@
 """Training entry point of the port (counterpart of the root ``train.py``):
 
-    python -m esr_tpu_torch.train -c configs/train_esr_2x.yml -id run0 \\
-        -o "trainer;tensorboard=false" -o "trainer;vis;enabled=false"
+    python -m esr_tpu_torch.train -c configs/train_esr_2x.yml -id run0
     python -m esr_tpu_torch.train -c cfg.yml -r <ckpt-dir>|auto [--reset]
     python -m esr_tpu_torch.train -c cfg.yml ... --device cpu
 

@@ -1,7 +1,8 @@
 """The train and eval steps: BPTT over overlapping event windows
 (counterpart of ``esr_tpu/training/train_step.py:make_train_step`` and
-``make_eval_step``, without numerics probes, device rasterization, remat or
-a compute dtype: the port trains at f32).
+``make_eval_step``, without numerics probes, remat or a compute dtype: the
+port trains at f32). Device rasterization (:func:`make_device_rasterizer`)
+turns a raw-event batch into the dense batch below before the step.
 
 A batch is ``{"inp": [B, L, H, W, C], "gt": [B, L, H, W, C]}`` on the
 model's device. The ConvGRU states start at zero for every batch; window
@@ -13,12 +14,20 @@ and one optimizer update per batch, as the reference's loop does.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn as nn
 
+from esr_tpu_torch.ops.encodings import make_device_encoder
 from esr_tpu_torch.training.optim import ScheduledOptimizer
+
+
+def make_device_rasterizer(gt_resolution: Tuple[int, int]) -> Callable[[Dict], Dict]:
+    """The train side's name for :func:`esr_tpu_torch.ops.encodings
+    .make_device_encoder`: raw-event batches on the device -> ``{"inp",
+    "gt"}`` count images, bitwise the host's."""
+    return make_device_encoder(gt_resolution)
 
 
 def window_losses(model: nn.Module, batch: Dict[str, torch.Tensor], seqn: int):

@@ -17,9 +17,11 @@ import numpy as np
 
 class MetricTracker:
     """Totals / counts / running averages per key (unknown keys are created
-    on first update)."""
+    on first update). ``writer`` (a ``utils.writer.MetricWriter``) receives
+    ``add_scalar(key, value)`` on every update, as the reference's does."""
 
-    def __init__(self, keys: Iterable[str] = ()):
+    def __init__(self, keys: Iterable[str] = (), writer=None):
+        self.writer = writer
         self._total: Dict[str, float] = {k: 0.0 for k in keys}
         self._count: Dict[str, int] = {k: 0 for k in self._total}
 
@@ -29,6 +31,8 @@ class MetricTracker:
             self._count[k] = 0
 
     def update(self, key: str, value: float, n: int = 1) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(key, value)
         self._total[key] = self._total.get(key, 0.0) + float(value) * n
         self._count[key] = self._count.get(key, 0) + n
 

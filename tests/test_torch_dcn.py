@@ -241,6 +241,31 @@ def test_backward_config_owns_exactly_when_the_slices_fit(b, h, w, cin, cout, dg
         assert cfg.own == flagship and cfg.kt == 9
 
 
+@pytest.mark.parametrize("cout", [8, 64, 512, 1024, 2048])
+@pytest.mark.parametrize("cg", [8, 16, 32, 48, 64, 128])
+def test_backward_config_takes_every_width(cg, cout):
+    """Any width gets a configuration within the shared-memory budget:
+    the narrow kernel up to 32 channels per group while a tap of W^T fits,
+    else the wide one, whose passes give every (row, tap) one thread."""
+    for h, w in ((12, 20), (64, 64)):
+        cfg = dcn_cuda.bwd_config(h, w, h, w, 8 * cg, cout, 8, 9)
+        assert dcn_cuda.bwd_smem_bytes(h, w, cg, cout, cfg) <= 232448
+        assert (cfg.to > 0) == (cg > 32 or (cg, cout) == (32, 2048))
+        if cfg.to:
+            assert not cfg.own and cfg.chunk_rows == cfg.tp
+            assert cfg.tp * cfg.kt <= 256 and cfg.to % 4 == 0
+            passes = [list(range(k0, min(9, k0 + cfg.kt))) for k0 in range(0, 9, cfg.kt)]
+            assert sum(passes, []) == list(range(9))
+            # W^T and the cotangent, counted independently of the chooser
+            assert 4 * (cfg.kt * cfg.to * 36 + cfg.tp * (cfg.to + 4)) <= 232448
+            # the fewest pieces of out-channels that fit
+            pieces = -(-cout // cfg.to)
+            if pieces > 1:
+                per_piece = -(-cout // (pieces - 1))
+                to = -(-per_piece // 4) * 4
+                assert 4 * (cfg.kt * to * 36 + cfg.tp * (to + 4)) > 232448
+
+
 def _wgrad_cover(kc, cin, cout, dg, cfg):
     """How many threads write each (tap, in-channel, out-channel) of one
     chunk's partial of gW: the kernel's grid (column x out-channel tiles,
@@ -449,12 +474,16 @@ def test_autograd_through_the_kernels_on_card(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dg,h,w,cin,cout", [(8, 12, 20, 64, 64), (1, 7, 9, 4, 8),
                                              (4, 4, 150, 16, 8), (2, 64, 64, 64, 64),
-                                             (8, 12, 20, 128, 128)])
+                                             (8, 12, 20, 128, 128), (8, 12, 20, 384, 384),
+                                             (8, 12, 20, 512, 512), (8, 12, 20, 1024, 1024)])
 def test_train_kernels_match_plain_on_card(cuda_device, dg, h, w, cin, cout):
     """The flagship, the basech-16 bottleneck and small shapes take the
     backward's ownership path; a 64x64 image of 32 channels per group its
-    global vector-red path. The weight gradient takes every width."""
-    assert dcn_cuda.bwd_config(h, w, h, w, cin, cout, dg, 9).own == (h != 64)
+    global vector-red path; the basech-48, -64 and -128 bottlenecks (Cg 48,
+    64, 128) its wide kernel. The weight gradient takes every width."""
+    cfg = dcn_cuda.bwd_config(h, w, h, w, cin, cout, dg, 9)
+    assert cfg.own == (h != 64 and cin // dg <= 32)
+    assert (cfg.to > 0) == (cin // dg > 32)
     inp = _torch(_inputs(9, 2, h, w, cin, cout, dg, with_bias=True), cuda_device)
     g = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (2, h, w, cout)).astype(np.float32)).to(cuda_device)

@@ -37,7 +37,8 @@ def test_package_imports_no_jax_and_no_reference():
     names = {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
     assert {"serving/server.py", "serving/scheduler.py", "serving/wire.py",
             "serving/loadgen.py", "serving/recovery.py", "inference/engine.py",
-            "serve.py"} <= names
+            "serve.py", "native.py", "ops/encodings.py", "utils/writer.py",
+            "utils/vis_events.py"} <= names
     bad = {str(f.relative_to(PKG.parent)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
@@ -50,9 +51,12 @@ def test_importing_the_harness_loads_no_jax_and_no_h5py():
         "esr_tpu_torch.training.trainer, esr_tpu_torch.config.build, "
         "esr_tpu_torch.serving.server, esr_tpu_torch.serving.wire, "
         "esr_tpu_torch.serving.loadgen, esr_tpu_torch.serve, "
-        "esr_tpu_torch.inference.engine\n"
+        "esr_tpu_torch.inference.engine, esr_tpu_torch.native, "
+        "esr_tpu_torch.ops.encodings, esr_tpu_torch.utils.writer, "
+        "esr_tpu_torch.utils.vis_events, esr_tpu_torch.data.np_encodings\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'esr_tpu', 'h5py', 'triton', 'yaml')]\n"
+        "('jax', 'flax', 'optax', 'esr_tpu', 'h5py', 'triton', 'yaml', "
+        "'tensorboard', 'cv2', 'PIL', 'matplotlib')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -1,16 +1,20 @@
 """The port's sequential evaluation against the reference's, end to end on
 the CPU: one recording of the shared corpus through both
 ``InferenceRunner.run_recording``s with the same weights, the data path's
-items bit for bit, the YAML reports, and the port's ``infer`` entry point
-on a port checkpoint.
+items bit for bit, the YAML reports, the PNG views (the reference's tree,
+every file decoding to the reference's pixels), and the port's ``infer``
+entry point on a port checkpoint.
 
 Metric tolerance: rtol 1e-4 + atol 1e-6 (measured ~1e-7 relative: the same
 f32 model and metrics summed in another order). ``time`` is a wall clock
 and is only checked for presence.
 """
 
+import logging
 import os
+from pathlib import Path
 
+import cv2
 import jax
 import numpy as np
 import pytest
@@ -23,7 +27,7 @@ from esr_tpu_torch import infer as port_infer
 from esr_tpu_torch.data.dataset import EventWindowDataset
 from esr_tpu_torch.inference.checkpoint import save_checkpoint
 from esr_tpu_torch.inference.engine import StreamingEngine
-from esr_tpu_torch.inference.harness import InferenceRunner, run_inference
+from esr_tpu_torch.inference.harness import IMG_DIRS, InferenceRunner, run_inference
 from esr_tpu_torch.models import convert
 from esr_tpu_torch.models.esr import DeepRecurrNet
 
@@ -58,9 +62,10 @@ def runs(shared_corpus_dir, tmp_path_factory):
         / np.sqrt(max(np.prod(s.shape[:-1]), 1)), shapes)
     port = DeepRecurrNet(inch=2, basech=2, num_frame=3)
     convert.load_flax_params(port, params)
-    ref_result = RefRunner(ref, params, 3).run_recording(rec, DATASET, str(out / "ref"))
+    ref_result = RefRunner(ref, params, 3).run_recording(rec, DATASET, str(out / "ref"),
+                                                         save_images=True)
     port_result = InferenceRunner(port, 3, device="cpu").run_recording(
-        rec, DATASET, str(out / "port"))
+        rec, DATASET, str(out / "port"), save_images=True)
     return {"rec": rec, "out": out, "params": params,
             "ref": ref_result, "port": port_result}
 
@@ -108,6 +113,27 @@ def test_dataset_items_match_reference(runs, mode, window, sliding):
             np.testing.assert_array_equal(a[k], b[k])
 
 
+def _png_tree(root):
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*.png"))
+
+
+def test_png_views_are_the_references(runs):
+    """The reference's directory tree and file names, and every PNG decodes
+    to the reference's pixels (the views of one window render the same
+    counts; the prediction rounds to the same integers)."""
+    ref_root, port_root = runs["out"] / "ref", runs["out"] / "port"
+    tree = _png_tree(ref_root)
+    n = int(runs["ref"]["n_windows"])
+    assert n >= 3 and len(tree) == 6 * n
+    assert _png_tree(port_root) == tree
+    assert {str(Path(t).parent) for t in tree} == {
+        "img/gt_img", *(f"event_img/{d}" for d in IMG_DIRS)}
+    for name in tree:
+        want = cv2.imread(str(ref_root / name), cv2.IMREAD_UNCHANGED)
+        np.testing.assert_array_equal(cv2.imread(str(port_root / name), cv2.IMREAD_UNCHANGED),
+                                      want, err_msg=name)
+
+
 def test_infer_entry_point_on_a_port_checkpoint(runs):
     ckpt = runs["out"] / "ckpt"
     save_checkpoint(str(ckpt), runs["params"], {
@@ -123,13 +149,14 @@ def test_infer_entry_point_on_a_port_checkpoint(runs):
         "--model_path", str(ckpt), "--data_path", runs["rec"],
         "--output_path", str(out), "--device", "cpu", "--scale", "2",
         "--ori_scale", "down8", "--window", "512", "--sliding_window", "256",
-        "--seql", "4", "--no_need_gt_frame", "--no_engine",
+        "--seql", "4", "--no_need_gt_frame", "--no_engine", "--save_images",
     ])
+    name = os.path.basename(runs["rec"])
+    assert _png_tree(out / name) == _png_tree(runs["out"] / "ref")
     with open(out / "inference_all.yml") as f:
         report = yaml.safe_load(f)
     assert set(report) == {"info", "breakdown results for each data",
                            "mean results for the whole data"}
-    name = os.path.basename(runs["rec"])
     for k in ("esr_psnr", "esr_ssim", "bicubic_mse", "n_windows"):
         np.testing.assert_allclose(mean[k], runs["port"][k], **TOL)
         np.testing.assert_allclose(report["breakdown results for each data"][k][name],
@@ -138,7 +165,11 @@ def test_infer_entry_point_on_a_port_checkpoint(runs):
 
 @pytest.mark.parametrize("request_", ["save_images", "engine", "config_engine",
                                       "bf16", "lpips", "augment", "dcn_impl_arg"])
-def test_unported_requests_raise(runs, request_):
+def test_unported_requests_raise(runs, request_, caplog):
+    """Each request that is not ported raises; ``save_images`` (the PNG
+    views) and the checkpoint's engine request with ``save_images`` (the
+    engine warns and ignores it, as the reference's does) are ported now,
+    and their cases check that they work."""
     ckpt = runs["out"] / "ckpt_refusals"
     config = {"model": {"name": "DeepRecurrNet",
                         "args": {"inch": 2, "basech": 2, "num_frame": 3}}}
@@ -151,13 +182,23 @@ def test_unported_requests_raise(runs, request_):
             DeepRecurrNet(inch=2, basech=2, num_frame=3, dcn_impl="plain")
         return
     port = DeepRecurrNet(inch=2, basech=2, num_frame=3)
+    if request_ == "save_images":
+        convert.load_flax_params(port, runs["params"])
+        InferenceRunner(port, 3, device="cpu").run_recording(
+            runs["rec"], DATASET, str(runs["out"] / "x"), save_images=True)
+        assert _png_tree(runs["out"] / "x") == _png_tree(runs["out"] / "ref")
+        return
+    if request_ == "config_engine":
+        with caplog.at_level(logging.WARNING):
+            mean = run_inference(str(ckpt), [runs["rec"]], str(runs["out"] / "y"), DATASET,
+                                 save_images=True, device="cpu")
+        assert "--save_images ignored" in caplog.text
+        assert not _png_tree(runs["out"] / "y") and np.isfinite(mean["esr_mse"])
+        return
     with pytest.raises(NotImplementedError):
         if request_ == "engine":
             # the streaming engine runs f32 only (the bf16 rung is A9)
             StreamingEngine(port, 3, precision="bf16", device="cpu")
-        elif request_ == "save_images":
-            InferenceRunner(port, 3, device="cpu").run_recording(
-                runs["rec"], DATASET, str(runs["out"] / "x"), save_images=True)
         elif request_ == "augment":
             # Horizontal/Vertical/Polarity are ported; an unknown mechanism
             # is refused rather than silently skipped
@@ -168,9 +209,6 @@ def test_unported_requests_raise(runs, request_):
         else:
             run_inference(
                 str(ckpt), [runs["rec"]], str(runs["out"] / "y"), DATASET,
-                # the checkpoint's engine request runs the engine, which
-                # dumps no PNGs either
-                save_images=request_ == "config_engine",
                 precision="bf16" if request_ == "bf16" else None,
                 allow_uncalibrated_lpips=request_ == "lpips", device="cpu",
             )

@@ -2,7 +2,8 @@
 schedule, the optimizers, three BPTT train steps and the eval step on the
 same converted weights and seeded batches, the YAML reader against
 ``yaml.safe_load``, and the port's trainer end to end (checkpoint commit,
-inference load, ``-r auto`` resume, refusals of unported keys).
+inference load, ``-r auto`` resume, the flagship config as written with
+its writer and visualizations, refusals of unported keys).
 
 The JAX train step runs ``DeepRecurrNet(dcn_impl="jnp")``: what
 ``train=True`` resolves to off-TPU, and the oracle the fused Pallas
@@ -326,6 +327,58 @@ def test_resume_auto_restores_and_runs_nothing_more(trained, capsys):
     assert capsys.readouterr().out.strip().splitlines()[-1] == "{}"
 
 
+@pytest.fixture(scope="module")
+def trained_as_written(shared_corpus_dir, tmp_path_factory):
+    """The flagship config with its writer and visualizations on (no
+    ``tensorboard`` or ``vis`` override), cut to a tiny size: 2 iterations,
+    images every iteration."""
+    out = tmp_path_factory.mktemp("torch_train_as_written")
+    drop = ("trainer;tensorboard=false", "trainer;vis;enabled=false")
+    overrides = [o for o in TINY if o not in drop] + [
+        "trainer;iteration_based_train;iterations=2",
+        "trainer;vis;train_img_writer_num=1",
+        f"trainer;output_path={out}",
+        f"train_dataloader;path_to_datalist_txt={shared_corpus_dir / 'datalist2.txt'}",
+        f"valid_dataloader;path_to_datalist_txt={shared_corpus_dir / 'datalist1.txt'}"]
+    run = T_parser.RunConfig.from_args(str(REPO / "configs" / "train_esr_2x.yml"), overrides,
+                                       runid="run0", seed=5)
+    trainer = Trainer(run, device="cpu")
+    return {"run": run, "trainer": trainer, "result": trainer.train()}
+
+
+def test_flagship_as_written_writes_metrics_and_images(trained_as_written):
+    run, trainer = trained_as_written["run"], trained_as_written["trainer"]
+    assert trainer.tensorboard and trainer.vis_enabled and trainer.writer is None
+    with open(Path(run.log_dir) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    tags = [(r["step"], r["tag"]) for r in records]
+    images = ["train_inp_events_cnt", "train_inp_scaled_events_cnt", "train_esr_events_cnt",
+              "train_gt_events_cnt", "train_gt_frame"]
+    for it in (0, 1):
+        for key in ["train_mse_loss", "train_loss", "learning_rate"] + images:
+            assert (it, f"{key}/train") in tags, (it, key)
+    # emitted on the advance to step 1, stamped with the step it leaves
+    assert (0, "steps_per_sec/train") in tags
+    assert sum(1 for r in records if r.get("image")) == 2 * len(images)
+    assert all(np.isfinite(r["value"]) for r in records if "value" in r)
+    losses = [r["value"] for r in records if r["tag"] == "train_loss/train"]
+    assert np.mean(losses) == pytest.approx(trained_as_written["result"]["train_loss"])
+    # TensorBoard is importable here, so its event file is written too
+    assert any(p.name.startswith("events.out.tfevents") for p in Path(run.log_dir).iterdir())
+
+
+# keys this test pinned as unported until the port took them up: each such
+# case now checks that the key takes effect
+NOW_PORTED = {
+    "trainer;device_rasterize=true": lambda t: (
+        t.device_rasterize and "inp_norm_events" in t.train_loader.dataset.config["item_keys"]),
+    "trainer;tensorboard=true": lambda t: t.tensorboard,
+    "trainer;vis;enabled=true": lambda t: (
+        t.vis_enabled and "gt_img" in t.vis_dataset.config["item_keys"]),
+    "train_dataloader;num_workers=2": lambda t: t.train_loader.num_workers == 2,
+}
+
+
 @pytest.mark.parametrize("override,named", [
     ("trainer;precision=bf16", "trainer;precision=f32"),
     ("trainer;device_rasterize=true", "trainer;device_rasterize=false"),
@@ -343,5 +396,8 @@ def test_resume_auto_restores_and_runs_nothing_more(trained, capsys):
 ])
 def test_unported_keys_raise_naming_the_override(trained, override, named):
     run = _run(trained["out"], trained["corpus"], extra=[override], make_dirs=False)
+    if override in NOW_PORTED:
+        assert NOW_PORTED[override](Trainer(run, device="cpu"))
+        return
     with pytest.raises(NotImplementedError, match=re.escape(named)):
         Trainer(run, device="cpu")

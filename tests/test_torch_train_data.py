@@ -2,7 +2,7 @@
 corpus: augmented sequences bit for bit for seeds that flip each axis and
 the polarity (and seeds that flip nothing), the sampler's indices,
 and the training loader's batches in order over two epochs with shuffle
-and drop_last both ways.
+and drop_last both ways, in-process and from two spawned workers.
 """
 
 import random
@@ -103,5 +103,12 @@ def test_loader_yields_the_reference_batches_in_order(datasets, shuffle, drop_la
             for k in KEYS:
                 assert a[k].shape[:2] == (3, DATASET["sequence"]["sequence_length"])
                 np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(NotImplementedError, match="num_workers"):
-        SequenceLoader(port.dataset, batch_size=3, num_workers=2)
+    # process workers (refused until they were ported) give the same batches
+    workers = SequenceLoader(port.dataset, num_workers=2, **kw)
+    try:
+        workers.set_epoch(1)
+        for a, b in zip(list(workers), want):
+            for k in KEYS:
+                np.testing.assert_array_equal(a[k], b[k])
+    finally:
+        workers.close()
