@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``esr_tpu_torch``) runs on the
-card: builds the DCN kernels from ``esr_tpu_torch/csrc``, holds each against
-its plain PyTorch version, drives sequential inference and then training at
+card: builds the DCN and int8 kernels from ``esr_tpu_torch/csrc``, holds
+each against its plain PyTorch version, drives sequential inference at
+f32, bf16 and int8, the streaming engine and serving, and then training at
 the flagship width.
 
     python3 chip_smoke.py
@@ -10,8 +11,8 @@ Phases (any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``), the device
    count;
-2. build: ``nvcc`` of ``dcn_fwd.cu`` and ``dcn_train.cu``, started
-   together; their times and ``-Xptxas -v`` lines (a register spill in any
+2. build: ``nvcc`` of ``dcn_fwd.cu``, ``dcn_train.cu`` and
+   ``int8_conv.cu``, started together; their times and ``-Xptxas -v`` lines (a register spill in any
    instantiation fails); ``g++`` of the native host kernels
    (``host_kernels.cpp``), which must build;
 3. kernel, forward: ``dcn_fwd`` against the plain ``deform_conv2d`` at the
@@ -31,9 +32,10 @@ Phases (any failure exits non-zero):
    Cg 48 and more take ``dcn_bwd``'s wide kernel), a 64x64 image of Cg 32 /
    Cout 64 whose slices do not fit shared memory (``dcn_bwd``'s global-red
    path) and the same matrix, each cotangent within 1e-3 * max(|ref|, 1);
-   at the seven timed shapes every output twice, the atomic ``gx``'s
-   run-to-run difference printed and ``gW`` bitwise equal or fail; wrapper
-   and entry-point times and bounds;
+   at the seven timed shapes every output twice, each bitwise equal run to
+   run or fail (``gx`` is summed in 64-bit fixed point); wrapper and
+   entry-point times and bounds, ``dcn_bwd``'s beside PR 6's (float
+   atomics);
 5. autograd: a loss through the model's DCN (``dcn_cuda.dcn``) on the card
    gives gradients for x, offsets, mask, weight and bias that match the
    plain path, through the kernels;
@@ -70,7 +72,10 @@ Phases (any failure exits non-zero):
    every encoder call; every first batch bitwise the same). One B=32 step
    with ``trainer;device_rasterize=true``: its count images bitwise the
    host's, 14/14/14 launches, its loss within 1e-6 relative of the host
-   step's from the same weights. Last, one B=32 step at basech 16 and one
+   step's from the same weights. C2: two B=32 steps of the trainer's step
+   (BPTT, backward, Adam-amsgrad) from the same params, optimizer state
+   and batch give bitwise-equal losses, grads and updated params, or fail.
+   Last, one B=32 step at basech 16 and one
    B=4 step at basech 64 (``model;args;basech=...``, seeded params, the
    same batch; basech 64 runs ``dcn_bwd``'s wide kernel): 14 launches of
    each train kernel, losses and grads within 1e-3 of their scale of the
@@ -100,13 +105,26 @@ Phases (any failure exits non-zero):
    an ESRLANE1 round trip of a lane state bitwise;
 11. the sparse train step: one B=32 step from the flagship config with
    ``model;args;dcn_sparse=true`` launches ``dcn_train_fwd_masked``,
-   ``dcn_bwd`` and ``dcn_wgrad`` 14 times each; its losses bitwise the dense
-   step's, every grad within 1e-5 of its scale (the dense step itself is
-   not bitwise run to run: atomics), the bitwise-equal count printed.
+   ``dcn_bwd`` and ``dcn_wgrad`` 14 times each; its losses and every grad
+   bitwise the dense step's, and the dense step's bitwise its repeat;
+12. the precision rungs: ``int8_conv`` (K1) and ``quantize_per_tensor``
+   (K2) bitwise against their plain versions at every distinct seam shape
+   of a flagship window at B=1 and at lanes 4 (M, N, K printed, times
+   beside the bound at the int8 tensor rate and ``torch._int_mm`` over an
+   im2col where it takes the shape); the harness over the slice's windows
+   at f32, bf16 and int8 (per-window ESR PSNR and SSIM, the mean drop
+   against f32 at most 1.0 dB, the reference's bound; launches per window:
+   ``dcn_fwd`` 2, K1 and K2 once per seam at int8; a device profile of a
+   window at each rung); ``run_inference`` (what ``infer`` calls) on a
+   checkpoint whose ``trainer.precision`` is bf16, without and with
+   ``--precision w8a8``, and ``serve.main --precision int8``; the engine
+   (lanes 4 x chunk 8) and serving at each rung, windows/s beside f32's,
+   every recording and request within 1.0 dB of f32.
 
-The phases run in the order 1-5, 8, 6, 9, 10, 7 (with 11 inside 7). The
-line before the last is the ``{"kernels": [...]}`` record (six kernels);
-the last line is ``{"ok": true, "device": {...}}``.
+The phases run in the order 1-5, 8, 6, 9, 10, 12, 7 (with 11 inside 7).
+The line before the last is the ``{"kernels": [...]}`` record (eight
+kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -139,6 +157,18 @@ REPLACES = {
     "dcn_fwd_masked": "esr_tpu/ops/dcn_pallas.py:358",
     "dcn_train_fwd_masked": "esr_tpu/ops/dcn_pallas.py:561",
 }
+# the int8 rung's kernels have no Pallas counterpart: the JAX package runs
+# them through XLA
+REPLACES.update({
+    "int8_conv": "esr_tpu/config/quantize.py:120 (XLA's int8 conv; no Pallas kernel)",
+    "quantize_per_tensor": "esr_tpu/config/quantize.py:87 (XLA; no Pallas kernel)",
+})
+# H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+PEAK_INT8_OPS_PER_S = 1979e12
+# the reference's bound on a rung's ESR PSNR drop against f32
+# (bench.py:INT8_PSNR_DROP_BOUND_DB), held at int8 and at bf16
+PSNR_DROP_DB = 1.0
+RUNGS = ("f32", "bf16", "int8")
 ENGINE_TOL = 1e-4  # engine vs the sequential harness, relative
 SERVE_TOL = 1e-5  # a preempted stream vs the same stream served alone, relative
 LANES = 4
@@ -429,15 +459,20 @@ def geometry_args(inp):
 
 
 def bwd_entry(torch, lib, inp, g, cfg):
-    """A launch of ``dcn_bwd_pixel_f32`` alone (not counted), its outputs
-    made once (the global path's gx zeroed once: the time is the kernel's)."""
+    """A call of ``dcn_bwd_pixel_f32`` alone (not counted), its outputs and
+    scratch made once: the entry point's time, its scratch zeroing, bound
+    pass and fixed-point conversion included."""
+    from esr_tpu_torch.ops import dcn_cuda
+
     x, off, mask, wt = (inp[k] for k in ("x", "offsets", "mask", "weight"))
-    gx = torch.empty_like(x) if cfg.own else torch.zeros_like(x)
+    gx = torch.empty_like(x)
     goff, gmask = torch.empty_like(off), torch.empty_like(mask)
+    scratch = dcn_cuda.bwd_scratch(x, cfg)
 
     def launch():
         rc = lib.dcn_bwd_pixel_f32(x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(),
                                    g.data_ptr(), gx.data_ptr(), goff.data_ptr(), gmask.data_ptr(),
+                                   scratch.data_ptr(),
                                    *geometry_args(inp), cfg.chunk_rows, cfg.tp, cfg.kt,
                                    int(cfg.own), cfg.to, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
@@ -472,6 +507,12 @@ def wgrad_entry(torch, lib, inp, g):
 TIMED_TRAIN_CASES = ("train_flagship_b32", "train_flagship_b1", "train_basech16_b32",
                      "train_basech32_b32", "train_basech48_b32", "train_basech64_b32",
                      "train_basech128_b4")
+# dcn_bwd's entry point at those cases in PR 6 (gx by float atomics; PERF.md
+# section 6, NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+PR6_BWD_ENTRY_MS = {"train_flagship_b32": 0.1192, "train_flagship_b1": 0.1040,
+                    "train_basech16_b32": 0.476, "train_basech32_b32": 3.129,
+                    "train_basech48_b32": 3.416, "train_basech64_b32": 5.176,
+                    "train_basech128_b4": 3.237}
 
 
 def phase_train_kernels(torch, np, card):
@@ -533,18 +574,18 @@ def phase_train_kernels(torch, np, card):
                      else ""))
         if name not in TIMED_TRAIN_CASES:
             continue
-        # gx is scattered with atomicAdd: its bits may change run to run;
-        # gW's must not
+        # every output, gx too (64-bit fixed point), the same bits run to run
         gx2, goff2, gmask2 = dcn_bwd(x, off, mask, wt, g, **geom)
         gw2 = dcn_wgrad(x, off, mask, wt.shape, g, **geom)
         out2 = dcn_train_fwd(**inp, **geom)
         torch.cuda.synchronize()
-        print(f"run-to-run max diff on {name}: " + ", ".join(
-            f"{n} {float((a - c).abs().max()):.3e}" for n, a, c in (
-                ("out", out, out2), ("gx", gx, gx2), ("goffsets", goff, goff2),
-                ("gmask", gmask, gmask2), ("gweight", gw, gw2))))
-        if not same_bits(torch, gw, gw2):
-            fail(f"dcn_wgrad's gweight on {name} is not bitwise equal from run to run")
+        pairs = (("out", out, out2), ("gx", gx, gx2), ("goffsets", goff, goff2),
+                 ("gmask", gmask, gmask2), ("gweight", gw, gw2))
+        differ = [n for n, a, c in pairs if not same_bits(torch, a, c)]
+        print(f"run to run on {name}: "
+              + ("every output bitwise" if not differ else f"{differ} differ"))
+        if differ:
+            fail(f"{differ} on {name} are not bitwise equal from run to run")
 
         def plain_grad(*leaf_names):
             leaves = {k: v.detach().clone().requires_grad_(k in leaf_names)
@@ -583,8 +624,11 @@ def phase_train_kernels(torch, np, card):
             bound_ms, bound_by = bounds[kname]
             record[name][kname] = dict(err=errs[kname], ms=ms, entry_ms=entry_ms,
                                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            before = (f"; PR 6's entry point (float atomics, PERF.md) "
+                      f"{PR6_BWD_ENTRY_MS[name]} ms" if kname == "dcn_bwd" else "")
             print(f"time {name} {kname}: kernel {ms:.5f} ms (entry point {entry_ms:.5f}), "
-                  f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}")
+                  f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}"
+                  + before)
     return record, worst_rel
 
 
@@ -975,6 +1019,7 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
         fail(f"the kernel path's grads differ from the plain path's beyond "
              f"{TOL} of their own scale: {bad}")
 
+    c2_bitwise_step(torch, trainer, sel)
     sparse_launches = sparse_train_step(torch, dev, trainer, sel, repo, overrides)
 
     # where a train step's time goes
@@ -1259,17 +1304,41 @@ def basech_step(torch, np, dev, trainer, sel, repo: Path, overrides, card, step8
           + " (host clock to synchronize, optimizer included)")
 
 
+def c2_bitwise_step(torch, trainer, sel):
+    """C2: two B=32 flagship train steps (the trainer's step: BPTT, the
+    backward, Adam-amsgrad) from the same params, optimizer state and
+    batch give the same bits: the per-window losses, every gradient and
+    every updated parameter. Fails otherwise."""
+    from esr_tpu_torch.training.train_step import make_train_step
+
+    runs = []
+    for _ in range(2):
+        model, opt = copy.deepcopy((trainer.model, trainer.optimizer))
+        metrics = make_train_step(model, opt, trainer.seqn)(sel)
+        torch.cuda.synchronize()
+        runs.append((metrics["loss_per_window"],
+                     {n: p.grad.clone() for n, p in model.named_parameters()},
+                     {n: p.detach().clone() for n, p in model.named_parameters()}))
+    (l0, g0, p0), (l1, g1, p1) = runs
+    bad_g = [n for n in g0 if not same_bits(torch, g0[n], g1[n])]
+    bad_p = [n for n in p0 if not same_bits(torch, p0[n], p1[n])]
+    print(f"C2: two B=32 flagship train steps from the same state: losses "
+          f"{'bitwise' if same_bits(torch, l0, l1) else 'DIFFER'}; "
+          f"{len(g0) - len(bad_g)} of {len(g0)} grads and {len(p0) - len(bad_p)} of "
+          f"{len(p0)} updated params bitwise")
+    if not same_bits(torch, l0, l1) or bad_g or bad_p:
+        fail(f"the train step is not bitwise run to run: grads {bad_g}, params {bad_p}")
+
+
 def sparse_train_step(torch, dev, trainer, sel, repo: Path, overrides):
     """One B=32 step of the flagship config with ``model;args;dcn_sparse=true``
     against the dense kernel step, from the same params and batch: 14
     launches each of ``dcn_train_fwd_masked``, ``dcn_bwd`` and ``dcn_wgrad``;
-    the mask is all active (the DCN input is never all zero), so the losses
-    are bitwise those of the dense step. The grads cannot all be: the dense
-    step does not repeat itself bitwise (``dcn_bwd`` scatters ``gx`` with
-    atomics, and so do the backward of the bilinear upsampling and some
-    cuDNN algorithms), so each is held within 1e-5 of its own scale, with
-    cuDNN held to deterministic algorithms, and the bitwise-equal count is
-    printed beside the dense step's own run-to-run count."""
+    the mask is all active (the DCN input is never all zero), and the masked
+    forward is bitwise the dense one on a truthful mask, the backward the
+    same dense kernels, and the step bitwise run to run (C2): so the losses
+    and every grad are bitwise the dense step's, and the dense step's
+    bitwise its own repeat."""
     from esr_tpu_torch.config.build import build_model
     from esr_tpu_torch.config.parser import RunConfig
     from esr_tpu_torch.ops import dcn_cuda
@@ -1283,21 +1352,16 @@ def sparse_train_step(torch, dev, trainer, sel, repo: Path, overrides):
         fail("the override model;args;dcn_sparse=true did not reach the model")
     sparse.load_state_dict(trainer.model.state_dict())
     runs = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        for name in ("dense", "dense_again", "sparse"):
-            model = (sparse if name == "sparse" else copy.deepcopy(trainer.model)).to(dev).train()
-            for p in model.parameters():
-                p.grad = None
-            dcn_cuda.reset_launches()
-            per_window, _ = window_losses(model, sel, trainer.seqn)
-            per_window.sum().backward()
-            torch.cuda.synchronize()
-            runs[name] = (counts_of(), per_window.detach(),
-                          {n: p.grad for n, p in model.named_parameters()})
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    for name in ("dense", "dense_again", "sparse"):
+        model = (sparse if name == "sparse" else copy.deepcopy(trainer.model)).to(dev).train()
+        for p in model.parameters():
+            p.grad = None
+        dcn_cuda.reset_launches()
+        per_window, _ = window_losses(model, sel, trainer.seqn)
+        per_window.sum().backward()
+        torch.cuda.synchronize()
+        runs[name] = (counts_of(), per_window.detach(),
+                      {n: p.grad for n, p in model.named_parameters()})
     n = 2 * TRAIN_WINDOWS
     want = {"sparse": dict(only("dcn_train_fwd_masked", n), dcn_bwd=n, dcn_wgrad=n),
             "dense": dict(only("dcn_train_fwd", n), dcn_bwd=n, dcn_wgrad=n)}
@@ -1306,21 +1370,15 @@ def sparse_train_step(torch, dev, trainer, sel, repo: Path, overrides):
         fail(f"the sparse / dense steps launched {runs['sparse'][0]} / {runs['dense'][0]}")
     if not same_bits(torch, runs["sparse"][1], runs["dense"][1]):
         fail("the sparse step's per-window losses are not bitwise the dense step's")
-    bitwise = repeated = 0
-    worst = (0.0, "")
-    for pname, g in runs["dense"][2].items():
-        gs, g2 = runs["sparse"][2][pname], runs["dense_again"][2][pname]
-        bitwise += same_bits(torch, gs, g)
-        repeated += same_bits(torch, g2, g)
-        e, scale, _ = rel_err_of(torch, gs, g)
-        e2, _, _ = rel_err_of(torch, g2, g)
-        worst = max(worst, (e / max(scale, TINY), f"{pname} {e:.3e} (dense run to run "
-                                                   f"{e2:.3e}, scale {scale:.3e})"))
-        if not e <= 1e-5 * max(scale, TINY):
-            fail(f"sparse step grad of {pname} differs from the dense step's by {e:.3e}")
-    print(f"sparse vs dense step: per-window losses bitwise; {bitwise} of "
-          f"{len(runs['dense'][2])} grads bitwise (the dense step against itself: "
-          f"{repeated}); every grad within {worst[0]:.3e} of its scale, worst {worst[1]}")
+    dense = runs["dense"][2]
+    not_sparse = [n for n, g in dense.items() if not same_bits(torch, runs["sparse"][2][n], g)]
+    not_again = [n for n, g in dense.items()
+                 if not same_bits(torch, runs["dense_again"][2][n], g)]
+    print(f"sparse vs dense step: per-window losses bitwise; "
+          f"{len(dense) - len(not_sparse)} of {len(dense)} grads bitwise (the dense step "
+          f"against itself: {len(dense) - len(not_again)})")
+    if not_sparse or not_again:
+        fail(f"grads not bitwise: sparse vs dense {not_sparse}, dense vs dense {not_again}")
     return runs["sparse"][0]["dcn_train_fwd_masked"]
 
 
@@ -1725,6 +1783,399 @@ def phase_serving(torch, np, dev, card):
     return counts["dcn_fwd_masked"], summary
 
 
+
+def int8_seam_calls(torch, model, dev, batch: int, kh: int, kw: int):
+    """The contraction seams one flagship window runs at batch ``batch``, in
+    order: ``(module, NCHW input shape, out-channels, kernel, stride,
+    padding)`` (a dense as a 1x1 conv)."""
+    from esr_tpu_torch.config.quantize import int8_scope
+    from esr_tpu_torch.models.layers import Conv2d, Linear
+
+    calls, hooks = [], []
+    for mod in model.modules():
+        if isinstance(mod, Conv2d):
+            hooks.append(mod.register_forward_pre_hook(lambda m, a: calls.append(
+                (m, tuple(a[0].shape), m.out_channels, m.kernel_size[0], m.stride[0],
+                 m.padding[0]))))
+        elif isinstance(mod, Linear):
+            hooks.append(mod.register_forward_pre_hook(lambda m, a: calls.append(
+                (m, tuple(a[0].shape) + (1, 1), m.out_features, 1, 1, 0))))
+    try:
+        with torch.no_grad(), int8_scope():
+            model(torch.rand(batch, 3, kh, kw, 2, device=dev),
+                  model.init_states(batch, kh, kw, device=dev))
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def int8_roofline(nbytes_: float, ops: float):
+    t_bytes = nbytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT8_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_kernel_shapes(torch, np, dev, card, model, kh, kw):
+    """K1 and K2 against their plain versions, bitwise, at every distinct
+    seam shape of one flagship window at B=1 and at lanes 4; their times
+    beside the plain version, the bound and ``torch._int_mm`` over an
+    im2col (the GEMM alone) where it takes the shape."""
+    import torch.nn.functional as F
+
+    from esr_tpu_torch.ops import int8_cuda
+
+    lib = int8_cuda.INT8_LIBRARY.load()
+    rows = []
+    for batch in (1, LANES):
+        calls = int8_seam_calls(torch, model, dev, batch, kh, kw)
+        distinct = {}
+        for mod, shape, cout, k, stride, pad in calls:
+            distinct.setdefault((shape, cout, k, stride, pad), [mod, 0])[1] += 1
+        print(f"int8 seams at batch {batch}: {len(calls)} calls a window, "
+              f"{len(distinct)} distinct shapes")
+        for (shape, cout, k, stride, pad), (mod, n_calls) in distinct.items():
+            x = torch.randn(shape, device=dev)
+            w = mod.weight.detach()
+            packed = int8_cuda.pack_weight(w if w.dim() == 4 else w[:, :, None, None])
+            bias = mod.bias.detach()
+            xq, sx = int8_cuda.quantize_per_tensor(x)
+            out = int8_cuda.int8_conv(xq, sx, packed, bias, stride, pad)
+            pq, psx = int8_cuda.quantize_per_tensor_plain(x)
+            ref = int8_cuda.int8_conv_plain(pq, psx, packed, bias, stride, pad)
+            torch.cuda.synchronize()
+            if not (torch.equal(xq, pq) and same_bits(torch, sx, psx)):
+                fail(f"quantize_per_tensor differs from its plain version at {shape}")
+            if not same_bits(torch, out, ref):
+                fail(f"int8_conv differs from its plain version at {shape} -> {cout}, k {k}")
+            b, cin, h, wd = shape
+            ho, wo = out.shape[2:]
+            m_rows, kk = b * ho * wo, k * k * cin
+            k1_ms = time_ms(torch, lambda: int8_cuda.int8_conv(xq, sx, packed, bias, stride,
+                                                               pad), iters=50)
+            k2_ms = time_ms(torch, lambda: int8_cuda.quantize_per_tensor(x), iters=50)
+            k2_plain_ms = time_ms(torch, lambda: int8_cuda.quantize_per_tensor_plain(x),
+                                  iters=5, warmup=2)
+            # the C entry points alone (not counted): no wrapper checks or
+            # allocations
+            out_e, q_e = torch.empty_like(out), torch.empty_like(xq)
+            s_e, word = torch.empty_like(sx), torch.empty(1, dtype=torch.int32, device=dev)
+            np_, kp = packed.wq.shape
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def k1_entry():
+                lib.int8_conv_f32(xq.data_ptr(), packed.wq.data_ptr(), sx.data_ptr(),
+                                  packed.scale.data_ptr(), bias.data_ptr(), out_e.data_ptr(),
+                                  shape[0], shape[2], shape[3], xq.shape[-1], out.shape[2],
+                                  out.shape[3], cout, np_, kp, k, k, stride, pad, 1,
+                                  packed.nt, stream)
+
+            def k2_entry():
+                lib.quantize_per_tensor_f32(x.data_ptr(), shape[0], shape[1],
+                                            shape[2] * shape[3], xq.shape[-1], q_e.data_ptr(),
+                                            s_e.data_ptr(), word.data_ptr(), stream)
+            k1_entry_ms = time_ms(torch, k1_entry, iters=50)
+            k2_entry_ms = time_ms(torch, k2_entry, iters=50)
+            torch.cuda.synchronize()
+            if not (same_bits(torch, out_e, out) and torch.equal(q_e, xq)):
+                fail(f"the int8 entry points disagree with their wrappers at {shape}")
+            plain_ms = time_ms(torch, lambda: int8_cuda.int8_conv_plain(
+                pq, psx, packed, bias, stride, pad), iters=5, warmup=2)
+            k1_bound = int8_roofline(xq.numel() + cout * kk + 8 * cout + 4 * out.numel(),
+                                     2.0 * m_rows * cout * kk)
+            k2_bound = int8_roofline(4 * x.numel() + xq.numel(), 0.0)
+            # the library's int8 GEMM over an im2col of the same int8 values
+            # (K and N padded to its multiple of 8)
+            cols = F.unfold(pq[..., :cin].permute(0, 3, 1, 2).float(), k, padding=pad,
+                            stride=stride)
+            a = cols.transpose(1, 2).reshape(m_rows, kk)
+            a = F.pad(a, (0, -kk % 8)).round().to(torch.int8).contiguous()
+            bmat = F.pad(packed.q.reshape(cout, kk).float(), (0, -kk % 8, 0, 0))
+            bmat = F.pad(bmat.t(), (0, -cout % 8)).to(torch.int8).contiguous()
+            try:
+                lib_ms = time_ms(torch, lambda: torch._int_mm(a, bmat), iters=50)
+            except RuntimeError as e:
+                lib_ms = None
+                lib_refusal = str(e).splitlines()[0][:80]
+            row = dict(batch=batch, shape=list(shape), cout=cout, k=k, stride=stride,
+                       calls_per_window=n_calls, M=m_rows, N=cout, K=kk,
+                       Kp=int(packed.wq.shape[1]), ms=k1_ms, k2_ms=k2_ms,
+                       entry_ms=k1_entry_ms, k2_entry_ms=k2_entry_ms,
+                       k2_plain_ms=k2_plain_ms,
+                       plain_ms=plain_ms, bound_ms=k1_bound[0], bound_by=k1_bound[1],
+                       k2_bound_ms=k2_bound[0], library_ms=lib_ms)
+            rows.append(row)
+            print(f"int8 batch {batch} {list(shape)} -> {cout} k{k} s{stride} (x{n_calls}): "
+                  f"M {m_rows} N {cout} K {kk} (Kp {row['Kp']}); int8_conv {k1_ms:.5f} ms "
+                  f"(entry {k1_entry_ms:.5f}), bound {k1_bound[0]:.6f} ({k1_bound[1]}); "
+                  f"quantize_per_tensor {k2_ms:.5f} ms (entry {k2_entry_ms:.5f}), bound "
+                  f"{k2_bound[0]:.6f} (bytes); plain {plain_ms:.5f} ms; "
+                  + (f"torch._int_mm {lib_ms:.5f} ms" if lib_ms is not None
+                     else f"torch._int_mm refuses: {lib_refusal}")
+                  + f"; bitwise; on {card}")
+    return rows
+
+
+def rung_window_metrics(torch, runner, recording, dev):
+    """Per-window ESR PSNR and SSIM, latency and prediction of one recording
+    through a runner at its rung (the harness's metrics)."""
+    from esr_tpu_torch.data.loader import InferenceSequenceLoader
+    from esr_tpu_torch.inference.harness import _metrics
+    from esr_tpu_torch.ops.resize import interpolate
+
+    loader = InferenceSequenceLoader(recording, FLAGSHIP_DATA)
+    kh, kw = loader.gt_resolution
+    states = runner.model.init_states(1, kh, kw, device=dev)
+    if runner.compute_dtype is not None:
+        states = tuple(z.to(runner.compute_dtype) for z in states)
+    psnr, ssim, lat, preds = [], [], [], []
+    with torch.no_grad():
+        for batch in loader:
+            inp = torch.from_numpy(batch["inp_scaled_cnt"][:, :3]).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred, states = runner.forward(inp, states)
+            pred = pred.float()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            pred0 = pred[0]
+            if tuple(pred0.shape[:2]) != (kh, kw):
+                pred0 = interpolate(pred0, (kh, kw), "bicubic")
+            gt = torch.from_numpy(batch["gt_cnt"][0, 1]).to(dev)
+            inp_cnt = torch.from_numpy(batch["inp_cnt"][0, 1]).to(dev)
+            m = _metrics(pred0, interpolate(inp_cnt, (kh, kw), "bicubic"), gt)
+            if not all(math.isfinite(float(v)) for v in m.values()):
+                fail(f"{runner.precision}: non-finite metrics {m}")
+            psnr.append(float(m["esr_psnr"]))
+            ssim.append(float(m["esr_ssim"]))
+            preds.append(pred0)
+    return psnr, ssim, lat, preds
+
+
+def rung_window_profile(torch, runner, recording, dev, card):
+    """Device time of one flagship window at the runner's rung, by kernel
+    (the int8 kernels' share named)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esr_tpu_torch.data.loader import InferenceSequenceLoader
+
+    loader = InferenceSequenceLoader(recording, FLAGSHIP_DATA)
+    kh, kw = loader.gt_resolution
+    inp = torch.from_numpy(next(iter(loader))["inp_scaled_cnt"][:, :3]).to(dev)
+    states = runner.model.init_states(1, kh, kw, device=dev)
+    if runner.compute_dtype is not None:
+        states = tuple(z.to(runner.compute_dtype) for z in states)
+    with torch.no_grad():
+        runner.forward(inp, states)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            runner.forward(inp, states)
+            torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / 1e3
+    named = {}
+    for part in ("int8_conv_kernel", "amax_kernel", "quantize_kernel", "dcn_forward_kernel"):
+        hits = [e for e in events if part in e.key]
+        named[part] = (sum(dev_us(e) for e in hits) / 1e3, sum(e.count for e in hits))
+    print(f"window profile {runner.precision} on {card}: device busy {busy:.4f} ms; "
+          + "; ".join(f"{k} {ms:.4f} ms in {n} launches" for k, (ms, n) in named.items() if n))
+    return busy, named
+
+
+def rung_entry_points(torch, np, dev, model, recording, want_psnr):
+    """The rungs through the entry points' functions: the flagship's weights
+    saved as a port checkpoint whose ``trainer.precision`` is bf16, then
+    ``run_inference`` (what ``infer`` calls) with no precision (the
+    checkpoint's bf16) and with ``int8`` (the CLI over the checkpoint), each
+    within 1e-5 of the harness's mean PSNR at that rung; and
+    ``esr_tpu_torch.serve.main --precision int8`` on two load-generated
+    streams: both done, through the int8 kernels."""
+    import logging
+
+    from esr_tpu_torch import serve
+    from esr_tpu_torch.inference.checkpoint import save_checkpoint
+    from esr_tpu_torch.inference.harness import run_inference
+    from esr_tpu_torch.models import convert
+    from esr_tpu_torch.ops import int8_cuda
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_rungs_")
+    level = logging.getLogger().level
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        save_checkpoint(ckpt, convert.export_flax_params(model), {
+            "model": {"name": "DeepRecurrNet",
+                      "args": {"inch": 2, "basech": model.basech, "num_frame": 3}},
+            "trainer": {"precision": "bf16"}})
+        for cli, rung in ((None, "bf16"), ("w8a8", "int8")):
+            int8_cuda.reset_launches()
+            mean = run_inference(ckpt, [recording], os.path.join(root, f"out_{rung}"),
+                                 FLAGSHIP_DATA, engine=False, precision=cli, device=dev)
+            n = int(mean["n_windows"])
+            k1 = int8_cuda.int8_conv.launches
+            rel = abs(mean["esr_psnr"] - want_psnr[rung]) / abs(want_psnr[rung])
+            print(f"infer (run_inference) with --precision {cli} over a bf16 checkpoint: ran "
+                  f"{rung}, {n} windows, mean ESR PSNR {mean['esr_psnr']:.5f} ({rel:.2e} from "
+                  f"the harness's), int8_conv launches {k1}")
+            if not rel <= 1e-5 or k1 != (79 * n if rung == "int8" else 0):
+                fail(f"run_inference at {rung} disagrees with the harness or launched {k1}")
+        int8_cuda.reset_launches()
+        summary = serve.main(["--model_path", ckpt, "--output_path", os.path.join(root, "serve"),
+                              "--loadgen", "2", "--precision", "int8", "--device", dev.type,
+                              "--scale", "2", "--ori_scale", "down8", "--window", "1024",
+                              "--sliding_window", "512", "--seql", "4", "--max_wall", "300"])
+        k1 = int8_cuda.int8_conv.launches
+        print(f"serve --precision int8: {summary['completed']} of {summary['requests']} "
+              f"streams done, {summary['windows']} windows, int8_conv launches {k1}")
+        if summary["completed"] != 2 or not k1 > 0:
+            fail("serve --precision int8 did not serve its streams through the int8 kernels")
+    finally:
+        logging.getLogger().setLevel(level)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_precision(torch, np, dev, card):
+    """The precision rungs at the flagship width: K1 and K2 against their
+    plain versions at every seam shape; the harness over the slice's
+    windows at f32, bf16 and int8 (per-window PSNR and SSIM, the drop
+    against f32 held to 1.0 dB); the engine and serving at each rung."""
+    from esr_tpu_torch.data.synthetic import make_synthetic_recording
+    from esr_tpu_torch.inference.engine import StreamingEngine
+    from esr_tpu_torch.inference.harness import InferenceRunner
+    from esr_tpu_torch.ops import dcn_cuda, int8_cuda
+    from esr_tpu_torch.serve import parse_classes
+    from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
+    from esr_tpu_torch.serving.server import ServingEngine
+
+    model = flagship_model(torch, np, dcn_sparse=False).to(dev).eval()
+    recording = make_synthetic_recording((720, 1280), base_events=80_000, num_frames=2,
+                                         rungs=("down8", "down16"), seed=0)
+    kh, kw = 90, 160
+    shapes = int8_kernel_shapes(torch, np, dev, card, model, kh, kw)
+    seams = len(int8_seam_calls(torch, model, dev, 1, kh, kw))
+
+    # the harness over the slice's windows at each rung
+    per = {}
+    k_launches = {}
+    window_device = {}
+    for rung in RUNGS:
+        runner = InferenceRunner(model, 3, device=dev, precision=rung)
+        rung_window_metrics(torch, runner, recording, dev)  # warm
+        dcn_cuda.reset_launches()
+        int8_cuda.reset_launches()
+        per[rung] = rung_window_metrics(torch, runner, recording, dev)
+        n = len(per[rung][0])
+        counts = counts_of()
+        k_launches[rung] = {k.name: k.launches for k in int8_cuda.KERNELS}
+        window_device[rung] = rung_window_profile(torch, runner, recording, dev, card)
+        want8 = seams * n if rung == "int8" else 0
+        print(f"harness {rung}: {n} windows; launches {counts}, {k_launches[rung]}")
+        if counts != only("dcn_fwd", 2 * n) or any(c != want8
+                                                    for c in k_launches[rung].values()):
+            fail(f"the {rung} harness launched {counts} / {k_launches[rung]}; expected "
+                 f"dcn_fwd 2 and int8_conv / quantize_per_tensor {seams if want8 else 0} "
+                 "a window")
+    f32_psnr, f32_ssim, _, f32_preds = per["f32"]
+    drops = {}
+    for rung in RUNGS:
+        psnr, ssim, lat, preds = per[rung]
+        drop = float(np.mean(np.subtract(f32_psnr, psnr)))
+        drops[rung] = drop
+        out_err = max(float((p - f).abs().max()) / max(float(f.abs().max()), TINY)
+                      for p, f in zip(preds, f32_preds))
+        print(f"harness {rung} on {card}: per-window ESR PSNR {[round(v, 4) for v in psnr]}; "
+              f"SSIM {[round(v, 5) for v in ssim]}; mean PSNR drop against f32 {drop:.5f} dB "
+              f"(worst window {max(np.subtract(f32_psnr, psnr)):.5f}), mean SSIM drop "
+              f"{float(np.mean(np.subtract(f32_ssim, ssim))):.6f}; prediction max |rung - f32| "
+              f"/ max |f32| {out_err:.3e}; window latency p50 "
+              f"{sorted(lat)[len(lat) // 2]:.3f} ms")
+        if rung != "f32" and not drop <= PSNR_DROP_DB:
+            fail(f"the {rung} rung drops {drop:.3f} dB of PSNR against f32 "
+                 f"(bound {PSNR_DROP_DB})")
+
+    rung_entry_points(torch, np, dev, model, recording,
+                      {r: float(np.mean(per[r][0])) for r in ("bf16", "int8")})
+
+    # the engine at each rung (sparse flagship, lanes 4 x chunk 8)
+    sparse = flagship_model(torch, np, dcn_sparse=True)
+    recs = [make_synthetic_recording((720, 1280), base_events=ev, num_frames=2,
+                                     rungs=("down8", "down16"), seed=30 + i,
+                                     name=f"engine{i}")
+            for i, ev in enumerate((120_000, 200_000, 80_000, 160_000, 100_000, 140_000))]
+    engine_out = {}
+    for rung in RUNGS:
+        engine = StreamingEngine(sparse, 3, lanes=LANES, chunk_windows=CHUNK_WINDOWS,
+                                 precision=rung, device=dev)
+        engine.run_datalist(recs[:1], FLAGSHIP_DATA)  # warm
+        torch.cuda.synchronize()
+        dcn_cuda.reset_launches()
+        int8_cuda.reset_launches()
+        t0 = time.perf_counter()
+        results, _ = engine.run_datalist(recs, FLAGSHIP_DATA)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = CHUNK_WINDOWS * len(engine.chunk_seconds)
+        n_windows = int(sum(r["n_windows"] for r in results))
+        launches = {k.name: k.launches for k in int8_cuda.KERNELS}
+        want8 = seams * steps if rung == "int8" else 0
+        if counts_of() != only("dcn_fwd_masked", 2 * steps) or any(
+                c != want8 for c in launches.values()):
+            fail(f"the {rung} engine launched {counts_of()} / {launches}")
+        engine_out[rung] = (results, n_windows / wall, launches)
+        chunk_ms = sorted(t * 1e3 for t in engine.chunk_seconds)
+        print(f"engine {rung} on {card}: {n_windows} windows in {wall:.3f} s, "
+              f"{n_windows / wall:.3f} windows/s; chunk p50 {chunk_ms[len(chunk_ms) // 2]:.3f} "
+              f"ms; launches {launches}")
+    for rung in ("bf16", "int8"):
+        worst = max(f["esr_psnr"] - r["esr_psnr"]
+                    for f, r in zip(engine_out["f32"][0], engine_out[rung][0]))
+        print(f"engine {rung}: worst recording's ESR PSNR drop against f32 {worst:.5f} dB")
+        if not worst <= PSNR_DROP_DB:
+            fail(f"the {rung} engine drops {worst:.3f} dB of PSNR against f32")
+
+    # serving at each rung: the serving phase's traffic
+    classes = parse_classes("standard:8,gated:4:0.3")
+    streams = make_stream_corpus(n=8, seed=0, sensor_resolution=(720, 1280),
+                                 events_schedule=(60_000, 40_000, 80_000, 50_000),
+                                 burst_schedule=(0.35, 1.0), num_frames=2,
+                                 rungs=("down8", "down16"))
+    schedule = poisson_schedule(streams, rate_hz=8.0, seed=0, classes=tuple(sorted(classes)))
+    serve_out = {}
+    for rung in RUNGS:
+        def server(**kw):
+            return ServingEngine(sparse, SERVE_DATA, lanes=LANES, classes=classes,
+                                 default_class="standard", precision=rung,
+                                 activity_tile=SERVE_ACTIVITY_TILE, device=dev, **kw)
+
+        server(preempt_quantum=0).run(schedule[:1])  # warm
+        srv = server(preempt_quantum=2)
+        summary = srv.run(schedule, max_wall_s=600)
+        torch.cuda.synchronize()
+        if summary["completed"] != len(streams) or any(
+                r["status"] != "ok" for r in srv.reports().values()):
+            fail(f"serving at {rung}: not every request ended done")
+        serve_out[rung] = (summary, srv.reports())
+        p50 = {n: c["p50_window_ms"] for n, c in summary["classes"].items()}
+        print(f"serving {rung} on {card}: {summary['windows_per_sec']} windows/s computed, "
+              f"{summary['served_windows_per_sec']} served, {summary['preemptions']} "
+              f"preemptions, window p50 by class {p50} ms")
+    for rung in ("bf16", "int8"):
+        ref = serve_out["f32"][1]
+        worst = max(ref[rid]["esr_psnr"] - r["esr_psnr"]
+                    for rid, r in serve_out[rung][1].items() if r["n_windows"])
+        print(f"serving {rung}: worst request's ESR PSNR drop against f32 {worst:.5f} dB")
+        if not worst <= PSNR_DROP_DB:
+            fail(f"serving at {rung} drops {worst:.3f} dB of PSNR against f32")
+    return {"shapes": shapes, "harness_launches": k_launches["int8"], "seams": seams,
+            "window_device": window_device,
+            "drops": drops, "engine_launches": engine_out["int8"][2],
+            "windows_per_s": {r: engine_out[r][1] for r in RUNGS}}
+
 def main() -> int:
     import torch
 
@@ -1756,12 +2207,18 @@ def main() -> int:
     print(f"device: {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # -- 2. build ----------------------------------------------------------
+    from esr_tpu_torch.ops import int8_cuda
+
+    libraries = dcn_cuda.LIBRARIES + int8_cuda.LIBRARIES
     t0 = time.perf_counter()
-    dcn_cuda.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s for {len(dcn_cuda.LIBRARIES)} "
+    for lib in libraries:
+        lib.start_build()
+    for lib in libraries:
+        lib.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(libraries)} "
           "libraries, nvcc runs started together")
     spills = []
-    for lib in dcn_cuda.LIBRARIES:
+    for lib in libraries:
         print(f"build {lib.source.name}: nvcc {lib.build_seconds} s -> {lib.library_path.name}")
         entry = ""
         for line in lib.build_log.splitlines():
@@ -1793,6 +2250,9 @@ def main() -> int:
     # -- 7. the streaming engine and serving (sparse flagship) -------------
     engine_launches, engine_stats = phase_engine(torch, np, dev, card)
     serve_launches, serve_summary = phase_serving(torch, np, dev, card)
+
+    # -- 12. the precision rungs (bf16, int8) -----------------------------
+    precision = phase_precision(torch, np, dev, card)
 
     # -- 8. training, and the sparse train step ----------------------------
     out_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -1839,6 +2299,35 @@ def main() -> int:
             "matrix_max_rel_err": masked_worst[name], **extra,
             "by_batch_and_active_share": masked[name],
         })
+    # K1 and K2 at the B=1 window's costliest seam shape; every shape beside
+    b1 = [r for r in precision["shapes"] if r["batch"] == 1]
+    top = max(b1, key=lambda r: r["ms"] * r["calls_per_window"])
+    shape = f"{top['shape']} -> {top['cout']}, k {top['k']}, stride {top['stride']}"
+    records.append({
+        "name": "int8_conv", "route": "cuda", "source": "esr_tpu_torch/csrc/int8_conv.cu",
+        "replaces": REPLACES["int8_conv"],
+        "launches": precision["harness_launches"]["int8_conv"], "max_abs_err": 0.0,
+        "ms": top["ms"], "entry_ms": top["entry_ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+        "library": "torch._int_mm over an im2col (the GEMM alone)", "shape": shape,
+        "device_ms_per_window": precision["window_device"]["int8"][1]["int8_conv_kernel"][0],
+        "engine_launches": precision["engine_launches"]["int8_conv"],
+        "seams_per_window": precision["seams"], "by_shape": precision["shapes"],
+    })
+    records.append({
+        "name": "quantize_per_tensor", "route": "cuda",
+        "source": "esr_tpu_torch/csrc/int8_conv.cu",
+        "replaces": REPLACES["quantize_per_tensor"],
+        "launches": precision["harness_launches"]["quantize_per_tensor"],
+        "max_abs_err": 0.0, "ms": top["k2_ms"], "entry_ms": top["k2_entry_ms"],
+        "plain_ms": top["k2_plain_ms"],
+        "device_ms_per_window": sum(precision["window_device"]["int8"][1][k][0]
+                                    for k in ("amax_kernel", "quantize_kernel")),
+        "bound_ms": top["k2_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shape": str(top["shape"]),
+        "engine_launches": precision["engine_launches"]["quantize_per_tensor"],
+    })
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

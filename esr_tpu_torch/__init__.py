@@ -10,6 +10,6 @@ Entry points run on the CUDA card by default (``device.resolve_device``);
 the CPU is used only when asked for by name.
 """
 
-from esr_tpu_torch.device import apply_f32_policy, resolve_device
+from esr_tpu_torch.device import apply_numerics_policy, resolve_device
 
-__all__ = ["apply_f32_policy", "resolve_device"]
+__all__ = ["apply_numerics_policy", "resolve_device"]

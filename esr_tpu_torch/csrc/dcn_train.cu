@@ -51,23 +51,24 @@
 // Cg global loads per Cg FMAs on gcols. Ownership replaces the global
 // atomics here:
 //   - One block per (image, group). It holds the image's x slice and a gx
-//     accumulator for the group in shared memory (H*W*Cg floats each, rows
-//     padded to Cg + 1 so neighbouring pixels hit different banks), stages
+//     accumulator for the group in shared memory (H*W*Cg floats, and three
+//     32-bit words an element for gx's fixed point; rows padded to Cg + 1
+//     so neighbouring pixels hit different banks), stages
 //     W[:, group] once as W^T [tap][o][c], and streams the image's cotangent
 //     rows through shared memory in double-buffered cp.async tiles.
 //   - gcols is register-blocked: a thread holds 2 rows (1 at Cg > 8, for
 //     registers) x one tap x all Cg channels, so per 4 out-channels it
 //     loads 2 float4 of g and Cg float4 of W (broadcast) for 8*Cg FMAs, and
-//     the scatter comes straight from registers: shared-memory atomicAdd
-//     into the gx slice, x corners read from the x slice. On the H100 a
-//     shared f32 atomicAdd is a CAS loop (ATOMS.CAST.SPIN), about half the
-//     kernel's time at the flagship.
+//     the scatter comes straight from registers: shared-memory integer
+//     reductions into the gx slice (see "Determinism"), x corners read from
+//     the x slice.
 //   - At the end the block writes its gx slice with plain stores: every
-//     element of gx has exactly one writer, so gx needs no zeroing.
-//   - An image whose slices do not fit shared memory takes the other
-//     instantiation (kOwn = false): blocks of rows, x read from global, and
-//     gx scattered to global with float4 atomics (vector red, sm_90) when
-//     Cg % 4 == 0; the caller zeroes gx for it. When W^T of all taps does
+//     element of gx has exactly one writer.
+//   - An image whose slices do not fit shared memory, or takes 65536 or
+//     more (row, tap) terms a pixel, takes the other instantiation (kOwn =
+//     false): blocks of rows, x read from global, and gx scattered to
+//     64-bit fixed-point accumulators in global memory, which the entry
+//     point zeroes and converts to gx afterwards. When W^T of all taps does
 //     not fit, the taps run in passes (kt per pass), the cotangent streamed
 //     once per pass. The chooser in ops/dcn_cuda.py picks from the shape.
 //   - Groups of more than 32 channels, and a tap of W^T too wide for the
@@ -104,13 +105,35 @@
 // Cout 256) 0.446. At B=32 it takes 0.026 ms without its FMAs and 0.031
 // without its gather: the two overlap in part.
 //
-// Determinism: the forward, goffsets, gmask and gW are run-to-run
-// deterministic (fixed summation order; goffsets and gmask use the same
-// per-element operation order as the earlier kernel). gx is not: shared or
-// global atomics add in an order that changes between runs, so gx may
-// differ in the last bits. Measured times are in PERF.md (chip_smoke.py).
+// Determinism: every output is the same bits from run to run. The forward,
+// goffsets, gmask and gW have a fixed summation order (goffsets and gmask
+// keep the per-element operation order of the earlier kernel). gx is a
+// scatter, so its contributions meet in an order that changes between runs;
+// they are summed as 64-bit fixed-point integers, whose addition does not
+// depend on order:
+//   - a first kernel (dcn_bwd_bound_kernel) bounds every contribution: the
+//     largest |g|, |mask| and, over (tap, channel), sum_o |W| give
+//     |m * w_corner * gcols| <= gmax * mmax * wmax, and a pixel of gx takes
+//     at most one corner of each of its image's Ho*Wo*K (row, tap) pairs.
+//     The bound words are the maxima's bits, reduced with integer atomicMax
+//     (a maximum is order-free; NaN sorts above every number and poisons gx);
+//   - each contribution v becomes llrint(v * 2^s), s = 62 - ceil(log2(bound
+//     * Ho*Wo*K)), so no sum can overflow, and is added with integer atomics:
+//     global 64-bit ones, or on the ownership path three native 32-bit
+//     shared ones (shared_add_fix: two unsigned 16-bit parts and the signed
+//     high word, none of whose sums can wrap while Ho*Wo*K < 65536, which
+//     the chooser makes a condition of that path);
+//   - gx = float(sum) * 2^-s, one rounding. Each contribution is off by at
+//     most 2^-(s+1), a 2^-63 share of the bound per term: gx is as exact as
+//     f32 allows, and the ownership, global and wide paths give the same bits.
+// Cost (chip_smoke.py, PERF.md): a bound pass reading g, mask and W once
+// (~2.4 MB at the flagship B=32), 12 bytes of shared memory an element of
+// the ownership path's gx slice, and off it 8 bytes of global scratch an
+// element of gx, zeroed, then converted.
 
 #include "dcn_common.cuh"
+
+#include <algorithm>
 
 namespace {
 
@@ -121,6 +144,13 @@ struct BwdTile {
   int chunk_rows, tp, kt, own;
 };
 
+// The ownership path's gx slice: H*W rows of Cg + 1 accumulators of three
+// 32-bit words (shared_add_fix), in 32-bit words rounded up to a multiple of
+// 4, so the float regions after it stay 16-byte aligned.
+__host__ __device__ int fix_slice_words(int hw, int lds) {
+  return (3 * hw * lds + 3) & ~3;
+}
+
 // Mirrored by bwd_smem_bytes in ops/dcn_cuda.py.
 size_t bwd_smem_bytes(const Geom& G, const BwdTile& T) {
   const size_t cg = G.Cin / G.dg;
@@ -128,8 +158,116 @@ size_t bwd_smem_bytes(const Geom& G, const BwdTile& T) {
   const size_t coutp = ((size_t)G.Cout + 3) / 4 * 4;
   const size_t nbuf = (T.chunk_rows + T.tp - 1) / T.tp > 1 ? 2 : 1;
   size_t f = (size_t)T.kt * coutp * cgp + nbuf * T.tp * (coutp + 4);
-  if (T.own) f += 2 * (size_t)G.H * G.W * (cg + 1);
+  if (T.own) f += (size_t)G.H * G.W * (cg + 1) + fix_slice_words(G.H * G.W, cg + 1);
   return f * sizeof(float);
+}
+
+// -- gx in 64-bit fixed point (see "Determinism" above) --------------------
+
+// The bound words: the bits of max|g|, max|mask| and max over (tap, channel)
+// of sum_o |W[k, c, o]|, each a non-negative float (or NaN), so unsigned
+// order is float order and NaN (0x7fc00000 after fabsf) tops +inf.
+constexpr int kBoundWords = 3;
+
+__device__ __forceinline__ float max_nan(float a, float v) {
+  return (v > a || v != v) ? v : a;  // a NaN, once met, stays
+}
+
+__device__ __forceinline__ float block_max_nan(float v, float* red) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, d));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = 0.f;
+  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) v = max_nan(v, red[i]);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+dcn_bwd_bound_kernel(const float* __restrict__ gout, long long ng,
+                     const float* __restrict__ mask, long long nm,
+                     const float* __restrict__ w, int kcin, int Cout,
+                     unsigned* __restrict__ words) {
+  __shared__ float red[kThreads / 32];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float a = 0.f, b = 0.f, c = 0.f;
+  for (long long i = t0; i < ng; i += stride) a = max_nan(a, fabsf(gout[i]));
+  for (long long i = t0; i < nm; i += stride) b = max_nan(b, fabsf(mask[i]));
+  for (long long i = t0; i < kcin; i += stride) {
+    float sum = 0.f;
+    for (int o = 0; o < Cout; ++o) sum += fabsf(w[i * Cout + o]);
+    c = max_nan(c, sum);
+  }
+  a = block_max_nan(a, red);
+  b = block_max_nan(b, red);
+  c = block_max_nan(c, red);
+  if (threadIdx.x == 0) {
+    atomicMax(words + 0, __float_as_uint(a));
+    atomicMax(words + 1, __float_as_uint(b));
+    atomicMax(words + 2, __float_as_uint(c));
+  }
+}
+
+// The fixed-point scale 2^s and its inverse from the bound words: a sum at
+// one pixel takes at most npk terms of at most gmax * mmax * wmax, and
+// 2^62 / 2^s exceeds that. A non-finite bound gives inv = NaN: gx is NaN.
+// The words are read anew at each call (volatile), so a kernel that needs
+// the scale in two places holds no register for it in between.
+struct FixScale {
+  float s, inv;
+};
+
+__device__ __forceinline__ FixScale fix_scale(const volatile unsigned* words, int npk) {
+  const double bound = (double)__uint_as_float(words[0]) *
+                       (double)__uint_as_float(words[1]) *
+                       (double)__uint_as_float(words[2]) * (double)npk;
+  if (!isfinite(bound)) return FixScale{0.f, __int_as_float(0x7fc00000)};
+  // bound < 2^e, e from the biased exponent (0 for 0 and subnormals: s is
+  // then clamped); powers of two are built from their bits
+  const int e = (int)((__double_as_longlong(bound) >> 52) & 0x7ff) - 1022;
+  const int s = max(-126, min(126, 62 - e));
+  return FixScale{__int_as_float((127 + s) << 23), __int_as_float((127 - s) << 23)};
+}
+
+__device__ __forceinline__ unsigned long long to_fix(float v, const FixScale& f) {
+  return (unsigned long long)__float2ll_rn(v * f.s);
+}
+
+__device__ __forceinline__ float from_fix(long long acc, const FixScale& f) {
+  return __ll2float_rn(acc) * f.inv;
+}
+
+// A 64-bit fixed-point accumulator in shared memory as three 32-bit words,
+// added with native 32-bit reductions that return nothing: the value's low
+// 32 bits as two unsigned 16-bit parts, and its signed high word. A sum of
+// n < 65536 parts below 2^16 stays below 2^32, and the high words' sum is
+// the total's (below 2^62) over 2^32 plus at most n, so no word wraps and
+// the three sums give the total exactly, in any order. (64-bit shared
+// atomics, and a pair of 32-bit ones passing the carry on, both made ptxas
+// spill registers here.)
+__device__ __forceinline__ void shared_add_fix(unsigned* acc, unsigned long long v) {
+  atomicAdd(acc, (unsigned)v & 0xffffu);
+  atomicAdd(acc + 1, ((unsigned)v) >> 16);
+  atomicAdd(acc + 2, (unsigned)(v >> 32));
+}
+
+__device__ __forceinline__ long long shared_fix_total(const unsigned* acc) {
+  return ((long long)(int)acc[2] << 32) + ((long long)acc[1] << 16) + (long long)acc[0];
+}
+
+// gx = the global accumulators back in float (the global and wide paths).
+__global__ void __launch_bounds__(kThreads)
+dcn_bwd_fix_to_float_kernel(const long long* __restrict__ fix, long long n,
+                            const unsigned* __restrict__ words, int npk,
+                            float* __restrict__ gx) {
+  const FixScale f = fix_scale(words, npk);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    gx[i] = from_fix(fix[i], f);
+  }
 }
 
 // MAXCG bounds the per-thread gcols registers; the caller picks the
@@ -139,9 +277,10 @@ __global__ void __launch_bounds__(kThreads)
 dcn_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict__ off,
                      const float* __restrict__ mask,
                      const float* __restrict__ w,
-                     const float* __restrict__ gout, float* gx,
+                     const float* __restrict__ gout, float* __restrict__ gx,
                      float* __restrict__ goff, float* __restrict__ gmask,
-                     Geom G, BwdTile T) {
+                     long long* __restrict__ fix,
+                     const unsigned* __restrict__ words, Geom G, BwdTile T) {
   extern __shared__ __align__(16) float smem[];
   const int K = G.kh * G.kw;
   const int cg = G.Cin / G.dg;
@@ -160,21 +299,32 @@ dcn_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict__ off,
   constexpr int kRP = MAXCG <= 8 ? 2 : 1;
   const int stride_p = tp / kRP;
   const int nbuf = (T.chunk_rows + tp - 1) / tp > 1 ? 2 : 1;
-  float* wt = smem;                        // [kt][coutp][cgp]
+  // kOwn: the gx slice as 64-bit accumulators [hw][lds] first, 16-byte
+  // aligned, then the float regions
+  unsigned* gxs = reinterpret_cast<unsigned*>(smem);       // [hw][lds][3]
+  float* wt = smem + (kOwn ? fix_slice_words(hw, lds) : 0);  // [kt][coutp][cgp]
   float* gs = wt + T.kt * coutp * cgp;     // [nbuf][tp][ldg]
   float* xs = gs + nbuf * tp * ldg;        // [hw][lds]   (kOwn)
-  float* gxs = xs + hw * lds;              // [hw][lds]   (kOwn)
   const bool vec_g = G.Cout % 4 == 0 && aligned16(gout);
-  const bool vec_gx = !kOwn && cg % 4 == 0 && aligned16(gx);
-  // the image's channels of this group (kOwn: the block's rows are one image)
-  const size_t img = (size_t)(start / npix) * hw * G.Cin + g * cg;
+  // the image's channels of this group (kOwn: the block's rows are one
+  // image), made where used from the block index read anew (asm volatile),
+  // so no register holds it across the loops
+  auto image_base = [&]() {
+    unsigned bx, by;
+    asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
+    asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(by));
+    return (size_t)((int)bx * T.chunk_rows / npix) * hw * G.Cin + (int)by * cg;
+  };
 
   if constexpr (kOwn) {
+    const size_t img = image_base();
     for (int e = threadIdx.x; e < hw * cg; e += blockDim.x) {
       const int pix = e / cg;
       const int c = e - pix * cg;
       xs[pix * lds + c] = x[img + (size_t)pix * G.Cin + c];
-      gxs[pix * lds + c] = 0.f;
+      gxs[3 * (pix * lds + c)] = 0;
+      gxs[3 * (pix * lds + c) + 1] = 0;
+      gxs[3 * (pix * lds + c) + 2] = 0;
     }
   }
 
@@ -221,6 +371,8 @@ dcn_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict__ off,
     stage_g(0);
     cp_async_wait_all();
     __syncthreads();
+    // read here, past the staging, so the prologue does not hold it
+    const FixScale fs = fix_scale(words, npix * K);
     for (int t = 0; t < n_tiles; ++t) {
       if (t + 1 < n_tiles) stage_g(t + 1);
       const float* gb = gs + (t & 1) * tp * ldg;
@@ -283,12 +435,12 @@ dcn_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict__ off,
             float d = 0.f;
             if constexpr (kOwn) {
               const float* xr = xs + s.pix[corner] * lds;
-              float* gr = gxs + s.pix[corner] * lds;
+              unsigned* gr = gxs + 3 * s.pix[corner] * lds;
 #pragma unroll
               for (int c = 0; c < MAXCG; ++c) {
                 if (c < cg) {
                   d = fmaf(xr[c], gc[h][c], d);
-                  atomicAdd(gr + c, scale * gc[h][c]);
+                  shared_add_fix(gr + 3 * c, to_fix(scale * gc[h][c], fs));
                 }
               }
             } else {
@@ -304,18 +456,11 @@ dcn_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict__ off,
                   const int c = 4 * c4 + i;
                   if (c < cg) d = fmaf(__ldg(x + base + c), gc[h][c], d);
                 }
-                if (vec_gx) {
-                  atomicAdd(reinterpret_cast<float4*>(gx + base + 4 * c4),
-                            make_float4(scale * gc[h][4 * c4 + 0],
-                                        scale * gc[h][4 * c4 + 1],
-                                        scale * gc[h][4 * c4 + 2],
-                                        scale * gc[h][4 * c4 + 3]));
-                } else {
+                unsigned long long* gr =
+                    reinterpret_cast<unsigned long long*>(fix + base + 4 * c4);
 #pragma unroll
-                  for (int i = 0; i < 4; ++i) {
-                    const int c = 4 * c4 + i;
-                    if (c < cg) atomicAdd(gx + base + c, scale * gc[h][c]);
-                  }
+                for (int i = 0; i < 4; ++i) {
+                  if (4 * c4 + i < cg) atomicAdd(gr + i, to_fix(scale * gc[h][4 * c4 + i], fs));
                 }
                 asm volatile("" ::: "memory");
               }
@@ -339,10 +484,13 @@ dcn_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict__ off,
   }
 
   if constexpr (kOwn) {
+    const FixScale fs = fix_scale(words, npix * K);
+    const size_t img = image_base();
     for (int e = threadIdx.x; e < hw * cg; e += blockDim.x) {
       const int pix = e / cg;
       const int c = e - pix * cg;
-      gx[img + (size_t)pix * G.Cin + c] = gxs[pix * lds + c];
+      gx[img + (size_t)pix * G.Cin + c] =
+          from_fix(shared_fix_total(gxs + 3 * (pix * lds + c)), fs);
     }
   }
 }
@@ -350,15 +498,15 @@ dcn_bwd_pixel_kernel(const float* __restrict__ x, const float* __restrict__ off,
 template <int MAXCG, bool kOwn>
 int launch_bwd_pixel(const float* x, const float* off, const float* mask,
                      const float* w, const float* gout, float* gx, float* goff,
-                     float* gmask, const Geom& G, const BwdTile& T,
-                     void* stream) {
+                     float* gmask, long long* fix, const unsigned* words,
+                     const Geom& G, const BwdTile& T, void* stream) {
   const size_t smem = bwd_smem_bytes(G, T);
   cudaError_t err = allow_smem(dcn_bwd_pixel_kernel<MAXCG, kOwn>, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = G.B * G.Ho * G.Wo;
   const dim3 grid((rows + T.chunk_rows - 1) / T.chunk_rows, G.dg);
   dcn_bwd_pixel_kernel<MAXCG, kOwn><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, off, mask, w, gout, gx, goff, gmask, G, T);
+      x, off, mask, w, gout, gx, goff, gmask, fix, words, G, T);
   return (int)cudaGetLastError();
 }
 
@@ -366,8 +514,8 @@ int launch_bwd_pixel(const float* x, const float* off, const float* mask,
 // that the kernel above refuses (its gcols registers are sized by MAXCG),
 // and a tap of W^T too wide for its shared memory (Cout in the thousands).
 // Same results, other staging:
-//   - a block owns `rows` rows of one group and scatters gx to global memory
-//     (float4 red when Cg % 4 == 0; the caller zeroes gx); each thread owns
+//   - a block owns `rows` rows of one group and scatters gx to the global
+//     64-bit fixed-point accumulators; each thread owns
 //     one (row, tap) item of a pass of kt taps (rows * kt <= kThreads);
 //   - the group's channels run in chunks of kWideCC: per chunk a thread
 //     holds that chunk's gcols in registers, scatters it, and carries its
@@ -399,9 +547,11 @@ __global__ void __launch_bounds__(kThreads)
 dcn_bwd_pixel_wide_kernel(const float* __restrict__ x, const float* __restrict__ off,
                           const float* __restrict__ mask,
                           const float* __restrict__ w,
-                          const float* __restrict__ gout, float* gx,
+                          const float* __restrict__ gout,
                           float* __restrict__ goff, float* __restrict__ gmask,
-                          Geom G, BwdWideTile T) {
+                          long long* __restrict__ fix,
+                          const unsigned* __restrict__ words, Geom G,
+                          BwdWideTile T) {
   extern __shared__ __align__(16) float smem[];
   constexpr int wst = kWideCC + 4;  // a W^T row: the chunk's channels, padded
   const int K = G.kh * G.kw;
@@ -416,7 +566,7 @@ dcn_bwd_pixel_wide_kernel(const float* __restrict__ x, const float* __restrict__
   float* wt = smem;                    // [kt][to][wst]
   float* gs = wt + T.kt * T.to * wst;  // [rows][ldg]
   const bool vec_g = G.Cout % 4 == 0 && aligned16(gout);
-  const bool vec_gx = cg % 4 == 0 && aligned16(gx);
+  const FixScale fs = fix_scale(words, npix * K);
   // the thread's item: row start + pp, tap k0 + kk of each pass
   const int pp = threadIdx.x % T.rows;
   const int kk = threadIdx.x / T.rows;
@@ -517,16 +667,11 @@ dcn_bwd_pixel_wide_kernel(const float* __restrict__ x, const float* __restrict__
             const int c = 4 * c4 + i;
             if (c < nc) d = fmaf(__ldg(x + base + c), gc[c], d);
           }
-          if (vec_gx) {
-            atomicAdd(reinterpret_cast<float4*>(gx + base + 4 * c4),
-                      make_float4(scale * gc[4 * c4 + 0], scale * gc[4 * c4 + 1],
-                                  scale * gc[4 * c4 + 2], scale * gc[4 * c4 + 3]));
-          } else {
+          unsigned long long* gr =
+              reinterpret_cast<unsigned long long*>(fix + base + 4 * c4);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int c = 4 * c4 + i;
-              if (c < nc) atomicAdd(gx + base + c, scale * gc[c]);
-            }
+          for (int i = 0; i < 4; ++i) {
+            if (4 * c4 + i < nc) atomicAdd(gr + i, to_fix(scale * gc[4 * c4 + i], fs));
           }
           asm volatile("" ::: "memory");
         }
@@ -549,16 +694,16 @@ dcn_bwd_pixel_wide_kernel(const float* __restrict__ x, const float* __restrict__
 }
 
 int launch_bwd_pixel_wide(const float* x, const float* off, const float* mask,
-                          const float* w, const float* gout, float* gx, float* goff,
-                          float* gmask, const Geom& G, const BwdWideTile& T,
-                          void* stream) {
+                          const float* w, const float* gout, float* goff,
+                          float* gmask, long long* fix, const unsigned* words,
+                          const Geom& G, const BwdWideTile& T, void* stream) {
   const size_t smem = bwd_wide_smem_bytes(T);
   cudaError_t err = allow_smem(dcn_bwd_pixel_wide_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = G.B * G.Ho * G.Wo;
   const dim3 grid((rows + T.rows - 1) / T.rows, G.dg);
   dcn_bwd_pixel_wide_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, off, mask, w, gout, gx, goff, gmask, G, T);
+      x, off, mask, w, gout, goff, gmask, fix, words, G, T);
   return (int)cudaGetLastError();
 }
 
@@ -868,42 +1013,65 @@ extern "C" int dcn_train_fwd_masked_f32(
                                   Activity{am, n_tiles, no_tile}, stream);
 }
 
-// gx must be zeroed by the caller when own == 0 (global scatter); with
-// own == 1 every element of gx is written once. to > 0 selects the wide
-// kernel (rows = chunk_rows = tp per block, kt taps per pass, W^T and the
-// cotangent staged to out-channels at a time; own must be 0).
+// gx, goffsets and gmask; every element of each is written. scratch is
+// 2 + (own ? 0 : B*H*W*Cin) 64-bit words: the bound words, then the global
+// fixed-point accumulators of gx; this entry zeroes it. to > 0 selects the
+// wide kernel (rows = chunk_rows = tp per block, kt taps per pass, W^T and
+// the cotangent staged to out-channels at a time; own must be 0). Launches
+// the bound pass, the per-pixel kernel and, off the ownership path, the
+// conversion of the accumulators to gx, in that order on the stream.
 extern "C" int dcn_bwd_pixel_f32(const float* x, const float* off,
                                  const float* mask, const float* w,
                                  const float* gout, float* gx, float* goff,
-                                 float* gmask, int B, int H, int W, int Cin,
-                                 int Ho, int Wo, int Cout, int dg, int kh,
-                                 int kw, int stride, int pad, int dil,
-                                 int chunk_rows, int tp, int kt, int own,
+                                 float* gmask, long long* scratch, int B, int H,
+                                 int W, int Cin, int Ho, int Wo, int Cout,
+                                 int dg, int kh, int kw, int stride, int pad,
+                                 int dil, int chunk_rows, int tp, int kt, int own,
                                  int to, void* stream) {
   const Geom G{B, H, W, Cin, Ho, Wo, Cout, dg, kh, kw, stride, pad, dil};
+  const int cg = geom_ok(G) ? Cin / dg : 0;
+  const BwdWideTile WT{tp, kt, to};
+  const BwdTile T{chunk_rows, tp, kt, own};
   if (to > 0) {
-    const BwdWideTile T{tp, kt, to};
     if (!geom_ok(G) || own != 0 || chunk_rows != tp || kt > kh * kw ||
-        !bwd_wide_tile_ok(T)) {
+        !bwd_wide_tile_ok(WT)) {
       return (int)cudaErrorInvalidValue;
     }
-    return launch_bwd_pixel_wide(x, off, mask, w, gout, gx, goff, gmask, G, T, stream);
-  }
-  const BwdTile T{chunk_rows, tp, kt, own};
-  const int cg = geom_ok(G) ? Cin / dg : 0;
-  if (!geom_ok(G) || cg > 32 || tp < 2 || tp % 2 != 0 || kt < 1 ||
-      kt > kh * kw || chunk_rows < 1 || (own != 0 && chunk_rows != Ho * Wo) ||
-      bwd_smem_bytes(G, T) > 232448) {
+  } else if (!geom_ok(G) || cg > 32 || tp < 2 || tp % 2 != 0 || kt < 1 ||
+             kt > kh * kw || chunk_rows < 1 ||
+             (own != 0 && (chunk_rows != Ho * Wo || Ho * Wo * kh * kw >= 65536)) ||
+             bwd_smem_bytes(G, T) > 232448) {
     return (int)cudaErrorInvalidValue;
   }
-  if (cg <= 8) {
-    return own ? launch_bwd_pixel<8, true>(x, off, mask, w, gout, gx, goff, gmask, G, T, stream)
-               : launch_bwd_pixel<8, false>(x, off, mask, w, gout, gx, goff, gmask, G, T, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long ngx = (long long)B * H * W * Cin;
+  unsigned* words = reinterpret_cast<unsigned*>(scratch);
+  long long* fix = scratch + 2;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)(2 + (own ? 0 : ngx)) * 8, st);
+  if (err != cudaSuccess) return (int)err;
+  const long long ng = (long long)B * Ho * Wo * Cout;
+  const long long nm = (long long)B * Ho * Wo * dg * kh * kw;
+  const int bound_blocks = (int)std::min<long long>(264, (ng + kThreads - 1) / kThreads);
+  dcn_bwd_bound_kernel<<<std::max(bound_blocks, 1), kThreads, 0, st>>>(
+      gout, ng, mask, nm, w, kh * kw * Cin, Cout, words);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int rc;
+  if (to > 0) {
+    rc = launch_bwd_pixel_wide(x, off, mask, w, gout, goff, gmask, fix, words, G, WT, stream);
+  } else if (cg <= 8) {
+    rc = own ? launch_bwd_pixel<8, true>(x, off, mask, w, gout, gx, goff, gmask, fix, words, G, T, stream)
+             : launch_bwd_pixel<8, false>(x, off, mask, w, gout, gx, goff, gmask, fix, words, G, T, stream);
+  } else {
+    rc = own ? launch_bwd_pixel<32, true>(x, off, mask, w, gout, gx, goff, gmask, fix, words, G, T, stream)
+             : launch_bwd_pixel<32, false>(x, off, mask, w, gout, gx, goff, gmask, fix, words, G, T, stream);
   }
-  return own ? launch_bwd_pixel<32, true>(x, off, mask, w, gout, gx, goff, gmask, G, T, stream)
-             : launch_bwd_pixel<32, false>(x, off, mask, w, gout, gx, goff, gmask, G, T, stream);
+  if (rc != 0 || own) return rc;
+  const int conv_blocks = (int)std::min<long long>(1056, (ngx + kThreads - 1) / kThreads);
+  dcn_bwd_fix_to_float_kernel<<<std::max(conv_blocks, 1), kThreads, 0, st>>>(
+      fix, ngx, words, Ho * Wo * kh * kw, gx);
+  return (int)cudaGetLastError();
 }
-
 extern "C" int dcn_wgrad_f32(const float* x, const float* off,
                              const float* mask, const float* gout,
                              float* partial, int B, int H, int W, int Cin,

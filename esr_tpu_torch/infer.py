@@ -12,8 +12,10 @@ streaming engine at ``--lanes`` x ``--chunk_windows`` (default: the
 checkpoint's ``inference`` block, else 4 x 8); ``--no_engine`` runs the
 sequential harness. ``--save_images`` writes each window's PNG views in the
 reference's layout (sequential harness only; the engine warns and ignores
-it). LPIPS and the bf16/int8 rungs are not ported yet and raise when asked
-for, by a flag or by the checkpoint's config.
+it). ``--precision`` picks the rung (f32, bf16 or int8, or any of their
+aliases: ``esr_tpu_torch.config.precision``); omitted, the checkpoint's
+``trainer.precision``, else f32. LPIPS is not ported yet and raises when
+asked for.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import argparse
 import json
 import logging
 from typing import Optional, Sequence
+
+from esr_tpu_torch.config.precision import PRECISION_SPELLINGS
 
 
 def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -49,8 +53,10 @@ def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--compile_cache", dest="compile_cache", action="store_true",
                    default=None, help="XLA cache of the reference; no effect here")
     p.add_argument("--no_compile_cache", dest="compile_cache", action="store_false")
-    p.add_argument("--precision", type=str, default=None, choices=["f32", "bf16", "int8"],
-                   help="compute precision (only f32 is ported)")
+    p.add_argument("--precision", type=str, default=None, choices=PRECISION_SPELLINGS,
+                   help="compute precision: f32, bf16 or int8, or an alias (default: "
+                        "the checkpoint's trainer.precision, else f32; int8 = "
+                        "post-training quantization at the contraction seams)")
     p.add_argument("--scale", type=int, default=4)
     p.add_argument("--seqn", type=int, default=3)
     p.add_argument("--seql", type=int, default=9)

@@ -20,12 +20,21 @@
 
 Per-recording results have the schema of the sequential harness
 (``inference/harness.py``). ``lanes=1, chunk_windows=1`` is the sequential
-schedule. Only f32 is ported: ``compute_dtype`` and ``precision`` other than
-f32 raise.
+schedule.
+
+Precision rungs (``esr_tpu_torch.config.precision``): at bf16
+(``compute_dtype``) the chunk function runs a bf16 copy of the model, the
+lane states are materialized in bf16 and the inputs cast, and each
+prediction is upcast to f32 before the resize and the metrics (the per-lane
+sums stay f32); at int8 (``precision="int8"``) nothing is cast and the
+forward runs inside ``int8_scope()``. A lane state is extracted to the host
+bit-exactly at either width (bf16 as its raw 16-bit words,
+``serving.wire.BF16_WORDS``).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
 from collections import deque
@@ -35,10 +44,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from esr_tpu_torch.config.precision import (
+    canonical_precision,
+    compute_dtype_of,
+    resolve_precision,
+)
+from esr_tpu_torch.config.quantize import int8_scope
 from esr_tpu_torch.data.loader import DevicePrefetcher, LanePackedChunks
 from esr_tpu_torch.data.records import recording_name
 from esr_tpu_torch.device import DeviceLike, resolve_device
 from esr_tpu_torch.ops.resize import interpolate
+from esr_tpu_torch.serving.wire import BF16_WORDS
 
 logger = logging.getLogger(__name__)
 
@@ -49,15 +65,6 @@ METRIC_KEYS = (
 )
 
 States = Tuple[torch.Tensor, ...]
-
-
-def check_f32(precision: Optional[str] = None, compute_dtype=None) -> None:
-    """Only the f32 rung is ported; anything else raises."""
-    if compute_dtype is not None or precision not in (None, "f32", "fp32", "float32"):
-        raise NotImplementedError(
-            f"precision {precision!r} / compute_dtype {compute_dtype!r} is not "
-            "ported yet; the port runs f32"
-        )
 
 
 # -- per-image metrics over a lane batch [B, H, W, C] (the harness's metrics,
@@ -108,7 +115,8 @@ _METRIC_FNS = {"l1": _l1, "mse": _mse, "ssim": _ssim, "psnr": _psnr}
 
 
 def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: int,
-                  kw: int, compute_dtype=None, precision=None):
+                  kw: int, compute_dtype: Optional[torch.dtype] = None,
+                  precision: Optional[str] = None):
     """The fused chunk: ``(states, reset_keep, windows) -> (states, sums,
     stacked)``, run under ``torch.no_grad()``.
 
@@ -120,11 +128,30 @@ def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: in
     valid windows (``where`` by ``valid``, so a padded window's inf or NaN
     never reaches a sum) and ``count``; ``stacked`` the per-window SSIM
     pairs ``(W, B)``. ``(kh, kw)`` is the GT grid the output and the LR
-    baseline are resized to."""
-    check_f32(precision, compute_dtype)
+    baseline are resized to.
+
+    ``compute_dtype`` (bf16) runs a copy of the model cast once to it, with
+    the states and inputs cast; predictions are upcast to f32 before the
+    resize and the metrics. ``precision="int8"`` runs the model inside
+    ``int8_scope()``, nothing cast; with a ``compute_dtype`` it raises."""
+    int8 = precision is not None and canonical_precision(precision) == "int8"
+    if int8 and compute_dtype is not None:
+        raise ValueError("precision='int8' quantizes at the seams: params and states "
+                         "stay f32, so compute_dtype must be None")
     if lanes < 1 or chunk_windows < 1:
         raise ValueError(f"lanes and chunk_windows must be >= 1, got "
                          f"{lanes}, {chunk_windows}")
+    if compute_dtype is not None:
+        model = copy.deepcopy(model).to(compute_dtype)
+
+    def forward(inp: torch.Tensor, states: States):
+        if compute_dtype is not None:
+            inp = inp.to(compute_dtype)
+            states = tuple(z.to(compute_dtype) for z in states)
+        if int8:
+            with int8_scope():
+                return model(inp, states)
+        return model(inp, states)
 
     def to_gt_grid(imgs: torch.Tensor) -> torch.Tensor:
         if tuple(imgs.shape[1:3]) != (kh, kw):
@@ -144,7 +171,7 @@ def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: in
                 for k in METRIC_KEYS + ("count",)}
         ssim_pairs: Dict[str, List[torch.Tensor]] = {"esr_ssim": [], "bicubic_ssim": []}
         for t in range(chunk_windows):
-            pred, states = model(windows["inp_scaled"][t], states)
+            pred, states = forward(windows["inp_scaled"][t], states)
             pred = to_gt_grid(pred.float())
             bicubic = to_gt_grid(windows["inp_mid"][t])
             gt = windows["gt"][t]
@@ -165,12 +192,21 @@ def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: in
 
 # -- per-lane recurrent state save / restore ----------------------------------
 # A stream evicted from its lane resumes bit-identically later, possibly in
-# another lane or process: f32 round-trips card -> numpy -> card exactly.
+# another lane or process: f32 round-trips card -> numpy -> card exactly, and
+# bf16 as its raw 16-bit words.
 
 
 def extract_lane_state(states: States, lane: int) -> Tuple[np.ndarray, ...]:
-    """One lane's recurrent state as host numpy arrays (bit-exact)."""
-    return tuple(z[lane].detach().cpu().numpy().copy() for z in states)
+    """One lane's recurrent state as host numpy arrays (bit-exact; a bf16
+    leaf as :data:`BF16_WORDS`)."""
+    out = []
+    for z in states:
+        z = z[lane].detach()
+        if z.dtype == torch.bfloat16:
+            out.append(z.view(torch.int16).cpu().numpy().view(BF16_WORDS).copy())
+        else:
+            out.append(z.cpu().numpy().copy())
+    return tuple(out)
 
 
 def inject_lane_state(states: States, lane: int, host_state) -> States:
@@ -180,7 +216,15 @@ def inject_lane_state(states: States, lane: int, host_state) -> States:
         raise ValueError(f"lane state has {len(host_state)} leaves, the model's "
                          f"{len(states)}")
     for z, h in zip(states, host_state):
-        h = torch.as_tensor(np.asarray(h))
+        h = np.asarray(h)
+        if z.dtype == torch.bfloat16:
+            if h.dtype.itemsize != 2 or h.dtype.kind not in "ui":
+                raise ValueError(f"a bf16 lane state takes 16-bit words, got {h.dtype}")
+            h = torch.from_numpy(np.ascontiguousarray(h).view(np.int16)).view(torch.bfloat16)
+        elif h.dtype == BF16_WORDS and h.dtype.metadata:
+            raise ValueError(f"bf16 lane-state words for a {z.dtype} lane")
+        else:
+            h = torch.as_tensor(h)
         if tuple(h.shape) != tuple(z.shape[1:]):
             raise ValueError(f"lane state leaf {tuple(h.shape)} does not match "
                              f"{tuple(z.shape[1:])}")
@@ -189,9 +233,10 @@ def inject_lane_state(states: States, lane: int, host_state) -> States:
 
 
 def lane_states(model: torch.nn.Module, lanes: int, kh: int, kw: int,
-                device: torch.device) -> States:
-    """Zero lane states, each leaf its own buffer."""
-    return tuple(z.clone() for z in model.init_states(lanes, kh, kw, device=device))
+                device: torch.device, dtype: Optional[torch.dtype] = None) -> States:
+    """Zero lane states, each leaf its own buffer (in ``dtype``, else f32)."""
+    return tuple(z.to(dtype or z.dtype).clone()
+                 for z in model.init_states(lanes, kh, kw, device=device))
 
 
 class StreamingEngine:
@@ -199,7 +244,9 @@ class StreamingEngine:
 
     ``run_datalist`` streams any number of recordings (paths or in-memory
     recordings) through ``lanes`` lanes in chunks of ``chunk_windows``
-    windows and returns the sequential harness's per-recording results.
+    windows and returns the sequential harness's per-recording results, at
+    the rung ``precision`` (``None``: f32; the caller resolves CLI >
+    checkpoint > f32).
     """
 
     def __init__(self, model: torch.nn.Module, seqn: int = 3, lanes: int = 4,
@@ -209,7 +256,8 @@ class StreamingEngine:
             raise ValueError(f"lanes must be >= 1, got {lanes}")
         if chunk_windows < 1:
             raise ValueError(f"chunk_windows must be >= 1, got {chunk_windows}")
-        check_f32(precision)
+        self.precision = resolve_precision(cli=precision)
+        self.compute_dtype = compute_dtype_of(self.precision)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.seqn = int(seqn)
@@ -260,13 +308,14 @@ class StreamingEngine:
         kh, kw = chunks.gt_resolution
         if self._run_chunk is None or self._chunk_key != (kh, kw):
             self._run_chunk = make_chunk_fn(self.model, self.lanes, self.chunk_windows,
-                                            kh, kw)
+                                            kh, kw, self.compute_dtype, self.precision)
             self._chunk_key = (kh, kw)
         acc = [{"sums": {k: 0.0 for k in METRIC_KEYS}, "count": 0, "time_s": 0.0,
                 "ssim": {"esr_ssim": [], "bicubic_ssim": []}} for _ in data_list]
         slot = {id(r): i for i, r in enumerate(data_list)}
         params_m = _num_params(self.model)
-        states = lane_states(self.model, self.lanes, kh, kw, self.device)
+        states = lane_states(self.model, self.lanes, kh, kw, self.device,
+                             self.compute_dtype)
         self.chunk_seconds = []
 
         def resolve(entry) -> None:

@@ -23,13 +23,19 @@ true, or when it is None and the checkpoint's ``inference.engine`` is
 block, else 4 and 8. The reports and their schema are the same.
 
 The engine dumps no PNGs: with ``save_images`` it warns and ignores it, as
-the reference does. Not in this slice (each raises
-``NotImplementedError``): LPIPS and the bf16/int8 precision rungs, whether
-asked for by argument or by the checkpoint's config.
+the reference does. LPIPS is not ported (it raises ``NotImplementedError``).
+
+The precision rung (``esr_tpu_torch.config.precision``) is resolved once:
+the caller's ``precision`` > the checkpoint's ``trainer.precision`` > f32.
+At bf16 the runner casts a copy of the model, the states and the inputs,
+and upcasts each prediction to f32 before the resize and the metrics; at
+int8 nothing is cast and the forward runs inside ``int8_scope()`` (the
+seams quantize; ``esr_tpu_torch.config.quantize``).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
@@ -39,6 +45,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from esr_tpu_torch.config.precision import compute_dtype_of, resolve_precision
+from esr_tpu_torch.config.quantize import int8_scope
 from esr_tpu_torch.data.dataset import ITEM_KEYS
 from esr_tpu_torch.data.loader import InferenceSequenceLoader
 from esr_tpu_torch.data.records import Recording, open_recording, recording_name
@@ -73,11 +81,29 @@ def _metrics(pred, base, gt) -> Dict[str, torch.Tensor]:
 
 
 class InferenceRunner:
-    def __init__(self, model: torch.nn.Module, seqn: int = 3, device: DeviceLike = None):
+    """Sequential evaluation of one model at one precision rung (``None``:
+    f32). The model is moved to the device; at bf16 the runner evaluates a
+    bf16 copy of it."""
+
+    def __init__(self, model: torch.nn.Module, seqn: int = 3, device: DeviceLike = None,
+                 precision: Optional[str] = None):
         self.device = resolve_device(device)
+        self.precision = resolve_precision(cli=precision)
+        self.compute_dtype = compute_dtype_of(self.precision)
         self.model = model.to(self.device).eval()
+        if self.compute_dtype is not None:
+            self.model = copy.deepcopy(self.model).to(self.compute_dtype)
         self.seqn = seqn
         self.mid_idx = (seqn - 1) // 2
+
+    def forward(self, inp: torch.Tensor, states):
+        """One window at the runner's rung: ``(prediction, states)``."""
+        if self.compute_dtype is not None:
+            inp = inp.to(self.compute_dtype)
+        if self.precision == "int8":
+            with int8_scope():
+                return self.model(inp, states)
+        return self.model(inp, states)
 
     def run_recording(
         self,
@@ -122,6 +148,8 @@ class InferenceRunner:
         track.update("params", _num_params(self.model))
         # state persists across the WHOLE recording
         states = self.model.init_states(1, kh, kw, device=dev)
+        if self.compute_dtype is not None:
+            states = tuple(z.to(self.compute_dtype) for z in states)
         ssim_samples: Dict[str, List[float]] = {"esr_ssim": [], "bicubic_ssim": []}
         # the metrics of window i are read back while window i+1 runs
         pending: deque = deque()
@@ -136,7 +164,9 @@ class InferenceRunner:
             window = {k: v[:, : self.seqn] for k, v in batch.items()}  # inputs_seq[0]
             inp = torch.from_numpy(window["inp_scaled_cnt"]).to(dev)
             t0 = time.perf_counter()
-            pred, states = self.model(inp, states)
+            pred, states = self.forward(inp, states)
+            # the metrics and the PNG views read f32, as at the f32 rung
+            pred = pred.float()
             synchronize(dev)
             track.update("time", time.perf_counter() - t0)
 
@@ -271,11 +301,8 @@ def run_inference(
     if lpips_backbone_npz is not None or allow_uncalibrated_lpips:
         raise NotImplementedError("LPIPS is not ported yet (a later slice)")
     model, config = load_checkpoint(checkpoint_path)
-    precision = precision or (config.get("trainer") or {}).get("precision") or "f32"
-    if precision != "f32":
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported yet; the port runs f32"
-        )
+    precision = resolve_precision(
+        cli=precision, config=(config.get("trainer") or {}).get("precision"))
     inf_cfg = config.get("inference") or {}
     if engine is None:
         engine = bool(inf_cfg.get("engine", False))
@@ -297,13 +324,13 @@ def run_inference(
         from esr_tpu_torch.inference.engine import StreamingEngine
 
         eng = StreamingEngine(model, seqn, lanes=lanes, chunk_windows=chunk_windows,
-                              device=device)
+                              precision=precision, device=device)
         results, names = eng.run_datalist(data_list, dataset_config)
         for result, name, data_path in zip(results, names, data_list):
             _write_recording_report(os.path.join(output_path, name), str(data_path),
                                     dataset_config, result)
     else:
-        runner = InferenceRunner(model, seqn, device=device)
+        runner = InferenceRunner(model, seqn, device=device, precision=precision)
         results, names = [], []
         for data_path in data_list:
             name = recording_name(data_path)

@@ -39,6 +39,7 @@ import torch.nn as nn
 
 from esr_tpu_torch.models import model_util
 from esr_tpu_torch.models.layers import (
+    Conv2d,
     ConvLayer,
     MLP,
     RecurrentConvLayer,
@@ -146,7 +147,7 @@ class STFusion(nn.Module):
             )
 
         self.offset_conv = pair(2 * c)
-        self.dcn_offset_mask = nn.Conv2d(c, deformable_groups * 3 * 9, 3, padding=1)
+        self.dcn_offset_mask = Conv2d(c, deformable_groups * 3 * 9, 3, padding=1)
         # zero-initialized like the reference's DCN_sep offset conv
         nn.init.zeros_(self.dcn_offset_mask.weight)
         nn.init.zeros_(self.dcn_offset_mask.bias)

@@ -8,15 +8,35 @@ Default initializers are torch's own (kaiming-uniform with a=sqrt(5), i.e.
 U(+-1/sqrt(fan_in)) for weights and biases), which is what the reference's
 flax initializers mirror; the ConvGRU gates use orthogonal weights and zero
 biases like the reference.
+
+**The precision seams.** Every convolution is a :class:`Conv2d` and every
+dense a :class:`Linear` (subclasses of ``nn.Conv2d`` / ``nn.Linear``, so the
+parameter names and every checkpoint are unchanged), whose contraction
+mirrors ``wide_accum_conv_general_dilated`` / ``wide_accum_dot_general`` of
+``esr_tpu/models/layers.py``:
+
+- f32 operands: the stock contraction, the program unchanged;
+- bf16 operands: bf16 x bf16 with an f32 accumulator, the output rounded to
+  bf16, then the bias added in bf16 (flax adds it after the seam returns);
+- inside :func:`esr_tpu_torch.config.quantize.int8_scope`: the int8 seam
+  (``quantized_conv2d`` / ``quantized_linear``), its weight quantized and
+  packed once per weight.
+
+The 2x bilinear upsampling keeps ``F.interpolate`` as its forward; its
+backward is a product with the interpolation's matrices, which sums in a
+fixed order (the stock CUDA backward scatters with atomics).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from esr_tpu_torch.config.quantize import int8_enabled, quantized_conv2d, quantized_linear
 
 _ACTIVATIONS = {
     None: None,
@@ -31,6 +51,102 @@ def get_activation(name: Optional[str]) -> Optional[Callable]:
     if name not in _ACTIVATIONS:
         raise ValueError(f"unsupported activation: {name}")
     return _ACTIVATIONS[name]
+
+
+def _packed(module: nn.Module, weight: torch.Tensor):
+    """The int8 seam's packed weight, made once per weight (again only when
+    the weight is replaced, moved or updated in place)."""
+    from esr_tpu_torch.ops.int8_cuda import pack_weight
+
+    key = (weight.data_ptr(), weight._version, weight.device)
+    cache = getattr(module, "_int8_cache", None)
+    if cache is None or cache[0] != key:
+        w = weight.detach()
+        cache = (key, pack_weight(w if w.dim() == 4 else w[:, :, None, None]))
+        module._int8_cache = cache
+    return cache[1]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose contraction is the precision seam (module
+    docstring)."""
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        if int8_enabled() and x.is_floating_point():
+            if (self.groups != 1 or self.dilation != (1, 1) or self.padding_mode != "zeros"
+                    or len(set(self.stride)) != 1 or len(set(self.padding)) != 1):
+                raise NotImplementedError(
+                    "the int8 seam takes square strides and zero paddings, one group, "
+                    "dilation 1")
+            return quantized_conv2d(x, _packed(self, weight), bias, self.stride[0],
+                                    self.padding[0])
+        if x.dtype == torch.bfloat16:
+            # bf16 operands; cuDNN (and the CPU's oneDNN) accumulate a bf16
+            # convolution in f32 and round its output to bf16 once
+            out = F.conv2d(x, weight, None, self.stride, self.padding, self.dilation,
+                           self.groups)
+            return out if bias is None else out + bias.reshape(1, -1, 1, 1)
+        return super()._conv_forward(x, weight, bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose contraction is the precision seam (module
+    docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if int8_enabled() and x.is_floating_point():
+            return quantized_linear(x, _packed(self, self.weight), self.bias)
+        if x.dtype == torch.bfloat16:
+            # bf16 operands, an f32 accumulator (cuBLAS's reduced-precision
+            # reduction is off: esr_tpu_torch.device), the output rounded to bf16
+            out = F.linear(x, self.weight)
+            return out if self.bias is None else out + self.bias
+        return super().forward(x)
+
+
+class _Upsample(torch.autograd.Function):
+    """Bilinear upsampling by an integer factor (``align_corners=False``):
+    ``F.interpolate`` forward, a backward by the interpolation matrices."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: int) -> torch.Tensor:
+        h, w = x.shape[-2:]
+        ctx.geom = (h, w, scale)
+        return F.interpolate(x, size=(h * scale, w * scale), mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h, w, scale = ctx.geom
+        ah = interpolation_matrix(h, scale, g.dtype, g.device)  # [h*s, h]
+        aw = interpolation_matrix(w, scale, g.dtype, g.device)  # [w*s, w]
+        return torch.matmul(torch.matmul(ah.t(), g), aw), None
+
+
+@functools.lru_cache(maxsize=64)
+def interpolation_matrix(n: int, scale: int, dtype: torch.dtype,
+                         device: torch.device) -> torch.Tensor:
+    """``A [n*scale, n]``: the bilinear interpolation (``align_corners=False``)
+    of ``n`` samples to ``n*scale`` as a matrix, with PyTorch's weights (the
+    source index ``(d + 0.5) / scale - 0.5`` clamped at 0, the right
+    neighbour clamped to the edge)."""
+    d = torch.arange(n * scale, dtype=torch.float64)
+    src = ((d + 0.5) / scale - 0.5).clamp_min(0.0)
+    i0 = src.floor().long().clamp_max(n - 1)
+    i1 = (i0 + 1).clamp_max(n - 1)
+    l1 = src - i0
+    a = torch.zeros(n * scale, n, dtype=torch.float64)
+    rows = torch.arange(n * scale)
+    a.index_put_((rows, i0), 1.0 - l1, accumulate=True)
+    a.index_put_((rows, i1), l1, accumulate=True)
+    return a.to(device=device, dtype=dtype)
+
+
+def upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Bilinear x``scale`` of NCHW ``x`` (``align_corners=False``); its
+    backward sums in a fixed order."""
+    return _Upsample.apply(x, int(scale))
 
 
 def _check_norm(norm: Optional[str]) -> None:
@@ -55,7 +171,7 @@ class ConvLayer(nn.Module):
     ):
         super().__init__()
         _check_norm(norm)
-        self.conv = nn.Conv2d(
+        self.conv = Conv2d(
             in_channels, out_channels, kernel_size, stride=stride, padding=padding
         )
         self.activation = get_activation(activation)
@@ -86,12 +202,7 @@ class UpsampleConvLayer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, w = x.shape[-2:]
-        x = F.interpolate(
-            x, size=(h * self.scale, w * self.scale), mode="bilinear",
-            align_corners=False,
-        )
-        return self.conv_layer(x)
+        return self.conv_layer(upsample(x, self.scale))
 
 
 class ResidualBlock(nn.Module):
@@ -100,8 +211,8 @@ class ResidualBlock(nn.Module):
     def __init__(self, channels: int, norm: Optional[str] = None):
         super().__init__()
         _check_norm(norm)
-        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
-        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv1 = Conv2d(channels, channels, 3, padding=1)
+        self.conv2 = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.conv2(torch.relu(self.conv1(x))) + x)
@@ -114,9 +225,9 @@ class ConvGRUCell(nn.Module):
         super().__init__()
         pad = kernel_size // 2
         cin = in_channels + hidden
-        self.update_gate = nn.Conv2d(cin, hidden, kernel_size, padding=pad)
-        self.reset_gate = nn.Conv2d(cin, hidden, kernel_size, padding=pad)
-        self.out_gate = nn.Conv2d(cin, hidden, kernel_size, padding=pad)
+        self.update_gate = Conv2d(cin, hidden, kernel_size, padding=pad)
+        self.reset_gate = Conv2d(cin, hidden, kernel_size, padding=pad)
+        self.out_gate = Conv2d(cin, hidden, kernel_size, padding=pad)
         for gate in (self.update_gate, self.reset_gate, self.out_gate):
             nn.init.orthogonal_(gate.weight)
             nn.init.zeros_(gate.bias)
@@ -163,7 +274,7 @@ class MLP(nn.Module):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
         self.layers = nn.ModuleList(
-            nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:])
+            Linear(a, b) for a, b in zip(dims[:-1], dims[1:])
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

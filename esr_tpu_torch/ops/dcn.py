@@ -247,11 +247,21 @@ def deform_conv2d_auto(
     """The model's DCN call. ``impl='auto'`` is ``dcn_cuda.dcn``, which
     decides the direction and, through the kernel wrappers, the device;
     ``impl='plain'`` forces the plain version (tests and the on-card
-    comparison only). ``tile_mask`` is passed through as given; else, with
+    comparison only). A bf16 call runs in f32 and returns bf16.
+    ``tile_mask`` is passed through as given; else, with
     ``sparse``, the mask is :func:`dcn_image_activity` OR'd with
     ``activity`` (``[B]``): a tile is skipped only when both call it idle."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown DCN impl {impl!r} (use 'auto' or 'plain')")
+    if x.dtype != torch.float32:
+        # the dtype seam of the reference's Pallas wrapper (dcn_pallas.py
+        # :609-612, :1216-1219): the DCN computes in f32, the bias added in
+        # f32, and the output returns in the caller's dtype (bf16 rung)
+        out = deform_conv2d_auto(
+            x.float(), offsets.float(), mask.float(), weight.float(),
+            None if bias is None else bias.float(), stride, padding, dilation, impl,
+            sparse, activity, tile_mask)
+        return out.to(x.dtype)
     tm = tile_mask
     if tm is None and sparse:
         tm = dcn_image_activity(x)

@@ -23,11 +23,12 @@ and launch count. The masked ones take the activity mask of
 ``esr_tpu_torch.ops.dcn`` (``[B]`` or ``[B, n_tiles]``, the tiles of
 ``fwd_tiling`` or ``train_tiling``) and pass it as an int32 bitmap.
 :func:`bwd_config` picks the per-pixel backward's path: an image's x and
-gx slices in shared memory when they fit (gx is then written once, so it
-is allocated with ``torch.empty``), else a scatter into a zeroed gx in
-global memory; above 32 channels per group its wide kernel, so it takes
-any width. :func:`wgrad_config` tiles the weight gradient's output
-over blocks, so it takes any width.
+gx slices in shared memory when they fit, else a scatter into global
+memory; above 32 channels per group its wide kernel, so it takes any
+width. Every path sums gx in 64-bit fixed point (``csrc/dcn_train.cu``,
+"Determinism"), so gx, like every other output, is the same bits from run
+to run, and the same bits on every path. :func:`wgrad_config` tiles the
+weight gradient's output over blocks, so it takes any width.
 
 Nothing is imported or built when this module is imported; :func:`build`
 starts every ``nvcc`` at once.
@@ -175,8 +176,8 @@ class BwdConfig:
     """The per-pixel backward's launch configuration (``BwdTile`` in
     ``csrc/dcn_train.cu``): ``chunk_rows`` rows per block (one image when
     ``own``), ``tp`` cotangent rows per shared tile, ``kt`` taps per pass;
-    ``own``: the image's x and gx slices live in shared memory and gx is
-    written once (else scattered to global memory, which must be zeroed)."""
+    ``own``: the image's x and gx slices live in shared memory (else gx is
+    scattered to fixed-point accumulators in global memory)."""
 
     chunk_rows: int
     tp: int
@@ -205,7 +206,9 @@ def bwd_smem_bytes(h: int, w: int, cg: int, cout: int, cfg: BwdConfig) -> int:
     nbuf = 2 if -(-cfg.chunk_rows // cfg.tp) > 1 else 1
     floats = cfg.kt * coutp * cgp + nbuf * cfg.tp * (coutp + 4)
     if cfg.own:
-        floats += 2 * h * w * (cg + 1)
+        # the x slice (f32) and the gx slice (three 32-bit words an element:
+        # ``fix_slice_words``), rows padded to Cg + 1
+        floats += h * w * (cg + 1) + _round_up(3 * h * w * (cg + 1), 4)
     return 4 * floats
 
 
@@ -220,6 +223,9 @@ def bwd_slices_fit(h: int, w: int, cg: int, cout: int, npix: int) -> bool:
 # H100), and the block of rows of the global path
 _BWD_TILE_ROWS = 256
 _BWD_GLOBAL_ROWS = 64
+# the most (row, tap) terms a pixel of gx can take on the ownership path
+# (``shared_add_fix`` in ``dcn_train.cu``)
+_OWN_MAX_TERMS = 65536
 
 
 @functools.lru_cache(maxsize=256)
@@ -227,7 +233,8 @@ def bwd_config(h: int, w: int, ho: int, wo: int, cin: int, cout: int, dg: int,
                k: int) -> BwdConfig:
     """The per-pixel backward's configuration, for any width. Up to 32
     channels per group the narrow kernel: the ownership path exactly when
-    an image's slices fit (:func:`bwd_slices_fit`), the cotangent in tiles
+    an image's slices fit (:func:`bwd_slices_fit`) and its Ho*Wo*K terms a
+    pixel stay below 65536, the cotangent in tiles
     of at most 256 rows split evenly over the image; else blocks of 64 rows
     scattering to global memory; taps per pass and rows per tile shrink
     until the staging fits. Wider groups, and a tap of W^T that does not
@@ -236,7 +243,8 @@ def bwd_config(h: int, w: int, ho: int, wo: int, cin: int, cout: int, dg: int,
     if cg > _BWD_WIDE_CC:
         return _bwd_wide(cout, k)
     npix = ho * wo
-    own = bwd_slices_fit(h, w, cg, cout, npix)
+    # the ownership path's accumulator words cannot wrap below 65536 terms
+    own = npix * k < _OWN_MAX_TERMS and bwd_slices_fit(h, w, cg, cout, npix)
     if own:
         n_tiles = -(-npix // _BWD_TILE_ROWS)
         tp = -(-npix // n_tiles)
@@ -452,7 +460,7 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
 def _declare_train(lib: ctypes.CDLL) -> None:
     lib.dcn_train_fwd_f32.argtypes = [_P] * 6 + [_I] * 16 + [_P]
     lib.dcn_train_fwd_masked_f32.argtypes = [_P] * 7 + [_I] * 18 + [_P]
-    lib.dcn_bwd_pixel_f32.argtypes = [_P] * 8 + [_I] * 18 + [_P]
+    lib.dcn_bwd_pixel_f32.argtypes = [_P] * 9 + [_I] * 18 + [_P]
     lib.dcn_wgrad_f32.argtypes = [_P] * 5 + [_I] * 17 + [_P]
     for fn in (lib.dcn_train_fwd_f32, lib.dcn_train_fwd_masked_f32,
                lib.dcn_bwd_pixel_f32, lib.dcn_wgrad_f32):
@@ -660,16 +668,23 @@ class DcnBwdKernel(_TrainKernel):
         gmask = torch.empty_like(mask)
         if goff.numel() == 0:
             return torch.zeros_like(x), goff, gmask
-        # the ownership path writes every element of gx once; the global
-        # path scatters into it
-        gx = torch.empty_like(x) if cfg.own else torch.zeros_like(x)
+        # every element of gx is written; the entry point zeroes the scratch
+        gx = torch.empty_like(x)
+        scratch = bwd_scratch(x, cfg)
         _launch(self.name, lib.dcn_bwd_pixel_f32, x.device,
                 x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                 g.data_ptr(), gx.data_ptr(), goff.data_ptr(), gmask.data_ptr(),
-                b, h, w, cin, ho, wo, cout, dg, kh, kw, stride, padding,
-                dilation, cfg.chunk_rows, cfg.tp, cfg.kt, int(cfg.own), cfg.to)
+                scratch.data_ptr(), b, h, w, cin, ho, wo, cout, dg, kh, kw, stride,
+                padding, dilation, cfg.chunk_rows, cfg.tp, cfg.kt, int(cfg.own), cfg.to)
         self.launches += 1
         return gx, goff, gmask
+
+
+def bwd_scratch(x: torch.Tensor, cfg: BwdConfig) -> torch.Tensor:
+    """The per-pixel backward's 64-bit scratch: the bound words, then (off
+    the ownership path) one fixed-point accumulator per element of gx."""
+    return torch.empty(2 + (0 if cfg.own else x.numel()), dtype=torch.int64,
+                       device=x.device)
 
 
 class DcnWgradKernel(_TrainKernel):

@@ -13,9 +13,10 @@ in-memory streams instead of a datalist. ``--classes`` takes
 ``min_activity > 0`` skips windows whose active-tile fraction is below it.
 It writes ``serve_requests.jsonl`` (one report per request) and
 ``serve_summary.json`` under ``--output_path`` and prints the summary. It
-runs on the card unless ``--device cpu`` is given. ``--replicas > 1``,
-``--aot``, ``--live-port``, ``--profile-steps`` and ``--precision`` other
-than f32 are not ported yet and raise.
+runs on the card unless ``--device cpu`` is given. ``--precision`` picks
+the rung (f32, bf16 or int8, or an alias); omitted, the checkpoint's
+``trainer.precision``, else f32. ``--replicas > 1``, ``--aot``,
+``--live-port`` and ``--profile-steps`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import json
 import logging
 import os
 from typing import Dict, Optional, Sequence
+
+from esr_tpu_torch.config.precision import PRECISION_SPELLINGS, resolve_precision
 
 
 def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -52,8 +55,10 @@ def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="not ported: raises")
     p.add_argument("--profile-steps", dest="profile_steps", type=int, default=0,
                    help="not ported: raises")
-    p.add_argument("--precision", type=str, default=None, choices=["f32", "bf16", "int8"],
-                   help="only f32 is ported")
+    p.add_argument("--precision", type=str, default=None, choices=PRECISION_SPELLINGS,
+                   help="compute precision: f32, bf16 or int8, or an alias (default: "
+                        "the checkpoint's trainer.precision, else f32; int8 = "
+                        "post-training quantization at the contraction seams)")
     p.add_argument("--scale", type=int, default=4)
     p.add_argument("--seqn", type=int, default=3)
     p.add_argument("--seql", type=int, default=9)
@@ -97,8 +102,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from esr_tpu_torch.serving.server import ServingEngine
 
     model, config = load_checkpoint(flags.model_path)
-    precision = (flags.precision or (config.get("trainer") or {}).get("precision")
-                 or "f32")
+    precision = resolve_precision(
+        cli=flags.precision, config=(config.get("trainer") or {}).get("precision"))
     classes = parse_classes(flags.classes)
     dataset_config = {
         "scale": flags.scale, "ori_scale": flags.ori_scale, "time_bins": flags.time_bins,

@@ -27,8 +27,12 @@ counted in :meth:`ServingEngine.summary` (``recoveries``).
 
 Not in this slice (each raises ``NotImplementedError`` when asked for): the
 live HTTP plane (``live_port``), the profiler capture (``profile_steps``),
-AOT programs (``aot_programs``), precisions other than f32, and the
-fault-injection plane.
+AOT programs (``aot_programs``) and the fault-injection plane.
+
+``precision`` is the rung the session serves at (``None``: f32; the entry
+point resolves CLI > checkpoint > f32): at bf16 the lane states live in
+bf16 and an evicted stream's state leaves as its raw 16-bit words; at int8
+the seams quantize (``inference/engine.make_chunk_fn``).
 """
 
 from __future__ import annotations
@@ -42,12 +46,12 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from esr_tpu_torch.config.precision import compute_dtype_of, resolve_precision
 from esr_tpu_torch.data.loader import engine_windows, window_activity, window_tuple
 from esr_tpu_torch.data.records import recording_name
 from esr_tpu_torch.device import DeviceLike, resolve_device
 from esr_tpu_torch.inference.engine import (
     METRIC_KEYS,
-    check_f32,
     extract_lane_state,
     inject_lane_state,
     lane_states,
@@ -135,7 +139,8 @@ class ServingEngine:
             raise NotImplementedError("the live HTTP plane is not ported yet")
         if int(profile_steps) > 0:
             raise NotImplementedError("the serving profiler capture is not ported yet")
-        check_f32(precision)
+        self.precision = resolve_precision(cli=precision)
+        self.compute_dtype = compute_dtype_of(self.precision)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dataset_config = dict(dataset_config)
@@ -190,7 +195,8 @@ class ServingEngine:
         prog = self._programs.get(w)
         if prog is None:
             kh, kw = self._resolutions[1]
-            prog = make_chunk_fn(self.model, self.lanes, w, kh, kw)
+            prog = make_chunk_fn(self.model, self.lanes, w, kh, kw, self.compute_dtype,
+                                 self.precision)
             self._programs[w] = prog
         return prog
 
@@ -201,7 +207,8 @@ class ServingEngine:
             self._resolutions = (stream.inp_resolution, stream.gt_resolution)
         if self._states is None:
             kh, kw = self._resolutions[1]
-            self._states = lane_states(self.model, self.lanes, kh, kw, self.device)
+            self._states = lane_states(self.model, self.lanes, kh, kw, self.device,
+                                       self.compute_dtype)
 
     def _new_acc(self) -> Dict:
         return {"sums": {k: 0.0 for k in METRIC_KEYS}, "count": 0}

@@ -10,6 +10,16 @@ as ``jax.tree_util.keystr`` writes them for a tuple, and a sha256 over each
 leaf's key, shape, dtype and bytes), then an uncompressed ``.npz`` body. A
 packet from either package unpacks in the other; a torn or altered packet
 raises ``ValueError``.
+
+A bf16 lane state (the bf16 rung) travels as its raw 16-bit words: numpy
+has no bfloat16, and neither has the card's machine a package that adds
+it. Its leaves are :data:`BF16_WORDS` arrays; the header names their
+dtype in ``dtypes`` (``"bfloat16"``), and the digest hashes the name ``bfloat16``, as the reference's recipe does for an
+``ml_dtypes`` array. A packet of f32 leaves has no ``dtypes`` and stays
+byte-identical to the reference's. The reference writes a bf16 leaf as
+numpy's raw ``|V2`` and then fails its own digest check on reading it; the
+port reads such a leaf as bf16 words, so it takes the reference's bf16
+packets.
 """
 
 from __future__ import annotations
@@ -22,10 +32,19 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["WIRE_MAGIC", "pack_lane_state", "read_wire", "unpack_lane_state"]
+__all__ = ["BF16_WORDS", "WIRE_MAGIC", "pack_lane_state", "read_wire", "unpack_lane_state"]
 
 WIRE_MAGIC = b"ESRLANE1"
 _LEN = struct.Struct("<Q")
+_BF16 = "bfloat16"
+#: a bf16 array on the host: its raw 16-bit words, the dtype named in the
+#: metadata (numpy has no bfloat16)
+BF16_WORDS = np.dtype(np.uint16, metadata={"dtype": _BF16})
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    meta = arr.dtype.metadata or {}
+    return _BF16 if meta.get("dtype") == _BF16 else str(arr.dtype)
 
 
 def _keys(n: int) -> List[str]:
@@ -38,7 +57,7 @@ def _wire_digest(keys: Sequence[str], arrays: Sequence[np.ndarray]) -> str:
         arr = np.ascontiguousarray(arr)
         h.update(str(key).encode())
         h.update(str(arr.shape).encode())
-        h.update(str(arr.dtype).encode())
+        h.update(_dtype_name(arr).encode())
         h.update(arr.tobytes())
     return h.hexdigest()
 
@@ -48,10 +67,14 @@ def pack_lane_state(state: Sequence[np.ndarray]) -> bytes:
     arrays = [np.asarray(a) for a in state]
     keys = _keys(len(arrays))
     buf = io.BytesIO()
-    np.savez(buf, **{f"a{i}": a for i, a in enumerate(arrays)})
-    header = json.dumps({"schema": 1, "keys": keys,
-                         "digest": _wire_digest(keys, arrays)},
-                        sort_keys=True).encode()
+    # bf16 words are stored as plain uint16; the header names them
+    np.savez(buf, **{f"a{i}": a.view(np.uint16) if _dtype_name(a) == _BF16 else a
+                     for i, a in enumerate(arrays)})
+    head = {"schema": 1, "keys": keys, "digest": _wire_digest(keys, arrays)}
+    names = [_dtype_name(a) for a in arrays]
+    if _BF16 in names:
+        head["dtypes"] = names
+    header = json.dumps(head, sort_keys=True).encode()
     return WIRE_MAGIC + _LEN.pack(len(header)) + header + buf.getvalue()
 
 
@@ -68,6 +91,10 @@ def read_wire(data: bytes) -> Tuple[Dict, List[np.ndarray]]:
         header = json.loads(data[off: off + hlen].decode())
         with np.load(io.BytesIO(data[off + hlen:]), allow_pickle=False) as z:
             arrays = [z[f"a{i}"] for i in range(len(header["keys"]))]
+        names = header.get("dtypes") or [None] * len(arrays)
+        # bf16 leaves: named in the header, or the reference's raw |V2
+        arrays = [a.view(BF16_WORDS) if n == _BF16 or a.dtype == np.dtype("V2") else a
+                  for a, n in zip(arrays, names)]
     except ValueError:
         raise
     except Exception as e:  # noqa: BLE001 - a torn packet is a ValueError

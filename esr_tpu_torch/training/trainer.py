@@ -71,6 +71,7 @@ import torch
 
 from esr_tpu_torch.config.build import build_model, build_optimizer, build_train_loader
 from esr_tpu_torch.config.parser import RunConfig
+from esr_tpu_torch.config.precision import resolve_precision
 from esr_tpu_torch.data.loader import ConcatSequenceDataset
 from esr_tpu_torch.device import DeviceLike, resolve_device
 from esr_tpu_torch.training.checkpoint import (
@@ -115,8 +116,18 @@ def resolve_device_rasterize(config: Dict) -> bool:
 def _refuse_unported(config: Dict) -> None:
     """Raise on trainer keys that ask for what the port does not do."""
     t = config["trainer"]
+    precision = resolve_precision(config=t.get("precision"))
+    if precision == "int8":
+        # the reference's refusal (esr_tpu/training/trainer.py): training
+        # needs float params and grads
+        raise ValueError(
+            "trainer.precision: int8 is not a training rung: int8 is post-training "
+            "quantization for the inference and serving path (infer / serve "
+            "--precision int8); train at f32")
     asks = []
-    if t.get("precision") not in (None, "f32"):
+    if precision != "f32":
+        # bf16 training has no oracle while the reference's bf16 backward
+        # seam is red (ROADMAP C3)
         asks.append(("precision", t["precision"], "trainer;precision=f32"))
     flags = [
         ("remat", t.get("remat", False), "trainer;remat=false"),

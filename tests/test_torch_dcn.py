@@ -227,11 +227,14 @@ def test_backward_config_owns_exactly_when_the_slices_fit(b, h, w, cin, cout, dg
     smem = dcn_cuda.bwd_smem_bytes(h, w, cg, cout, cfg)
     assert smem <= 232448
     assert cfg.tp % 2 == 0 and 1 <= cfg.kt <= 9
-    # x + gx slices (rows padded to Cg + 1) beside one tap of W^T and two
-    # cotangent rows, counted independently of the chooser
+    # the x slice (f32) and the gx slice (fixed-point accumulators of three
+    # 32-bit words, a multiple of 4 words), rows padded to Cg + 1, beside one
+    # tap of W^T and two cotangent rows, counted independently of the
+    # chooser; and at most 65535 (row, tap) terms a pixel
     cgp, coutp = -(-cg // 4) * 4, -(-cout // 4) * 4
-    slices = 4 * (2 * h * w * (cg + 1) + coutp * cgp + 2 * 2 * (coutp + 4))
-    assert cfg.own == (slices <= 232448)
+    n = h * w * (cg + 1)
+    slices = 4 * n + 4 * (-(-3 * n // 4) * 4) + 4 * (coutp * cgp + 2 * 2 * (coutp + 4))
+    assert cfg.own == (slices <= 232448 and h * w * 9 < 65536)
     if cfg.own:
         assert cfg.chunk_rows == h * w  # one image per block: gx has one writer
     else:
@@ -637,3 +640,64 @@ def test_masked_kernels_bitwise_to_dense_on_card(cuda_device, direction):
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     assert bool(torch.isnan(out[0]).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dg,h,w,cin,cout", [(8, 12, 20, 64, 64), (2, 64, 64, 64, 64),
+                                             (8, 12, 20, 512, 512)])
+def test_backward_gx_is_bitwise_run_to_run_and_across_paths_on_card(
+        cuda_device, dg, h, w, cin, cout):
+    """gx is summed in 64-bit fixed point: the same bits from run to run, and
+    on the ownership path the same bits as the global path (the flagship
+    forced off its slices); the wide kernel (Cg 64) repeats itself too."""
+    inp = _torch(_inputs(12, 2, h, w, cin, cout, dg, with_bias=False), cuda_device)
+    g = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (2, h, w, cout)).astype(np.float32)).to(cuda_device)
+    x, off, mask, wt = inp["x"], inp["offsets"], inp["mask"], inp["weight"]
+    first = dcn_bwd(x, off, mask, wt, g)
+    again = dcn_bwd(x, off, mask, wt, g)
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    cfg = dcn_cuda.bwd_config(h, w, h, w, cin, cout, dg, 9)
+    if cfg.own:
+        lib = dcn_cuda.TRAIN_LIBRARY.load()
+        glob = dcn_cuda.BwdConfig(64, 64, 9, False)
+        gx = torch.empty_like(x)
+        goff, gmask = torch.empty_like(off), torch.empty_like(mask)
+        scratch = dcn_cuda.bwd_scratch(x, glob)
+        rc = lib.dcn_bwd_pixel_f32(
+            x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(), g.data_ptr(),
+            gx.data_ptr(), goff.data_ptr(), gmask.data_ptr(), scratch.data_ptr(),
+            2, h, w, cin, h, w, cout, dg, 3, 3, 1, 1, 1, glob.chunk_rows, glob.tp,
+            glob.kt, 0, 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        assert torch.equal(gx.view(torch.int32), first[0].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,cin,cout,hw,k,stride", [
+    (3, 2, 8, (96, 160), 3, 1), (3, 8, 16, (96, 160), 3, 2), (1, 64, 216, (12, 20), 3, 1),
+    (4, 192, 192, (12, 20), 3, 1), (4, 64, 2, (12, 20), 1, 1), (1, 64, 32, (1, 1), 1, 1),
+    (17, 64, 128, (1, 1), 1, 1)])
+def test_int8_kernels_match_plain_on_card(cuda_device, b, cin, cout, hw, k, stride):
+    """K2 (the per-tensor quantization) and K1 (the int8 convolution) are
+    bitwise their plain versions at the flagship's kinds of shapes: the head
+    conv (Cin 2), a stride-2 conv, the offset/mask conv (216), the local
+    residual (192), 1x1 convs and the channel MLP as a 1x1 conv."""
+    from esr_tpu_torch.ops import int8_cuda
+
+    rng = np.random.default_rng(cin + cout)
+    x = torch.from_numpy(rng.standard_normal((b, cin, *hw)).astype(np.float32)).to(cuda_device)
+    wgt = torch.from_numpy((rng.standard_normal((cout, cin, k, k)) * 0.1).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(cuda_device)
+    packed = int8_cuda.pack_weight(wgt.to(cuda_device))
+    int8_cuda.reset_launches()
+    xq, sx = int8_cuda.quantize_per_tensor(x)
+    out = int8_cuda.int8_conv(xq, sx, packed, bias, stride, k // 2)
+    torch.cuda.synchronize()
+    assert [kk.launches for kk in int8_cuda.KERNELS] == [1, 1]
+    pq, psx = int8_cuda.quantize_per_tensor_plain(x)
+    assert torch.equal(xq, pq) and torch.equal(sx, psx)
+    ref = int8_cuda.int8_conv_plain(pq, psx, packed, bias, stride, k // 2)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))

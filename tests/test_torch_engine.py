@@ -44,6 +44,7 @@ from esr_tpu_torch.inference.engine import (
     StreamingEngine,
     extract_lane_state,
     inject_lane_state,
+    lane_states,
     make_chunk_fn,
 )
 from esr_tpu_torch.inference.harness import InferenceRunner
@@ -216,8 +217,11 @@ def test_validation_errors(recordings, models, tmp_path):
         StreamingEngine(port, lanes=0, device="cpu")  # esr: noqa(TX001) - raises
     with pytest.raises(ValueError, match="chunk_windows"):
         StreamingEngine(port, chunk_windows=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_chunk_fn(port, 1, 1, 16, 16, precision="int8")
+    # int8 quantizes at the seams: a compute dtype beside it is refused
+    with pytest.raises(ValueError, match="compute_dtype"):
+        make_chunk_fn(port, 1, 1, 16, 16, compute_dtype=torch.bfloat16, precision="int8")
+    with pytest.raises(ValueError, match="unknown precision"):
+        StreamingEngine(port, precision="int4", device="cpu")
     odd = str(tmp_path / "odd.h5")
     write_synthetic_h5(odd, (96, 96), base_events=1024, num_frames=6, seed=9)  # esr: noqa(TX001)
     with pytest.raises(ValueError, match="resolution"):
@@ -340,3 +344,68 @@ def test_infer_entry_point_runs_the_engine(recordings, models, seq_results, tmp_
     want = np.mean([r["esr_psnr"] for r in seq_results[:3]])
     np.testing.assert_allclose(mean["esr_psnr"], want, rtol=RTOL)
     assert mean["n_windows"] == sum(r["n_windows"] for r in seq_results[:3])
+
+
+# -- the precision rungs of the chunk function -------------------------------
+#
+# ``make_chunk_fn`` at bf16 and at int8 against the reference's on the same
+# windows and states (as tests/test_quantize.py:332 holds the reference's
+# int8 chunk against its f32 twin): the per-lane metric sums within rtol
+# 2e-2 at bf16 (measured 4.5e-3: two lanes of three windows, each sum
+# carrying both sides' bf16 roundings) and 5e-4 at int8 (measured 5.7e-5),
+# the bicubic sums rung-independent, and each rung's ESR PSNR per window
+# within 1.0 dB of the f32 chunk's.
+CHUNK_RTOL = {"bf16": 2e-2, "int8": 5e-4}
+
+
+@pytest.fixture(scope="module")
+def rung_chunks():
+    import jax.numpy as jnp
+
+    from esr_tpu.inference.engine import make_chunk_fn as ref_make_chunk_fn
+
+    lanes, w, hw = 2, 3, 16
+    ref = FlaxNet(inch=2, basech=4, num_frame=3, dcn_impl_fwd="pallas")
+    params = seeded_params(ref, seed=5)
+    port = DeepRecurrNet(inch=2, basech=4, num_frame=3)
+    convert.load_flax_params(port, params)
+    port.eval()
+    rng = np.random.default_rng(0)
+    windows = {
+        "inp_scaled": rng.poisson(0.6, (w, lanes, 3, hw, hw, 2)).astype(np.float32),
+        "inp_mid": rng.poisson(0.6, (w, lanes, hw, hw, 2)).astype(np.float32),
+        "gt": rng.poisson(0.8, (w, lanes, hw, hw, 2)).astype(np.float32),
+        "valid": np.ones((w, lanes), np.float32),
+    }
+    reset = np.ones(lanes, np.float32)
+    out = {}
+    for rung, dtype in (("f32", None), ("bf16", torch.bfloat16), ("int8", None)):
+        jdt = jnp.bfloat16 if dtype is not None else None
+        run = ref_make_chunk_fn(ref, lanes, w, hw, hw, compute_dtype=jdt, precision=rung)
+        states = ref.init_states(lanes, hw, hw)
+        if jdt is not None:
+            states = jax.tree.map(lambda z: z.astype(jdt), states)
+        _, ref_sums, _ = run(params, states, jnp.asarray(reset),
+                             {k: jnp.asarray(v) for k, v in windows.items()})
+        prun = make_chunk_fn(port, lanes, w, hw, hw, compute_dtype=dtype, precision=rung)
+        pstates = lane_states(port, lanes, hw, hw, torch.device("cpu"), dtype)
+        new_states, sums, _ = prun(pstates, torch.from_numpy(reset),
+                                   {k: torch.from_numpy(v) for k, v in windows.items()})
+        assert all(z.dtype == (dtype or torch.float32) for z in new_states)
+        out[rung] = {"ref": {k: np.asarray(v) for k, v in ref_sums.items()},
+                     "port": {k: v.numpy() for k, v in sums.items()}, "w": w}
+    return out
+
+
+@pytest.mark.parametrize("rung", ["bf16", "int8"])
+def test_chunk_fn_rung_matches_reference_and_tracks_f32(rung_chunks, rung):
+    got, ref = rung_chunks[rung]["port"], rung_chunks[rung]["ref"]
+    f32 = rung_chunks["f32"]["port"]
+    w = rung_chunks[rung]["w"]
+    for k in METRIC_KEYS:
+        assert got[k].dtype == np.float32
+        np.testing.assert_allclose(got[k], ref[k], rtol=CHUNK_RTOL[rung], err_msg=k)
+    for k in ("bicubic_psnr", "bicubic_ssim"):
+        np.testing.assert_allclose(got[k], f32[k], rtol=1e-6, err_msg=k)
+    assert not np.array_equal(got["esr_mse"], f32["esr_mse"])
+    assert (np.abs(got["esr_psnr"] - f32["esr_psnr"]) / w).max() <= 1.0

@@ -38,7 +38,8 @@ def test_package_imports_no_jax_and_no_reference():
     assert {"serving/server.py", "serving/scheduler.py", "serving/wire.py",
             "serving/loadgen.py", "serving/recovery.py", "inference/engine.py",
             "serve.py", "native.py", "ops/encodings.py", "utils/writer.py",
-            "utils/vis_events.py"} <= names
+            "utils/vis_events.py", "config/precision.py", "config/quantize.py",
+            "ops/int8_cuda.py"} <= names
     bad = {str(f.relative_to(PKG.parent)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
@@ -53,7 +54,9 @@ def test_importing_the_harness_loads_no_jax_and_no_h5py():
         "esr_tpu_torch.serving.loadgen, esr_tpu_torch.serve, "
         "esr_tpu_torch.inference.engine, esr_tpu_torch.native, "
         "esr_tpu_torch.ops.encodings, esr_tpu_torch.utils.writer, "
-        "esr_tpu_torch.utils.vis_events, esr_tpu_torch.data.np_encodings\n"
+        "esr_tpu_torch.utils.vis_events, esr_tpu_torch.data.np_encodings, "
+        "esr_tpu_torch.config.precision, esr_tpu_torch.config.quantize, "
+        "esr_tpu_torch.ops.int8_cuda\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'esr_tpu', 'h5py', 'triton', 'yaml', "
         "'tensorboard', 'cv2', 'PIL', 'matplotlib')]\n"

@@ -18,6 +18,7 @@ import cv2
 import jax
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from esr_tpu.data.dataset import EventWindowDataset as RefDataset
@@ -167,9 +168,10 @@ def test_infer_entry_point_on_a_port_checkpoint(runs):
                                       "bf16", "lpips", "augment", "dcn_impl_arg"])
 def test_unported_requests_raise(runs, request_, caplog):
     """Each request that is not ported raises; ``save_images`` (the PNG
-    views) and the checkpoint's engine request with ``save_images`` (the
-    engine warns and ignores it, as the reference's does) are ported now,
-    and their cases check that they work."""
+    views), the checkpoint's engine request with ``save_images`` (the
+    engine warns and ignores it, as the reference's does) and the bf16 rung
+    (the engine's and ``run_inference``'s) are ported now, and their cases
+    check that they work."""
     ckpt = runs["out"] / "ckpt_refusals"
     config = {"model": {"name": "DeepRecurrNet",
                         "args": {"inch": 2, "basech": 2, "num_frame": 3}}}
@@ -195,11 +197,17 @@ def test_unported_requests_raise(runs, request_, caplog):
         assert "--save_images ignored" in caplog.text
         assert not _png_tree(runs["out"] / "y") and np.isfinite(mean["esr_mse"])
         return
+    if request_ == "engine":
+        engine = StreamingEngine(port, 3, precision="bfloat16", device="cpu")
+        assert (engine.precision, engine.compute_dtype) == ("bf16", torch.bfloat16)
+        return
+    if request_ == "bf16":
+        mean = run_inference(str(ckpt), [runs["rec"]], str(runs["out"] / "y"), DATASET,
+                             precision="bf16", device="cpu")
+        assert np.isfinite(mean["esr_mse"])
+        return
     with pytest.raises(NotImplementedError):
-        if request_ == "engine":
-            # the streaming engine runs f32 only (the bf16 rung is A9)
-            StreamingEngine(port, 3, precision="bf16", device="cpu")
-        elif request_ == "augment":
+        if request_ == "augment":
             # Horizontal/Vertical/Polarity are ported; an unknown mechanism
             # is refused rather than silently skipped
             cfg = {**DATASET, "data_augment": {"enabled": True,
@@ -209,6 +217,92 @@ def test_unported_requests_raise(runs, request_, caplog):
         else:
             run_inference(
                 str(ckpt), [runs["rec"]], str(runs["out"] / "y"), DATASET,
-                precision="bf16" if request_ == "bf16" else None,
                 allow_uncalibrated_lpips=request_ == "lpips", device="cpu",
             )
+
+
+# -- the precision rungs through the sequential harness -----------------------
+#
+# A basech-4 model with seeded weights, both harnesses at each rung over the
+# same recording; the reference's forward DCN runs its Pallas kernel
+# (interpret mode), whose semantics the port follows at bf16 (an f32 DCN,
+# the output back in bf16). Tolerances (measured on the CPU, then a margin):
+# - int8: the seams are bitwise the reference's, but a 1-ulp difference in
+#   an f32 layer upstream can move one round(x / scale) across a .5 and
+#   change that output by a quantization step, so the model's metrics are
+#   held at rtol 1e-4 (measured 6.7e-6 at worst, SSIM);
+# - bf16: both sides round every layer to bf16, XLA and PyTorch at other
+#   places inside fused elementwise chains; rtol 2e-4 (measured 2.2e-5);
+# - and each rung against f32 by the reference's own bound: the ESR PSNR
+#   within 1.0 dB (tests/test_quantize.py).
+RUNG_RTOL = {"f32": 1e-4, "bf16": 2e-4, "int8": 1e-4}
+RUNG_METRICS = ["esr_l1", "esr_mse", "esr_ssim", "esr_psnr", "bicubic_psnr", "n_windows"]
+PSNR_DROP_DB = 1.0
+
+
+@pytest.fixture(scope="module")
+def rung_runs(runs):
+    ref = FlaxNet(inch=2, basech=4, num_frame=3, dcn_impl_fwd="pallas")
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
+                            np.zeros((1, 3, 16, 16, 2), np.float32),
+                            ref.init_states(1, 16, 16))
+    rng = np.random.default_rng(4)
+    params = jax.tree.map(
+        lambda s: rng.uniform(-1.0, 1.0, s.shape).astype(np.float32)
+        / np.sqrt(max(np.prod(s.shape[:-1]), 1)), shapes)
+    port = DeepRecurrNet(inch=2, basech=4, num_frame=3)
+    convert.load_flax_params(port, params)
+    out = {}
+    for rung in ("f32", "bf16", "int8"):
+        out[rung] = {
+            "ref": RefRunner(ref, params, 3, precision=rung).run_recording(
+                runs["rec"], DATASET, report=False),
+            "port": InferenceRunner(port, 3, device="cpu", precision=rung).run_recording(
+                runs["rec"], DATASET, report=False),
+        }
+    return out
+
+
+@pytest.mark.parametrize("rung", ["bf16", "int8"])
+def test_harness_rung_matches_reference(rung_runs, rung):
+    port, ref = rung_runs[rung]["port"], rung_runs[rung]["ref"]
+    assert sorted(port) == sorted(ref)
+    for k in RUNG_METRICS:
+        np.testing.assert_allclose(port[k], ref[k], rtol=RUNG_RTOL[rung], err_msg=k)
+    # the rung is a real one, and stays within the reference's quality bound
+    f32 = rung_runs["f32"]["port"]
+    assert port["esr_mse"] != f32["esr_mse"]
+    assert f32["esr_psnr"] - port["esr_psnr"] <= PSNR_DROP_DB
+    np.testing.assert_allclose(port["bicubic_psnr"], f32["bicubic_psnr"], rtol=1e-6)
+
+
+def test_precision_resolves_cli_over_checkpoint_over_f32(runs, tmp_path):
+    """``run_inference`` resolves the rung as the reference does: the
+    argument, else the checkpoint's ``trainer.precision``, else f32; a
+    misspelled rung raises."""
+    from esr_tpu_torch.inference import harness
+
+    seen = []
+
+    class Spy(InferenceRunner):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.append(self.precision)
+
+    config = {"model": {"name": "DeepRecurrNet",
+                        "args": {"inch": 2, "basech": 2, "num_frame": 3}},
+              "trainer": {"precision": "bfloat16"}}
+    ckpt = tmp_path / "ckpt_bf16"
+    save_checkpoint(str(ckpt), runs["params"], config)
+    orig = harness.InferenceRunner
+    harness.InferenceRunner = Spy
+    try:
+        for cli in (None, "w8a8", "fp32"):
+            run_inference(str(ckpt), [runs["rec"]], str(tmp_path / "o"), DATASET,
+                          precision=cli, engine=False, device="cpu")
+        with pytest.raises(ValueError, match="unknown precision"):
+            run_inference(str(ckpt), [runs["rec"]], str(tmp_path / "o"), DATASET,
+                          precision="fp8", engine=False, device="cpu")
+    finally:
+        harness.InferenceRunner = orig
+    assert seen == ["bf16", "int8", "f32"]

@@ -40,7 +40,7 @@ from esr_tpu.serving.scheduler import LaneScheduler as RefScheduler
 from esr_tpu.serving.scheduler import StreamRequest as RefRequest
 from esr_tpu_torch.data.records import MemoryRecording
 from esr_tpu_torch.inference.checkpoint import save_checkpoint
-from esr_tpu_torch.inference.engine import METRIC_KEYS
+from esr_tpu_torch.inference.engine import METRIC_KEYS, extract_lane_state, inject_lane_state
 from esr_tpu_torch.models import convert
 from esr_tpu_torch.models.esr import DeepRecurrNet
 from esr_tpu_torch.serving import wire
@@ -214,10 +214,14 @@ def test_lane_quarantine_after_k_faults(corpus, models):
 
 
 def test_unported_options_raise(models):
-    for kw in ({"live_port": 0}, {"profile_steps": 1}, {"aot_programs": {2: "x"}},
-               {"precision": "bf16"}):
+    for kw in ({"live_port": 0}, {"profile_steps": 1}, {"aot_programs": {2: "x"}}):
         with pytest.raises(NotImplementedError):
             _port(models, **kw)
+    # the precision rungs are ported: a bf16 session's lanes live in bf16
+    server = _port(models, precision="bf16")  # esr: noqa(TX001) - no trace
+    assert (server.precision, server.compute_dtype) == ("bf16", torch.bfloat16)
+    with pytest.raises(ValueError, match="unknown precision"):
+        _port(models, precision="fp8")
     with pytest.raises(ValueError, match="default_class"):
         ServingEngine(models[2], DATASET_CFG, default_class="nope",  # esr: noqa(TX001) - raises
                       device="cpu")
@@ -372,3 +376,73 @@ def test_serve_entry_point_on_the_cpu(models, tmp_path):
         serve.main(["--model_path", str(ckpt), "--output_path", str(out), "--device", "cpu",
                     "--loadgen", "1", "--replicas", "2"])
     assert torch.get_num_threads() >= 1
+
+
+# -- the precision rungs in serving ------------------------------------------
+
+
+@pytest.mark.parametrize("rung", ["bf16", "int8"])
+def test_serving_at_a_rung_runs_and_evicts_bit_exactly(corpus, models, rung):
+    """A stream served at bf16 or int8 completes; evicted after two chunks,
+    its lane state (bf16 words at bf16) crosses the ESRLANE1 wire bitwise
+    and resumes in a second engine to the same metrics as an unmigrated
+    run at the same rung."""
+    path = corpus[1]
+    unmigrated = _port(models, lanes=1, precision=rung)  # esr: noqa(TX001) - no trace
+    uid = unmigrated.submit(path)
+    unmigrated.run()
+    want = unmigrated.report(uid)
+    assert want["status"] == "ok" and want["n_windows"] > 0
+    src = _port(models, lanes=1, precision=rung)  # esr: noqa(TX001) - no trace
+    src.submit(path, request_id="s")
+    entry = _evict_after(src, 2)
+    state = entry["state"]
+    packet = wire.pack_lane_state(state)
+    header, _ = wire.read_wire(packet)
+    got_state = wire.unpack_lane_state(packet, state)
+    for a, b in zip(got_state, state):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    if rung == "bf16":
+        assert header["dtypes"] == ["bfloat16", "bfloat16"]
+        assert all(wire.BF16_WORDS == a.dtype and a.dtype.metadata == {"dtype": "bfloat16"}
+                   for a in got_state)
+    else:
+        assert "dtypes" not in header and packet == ref_pack(state)
+    dst = _port(models, lanes=1, precision=rung)  # esr: noqa(TX001) - no trace
+    dst.admit_handoff(dict(entry, state=None), state=got_state)
+    dst.run()
+    got = dst.report("s")
+    assert got["status"] == "ok" and got["handoffs"] == 1
+    _assert_metrics(got, want)
+
+
+def test_bf16_lane_state_round_trips_the_wire_bitwise():
+    """A bf16 lane state leaves the card as its raw 16-bit words, packs with
+    a ``bfloat16`` header, unpacks and injects back to the same bits; the
+    reference's own bf16 packet (numpy's raw ``|V2``, a digest over
+    ``bfloat16``) reads as the same words."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(2)
+    states = tuple(torch.from_numpy(rng.standard_normal((3, 2, 4, 5)).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(2))
+    host = extract_lane_state(states, 1)
+    assert all(a.dtype == wire.BF16_WORDS for a in host)
+    packet = wire.pack_lane_state(host)
+    header, arrays = wire.read_wire(packet)
+    assert header["dtypes"] == ["bfloat16", "bfloat16"]
+    back = tuple(torch.zeros_like(z) for z in states)
+    inject_lane_state(back, 1, wire.unpack_lane_state(packet, host))
+    for z, b in zip(states, back):
+        assert torch.equal(z[1].view(torch.int16), b[1].view(torch.int16))
+        assert not b[0].any()
+    # the reference packs an ml_dtypes bf16 state; the port reads it
+    ref_state = tuple(a.view(np.uint16).view(ml_dtypes.bfloat16) for a in host)
+    _, ref_arrays = wire.read_wire(ref_pack(ref_state))
+    for a, b in zip(ref_arrays, host):
+        assert a.dtype == wire.BF16_WORDS and a.tobytes() == b.tobytes()
+    # an f32 lane refuses bf16 words, a bf16 lane refuses f32 arrays
+    with pytest.raises(ValueError):
+        inject_lane_state(states, 0, tuple(np.zeros((2, 4, 5), np.float32) for _ in range(2)))
+    with pytest.raises(ValueError):
+        inject_lane_state(tuple(z.float() for z in states), 0, host)

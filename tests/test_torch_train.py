@@ -401,3 +401,60 @@ def test_unported_keys_raise_naming_the_override(trained, override, named):
         return
     with pytest.raises(NotImplementedError, match=re.escape(named)):
         Trainer(run, device="cpu")
+
+
+def test_trainer_refuses_the_int8_rung(trained):
+    """int8 is post-training quantization, not a training rung: the
+    trainer's first check (``_refuse_unported``) raises the reference's
+    ``ValueError`` for every spelling. bf16 is refused as not ported (no
+    oracle while the reference's bf16 backward is red), through ``Trainer``,
+    above; a misspelled rung raises too."""
+    from esr_tpu_torch.training.trainer import _refuse_unported
+
+    for spelling in ("int8", "w8a8"):
+        run = _run(trained["out"], trained["corpus"],
+                   extra=[f"trainer;precision={spelling}"], make_dirs=False)
+        with pytest.raises(ValueError, match="not a training rung"):
+            _refuse_unported(run.config)
+    run = _run(trained["out"], trained["corpus"], extra=["trainer;precision=fp8"],
+               make_dirs=False)
+    with pytest.raises(ValueError, match="unknown precision"):
+        _refuse_unported(run.config)
+
+
+@pytest.mark.gpu
+def test_train_step_is_bitwise_run_to_run_on_card():
+    """Two train steps of a basech-4 model from the same weights and batch
+    on the card: the losses, every gradient and the updated parameters are
+    the same bits (the fixed-point gx of ``dcn_bwd``, the upsampling's
+    matrix backward, deterministic cuDNN and cuBLAS)."""
+    import copy
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the DCN kernels have no CPU mode "
+                    "(chip_smoke.py runs the same check at the flagship on the H100)")
+    dev = resolve_device("cuda")
+    torch.manual_seed(0)
+    base = DeepRecurrNet(inch=2, basech=4, num_frame=3).to(dev)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.poisson(0.5, (4, 5, 32, 48, 2)).astype(np.float32)).to(dev)
+             for k in ("inp", "gt")}
+    runs = []
+    for _ in range(2):
+        model = copy.deepcopy(base).train()
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3, amsgrad=True, weight_decay=1e-4)
+        per_window, _ = T_step.window_losses(model, batch, 3)
+        per_window.sum().backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        opt.step()
+        torch.cuda.synchronize()
+        runs.append((per_window.detach(), grads,
+                     {n: p.detach().clone() for n, p in model.named_parameters()}))
+
+    def same(a, b):
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+    assert same(runs[0][0], runs[1][0])
+    for i in (1, 2):
+        bad = [n for n in runs[0][i] if not same(runs[0][i][n], runs[1][i][n])]
+        assert not bad, bad
