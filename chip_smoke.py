@@ -99,10 +99,32 @@ Phases (any failure exits non-zero):
    of the run (1 - chunks x a chunk's device-busy time / wall);
 10. serving: ``ServingEngine`` on the same model, lanes 4, classes
    ``standard:8`` and ``gated:4:0.3``, 8 streams (4 bursty, 4 uniform) on a
-   Poisson schedule at 8/s, preemption quantum 2: every request done,
-   computed + skipped windows = the stream's windows, skips in ``gated``,
-   preemptions, each preempted stream within 1e-5 of itself served alone,
-   an ESRLANE1 round trip of a lane state bitwise;
+   Poisson schedule at 8/s, preemption quantum 2, under an active telemetry
+   sink with the live plane on (``live_port=0``): ``/metrics``,
+   ``/healthz``, ``/slo`` and ``/snapshot`` each GET once from the main
+   thread after 4 dispatched rounds and must answer 200; every request
+   done, computed + skipped windows = the stream's windows, skips in
+   ``gated``, preemptions, the session's telemetry through
+   ``esr_tpu_torch.obs.report`` green against ``configs/slo.yml``, each
+   preempted stream within 1e-5 of itself served alone, an ESRLANE1 round
+   trip of a lane state bitwise; windows/s with and without a sink, in
+   turns (sink, none, none, sink);
+10b. the fleet (``resilience.chaos_fleet.run_fleet_scenario`` at this
+   width): the same 8 streams as a burst through a fault-free twin engine,
+   then through 3 replicas x 4 lanes on the card behind ``FleetRouter``
+   under ``build_fleet_plan(0)`` (a forced handoff, a killed and a
+   partitioned replica), the fleet view fed by the supervisor's
+   ``/snapshot`` polls. Fails unless: zero lost requests, all three faults
+   fired and recovered over the merged router and replica files, the
+   killed replica held a stream, every stream within 1e-5 of the twin with
+   equal window counts, the merged report green against
+   ``configs/slo_fleet.yml``, the killed replica stale in the fleet view.
+   Prints the fleet's windows/s against the twin's, per-class p50/p99,
+   handoffs, fail-overs, the supervisor's fetch p50, the launches and each
+   abandoned replica's ``torch.cuda.memory_allocated`` before and after.
+   Then ``serve.main --replicas 3 --fleet-port 0`` on the card (its
+   default) over 4 load-generated streams: every request ok, the fleet's
+   files written, the merged telemetry green against ``configs/slo.yml``;
 11. the sparse train step: one B=32 step from the flagship config with
    ``model;args;dcn_sparse=true`` launches ``dcn_train_fwd_masked``,
    ``dcn_bwd`` and ``dcn_wgrad`` 14 times each; its losses and every grad
@@ -121,7 +143,8 @@ Phases (any failure exits non-zero):
    (lanes 4 x chunk 8) and serving at each rung, windows/s beside f32's,
    every recording and request within 1.0 dB of f32.
 
-The phases run in the order 1-5, 8, 6, 9, 10, 12, 7 (with 11 inside 7).
+The phases run in the order 1-5, 8, 6, 9, 10, 10b, 12, 7 (with 11 inside
+7).
 The line before the last is the ``{"kernels": [...]}`` record (eight
 kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -1692,43 +1715,169 @@ SERVE_DATA = dict(FLAGSHIP_DATA, mode="time", window=0.01, sliding_window=0.005,
 SERVE_ACTIVITY_TILE = 16
 
 
-def phase_serving(torch, np, dev, card):
-    """The serving tier on the sparse flagship: lanes 4, classes standard:8
-    and gated:4:0.3, 8 streams (4 bursty, 4 uniform) arriving at 8/s,
-    preemption quantum 2."""
-    from esr_tpu_torch.data.loader import InferenceSequenceLoader
-    from esr_tpu_torch.inference.engine import METRIC_KEYS, extract_lane_state, inject_lane_state
-    from esr_tpu_torch.ops import dcn_cuda
+def serving_traffic():
+    """The serving traffic: classes ``standard:8`` and ``gated:4:0.3``, 8
+    streams (4 bursty, 4 uniform) on a Poisson schedule at 8/s, the classes
+    dealt in sorted order (the bursty streams are gated)."""
     from esr_tpu_torch.serve import parse_classes
     from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
-    from esr_tpu_torch.serving.server import ServingEngine
-    from esr_tpu_torch.serving.wire import pack_lane_state, unpack_lane_state
 
     classes = parse_classes("standard:8,gated:4:0.3")
-    model = flagship_model(torch, np, dcn_sparse=True)
-    t0 = time.perf_counter()
+    classes = {name: classes[name] for name in sorted(classes)}
     streams = make_stream_corpus(n=8, seed=0, sensor_resolution=(720, 1280),
                                  events_schedule=(60_000, 40_000, 80_000, 50_000),
                                  burst_schedule=(0.35, 1.0), num_frames=2,
                                  rungs=("down8", "down16"))
+    schedule = poisson_schedule(streams, rate_hz=8.0, seed=0, classes=tuple(classes))
+    return classes, streams, schedule
+
+
+def http_get(url: str):
+    """``(status, body, ms)`` of one GET from this thread, bounded by a
+    timeout; an HTTP error status is an answer."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            status, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read().decode()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def scrape_live(base: str) -> dict:
+    """One GET of each live endpoint; fails unless all four answer 200 with
+    a well-formed body."""
+    from esr_tpu_torch.obs.aggregate import parse_snapshot_wire
+
+    out = {}
+    for path in ("/metrics", "/healthz", "/slo", "/snapshot"):
+        status, body, ms = http_get(base + path)
+        if status != 200:
+            fail(f"the live plane's {path} answered {status} mid-run: {body[:500]}")
+        out[path] = ms
+        if path == "/metrics" and 'esr_span_seconds_count{span="serve_chunk"}' not in body:
+            fail("/metrics carries no serve_chunk span family mid-run")
+        if path == "/slo" and json.loads(body)["verdict"] != "ok":
+            fail(f"/slo mid-run: {body[:500]}")
+        if path == "/snapshot":
+            snap = parse_snapshot_wire(json.loads(body))
+            out["snapshot_records"] = snap["state"].records
+            if not snap["state"].records:
+                fail("/snapshot mid-run holds no records")
+    return out
+
+
+def drive_serving(torch, server, schedule, base=None, max_wall_s: float = 600.0):
+    """``ServingEngine.run``'s loop, through the session API, with one scrape
+    of the live plane at ``base`` from this thread after the fourth dispatched
+    round; returns ``(summary, scrape)``."""
+    t0 = time.perf_counter()
+    todo = list(schedule)
+    scraped, rounds = None, 0
+    while True:
+        if time.perf_counter() - t0 > max_wall_s:
+            fail(f"serving did not drain in {max_wall_s} s")
+        rel = time.perf_counter() - t0
+        while todo and todo[0].t <= rel:
+            a = todo.pop(0)
+            server.submit(a.path, a.request_class, request_id=a.request_id)
+        status = server.pump()
+        rounds += status == "dispatched"
+        if base is not None and scraped is None and rounds >= 4:
+            scraped = scrape_live(base)
+        if status == "drained":
+            if not todo:
+                break
+            time.sleep(min(max(todo[0].t - (time.perf_counter() - t0), 0.0), 0.005))
+    server.flush()
+    torch.cuda.synchronize()
+    return server.summary(), scraped
+
+
+def sink_write_cost(tel: str, out_dir: str, summary, card) -> None:
+    """The host cost of the serving run's records: each record of ``tel``
+    written again through a fresh sink (json, append, flush), once alone
+    and once with a ``LiveAggregator`` observing it; printed per record
+    and per window step."""
+    from esr_tpu_torch.obs import LiveAggregator, TelemetrySink
+    from esr_tpu_torch.obs.report import read_telemetry
+
+    _, records, _ = read_telemetry(tel)
+    out = {}
+    for tag in ("sink", "sink and observer"):
+        sink = TelemetrySink(os.path.join(out_dir, "telemetry_replay.jsonl"))
+        if tag != "sink":
+            LiveAggregator().attach(sink)
+        t0 = time.perf_counter()
+        for r in records:
+            sink._write(r["type"], r["name"],
+                        {k: v for k, v in r.items() if k not in ("t", "type", "name")})
+        dt = time.perf_counter() - t0
+        sink.close()
+        out[tag] = dt
+    steps = max(summary["window_steps"], 1)
+    print(f"serving telemetry on {card}: {len(records)} records a run "
+          f"({len(records) / steps:.1f} a window step); written again through a sink "
+          + ", ".join(f"{tag} {dt / len(records) * 1e6:.2f} us a record, "
+                      f"{dt / steps * 1e3:.3f} ms a window step" for tag, dt in out.items()))
+
+
+def phase_serving(torch, np, dev, card, repo: Path, out_dir: str):
+    """The serving tier on the sparse flagship: lanes 4, classes standard:8
+    and gated:4:0.3, 8 streams (4 bursty, 4 uniform) arriving at 8/s,
+    preemption quantum 2; under an active telemetry sink with the live plane
+    on, scraped mid-run, and without a sink."""
+    from esr_tpu_torch.data.loader import InferenceSequenceLoader
+    from esr_tpu_torch.inference.engine import METRIC_KEYS, extract_lane_state, inject_lane_state
+    from esr_tpu_torch.obs import TelemetrySink, set_active_sink
+    from esr_tpu_torch.obs.report import report_files
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.serving.server import ServingEngine
+    from esr_tpu_torch.serving.wire import pack_lane_state, unpack_lane_state
+
+    model = flagship_model(torch, np, dcn_sparse=True)
+    t0 = time.perf_counter()
+    classes, streams, schedule = serving_traffic()
     n_windows = {s.name: len(InferenceSequenceLoader(s, SERVE_DATA)) for s in streams}
-    # classes dealt round robin in sorted order: the bursty streams are gated
-    schedule = poisson_schedule(streams, rate_hz=8.0, seed=0, classes=tuple(sorted(classes)))
     print(f"serving setup: {time.perf_counter() - t0:.2f} s; windows per stream {n_windows}")
+    slo = str(repo / "configs" / "slo.yml")
 
     def engine(**kw):
         return ServingEngine(model, SERVE_DATA, lanes=LANES, classes=classes,
                              default_class="standard", activity_tile=SERVE_ACTIVITY_TILE,
                              device=dev, **kw)
 
+    def with_sink(tag: str, count: bool = False, live: bool = True):
+        """A session under an active sink, with the live plane on port 0
+        (scraped mid-run) or without it."""
+        path = os.path.join(out_dir, f"telemetry_{tag}.jsonl")
+        sink = TelemetrySink(path)
+        prev = set_active_sink(sink)
+        try:
+            server = (engine(preempt_quantum=2, live_port=0, live_slo=slo) if live
+                      else engine(preempt_quantum=2))
+            if count:
+                dcn_cuda.reset_launches()
+            summary, scraped = drive_serving(
+                torch, server, schedule,
+                f"http://127.0.0.1:{server.live.port}" if live else None)
+            counts = counts_of()
+            server.close_live()
+        finally:
+            set_active_sink(prev)
+            sink.close()
+        return server, summary, scraped, counts, path
+
     engine(preempt_quantum=0).run(schedule[:1])  # warm
-    dcn_cuda.reset_launches()
-    server = engine(preempt_quantum=2)
-    summary = server.run(schedule, max_wall_s=600)
-    torch.cuda.synchronize()
-    counts = counts_of()
+    # the main run: under a sink, the live plane scraped mid-run
+    server, summary, scraped, counts, tel = with_sink("serving", count=True)
     print("serving summary: " + json.dumps(summary))
     print(f"serving launches {counts}")
+    print(f"serving live plane on {card}: scraped mid-run (after 4 dispatched rounds) from "
+          f"the main thread, ms per GET " + json.dumps(scraped))
     reports = server.reports()
     if summary["completed"] != len(streams) or any(r["status"] != "ok" for r in reports.values()):
         fail(f"not every request ended done: {summary['statuses']}")
@@ -1745,6 +1894,29 @@ def phase_serving(torch, np, dev, card):
         fail("the gated class skipped no window")
     if not summary["preemptions"] > 0:
         fail("8 streams on 4 lanes at quantum 2 and no preemption")
+    doc, code = report_files([tel], slo)
+    rep = doc["report"]
+    print(f"serving telemetry report ({os.path.basename(tel)}) against configs/slo.yml: exit "
+          f"{code}; goodput {rep['goodput']['value']}, traces {rep['traces']}, "
+          f"windows {rep['serving']['windows']} + {rep['serving']['windows_skipped']} skipped")
+    if code != 0 or rep["serving"]["requests"] != len(streams) or (
+            rep["serving"]["windows_skipped"] != summary["windows_skipped"]):
+        fail(f"the serving telemetry does not pass configs/slo.yml or disagrees with the "
+             f"summary: {json.dumps(doc.get('slo'))}")
+
+    # windows/s with no sink, with a sink alone and with a sink and the live
+    # plane, in turns: the first difference is the sink's per-record write
+    # and flush, the second the live plane's observer and HTTP thread
+    rates = {"sink and live plane": [summary["windows_per_sec"]], "sink": [], "no sink": []}
+    for i, tag in enumerate(("no sink", "sink", "sink and live plane", "sink", "no sink")):
+        if tag == "no sink":
+            again, _ = drive_serving(torch, engine(preempt_quantum=2), schedule)
+        else:
+            _, again, _, _, _ = with_sink(f"serving_{i}", live=tag != "sink")
+        rates[tag].append(again["windows_per_sec"])
+    print(f"serving on {card}, windows/s computed (runs in the order live, none, sink, live, "
+          f"sink, none): " + json.dumps(rates))
+    sink_write_cost(tel, out_dir, summary, card)
 
     # every preempted stream against the same stream served alone
     by_name = {s.name: s for s in streams}
@@ -1782,6 +1954,120 @@ def phase_serving(torch, np, dev, card):
           f"{counts['dcn_fwd_masked']} dcn_fwd_masked launches")
     return counts["dcn_fwd_masked"], summary
 
+
+def phase_fleet(torch, np, dev, card, repo: Path, out_dir: str):
+    """The serving fleet: the serving traffic as a burst through one
+    fault-free twin engine, then through 3 replicas on the card behind
+    ``FleetRouter`` under ``build_fleet_plan(0)`` (router_handoff,
+    replica_kill, replica_partition), the fleet view on
+    (``resilience.chaos_fleet.run_fleet_scenario``); then the entry point,
+    ``serve --replicas 3 --fleet-port 0`` on its default device."""
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.resilience.chaos_fleet import N_REPLICAS, run_fleet_scenario
+
+    model = flagship_model(torch, np, dcn_sparse=True)
+    classes, streams, _ = serving_traffic()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    twin_counts = {}
+
+    def between_halves():
+        # the twin's launches, read as its run ends; then the fleet's own
+        # count starts from 0
+        torch.cuda.synchronize()
+        twin_counts.update(counts_of())
+        dcn_cuda.reset_launches()
+
+    dcn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    result = run_fleet_scenario(out_dir, model, streams, SERVE_DATA, classes, seed=0,
+                                lanes=LANES, activity_tile=SERVE_ACTIVITY_TILE, device=dev,
+                                between=between_halves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counts_of()
+    summary, twin = result["summary"], result["twin_summary"]
+    print(f"fleet: {N_REPLICAS} replicas x {LANES} lanes on one card, {len(streams)} streams; "
+          f"scenario {wall:.2f} s; statuses {summary['statuses']}, replicas "
+          f"{summary['replicas']}, rounds {summary['rounds']}")
+    print("fleet checks: " + json.dumps(result["checks"]))
+    print(f"fleet faults: {json.dumps(result['faults'])}; streams the kill left to fail over "
+          f"{result['killed_streams']}")
+    print(f"fleet vs twin: worst relative metric difference {result['parity']['max_rel_diff']:.3e} "
+          f"at {result['parity']['at']} over {result['parity']['compared']} streams "
+          f"(limit 1e-5), window counts equal {result['parity']['windows_match']}")
+    fleet_launches = counts["dcn_fwd_masked"]
+    print(f"fleet launches, each half counted in its own run: the twin {twin_counts} "
+          f"({twin['window_steps']} window steps), the fleet {counts}")
+    if twin_counts != only("dcn_fwd_masked", twin_counts.get("dcn_fwd_masked", 0)) or \
+            twin_counts["dcn_fwd_masked"] <= 0:
+        fail(f"the twin launched {twin_counts}: expected dcn_fwd_masked only, at least once")
+    if counts != only("dcn_fwd_masked", fleet_launches) or fleet_launches <= 0:
+        fail(f"the fleet launched {counts}: expected dcn_fwd_masked only, at least once")
+    for rid, mem in result["abandoned_memory"].items():
+        print(f"fleet: replica {rid} abandoned, torch.cuda.memory_allocated {mem[0]} -> "
+              f"{mem[1]} bytes")
+    print(f"fleet: card memory allocated before the phase {mem0}, after "
+          f"{torch.cuda.memory_allocated()} bytes")
+    for name, c in result["classes"].items():
+        print(f"fleet class {name} on {card}: window latency p50 {c['window_latency_p50_ms']} "
+              f"ms, p99 {c['window_latency_p99_ms']} ms over {c['windows']} windows "
+              "(merged router + replica telemetry)")
+    print(f"fleet on {card}: {summary['windows_per_sec']} windows/s over the fleet run "
+          f"against the twin's {twin['windows_per_sec']} (computed); handoffs "
+          f"{summary['migrations']}, fail-overs {summary['failovers']}; supervisor /snapshot "
+          f"fetch p50 {result['supervision']['fetch_ms_p50']} ms over "
+          f"{result['supervision']['fetches']} fetches; {fleet_launches} dcn_fwd_masked "
+          "launches")
+    if not result["ok"]:
+        fail("the fleet phase failed: " + json.dumps(
+            {k: v for k, v in result["checks"].items() if not v}))
+    fleet_entry_point(model, repo, os.path.join(out_dir, "entry"))
+    return fleet_launches, result
+
+
+def fleet_entry_point(model, repo: Path, root: str) -> None:
+    """``esr_tpu_torch.serve.main --replicas 3 --fleet-port 0`` (the card by
+    default) on 4 load-generated streams, from a port checkpoint of the
+    sparse flagship: every request ok, the reference's fleet files written,
+    and the merged telemetry green against ``configs/slo.yml``."""
+    import logging
+
+    from esr_tpu_torch import serve
+    from esr_tpu_torch.inference.checkpoint import save_checkpoint
+    from esr_tpu_torch.models import convert
+    from esr_tpu_torch.obs.report import report_files
+
+    ckpt = os.path.join(root, "ckpt")
+    save_checkpoint(ckpt, convert.export_flax_params(model), {
+        "model": {"name": "DeepRecurrNet",
+                  "args": {"inch": 2, "basech": model.basech, "num_frame": 3,
+                           "dcn_sparse": True}}})
+    out = os.path.join(root, "serve")
+    slo = str(repo / "configs" / "slo.yml")
+    level = logging.getLogger().level
+    try:
+        summary = serve.main(["--model_path", ckpt, "--output_path", out, "--loadgen", "4",
+                              "--rate", "50", "--lanes", "4", "--replicas", "3",
+                              "--fleet-port", "0", "--live-slo", slo, "--scale", "2",
+                              "--ori_scale", "down8", "--window", "1024", "--sliding_window",
+                              "512", "--seql", "4", "--max_wall", "300"])
+    finally:
+        logging.getLogger().setLevel(level)  # serve.main sets INFO
+    names = ["telemetry_router.jsonl"] + [f"telemetry_r{i}.jsonl" for i in range(3)]
+    doc, code = report_files([os.path.join(out, n) for n in names], slo)
+    with open(os.path.join(out, "fleet_requests.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    view = summary.get("fleet_view") or {}
+    print(f"serve --replicas 3 --fleet-port 0: statuses {summary['statuses']}, replicas "
+          f"{summary['replicas']}, {summary['windows']} windows; fleet_requests.jsonl "
+          f"{len(rows)} rows; merged telemetry vs configs/slo.yml exit {code}; the fleet "
+          f"view merged {view.get('merged')}")
+    if (not summary["zero_lost"] or summary["statuses"] != {"ok": 4} or len(rows) != 4
+            or code != 0 or not os.path.isfile(os.path.join(out, "fleet_summary.json"))
+            or not {"r0", "r1", "r2"} <= set(view.get("merged", []))):
+        fail("serve --replicas 3 did not serve every stream, write the fleet's files or "
+             "pass configs/slo.yml")
 
 
 def int8_seam_calls(torch, model, dev, batch: int, kh: int, kw: int):
@@ -2048,8 +2334,6 @@ def phase_precision(torch, np, dev, card):
     from esr_tpu_torch.inference.engine import StreamingEngine
     from esr_tpu_torch.inference.harness import InferenceRunner
     from esr_tpu_torch.ops import dcn_cuda, int8_cuda
-    from esr_tpu_torch.serve import parse_classes
-    from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
     from esr_tpu_torch.serving.server import ServingEngine
 
     model = flagship_model(torch, np, dcn_sparse=False).to(dev).eval()
@@ -2139,12 +2423,7 @@ def phase_precision(torch, np, dev, card):
             fail(f"the {rung} engine drops {worst:.3f} dB of PSNR against f32")
 
     # serving at each rung: the serving phase's traffic
-    classes = parse_classes("standard:8,gated:4:0.3")
-    streams = make_stream_corpus(n=8, seed=0, sensor_resolution=(720, 1280),
-                                 events_schedule=(60_000, 40_000, 80_000, 50_000),
-                                 burst_schedule=(0.35, 1.0), num_frames=2,
-                                 rungs=("down8", "down16"))
-    schedule = poisson_schedule(streams, rate_hz=8.0, seed=0, classes=tuple(sorted(classes)))
+    classes, streams, schedule = serving_traffic()
     serve_out = {}
     for rung in RUNGS:
         def server(**kw):
@@ -2249,7 +2528,14 @@ def main() -> int:
 
     # -- 7. the streaming engine and serving (sparse flagship) -------------
     engine_launches, engine_stats = phase_engine(torch, np, dev, card)
-    serve_launches, serve_summary = phase_serving(torch, np, dev, card)
+    serve_root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        serve_launches, serve_summary = phase_serving(torch, np, dev, card, repo, serve_root)
+        # -- 10b. the serving fleet (3 replicas, the fleet view, faults) ----
+        fleet_launches, _ = phase_fleet(torch, np, dev, card, repo,
+                                        os.path.join(serve_root, "fleet"))
+    finally:
+        shutil.rmtree(serve_root, ignore_errors=True)
 
     # -- 12. the precision rungs (bf16, int8) -----------------------------
     precision = phase_precision(torch, np, dev, card)
@@ -2285,7 +2571,8 @@ def main() -> int:
         })
     for name, source, b, launches, extra in (
             ("dcn_fwd_masked", "esr_tpu_torch/csrc/dcn_fwd.cu", "b4", engine_launches,
-             {"serving_launches": serve_launches, "shape": "B=4 lanes, 100% active"}),
+             {"serving_launches": serve_launches, "fleet_launches": fleet_launches,
+              "shape": "B=4 lanes, 100% active"}),
             ("dcn_train_fwd_masked", "esr_tpu_torch/csrc/dcn_train.cu", "b32",
              sparse_launches, {"shape": "B=32 flagship training, 100% active"})):
         r = masked[name][b]

@@ -7,7 +7,10 @@ has none). It reads what ``configs/train_*.yml`` are written in, with
 PyYAML's ``safe_load`` (YAML 1.1) meaning:
 
 - block mappings indented with spaces, ``#`` comments;
-- flow lists of scalars (``[a, "b", 0.5]``);
+- flow lists of scalars (``[a, "b", 0.5]``) and the empty flow mapping
+  ``{}``;
+- block sequences of mappings (``- name: x`` items, as the SLO files under
+  ``configs/`` write their rules);
 - anchors ``&X`` on a value or a nested mapping, and aliases ``*X``;
 - the ``!!float`` tag;
 - single- and double-quoted strings;
@@ -16,9 +19,9 @@ PyYAML's ``safe_load`` (YAML 1.1) meaning:
   (``1.5``, ``1.0e-3``, ``.inf``), else strings (so ``1e-3`` without a tag
   is the string PyYAML also makes of it).
 
-Anything else (block sequences, flow mappings, other tags, multi-line
-scalars, octal/hex/sexagesimal numbers, tabs, documents markers) raises
-``ValueError`` naming the line.
+Anything else (block sequences of scalars, non-empty flow mappings, other
+tags, multi-line scalars, octal/hex/sexagesimal numbers, tabs, documents
+markers) raises ``ValueError`` naming the line.
 """
 
 from __future__ import annotations
@@ -157,9 +160,18 @@ class _Reader:
             if not content.strip():
                 continue
             stripped = content.lstrip(" ")
-            if stripped.startswith(("---", "...", "- ", "? ")) or stripped == "-":
+            indent = len(content) - len(stripped)
+            if stripped.startswith("- ") or stripped == "-":
+                # a sequence item: a "-" marker line, then its content one
+                # column past the dash's indentation
+                self.lines.append((n, indent, "-"))
+                rest = stripped[1:].lstrip(" ")
+                if rest:
+                    self.lines.append((n, indent + len(stripped) - len(rest), rest))
+                continue
+            if stripped.startswith(("---", "...", "? ")):
                 raise ValueError(f"{name}:{n}: {stripped[:3]!r} is outside the supported YAML subset")
-            self.lines.append((n, len(content) - len(stripped), stripped))
+            self.lines.append((n, indent, stripped))
 
     def value(self, text: str, where: str):
         """An inline value: alias, tagged, quoted, flow list or plain."""
@@ -188,6 +200,8 @@ class _Reader:
             if tail.strip():
                 raise ValueError(f"{where}: text after a quoted string")
             return val
+        if text == "{}":
+            return {}
         if text.startswith("["):
             if not text.endswith("]"):
                 raise ValueError(f"{where}: a flow list must end on its line")
@@ -214,6 +228,8 @@ class _Reader:
             i += 1
             if rest:
                 val = self.value(rest, where)
+            elif i < len(self.lines) and self.lines[i][2] == "-" and self.lines[i][1] >= indent:
+                val, i = self.sequence(i, self.lines[i][1])
             elif i < len(self.lines) and self.lines[i][1] > indent:
                 val, i = self.mapping(i, self.lines[i][1])
             else:
@@ -221,6 +237,22 @@ class _Reader:
             if anchor is not None:
                 self.anchors[anchor] = val
             out[key] = val
+        return out, i
+
+    def sequence(self, i: int, indent: int) -> Tuple[List, int]:
+        """A block sequence whose items are mappings."""
+        out: List = []
+        while i < len(self.lines) and self.lines[i][1:] == (indent, "-"):
+            n = self.lines[i][0]
+            i += 1
+            if i >= len(self.lines) or self.lines[i][1] <= indent:
+                raise ValueError(f"{self.name}:{n}: an empty sequence item is outside the "
+                                 "supported YAML subset")
+            if re.search(r":(?: |$)", self.lines[i][2]) is None:
+                raise ValueError(f"{self.name}:{n}: a sequence of scalars is outside the "
+                                 "supported YAML subset")
+            item, i = self.mapping(i, self.lines[i][1])
+            out.append(item)
         return out, i
 
     @staticmethod

@@ -17,6 +17,9 @@
   ``i+1`` (pinned host memory, non-blocking copies on a side stream) while
   the card runs chunk ``i``; chunk readbacks resolve one chunk behind
   dispatch.
+- **Telemetry.** One ``infer_run`` trace per pass and one ``infer_chunk``
+  span per chunk (dispatch to readback, with the lanes' recordings), into
+  the process-active sink (``obs.active_sink``), when there is one.
 
 Per-recording results have the schema of the sequential harness
 (``inference/harness.py``). ``lanes=1, chunk_windows=1`` is the sequential
@@ -53,6 +56,7 @@ from esr_tpu_torch.config.quantize import int8_scope
 from esr_tpu_torch.data.loader import DevicePrefetcher, LanePackedChunks
 from esr_tpu_torch.data.records import recording_name
 from esr_tpu_torch.device import DeviceLike, resolve_device
+from esr_tpu_torch.obs import active_sink, trace
 from esr_tpu_torch.ops.resize import interpolate
 from esr_tpu_torch.serving.wire import BF16_WORDS
 
@@ -317,12 +321,14 @@ class StreamingEngine:
         states = lane_states(self.model, self.lanes, kh, kw, self.device,
                              self.compute_dtype)
         self.chunk_seconds = []
+        sink = active_sink()
 
         def resolve(entry) -> None:
-            meta, sums_dev, stacked_dev, t_dispatch = entry
+            idx, meta, sums_dev, stacked_dev, t_dispatch = entry
             sums = {k: v.cpu().numpy() for k, v in sums_dev.items()}
             stacked = {k: v.cpu().numpy() for k, v in stacked_dev.items()}
-            seconds = time.monotonic() - t_dispatch
+            t_res = time.monotonic()
+            seconds = t_res - t_dispatch
             self.chunk_seconds.append(seconds)
             total_valid = int(round(float(sums["count"].sum())))
             for lane, m in enumerate(meta):
@@ -335,20 +341,32 @@ class StreamingEngine:
                 a["time_s"] += seconds * m["windows"] / total_valid
                 for k in ("esr_ssim", "bicubic_ssim"):
                     a["ssim"][k].extend(float(v) for v in stacked[k][: m["windows"], lane])
+            if sink is not None:
+                # the ambient infer_run context gives trace_id and parent
+                sink.span("infer_chunk", seconds, span_id=trace.new_id(),
+                          begin=round(sink.rel(t_dispatch), 6), end=round(sink.rel(t_res), 6),
+                          chunk=idx, lanes=self.lanes, chunk_windows=self.chunk_windows,
+                          windows=total_valid,
+                          recordings=[recording_name(m["path"]) if m else None for m in meta],
+                          windows_per_sec=(round(total_valid / seconds, 3)
+                                           if seconds > 0 else None))
 
         pending: deque = deque()
-        with DevicePrefetcher(chunks, self._stage) as pf:
-            for host_chunk, staged in pf:
-                t0 = time.monotonic()
-                w = self._wait(staged)
-                windows = {k: w[k] for k in ("inp_scaled", "gt", "inp_mid", "valid")}
-                states, sums, stacked = self._run_chunk(states, w["reset_keep"], windows)
-                pending.append((host_chunk["meta"], sums, stacked, t0))
-                # resolve one chunk behind dispatch
-                if len(pending) > 1:
-                    resolve(pending.popleft())
-        while pending:
-            resolve(pending.popleft())
+        # one trace per pass: the chunk spans parent under it
+        with trace.span("infer_run", recordings=len(data_list), lanes=self.lanes,
+                        chunk_windows=self.chunk_windows):
+            with DevicePrefetcher(chunks, self._stage) as pf:
+                for idx, (host_chunk, staged) in enumerate(pf):
+                    t0 = time.monotonic()
+                    w = self._wait(staged)
+                    windows = {k: w[k] for k in ("inp_scaled", "gt", "inp_mid", "valid")}
+                    states, sums, stacked = self._run_chunk(states, w["reset_keep"], windows)
+                    pending.append((idx, host_chunk["meta"], sums, stacked, t0))
+                    # resolve one chunk behind dispatch
+                    if len(pending) > 1:
+                        resolve(pending.popleft())
+            while pending:
+                resolve(pending.popleft())
 
         results, names = [], []
         for rec, a in zip(data_list, acc):

@@ -1,22 +1,34 @@
-"""Serving entry point of the port: one replica serving a stream corpus.
+"""Serving entry point of the port: one replica, or a fleet of replicas
+behind a router, serving a stream corpus.
 
     python -m esr_tpu_torch.serve --model_path <ckpt-dir> --output_path out/ \\
         (--data_list streams.txt | --loadgen N) [--rate 4] [--seed 0] \\
         [--lanes 4] [--classes interactive:2,standard:8,bulk:16] \\
         [--default_class standard] [--max_pending 64] [--preempt_quantum 4] \\
-        [--max_wall S] [--device cuda|cpu] [dataset flags as infer.py]
+        [--max_wall S] [--device cuda|cpu] [--live-port P] [--live-slo YAML] \\
+        [--replicas N] [--fleet-port P] [--heartbeat_misses 3] \\
+        [--failover_retries 1] [--supervise_interval S] [dataset flags as infer.py]
 
 Arrivals come on a seeded Poisson schedule at ``--rate`` streams/s, with the
 classes dealt round robin; ``--loadgen N`` serves N seeded synthetic
 in-memory streams instead of a datalist. ``--classes`` takes
 ``name:chunk_windows[:min_activity]`` entries; a class with
 ``min_activity > 0`` skips windows whose active-tile fraction is below it.
-It writes ``serve_requests.jsonl`` (one report per request) and
-``serve_summary.json`` under ``--output_path`` and prints the summary. It
-runs on the card unless ``--device cpu`` is given. ``--precision`` picks
-the rung (f32, bf16 or int8, or an alias); omitted, the checkpoint's
-``trainer.precision``, else f32. ``--replicas > 1``, ``--aot``,
-``--live-port`` and ``--profile-steps`` are not ported yet and raise.
+One replica writes ``serve_requests.jsonl`` (one report per request),
+``serve_summary.json`` and ``telemetry.jsonl`` under ``--output_path`` and
+prints the summary; ``--live-port`` (0: ephemeral) serves ``/metrics``,
+``/healthz``, ``/slo`` (against ``--live-slo``) and ``/snapshot`` while it
+runs. ``--replicas N`` (N > 1) runs the fleet (:func:`run_fleet`): N
+replicas, each with its own engine, ``telemetry_r<i>.jsonl`` and live
+plane, behind a consistent-hash router with supervision, drain / handoff
+and fail-over, writing ``telemetry_router.jsonl``,
+``fleet_requests.jsonl`` and ``fleet_summary.json``; ``--fleet-port``
+serves the merged fleet view. ``python -m esr_tpu_torch.obs report
+<files> --slo configs/slo.yml`` rolls the telemetry up. It runs on the card
+unless ``--device cpu`` is given. ``--precision`` picks the rung (f32,
+bf16 or int8, or an alias); omitted, the checkpoint's
+``trainer.precision``, else f32. ``--aot`` and ``--profile-steps`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ import argparse
 import json
 import logging
 import os
+import sys
 from typing import Dict, Optional, Sequence
 
 from esr_tpu_torch.config.precision import PRECISION_SPELLINGS, resolve_precision
@@ -49,10 +62,26 @@ def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--max_wall", type=float, default=None, help="bound on the loop, seconds")
     p.add_argument("--lane_quarantine_k", type=int, default=3)
     p.add_argument("--request_retries", type=int, default=1)
-    p.add_argument("--replicas", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serving replicas; >1 runs the fleet router (per-replica "
+                        "telemetry files, /snapshot supervision, drain/handoff, fail-over)")
+    p.add_argument("--failover_retries", type=int, default=1,
+                   help="times a request lost to a dead replica is re-admitted elsewhere "
+                        "before failover_retry_exhausted (fleet)")
+    p.add_argument("--heartbeat_misses", type=int, default=3,
+                   help="failed polls in a row before a replica is declared dead (fleet)")
+    p.add_argument("--supervise_interval", type=float, default=None, metavar="S",
+                   help="poll replicas from a supervisor thread every S seconds "
+                        "(default: inline, each router round)")
     p.add_argument("--aot", action="store_true", default=False, help="not ported: raises")
-    p.add_argument("--live-port", dest="live_port", type=int, default=None,
-                   help="not ported: raises")
+    p.add_argument("--live-port", dest="live_port", type=int, default=None, metavar="PORT",
+                   help="serve /metrics, /healthz, /slo and /snapshot on this port "
+                        "(0 = ephemeral; default off)")
+    p.add_argument("--live-slo", dest="live_slo", type=str, default="configs/slo.yml",
+                   help="SLO YAML the live /slo endpoint evaluates")
+    p.add_argument("--fleet-port", dest="fleet_port", type=int, default=None, metavar="PORT",
+                   help="serve the merged fleet view (/metrics, /healthz quorum, /slo, "
+                        "/fleet, /snapshot) on this port (fleet only; default off)")
     p.add_argument("--profile-steps", dest="profile_steps", type=int, default=0,
                    help="not ported: raises")
     p.add_argument("--precision", type=str, default=None, choices=PRECISION_SPELLINGS,
@@ -91,13 +120,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     flags = get_flags(argv)
     if (flags.data_list is None) == (flags.loadgen is None):
         raise SystemExit("pass exactly one of --data_list / --loadgen")
-    if flags.replicas > 1:
-        raise NotImplementedError("the serving fleet (--replicas > 1) is not ported yet")
     if flags.aot:
         raise NotImplementedError("AOT chunk programs (--aot) are not ported yet")
     logging.basicConfig(level=logging.INFO)
 
     from esr_tpu_torch.inference.checkpoint import load_checkpoint
+    from esr_tpu_torch.obs import TelemetrySink, set_active_sink
     from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
     from esr_tpu_torch.serving.server import ServingEngine
 
@@ -113,12 +141,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         "sequence": {"sequence_length": flags.seql, "seqn": flags.seqn,
                      "step_size": flags.step_size, "pause": {"enabled": False}},
     }
-    server = ServingEngine(
-        model, dataset_config, seqn=flags.seqn, lanes=flags.lanes, classes=classes,
-        default_class=flags.default_class, max_pending=flags.max_pending,
-        preempt_quantum=flags.preempt_quantum,
-        lane_quarantine_k=flags.lane_quarantine_k,
-        request_retries=flags.request_retries, live_port=flags.live_port,
+    engine_kw = dict(
+        seqn=flags.seqn, max_pending=flags.max_pending, preempt_quantum=flags.preempt_quantum,
+        lane_quarantine_k=flags.lane_quarantine_k, request_retries=flags.request_retries,
         profile_steps=flags.profile_steps, precision=precision, device=flags.device,
     )
     if flags.loadgen is not None:
@@ -129,15 +154,106 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         streams = read_datalist(flags.data_list)
     schedule = poisson_schedule(streams, rate_hz=flags.rate, seed=flags.seed,
                                 classes=tuple(sorted(classes)))
-    summary = server.run(arrivals=schedule, max_wall_s=flags.max_wall)
-
     os.makedirs(flags.output_path, exist_ok=True)
+    if flags.replicas > 1:
+        return run_fleet(flags, model, dataset_config, classes, schedule, engine_kw)
+
+    sink = TelemetrySink(os.path.join(flags.output_path, "telemetry.jsonl"))
+    prev = set_active_sink(sink)
+    server = None
+    try:
+        server = ServingEngine(
+            model, dataset_config, lanes=flags.lanes, classes=classes,
+            default_class=flags.default_class, live_port=flags.live_port,
+            live_slo=flags.live_slo if flags.live_port is not None else None, **engine_kw,
+        )
+        if server.live is not None:
+            print(f"# live telemetry: http://127.0.0.1:{server.live.port}"
+                  "/{metrics,healthz,slo,snapshot}", file=sys.stderr)
+        summary = server.run(arrivals=schedule, max_wall_s=flags.max_wall)
+    finally:
+        if server is not None:
+            server.close_live()
+        set_active_sink(prev)
+        sink.close()
+
     with open(os.path.join(flags.output_path, "serve_requests.jsonl"), "w") as f:
         for rid in sorted(server.reports()):
             f.write(json.dumps(server.report(rid)) + "\n")
     with open(os.path.join(flags.output_path, "serve_summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print(json.dumps(summary))
+    return summary
+
+
+def run_fleet(flags: argparse.Namespace, model, dataset_config: Dict, classes: Dict,
+              schedule, engine_kw: Dict) -> Dict:
+    """``--replicas N``: N replicas (each its own ``ServingEngine``,
+    telemetry file and live plane) behind a consistent-hash router with
+    supervision, drain / handoff and fail-over. Writes
+    ``telemetry_r<i>.jsonl``, ``telemetry_router.jsonl``,
+    ``fleet_requests.jsonl`` and ``fleet_summary.json``; per-class
+    percentiles come from the merged report over the telemetry files."""
+    from esr_tpu_torch.obs import LiveAggregator, TelemetrySink, set_active_sink
+    from esr_tpu_torch.serving.fleet import FleetRouter, ReplicaSupervisor
+    from esr_tpu_torch.serving.replica import Replica
+
+    out = flags.output_path
+    replicas = [
+        Replica(f"r{i}", model, dataset_config,
+                telemetry_path=os.path.join(out, f"telemetry_r{i}.jsonl"),
+                classes=classes, default_class=flags.default_class, lanes=flags.lanes,
+                live_slo=flags.live_slo, **engine_kw).start()
+        for i in range(flags.replicas)
+    ]
+    for rep in replicas:
+        print(f"# replica {rep.replica_id}: http://127.0.0.1:{rep.port}/"
+              "{metrics,healthz,slo,snapshot}", file=sys.stderr)
+    router_sink = TelemetrySink(os.path.join(out, "telemetry_router.jsonl"))
+    prev = set_active_sink(router_sink)
+    fleet_plane = supervisor = fleet_agg = None
+    if flags.fleet_port is not None:
+        from esr_tpu_torch.obs.fleetview import FleetAggregator, start_fleet_plane
+
+        # the supervisor's /snapshot polls feed the fleet view (no extra
+        # fetches); the router's own records join the merge as a local
+        fleet_agg = FleetAggregator(scrape_budget=flags.heartbeat_misses)
+        fleet_agg.attach_local("router", LiveAggregator().attach(router_sink))
+        supervisor = ReplicaSupervisor(miss_budget=flags.heartbeat_misses,
+                                       observer=fleet_agg.ingest)
+    router = FleetRouter(replicas, default_class=flags.default_class,
+                         failover_budget=flags.failover_retries,
+                         miss_budget=flags.heartbeat_misses,
+                         supervise_interval_s=flags.supervise_interval, supervisor=supervisor)
+    try:
+        if fleet_agg is not None:
+            fleet_plane = start_fleet_plane(
+                replicas, port=flags.fleet_port, slo_path=flags.live_slo, fleet=fleet_agg,
+                topology=lambda: {"ring_ownership": router.ring.ownership()})
+            print(f"# fleet view: http://127.0.0.1:{fleet_plane.port}/"
+                  "{metrics,healthz,slo,fleet}", file=sys.stderr)
+        summary = router.run(arrivals=schedule, max_wall_s=flags.max_wall)
+        if fleet_plane is not None:
+            summary["fleet_view"] = fleet_plane.server.fleet_doc()
+    finally:
+        if fleet_plane is not None:
+            fleet_plane.close()
+        router.close()
+        set_active_sink(prev)
+        router_sink.close()
+
+    with open(os.path.join(out, "fleet_requests.jsonl"), "w") as f:
+        for _rid, rep in sorted(router.reports().items()):
+            f.write(json.dumps(rep) + "\n")
+    with open(os.path.join(out, "fleet_summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps(summary))
+    files = " ".join(os.path.join(out, name) for name in
+                     ["telemetry_router.jsonl"]
+                     + [f"telemetry_r{i}.jsonl" for i in range(flags.replicas)])
+    print(f"# fleet rollup and SLO verdict:\n"
+          f"#   python -m esr_tpu_torch.obs report {files} --slo configs/slo.yml",
+          file=sys.stderr)
     return summary
 
 

@@ -1,2 +1,3 @@
 """The serving tier of the port: continuous-batched lanes over the streaming
-engine (counterpart of ``esr_tpu/serving``, single replica)."""
+engine, and the fleet of replicas behind a router (counterpart of
+``esr_tpu/serving``)."""

@@ -98,6 +98,14 @@ class StreamRequest:
     cls: RequestClass
     submitted_t: float = 0.0
 
+    # trace identity: one trace per request, rooted at the `serve_request`
+    # span the server emits at completion; every admit / chunk
+    # participation / preempt record parents under root_span_id.
+    # submitted_mono is time.monotonic() at submit, the root's begin edge.
+    trace_id: Optional[str] = None
+    root_span_id: Optional[str] = None
+    submitted_mono: Optional[float] = None
+
     # runtime (server-owned)
     source: object = None          # window iterator, built at first bind
     peek: object = None            # one-window lookahead (lane-free probe)
@@ -119,7 +127,7 @@ class StreamRequest:
 
     # terminal classification and the bounded-retry ledger: ``status`` is
     # one of ok / bad_stream / faulted / quarantine_exhausted / migrated
-    # (``serving/server.py``); ``error_kind`` is ``serving.recovery.
+    # (``serving/server.py``); ``error_kind`` is ``resilience.recovery.
     # classify_error``'s verdict on the terminal exception; ``retries``
     # counts fault-triggered re-admissions.
     status: Optional[str] = None

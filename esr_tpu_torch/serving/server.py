@@ -22,12 +22,29 @@ datalist:
 
 A lane that faults is recorded on a circuit-breaker ledger (quarantined at
 ``lane_quarantine_k`` faults) and its request retried at most
-``request_retries`` times. Recovery actions are logged as warnings and
-counted in :meth:`ServingEngine.summary` (``recoveries``).
+``request_retries`` times. Recovery actions are logged as warnings, emitted
+as ``recovery_*`` events and counted in :meth:`ServingEngine.summary`
+(``recoveries``). The ``serve_chunk`` fault site (``resilience.faults``)
+fires once per dispatched chunk: ``lane_fault`` / ``stream_error`` raise in
+one bound lane's pull, ``preempt_signal`` drains every bound lane with its
+state saved.
+
+Telemetry, into the process-active sink read on every call (a fleet swaps
+it around each replica's calls): a ``serve_admit`` span per binding, a
+``serve_chunk`` span per chunk, a ``serve_chunk_part`` span per request
+and chunk (its build-to-readback latency, the reporter's per-class window
+latency), ``serve_queue_depth`` / ``serve_lane_occupancy`` gauges when
+they change, a ``serve_backpressure`` counter per shed submit,
+``serve_preempt`` / ``serve_handoff_out`` / ``serve_handoff_in`` /
+``serve_request_done`` events, and the ``serve_request`` root span at
+completion: each request is one connected trace. ``live_port`` (0:
+ephemeral) serves the live plane (``obs.http``: ``/metrics``,
+``/healthz`` with the lane-quarantine source, ``/slo`` against
+``live_slo``, ``/snapshot``) beside the active sink; ``health_ns``
+namespaces the health sources of co-resident replicas.
 
 Not in this slice (each raises ``NotImplementedError`` when asked for): the
-live HTTP plane (``live_port``), the profiler capture (``profile_steps``),
-AOT programs (``aot_programs``) and the fault-injection plane.
+profiler capture (``profile_steps``) and AOT programs (``aot_programs``).
 
 ``precision`` is the rung the session serves at (``None``: f32; the entry
 point resolves CLI > checkpoint > f32): at bf16 the lane states live in
@@ -57,7 +74,15 @@ from esr_tpu_torch.inference.engine import (
     lane_states,
     make_chunk_fn,
 )
-from esr_tpu_torch.serving.recovery import LaneHealth, classify_error, fault_id_of
+from esr_tpu_torch.obs import active_sink, trace
+from esr_tpu_torch.obs.report import percentile_ms
+from esr_tpu_torch.resilience import faults as _faults
+from esr_tpu_torch.resilience.recovery import (
+    LaneHealth,
+    classify_error,
+    emit_recovery,
+    fault_id_of,
+)
 from esr_tpu_torch.serving.scheduler import (
     DEFAULT_CLASSES,
     AdmissionFull,
@@ -65,7 +90,6 @@ from esr_tpu_torch.serving.scheduler import (
     RequestClass,
     StreamRequest,
 )
-from esr_tpu_torch.utils.percentile import percentile_ms
 
 logger = logging.getLogger(__name__)
 
@@ -129,14 +153,14 @@ class ServingEngine:
         request_retries: int = 1,
         activity_tile: int = 8,
         live_port: Optional[int] = None,
+        live_slo: Optional[str] = None,
         profile_steps: int = 0,
+        health_ns: Optional[str] = None,
         precision: Optional[str] = None,
         device: DeviceLike = None,
     ):
         if aot_programs:
             raise NotImplementedError("AOT chunk programs are not ported yet")
-        if live_port is not None:
-            raise NotImplementedError("the live HTTP plane is not ported yet")
         if int(profile_steps) > 0:
             raise NotImplementedError("the serving profiler capture is not ported yet")
         self.precision = resolve_precision(cli=precision)
@@ -179,15 +203,46 @@ class ServingEngine:
         # lanes whose next dispatched chunk must reset the state (fresh
         # binds); kept across rounds, since a gated lane may dispatch late
         self._lane_needs_reset: set = set()
+        # gated windows of rounds that dispatched no chunk, carried onto the
+        # next serve_chunk span (or a serve_gating_flush event at drain), so
+        # the telemetry's skip totals equal the requests'
+        self._skipped_carry = 0
+        self._last_gauges = None
         self.recoveries: Dict[str, int] = {}
+        self.live = None
+        self.health_ns = health_ns
+        self._health_source_name = ("serving_lanes" if health_ns is None
+                                    else f"serving_lanes@{health_ns}")
+        if live_port is not None:
+            from esr_tpu_torch.obs.http import register_health_source, start_live_plane
+
+            self.live = start_live_plane(active_sink(), port=int(live_port),
+                                         slo_path=live_slo, ns=health_ns)
+            # a quarantined lane flips /healthz to 503
+            register_health_source(self._health_source_name, self._lane_health_doc)
 
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
     def _recovery(self, name: str, **fields) -> None:
-        """A recovery action: a warning in the log and a count in the summary."""
+        """A recovery action: a warning in the log, a ``recovery_*`` event at
+        the ``serve_chunk`` site and a count in the summary."""
         self.recoveries[name] = self.recoveries.get(name, 0) + 1
         logger.warning("%s %s", name, fields)
+        emit_recovery(name, site="serve_chunk", **fields)
+
+    def _lane_health_doc(self) -> Dict:
+        """The ``serving_lanes`` /healthz source, called from an HTTP thread:
+        host state only (one snapshot of the quarantine set, which the
+        scheduler rebinds and never mutates)."""
+        quarantined = self.scheduler.quarantined
+        return {
+            "healthy": not quarantined,
+            "lanes": self.lanes,
+            "quarantined": sorted(quarantined),
+            "healthy_lanes": self.lanes - len(quarantined),
+            "queue_depth": self.scheduler.queue_depth(),
+        }
 
     # -- programs / device state ---------------------------------------------
 
@@ -229,8 +284,20 @@ class ServingEngine:
         rid = request_id or self.scheduler.next_request_id()
         if rid in self._requests:
             raise ValueError(f"duplicate request_id {rid!r}")
-        req = StreamRequest(rid, path, cls, submitted_t=self._now())
-        self.scheduler.submit(req)
+        req = StreamRequest(rid, path, cls, submitted_t=self._now(),
+                            trace_id=trace.new_id(), root_span_id=trace.new_id(),
+                            submitted_mono=time.monotonic())
+        try:
+            self.scheduler.submit(req)
+        except AdmissionFull:
+            sink = active_sink()
+            if sink is not None:
+                sink.counter("serve_backpressure", queue_depth=self.scheduler.queue_depth())
+                # a shed submit still ends classified; no journey existed
+                sink.event("serve_request_done", request=rid, trace_id=req.trace_id,
+                           cls=req.cls.name, windows=0, preemptions=0, completed=False,
+                           error="AdmissionFull", status="shed", error_kind="backpressure")
+            raise
         self._requests[rid] = req
         self._acc[rid] = self._new_acc()
         return rid
@@ -238,6 +305,7 @@ class ServingEngine:
     # -- the serving loop ----------------------------------------------------
 
     def _bind(self, now: float) -> None:
+        sink = active_sink()
         for lane, req in self.scheduler.bind_free_lanes(now):
             if req.source is None:
                 try:
@@ -260,6 +328,7 @@ class ServingEngine:
                     self.scheduler.release(lane, completed_t=self._now())
                     self._finish(req)
                     continue
+            action = "resume" if req.resumable else "fresh"
             if req.resumable:
                 self._states = inject_lane_state(self._states, lane, req.saved_state)
                 req.saved_state = None
@@ -267,12 +336,63 @@ class ServingEngine:
             else:
                 # zeroed by the chunk's reset mask at its first real dispatch
                 self._lane_needs_reset.add(lane)
+            if sink is not None:
+                mono = time.monotonic()
+                sink.span("serve_admit", mono - req.submitted_mono, trace_id=req.trace_id,
+                          span_id=trace.new_id(), parent_id=req.root_span_id,
+                          begin=round(sink.rel(req.submitted_mono), 6),
+                          end=round(sink.rel(mono), 6), request=req.request_id,
+                          cls=req.cls.name, lane=lane, action=action,
+                          queue_depth=self.scheduler.queue_depth())
 
     def _finish(self, req: StreamRequest) -> None:
         if req.completed_t is None:
             req.completed_t = self._now()
         if req.status is None:
             req.status = "ok" if req.error is None else "bad_stream"
+        sink = active_sink()
+        if sink is not None:
+            # the trace root (submit -> completion); the terminal event
+            # parents under it, closing the request's connected trace
+            mono = time.monotonic()
+            sink.span("serve_request", mono - req.submitted_mono, trace_id=req.trace_id,
+                      span_id=req.root_span_id, parent_id=None,
+                      begin=round(sink.rel(req.submitted_mono), 6),
+                      end=round(sink.rel(mono), 6), request=req.request_id,
+                      cls=req.cls.name, windows=req.windows_done,
+                      preemptions=req.preemptions, completed=req.error is None)
+            sink.event("serve_request_done", request=req.request_id, trace_id=req.trace_id,
+                       parent_id=req.root_span_id, cls=req.cls.name,
+                       windows=req.windows_done, preemptions=req.preemptions,
+                       completed=req.error is None, error=req.error, status=req.status,
+                       error_kind=req.error_kind, retries=req.retries)
+
+    def _preempt_event(self, req: StreamRequest, lane: int, **fields) -> None:
+        sink = active_sink()
+        if sink is not None:
+            sink.event("serve_preempt", request=req.request_id, trace_id=req.trace_id,
+                       parent_id=req.root_span_id, cls=req.cls.name, lane=lane,
+                       windows_done=req.windows_done,
+                       queue_depth=self.scheduler.queue_depth(), **fields)
+
+    def _preempt_drain(self, spec) -> None:
+        """Simulated host preemption (``serve_chunk`` / ``preempt_signal``):
+        every bound lane's state is extracted and its request requeued, the
+        eviction path, so every stream resumes bit-identically."""
+        sched = self.scheduler
+        drained = 0
+        for lane in range(self.lanes):
+            req = sched.lanes[lane]
+            if req is None:
+                continue
+            # a fresh lane that never dispatched holds no state of its own
+            req.saved_state = (None if lane in self._lane_needs_reset
+                               else extract_lane_state(self._states, lane))
+            sched.evict(lane)
+            drained += 1
+            self._preempt_event(req, lane, signal=True)
+        self._recovery("recovery_preempt_drain", fault_id=spec.fault_id,
+                       lanes_drained=drained, chunk=self._chunk_idx)
 
     def _lane_fault(self, lane: int, req: StreamRequest, e: BaseException) -> None:
         """A lane fault in the chunk loop: record it on the lane's ledger
@@ -305,7 +425,8 @@ class ServingEngine:
             req.window_latencies = []
             self._acc[req.request_id] = self._new_acc()
             self._recovery("recovery_request_retry", fault_id=fid, request=req.request_id,
-                           attempt=req.retries, lane=lane, error_kind=kind)
+                           attempt=req.retries, retries=self.request_retries, lane=lane,
+                           error_kind=kind)
             sched.requeue(req)
             return
         req.error = repr(e)
@@ -352,11 +473,34 @@ class ServingEngine:
         readbacks are flushed first)."""
         self._bind(self._now())
         sched = self.scheduler
+        sink = active_sink()
+        gauges = (sched.queue_depth(), sched.occupancy())
+        if sink is not None and gauges != self._last_gauges:
+            # on change only: an idle polling loop would write rows forever
+            sink.gauge("serve_queue_depth", gauges[0], round=self._chunk_idx)
+            sink.gauge("serve_lane_occupancy", gauges[1], lanes=self.lanes,
+                       round=self._chunk_idx)
+            self._last_gauges = gauges
         if sched.occupancy() == 0:
             if sched.drained():
                 self.flush()
+                if self._skipped_carry:
+                    # the session's last windows were all gated: no chunk
+                    # span carries them
+                    if sink is not None:
+                        sink.event("serve_gating_flush", skipped=self._skipped_carry)
+                    self._skipped_carry = 0
                 return "drained"
             return "idle"
+
+        # the serve_chunk fault site, keyed by chunk index and fired only
+        # past the occupancy returns, so a scheduled fault always finds a
+        # bound lane to enact it on
+        specs = _faults.fire("serve_chunk", self._chunk_idx)
+        lane_faults = [s for s in specs if s.kind in ("lane_fault", "stream_error")]
+        for s in specs:
+            if s.kind == "preempt_signal":
+                self._preempt_drain(s)
 
         w = sched.chunk_windows(default=self.default_chunk_windows)
         program = self._program(w)
@@ -364,16 +508,21 @@ class ServingEngine:
         per_lane: List[List[tuple]] = [[] for _ in range(self.lanes)]
         meta: List[Optional[Dict]] = [None] * self.lanes
         reset_keep = np.zeros(self.lanes, np.float32)
+        chunk_skipped = 0
         for lane in range(self.lanes):
             req = sched.lanes[lane]
             if req is None:
                 continue
             try:
+                if lane_faults:
+                    # enact one scheduled lane fault on this bound lane
+                    raise _faults.InjectedFault(lane_faults.pop(0))
                 wins, skipped = self._pull(req, w)
             except Exception as e:  # noqa: BLE001 - fails or retries its request
                 self._lane_fault(lane, req, e)
                 continue
             req.windows_skipped += skipped
+            chunk_skipped += skipped
             per_lane[lane] = wins
             if wins:
                 meta[lane] = {"request": req, "windows": len(wins),
@@ -383,6 +532,7 @@ class ServingEngine:
         if all(m is None for m in meta):
             # every bound stream gave no window this round (empty, or all
             # gated): release the ended ones without a dispatch
+            self._skipped_carry += chunk_skipped
             for lane in range(self.lanes):
                 req = sched.lanes[lane]
                 if req is not None and req.ended:
@@ -417,7 +567,11 @@ class ServingEngine:
                 m["request"].inflight += 1
                 m["request"].chunks_since_bind += 1
         self._pending.append({"chunk": self._chunk_idx, "meta": meta, "sums": sums,
-                              "w": w, "t_build": t_build, "t_dispatch": t_dispatch})
+                              "w": w, "t_build": t_build, "t_dispatch": t_dispatch,
+                              "occupancy": sched.occupancy(),
+                              "queue_depth": sched.queue_depth(),
+                              "skipped": chunk_skipped + self._skipped_carry})
+        self._skipped_carry = 0
         self._chunk_idx += 1
         self._window_steps += w
 
@@ -435,6 +589,7 @@ class ServingEngine:
             req.saved_state = (None if lane in self._lane_needs_reset
                                else extract_lane_state(self._states, lane))
             sched.evict(lane)
+            self._preempt_event(req, lane)
         if len(self._pending) > 1:
             self._resolve(self._pending.popleft())
         return "dispatched"
@@ -446,6 +601,8 @@ class ServingEngine:
         t_res = time.monotonic()
         self._last_resolve_t = self._now()
         latency = t_res - entry["t_build"]
+        total_valid = int(round(float(sums["count"].sum())))
+        sink = active_sink()
         for lane, m in enumerate(entry["meta"]):
             if m is None:
                 continue
@@ -458,11 +615,37 @@ class ServingEngine:
                 acc["count"] += m["windows"]
                 req.windows_done += m["windows"]
                 req.window_latencies.extend([latency] * m["windows"])
+                if sink is not None:
+                    # this request's part of the chunk: its latency is what
+                    # every window of it waited (the per-class p50/p99)
+                    sink.span("serve_chunk_part", latency, trace_id=req.trace_id,
+                              span_id=trace.new_id(), parent_id=req.root_span_id,
+                              begin=round(sink.rel(entry["t_build"]), 6),
+                              end=round(sink.rel(t_res), 6), request=req.request_id,
+                              cls=req.cls.name, chunk=entry["chunk"], lane=lane,
+                              windows=m["windows"])
             # else: the request was retried after this chunk; its fresh
             # accumulators must not take the failed run's sums
             if req.ended and req.inflight == 0:
                 self._finish(req)
-        self._windows_total += int(round(float(sums["count"].sum())))
+        self._windows_total += total_valid
+        if sink is not None:
+            seconds = t_res - entry["t_dispatch"]
+            skipped = entry["skipped"]
+            sink.span("serve_chunk", seconds, span_id=trace.new_id(),
+                      begin=round(sink.rel(entry["t_dispatch"]), 6),
+                      end=round(sink.rel(t_res), 6), chunk=entry["chunk"],
+                      lanes=self.lanes, occupancy=entry["occupancy"],
+                      chunk_windows=entry["w"], windows=total_valid,
+                      skipped_windows=skipped, queue_depth=entry["queue_depth"],
+                      requests=[m["request"].request_id if m else None
+                                for m in entry["meta"]],
+                      windows_per_sec=(round(total_valid / seconds, 3)
+                                       if seconds > 0 else None))
+            if total_valid + skipped:
+                sink.gauge("serve_active_window_frac",
+                           round(total_valid / (total_valid + skipped), 6),
+                           chunk=entry["chunk"], windows=total_valid, skipped=skipped)
 
     def run(self, arrivals: Optional[Sequence] = None,
             max_wall_s: Optional[float] = None) -> Dict:
@@ -499,7 +682,7 @@ class ServingEngine:
 
     # -- drain / handoff -----------------------------------------------------
 
-    def _handoff_entry(self, req: StreamRequest, state) -> Dict:
+    def _handoff_entry(self, req: StreamRequest, state, lane: Optional[int] = None) -> Dict:
         """One handoff entry for ``req``, which ends here with status
         ``migrated``; ``state`` is its host lane state (None for a stream
         that never dispatched: it rebinds fresh)."""
@@ -518,6 +701,11 @@ class ServingEngine:
             "handoffs": int(req.handoffs) + 1,
             "window_latencies": list(req.window_latencies),
         }
+        sink = active_sink()
+        if sink is not None:
+            sink.event("serve_handoff_out", request=req.request_id, trace_id=req.trace_id,
+                       parent_id=req.root_span_id, cls=req.cls.name, lane=lane,
+                       windows_done=req.windows_done, with_state=state is not None)
         req.status = "migrated"
         req.ended = True
         req.completed_t = self._now()
@@ -542,7 +730,7 @@ class ServingEngine:
                      else extract_lane_state(self._states, lane))
             self._lane_needs_reset.discard(lane)
             sched.unbind(lane)
-            out.append(self._handoff_entry(req, state))
+            out.append(self._handoff_entry(req, state, lane=lane))
         for req in sched.drain_queue():
             state, req.saved_state = req.saved_state, None
             out.append(self._handoff_entry(req, state))
@@ -564,7 +752,8 @@ class ServingEngine:
             raise ValueError(f"handoff request class {cls_name!r} not among this "
                              f"engine's classes {sorted(self.classes)}")
         req = StreamRequest(rid, entry["path"], self.classes[cls_name],
-                            submitted_t=self._now())
+                            submitted_t=self._now(), trace_id=trace.new_id(),
+                            root_span_id=trace.new_id(), submitted_mono=time.monotonic())
         req.windows_done = int(entry.get("windows_done", 0))
         req.windows_skipped = int(entry.get("windows_skipped", 0))
         req.preemptions = int(entry.get("preemptions", 0))
@@ -590,7 +779,37 @@ class ServingEngine:
         req.saved_state = state
         self._requests[rid] = req
         self.scheduler.requeue(req)
+        sink = active_sink()
+        if sink is not None:
+            sink.event("serve_handoff_in", request=rid, trace_id=req.trace_id,
+                       parent_id=req.root_span_id, cls=cls_name,
+                       windows_done=req.windows_done, resumed=state is not None,
+                       handoffs=req.handoffs)
         return rid
+
+    def terminal_request_ids(self) -> List[str]:
+        """Ids of the requests whose terminal status is classified, in
+        submission order: a fleet replica's completion poll."""
+        return [rid for rid, req in self._requests.items() if req.status is not None]
+
+    def close_live(self) -> None:
+        """Tear down the live plane (idempotent): the lane-health source
+        unregistered, the aggregator detached, the HTTP thread stopped."""
+        if self.live is not None:
+            from esr_tpu_torch.obs.http import unregister_health_source
+
+            unregister_health_source(self._health_source_name)
+            live, self.live = self.live, None
+            live.close()
+
+    def abandon(self) -> None:
+        """Drop what this engine holds on the card (the lane states, the
+        chunk programs, the unresolved readbacks) with no flush, no drain
+        and no terminal event, as a crashed process leaves them: a fleet
+        replica's ``kill`` and ``fence``. The engine serves no more."""
+        self._states = None
+        self._programs.clear()
+        self._pending.clear()
 
     # -- reports -------------------------------------------------------------
 

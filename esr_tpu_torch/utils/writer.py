@@ -8,10 +8,12 @@
 - TensorBoard through ``torch.utils.tensorboard`` when asked for and
   importable; a logged warning when it is not (then JSONL only);
 - :meth:`MetricWriter.set_step` emits ``steps_per_sec`` on every step
-  advance, as the reference does.
-
-The reference also mirrors every record into its telemetry sink
-(``esr_tpu.obs``); the port has no such sink yet.
+  advance, as the reference does;
+- the telemetry sink (``esr_tpu_torch.obs``): every scalar is mirrored as a
+  ``metric`` record (``source: "writer"``) and every image as an ``image``
+  event. ``sink``: an explicit sink wins; ``None`` (the default) takes the
+  process-active sink at construction; ``False`` disables the mirror. The
+  writer never closes the sink.
 """
 
 from __future__ import annotations
@@ -21,15 +23,19 @@ import os
 import time
 from typing import Optional
 
+from esr_tpu_torch.obs import active_sink
+
 
 class MetricWriter:
-    def __init__(self, log_dir: str, logger=None, enable_tensorboard: bool = True):
+    def __init__(self, log_dir: str, logger=None, enable_tensorboard: bool = True,
+                 sink=None):
         os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
         self.step = 0
         self.mode = ""
         self._timer = time.perf_counter()
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self.sink = active_sink() if sink is None else (sink or None)
         self.tb = None
         if enable_tensorboard:
             try:
@@ -63,6 +69,8 @@ class MetricWriter:
     def add_scalar(self, key: str, value: float, step: Optional[int] = None) -> None:
         step = self.step if step is None else step
         self._write({"step": step, "tag": self._tag(key), "value": float(value)})
+        if self.sink is not None:
+            self.sink.metric(self._tag(key), float(value), step=step, source="writer")
         if self.tb is not None:
             self.tb.add_scalar(self._tag(key), float(value), global_step=step)
 
@@ -71,6 +79,8 @@ class MetricWriter:
         the JSONL line records that it was logged)."""
         step = self.step if step is None else step
         self._write({"step": step, "tag": self._tag(key), "image": True})
+        if self.sink is not None:
+            self.sink.event("image", tag=self._tag(key), step=step)
         if self.tb is not None:
             fmt = "HWC" if getattr(image, "ndim", 2) == 3 else "HW"
             self.tb.add_image(self._tag(key), image, global_step=step, dataformats=fmt)

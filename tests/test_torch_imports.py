@@ -36,7 +36,10 @@ def test_package_imports_no_jax_and_no_reference():
     # the serving tier and the engine are scanned too
     names = {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
     assert {"serving/server.py", "serving/scheduler.py", "serving/wire.py",
-            "serving/loadgen.py", "serving/recovery.py", "inference/engine.py",
+            "serving/loadgen.py", "resilience/recovery.py", "inference/engine.py",
+            "serving/fleet.py", "serving/replica.py", "resilience/faults.py",
+            "resilience/chaos_fleet.py", "obs/sink.py", "obs/report.py", "obs/http.py",
+            "obs/fleetview.py", "obs/aggregate.py",
             "serve.py", "native.py", "ops/encodings.py", "utils/writer.py",
             "utils/vis_events.py", "config/precision.py", "config/quantize.py",
             "ops/int8_cuda.py"} <= names
@@ -56,7 +59,9 @@ def test_importing_the_harness_loads_no_jax_and_no_h5py():
         "esr_tpu_torch.ops.encodings, esr_tpu_torch.utils.writer, "
         "esr_tpu_torch.utils.vis_events, esr_tpu_torch.data.np_encodings, "
         "esr_tpu_torch.config.precision, esr_tpu_torch.config.quantize, "
-        "esr_tpu_torch.ops.int8_cuda\n"
+        "esr_tpu_torch.ops.int8_cuda, esr_tpu_torch.obs, esr_tpu_torch.obs.report, "
+        "esr_tpu_torch.obs.http, esr_tpu_torch.serving.fleet, esr_tpu_torch.serving.replica, "
+        "esr_tpu_torch.resilience.chaos_fleet\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'esr_tpu', 'h5py', 'triton', 'yaml', "
         "'tensorboard', 'cv2', 'PIL', 'matplotlib')]\n"

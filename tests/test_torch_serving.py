@@ -1,4 +1,4 @@
-"""The port's serving tier against the reference's, on the CPU.
+"""The port's serving tier and fleet against the reference's, on the CPU.
 
 - the half-idle corpus of ``tests/test_sparse_smoke.py`` (bursty and
   uniform streams, time-mode windows) served by the port's and by the JAX
@@ -8,12 +8,34 @@
   stream served alone), backpressure (``AdmissionFull``), lane quarantine
   after ``lane_quarantine_k`` faults, bad streams, the refusals of the
   unported options;
+- the ``serve_chunk`` fault site: one plan (a lane fault, a preemption
+  signal) in both engines gives the same retries, statuses and windows,
+  metrics within rtol 1e-5, every fault paired with its recovery;
+- the live plane (``live_port=0``): ``/metrics``, ``/healthz``, ``/slo``
+  and ``/snapshot`` scraped mid-session, the session's telemetry file
+  green against ``configs/slo.yml``, and ``/healthz`` 503 on a quarantined
+  lane;
 - the ESRLANE1 wire format across the packages: a stream evicted from the
   JAX engine resumes in the port's through ``admit_handoff`` and the
   reverse, both within rtol 1e-5 of an unmigrated run, and equal states
   pack to equal bytes in both;
 - the host-only copies (scheduler, load generator, percentile) against the
-  reference, and ``python -m esr_tpu_torch.serve --device cpu --loadgen 4``.
+  reference, and ``python -m esr_tpu_torch.serve --device cpu --loadgen 4``
+  with one replica and with ``--replicas 3`` (the fleet's files), and the
+  fleet with the supervisor's poller thread on (``--supervise_interval``);
+- the fleet, exactly the reference's where it is host code: ``HashRing``
+  placement and ownership, ``build_fleet_plan`` for seeds 0-4,
+  ``LiveAggregator`` snapshots from one record stream,
+  ``render_prometheus`` and ``evaluate_slo_window`` on one snapshot under
+  ``configs/slo.yml`` and ``configs/slo_fleet.yml``, ``/snapshot`` wire
+  documents parsed by the other package both ways; the reference's
+  ``report_files`` reads the port's telemetry files to the port's report;
+  a replica's ``drain`` -> ``admit_handoff`` resumes a stream bitwise;
+  ``ReplicaSupervisor`` over loopback HTTP (healthy, dead after
+  ``miss_budget`` misses, recovered); the scripted chaos scenario on the
+  corpus served twice (8 streams, a gated class): zero lost requests,
+  three faults recovered, every stream within rtol 1e-5 of the JAX
+  package's single ``ServingEngine`` with equal window counts.
 
 Measured on the CPU: served metric means ~5e-7 relative from the JAX tier.
 """
@@ -21,6 +43,8 @@ Measured on the CPU: served metric means ~5e-7 relative from the JAX tier.
 import json
 import subprocess
 import sys
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import jax
@@ -30,9 +54,18 @@ import torch
 
 from esr_tpu.data.synthetic import write_synthetic_h5
 from esr_tpu.models.esr import DeepRecurrNet as FlaxNet
+from esr_tpu.obs.aggregate import LiveAggregator as RefAggregator
+from esr_tpu.obs.aggregate import parse_snapshot_wire as ref_parse
+from esr_tpu.obs.aggregate import state_to_wire as ref_state_to_wire
+from esr_tpu.obs.http import render_prometheus as ref_render
+from esr_tpu.obs.report import evaluate_slo_window as ref_eval_window
+from esr_tpu.obs.report import load_slo as ref_load_slo
 from esr_tpu.obs.report import percentile as ref_percentile
+from esr_tpu.obs.report import report_files as ref_report_files
+from esr_tpu.resilience.chaos_fleet import build_fleet_plan as ref_build_plan
 from esr_tpu.serving import RequestClass as RefClass
 from esr_tpu.serving import ServingEngine as RefServing
+from esr_tpu.serving.fleet import HashRing as RefRing
 from esr_tpu.serving.loadgen import poisson_schedule as ref_poisson
 from esr_tpu.serving.replica import pack_lane_state as ref_pack
 from esr_tpu.serving.replica import unpack_lane_state as ref_unpack
@@ -43,13 +76,26 @@ from esr_tpu_torch.inference.checkpoint import save_checkpoint
 from esr_tpu_torch.inference.engine import METRIC_KEYS, extract_lane_state, inject_lane_state
 from esr_tpu_torch.models import convert
 from esr_tpu_torch.models.esr import DeepRecurrNet
+from esr_tpu_torch.obs import TelemetrySink, set_active_sink
+from esr_tpu_torch.obs.aggregate import LiveAggregator, parse_snapshot_wire, state_to_wire
+from esr_tpu_torch.obs.http import render_prometheus, start_live_plane
+from esr_tpu_torch.obs.report import (
+    evaluate_slo_window,
+    load_slo,
+    percentile,
+    percentile_ms,
+    report_files,
+)
+from esr_tpu_torch.resilience.chaos_fleet import build_fleet_plan, run_fleet_scenario
 from esr_tpu_torch.serving import wire
+from esr_tpu_torch.serving.fleet import HashRing, ReplicaSupervisor
 from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
+from esr_tpu_torch.serving.replica import Replica
 from esr_tpu_torch.serving.scheduler import AdmissionFull, LaneScheduler, RequestClass, StreamRequest
 from esr_tpu_torch.serving.server import ServingEngine
-from esr_tpu_torch.utils.percentile import percentile, percentile_ms
 
 REPO = Path(__file__).resolve().parent.parent
+SLO_FILES = ("slo.yml", "slo_fleet.yml")
 MIN_ACTIVITY = 0.3
 ACTIVITY_TILE = 4
 BURST_FRACS = [0.35, 1.0, 0.35, 1.0]
@@ -214,7 +260,7 @@ def test_lane_quarantine_after_k_faults(corpus, models):
 
 
 def test_unported_options_raise(models):
-    for kw in ({"live_port": 0}, {"profile_steps": 1}, {"aot_programs": {2: "x"}}):
+    for kw in ({"profile_steps": 1}, {"aot_programs": {2: "x"}}):
         with pytest.raises(NotImplementedError):
             _port(models, **kw)
     # the precision rungs are ported: a bf16 session's lanes live in bf16
@@ -370,12 +416,172 @@ def test_serve_entry_point_on_the_cpu(models, tmp_path):
     reports = [json.loads(line) for line in (out / "serve_requests.jsonl").read_text().splitlines()]
     assert len(reports) == 4 and all(r["status"] == "ok" for r in reports)
     assert json.loads((out / "serve_summary.json").read_text()) == summary
-    with pytest.raises(NotImplementedError):
-        from esr_tpu_torch import serve
+    doc, code = report_files([str(out / "telemetry.jsonl")], str(REPO / "configs" / "slo.yml"))
+    assert code == 0 and doc["report"]["serving"]["requests"] == 4
+    # the fleet: three replicas behind the router, in this process
+    from esr_tpu_torch import serve
 
-        serve.main(["--model_path", str(ckpt), "--output_path", str(out), "--device", "cpu",
-                    "--loadgen", "1", "--replicas", "2"])
+    fleet_out = tmp_path / "fleet"
+    fleet = serve.main(["--model_path", str(ckpt), "--output_path", str(fleet_out),
+                        "--device", "cpu", "--loadgen", "4", "--rate", "50", "--lanes", "2",
+                        "--classes", "standard:2,gated:2:0.05", "--scale", "2",
+                        "--ori_scale", "down8", "--window", "1024", "--sliding_window", "512",
+                        "--seql", "4", "--max_wall", "120", "--replicas", "3",
+                        "--live-slo", str(REPO / "configs" / "slo.yml")])
+    assert fleet["zero_lost"] and fleet["statuses"] == {"ok": 4}
+    assert fleet["replicas"] == {"r0": "up", "r1": "up", "r2": "up"}
+    rows = [json.loads(line) for line in (fleet_out / "fleet_requests.jsonl").read_text().splitlines()]
+    assert len(rows) == 4 and all(r["status"] == "ok" and r["replica"] for r in rows)
+    assert json.loads((fleet_out / "fleet_summary.json").read_text()) == fleet
+    files = [str(fleet_out / f"telemetry_{n}.jsonl") for n in ("router", "r0", "r1", "r2")]
+    doc, code = report_files(files, str(REPO / "configs" / "slo.yml"))
+    assert code == 0 and doc["report"]["serving"]["requests"] == 4
+    assert sum(r["requests"] for r in doc["report"]["replicas"].values()) == 4
     assert torch.get_num_threads() >= 1
+
+
+def test_fleet_with_the_supervisor_thread(models, tmp_path):
+    """``serve --replicas 3 --supervise_interval 0.05 --fleet-port 0``: the
+    supervisor polls each replica's ``/snapshot`` from its own thread while
+    the router serves from this one; no request is lost, every replica
+    stays up and was polled, and the poller is gone once the fleet closes."""
+    import threading
+
+    from esr_tpu_torch import serve
+
+    ckpt = tmp_path / "ckpt"
+    save_checkpoint(str(ckpt), models[1], {
+        "model": {"name": "DeepRecurrNet",
+                  "args": {"inch": 2, "basech": 2, "num_frame": 3, "dcn_sparse": True}},
+    })
+    out = tmp_path / "fleet"
+    fleet = serve.main(["--model_path", str(ckpt), "--output_path", str(out),
+                        "--device", "cpu", "--loadgen", "4", "--rate", "50", "--lanes", "2",
+                        "--classes", "standard:2,gated:2:0.05", "--scale", "2",
+                        "--ori_scale", "down8", "--window", "1024", "--sliding_window", "512",
+                        "--seql", "4", "--max_wall", "120", "--replicas", "3",
+                        "--supervise_interval", "0.05", "--fleet-port", "0",
+                        "--live-slo", str(REPO / "configs" / "slo.yml")])
+    assert fleet["zero_lost"] and fleet["statuses"] == {"ok": 4}
+    assert fleet["replicas"] == {"r0": "up", "r1": "up", "r2": "up"}
+    view = fleet["fleet_view"]["replicas"]
+    assert all(view[rid]["scrapes"] >= 1 and view[rid]["misses"] == 0
+               for rid in ("r0", "r1", "r2")), view
+    assert not [t for t in threading.enumerate() if t.name == "fleet-supervisor"]
+
+
+def _get(url, timeout=10):
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def test_live_plane_serves_metrics_healthz_slo_snapshot(corpus, models, tmp_path):
+    """``live_port=0`` beside an active sink: the four endpoints answer
+    mid-session, the plane's view matches the file's report, and a
+    quarantined lane turns ``/healthz`` to 503 until the plane closes."""
+    sink = TelemetrySink(str(tmp_path / "telemetry.jsonl"))
+    prev = set_active_sink(sink)
+    try:
+        port = _port(models, live_port=0,  # esr: noqa(TX001) - no trace
+                     live_slo=str(REPO / "configs" / "slo.yml"), health_ns="r0")
+        base = f"http://127.0.0.1:{port.live.port}"
+        for path in corpus:
+            port.submit(path)
+        for _ in range(3):
+            port.pump()
+        status, metrics = _get(base + "/metrics")
+        assert status == 200 and "esr_span_seconds" in metrics
+        assert 'esr_span_seconds_count{span="serve_chunk"}' in metrics
+        status, body = _get(base + "/healthz")
+        assert status == 200 and json.loads(body)["sources"]["serving_lanes@r0"]["healthy"]
+        status, body = _get(base + "/slo")
+        assert status == 200 and json.loads(body)["verdict"] == "ok"
+        status, body = _get(base + "/snapshot?window_s=60")
+        doc = json.loads(body)
+        assert status == 200 and doc["replica"] == "r0" and doc["slo_verdict"] == "ok"
+        assert _get(base + "/snapshot?window_s=x")[0] == 400
+        summary = port.run()
+        live = port.live.aggregator.snapshot()
+        port.scheduler.quarantine(1)
+        assert _get(base + "/healthz")[0] == 503
+        port.close_live()
+        assert port.live is None
+    finally:
+        set_active_sink(prev)
+        sink.close()
+    doc, code = report_files([str(tmp_path / "telemetry.jsonl")], str(REPO / "configs" / "slo.yml"))
+    report = doc["report"]
+    assert code == 0 and summary["completed"] == len(corpus)
+    # counts exactly; percentiles within the sketch's 1% relative error
+    want_cls = report["serving"].pop("classes")
+    got_cls = live["serving"].pop("classes")
+    assert live["serving"] == {k: report["serving"][k] for k in live["serving"]}
+    assert got_cls.keys() == want_cls.keys()
+    for name, got in got_cls.items():
+        assert got["windows"] == want_cls[name]["windows"]
+        for q in ("window_latency_p50_ms", "window_latency_p99_ms"):
+            np.testing.assert_allclose(got[q], want_cls[name][q], rtol=0.01)
+    assert live["spans"]["serve_chunk"]["count"] == report["spans"]["serve_chunk"]["count"]
+    assert report["serving"]["windows_skipped"] == summary["windows_skipped"] > 0
+
+
+@pytest.fixture(scope="module")
+def faulted(corpus, models, tmp_path_factory):
+    """The corpus served by the port's and the JAX engine under the same
+    ``serve_chunk`` fault plan (a lane fault at chunk 1, a preemption signal
+    at chunk 3), each into its own telemetry file."""
+    from esr_tpu.obs import TelemetrySink as RefSink
+    from esr_tpu.obs import set_active_sink as ref_set_active_sink
+    from esr_tpu.resilience.faults import FaultPlan as RefPlan
+    from esr_tpu.resilience.faults import FaultSpec as RefSpec
+    from esr_tpu.resilience.faults import installed as ref_installed
+    from esr_tpu_torch.resilience.faults import FaultPlan, FaultSpec, installed
+
+    tmp = tmp_path_factory.mktemp("torch_serving_faults")
+    specs = [("serve_chunk", 1, "lane_fault"), ("serve_chunk", 3, "preempt_signal")]
+    out = {}
+    for side, sink_cls, set_sink, plan, scope, engine in (
+            ("port", TelemetrySink, set_active_sink, FaultPlan([FaultSpec(*a) for a in specs]),
+             installed, lambda: _port(models)),
+            ("jax", RefSink, ref_set_active_sink, RefPlan([RefSpec(*a) for a in specs]),
+             ref_installed, lambda: _ref(models))):
+        path = str(tmp / f"{side}.jsonl")
+        sink = sink_cls(path)
+        prev = set_sink(sink)
+        try:
+            server = engine()
+            ids = [server.submit(p) for p in corpus]
+            with scope(plan):
+                server.run()
+        finally:
+            set_sink(prev)
+            sink.close()
+        out[side] = ([server.report(r) for r in ids], server, path, plan)
+    return out
+
+
+def test_serve_chunk_faults_recover_as_the_reference(faulted):
+    """The same plan fires at the same chunks in both engines: the faulted
+    request is retried, the preempted ones resume, every request ends ok
+    with the reference's window counts and metrics (rtol 1e-5), and the
+    port's telemetry pairs each fault with its recovery."""
+    port, server, path, plan = faulted["port"]
+    ref = faulted["jax"][0]
+    assert plan.pending_count() == 0 and len(plan.injected) == 2
+    for p, r in zip(port, ref):
+        assert (p["status"], p["retries"]) == (r["status"], r["retries"])
+        assert (p["n_windows"], p["n_windows_skipped"]) == (r["n_windows"], r["n_windows_skipped"])
+        _assert_metrics(p, r)
+    assert all(p["status"] == "ok" for p in port) and sum(p["retries"] for p in port) == 1
+    assert server.summary()["recoveries"] == {"recovery_preempt_drain": 1,
+                                              "recovery_request_retry": 1}
+    doc, code = report_files([path], str(REPO / "configs" / "slo.yml"))
+    faults = doc["report"]["faults"]
+    assert code == 0 and (faults["injected"], faults["unrecovered"]) == (2, 0)
+    assert doc == ref_report_files([path], str(REPO / "configs" / "slo.yml"))[0]
 
 
 # -- the precision rungs in serving ------------------------------------------
@@ -446,3 +652,248 @@ def test_bf16_lane_state_round_trips_the_wire_bitwise():
         inject_lane_state(states, 0, tuple(np.zeros((2, 4, 5), np.float32) for _ in range(2)))
     with pytest.raises(ValueError):
         inject_lane_state(tuple(z.float() for z in states), 0, host)
+
+# -- the serving fleet and the planes it stands on --------------------------
+
+def _fleet_classes(cls):
+    """Dealt round robin in this order: the bursty streams are gated."""
+    return {"gated": cls("gated", chunk_windows=2, min_activity=0.3),
+            "standard": cls("standard", chunk_windows=2)}
+
+
+# -- host-only copies: exact equality with the reference -------------------
+
+
+def test_hash_ring_places_and_owns_as_the_reference():
+    nodes = [f"r{i}" for i in range(5)]
+    port, ref = HashRing(nodes, vnodes=16), RefRing(nodes, vnodes=16)
+    keys = [f"lg-{i:04d}" for i in range(200)]
+    for exclude in ((), ("r1",), ("r0", "r2", "r3")):
+        assert [port.place(k, exclude) for k in keys] == [ref.place(k, exclude) for k in keys]
+    assert port.ownership() == ref.ownership()
+    assert abs(sum(port.ownership().values()) - 1.0) < 1e-5
+    port.remove("r3")
+    ref.remove("r3")
+    assert port.ownership() == ref.ownership() and port.nodes == ref.nodes
+    assert port.place("x", exclude=nodes) is None
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_fleet_plan_is_the_references(seed):
+    def specs(plan):
+        return sorted((site, i, [(s.kind, s.arg, s.fault_id) for s in v])
+                      for (site, i), v in plan._pending.items())
+
+    assert specs(build_fleet_plan(seed)) == specs(ref_build_plan(seed))
+
+
+def _record_stream(seed=7):
+    """A serving session's records of every kind the aggregator rolls up,
+    as the sink writes them."""
+    rng = np.random.default_rng(seed)
+    out, t = [], 0.0
+    for chunk in range(40):
+        sec = float(rng.lognormal(-3.5, 0.8))
+        t += sec
+        out.append({"t": t, "type": "span", "name": "serve_chunk", "seconds": sec,
+                    "span_id": f"c{chunk}", "begin": round(t - sec, 6), "end": round(t, 6),
+                    "windows": 4, "skipped_windows": chunk % 3, "lanes": 2})
+    for i, cls in enumerate(("interactive", "standard", "standard", "gated")):
+        rid, root = f"req-{i}", f"root-{i}"
+        for chunk in range(12):
+            out.append({"t": t, "type": "span", "name": "serve_chunk_part",
+                        "seconds": float(rng.lognormal(-3.0, 1.0)), "trace_id": f"tr-{i}",
+                        "span_id": f"p{i}-{chunk}", "parent_id": root, "cls": cls,
+                        "windows": int(rng.integers(1, 4))})
+        out.append({"t": t, "type": "span", "name": "serve_request", "seconds": 1.0,
+                    "trace_id": f"tr-{i}", "span_id": root, "parent_id": None})
+        status = ("ok", "migrated", "replica_lost", "shed")[i]
+        out.append({"t": t, "type": "event", "name": "serve_request_done", "request": rid,
+                    "trace_id": f"tr-{i}", "parent_id": root, "completed": status == "ok",
+                    "status": status, "windows": 12})
+    out += [
+        {"t": t, "type": "counter", "name": "serve_backpressure", "inc": 1, "total": 1},
+        {"t": t, "type": "gauge", "name": "serve_queue_depth", "value": 3},
+        {"t": t, "type": "event", "name": "serve_gating_flush", "skipped": 2},
+        {"t": t, "type": "event", "name": "fault_injected", "site": "fleet_router"},
+        {"t": t, "type": "event", "name": "recovery_router_handoff", "site": "fleet_router"},
+        {"t": t, "type": "numerics", "name": "gru_fwd", "rms": 0.5, "max_abs": 2.0,
+         "nonfinite": 0.0, "count": 64.0},
+        {"t": t, "type": "attribution", "name": "super_step", "wall_s": 0.2, "goodput": 0.7},
+    ]
+    return out
+
+
+def _strip(snap):
+    return {k: v for k, v in snap.items() if k != "uptime_s"}
+
+
+@pytest.fixture(scope="module")
+def aggregators():
+    port, ref = LiveAggregator(), RefAggregator()
+    for rec in _record_stream():
+        port.observe(dict(rec))
+        ref.observe(dict(rec))
+    return port, ref
+
+
+def test_live_aggregator_snapshots_are_the_references(aggregators):
+    port, ref = aggregators
+    assert _strip(port.snapshot()) == _strip(ref.snapshot())
+    assert _strip(port.snapshot(window_s=60.0)) == _strip(ref.snapshot(window_s=60.0))
+    assert port.snapshot()["serving"]["statuses"] == {
+        "migrated": 1, "ok": 1, "replica_lost": 1, "shed": 1}
+
+
+@pytest.mark.parametrize("slo_file", SLO_FILES)
+def test_prometheus_and_slo_window_verdicts_are_the_references(aggregators, slo_file):
+    snap = aggregators[1].snapshot()
+    assert render_prometheus(snap) == ref_render(snap)
+    path = str(REPO / "configs" / slo_file)
+    slo = load_slo(path)
+    assert slo == ref_load_slo(path)
+    assert evaluate_slo_window(snap, slo) == ref_eval_window(snap, slo)
+    empty = {"records": 0}
+    assert evaluate_slo_window(empty, slo) == ref_eval_window(empty, slo)
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_snapshot_wire_parses_in_the_other_package(aggregators, direction):
+    port, ref = aggregators
+    src, parse, to_wire = ((port, ref_parse, ref_state_to_wire) if direction == "port_to_jax"
+                           else (ref, parse_snapshot_wire, state_to_wire))
+    doc = json.loads(json.dumps(src.snapshot_wire(windows=(60.0, 300.0))))
+    doc.update(replica="r0", health={"healthy": True, "sources": {}}, slo_verdict="ok")
+    parsed = parse(doc)
+    assert to_wire(parsed["state"]) == doc["state"]
+    assert sorted(parsed["windows"]) == [60.0, 300.0]
+    assert (parsed["replica"], parsed["slo_verdict"]) == ("r0", "ok")
+    with pytest.raises(ValueError, match="version"):
+        parse(dict(doc, version=99))
+
+
+# -- the scenario: the port's fleet against the JAX engine ------------------
+
+
+@pytest.fixture(scope="module")
+def scenario(corpus, models, tmp_path_factory):
+    """The port's chaos scenario over the corpus served twice, and the JAX
+    package's single engine over the same arrivals."""
+    out = tmp_path_factory.mktemp("torch_fleet_scenario")
+    streams = corpus * 2
+    result = run_fleet_scenario(str(out), models[2], streams, DATASET_CFG,
+                                _fleet_classes(RequestClass), seed=0, lanes=2,
+                                activity_tile=ACTIVITY_TILE, device="cpu")
+    ref = RefServing(models[0], models[1], DATASET_CFG, lanes=2, classes=_fleet_classes(RefClass),
+                     default_class="gated", activity_tile=ACTIVITY_TILE, preempt_quantum=0)
+    classes = tuple(_fleet_classes(RefClass))
+    for i, path in enumerate(streams):
+        ref.submit(path, classes[i % len(classes)], request_id=f"lg-{i:04d}")
+    ref.run(max_wall_s=300.0)
+    return result, ref.reports()
+
+
+def test_chaos_scenario_recovers_and_matches_the_jax_engine(scenario):
+    result, jax_reports = scenario
+    assert result["ok"], result["checks"]
+    assert result["faults"]["injected"] == 3 and result["faults"]["unrecovered"] == 0
+    summary = result["summary"]
+    assert summary["zero_lost"] and summary["statuses"] == {"ok": 8}
+    assert summary["migrations"] >= 1 and summary["failovers"] >= 1
+    assert min(result["killed_streams"].values()) >= 1
+    reports = result["reports"]
+    assert sorted(reports) == sorted(jax_reports)
+    assert sum(r["n_windows_skipped"] for r in reports.values()) > 0
+    for rid, got in reports.items():
+        want = jax_reports[rid]
+        assert (got["n_windows"], got["n_windows_skipped"]) == (want["n_windows"],
+                                                                 want["n_windows_skipped"])
+        for k in METRIC_KEYS:
+            np.testing.assert_allclose(got[k], want[k], rtol=RTOL, err_msg=f"{rid} {k}")
+
+
+def test_reference_reads_the_port_telemetry_files(scenario):
+    """The reference's reporter rolls the port's router and replica files up
+    to the port reporter's document, SLO verdicts included."""
+    tel = scenario[0]["telemetry"]
+    args = [f"{k}={tel[k]}" for k in ("router", "r0", "r1", "r2")]
+    slo = str(REPO / "configs" / "slo_fleet.yml")
+    port_doc, port_code = report_files(args, slo)
+    ref_doc, ref_code = ref_report_files(args, slo)
+    assert port_doc == ref_doc and port_code == ref_code == 0
+    assert port_doc["report"]["faults"]["by_site"] == {
+        "fleet_router": {"injected": 3, "recovered": 3}}
+    with open(tel["r0"]) as f:
+        manifest = json.loads(f.readline())
+    assert manifest["schema_version"] == 2 and manifest["torch_version"]
+    one_doc, one_code = report_files([tel["twin"]], str(REPO / "configs" / "slo.yml"))
+    assert (one_doc, one_code) == ref_report_files([tel["twin"]],
+                                                   str(REPO / "configs" / "slo.yml"))
+    assert one_code == 0 and one_doc["report"]["traces"]["incomplete"] == 0
+
+
+# -- a replica's handoff, and supervision over loopback HTTP ---------------
+
+
+@pytest.fixture(scope="module")
+def handoff(corpus, models, tmp_path_factory):
+    """One stream drained from replica a after two rounds and admitted on
+    replica b, and the same stream served by replica c alone."""
+    tmp = tmp_path_factory.mktemp("torch_fleet_handoff")
+    reps = [Replica(rid, models[2], DATASET_CFG, telemetry_path=str(tmp / f"{rid}.jsonl"),
+                    classes=_fleet_classes(RequestClass), lanes=1, activity_tile=ACTIVITY_TILE,
+                    preempt_quantum=0, device="cpu").start() for rid in "abc"]
+    try:
+        a, b, c = reps
+        for rep in (a, c):
+            rep.submit(corpus[1], "standard", request_id="s")
+        for _ in range(2):
+            a.pump()
+        packets = a.drain()
+        b.admit_handoff(packets[0])
+        for rep in (b, c):
+            while rep.pump() != "drained":
+                pass
+        return packets, a.engine.report("s"), b.engine.report("s"), c.engine.report("s")
+    finally:
+        for rep in reps:
+            rep.close()
+
+
+def test_drain_and_admit_handoff_resume_bitwise(handoff):
+    packets, src, got, want = handoff
+    assert len(packets) == 1 and packets[0].state_bytes is not None
+    assert src["status"] == "migrated" and 0 < packets[0].entry["windows_done"]
+    assert got["status"] == "ok" and got["handoffs"] == 1
+    assert got["n_windows"] == want["n_windows"]
+    for k in METRIC_KEYS:
+        assert got[k] == want[k], k
+
+
+def test_supervisor_over_loopback_http(tmp_path):
+    """Healthy while the replica's /snapshot answers; dead after miss_budget
+    missed polls once its plane is down; alive again at a new address."""
+    sink = TelemetrySink(str(tmp_path / "telemetry.jsonl"))
+    slo = str(REPO / "configs" / "slo.yml")
+    sup = ReplicaSupervisor(miss_budget=2, timeout_s=5.0)
+    plane = start_live_plane(sink, port=0, slo_path=slo, ns="rX")
+    try:
+        sup.watch("rX", f"http://127.0.0.1:{plane.port}/snapshot")
+        sup.poll_once()
+        v = sup.verdict("rX")
+        assert (v["alive"], v["healthy"], v["misses"], v["slo_verdict"]) == (True, True, 0, "ok")
+        plane.close()
+        for misses in (1, 2):
+            sup.poll_once()
+            assert sup.verdict("rX")["misses"] == misses
+        assert not sup.verdict("rX")["alive"]
+        plane = start_live_plane(sink, port=0, slo_path=slo, ns="rX")
+        sup.watch("rX", f"http://127.0.0.1:{plane.port}/snapshot")
+        sup.poll_once()
+        v = sup.verdict("rX")
+        assert (v["alive"], v["healthy"], v["misses"]) == (True, True, 0)
+        status, body = _get(f"http://127.0.0.1:{plane.port}/healthz")
+        assert status == 200 and "numerics@rX" in json.loads(body)["sources"]
+    finally:
+        plane.close()
+        sink.close()
