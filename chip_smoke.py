@@ -311,6 +311,19 @@ def rel_err_of(torch, got, ref):
     return err, scale, TOL * max(scale, TINY)
 
 
+def device_busy_ms(torch, prof) -> float:
+    """The summed device time of a ``torch.profiler`` capture's kernels and
+    copies, in ms."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(dev_us(e) for e in prof.key_averages() if e.device_type == cuda) / 1e3
+    if busy <= 0:
+        fail("the profiler saw no device time")
+    return busy
+
+
 def device_time_breakdown(torch, prof, n: int, wall_ms: float, what: str, card: str):
     """Device busy / idle share and the top kernels of a ``torch.profiler``
     capture over ``n`` units of ``what``."""
@@ -969,8 +982,8 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
     if ckpt is None or not ckpt.endswith(f"checkpoint-iteration{trainer.iterations - 1}"):
         fail(f"no committed final checkpoint (found {ckpt})")
     files = {p.name: p.stat().st_mtime_ns for p in Path(ckpt).iterdir()}
-    if max(files, key=files.get) != "meta.json":
-        fail(f"the commit marker was not written last: {files}")
+    if "digest.json" not in files or files["meta.json"] < max(files.values()):
+        fail(f"the commit marker was not written last, or no digest: {files}")
     loaded, _ = load_checkpoint(ckpt)
     loaded = loaded.to(dev).eval()
     dataset = trainer.train_loader.dataset
@@ -1082,7 +1095,260 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
     # basech 64 (Cg 64: dcn_bwd's wide kernel) at batch 4
     basech_step(torch, np, dev, trainer, {k: v[:4] for k, v in sel.items()}, repo,
                 overrides, card, None, 64, f64=True)
-    return totals, sparse_launches
+    return totals, sparse_launches, (train_recs, valid_recs)
+
+
+def step_ways(torch, trainer, sel, card):
+    """Two B=32 steps from the trainer's state each way: probes off against
+    on, remat off against on. Losses, every gradient and every updated
+    parameter bitwise the plain step's, or fail; a third step's device busy
+    time (the profiler), the second step's CUDA-event span, peak memory
+    (``max_memory_allocated``) and the ``dcn_train_fwd`` launches of a step,
+    printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esr_tpu_torch.training.train_step import make_train_step
+
+    out = {}
+    for name, kw in (("plain", {}), ("probes", {"numerics": True}), ("remat", {"remat": True})):
+        model, opt = copy.deepcopy((trainer.model, trainer.optimizer))
+        model.numerics = model.spacetime_fuse.numerics = name == "probes"
+        step = make_train_step(model, opt, trainer.seqn, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs, ms, launches = [], [], []
+        for _ in range(2):
+            before = counts_of()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(sel)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            launches.append(counts_of()["dcn_train_fwd"] - before["dcn_train_fwd"])
+            runs.append((metrics["loss_per_window"].clone(),
+                         {n: p.grad.clone() for n, p in model.named_parameters()}))
+        peak = torch.cuda.max_memory_allocated() - base
+        # a third step under the profiler: the card's busy time, without the
+        # host's gaps that the events' span holds
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(sel)
+            torch.cuda.synchronize()
+        out[name] = {"runs": runs, "ms": ms, "launches": launches, "peak": peak,
+                     "busy": device_busy_ms(torch, prof),
+                     "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+                     "numerics": metrics.get("numerics")}
+        del model, opt, step
+    plain = out["plain"]
+    for name in ("probes", "remat"):
+        o = out[name]
+        bad = [f"step {i} losses" for i in range(2)
+               if not same_bits(torch, o["runs"][i][0], plain["runs"][i][0])]
+        bad += [f"step {i} grad {n}" for i in range(2) for n in plain["runs"][i][1]
+                if not same_bits(torch, o["runs"][i][1][n], plain["runs"][i][1][n])]
+        bad += [f"param {n}" for n in plain["params"]
+                if not same_bits(torch, o["params"][n], plain["params"][n])]
+        print(f"B=32 steps, {name} on vs off: losses, {len(plain['params'])} grads a step and "
+              f"the updated params {'bitwise' if not bad else 'DIFFER'}")
+        if bad:
+            fail(f"the {name} steps are not bitwise the plain steps: {bad[:8]}")
+    want = {"plain": 2 * TRAIN_WINDOWS, "probes": 2 * TRAIN_WINDOWS,
+            "remat": 4 * TRAIN_WINDOWS}
+    for name, o in out.items():
+        if o["launches"] != [want[name]] * 2:
+            fail(f"the {name} step launched dcn_train_fwd {o['launches']}, should be "
+                 f"{want[name]} a step")
+    tags = out["probes"]["numerics"]
+    if len(tags) != 15:
+        fail(f"the probed step read back {sorted(tags)}")
+    print(f"B=32 flagship steps on {card}: " + "; ".join(
+        f"{name} device busy {o['busy']:.3f} ms a step (profiler), CUDA-event span "
+        f"{o['ms'][1]:.3f} ms (first {o['ms'][0]:.3f}; host gaps included), peak "
+        f"{o['peak'] / 2**30:.3f} GiB above the state, dcn_train_fwd {o['launches'][1]} a step"
+        for name, o in out.items()))
+    return {name: {"busy_ms": o["busy"], "span_ms": o["ms"][1], "peak_bytes": o["peak"]}
+            for name, o in out.items()}
+
+
+def transfer_bf16_step(torch, trainer, batch, repo: Path, overrides, card, recs):
+    """``transfer_dtype: bf16``: the batch's host->device bytes at bf16 and
+    f32, and one step from the same state on each: the loss within bf16
+    rounding (2**-8 relative) of the f32 step's."""
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.training.train_step import make_train_step
+    from esr_tpu_torch.training.trainer import Trainer
+
+    run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"),
+                              overrides=overrides + ["trainer;transfer_dtype=bf16"],
+                              runid="chip_smoke_bf16_transfer", seed=0)
+    t16 = Trainer(run, device=trainer.device, train_recordings=recs[0],
+                  valid_recordings=recs[1])
+    if t16.transfer_dtype != torch.bfloat16:
+        fail("trainer;transfer_dtype=bf16 did not reach the trainer")
+    host16 = t16._host_select(batch, for_train=True)
+    host32 = trainer._host_select(batch, for_train=True)
+    b16 = sum(v.numel() * v.element_size() for v in host16.values())
+    b32 = sum(v.numel() * v.element_size() for v in host32.values())
+    losses = {}
+    for name, tr in (("bf16", t16), ("f32", trainer)):
+        model, opt = copy.deepcopy((trainer.model, trainer.optimizer))
+        staged = tr._stage(batch, for_train=True)
+        if staged["inp"].dtype != torch.float32:
+            fail(f"the {name} transfer reached the step as {staged['inp'].dtype}")
+        losses[name] = float(make_train_step(model, opt, trainer.seqn)(staged)["loss"])
+    if t16._stage(batch)["inp"].dtype != torch.float32 or not torch.equal(
+            t16._stage(batch)["gt"], trainer._stage(batch)["gt"]):
+        fail("a validation batch under transfer_dtype: bf16 is not the f32 batch")
+    t16.sink.close()
+    rel = abs(losses["bf16"] - losses["f32"]) / max(abs(losses["f32"]), TINY)
+    print(f"transfer_dtype bf16 on {card}: host->device {b16} bytes a batch against {b32} at "
+          f"f32 ({b16 / b32:.3f}); loss {losses['bf16']!r} vs {losses['f32']!r}, relative "
+          f"{rel:.3e} (limit 2**-8){' (bitwise)' if losses['bf16'] == losses['f32'] else ''}")
+    if not rel <= 2.0 ** -8:
+        fail("the bf16-transferred step's loss is not within bf16 rounding of the f32 step's")
+
+
+def phase_train_runtime(torch, np, dev, card, repo: Path, out_root: str, recs):
+    """Phase 7b: the trainer's runtime at the flagship width
+    (``configs/train_esr_2x.yml``, basech 8, B = 32, the train phase's
+    recordings): one short run with telemetry, probes, the live plane on an
+    ephemeral port, a 2-step profile and the anomaly guard on, ``/metrics``
+    and ``/healthz`` read mid-run, the telemetry reported and exported
+    through ``python -m esr_tpu_torch.obs``; the probes and remat steps
+    bitwise the plain ones; the chaos scenario at basech 8 on the card; the
+    bf16 transfer."""
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.data.loader import collate_sequences
+    from esr_tpu_torch.obs.report import read_telemetry, report_file
+    from esr_tpu_torch.resilience import chaos
+    from esr_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    overrides = [
+        f"trainer;output_path={out_root}",
+        "trainer;iteration_based_train;iterations=4",
+        "trainer;iteration_based_train;valid_step=2",
+        "trainer;iteration_based_train;save_period=2",
+        "trainer;iteration_based_train;train_log_step=1",
+    ]
+    run = RunConfig.from_args(
+        str(repo / "configs" / "train_esr_2x.yml"),
+        overrides=overrides + ["trainer;numerics=true", "trainer;live_telemetry=0",
+                               "trainer;profile_steps=2", "trainer;max_bad_steps=1"],
+        runid="chip_smoke_runtime", seed=0)
+    trainer = Trainer(run, device=dev, train_recordings=recs[0], valid_recordings=recs[1])
+    step, scraped = trainer.train_step, {}
+
+    def scraping_step(batch):
+        if len(scraped) == 0 and trainer.optimizer.count == 2:
+            base = f"http://127.0.0.1:{trainer.live_plane.port}"
+            for path in ("/metrics", "/healthz"):
+                scraped[path] = http_get(base + path)
+        return step(batch)
+
+    trainer.train_step = scraping_step
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainer.train_step = step
+    for path, (status, body, ms) in scraped.items():
+        print(f"train live plane {path} mid-run: {status} in {ms:.3f} ms")
+        if status != 200:
+            fail(f"the trainer's live plane {path} answered {status} mid-run: {body[:300]}")
+    if "/metrics" not in scraped or "esr_numerics_finite_frac" not in scraped["/metrics"][1]:
+        fail("/metrics was not read mid-run, or carries no numerics family")
+    tel = os.path.join(run.log_dir, "telemetry.jsonl")
+    _, records, torn = read_telemetry(tel)
+    by_type = {}
+    for r in records:
+        by_type.setdefault(r["type"], []).append(r)
+    attribution = by_type.get("attribution", [])
+    spans = {r["name"] for r in by_type.get("span", [])}
+    events = {r["name"]: r for r in by_type.get("event", [])}
+    gauges = {r["name"] for r in by_type.get("gauge", [])}
+    tags = {r["name"] for r in by_type.get("numerics", [])}
+    want_spans = {"train_run", "super_step", "data_wait", "dispatch", "device_step",
+                  "metric_readback", "checkpoint", "validate", "stage_megabatch"}
+    problems = []
+    if [a["first_iteration"] for a in attribution] != [0, 1, 2, 3]:
+        problems.append(f"attribution records {[a['first_iteration'] for a in attribution]}")
+    if not want_spans <= spans:
+        problems.append(f"spans missing {sorted(want_spans - spans)}")
+    if len(tags) != 15 or any(r["finite_frac"] != 1.0 for r in by_type.get("numerics", [])):
+        problems.append(f"numerics tags {sorted(tags)}")
+    if not {"device_mem_bytes_in_use", "device_mem_peak_bytes"} <= gauges:
+        problems.append(f"no watermark gauges ({sorted(gauges)})")
+    for name in ("live_telemetry", "profiler_capture", "prefetch_close", "train_end"):
+        if name not in events:
+            problems.append(f"no {name} event")
+    if torn or problems or not all(math.isfinite(v) for v in result.values()):
+        fail(f"the runtime run's telemetry: {problems}; torn {torn}; result {result}")
+    dev_ms = sorted(a["device_step_s"] * 1e3 for a in attribution[1:])
+    print(f"train runtime run on {card}: {trainer.iterations} steps in {wall:.3f} s, result "
+          f"{json.dumps(result)}; attribution of steps 1-3: " + "; ".join(
+              f"wall {a['wall_s'] * 1e3:.1f} ms = data_wait {a['data_wait_s'] * 1e3:.1f} + "
+              f"dispatch {a['dispatch_s'] * 1e3:.1f} + device_step {a['device_step_s'] * 1e3:.1f} "
+              f"(readback {a['metric_readback_s'] * 1e3:.1f}) + checkpoint "
+              f"{a['checkpoint_s'] * 1e3:.1f} + validate {a['validate_s'] * 1e3:.1f} + residual "
+              f"{a['residual_s'] * 1e3:.1f}, stage {a['stage_megabatch_s'] * 1e3:.1f} overlapped"
+              for a in attribution[1:]) + f"; device_step median {dev_ms[len(dev_ms) // 2]:.1f} ms")
+    peak = max(r["value"] for r in by_type["gauge"] if r["name"] == "device_mem_peak_bytes")
+    print(f"train runtime watermark: peak {peak / 2**30:.3f} GiB of the card")
+    sink_write_cost(tel, run.log_dir, trainer.iterations, "step", card)
+
+    cap = events["profiler_capture"]
+    if not cap["ok"] or cap["steps_covered"] != 2:
+        fail(f"the profiler capture: {cap}")
+    with open(cap["file"]) as f:
+        prof = json.load(f)
+    kernels = sorted({e["name"] for e in prof["traceEvents"]
+                      if e.get("cat") == "kernel" and "dcn_" in e.get("name", "")})
+    print(f"profiler capture {os.path.basename(cap['file'])}: {len(prof['traceEvents'])} "
+          f"events; dcn kernels {kernels}")
+    if not kernels:
+        fail("the profiler trace holds no dcn_* kernel")
+    del prof
+    cli = [sys.executable, "-m", "esr_tpu_torch.obs"]
+    rep = subprocess.run(cli + ["report", tel, "--slo", str(repo / "configs" / "slo.yml")],
+                         capture_output=True, text=True, timeout=300, cwd=str(repo))
+    if rep.returncode != 0:
+        fail(f"obs report on the runtime run exited {rep.returncode}: {rep.stderr[-2000:]}")
+    goodput = json.loads(rep.stdout)["report"]["goodput"]
+    exp = subprocess.run(cli + ["export", tel, "-o",
+                                os.path.join(trainer.trace_dir, "telemetry.trace.json")],
+                         capture_output=True, text=True, timeout=300, cwd=str(repo))
+    if exp.returncode != 0:
+        fail(f"obs export exited {exp.returncode}: {exp.stderr[-2000:]}")
+    print(f"obs report: slo.yml green, goodput {goodput}; obs export: {exp.stdout.strip()}")
+
+    dataset = trainer.train_loader.dataset
+    batch = collate_sequences([dataset.get_item(i, seed=i) for i in range(32)])
+    sel = trainer._select(batch)
+    ways = step_ways(torch, trainer, sel, card)
+    transfer_bf16_step(torch, trainer, batch, repo, overrides, card, recs)
+    print(f"train runtime phase (run, steps, bf16) {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    summary = chaos.run_scenario(os.path.join(out_root, "chaos"), seed=0, basech=8,
+                                 device="cuda")
+    chaos_wall = time.perf_counter() - t0
+    slo = str(repo / "configs" / "slo_chaos.yml")
+    codes = {phase: report_file(path, slo_path=slo)[1] for phase, path in (
+        ("train", summary["chaos"]["telemetry"]), ("serve", summary["serve_telemetry"]))}
+    print(f"chaos scenario at basech 8 on {card}: {chaos_wall:.1f} s (twin "
+          f"{summary['twin']['wall_s']} s, chaos {summary['chaos']['wall_s']} s, restore and "
+          f"serve {summary['serve_wall_s']} s); checks {json.dumps(summary['checks'])}; faults "
+          f"{summary['faults']['injected']} injected, {summary['faults']['unrecovered']} "
+          f"unrecovered; rollbacks {summary['chaos']['rollbacks']}, skipped "
+          f"{summary['chaos']['skipped_iterations']}, bad tag {summary['chaos']['last_bad_tag']}; "
+          f"params against the twin max rel {summary['params_max_rel_diff']!r}, "
+          f"{'bitwise' if summary['params_bitwise'] else 'not bitwise'}; slo_chaos.yml {codes}")
+    if (not summary["ok"] or summary["faults"]["unrecovered"] != 0
+            or any(codes.values()) or not summary["params_max_rel_diff"] <= 1e-5):
+        fail("the chaos scenario on the card is not green")
+    return {"ways": ways, "chaos_s": chaos_wall, "run_s": wall}
 
 
 def check_writer_records(run, trainer):
@@ -1797,11 +2063,11 @@ def drive_serving(torch, server, schedule, base=None, max_wall_s: float = 600.0)
     return server.summary(), scraped
 
 
-def sink_write_cost(tel: str, out_dir: str, summary, card) -> None:
-    """The host cost of the serving run's records: each record of ``tel``
-    written again through a fresh sink (json, append, flush), once alone
-    and once with a ``LiveAggregator`` observing it; printed per record
-    and per window step."""
+def sink_write_cost(tel: str, out_dir: str, steps: int, unit: str, card) -> None:
+    """The host cost of a run's records: each record of ``tel`` written
+    again through a fresh sink (json, append, flush), once alone and once
+    with a ``LiveAggregator`` observing it; printed per record and per
+    ``unit`` (``steps`` of them in the run)."""
     from esr_tpu_torch.obs import LiveAggregator, TelemetrySink
     from esr_tpu_torch.obs.report import read_telemetry
 
@@ -1818,11 +2084,11 @@ def sink_write_cost(tel: str, out_dir: str, summary, card) -> None:
         dt = time.perf_counter() - t0
         sink.close()
         out[tag] = dt
-    steps = max(summary["window_steps"], 1)
-    print(f"serving telemetry on {card}: {len(records)} records a run "
-          f"({len(records) / steps:.1f} a window step); written again through a sink "
+    steps = max(steps, 1)
+    print(f"telemetry on {card}: {len(records)} records a run ({len(records) / steps:.1f} a "
+          f"{unit}); written again through a sink "
           + ", ".join(f"{tag} {dt / len(records) * 1e6:.2f} us a record, "
-                      f"{dt / steps * 1e3:.3f} ms a window step" for tag, dt in out.items()))
+                      f"{dt / steps * 1e3:.3f} ms a {unit}" for tag, dt in out.items()))
 
 
 def phase_serving(torch, np, dev, card, repo: Path, out_dir: str):
@@ -1916,7 +2182,7 @@ def phase_serving(torch, np, dev, card, repo: Path, out_dir: str):
         rates[tag].append(again["windows_per_sec"])
     print(f"serving on {card}, windows/s computed (runs in the order live, none, sink, live, "
           f"sink, none): " + json.dumps(rates))
-    sink_write_cost(tel, out_dir, summary, card)
+    sink_write_cost(tel, out_dir, summary["window_steps"], "window step", card)
 
     # every preempted stream against the same stream served alone
     by_name = {s.name: s for s in streams}
@@ -2543,7 +2809,9 @@ def main() -> int:
     # -- 8. training, and the sparse train step ----------------------------
     out_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        totals, sparse_launches = phase_train(torch, np, dev, card, repo, out_root)
+        totals, sparse_launches, recs = phase_train(torch, np, dev, card, repo, out_root)
+        # -- 8b. the trainer's runtime, and the chaos scenario ------------
+        phase_train_runtime(torch, np, dev, card, repo, os.path.join(out_root, "runtime"), recs)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 

@@ -10,8 +10,9 @@ the config); the batches and their augmentation seeds are the same either
 way.
 The evaluation loader is synchronous: batch 1, in order, non-overlapping
 sequences. :class:`LanePackedChunks` packs recordings into lanes for the
-streaming engine, and :class:`DevicePrefetcher` stages its chunks on a
-thread.
+streaming engine, and :class:`DevicePrefetcher` stages the engine's chunks
+and the trainer's batches on a thread, with the stall watchdog and the
+``prefetch`` fault site.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import multiprocessing
 import queue
 import threading
+import time
 from collections import deque
 from concurrent.futures import Future, ProcessPoolExecutor, ThreadPoolExecutor
 from multiprocessing import resource_tracker, shared_memory
@@ -440,58 +442,310 @@ class LanePackedChunks:
             }
 
 
+def _corrupt_item(item):
+    """Enact a ``prefetch``/``corrupt`` fault on what the source yields: a
+    batch dict or a group (list) of them."""
+    from esr_tpu_torch.resilience.faults import corrupt_batch
+
+    if isinstance(item, dict):
+        corrupt_batch(item)
+    elif isinstance(item, (list, tuple)):
+        for b in item:
+            if isinstance(b, dict):
+                corrupt_batch(b)
+    return item
+
+
 class DevicePrefetcher:
     """Stages items of ``source`` on a thread ``depth`` ahead of the
-    consumer: ``stage_fn`` (pinned host copies and non-blocking uploads to
-    the card) runs while the card computes the previous item. Yields
-    ``(item, staged)`` in order; a producer exception re-raises in the
-    consumer; ``close`` (or leaving the ``with`` block) stops the thread.
+    consumer (counterpart of ``esr_tpu/data/loader.py:DevicePrefetcher``):
+    ``stage_fn`` (the host->device copies) runs while the card computes the
+    previous item. Yields ``(item, staged)`` in order; a producer exception
+    re-raises in the consumer; ``close`` (or leaving the ``with`` block)
+    stops the thread.
+
+    Health: with a process-active telemetry sink, a ``prefetch_queue_depth``
+    gauge every ``gauge_every`` items, a ``prefetch_stall`` counter whenever
+    the consumer waited on an empty queue, a ``prefetch_close`` event at
+    teardown, and the ``device_prefetch`` ``/healthz`` source while open.
+
+    Stall watchdog (``stall_timeout``): a consumer wait longer than it is a
+    hung producer. The first abandons the producer thread and starts a
+    replacement (``recovery_prefetch_restart``); a second degrades to
+    staging on the consumer thread (``recovery_prefetch_degrade``). The
+    source is pulled under a lock after a generation check, so an abandoned
+    producer that wakes up exits without taking an item: no item is lost or
+    duplicated when the stall struck between items. None (the default)
+    waits without bound.
+
+    Fault plane: the producer fires the ``prefetch`` site once per item
+    ordinal; ``stall`` sleeps the producer ``arg`` seconds, ``corrupt``
+    NaN-poisons the host item before staging.
     """
 
-    _DONE = object()
-
-    def __init__(self, source, stage_fn: Callable, depth: int = 2):
+    def __init__(self, source, stage_fn: Callable, depth: int = 2,
+                 join_timeout: float = 5.0, gauge_every: int = 32,
+                 stall_timeout: Optional[float] = None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
-        self._source = source
-        self._stage = stage_fn
-        self._queue: queue.Queue = queue.Queue(maxsize=depth)
+        if join_timeout <= 0:
+            raise ValueError(f"join_timeout must be > 0, got {join_timeout}")
+        if gauge_every < 1:
+            raise ValueError(f"gauge_every must be >= 1, got {gauge_every}")
+        if stall_timeout is not None and stall_timeout <= 0:
+            raise ValueError(f"stall_timeout must be > 0 (or None), got {stall_timeout}")
+        from esr_tpu_torch.obs import trace
+        from esr_tpu_torch.obs.http import register_health_source
+
+        self._join_timeout = float(join_timeout)
+        self._gauge_every = int(gauge_every)
+        self._stall_timeout = float(stall_timeout) if stall_timeout is not None else None
+        self.gets = 0
+        self.stalls = 0
+        self.stall_s = 0.0
+        self.restarts = 0
+        self.degraded = False
+        self._reported_close = False
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._produce, daemon=True,
-                                        name="device-prefetch")
-        self._thread.start()
+        self._it = iter(source)
+        self._stage_fn = stage_fn
+        # the source is pulled under _it_lock after a generation check; the
+        # watchdog bumps the generation under _put_lock, which also covers
+        # each producer's (check, enqueue) pair
+        self._it_lock = threading.Lock()
+        self._put_lock = threading.Lock()
+        self._gen = 0
+        self._item_idx = 0
+        self._trace_ctx = trace.capture()
+        self._thread = self._spawn_producer()
+        register_health_source("device_prefetch", self.health)
 
-    def _put(self, item) -> bool:
-        while not self._stop.is_set():
-            try:
-                self._queue.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
+    def health(self) -> dict:
+        """The ``/healthz`` source: unhealthy once the watchdog fired."""
+        return {"healthy": not self.degraded and self.restarts == 0, "gets": self.gets,
+                "stalls": self.stalls, "stall_s": round(self.stall_s, 6),
+                "restarts": self.restarts, "degraded": self.degraded,
+                "queue_depth": self._q.qsize()}
 
-    def _produce(self) -> None:
+    def _spawn_producer(self) -> threading.Thread:
+        th = threading.Thread(target=self._produce, args=(self._gen,), daemon=True,
+                              name=f"device-prefetch-g{self._gen}")
+        th.start()
+        return th
+
+    def _produce(self, gen: int) -> None:
+        from esr_tpu_torch.obs import trace
+
+        with trace.adopt(self._trace_ctx):
+            self._produce_inner(gen)
+
+    def _abandoned(self, gen: int) -> bool:
+        # a stale read is re-checked under _put_lock at enqueue
+        return self._stop.is_set() or gen != self._gen
+
+    def _acquire_source(self) -> bool:
+        """The iterator lock, bounded by the watchdog's timeout when armed
+        (a producer hung inside ``next`` holds it for good)."""
+        if self._stall_timeout is None:
+            self._it_lock.acquire()
+            return True
+        return self._it_lock.acquire(timeout=self._stall_timeout)
+
+    def _pull_source(self, gen: int):
+        """One generation-checked pull with the fault site fired:
+        ``("item", x)``, ``("end", None)`` or ``("abandoned", None)``. The
+        ordinal is consumed only by a successful pull, so the ordinal ->
+        item mapping stays 1:1 across a restart."""
+        if not self._acquire_source():
+            return "abandoned", None
         try:
-            for item in self._source:
-                if self._stop.is_set() or not self._put((item, self._stage(item))):
+            if self._abandoned(gen):
+                return "abandoned", None
+            idx = self._item_idx
+        finally:
+            self._it_lock.release()
+        from esr_tpu_torch.resilience import faults
+
+        specs = faults.fire("prefetch", idx)
+        for spec in specs:
+            if spec.kind == "stall":
+                time.sleep(spec.arg)
+        if not self._acquire_source():
+            return "abandoned", None
+        try:
+            if self._abandoned(gen):
+                return "abandoned", None
+            try:
+                item = next(self._it)
+            except StopIteration:
+                return "end", None
+            self._item_idx = idx + 1
+        finally:
+            self._it_lock.release()
+        for spec in specs:
+            if spec.kind == "corrupt":
+                _corrupt_item(item)
+        return "item", item
+
+    def _produce_inner(self, gen: int) -> None:
+        def put(entry) -> bool:
+            while True:
+                with self._put_lock:
+                    if self._abandoned(gen):
+                        return False
+                    try:
+                        self._q.put_nowait(entry)
+                        return True
+                    except queue.Full:
+                        pass
+                # wait for a free slot (a get notifies not_full at once),
+                # waking every 50 ms to see whether the producer was abandoned
+                with self._q.not_full:
+                    if self._q._qsize() >= self._q.maxsize:
+                        self._q.not_full.wait(timeout=0.05)
+
+        try:
+            while True:
+                kind, item = self._pull_source(gen)
+                if kind == "abandoned":
+                    return
+                if kind == "end":
+                    put(("end", None))
+                    return
+                if not put(("item", (item, self._stage_fn(item)))):
                     return
         except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
-            self._put(e)
-            return
-        self._put(self._DONE)
+            put(("error", e))
 
     def __iter__(self):
-        while True:
-            got = self._queue.get()
-            if got is self._DONE:
-                return
-            if isinstance(got, BaseException):
-                raise got
-            yield got
+        return self
+
+    def _watchdog_fire(self, waited: float) -> None:
+        """A wait past ``stall_timeout``: restart the producer once, then
+        degrade to staging on the consumer thread."""
+        import warnings
+
+        from esr_tpu_torch.resilience.recovery import emit_recovery
+
+        if self.restarts == 0:
+            self.restarts += 1
+            with self._put_lock:
+                self._gen += 1
+            emit_recovery("recovery_prefetch_restart", site="prefetch",
+                          waited_s=round(waited, 6), timeout_s=self._stall_timeout)
+            warnings.warn(f"DevicePrefetcher producer stalled >{self._stall_timeout:g}s; "
+                          "abandoned the thread and started a replacement", stacklevel=3)
+            self._thread = self._spawn_producer()
+        elif not self.degraded:
+            self.degraded = True
+            with self._put_lock:
+                self._gen += 1
+            emit_recovery("recovery_prefetch_degrade", site="prefetch",
+                          waited_s=round(waited, 6), timeout_s=self._stall_timeout)
+            warnings.warn("DevicePrefetcher stalled again after a producer restart; "
+                          "degrading to synchronous (consumer-thread) staging", stacklevel=3)
+
+    def _get_blocking(self):
+        """A blocking get, counted as a stall (with the watchdog when armed)."""
+        from esr_tpu_torch.obs import active_sink
+
+        t0 = time.monotonic()
+        if self._stall_timeout is None:
+            kind, payload = self._q.get()
+        else:
+            while True:
+                try:
+                    kind, payload = self._q.get(timeout=self._stall_timeout)
+                    break
+                except queue.Empty:
+                    self._watchdog_fire(time.monotonic() - t0)
+                    if self.degraded:
+                        # drain what a producer landed before the fence
+                        try:
+                            kind, payload = self._q.get_nowait()
+                        except queue.Empty:
+                            kind, payload = self._next_sync()
+                        break
+        waited = time.monotonic() - t0
+        self.stalls += 1
+        self.stall_s += waited
+        sink = active_sink()
+        if sink is not None:
+            sink.counter("prefetch_stall", waited_s=round(waited, 6))
+        return kind, payload
+
+    def _next_sync(self):
+        """Degraded mode: pull and stage on the consumer thread. A source
+        wedged mid-pull cannot be resumed: that raises."""
+        kind, item = self._pull_source(self._gen)
+        if kind == "abandoned":
+            raise RuntimeError("DevicePrefetcher source is wedged mid-pull (the hung producer "
+                               "still holds the iterator lock); restart the run from the last "
+                               "checkpoint")
+        if kind != "item":
+            return "end", None
+        return "item", (item, self._stage_fn(item))
+
+    def __next__(self):
+        if self._stop.is_set():
+            raise StopIteration
+        try:
+            kind, payload = self._q.get_nowait()
+        except queue.Empty:
+            if self.degraded:
+                kind, payload = self._next_sync()
+            else:
+                kind, payload = self._get_blocking()
+        self.gets += 1
+        if self.gets % self._gauge_every == 0:
+            from esr_tpu_torch.obs import active_sink
+
+            sink = active_sink()
+            if sink is not None:
+                sink.gauge("prefetch_queue_depth", self._q.qsize(), gets=self.gets,
+                           stalls=self.stalls)
+        if kind == "item":
+            return payload
+        self.close()
+        if kind == "end":
+            raise StopIteration
+        raise payload
 
     def close(self) -> None:
+        """Stop the producer and drop the staged items still queued."""
+        import sys
+        import warnings
+
+        from esr_tpu_torch.obs import active_sink
+        from esr_tpu_torch.obs.http import unregister_health_source
+
+        unregister_health_source("device_prefetch")
         self._stop.set()
-        self._thread.join(timeout=30)
+
+        def drain():
+            try:
+                while True:
+                    self._q.get_nowait()
+            except queue.Empty:
+                pass
+
+        drain()
+        if sys.is_finalizing():
+            return
+        self._thread.join(timeout=self._join_timeout)
+        drain()
+        sink = active_sink()
+        if self._thread.is_alive():
+            if sink is not None:
+                sink.counter("prefetch_join_timeout", timeout_s=self._join_timeout)
+            warnings.warn(f"DevicePrefetcher producer thread did not stop within "
+                          f"{self._join_timeout:g}s; it is daemonic and leaks only until "
+                          "process exit", stacklevel=2)
+        if sink is not None and not self._reported_close:
+            self._reported_close = True
+            sink.event("prefetch_close", gets=self.gets, stalls=self.stalls,
+                       stall_s=round(self.stall_s, 6), joined=not self._thread.is_alive())
 
     def __enter__(self) -> "DevicePrefetcher":
         return self

@@ -28,6 +28,15 @@ DCN on activity: each call passes the mask of
 optional ``activity [B]``), so the masked kernels ``dcn_fwd_masked`` /
 ``dcn_train_fwd_masked`` run in place of the dense forwards. It has no
 parameters.
+
+``numerics`` (off by default) arms the numerics plane's probe taps
+(:mod:`esr_tpu_torch.ops.numerics`) at the reference's seams and with its
+tags: ``head_out``, ``enc0``-``enc2`` (deepest first), ``gru_fwd`` /
+``gru_bwd``, ``dcn_offsets`` / ``dcn_mask`` / ``dcn_out`` (each fired once
+per aligned frame), ``dec0``-``dec2`` and ``tail_out``.
+``numerics_mode="raw"`` records the tensors themselves (the drift
+harness), and ``numerics_break`` routes one tag through the harness's
+precision breaker.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from esr_tpu_torch.models.layers import (
     UpsampleConvLayer,
 )
 from esr_tpu_torch.ops.dcn import dcn_offsets_from_conv, deform_conv2d_auto
+from esr_tpu_torch.ops.numerics import probe as numerics_probe
 
 States = Tuple[torch.Tensor, torch.Tensor]
 
@@ -122,13 +132,31 @@ class TimePropagation(nn.Module):
         return feats + x, (state_fwd, state_bwd)
 
 
-class STFusion(nn.Module):
+class _Probed(nn.Module):
+    """The probe-tap knobs shared by :class:`STFusion` and
+    :class:`DeepRecurrNet`."""
+
+    numerics: bool = False
+    numerics_mode: str = "stats"
+    numerics_break: Optional[str] = None
+
+    def _probe(self, tag: str, x: torch.Tensor) -> torch.Tensor:
+        return numerics_probe(tag, x, enabled=self.numerics, mode=self.numerics_mode,
+                              break_tag=self.numerics_break)
+
+
+class STFusion(_Probed):
     """Spatio-temporal fusion + upsampling decoder."""
 
     def __init__(self, channels: int, num_frame: int = 3,
                  norm: Optional[str] = None, activation: str = "relu",
-                 deformable_groups: int = 8, dcn_sparse: bool = False):
+                 deformable_groups: int = 8, dcn_sparse: bool = False,
+                 numerics: bool = False, numerics_mode: str = "stats",
+                 numerics_break: Optional[str] = None):
         super().__init__()
+        self.numerics = numerics
+        self.numerics_mode = numerics_mode
+        self.numerics_break = numerics_break
         if (num_frame + 1) % 2 or num_frame < 3:
             raise ValueError(f"num_frame must be odd and >= 3, got {num_frame}")
         c = channels
@@ -181,12 +209,14 @@ class STFusion(nn.Module):
         offsets, mask = dcn_offsets_from_conv(
             raw.permute(0, 2, 3, 1), self.deformable_groups, 9
         )
+        offsets = self._probe("dcn_offsets", offsets)
+        mask = self._probe("dcn_mask", mask)
         aligned = deform_conv2d_auto(
             feat0.permute(0, 2, 3, 1).contiguous(), offsets, mask,
             self.dcn_weight, self.dcn_bias, impl=self.dcn_impl,
             sparse=self.dcn_sparse, activity=activity,
         )
-        aligned = torch.relu(aligned).permute(0, 3, 1, 2)
+        aligned = self._probe("dcn_out", torch.relu(aligned)).permute(0, 3, 1, 2)
         feat = self.post_dcn(torch.cat([aligned, feat1], 1))
         sk = self.spatial_kernel(feat)  # [B, 2, H, W]
         # channel gate: spatial max-pool -> MLP -> sigmoid, [B, 2C]
@@ -216,20 +246,25 @@ class STFusion(nn.Module):
             # attention-weighted mean of the frames' skip features, then x2
             agg = (feats * self.atten[idx](feats)).reshape(
                 b, n, *feats.shape[1:]).mean(dim=1)
-            out = self.recon[idx](out + agg)
+            out = self._probe(f"dec{idx}", self.recon[idx](out + agg))
         return out
 
 
-class DeepRecurrNet(nn.Module):
+class DeepRecurrNet(_Probed):
     """The ESR network. ``forward(x [B, N, H, W, inch], states) ->
     (out [B, H, W, inch], states)``; create states with :meth:`init_states`
     and reset them per recording. ``dcn_sparse`` predicates the DCN on
-    activity (module docstring)."""
+    activity, ``numerics`` arms the probe taps (module docstring)."""
 
     def __init__(self, inch: int = 2, basech: int = 16, num_frame: int = 3,
                  norm: Optional[str] = None, activation: str = "relu",
-                 down_scale: int = 8, dcn_sparse: bool = False):
+                 down_scale: int = 8, dcn_sparse: bool = False,
+                 numerics: bool = False, numerics_mode: str = "stats",
+                 numerics_break: Optional[str] = None):
         super().__init__()
+        self.numerics = numerics
+        self.numerics_mode = numerics_mode
+        self.numerics_break = numerics_break
         c = down_scale * basech
         self.inch = inch
         self.basech = basech
@@ -239,7 +274,9 @@ class DeepRecurrNet(nn.Module):
         self.feat_extract = FeatsExtract(basech, norm, activation)
         self.time_propagate = TimePropagation(c, norm, activation)
         self.spacetime_fuse = STFusion(c, num_frame, norm, activation,
-                                       dcn_sparse=dcn_sparse)
+                                       dcn_sparse=dcn_sparse, numerics=numerics,
+                                       numerics_mode=numerics_mode,
+                                       numerics_break=numerics_break)
         self.tail = ConvLayer(basech, inch, 3, padding=1, activation="relu", norm=norm)
 
     def init_states(self, batch: int, height: int, width: int,
@@ -262,13 +299,17 @@ class DeepRecurrNet(nn.Module):
         ph, pw = x.shape[2], x.shape[3]
 
         flat = self.head(x.reshape(b * n, ph, pw, cin).permute(0, 3, 1, 2))
-        feats_list = self.feat_extract(flat)
+        flat = self._probe("head_out", flat)
+        # deepest first: enc0 is the bottleneck
+        feats_list = [self._probe(f"enc{i}", f)
+                      for i, f in enumerate(self.feat_extract(flat))]
         bottleneck = feats_list[0]
         seq = bottleneck.reshape(b, n, *bottleneck.shape[1:])
         nchw_states = tuple(s.permute(0, 3, 1, 2) for s in states)
         seq, (sf, sb) = self.time_propagate(seq, nchw_states)
+        sf, sb = self._probe("gru_fwd", sf), self._probe("gru_bwd", sb)
         out = self.tail(self.spacetime_fuse(seq, feats_list, activity))
-        out = out.permute(0, 2, 3, 1)
+        out = self._probe("tail_out", out).permute(0, 2, 3, 1)
         if need_crop:
             out = model_util.crop_image(out, spec, scale=1)
         return out, (sf.permute(0, 2, 3, 1), sb.permute(0, 2, 3, 1))

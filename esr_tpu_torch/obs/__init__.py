@@ -6,7 +6,15 @@ Producing:
 - :mod:`~esr_tpu_torch.obs.sink`: the JSONL telemetry sink and the
   process-active sink every instrumented component reads on each call;
 - :mod:`~esr_tpu_torch.obs.trace`: ambient trace context (span identity and
-  parentage through a ``contextvars`` context).
+  parentage through a ``contextvars`` context);
+- :mod:`~esr_tpu_torch.obs.spans`: the trainer's per-step wall-clock
+  attribution (``StepAttribution``);
+- :mod:`~esr_tpu_torch.obs.device`: the card's memory gauges
+  (``DeviceWatermark``) and ``torch.profiler`` captures
+  (``ProfilerCapture``);
+- :mod:`~esr_tpu_torch.obs.numerics`: the numerics plane's host half
+  (readback, records, layer attribution, the drift harness); its device
+  half is :mod:`esr_tpu_torch.ops.numerics`.
 
 Consuming, live:
 
@@ -18,14 +26,12 @@ Consuming, live:
 - :mod:`~esr_tpu_torch.obs.fleetview`: :class:`FleetAggregator`, N
   replicas' snapshots merged, with staleness and the scaling signal.
 
-Consuming, offline: :mod:`~esr_tpu_torch.obs.report` (``python -m
-esr_tpu_torch.obs report <files> [--slo configs/slo.yml]``).
+Consuming, offline: :mod:`~esr_tpu_torch.obs.report` and
+:mod:`~esr_tpu_torch.obs.export` (``python -m esr_tpu_torch.obs
+report|export|drift``).
 
 The files and wire documents are the reference's record for record, so
-either package's reporter and fleet view read the other's. Not ported yet:
-the profiler capture and device watermarks (``obs/device.py``), the Chrome
-trace export, step attribution (``obs/spans.py``) and the numerics probe
-plane.
+either package's reporter and fleet view read the other's.
 """
 
 from esr_tpu_torch.obs import trace
@@ -39,6 +45,7 @@ from esr_tpu_torch.obs.sink import (
     run_manifest,
     set_active_sink,
 )
+from esr_tpu_torch.obs.spans import StepAttribution, StepSpans
 
 __all__ = [
     "SCHEMA_VERSION",
@@ -53,5 +60,7 @@ __all__ = [
     "run_manifest",
     "set_active_sink",
     "start_fleet_plane",
+    "StepAttribution",
+    "StepSpans",
     "trace",
 ]

@@ -100,7 +100,7 @@ class TelemetrySink:
     flushed the moment it exists.
     """
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, manifest: Optional[Dict] = None):
         self.path = path
         # `t` and the span edges (raw time.monotonic values, obs/trace.py,
         # mapped by rel()) share this zero
@@ -120,7 +120,7 @@ class TelemetrySink:
         if parent:
             os.makedirs(parent, exist_ok=True)
         self._f = open(path, "a")
-        man = run_manifest()
+        man = dict(manifest) if manifest is not None else run_manifest()
         man["schema_version"] = SCHEMA_VERSION
         man["ts"] = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
         self._write("manifest", "run", man)
@@ -134,13 +134,13 @@ class TelemetrySink:
 
     # -- record plumbing ---------------------------------------------------
 
-    def _write(self, type_: str, name: str, fields: Dict):
+    def _write(self, type_: str, name: str, fields: Dict, sort: bool = True):
         rec = {
             "t": round(time.monotonic() - self._t0, 6),
             "type": type_,
             "name": name,
         }
-        for k, v in sorted(fields.items()):
+        for k, v in (sorted(fields.items()) if sort else fields.items()):
             rec[k] = v
         try:
             line = json.dumps(rec)
@@ -249,6 +249,16 @@ class TelemetrySink:
         """A training metric scalar (the MetricWriter/MetricTracker path)."""
         self._write("metric", name, {"value": float(value), "step": step,
                                      **fields})
+
+    def numerics(self, tag: str, stats: Dict, step=None, **fields) -> None:
+        """One probe tag's merged statistics (``obs.numerics.stats_fields``)
+        at the trainer's cadence-gated readback."""
+        self._write("numerics", tag, self._trace_fields({"step": step, **stats, **fields}))
+
+    def attribution(self, fields: Dict) -> None:
+        """A per-step wall-clock attribution record (``obs/spans.py``); the
+        producer's field order is kept."""
+        self._write("attribution", "super_step", fields, sort=False)
 
     def span(self, name: str, seconds: float, **fields) -> None:
         """A completed named duration. v2: carries the host thread name

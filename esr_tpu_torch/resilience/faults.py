@@ -7,9 +7,9 @@ round.
 Production code carries :func:`fire` hooks at the injection sites; with no
 plan installed a hook is one module-global ``None`` check.
 
-Sites and kinds (the reference's catalog, declared whole; the port wires
-``serve_chunk`` and ``fleet_router`` so far, the training sites wait for the
-trainer's fault plane):
+Sites and kinds (the reference's catalog; every site is wired: the training
+loader's ``DevicePrefetcher``, the trainer's step and checkpoint commit, the
+validated restore, the serving engine and the fleet router):
 
 ====================  =====================================================
 site                  kinds
@@ -32,8 +32,8 @@ site                  kinds
                       the router's round ordinal.
 ====================  =====================================================
 
-Stdlib only: the plan is installable in processes that never
-touch the card.
+Stdlib only (numpy inside :func:`corrupt_batch`): the plan is
+installable in processes that never touch the card.
 """
 
 from __future__ import annotations
@@ -195,3 +195,44 @@ def fire(site: str, index: int, **ctx) -> Tuple[FaultSpec, ...]:
                 index=spec.index, fault_id=spec.fault_id, **ctx,
             )
     return tuple(specs)
+
+
+# -- what the sites enact ------------------------------------------------
+
+
+def corrupt_batch(batch, fraction: float = 0.25):
+    """NaN-poison a host batch dict in place (the leading ``fraction`` of
+    every float array): the ``prefetch``/``corrupt`` kind. Returns the
+    dict."""
+    import numpy as np
+
+    for key, arr in batch.items():
+        arr = np.asarray(arr)
+        if not np.issubdtype(arr.dtype, np.floating) or arr.size == 0:
+            continue
+        # .flat writes through for any layout
+        arr.flat[: max(1, int(arr.size * fraction))] = np.nan
+        batch[key] = arr
+    return batch
+
+
+def truncate_checkpoint_arrays(path: str) -> Optional[str]:
+    """Truncate the largest file of the checkpoint directory ``path`` (its
+    parameters or its optimizer state) to half its size: the
+    ``ckpt_restore``/``truncate`` kind, real torn bytes on disk. Returns
+    the truncated file (None when there is nothing to truncate)."""
+    import os
+
+    largest, size = None, -1
+    for name in os.listdir(path):
+        p = os.path.join(path, name)
+        if not os.path.isfile(p) or name.endswith((".json", ".tmp")):
+            continue
+        s = os.path.getsize(p)
+        if s > size:
+            largest, size = p, s
+    if largest is None or size <= 0:
+        return None
+    with open(largest, "r+b") as f:
+        f.truncate(max(size // 2, 1))
+    return largest

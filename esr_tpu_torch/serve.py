@@ -27,8 +27,10 @@ serves the merged fleet view. ``python -m esr_tpu_torch.obs report
 <files> --slo configs/slo.yml`` rolls the telemetry up. It runs on the card
 unless ``--device cpu`` is given. ``--precision`` picks the rung (f32,
 bf16 or int8, or an alias); omitted, the checkpoint's
-``trainer.precision``, else f32. ``--aot`` and ``--profile-steps`` are not
-ported yet and raise.
+``trainer.precision``, else f32. ``--profile-steps N`` records the first N
+dispatched chunks with ``torch.profiler`` into ``<output_path>/profile``
+(a ``profiler_capture`` event in the telemetry). ``--aot`` is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -83,7 +85,8 @@ def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="serve the merged fleet view (/metrics, /healthz quorum, /slo, "
                         "/fleet, /snapshot) on this port (fleet only; default off)")
     p.add_argument("--profile-steps", dest="profile_steps", type=int, default=0,
-                   help="not ported: raises")
+                   help="torch.profiler trace of the first N dispatched chunks into "
+                        "<output_path>/profile, stamped as a profiler_capture event")
     p.add_argument("--precision", type=str, default=None, choices=PRECISION_SPELLINGS,
                    help="compute precision: f32, bf16 or int8, or an alias (default: "
                         "the checkpoint's trainer.precision, else f32; int8 = "
@@ -144,7 +147,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     engine_kw = dict(
         seqn=flags.seqn, max_pending=flags.max_pending, preempt_quantum=flags.preempt_quantum,
         lane_quarantine_k=flags.lane_quarantine_k, request_retries=flags.request_retries,
-        profile_steps=flags.profile_steps, precision=precision, device=flags.device,
+        profile_steps=flags.profile_steps, profile_dir=os.path.join(flags.output_path, "profile"),
+        precision=precision, device=flags.device,
     )
     if flags.loadgen is not None:
         streams = make_stream_corpus(n=flags.loadgen, seed=flags.seed)

@@ -43,8 +43,10 @@ ephemeral) serves the live plane (``obs.http``: ``/metrics``,
 ``live_slo``, ``/snapshot``) beside the active sink; ``health_ns``
 namespaces the health sources of co-resident replicas.
 
-Not in this slice (each raises ``NotImplementedError`` when asked for): the
-profiler capture (``profile_steps``) and AOT programs (``aot_programs``).
+``profile_steps`` records the first N dispatched chunks with
+``torch.profiler`` (CUDA activity on the card) into ``profile_dir`` and
+stamps a ``profiler_capture`` event. Not in this slice: AOT programs
+(``aot_programs`` raises ``NotImplementedError``).
 
 ``precision`` is the rung the session serves at (``None``: f32; the entry
 point resolves CLI > checkpoint > f32): at bf16 the lane states live in
@@ -155,14 +157,13 @@ class ServingEngine:
         live_port: Optional[int] = None,
         live_slo: Optional[str] = None,
         profile_steps: int = 0,
+        profile_dir: Optional[str] = None,
         health_ns: Optional[str] = None,
         precision: Optional[str] = None,
         device: DeviceLike = None,
     ):
         if aot_programs:
             raise NotImplementedError("AOT chunk programs are not ported yet")
-        if int(profile_steps) > 0:
-            raise NotImplementedError("the serving profiler capture is not ported yet")
         self.precision = resolve_precision(cli=precision)
         self.compute_dtype = compute_dtype_of(self.precision)
         self.device = resolve_device(device)
@@ -209,6 +210,12 @@ class ServingEngine:
         self._skipped_carry = 0
         self._last_gauges = None
         self.recoveries: Dict[str, int] = {}
+        self._profiler = None
+        if int(profile_steps) > 0:
+            from esr_tpu_torch.obs.device import ProfilerCapture
+
+            self._profiler = ProfilerCapture(profile_dir or "serve_profile", int(profile_steps),
+                                             site="serving", cuda=self.device.type == "cuda")
         self.live = None
         self.health_ns = health_ns
         self._health_source_name = ("serving_lanes" if health_ns is None
@@ -554,9 +561,14 @@ class ServingEngine:
         dev = self.device
         windows = {k: torch.from_numpy(a).to(dev) for k, a in
                    zip(("inp_scaled", "gt", "inp_mid", "valid"), arrays + [valid])}
+        if self._profiler is not None:
+            self._profiler.maybe_start()
         t_dispatch = time.monotonic()
         self._states, sums, _ = program(self._states, torch.from_numpy(reset_keep).to(dev),
                                         windows)
+        if self._profiler is not None:
+            # one profiled unit per dispatched chunk; stops itself at the budget
+            self._profiler.step(1)
         for lane, wins in enumerate(per_lane):
             if wins:
                 self._lane_needs_reset.discard(lane)
@@ -673,6 +685,9 @@ class ServingEngine:
                 if wait > 0:
                     time.sleep(min(wait, _IDLE_SLICE_S))
         self.flush()
+        if self._profiler is not None:
+            # a session shorter than the budget still lands its record
+            self._profiler.stop()
         return self.summary()
 
     def flush(self) -> None:
@@ -801,6 +816,8 @@ class ServingEngine:
             unregister_health_source(self._health_source_name)
             live, self.live = self.live, None
             live.close()
+        if self._profiler is not None:
+            self._profiler.stop()
 
     def abandon(self) -> None:
         """Drop what this engine holds on the card (the lane states, the

@@ -3,11 +3,17 @@
     python -m esr_tpu_torch.train -c configs/train_esr_2x.yml -id run0
     python -m esr_tpu_torch.train -c cfg.yml -r <ckpt-dir>|auto [--reset]
     python -m esr_tpu_torch.train -c cfg.yml ... --device cpu
+    python -m esr_tpu_torch.train -c cfg.yml --live-port 0 --profile-steps 2
 
 It trains on the CUDA card unless ``--device cpu`` asks for the CPU, and
-prints the final train log as one JSON line. Trainer keys that ask for
-what is not ported raise, naming the override that turns them off
-(``esr_tpu_torch.training.trainer``).
+prints the final train log as one JSON line. ``--live-port PORT`` is
+``-o "trainer;live_telemetry=PORT"`` (0 an ephemeral port: ``/metrics``,
+``/healthz``, ``/slo`` and ``/snapshot`` during the run, the bound port in
+the ``live_telemetry`` event of ``telemetry.jsonl``), ``--profile-steps
+N`` is ``-o "trainer;profile_steps=N"`` (a ``torch.profiler`` trace of
+the first N steps under ``<log_dir>/profile``). What each trainer key
+does, and which keys are refused, is in
+``esr_tpu_torch.training.trainer``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,12 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    metavar="key;path=value",
                    help="config override by semicolon key path (repeatable)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--live-port", type=int, default=None, metavar="PORT",
+                   help="serve live telemetry (/metrics, /healthz, /slo) on this port while "
+                        "training (0 = ephemeral; default off): -o 'trainer;live_telemetry=PORT'")
+    p.add_argument("--profile-steps", type=int, default=None, metavar="N",
+                   help="torch.profiler trace of the first N iterations, stamped as a "
+                        "profiler_capture event: -o 'trainer;profile_steps=N'")
     return p.parse_args(argv)
 
 
@@ -40,6 +52,12 @@ def main(argv: Optional[Sequence[str]] = None, log_to_file: bool = False) -> dic
     (the command line's choice) sends the log to the console and to
     ``<log_dir>/info.txt``."""
     args = get_args(argv)
+    # config shorthands: appended as overrides, so they land in the
+    # effective config (and its fingerprint)
+    if args.live_port is not None:
+        args.override.append(f"trainer;live_telemetry={args.live_port}")
+    if args.profile_steps is not None:
+        args.override.append(f"trainer;profile_steps={args.profile_steps}")
     from esr_tpu_torch.config.parser import RunConfig
     from esr_tpu_torch.training.trainer import Trainer
 

@@ -9,10 +9,18 @@ best, ``model_best_until_iteration{N}/``) holding
   (``esr_tpu_torch.inference.checkpoint``), so ``load_checkpoint`` and
   ``python -m esr_tpu_torch.infer`` read it as it is;
 - ``optimizer.pt``: the optimizer state and its update count;
+- ``digest.json``: sha256 of the saved state (:func:`host_state`, through
+  ``resilience.recovery.state_digest``), which a validated restore
+  (``recovery.restore_with_fallback``) recomputes;
 - ``meta.json``: the commit marker (format, model/optimizer/scheduler
   names, iteration, ``monitor_best``), written last, temp-then-
   ``os.replace``, so a save cut short leaves a directory that
   :func:`find_latest_checkpoint` ignores.
+
+The ``ckpt_commit`` fault site fires once per save attempt, keyed by the
+iteration: ``fail`` raises before a byte is written, ``torn`` between the
+arrays and the marker (the trainer retries the commit,
+``trainer.commit_retries``).
 
 Resume checks names as the reference does: another model name skips the
 restore; another optimizer name restores the parameters only; ``reset``
@@ -27,6 +35,7 @@ import logging
 import os
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -40,12 +49,54 @@ CHECKPOINT_FORMAT = 1
 META = "meta.json"
 
 
+def _flatten_state(obj, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """Every leaf of a nested state (dicts in sorted key order, lists and
+    tuples by index) as a host array; non-numeric leaves as the bytes of
+    their ``repr``."""
+    if isinstance(obj, dict):
+        for k in sorted(obj, key=str):
+            _flatten_state(obj[k], f"{prefix}/{k}", out)
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _flatten_state(v, f"{prefix}/{i}", out)
+    elif isinstance(obj, torch.Tensor):
+        out[prefix] = obj.detach().cpu().numpy()
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        out[prefix] = np.asarray(obj)
+    else:
+        out[prefix] = np.frombuffer(repr(obj).encode(), np.uint8)
+
+
+def host_state(params: Dict, opt_state: Dict) -> Dict[str, np.ndarray]:
+    """A checkpoint's state as one flat ``{key: host array}``: the flax
+    parameter tree (``params/...``) and the optimizer state
+    (``optimizer/...``), the input of ``recovery.state_digest``."""
+    out = {"params/" + "/".join(k): np.asarray(v)
+           for k, v in convert.flatten_tree(params).items()}
+    _flatten_state(opt_state, "optimizer", out)
+    return out
+
+
+def restore_state(path: str) -> Dict[str, np.ndarray]:
+    """The :func:`host_state` of a checkpoint directory, read from disk
+    (raises on a torn or missing file)."""
+    opt_state = torch.load(os.path.join(path, "optimizer.pt"), map_location="cpu")
+    return host_state(inference_checkpoint.read_params(path), opt_state)
+
+
 def save_checkpoint(save_dir: str, model: nn.Module, optimizer: ScheduledOptimizer,
                     config: Dict, iteration: int, monitor_best: float,
                     training_mode: str = "iteration_based_train",
                     save_best: bool = False) -> str:
     """Write ``checkpoint-iteration{N}`` (and the best alias when asked);
     returns the last path written."""
+    from esr_tpu_torch.resilience import faults
+    from esr_tpu_torch.resilience.recovery import state_digest, write_digest
+
+    injected = faults.fire("ckpt_commit", iteration)
+    for spec in injected:
+        if spec.kind == "fail":
+            raise faults.InjectedFault(spec)
     meta = {
         "format": CHECKPOINT_FORMAT,
         "model": {"name": config["model"]["name"]},
@@ -67,6 +118,15 @@ def save_checkpoint(save_dir: str, model: nn.Module, optimizer: ScheduledOptimiz
             os.remove(marker)
         inference_checkpoint.save_checkpoint(path, params, config)
         torch.save(opt_state, os.path.join(path, "optimizer.pt"))
+    for spec in injected:
+        if spec.kind == "torn":
+            raise faults.InjectedFault(spec)
+    # the digest of the state the arrays were written from, before the
+    # marker: a committed checkpoint always carries it
+    digest = state_digest(host_state(params, opt_state))
+    for path in paths:
+        marker = os.path.join(path, META)
+        write_digest(path, digest)
         tmp = marker + ".tmp"
         with open(tmp, "w") as f:
             json.dump(meta, f, indent=1)

@@ -1,26 +1,62 @@
-"""The training loop: iterations, validation, best-model
-monitoring, early stop and checkpoints (counterpart of
-``esr_tpu/training/trainer.py``, as the iteration-based loop and nothing
-more).
+"""The training loop: iterations, validation, best-model monitoring,
+early stop, checkpoints, and the runtime around them (counterpart of
+``esr_tpu/training/trainer.py``, as the iteration-based loop).
 
 - Each iteration runs one train step on one batch of ``batch_size``
   sequences (``training.train_step``); the loader turns its epoch over
-  (``set_epoch``) when it runs out.
-- Every ``train_log_step`` iterations the scalars (``train_loss``,
-  ``train_mse_loss``, ``grad_norm``, ``lr``) go to the log and, one JSON
-  object per line, to ``<log_dir>/train_log.jsonl``; running averages are
-  kept in a ``MetricTracker``.
-- The reference's metric writer (``utils.writer``) records every
-  iteration's losses and ``steps_per_sec``, the learning rate every
-  ``train_log_step`` iterations and the validation stamps, in
-  ``<log_dir>/metrics.jsonl`` and, with ``tensorboard`` (on unless set
-  false) and TensorBoard importable, in event files; with ``vis.enabled``
-  every ``vis.train_img_writer_num``-th iteration renders the first
-  sequence's middle window (LR, scaled and GT counts, the GT frame) and the
-  prediction (``utils.vis_events``) to it. The views are built for that one
-  sequence on the vis steps (the same window, seed and augmentation as the
-  batch's), not for every sequence of every batch: the GT frame's resize
-  alone costs about a batch build.
+  (``set_epoch``) when it runs out. ``device_prefetch`` (default 2) stages
+  that many batches ahead on a ``DevicePrefetcher`` thread (0 stages in
+  the loop).
+- The step's scalars (losses, grad norm and, with ``numerics``, the probe
+  stats) come to the host in one copy per step. Every ``train_log_step``
+  iterations they go to the log and to ``<log_dir>/train_log.jsonl``;
+  running averages are kept in a ``MetricTracker``.
+- The metric writer (``utils.writer``) records every iteration's losses
+  and ``steps_per_sec``, the learning rate every ``train_log_step``
+  iterations and the validation stamps, in ``<log_dir>/metrics.jsonl``
+  and, with ``tensorboard`` (on unless set false) and TensorBoard
+  importable, in event files; with ``vis.enabled`` every
+  ``vis.train_img_writer_num``-th iteration renders the first sequence's
+  middle window and the prediction (``utils.vis_events``).
+- ``telemetry`` (on unless set false): a ``TelemetrySink`` at
+  ``<log_dir>/telemetry.jsonl``, active for the length of ``train()``: the
+  writer's and trackers' scalars, one ``attribution`` record per logged
+  step (``obs.spans``: ``data_wait``, ``stage_megabatch``, ``dispatch``,
+  ``device_step``, ``metric_readback``, ``checkpoint``, ``validate``,
+  ``residual``) under a ``train_run`` trace, the prefetcher's health,
+  fault and recovery events and ``train_end``. ``python -m
+  esr_tpu_torch.obs report`` (or ``esr_tpu.obs``) reads it.
+- ``live_telemetry`` (needs the sink): ``true`` or a port (0 an ephemeral
+  one) or ``{port, slo, windows, rel_err, watermark_interval_s}`` serves
+  ``/metrics``, ``/healthz``, ``/slo`` and ``/snapshot`` during the run
+  and polls the card's memory into gauges (``obs.device.DeviceWatermark``).
+- ``profile.enabled`` records the whole loop with ``torch.profiler``;
+  ``profile_steps: N`` (``train.py --profile-steps``) only the first N
+  steps, stamped as a ``profiler_capture`` event; both write Chrome traces
+  to ``profile.trace_dir`` (default ``<log_dir>/profile``), and asking for
+  both is an error.
+- ``numerics``: the model's probe taps and the step's ``loss`` /
+  ``grad_norm`` taps (``ops.numerics``), one ``numerics`` record per tag
+  at the ``train_log_step`` cadence; they change no number.
+- ``max_bad_steps`` (null: off) arms the anomaly guard
+  (``resilience.recovery.AnomalyGuard``): a step with a non-finite loss is
+  skipped (kept out of the trackers) and logged; after more than
+  ``max_bad_steps`` in a row the trainer restores the last valid committed
+  checkpoint (``restore_with_fallback``; the run-start state when none
+  exists), fast-forwards the ``(seed, epoch)``-deterministic loader to it
+  and replays, at most ``max_rollbacks`` times (default 2). The guard
+  checks each step (the port runs steps one by one).
+- ``dispatch_retries`` (default 1) retries a failing step call,
+  ``commit_retries`` / ``commit_backoff_s`` (2, 0.1 s) a failing
+  checkpoint commit, and ``prefetch_stall_timeout_s`` arms the
+  prefetcher's stall watchdog. The fault plane's ``train_step``,
+  ``ckpt_commit`` and ``prefetch`` sites fire here (``resilience.faults``).
+- ``remat`` recomputes each window's forward in the backward
+  (``torch.utils.checkpoint``): the same bits, less memory.
+- ``transfer_dtype: bf16`` rounds the train batches to bf16 on the host
+  and ships them as bf16 (widened to f32 on the card); validation stays
+  f32; ``auto`` follows the precision rung (f32 here); it contradicts
+  ``device_rasterize``.
 - ``device_rasterize`` (or the dataset's ``encode: device``, which wins;
   the two contradicting each other is an error, as in the reference): the
   loaders build fixed-capacity raw event windows and the batch is
@@ -32,32 +68,26 @@ more).
   valid_loss``) picks the best model and ``early_stop`` stops a run that
   stopped improving.
 - Checkpoints every ``save_period``, on a new best, and at the end
-  (``training.checkpoint``); ``-r <dir>|auto`` resumes, ``--reset``
-  restarts the progress.
+  (``training.checkpoint``); ``-r <dir>`` resumes, ``-r auto`` resumes the
+  newest committed checkpoint that validates (``restore_with_fallback``),
+  ``--reset`` restarts the progress.
 
-The trainer's config keys split three ways.
+Keys that only steer how XLA compiles or dispatches the reference's
+programs, and cannot change a number, are read and mean here: ``k_steps``
+(steps run one by one), ``train_lookahead`` (the port reads each step's
+scalars after it), ``compile_cache`` (nothing is compiled),
+``async_checkpoint`` (saves are synchronous), ``validate.fused`` /
+``validate.chunk_windows`` (validation runs batch by batch).
 
-- Keys that only steer how XLA compiles or dispatches the reference's
-  programs, and cannot change a number, are read and have these meanings
-  here: ``k_steps`` (steps run one by one), ``train_lookahead`` (loss reads
-  are deferred by at most this many steps; the port reads each step's
-  scalars after it), ``compile_cache`` (nothing is compiled), and
-  ``async_checkpoint`` (saves are synchronous), ``validate.fused`` /
-  ``validate.chunk_windows`` (validation runs batch by batch),
-  ``device_prefetch``, ``prefetch_join_timeout``, ``dispatch_retries``,
-  ``prefetch_stall_timeout_s``, ``commit_retries`` / ``commit_backoff_s``
-  (host->device copies are synchronous, nothing is retried) and
-  ``telemetry`` (the port's scalars go to ``train_log.jsonl``).
-- Keys that ask for what is not ported raise ``NotImplementedError`` naming
-  the override that turns them off: ``precision`` bf16/int8, ``remat``,
-  ``transfer_dtype`` bf16, ``numerics``, ``max_bad_steps``,
-  ``live_telemetry``, ``profile`` / ``profile_steps``, and
-  ``epoch_based_train``.
-- The rest are the loop's own, above.
+Refused: ``precision: bf16`` raises ``NotImplementedError`` naming the
+override that turns it off (bf16 training has no oracle while the
+reference's bf16 backward is red), ``precision: int8`` and
+``epoch_based_train`` raise the reference's ``ValueError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -72,13 +102,21 @@ import torch
 from esr_tpu_torch.config.build import build_model, build_optimizer, build_train_loader
 from esr_tpu_torch.config.parser import RunConfig
 from esr_tpu_torch.config.precision import resolve_precision
-from esr_tpu_torch.data.loader import ConcatSequenceDataset
+from esr_tpu_torch.data.loader import ConcatSequenceDataset, DevicePrefetcher
 from esr_tpu_torch.device import DeviceLike, resolve_device
-from esr_tpu_torch.training.checkpoint import (
-    find_latest_checkpoint,
-    resume_checkpoint,
-    save_checkpoint,
+from esr_tpu_torch.models import convert
+from esr_tpu_torch.obs import trace
+from esr_tpu_torch.obs.numerics import NSTATS, order_tags, poison_tag, stats_fields
+from esr_tpu_torch.obs.spans import StepAttribution, instrument_dispatch
+from esr_tpu_torch.resilience import faults as _faults
+from esr_tpu_torch.resilience.recovery import (
+    AnomalyGuard,
+    RollbackSignal,
+    emit_recovery,
+    restore_with_fallback,
+    retry_with_backoff,
 )
+from esr_tpu_torch.training.checkpoint import resume_checkpoint, save_checkpoint
 from esr_tpu_torch.training.train_step import (
     make_device_rasterizer,
     make_eval_step,
@@ -94,6 +132,8 @@ TRAIN_KEYS = ["inp_scaled_cnt", "gt_cnt"]
 RAW_KEYS = ["inp_norm_events", "inp_events_valid", "gt_raw_events", "gt_events_valid"]
 # what the visualizations read
 VIS_KEYS = ["inp_cnt", "gt_img", "inp_scaled_cnt", "gt_cnt"]
+
+_END = object()
 
 
 def resolve_device_rasterize(config: Dict) -> bool:
@@ -114,42 +154,60 @@ def resolve_device_rasterize(config: Dict) -> bool:
 
 
 def _refuse_unported(config: Dict) -> None:
-    """Raise on trainer keys that ask for what the port does not do."""
+    """Raise on trainer keys the port refuses: the reference's
+    ``ValueError`` for ``epoch_based_train`` and the int8 rung, and
+    ``NotImplementedError`` for bf16 training."""
     t = config["trainer"]
+    if (t.get("epoch_based_train") or {}).get("enabled", False):
+        raise ValueError("epoch_based_train is not supported (legacy/broken in the "
+                         "reference — SURVEY.md §2.1); use iteration_based_train")
     precision = resolve_precision(config=t.get("precision"))
     if precision == "int8":
-        # the reference's refusal (esr_tpu/training/trainer.py): training
-        # needs float params and grads
+        # the reference's refusal: training needs float params and grads
         raise ValueError(
             "trainer.precision: int8 is not a training rung: int8 is post-training "
             "quantization for the inference and serving path (infer / serve "
             "--precision int8); train at f32")
-    asks = []
     if precision != "f32":
         # bf16 training has no oracle while the reference's bf16 backward
         # seam is red (ROADMAP C3)
-        asks.append(("precision", t["precision"], "trainer;precision=f32"))
-    flags = [
-        ("remat", t.get("remat", False), "trainer;remat=false"),
-        ("numerics", t.get("numerics", False), "trainer;numerics=false"),
-        ("profile.enabled", (t.get("profile") or {}).get("enabled", False),
-         "trainer;profile;enabled=false"),
-        ("profile_steps", t.get("profile_steps", 0), "trainer;profile_steps=0"),
-        ("epoch_based_train.enabled", (t.get("epoch_based_train") or {}).get("enabled", False),
-         "trainer;epoch_based_train;enabled=false"),
-    ]
-    asks += [(k, v, ov) for k, v, ov in flags if v]
-    if t.get("transfer_dtype") not in (None, "f32", "auto"):
-        asks.append(("transfer_dtype", t["transfer_dtype"], "trainer;transfer_dtype=f32"))
-    if t.get("max_bad_steps") is not None:
-        asks.append(("max_bad_steps", t["max_bad_steps"], "trainer;max_bad_steps=null"))
-    live = t.get("live_telemetry")
-    if live is not None and live is not False:  # 0 is a port, not off
-        asks.append(("live_telemetry", live, "trainer;live_telemetry=false"))
-    if asks:
         raise NotImplementedError(
-            "not ported: " + "; ".join(
-                f"trainer key {k}={v!r} (turn it off with -o \"{ov}\")" for k, v, ov in asks))
+            f"not ported: trainer key precision={t['precision']!r} (turn it off with "
+            "-o \"trainer;precision=f32\")")
+
+
+def _fast_forward_groups(source, n_iters: int):
+    """The deterministic data fast-forward after a rollback: drop the
+    epoch's leading groups covering ``n_iters`` trained iterations, so the
+    replay sees the batches a fault-free run sees (the sampler and the
+    augmentation seeds are ``(seed, epoch)``-deterministic)."""
+    skipped = 0
+    for group in source:
+        if skipped < n_iters:
+            skipped += len(group)
+            if skipped > n_iters:
+                logger.warning("rollback fast-forward overshot the checkpoint boundary "
+                               "(%d skipped, %d targeted); resuming at the group boundary",
+                               skipped, n_iters)
+            continue
+        yield group
+
+
+def _host_snapshot(model: torch.nn.Module, optimizer) -> Dict:
+    """The model's and the optimizer's state on the host (the rollback of
+    last resort when no checkpoint was committed yet)."""
+    opt = optimizer.state_dict()
+
+    def host(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.detach().cpu().clone()
+        if isinstance(obj, dict):
+            return {k: host(v) for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [host(v) for v in obj]
+        return copy.deepcopy(obj)
+
+    return {"params": convert.export_flax_params(model), "optimizer": host(opt)}
 
 
 class Trainer:
@@ -173,10 +231,53 @@ class Trainer:
         self.valid_step = int(it_cfg.get("valid_step", 1000))
         self.device = resolve_device(device)
 
+        # the reference's knobs that only steer XLA; read and range-checked
+        self.k_steps = int(tcfg.get("k_steps", 1))
+        if self.k_steps < 1:
+            raise ValueError(f"k_steps must be >= 1, got {self.k_steps}")
+        self.train_lookahead = int(tcfg.get("train_lookahead", 2))
+        if self.train_lookahead < 0:
+            raise ValueError(f"train_lookahead must be >= 0, got {self.train_lookahead}")
+
+        # resilience knobs
+        self.max_bad_steps = tcfg.get("max_bad_steps", None)
+        self._guard = (AnomalyGuard(int(self.max_bad_steps))
+                       if self.max_bad_steps is not None else None)
+        self.max_rollbacks = int(tcfg.get("max_rollbacks", 2))
+        self.dispatch_retries = int(tcfg.get("dispatch_retries", 1))
+        if self.dispatch_retries < 0:
+            raise ValueError(f"dispatch_retries must be >= 0, got {self.dispatch_retries}")
+        self.commit_retries = int(tcfg.get("commit_retries", 2))
+        if self.commit_retries < 0:
+            raise ValueError(f"commit_retries must be >= 0, got {self.commit_retries}")
+        self.commit_backoff_s = float(tcfg.get("commit_backoff_s", 0.1))
+        if self.commit_backoff_s <= 0:
+            raise ValueError(f"commit_backoff_s must be > 0, got {self.commit_backoff_s}")
+        self.prefetch_stall_timeout = tcfg.get("prefetch_stall_timeout_s", None)
+        self.device_prefetch = int(tcfg.get("device_prefetch", 2))
+        if self.device_prefetch < 0:
+            raise ValueError(f"device_prefetch must be >= 0, got {self.device_prefetch}")
+        self.prefetch_join_timeout = float(tcfg.get("prefetch_join_timeout", 5.0))
+        if self.prefetch_join_timeout <= 0:
+            raise ValueError(f"prefetch_join_timeout must be > 0, got "
+                             f"{self.prefetch_join_timeout}")
+
         torch.manual_seed(run.seed)
         np.random.seed(run.seed)
 
         self.device_rasterize = resolve_device_rasterize(config)
+        transfer = tcfg.get("transfer_dtype", None)
+        if transfer not in (None, "f32", "bf16", "auto"):
+            raise ValueError(f"unknown transfer_dtype {transfer!r}")
+        if transfer == "auto":
+            # follows the precision rung, which is f32 for training here
+            transfer = "bf16" if resolve_precision(config=tcfg.get("precision")) == "bf16" \
+                else "f32"
+        self.transfer_dtype = torch.bfloat16 if transfer == "bf16" else None
+        if self.transfer_dtype is not None and self.device_rasterize:
+            raise ValueError("transfer_dtype=bf16 only applies to the count-map streams; "
+                             "device_rasterize already ships compact integer event windows "
+                             "— drop one of the two options")
         vis_cfg = tcfg.get("vis") or {}
         self.vis_enabled = bool(vis_cfg.get("enabled", False))
         self.train_vis_step = int(vis_cfg.get("train_img_writer_num", 20))
@@ -205,13 +306,18 @@ class Trainer:
             self.vis_dataset = ConcatSequenceDataset(
                 train_data.recordings, {**train_data.config, "item_keys": VIS_KEYS})
 
-        self.model = build_model(config["model"]).to(self.device)
+        self.numerics = bool(tcfg.get("numerics", False))
+        model_cfg = config["model"]
+        if self.numerics:
+            model_cfg = copy.deepcopy(model_cfg)
+            model_cfg["args"] = {**(model_cfg.get("args") or {}), "numerics": True}
+        self.model = build_model(model_cfg).to(self.device)
         self.optimizer, self.schedule = build_optimizer(
             config["optimizer"], self.model.parameters(), config.get("lr_scheduler"),
             it_cfg.get("lr_change_rate"))
         self.seqn = int(config["train_dataloader"]["dataset"]["sequence"].get("seqn", 3))
         self.mid_idx = (self.seqn - 1) // 2
-        self.train_step = make_train_step(self.model, self.optimizer, self.seqn)
+        self.remat = bool(tcfg.get("remat", False))
         self.eval_step = make_eval_step(self.model, self.seqn)
 
         self.monitor = tcfg.get("monitor", "off")
@@ -224,36 +330,148 @@ class Trainer:
             self.mnt_best = math.inf if self.mnt_mode == "min" else -math.inf
         self.early_stop = int(float(tcfg.get("early_stop", 10**9)))
         self.not_improved_count = 0
-        self.train_metrics = MetricTracker(["train_mse_loss", "train_loss"])
-        self.valid_metrics = MetricTracker(["valid_mse_loss", "valid_loss"])
+
+        # the telemetry sink; train() activates it and its finally closes it
+        self.sink = None
+        if bool(tcfg.get("telemetry", True)):
+            from esr_tpu_torch.obs import TelemetrySink, config_fingerprint, run_manifest
+
+            self.sink = TelemetrySink(
+                os.path.join(run.log_dir, "telemetry.jsonl"),
+                manifest=run_manifest(config_fingerprint=config_fingerprint(config)))
+        lt = tcfg.get("live_telemetry", False)
+        self.live_cfg = None
+        # identity checks: live_telemetry: 0 is an ephemeral port, not off
+        if lt is not False and lt is not None:
+            if self.sink is None:
+                raise ValueError("trainer.live_telemetry requires trainer.telemetry (the live "
+                                 "plane taps the JSONL sink's record stream)")
+            if lt is True:
+                lt = {}
+            elif isinstance(lt, int) and not isinstance(lt, bool):
+                lt = {"port": int(lt)}
+            elif not isinstance(lt, dict):
+                raise ValueError(f"trainer.live_telemetry must be bool, port int, or a "
+                                 f"mapping, got {lt!r}")
+            self.live_cfg = {
+                "port": int(lt.get("port", 0)),
+                "slo": lt.get("slo"),
+                "windows": tuple(lt.get("windows", (60.0, 300.0))),
+                "rel_err": float(lt.get("rel_err", 0.01)),
+                "watermark_interval_s": float(lt.get("watermark_interval_s", 1.0)),
+            }
+        self.live_plane = None
+        # False, not None, when telemetry is off: None would fall back to the
+        # process-active sink of some other run
+        self._own_sink = self.sink if self.sink is not None else False
+        self.train_metrics = MetricTracker(["train_mse_loss", "train_loss"], sink=False)
+        self.valid_metrics = MetricTracker(["valid_mse_loss", "valid_loss"],
+                                           sink=self._own_sink)
         self.log_path = os.path.join(run.log_dir, "train_log.jsonl")
         # opened by train(), closed when it returns
         self.writer: Optional[MetricWriter] = None
 
+        b = int(config["train_dataloader"]["batch_size"])
+        self._attr = StepAttribution(sink=self.sink, batch_size=b, log_step=self.train_log_step)
+        self._stage_spans: Dict[int, float] = {}
+        self.train_step = instrument_dispatch(
+            make_train_step(self.model, self.optimizer, self.seqn, remat=self.remat,
+                            numerics=self.numerics), self._attr)
+
+        self.profile_cfg = tcfg.get("profile") or {}
+        self.profile_steps = int(tcfg.get("profile_steps", 0) or 0)
+        if self.profile_steps < 0:
+            raise ValueError(f"profile_steps must be >= 0, got {self.profile_steps}")
+        if self.profile_steps and self.profile_cfg.get("enabled", False):
+            raise ValueError("trainer.profile_steps and trainer.profile.enabled are mutually "
+                             "exclusive (one profiler trace at a time)")
+        self.trace_dir = (self.profile_cfg.get("trace_dir")
+                          or os.path.join(run.log_dir, "profile"))
+
         self.start_iteration = 0
         resume_path = run.resume
         if resume_path == "auto":
-            resume_path = find_latest_checkpoint(os.path.dirname(run.save_dir))
-            if resume_path is None:
+            # the newest committed checkpoint that validates, falling back
+            # past a torn or corrupted one
+            self.start_iteration, best, found = restore_with_fallback(
+                os.path.dirname(run.save_dir), self.model, self.optimizer, config,
+                reset=run.reset)
+            if found is None:
                 logger.info("auto-resume: no checkpoint found; fresh start")
-        if resume_path is not None:
+            elif best is not None:
+                self.mnt_best = best
+        elif resume_path is not None:
             self.start_iteration, best = resume_checkpoint(
                 resume_path, self.model, self.optimizer, config, reset=run.reset)
             if best is not None:
                 self.mnt_best = best
+        # the rollback target of last resort (no committed checkpoint yet)
+        self._init_state = (_host_snapshot(self.model, self.optimizer)
+                            if self._guard is not None else None)
+
+    # -- batches -------------------------------------------------------------
+
+    def _host_select(self, batch: Dict[str, np.ndarray], for_train: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+        """The streams the step reads, as host tensors: the raw event
+        windows under ``device_rasterize``; else the count images, rounded
+        to bf16 for a train batch under ``transfer_dtype: bf16``."""
+        if self.device_rasterize:
+            return {name: torch.from_numpy(batch[key])
+                    for name, key in (("inp_events", "inp_norm_events"),
+                                      ("inp_valid", "inp_events_valid"),
+                                      ("gt_events", "gt_raw_events"),
+                                      ("gt_valid", "gt_events_valid"))}
+        sel = {"inp": torch.from_numpy(batch["inp_scaled_cnt"]),
+               "gt": torch.from_numpy(batch["gt_cnt"])}
+        if for_train and self.transfer_dtype is not None:
+            sel = {k: v.to(self.transfer_dtype) for k, v in sel.items()}
+        return sel
+
+    def _stage(self, batch: Dict[str, np.ndarray], for_train: bool = False) -> Dict:
+        """The host->device copy of a batch's streams (a bf16 transfer is
+        widened to f32 on the card)."""
+        return {k: v.to(self.device).float() if v.dtype == torch.bfloat16 else v.to(self.device)
+                for k, v in self._host_select(batch, for_train).items()}
+
+    def _finish(self, staged: Dict) -> Dict[str, torch.Tensor]:
+        """A staged batch as the step's dense ``{"inp", "gt"}``."""
+        return self._rasterize(staged) if self._rasterize is not None else staged
 
     def _select(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """The streams the step reads, on the device (rasterized there from
-        the raw event windows under ``device_rasterize``)."""
-        if self._rasterize is not None:
-            return self._rasterize({
-                name: torch.from_numpy(batch[key]).to(self.device)
-                for name, key in (("inp_events", "inp_norm_events"),
-                                  ("inp_valid", "inp_events_valid"),
-                                  ("gt_events", "gt_raw_events"),
-                                  ("gt_valid", "gt_events_valid"))})
-        return {"inp": torch.from_numpy(batch["inp_scaled_cnt"]).to(self.device),
-                "gt": torch.from_numpy(batch["gt_cnt"]).to(self.device)}
+        """The dense batch the step reads, on the device (f32; rasterized
+        there from the raw event windows under ``device_rasterize``)."""
+        return self._finish(self._stage(batch))
+
+    def _stage_group(self, group) -> list:
+        return [self._stage(b, for_train=True) for b in group]
+
+    def _stage_group_timed(self, group) -> list:
+        """:meth:`_stage_group` on the prefetcher's thread, its time parked
+        for the step that consumes the group (an overlapped span)."""
+        t0 = time.monotonic()
+        staged = self._stage_group(group)
+        self._stage_spans[id(group)] = time.monotonic() - t0
+        return staged
+
+    def _readback(self, metrics: Dict) -> Dict:
+        """The step's scalars and probe stats, stacked on the device and
+        brought to the host in one copy."""
+        tags = order_tags(metrics["numerics"]) if "numerics" in metrics else []
+        per_window = metrics["loss_per_window"].reshape(-1)
+        parts = [metrics["loss"].reshape(1), metrics["grad_norm"].reshape(1), per_window]
+        parts += [metrics["numerics"][t].reshape(-1) for t in tags]
+        host = torch.cat(parts).cpu().numpy()
+        nw = per_window.numel()
+        out = {"loss": float(host[0]), "grad_norm": float(host[1]),
+               "loss_per_window": host[2:2 + nw]}
+        if tags:
+            off = 2 + nw
+            out["numerics"] = {t: host[off + i * NSTATS: off + (i + 1) * NSTATS]
+                               for i, t in enumerate(tags)}
+        return out
+
+    # -- logging -------------------------------------------------------------
 
     def _log_images(self, n: int, pred: np.ndarray) -> None:
         """The middle window of the first sequence of the epoch's ``n``-th
@@ -273,7 +491,7 @@ class Trainer:
             f.write(json.dumps(record) + "\n")
 
     def _valid(self) -> Dict[str, float]:
-        """A sequential pass over the validation loader."""
+        """A sequential pass over the validation loader (f32 batches)."""
         self.valid_metrics.reset()
         for batch in self.valid_loader:
             out = self.eval_step(self._select(batch))
@@ -304,9 +522,65 @@ class Trainer:
                 stop = True
         return stop, best
 
+    # -- resilience ----------------------------------------------------------
+
     def _save(self, iteration: int, best: bool) -> None:
-        save_checkpoint(self.run.save_dir, self.model, self.optimizer, self.run.config,
-                        iteration, self.mnt_best, save_best=best)
+        """A checkpoint commit, retried ``commit_retries`` times
+        (``recovery_ckpt_retry``)."""
+        retry_with_backoff(
+            lambda: save_checkpoint(self.run.save_dir, self.model, self.optimizer,
+                                    self.run.config, iteration, self.mnt_best, save_best=best),
+            retries=self.commit_retries, backoff_s=self.commit_backoff_s, site="ckpt_commit",
+            event="recovery_ckpt_retry", iteration=iteration)
+        # a committed checkpoint exists: the run-start snapshot is dead weight
+        self._init_state = None
+
+    def _dispatch(self, fn, batch, err_specs=()):
+        """The step call, retried ``dispatch_retries`` times with the same
+        batch (``recovery_dispatch_retry``); an injected ``dispatch_error``
+        raises before the step runs."""
+        if not err_specs and self.dispatch_retries == 0:
+            return fn(batch)
+        err = list(err_specs)
+
+        def attempt():
+            if err:
+                raise _faults.InjectedFault(err.pop(0))
+            return fn(batch)
+
+        return retry_with_backoff(attempt, retries=self.dispatch_retries, backoff_s=0.05,
+                                  site="train_step", event="recovery_dispatch_retry")
+
+    def _perform_rollback(self, rb: RollbackSignal) -> int:
+        """Restore the last valid committed checkpoint (or the run-start
+        state) after the guard spent its bad-step budget; returns the
+        iteration to replay from. ``max_rollbacks`` bounds the loop."""
+        if self._guard.rollbacks > self.max_rollbacks:
+            raise RuntimeError(f"anomaly guard rolled back {self._guard.rollbacks} times "
+                               f"(budget {self.max_rollbacks}); training diverges "
+                               "deterministically — refusing to loop") from rb
+        start_iter, best, path = restore_with_fallback(
+            self.run.save_dir, self.model, self.optimizer, self.run.config)
+        if path is None:
+            if self._init_state is None:
+                raise RuntimeError("rollback requested but no committed checkpoint and no "
+                                   "run-start snapshot exists") from rb
+            convert.load_flax_params(self.model, self._init_state["params"])
+            self.optimizer.load_state_dict(self._init_state["optimizer"])
+            start_iter, best = self.start_iteration, None
+        if best is not None:
+            self.mnt_best = best
+        self.not_improved_count = 0
+        self._guard.consecutive_bad = 0
+        emit_recovery("recovery_rollback", site="train_step", fault_id=rb.fault_id,
+                      from_iteration=rb.at_iteration, to_iteration=start_iter,
+                      bad_steps=rb.bad_steps, checkpoint=path, bad_tag=rb.bad_tag)
+        logger.warning("rolled back to iteration %d (checkpoint %s) after %d consecutive bad "
+                       "super-steps (first offending tag: %s); replaying deterministically",
+                       start_iter, path, rb.bad_steps, rb.bad_tag)
+        return start_iter
+
+    # -- the loop ------------------------------------------------------------
 
     def train(self) -> Dict[str, float]:
         """Run to ``iterations`` (or early stop); returns the final train
@@ -314,73 +588,238 @@ class Trainer:
         if self.start_iteration >= self.iterations:
             logger.info("Run already complete (resumed at iteration %d of %d); "
                         "nothing to train.", self.start_iteration, self.iterations)
+            if self.sink is not None:
+                self.sink.close()
+            for loader in (self.train_loader, self.valid_loader):
+                if loader is not None:
+                    loader.close()
             return {}
-        self.writer = MetricWriter(self.run.log_dir, logger, enable_tensorboard=self.tensorboard)
-        self.train_metrics = MetricTracker(["train_mse_loss", "train_loss"], writer=self.writer)
+        if len(self.train_loader) == 0:
+            raise ValueError("the train loader yields no batch: too few sequences "
+                             "for batch_size with drop_last")
+        from esr_tpu_torch.obs import active_sink, set_active_sink
+        from esr_tpu_torch.obs.device import (
+            DeviceWatermark,
+            ProfilerCapture,
+            start_trace,
+            stop_trace,
+        )
+
+        self.writer = MetricWriter(self.run.log_dir, logger,
+                                   enable_tensorboard=self.tensorboard, sink=self._own_sink)
+        self.train_metrics = MetricTracker(["train_mse_loss", "train_loss"],
+                                           writer=self.writer, sink=self._own_sink)
+        cuda = self.device.type == "cuda"
+        progress = {"iteration": self.start_iteration, "epoch": 0}
+        completed = False
+        run_span = live_watermark = profiler = whole_run = None
         try:
-            return self._train_loop()
+            if self.sink is not None:
+                # inside the try, so the finally always deactivates it
+                set_active_sink(self.sink)
+                run_span = trace.begin("train_run", sink=self.sink, iterations=self.iterations,
+                                       start_iteration=self.start_iteration,
+                                       k_steps=self.k_steps)
+                if self.live_cfg is not None:
+                    from esr_tpu_torch.obs.http import start_live_plane
+
+                    self.live_plane = start_live_plane(
+                        self.sink, port=self.live_cfg["port"], slo_path=self.live_cfg["slo"],
+                        windows=self.live_cfg["windows"], rel_err=self.live_cfg["rel_err"])
+                    self.sink.event("live_telemetry", port=self.live_plane.port,
+                                    slo=self.live_cfg["slo"])
+                    live_watermark = DeviceWatermark(
+                        sink=self.sink, interval_s=self.live_cfg["watermark_interval_s"],
+                        device_index=self.device.index or 0).start()
+            if self.profile_cfg.get("enabled", False):
+                whole_run = start_trace(cuda)
+            if self.profile_steps:
+                profiler = ProfilerCapture(self.trace_dir, self.profile_steps, sink=self.sink,
+                                           site="train", cuda=cuda)
+                profiler.maybe_start()
+            result = self._train_loop(progress, profiler)
+            completed = True
+            return result
         finally:
+            self._stage_spans.clear()
+            if whole_run is not None:
+                stop_trace(whole_run, self.trace_dir, "train")
+            if profiler is not None:
+                profiler.stop()
+            if live_watermark is not None:
+                live_watermark.stop()
+            if self.live_plane is not None:
+                self.live_plane.close()
+                self.live_plane = None
             self.writer.close()
             self.writer = self.train_metrics.writer = None
             for loader in (self.train_loader, self.valid_loader):
                 if loader is not None:
                     loader.close()
+            if self.sink is not None:
+                link = {}
+                if run_span is not None:
+                    # train_end stays the stream's last record
+                    link = {"trace_id": run_span.trace_id, "parent_id": run_span.span_id}
+                    run_span.end(completed=completed)
+                self.sink.event("train_end", iterations=progress["iteration"],
+                                epochs=progress["epoch"],
+                                attribution_records=self._attr.emitted_records,
+                                completed=completed, **link)
+                if active_sink() is self.sink:
+                    set_active_sink(None)
+                self.sink.close()
 
-    def _train_loop(self) -> Dict[str, float]:
+    def _consume(self, it: int, epoch: int, n: int, lr: float, t0: float, metrics: Dict,
+                 bucket, nan_specs) -> None:
+        """The step's readback (its one device->host copy, the end of its
+        ``device_step`` span), the anomaly guard, and the step's records."""
+        with self._attr.resolving(bucket):
+            host = self._readback(metrics)
+        loss, mse = host["loss"], float(host["loss_per_window"][-1])
+        num_host = host.get("numerics")
+        if nan_specs:
+            # the injected train_step/nan_loss fault: the step's scalars go
+            # non-finite (parameters untouched), and the loss tap with them
+            loss = mse = float("nan")
+            if num_host is not None:
+                num_host = poison_tag(num_host, "loss")
+        if self._guard is not None and not self._guard.check(
+                [loss], it, fault_id=nan_specs[0].fault_id if nan_specs else None,
+                numerics=num_host):
+            return  # skipped: kept out of the trackers, the writer and the log
+        self.writer.set_step(it)
+        self.train_metrics.update("train_mse_loss", mse)
+        self.train_metrics.update("train_loss", loss)
+        if it % self.train_log_step == 0:
+            self.writer.add_scalar("learning_rate", lr)
+            logger.info("Train Epoch: %d Iteration: %d/%d train_mse_loss: %.4e "
+                        "train_loss: %.4e lr: %.4e", epoch + 1, it, self.iterations, mse,
+                        loss, lr)
+            self._log({"iteration": it, "epoch": epoch, "train_loss": loss,
+                       "train_mse_loss": mse, "grad_norm": host["grad_norm"], "lr": lr,
+                       "step_seconds": time.perf_counter() - t0})
+            if self.sink is not None and num_host is not None:
+                for tag in order_tags(num_host):
+                    self.sink.numerics(tag, stats_fields(num_host[tag]), step=it)
+        if self.vis_enabled and it % self.train_vis_step == 0:
+            self._log_images(n, metrics["last_pred"][0].cpu().numpy())
+
+    def _train_loop(self, progress: Dict, profiler) -> Dict[str, float]:
         it = self.start_iteration
         epoch = 0
         valid_stamp = 1
         stop = False
+        # the iteration each epoch started at, so a rollback re-enters the
+        # right epoch and fast-forwards it
+        epoch_starts: list = []
+        ff_skip = 0
         logger.info("Training: %d iterations, %d batches/epoch, on %s",
                     self.iterations, len(self.train_loader), self.device)
         while not stop:
             self.train_loader.set_epoch(epoch)
-            n_batches = 0
-            for batch in self.train_loader:
-                n_batches += 1
-                lr = self.optimizer.lr
-                t0 = time.perf_counter()
-                metrics = self.train_step(self._select(batch))
-                loss = float(metrics["loss"])
-                mse = float(metrics["loss_per_window"][-1])
-                self.writer.set_step(it)
-                self.train_metrics.update("train_mse_loss", mse)
-                self.train_metrics.update("train_loss", loss)
-                if it % self.train_log_step == 0:
-                    self.writer.add_scalar("learning_rate", lr)
-                    grad_norm = float(metrics["grad_norm"])
-                    logger.info("Train Epoch: %d Iteration: %d/%d train_mse_loss: %.4e "
-                                "train_loss: %.4e lr: %.4e", epoch + 1, it,
-                                self.iterations, mse, loss, lr)
-                    self._log({"iteration": it, "epoch": epoch, "train_loss": loss,
-                               "train_mse_loss": mse, "grad_norm": grad_norm, "lr": lr,
-                               "step_seconds": time.perf_counter() - t0})
-                if self.vis_enabled and it % self.train_vis_step == 0:
-                    self._log_images(n_batches - 1, metrics["last_pred"][0].cpu().numpy())
-                best = False
-                if self.valid_loader is not None and it % self.valid_step == 0 and it != 0:
-                    val_log = self._valid()
-                    logger.info("Valid stamp %d: %s", valid_stamp,
-                                {k: round(v, 6) for k, v in val_log.items()})
-                    self._log({"iteration": it, "valid_stamp": valid_stamp, **val_log})
-                    for k, v in val_log.items():
-                        self.writer.add_scalar(f"stamp_{k}", v, step=valid_stamp)
-                    stop, best = self.eval_model_performance(val_log)
-                    valid_stamp += 1
-                    if stop:
+            progress["epoch"] = epoch
+            if not epoch_starts or epoch_starts[-1][0] != epoch:
+                epoch_starts.append((epoch, it))
+            rb_caught = None
+            n_next = ff_skip  # the epoch's index of the next batch (vis)
+            with contextlib.ExitStack() as stack:
+                # groups of one batch: the reference's k_steps=1 pipeline
+                source = ([b] for b in self.train_loader)
+                if ff_skip:
+                    source = _fast_forward_groups(source, ff_skip)
+                    ff_skip = 0
+                if self.device_prefetch:
+                    batches = stack.enter_context(DevicePrefetcher(
+                        source, self._stage_group_timed, depth=self.device_prefetch,
+                        join_timeout=self.prefetch_join_timeout,
+                        stall_timeout=self.prefetch_stall_timeout))
+                else:
+                    batches = ((g, None) for g in source)
+                pull = iter(batches)
+                while True:
+                    self._attr.begin()
+                    with self._attr.measure("data_wait"):
+                        item = next(pull, _END)
+                    if item is _END:
+                        self._attr.discard()
                         break
-                saved = (it % self.save_period == 0 and it != 0) or best
-                if saved:
-                    self._save(it, best)
-                if it + 1 >= self.iterations:
-                    logger.info("Training completes!")
-                    if not saved:
-                        self._save(it, False)
-                    stop = True
-                    break
-                it += 1
-            if n_batches == 0:
-                raise ValueError("the train loader yields no batch: too few sequences "
-                                 "for batch_size with drop_last")
-            epoch += 1
+                    group, staged = item
+                    n, n_next = n_next, n_next + 1
+                    try:
+                        if staged is None:
+                            with self._attr.measure("stage_megabatch"):
+                                staged = self._stage_group(group)
+                        else:
+                            self._attr.add("stage_megabatch",
+                                           self._stage_spans.pop(id(group), 0.0),
+                                           overlapped=True)
+                        batch = self._finish(staged[0])
+                        lr = self.optimizer.lr
+                        # the train_step fault site: nan_loss poisons this step's
+                        # readback, dispatch_error raises at the call (retried)
+                        specs = _faults.fire("train_step", it)
+                        nan_specs = [s for s in specs if s.kind == "nan_loss"]
+                        err_specs = [s for s in specs if s.kind == "dispatch_error"]
+                        t0 = time.perf_counter()
+                        metrics = self._dispatch(self.train_step, batch, err_specs)
+                        self._attr.note(it, 1)
+                        progress["iteration"] = it + 1
+                        self._consume(it, epoch, n, lr, t0, metrics, self._attr.current,
+                                      nan_specs)
+                        if profiler is not None:
+                            # after the readback: the capture holds the whole
+                            # step, and writing the trace lands in no span
+                            profiler.step(1)
+                        best = False
+                        if self.valid_loader is not None and it % self.valid_step == 0 \
+                                and it != 0:
+                            with self._attr.measure("validate"):
+                                val_log = self._valid()
+                            logger.info("Valid stamp %d: %s", valid_stamp,
+                                        {k: round(v, 6) for k, v in val_log.items()})
+                            self._log({"iteration": it, "valid_stamp": valid_stamp, **val_log})
+                            for k, v in val_log.items():
+                                self.writer.add_scalar(f"stamp_{k}", v, step=valid_stamp)
+                            stop, best = self.eval_model_performance(val_log)
+                            valid_stamp += 1
+                            if stop:
+                                break
+                        saved = (it % self.save_period == 0 and it != 0) or best
+                        if saved:
+                            with trace.adopt(self._attr.current_ctx()), \
+                                    self._attr.measure("checkpoint"):
+                                self._save(it, best)
+                        if it + 1 >= self.iterations:
+                            logger.info("Training completes!")
+                            if not saved:
+                                with trace.adopt(self._attr.current_ctx()), \
+                                        self._attr.measure("checkpoint"):
+                                    self._save(it, False)
+                            stop = True
+                            break
+                        it += 1
+                    except RollbackSignal as rb:
+                        # unwind to the epoch level so the prefetcher stops,
+                        # then restore and fast-forward below
+                        rb_caught = rb
+                        break
+                    finally:
+                        self._attr.close()
+            if rb_caught is not None:
+                resume_iter = self._perform_rollback(rb_caught)
+                while len(epoch_starts) > 1 and epoch_starts[-1][1] > resume_iter:
+                    epoch_starts.pop()
+                epoch, ep_start = epoch_starts[-1]
+                if resume_iter < ep_start:
+                    logger.warning("rollback target iteration %d predates this run's data "
+                                   "stream (started at %d); replaying from the stream start",
+                                   resume_iter, ep_start)
+                    resume_iter = ep_start
+                ff_skip = resume_iter - ep_start
+                it = resume_iter
+                progress["iteration"] = it
+                continue
+            if not stop:
+                epoch += 1
         return self.train_metrics.result()

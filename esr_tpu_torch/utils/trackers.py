@@ -18,10 +18,18 @@ import numpy as np
 class MetricTracker:
     """Totals / counts / running averages per key (unknown keys are created
     on first update). ``writer`` (a ``utils.writer.MetricWriter``) receives
-    ``add_scalar(key, value)`` on every update, as the reference's does."""
+    ``add_scalar(key, value)`` on every update, as the reference's does. A
+    tracker without a writer mirrors each update into the telemetry sink
+    as a ``metric`` record (``source: "tracker"``, with its weight ``n``):
+    ``sink`` an explicit sink, ``None`` the process-active one at
+    construction, ``False`` none (a tracker with a writer never does: the
+    writer mirrors already)."""
 
-    def __init__(self, keys: Iterable[str] = (), writer=None):
+    def __init__(self, keys: Iterable[str] = (), writer=None, sink=None):
+        from esr_tpu_torch.obs import active_sink
+
         self.writer = writer
+        self.sink = active_sink() if sink is None else (sink or None)
         self._total: Dict[str, float] = {k: 0.0 for k in keys}
         self._count: Dict[str, int] = {k: 0 for k in self._total}
 
@@ -33,6 +41,8 @@ class MetricTracker:
     def update(self, key: str, value: float, n: int = 1) -> None:
         if self.writer is not None:
             self.writer.add_scalar(key, value)
+        elif self.sink is not None:
+            self.sink.metric(key, float(value), source="tracker", n=n)
         self._total[key] = self._total.get(key, 0.0) + float(value) * n
         self._count[key] = self._count.get(key, 0) + n
 

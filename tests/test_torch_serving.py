@@ -259,10 +259,26 @@ def test_lane_quarantine_after_k_faults(corpus, models):
     assert port2.report(ids[0])["status"] == "ok"
 
 
-def test_unported_options_raise(models):
-    for kw in ({"profile_steps": 1}, {"aot_programs": {2: "x"}}):
-        with pytest.raises(NotImplementedError):
-            _port(models, **kw)
+def test_unported_options_raise(models, corpus, tmp_path):
+    with pytest.raises(NotImplementedError):
+        _port(models, aot_programs={2: "x"})
+    # the profiler capture is ported: the first chunk is recorded to a
+    # Chrome trace, stamped as a profiler_capture event
+    from esr_tpu_torch.obs import TelemetrySink, set_active_sink
+
+    server = _port(models, profile_steps=1, profile_dir=str(tmp_path / "profile"))  # esr: noqa(TX001) - one session
+    sink = TelemetrySink(str(tmp_path / "telemetry.jsonl"))
+    prev = set_active_sink(sink)
+    try:
+        server.submit(corpus[0])
+        server.run()
+    finally:
+        set_active_sink(prev)
+        sink.close()
+    with open(tmp_path / "telemetry.jsonl") as f:
+        (cap,) = [r for r in map(json.loads, f) if r["name"] == "profiler_capture"]
+    assert cap["ok"] and cap["site"] == "serving" and cap["steps_covered"] == 1
+    assert Path(cap["file"]).is_file() and cap["dir"] == str(tmp_path / "profile")
     # the precision rungs are ported: a bf16 session's lanes live in bf16
     server = _port(models, precision="bf16")  # esr: noqa(TX001) - no trace
     assert (server.precision, server.compute_dtype) == ("bf16", torch.bfloat16)

@@ -1,9 +1,14 @@
-"""The port's training against the JAX package's, on the CPU: the gated LR
+"""The port's training against the JAX package's, on the CPU: the training
+data path (augmented sequences bit for bit for seeds that flip each axis
+and the polarity, and seeds that flip nothing; the sampler's indices; the
+training loader's batches in order over two epochs with shuffle and
+drop_last both ways, in-process and from two spawned workers), the gated LR
 schedule, the optimizers, three BPTT train steps and the eval step on the
 same converted weights and seeded batches, the YAML reader against
-``yaml.safe_load``, and the port's trainer end to end (checkpoint commit,
-inference load, ``-r auto`` resume, the flagship config as written with
-its writer and visualizations, refusals of unported keys).
+``yaml.safe_load``, and the port's trainer end to end (checkpoint commit
+with its digest, inference load, ``-r auto`` resume, the flagship config
+as written with its writer and visualizations, the keys it takes up and
+the ones it refuses).
 
 The JAX train step runs ``DeepRecurrNet(dcn_impl="jnp")``: what
 ``train=True`` resolves to off-TPU, and the oracle the fused Pallas
@@ -19,6 +24,7 @@ updates atol 1e-7 + rtol 1e-6.
 """
 
 import json
+import random
 import re
 from pathlib import Path
 
@@ -31,6 +37,10 @@ import torch
 import yaml
 
 from esr_tpu.config import parser as J_parser
+from esr_tpu.data.dataset import SequenceDataset as RefSequenceDataset
+from esr_tpu.data.loader import ConcatSequenceDataset as RefConcat
+from esr_tpu.data.loader import SequenceLoader as RefLoader
+from esr_tpu.data.loader import ShardedSampler as RefSampler
 from esr_tpu.models.esr import DeepRecurrNet as FlaxNet
 from esr_tpu.training import optim as J_optim
 from esr_tpu.training import schedule as J_schedule
@@ -39,6 +49,9 @@ from esr_tpu.training.train_step import make_eval_step as j_make_eval_step
 from esr_tpu.training.train_step import make_train_step as j_make_train_step
 from esr_tpu_torch import train as T_train
 from esr_tpu_torch.config import parser as T_parser
+from esr_tpu_torch.data.dataset import SequenceDataset
+from esr_tpu_torch.data.loader import ConcatSequenceDataset, SequenceLoader, ShardedSampler
+from esr_tpu_torch.data.loader import read_datalist
 from esr_tpu_torch.device import resolve_device
 from esr_tpu_torch.inference.checkpoint import load_checkpoint
 from esr_tpu_torch.models import convert
@@ -53,6 +66,104 @@ REPO = Path(__file__).resolve().parent.parent
 CONFIGS = ["train_esr_2x.yml", "train_esr_4x.yml", "train_srunet_2x.yml"]
 B, L, H, W, STEPS = 2, 5, 16, 20, 3
 SCHEDULE = dict(gamma=0.5, change_rate=1, floor=1e-4)
+
+
+# -- the training data path -----------------------------------------------
+
+KEYS = ["inp_cnt", "inp_scaled_cnt", "gt_cnt"]
+DATASET = {
+    "scale": 2, "ori_scale": "down8", "time_bins": 1, "mode": "events",
+    "window": 512, "sliding_window": 256, "need_gt_events": True,
+    "need_gt_frame": False, "item_keys": KEYS,
+    "data_augment": {"enabled": True, "augment": ["Horizontal", "Vertical", "Polarity"],
+                     "augment_prob": [0.5, 0.5, 0.5]},
+    "sequence": {"sequence_length": 4, "seqn": 3, "step_size": None,
+                 "pause": {"enabled": False}},
+}
+
+
+def _flips(seed):
+    """Which of Horizontal, Vertical, Polarity a seed flips at p = 0.5."""
+    return tuple(random.Random(seed + i).random() < 0.5 for i in range(3))
+
+
+# seeds covering no flip, each flip alone, and all three
+SEEDS = {}
+for _s in range(200):
+    SEEDS.setdefault(_flips(_s), _s)
+CASES = [(False, False, False), (True, False, False), (False, True, False),
+         (False, False, True), (True, True, True)]
+
+
+@pytest.fixture(scope="module")
+def datasets(shared_corpus_dir):
+    rec = str(shared_corpus_dir / "rec1.h5")
+    return {"ref": RefSequenceDataset(rec, DATASET), "port": SequenceDataset(rec, DATASET),
+            "datalist": str(shared_corpus_dir / "datalist2.txt")}
+
+
+@pytest.mark.parametrize("flips", CASES,
+                         ids=lambda f: "".join(c for c, b in zip("hvp", f) if b) or "none")
+def test_augmented_sequence_is_bitwise_the_reference(datasets, flips):
+    seed = SEEDS[flips]
+    ref, port = datasets["ref"], datasets["port"]
+    assert len(port) == len(ref) > 2
+    for i in (0, len(ref) - 1):
+        a, b = port.get_item(i, seed=seed), ref.get_item(i, seed=seed)
+        assert len(a) == len(b) == DATASET["sequence"]["sequence_length"]
+        for wa, wb in zip(a, b):
+            assert sorted(wa) == sorted(KEYS) == sorted(wb)
+            for k in KEYS:
+                np.testing.assert_array_equal(wa[k], wb[k])
+    # the flips are real: an augmented item differs from the plain one
+    plain = SequenceDataset(datasets["port"].dataset.recording,
+                            {**DATASET, "data_augment": {"enabled": False}})
+    changed = [not np.array_equal(w["gt_cnt"], p["gt_cnt"])
+               for w, p in zip(port.get_item(0, seed=seed), plain.get_item(0))]
+    assert any(changed) == any(flips)
+
+
+@pytest.mark.parametrize("num_items,batch,shuffle,drop_last", [
+    (10, 3, True, True), (10, 3, False, False), (7, 2, True, False),
+    (2, 4, True, False), (9, 2, False, True)])
+def test_sampler_deals_the_reference_indices(num_items, batch, shuffle, drop_last):
+    # the reference's sampler at shard 0 of 1: the port has no data parallelism
+    for epoch in (0, 1):
+        port = ShardedSampler(num_items, batch, shuffle, drop_last, seed=4)
+        ref = RefSampler(num_items, batch, 0, 1, shuffle, drop_last, seed=4)
+        port.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        assert len(port) == len(ref)
+        assert [list(b) for b in port] == [list(b) for b in ref]
+
+
+@pytest.mark.parametrize("shuffle", [True, False])
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_loader_yields_the_reference_batches_in_order(datasets, shuffle, drop_last):
+    paths = read_datalist(datasets["datalist"])
+    kw = dict(batch_size=3, shuffle=shuffle, drop_last=drop_last, seed=7, prefetch=2)
+    port = SequenceLoader(ConcatSequenceDataset(paths, DATASET), **kw)
+    ref = RefLoader(RefConcat(paths, DATASET), **kw)
+    assert len(port) == len(ref) >= 2
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        got, want = list(port), list(ref)
+        assert len(got) == len(want) == len(ref)
+        for a, b in zip(got, want):
+            assert sorted(a) == sorted(b) == sorted(KEYS)
+            for k in KEYS:
+                assert a[k].shape[:2] == (3, DATASET["sequence"]["sequence_length"])
+                np.testing.assert_array_equal(a[k], b[k])
+    # process workers (refused until they were ported) give the same batches
+    workers = SequenceLoader(port.dataset, num_workers=2, **kw)
+    try:
+        workers.set_epoch(1)
+        for a, b in zip(list(workers), want):
+            for k in KEYS:
+                np.testing.assert_array_equal(a[k], b[k])
+    finally:
+        workers.close()
 
 
 # -- schedule and optimizer -----------------------------------------------
@@ -280,8 +391,14 @@ def test_checkpoints_are_committed_with_the_marker_last(trained):
     assert latest == str(save_dir / "checkpoint-iteration3")
     for name in names:
         files = {p.name: p.stat().st_mtime_ns for p in (save_dir / name).iterdir()}
-        assert sorted(files) == ["config.json", "meta.json", "optimizer.pt", "params.npz"]
+        assert sorted(files) == ["config.json", "digest.json", "meta.json", "optimizer.pt",
+                                 "params.npz"]
         assert files["meta.json"] >= max(files.values())
+        # the digest is the saved state's
+        from esr_tpu_torch.resilience.recovery import validate_restored
+        from esr_tpu_torch.training.checkpoint import restore_state
+        assert validate_restored(str(save_dir / name), restore_state(str(save_dir / name))) \
+            == (True, "ok")
     with open(save_dir / "checkpoint-iteration3" / "meta.json") as f:
         meta = json.load(f)
     assert meta["trainer"]["iteration"] == 3 and meta["model"]["name"] == "DeepRecurrNet"
@@ -376,6 +493,16 @@ NOW_PORTED = {
     "trainer;vis;enabled=true": lambda t: (
         t.vis_enabled and "gt_img" in t.vis_dataset.config["item_keys"]),
     "train_dataloader;num_workers=2": lambda t: t.train_loader.num_workers == 2,
+    "trainer;remat=true": lambda t: t.remat,
+    "trainer;transfer_dtype=bf16": lambda t: t.transfer_dtype == torch.bfloat16,
+    "trainer;numerics=true": lambda t: t.numerics and t.model.numerics,
+    "trainer;live_telemetry=0": lambda t: t.live_cfg["port"] == 0,
+    "trainer;profile;enabled=true": lambda t: t.profile_cfg["enabled"],
+    "trainer;max_bad_steps=2": lambda t: t._guard.max_bad_steps == 2,
+}
+# keys the reference itself refuses: the port raises its error
+REFUSED_AS_REFERENCE = {
+    "trainer;epoch_based_train;enabled=true": "epoch_based_train is not supported",
 }
 
 
@@ -398,6 +525,10 @@ def test_unported_keys_raise_naming_the_override(trained, override, named):
     run = _run(trained["out"], trained["corpus"], extra=[override], make_dirs=False)
     if override in NOW_PORTED:
         assert NOW_PORTED[override](Trainer(run, device="cpu"))
+        return
+    if override in REFUSED_AS_REFERENCE:
+        with pytest.raises(ValueError, match=REFUSED_AS_REFERENCE[override]):
+            Trainer(run, device="cpu")
         return
     with pytest.raises(NotImplementedError, match=re.escape(named)):
         Trainer(run, device="cpu")
