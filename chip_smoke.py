@@ -19,8 +19,9 @@ Phases (any failure exits non-zero):
    flagship shape (B=1 as in evaluation, B=4, B=8 as in the trainer's
    validation, B=32 as in training) and over an odd-size / group / stride /
    dilation / large-offset / Cg 16-Cout 6 matrix, within 1e-3 * max(|ref|,
-   1); CUDA-event times of both (the kernel through its wrapper and its C
-   entry point) next to the roofline bound; at B=1 and B=32 a sweep over
+   1); CUDA-event times of both (the kernel through its wrapper, which calls
+   the kernel's ``torch.library`` op, and its C entry point) next to the
+   roofline bound; at B=1 and B=32 a sweep over
    the launch chooser's candidates (``dcn_cuda.fwd_config``), each bitwise
    equal to the picked one; every image of a B=4 and a B=32 call bitwise
    equal to the same image alone at B=1;
@@ -125,6 +126,20 @@ Phases (any failure exits non-zero):
    Then ``serve.main --replicas 3 --fleet-port 0`` on the card (its
    default) over 4 load-generated streams: every request ok, the fleet's
    files written, the merged telemetry green against ``configs/slo.yml``;
+10c. the AOT export: from a port checkpoint of the sparse flagship,
+   ``inference.export.export_checkpoint(program="engine_chunk")`` at lanes
+   4 for depths 8 and 4 (the serving classes') at f32 and int8, each
+   export's seconds and bytes printed; the serving phase's 8 streams
+   replayed on a virtual clock (0.05 s a round, so both sessions bind,
+   preempt and chunk alike) through a traced session and through
+   ``aot_programs`` at each rung: every request's metrics, windows, skips
+   and preemptions and the final lane states bitwise equal, the same
+   launches (``dcn_fwd_masked`` 2 a window step; K1 and K2 at int8, which
+   only the loaded artifact can have launched in that session); each
+   program's build or load ms, the first chunk's readback and window
+   p50/p99 beside the traced session's. Then ``serve.main --aot`` with one
+   replica and with ``--replicas 2`` (each replica through an
+   ``AotRegistry``): every request ok, none lost, the artifact written;
 11. the sparse train step: one B=32 step from the flagship config with
    ``model;args;dcn_sparse=true`` launches ``dcn_train_fwd_masked``,
    ``dcn_bwd`` and ``dcn_wgrad`` 14 times each; its losses and every grad
@@ -143,8 +158,8 @@ Phases (any failure exits non-zero):
    (lanes 4 x chunk 8) and serving at each rung, windows/s beside f32's,
    every recording and request within 1.0 dB of f32.
 
-The phases run in the order 1-5, 8, 6, 9, 10, 10b, 12, 7 (with 11 inside
-7).
+The phases run in the order 1-5, 8, 6, 9, 10, 10b, 10c, 12, 7 (with 11
+inside 7).
 The line before the last is the ``{"kernels": [...]}`` record (eight
 kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -400,7 +415,8 @@ def phase_fwd_kernel(torch, np, card):
                                           contraction_flops(inp) + gather_flops(inp))
             flagship[name] = dict(err=err, ms=ms, entry_ms=entry_ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
-            print(f"time {name}: kernel {ms:.5f} ms (entry point {entry_ms:.5f}), plain "
+            print(f"time {name}: kernel {ms:.5f} ms through the op (entry point "
+                  f"{entry_ms:.5f}), plain "
                   f"{plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}")
             if b in (1, 32):
                 config_sweep(torch, inp, card)
@@ -662,7 +678,8 @@ def phase_train_kernels(torch, np, card):
                                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
             before = (f"; PR 6's entry point (float atomics, PERF.md) "
                       f"{PR6_BWD_ENTRY_MS[name]} ms" if kname == "dcn_bwd" else "")
-            print(f"time {name} {kname}: kernel {ms:.5f} ms (entry point {entry_ms:.5f}), "
+            print(f"time {name} {kname}: kernel {ms:.5f} ms through the op (entry point "
+                  f"{entry_ms:.5f}), "
                   f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}"
                   + before)
     return record, worst_rel
@@ -2336,6 +2353,189 @@ def fleet_entry_point(model, repo: Path, root: str) -> None:
              "pass configs/slo.yml")
 
 
+AOT_DEPTHS = (8, 4)  # the serving classes' chunk_windows (standard, gated)
+AOT_RUNGS = ("f32", "int8")
+AOT_ROUND_S = 0.05  # the replayed schedule's virtual seconds per round
+
+
+def drive_replay(server, schedule, round_s: float = AOT_ROUND_S):
+    """The serving schedule replayed on a virtual clock: before round ``r``
+    every arrival with ``t <= r * round_s`` is submitted, so two sessions
+    see the same arrivals at the same rounds and bind, preempt and chunk
+    alike (the wall clock decides nothing). Returns the summary and the
+    seconds from the first round to the first chunk's readback (the
+    program's build or load included)."""
+    todo = sorted(schedule, key=lambda a: a.t)
+    rounds, first = 0, None
+    t0 = time.perf_counter()
+    while True:
+        while todo and todo[0].t <= rounds * round_s:
+            a = todo.pop(0)
+            server.submit(a.path, a.request_class, request_id=a.request_id)
+        status = server.pump()
+        rounds += 1
+        if first is None and server._last_resolve_t is not None:
+            first = time.perf_counter() - t0
+        if status == "drained" and not todo:
+            break
+        if rounds > 100_000:
+            fail("the replayed serving session did not drain")
+    server.flush()
+    if first is None:
+        first = time.perf_counter() - t0
+    return server.summary(), first
+
+
+def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
+    """The AOT export on the sparse flagship at lanes 4: the chunk programs
+    of depths 8 and 4 at f32 and int8 exported from a port checkpoint
+    (``inference.export.export_checkpoint``, ``program="engine_chunk"``),
+    loaded back, and the serving phase's 8 streams served through
+    ``aot_programs`` against a traced session on the same replayed schedule:
+    every request's metrics and the final lane states bitwise, the same
+    launches (``dcn_fwd_masked``; K1 and K2 at int8), which the loaded
+    artifacts make through the custom ops. Then ``serve --aot``, one replica
+    and ``--replicas 2`` (through ``AotRegistry``)."""
+    from esr_tpu_torch.inference.checkpoint import save_checkpoint
+    from esr_tpu_torch.inference.engine import METRIC_KEYS
+    from esr_tpu_torch.inference.export import export_checkpoint
+    from esr_tpu_torch.models import convert
+    from esr_tpu_torch.ops import dcn_cuda, int8_cuda
+    from esr_tpu_torch.serving.server import RecordingStream, ServingEngine
+
+    model = flagship_model(torch, np, dcn_sparse=True)
+    classes, streams, schedule = serving_traffic()
+    ckpt = os.path.join(out_dir, "ckpt")
+    save_checkpoint(ckpt, convert.export_flax_params(model), {
+        "model": {"name": "DeepRecurrNet",
+                  "args": {"inch": 2, "basech": model.basech, "num_frame": 3,
+                           "dcn_sparse": True}}})
+    probe = RecordingStream(streams[0], SERVE_DATA)
+    kh, kw = probe.gt_resolution
+    if tuple(probe.inp_resolution) != (kh // SERVE_DATA["scale"], kw // SERVE_DATA["scale"]):
+        fail(f"serving grids {probe.inp_resolution} -> {probe.gt_resolution} are not a "
+             f"x{SERVE_DATA['scale']} pair")
+    if sorted({c.chunk_windows for c in classes.values()}) != sorted(AOT_DEPTHS):
+        fail(f"the serving classes' depths are not {AOT_DEPTHS}")
+    artifacts = {}
+    for rung in AOT_RUNGS:
+        for w in AOT_DEPTHS:
+            path = os.path.join(out_dir, "aot", f"chunk_program.{rung}.w{w}.pt2")
+            t0 = time.perf_counter()
+            export_checkpoint(ckpt, path, batch=LANES, height=kh, width=kw,
+                              program="engine_chunk", chunk_windows=w,
+                              scale=SERVE_DATA["scale"], precision=rung, device=dev)
+            artifacts.setdefault(rung, {})[w] = path
+            print(f"aot export {rung} w{w} (lanes {LANES}, GT {kh}x{kw}) on {card}: "
+                  f"{time.perf_counter() - t0:.2f} s, {os.path.getsize(path)} bytes (+ "
+                  f"sidecar {os.path.getsize(path + '.json')})")
+
+    def session(rung, aot):
+        server = ServingEngine(model, SERVE_DATA, lanes=LANES, classes=classes,
+                               default_class="standard", activity_tile=SERVE_ACTIVITY_TILE,
+                               preempt_quantum=2, precision=rung, device=dev,
+                               aot_programs=artifacts[rung] if aot else None)
+        dcn_cuda.reset_launches()
+        int8_cuda.reset_launches()
+        summary, first_s = drive_replay(server, schedule)
+        torch.cuda.synchronize()
+        counts = {**counts_of(), **{k.name: k.launches for k in int8_cuda.KERNELS}}
+        return server, summary, first_s, counts
+
+    session("f32", False)  # warm: cuDNN picks its algorithms
+    for rung in AOT_RUNGS:
+        traced, t_sum, t_first, t_counts = session(rung, False)
+        aot, a_sum, a_first, a_counts = session(rung, True)
+        reports_t, reports_a = traced.reports(), aot.reports()
+        if t_sum["completed"] != len(streams) or a_sum["completed"] != len(streams):
+            fail(f"aot {rung}: not every request completed ({t_sum['statuses']}, "
+                 f"{a_sum['statuses']})")
+        for rid, r in reports_t.items():
+            a = reports_a[rid]
+            keys = ("n_windows", "n_windows_skipped", "preemptions", "status")
+            if any(r[k] != a[k] for k in keys) or any(r[k] != a[k] for k in METRIC_KEYS):
+                fail(f"aot {rung}: request {rid} differs from the traced session: "
+                     f"{ {k: (r[k], a[k]) for k in keys + METRIC_KEYS if r[k] != a[k]} }")
+        if not all(same_bits(torch, x.float(), y.float())
+                   for x, y in zip(traced._states, aot._states)):
+            fail(f"aot {rung}: the final lane states differ from the traced session's")
+        want = 2 * t_sum["window_steps"]
+        if t_counts != a_counts or t_counts["dcn_fwd_masked"] != want:
+            fail(f"aot {rung}: launches {a_counts} against the traced session's {t_counts} "
+                 f"(dcn_fwd_masked {want} expected)")
+        k12 = (a_counts["int8_conv"], a_counts["quantize_per_tensor"])
+        if (rung == "int8") != (min(k12) > 0):
+            fail(f"aot {rung}: K1/K2 launched {k12}")
+        print(f"aot serving {rung}: {len(reports_a)} requests bitwise the traced session "
+              f"(metrics, windows, skips, preemptions) and the final lane states bitwise; "
+              f"launches {a_counts}, the traced session's the same")
+        for tag, summ, first, srv in (("traced", t_sum, t_first, traced),
+                                      ("aot", a_sum, a_first, aot)):
+            cls = {n: (c["p50_window_ms"], c["p99_window_ms"])
+                   for n, c in summ["classes"].items()}
+            # an AOT session's program time is the artifact's load with the
+            # serving weights (sidecar checks, deserialization, weights in)
+            print(f"aot serving {rung} {tag} on {card}: first chunk read back "
+                  f"{first * 1e3:.1f} ms after the first round; programs "
+                  f"{ {w: round(v * 1e3, 1) for w, v in srv.program_seconds.items()} } ms "
+                  f"({'load' if tag == 'aot' else 'build'}); window p50 "
+                  f"{summ['p50_window_ms']} ms, p99 "
+                  f"{summ['p99_window_ms']} ms, per class (p50, p99) {cls}; "
+                  f"{summ['windows_per_sec']} windows/s computed")
+    aot_entry_point(model, repo, os.path.join(out_dir, "entry"))
+
+
+def aot_entry_point(model, repo: Path, root: str) -> None:
+    """``esr_tpu_torch.serve.main --aot`` (the card by default) on 4
+    load-generated streams, one replica and ``--replicas 2`` (each replica
+    resolves its program through an ``AotRegistry``): every request ok, no
+    request lost, the artifact and its sidecar written, the loaded program's
+    ``dcn_fwd_masked`` launched."""
+    import logging
+
+    from esr_tpu_torch import serve
+    from esr_tpu_torch.inference.checkpoint import save_checkpoint
+    from esr_tpu_torch.models import convert
+    from esr_tpu_torch.ops import dcn_cuda
+
+    ckpt = os.path.join(root, "ckpt")
+    save_checkpoint(ckpt, convert.export_flax_params(model), {
+        "model": {"name": "DeepRecurrNet",
+                  "args": {"inch": 2, "basech": model.basech, "num_frame": 3,
+                           "dcn_sparse": True}}})
+    slo = str(repo / "configs" / "slo.yml")
+    level = logging.getLogger().level
+    for replicas in (1, 2):
+        out = os.path.join(root, f"serve_r{replicas}")
+        dcn_cuda.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            summary = serve.main(["--model_path", ckpt, "--output_path", out, "--loadgen",
+                                  "4", "--rate", "50", "--lanes", "4", "--replicas",
+                                  str(replicas), "--aot", "--classes", "standard:4",
+                                  "--default_class", "standard", "--live-slo", slo,
+                                  "--scale", "2", "--ori_scale", "down8", "--window", "1024",
+                                  "--sliding_window", "512", "--seql", "4",
+                                  "--max_wall", "300"])
+        finally:
+            logging.getLogger().setLevel(level)  # serve.main sets INFO
+        wall = time.perf_counter() - t0
+        counts = counts_of()
+        art = os.path.join(out, "aot", "chunk_program.w4.pt2")
+        ok = (summary["statuses"] == {"ok": 4} and os.path.isfile(art)
+              and os.path.isfile(art + ".json") and counts["dcn_fwd_masked"] > 0
+              and counts == only("dcn_fwd_masked", counts["dcn_fwd_masked"]))
+        if replicas > 1:
+            ok = ok and summary["zero_lost"]
+        print(f"serve --aot --replicas {replicas}: statuses {summary['statuses']}, "
+              f"{summary['windows']} windows, launches {counts}, "
+              + (f"zero lost {summary['zero_lost']}, " if replicas > 1 else "")
+              + f"{wall:.1f} s with the export")
+        if not ok:
+            fail(f"serve --aot --replicas {replicas} did not serve every stream through its "
+                 "artifact")
+
+
 def int8_seam_calls(torch, model, dev, batch: int, kh: int, kw: int):
     """The contraction seams one flagship window runs at batch ``batch``, in
     order: ``(module, NCHW input shape, out-channels, kernel, stride,
@@ -2722,6 +2922,7 @@ def phase_precision(torch, np, dev, card):
             "windows_per_s": {r: engine_out[r][1] for r in RUNGS}}
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2800,6 +3001,8 @@ def main() -> int:
         # -- 10b. the serving fleet (3 replicas, the fleet view, faults) ----
         fleet_launches, _ = phase_fleet(torch, np, dev, card, repo,
                                         os.path.join(serve_root, "fleet"))
+        # -- 10c. the AOT export, served -----------------------------------
+        phase_aot(torch, np, dev, card, repo, os.path.join(serve_root, "aot"))
     finally:
         shutil.rmtree(serve_root, ignore_errors=True)
 
@@ -2883,6 +3086,11 @@ def main() -> int:
         "shape": str(top["shape"]),
         "engine_launches": precision["engine_launches"]["quantize_per_tensor"],
     })
+    for r in records:
+        # the torch.library op the wrapper calls (``ms`` is through it)
+        r["op"] = f"esr_tpu_torch::{r['name']}"
+    print(f"chip_smoke: every phase green in {time.perf_counter() - t_start:.1f} s on {card}, "
+          "the kernels' builds included")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

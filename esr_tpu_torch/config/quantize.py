@@ -19,13 +19,17 @@ bitwise the kernels'. A kernel that does not build or launch raises.
 
 The trigger is :func:`int8_scope`, a ``ContextVar``, so the serving pump's
 thread and any other thread cannot leak the rung into each other.
+
+:func:`calibrate_ranges` reads per-layer activation ranges off the numerics
+plane's stats probes over a seeded corpus (the reference's calibration);
+the rung itself stays dynamic per tensor and does not consume them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -101,3 +105,70 @@ def quantized_linear(x: torch.Tensor, weight, bias: Optional[torch.Tensor]) -> t
         weight = int8_cuda.pack_weight(weight[:, :, None, None])
     out = quantized_conv2d(x[:, :, None, None], weight, bias)
     return out.reshape(x.shape[0], -1)
+
+
+# -- calibration: a seeded corpus -> per-layer ranges through the probe taps --
+
+
+def calibrate_ranges(model=None, *, inch: int = 2, basech: int = 8, hw: int = 32,
+                     frames: int = 3, batch: int = 1, seed: int = 0, n_batches: int = 2,
+                     device=None) -> Dict[str, float]:
+    """Per-layer activation ranges ``{tag: max_abs}`` from a seeded synthetic
+    corpus through the numerics plane's stats probes
+    (:mod:`esr_tpu_torch.ops.numerics`, ``mode="stats"``): the model's own
+    taps, no new ones. Deterministic from ``seed``: the default model is
+    built under ``torch.manual_seed(seed)`` with the caller's RNG state
+    restored after, and the ``n_batches`` standard-normal batches ``[batch,
+    frames, hw, hw, inch]`` come from one ``torch.Generator`` seeded by
+    ``seed``. ``model`` (when given) must be probe-enabled (``numerics=True,
+    numerics_mode="stats"``); by default a ``DeepRecurrNet`` at the drift
+    harness's geometry is built. Runs on the card unless ``device`` is the
+    CPU; :func:`calibrate_ranges_on` takes given weights and a given
+    corpus."""
+    if model is None:
+        from esr_tpu_torch.models.esr import DeepRecurrNet
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(int(seed))
+            model = DeepRecurrNet(inch=inch, basech=basech, num_frame=frames,
+                                  numerics=True, numerics_mode="stats")
+    gen = torch.Generator().manual_seed(int(seed))
+    corpus = [torch.randn((batch, frames, hw, hw, inch), generator=gen)
+              for _ in range(int(n_batches))]
+    return calibrate_ranges_on(model, corpus, device=device)
+
+
+def calibrate_ranges_on(model, corpus, device=None) -> Dict[str, float]:
+    """:func:`calibrate_ranges` on given weights and a given corpus: each
+    batch ``[B, frames, H, W, inch]`` (a tensor or an array) runs one
+    forward from zero states under the probes' ``collect()``; a tag's range
+    is the largest ``max_abs`` over the corpus, rounded to 6 decimals as in
+    the reference. The stats come back in one copy after the device loop."""
+    import numpy as np
+
+    from esr_tpu_torch.device import resolve_device
+    from esr_tpu_torch.ops.numerics import STAT_FIELDS, collect
+
+    if not getattr(model, "numerics", False) or model.numerics_mode != "stats":
+        raise ValueError("calibrate_ranges needs a probe-enabled model "
+                         "(numerics=True, numerics_mode='stats')")
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    tags, vecs = [], []
+    with torch.no_grad():
+        for x in corpus:
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.array(x, dtype=np.float32))
+            x = x.to(dev, torch.float32)
+            states = model.init_states(x.shape[0], x.shape[2], x.shape[3], device=dev)
+            with collect() as sown:
+                model(x, states)
+            for tag, vec in sown.items():
+                tags.append(tag)
+                vecs.append(vec)
+    host = torch.stack(vecs).cpu().double().numpy() if vecs else []
+    idx = STAT_FIELDS.index("max_abs")
+    ranges: Dict[str, float] = {}
+    for tag, vec in zip(tags, host):
+        ranges[tag] = max(ranges.get(tag, 0.0), float(vec[idx]))
+    return {tag: round(v, 6) for tag, v in sorted(ranges.items())}

@@ -118,11 +118,12 @@ def _ssim(p: torch.Tensor, g: torch.Tensor, data_range: float = 2.0,
 _METRIC_FNS = {"l1": _l1, "mse": _mse, "ssim": _ssim, "psnr": _psnr}
 
 
-def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: int,
-                  kw: int, compute_dtype: Optional[torch.dtype] = None,
-                  precision: Optional[str] = None):
-    """The fused chunk: ``(states, reset_keep, windows) -> (states, sums,
-    stacked)``, run under ``torch.no_grad()``.
+class ChunkProgram(torch.nn.Module):
+    """The fused chunk as a module: ``(states, reset_keep, windows) ->
+    (states, sums, stacked)``, run under ``torch.no_grad()``. The model is
+    its submodule ``model``, so ``torch.export`` lifts the model's weights
+    (``inference/export.py``); the loop over the windows unrolls in an
+    exported graph, as the reference's scan fuses them.
 
     ``states`` is the model's lane-batched recurrent state; ``reset_keep``
     ``(B,)`` zeroes the lanes where it is 0 (by ``where``, so a non-finite
@@ -137,34 +138,49 @@ def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: in
     ``compute_dtype`` (bf16) runs a copy of the model cast once to it, with
     the states and inputs cast; predictions are upcast to f32 before the
     resize and the metrics. ``precision="int8"`` runs the model inside
-    ``int8_scope()``, nothing cast; with a ``compute_dtype`` it raises."""
-    int8 = precision is not None and canonical_precision(precision) == "int8"
-    if int8 and compute_dtype is not None:
-        raise ValueError("precision='int8' quantizes at the seams: params and states "
-                         "stay f32, so compute_dtype must be None")
-    if lanes < 1 or chunk_windows < 1:
-        raise ValueError(f"lanes and chunk_windows must be >= 1, got "
-                         f"{lanes}, {chunk_windows}")
-    if compute_dtype is not None:
-        model = copy.deepcopy(model).to(compute_dtype)
+    ``int8_scope()``, nothing cast; with a ``compute_dtype`` it raises.
+    Every branch is on shapes and settings, none on tensor values."""
 
-    def forward(inp: torch.Tensor, states: States):
-        if compute_dtype is not None:
-            inp = inp.to(compute_dtype)
-            states = tuple(z.to(compute_dtype) for z in states)
-        if int8:
+    def __init__(self, model: torch.nn.Module, lanes: int, chunk_windows: int, kh: int,
+                 kw: int, compute_dtype: Optional[torch.dtype] = None,
+                 precision: Optional[str] = None):
+        super().__init__()
+        int8 = precision is not None and canonical_precision(precision) == "int8"
+        if int8 and compute_dtype is not None:
+            raise ValueError("precision='int8' quantizes at the seams: params and states "
+                             "stay f32, so compute_dtype must be None")
+        if lanes < 1 or chunk_windows < 1:
+            raise ValueError(f"lanes and chunk_windows must be >= 1, got "
+                             f"{lanes}, {chunk_windows}")
+        self.model = model if compute_dtype is None else copy.deepcopy(model).to(compute_dtype)
+        self.lanes = int(lanes)
+        self.chunk_windows = int(chunk_windows)
+        self.gt_hw = (int(kh), int(kw))
+        self.compute_dtype = compute_dtype
+        self.int8 = int8
+
+    def _model(self, inp: torch.Tensor, states: States):
+        if self.compute_dtype is not None:
+            inp = inp.to(self.compute_dtype)
+            states = tuple(z.to(self.compute_dtype) for z in states)
+        if self.int8:
             with int8_scope():
-                return model(inp, states)
-        return model(inp, states)
+                return self.model(inp, states)
+        return self.model(inp, states)
 
-    def to_gt_grid(imgs: torch.Tensor) -> torch.Tensor:
-        if tuple(imgs.shape[1:3]) != (kh, kw):
-            return interpolate(imgs, (kh, kw), "bicubic")
+    def _to_gt_grid(self, imgs: torch.Tensor) -> torch.Tensor:
+        if tuple(imgs.shape[1:3]) != self.gt_hw:
+            return interpolate(imgs, self.gt_hw, "bicubic")
         return imgs
 
-    @torch.no_grad()
-    def run_chunk(states: States, reset_keep: torch.Tensor,
-                  windows: Dict[str, torch.Tensor]):
+    def forward(self, states: States, reset_keep: torch.Tensor,
+                windows: Dict[str, torch.Tensor]):
+        with torch.no_grad():
+            return self._run(states, reset_keep, windows)
+
+    def _run(self, states: States, reset_keep: torch.Tensor,
+             windows: Dict[str, torch.Tensor]):
+        lanes, chunk_windows = self.lanes, self.chunk_windows
         if windows["inp_scaled"].shape[:2] != (chunk_windows, lanes):
             raise ValueError(
                 f"chunk of shape {tuple(windows['inp_scaled'].shape[:2])}, "
@@ -175,9 +191,9 @@ def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: in
                 for k in METRIC_KEYS + ("count",)}
         ssim_pairs: Dict[str, List[torch.Tensor]] = {"esr_ssim": [], "bicubic_ssim": []}
         for t in range(chunk_windows):
-            pred, states = forward(windows["inp_scaled"][t], states)
-            pred = to_gt_grid(pred.float())
-            bicubic = to_gt_grid(windows["inp_mid"][t])
+            pred, states = self._model(windows["inp_scaled"][t], states)
+            pred = self._to_gt_grid(pred.float())
+            bicubic = self._to_gt_grid(windows["inp_mid"][t])
             gt = windows["gt"][t]
             valid = windows["valid"][t]
             for name, fn in _METRIC_FNS.items():
@@ -191,7 +207,12 @@ def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: in
         stacked = {k: torch.stack(v) for k, v in ssim_pairs.items()}
         return states, sums, stacked
 
-    return run_chunk
+
+def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: int,
+                  kw: int, compute_dtype: Optional[torch.dtype] = None,
+                  precision: Optional[str] = None) -> ChunkProgram:
+    """The fused chunk function: a :class:`ChunkProgram` over ``model``."""
+    return ChunkProgram(model, lanes, chunk_windows, kh, kw, compute_dtype, precision)
 
 
 # -- per-lane recurrent state save / restore ----------------------------------

@@ -53,18 +53,66 @@ def get_activation(name: Optional[str]) -> Optional[Callable]:
     return _ACTIVATIONS[name]
 
 
-def _packed(module: nn.Module, weight: torch.Tensor):
-    """The int8 seam's packed weight, made once per weight (again only when
-    the weight is replaced, moved or updated in place)."""
+def _pack(weight: torch.Tensor):
+    """The packed int8 form of a conv weight (OIHW) or a dense one
+    (``[out, in]``, as a 1x1 convolution)."""
     from esr_tpu_torch.ops.int8_cuda import pack_weight
 
+    w = weight.detach()
+    return pack_weight(w if w.dim() == 4 else w[:, :, None, None])
+
+
+# the packed weight's tensors, as the buffers ``int8_<field>`` of a seam
+INT8_BUFFERS = ("q", "scale", "wq")
+
+
+def _packed(module: nn.Module, weight: torch.Tensor):
+    """The int8 seam's packed weight: the module's ``int8_*`` buffers when
+    :func:`pack_int8_buffers` gave it some (an exported program reads them,
+    never a data pointer), else made once per weight (again only when the
+    weight is replaced, moved or updated in place)."""
+    from esr_tpu_torch.ops.int8_cuda import PackedWeight
+
+    if hasattr(module, "int8_wq"):
+        return PackedWeight(module.int8_q, module.int8_scale, module.int8_wq,
+                            module.int8_nt)
     key = (weight.data_ptr(), weight._version, weight.device)
     cache = getattr(module, "_int8_cache", None)
     if cache is None or cache[0] != key:
-        w = weight.detach()
-        cache = (key, pack_weight(w if w.dim() == 4 else w[:, :, None, None]))
+        cache = (key, _pack(weight))
         module._int8_cache = cache
     return cache[1]
+
+
+def pack_int8_buffers(model: nn.Module) -> nn.Module:
+    """Give every contraction seam of ``model`` its packed int8 weight as
+    non-persistent buffers (``int8_q``, ``int8_scale``, ``int8_wq``; the
+    packing's ``int8_nt``), which the seam then reads in place of its cache:
+    an int8 program exported from ``model`` carries the packs as buffers,
+    bitwise the eager cache's. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, (Conv2d, Linear)):
+            p = _pack(m.weight)
+            for field in INT8_BUFFERS:
+                m.register_buffer(f"int8_{field}", getattr(p, field), persistent=False)
+            m.int8_nt = p.nt
+    return model
+
+
+def repack_int8_buffers(module: nn.Module) -> None:
+    """Re-derive every ``int8_*`` buffer of ``module`` (a model packed by
+    :func:`pack_int8_buffers`, or a program unlifted from an export of one)
+    from the weight beside it, so the packs follow the weights loaded into
+    it."""
+    params = dict(module.named_parameters())
+    buffers = dict(module.named_buffers())
+    for name in buffers:
+        if name.endswith("int8_wq"):
+            prefix = name[: -len("int8_wq")]
+            p = _pack(params[prefix + "weight"])
+            with torch.no_grad():
+                for field in INT8_BUFFERS:
+                    buffers[f"{prefix}int8_{field}"].copy_(getattr(p, field))
 
 
 class Conv2d(nn.Conv2d):

@@ -30,14 +30,19 @@ width. Every path sums gx in 64-bit fixed point (``csrc/dcn_train.cu``,
 to run, and the same bits on every path. :func:`wgrad_config` tiles the
 weight gradient's output over blocks, so it takes any width.
 
-Nothing is imported or built when this module is imported; :func:`build`
-starts every ``nvcc`` at once.
-
-Every wrapper takes the plain PyTorch version (``esr_tpu_torch.ops.dcn``)
-for CPU tensors; for CUDA tensors it launches its kernel on the current
-stream, or raises (wrong device, type, layout or size, a failed build or
-launch, or inputs that need a gradient the kernel's output cannot carry).
-``launches`` counts kernel launches and nothing else.
+Nothing is built when this module is imported; :func:`build` starts every
+``nvcc`` at once. Importing it registers the kernels as ``torch.library``
+custom ops of the ``esr_tpu_torch`` namespace (:data:`OPS`), one per
+wrapper (``torch.ops.esr_tpu_torch.dcn_fwd`` and so on), each with three
+implementations: CUDA (the wrapper's launcher), CPU (the plain PyTorch
+version, ``esr_tpu_torch.ops.dcn``) and fake (the output's shape and type,
+with the launcher's shape checks, for ``torch.export``). A wrapper calls
+its op, so eager calls, the train direction and an exported program all go
+through the dispatcher to the same launcher; for CUDA tensors it launches
+its kernel on the current stream, or raises (wrong device, type, layout
+or size, a failed build or launch, or inputs that need a gradient the
+kernel's output cannot carry). ``launches`` counts kernel launches and
+nothing else.
 
 :func:`dcn` is the model's DCN and the one place where the direction is
 decided, as the reference's ``train`` flag does (``esr_tpu/models/
@@ -480,11 +485,9 @@ def build() -> None:
         lib.load()
 
 
-def _check_cuda(name: str, tensors: Sequence[torch.Tensor]) -> None:
-    """Device, type, layout, size and autograd checks of a CUDA launch."""
-    if any(t.device.type != "cuda" for t in tensors):
-        raise ValueError(f"{name} kernel needs CUDA tensors, got "
-                         f"{sorted({str(t.device) for t in tensors})}")
+def _check_types(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Type, layout and size checks of a launch (also the fake
+    implementations' checks of a CUDA call, so a bad call fails at export)."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} kernel takes float32, got {t.dtype}")
@@ -492,6 +495,14 @@ def _check_cuda(name: str, tensors: Sequence[torch.Tensor]) -> None:
             raise ValueError(f"{name} kernel takes contiguous tensors")
     if max(t.numel() for t in tensors) >= 2**31:
         raise ValueError(f"{name} kernel indexes with 32-bit ints; input too large")
+
+
+def _check_cuda(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Device, type, layout, size and autograd checks of a CUDA launch."""
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{name} kernel needs CUDA tensors, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    _check_types(name, tensors)
     if _plain.wants_grad(tensors):
         raise RuntimeError(
             f"{name}: inputs require grad, but the kernel's output would have "
@@ -534,18 +545,47 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
+# -- the kernels as torch.library custom ops ---------------------------------
+#
+# Every kernel is an op of the ``esr_tpu_torch`` namespace with three
+# implementations: CUDA (the wrapper's launcher, the one place that launches
+# and counts), CPU (the plain version: device dispatch, as the wrappers did
+# before) and fake (shapes and types, for ``torch.export``). A captured graph
+# holds the op, so a loaded artifact launches the kernel on the card.
+
+OPS = torch.library.Library("esr_tpu_torch", "DEF")
+
+
+def register_op(kernel) -> None:
+    """Define ``esr_tpu_torch::<kernel.name>`` by ``kernel.schema`` with the
+    kernel's ``cuda``, ``plain`` (CPU) and ``fake`` implementations, and bind
+    the op's overload to ``kernel.op``."""
+    OPS.define(kernel.name + kernel.schema)
+    OPS.impl(kernel.name, kernel.cuda, "CUDA")
+    OPS.impl(kernel.name, kernel.plain, "CPU")
+    torch.library.register_fake(f"esr_tpu_torch::{kernel.name}", kernel.fake, lib=OPS)
+    kernel.op = getattr(torch.ops.esr_tpu_torch, kernel.name).default
+
+
+_FWD_ARGS = "Tensor x, Tensor offsets, Tensor mask, Tensor weight, Tensor? bias"
+_GEOM_ARGS = "int stride, int padding, int dilation"
+
+
 class DcnFwdKernel:
     """Wrapper of the forward body (``csrc/dcn_common.cuh``) through the
-    forward direction's entry point (``csrc/dcn_fwd.cu``)."""
+    forward direction's entry point (``csrc/dcn_fwd.cu``), as the op
+    ``esr_tpu_torch::dcn_fwd``."""
 
     library = FWD_LIBRARY
     name = "dcn_fwd"
     entry = "dcn_fwd_f32"
     # None: dense; else the direction whose tiles the activity mask marks
     masked_direction: Optional[str] = None
+    schema = f"({_FWD_ARGS}, {_GEOM_ARGS}) -> Tensor"
 
     def __init__(self) -> None:
         self.launches = 0
+        self.op = None
 
     @staticmethod
     def launch_config(offsets: torch.Tensor, weight: torch.Tensor) -> FwdConfig:
@@ -559,15 +599,41 @@ class DcnFwdKernel:
         masked = self.masked_direction is not None
         if masked != (tile_mask is not None):
             raise ValueError(f"{self.name} {'needs' if masked else 'takes no'} tile_mask")
+        if masked:
+            return self.op(x, offsets, mask, weight, bias, torch.as_tensor(tile_mask),
+                           stride, padding, dilation)
+        return self.op(x, offsets, mask, weight, bias, stride, padding, dilation)
+
+    def _split(self, rest):
+        """The op's trailing arguments: ``(tile_mask or None, geometry)``."""
+        if self.masked_direction is None:
+            return None, rest
+        return rest[0], rest[1:]
+
+    def plain(self, x, offsets, mask, weight, bias, *rest) -> torch.Tensor:
+        tile_mask, geom = self._split(rest)
+        if tile_mask is not None:
+            return _plain.deform_conv2d_masked(x, offsets, mask, weight, bias, tile_mask,
+                                               *geom, self.masked_direction)
+        return _plain.deform_conv2d(x, offsets, mask, weight, bias, *geom)
+
+    def fake(self, x, offsets, mask, weight, bias, *rest) -> torch.Tensor:
+        tile_mask, _ = self._split(rest)
         tensors = [x, offsets, mask, weight] + ([bias] if bias is not None else [])
-        if _same_device(tensors + ([tile_mask] if masked else [])).type == "cpu":
-            if masked:
-                return _plain.deform_conv2d_masked(
-                    x, offsets, mask, weight, bias, tile_mask, stride, padding,
-                    dilation, self.masked_direction)
-            return _plain.deform_conv2d(
-                x, offsets, mask, weight, bias, stride, padding, dilation
-            )
+        if x.device.type == "cuda":
+            _check_types(self.name, tensors)
+        b, _, _, _, ho, wo, cout, _, _, _ = _shapes(x, offsets, mask, tuple(weight.shape),
+                                                    bias)
+        if tile_mask is not None:
+            _plain.tile_mask_grid(tile_mask, b, _plain.output_tiling(
+                x, offsets, self.masked_direction)[1])
+        return x.new_empty((b, ho, wo, cout))
+
+    def cuda(self, x, offsets, mask, weight, bias, *rest) -> torch.Tensor:
+        tile_mask, (stride, padding, dilation) = self._split(rest)
+        masked = tile_mask is not None
+        tensors = [x, offsets, mask, weight] + ([bias] if bias is not None else [])
+        _same_device(tensors + ([tile_mask] if masked else []))
         _check_cuda(self.name, tensors)
         b, h, w, cin, ho, wo, cout, dg, kh, kw = _shapes(
             x, offsets, mask, tuple(weight.shape), bias)
@@ -596,11 +662,14 @@ class DcnFwdKernel:
 class DcnFwdMaskedKernel(DcnFwdKernel):
     """The forward body predicated on activity (``kMasked``) through
     ``dcn_fwd_masked_f32``; its plain version is
-    :func:`esr_tpu_torch.ops.dcn.deform_conv2d_masked` ('fwd' tiles)."""
+    :func:`esr_tpu_torch.ops.dcn.deform_conv2d_masked` ('fwd' tiles). The
+    op takes the ``[B]`` or ``[B, n_tiles]`` mask as given and makes the
+    kernel's bitmap itself."""
 
     name = "dcn_fwd_masked"
     entry = "dcn_fwd_masked_f32"
     masked_direction = "fwd"
+    schema = f"({_FWD_ARGS}, Tensor tile_mask, {_GEOM_ARGS}) -> Tensor"
 
 
 class DcnTrainFwdKernel(DcnFwdKernel):
@@ -622,47 +691,70 @@ class DcnTrainFwdMaskedKernel(DcnTrainFwdKernel):
     name = "dcn_train_fwd_masked"
     entry = "dcn_train_fwd_masked_f32"
     masked_direction = "train"
+    schema = DcnFwdMaskedKernel.schema
 
 
 class _TrainKernel:
-    """Common checks and sizing of the ``csrc/dcn_train.cu`` kernels."""
+    """Common checks and sizing of the ``csrc/dcn_train.cu`` backward
+    kernels."""
 
     library = TRAIN_LIBRARY
     name = ""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.op = None
 
-    def _prepare(self, tensors, x, offsets, mask, weight_shape, bias=None):
+    def _prepare(self, tensors, x, offsets, mask, weight_shape, g):
         """CUDA checks; returns the loaded library and the shape tuple."""
+        _same_device(tensors)
         _check_cuda(self.name, tensors)
-        dims = _shapes(x, offsets, mask, tuple(weight_shape), bias)
+        dims = self._dims(x, offsets, mask, weight_shape, g)
         b, _, _, _, ho, wo, cout, _, _, _ = dims
         if b * ho * wo * cout >= 2**31:
             raise ValueError(f"{self.name} kernel indexes with 32-bit ints; "
                              "input too large")
         return self.library.load(), dims
 
-
-class DcnBwdKernel(_TrainKernel):
-    """Wrapper of the per-pixel backward (``dcn_bwd_pixel_kernel``):
-    ``(gx, goffsets, gmask)`` for the output cotangent ``g``. Its plain
-    version is the first three of
-    :func:`esr_tpu_torch.ops.dcn.deform_conv2d_backward`."""
-
-    name = "dcn_bwd"
-
-    def __call__(self, x, offsets, mask, weight, g, stride=1, padding=1,
-                 dilation=1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        tensors = [x, offsets, mask, weight, g]
-        if _same_device(tensors).type == "cpu":
-            return _plain.deform_conv2d_backward(
-                x, offsets, mask, weight, g, stride, padding, dilation)[:3]
-        lib, (b, h, w, cin, ho, wo, cout, dg, kh, kw) = self._prepare(
-            tensors, x, offsets, mask, weight.shape)
+    def _dims(self, x, offsets, mask, weight_shape, g):
+        """The shape tuple; raises when the cotangent is not the output's."""
+        dims = _shapes(x, offsets, mask, tuple(weight_shape))
+        b, _, _, _, ho, wo, cout, _, _, _ = dims
         if tuple(g.shape) != (b, ho, wo, cout):
             raise ValueError(f"{self.name}: cotangent {tuple(g.shape)} does not "
                              f"match the output {(b, ho, wo, cout)}")
+        return dims
+
+
+class DcnBwdKernel(_TrainKernel):
+    """Wrapper of the per-pixel backward (``dcn_bwd_pixel_kernel``):
+    ``(gx, goffsets, gmask)`` for the output cotangent ``g``, as the op
+    ``esr_tpu_torch::dcn_bwd``. Its plain version is the first three of
+    :func:`esr_tpu_torch.ops.dcn.deform_conv2d_backward`."""
+
+    name = "dcn_bwd"
+    schema = ("(Tensor x, Tensor offsets, Tensor mask, Tensor weight, Tensor g, "
+              f"{_GEOM_ARGS}) -> (Tensor, Tensor, Tensor)")
+
+    def __call__(self, x, offsets, mask, weight, g, stride=1, padding=1,
+                 dilation=1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.op(x, offsets, mask, weight, g, stride, padding, dilation)
+
+    def plain(self, x, offsets, mask, weight, g, stride, padding, dilation):
+        # contiguous, as the kernel writes them (autograd's gmask is not)
+        return tuple(t.contiguous() for t in _plain.deform_conv2d_backward(
+            x, offsets, mask, weight, g, stride, padding, dilation)[:3])
+
+    def fake(self, x, offsets, mask, weight, g, stride, padding, dilation):
+        if x.device.type == "cuda":
+            _check_types(self.name, [x, offsets, mask, weight, g])
+        self._dims(x, offsets, mask, weight.shape, g)
+        return torch.empty_like(x), torch.empty_like(offsets), torch.empty_like(mask)
+
+    def cuda(self, x, offsets, mask, weight, g, stride, padding, dilation):
+        tensors = [x, offsets, mask, weight, g]
+        lib, (b, h, w, cin, ho, wo, cout, dg, kh, kw) = self._prepare(
+            tensors, x, offsets, mask, weight.shape, g)
         cfg = bwd_config(h, w, ho, wo, cin, cout, dg, kh * kw)
         goff = torch.empty_like(offsets)
         gmask = torch.empty_like(mask)
@@ -689,12 +781,15 @@ def bwd_scratch(x: torch.Tensor, cfg: BwdConfig) -> torch.Tensor:
 
 class DcnWgradKernel(_TrainKernel):
     """Wrapper of the weight gradient (``dcn_wgrad_kernel``): ``gW``
-    ``[kh, kw, Cin, Cout]`` at any width. The kernel writes one partial per
-    chunk of rows (:func:`wgrad_config`); the partials are summed here in a
-    fixed order, so gW is the same bits from run to run. Its plain version
-    is the fourth of :func:`esr_tpu_torch.ops.dcn.deform_conv2d_backward`."""
+    ``[kh, kw, Cin, Cout]`` at any width, as the op
+    ``esr_tpu_torch::dcn_wgrad``. The kernel writes one partial per chunk
+    of rows (:func:`wgrad_config`); the partials are summed here in a fixed
+    order, so gW is the same bits from run to run. Its plain version is the
+    fourth of :func:`esr_tpu_torch.ops.dcn.deform_conv2d_backward`."""
 
     name = "dcn_wgrad"
+    schema = ("(Tensor x, Tensor offsets, Tensor mask, int[] weight_shape, Tensor g, "
+              f"{_GEOM_ARGS}) -> Tensor")
 
     @staticmethod
     def launch_config(x: torch.Tensor, offsets: torch.Tensor,
@@ -704,17 +799,25 @@ class DcnWgradKernel(_TrainKernel):
 
     def __call__(self, x, offsets, mask, weight_shape: Sequence[int], g, stride=1,
                  padding=1, dilation=1) -> torch.Tensor:
+        return self.op(x, offsets, mask, [int(d) for d in weight_shape], g, stride,
+                       padding, dilation)
+
+    def plain(self, x, offsets, mask, weight_shape, g, stride, padding, dilation):
+        weight = torch.zeros(tuple(weight_shape), dtype=x.dtype)
+        return _plain.deform_conv2d_backward(
+            x, offsets, mask, weight, g, stride, padding, dilation)[3]
+
+    def fake(self, x, offsets, mask, weight_shape, g, stride, padding, dilation):
+        if x.device.type == "cuda":
+            _check_types(self.name, [x, offsets, mask, g])
+        self._dims(x, offsets, mask, weight_shape, g)
+        return x.new_empty(tuple(weight_shape))
+
+    def cuda(self, x, offsets, mask, weight_shape, g, stride, padding, dilation):
         weight_shape = tuple(weight_shape)
         tensors = [x, offsets, mask, g]
-        if _same_device(tensors).type == "cpu":
-            weight = torch.zeros(weight_shape, dtype=x.dtype)
-            return _plain.deform_conv2d_backward(
-                x, offsets, mask, weight, g, stride, padding, dilation)[3]
         lib, (b, h, w, cin, ho, wo, cout, dg, kh, kw) = self._prepare(
-            tensors, x, offsets, mask, weight_shape)
-        if tuple(g.shape) != (b, ho, wo, cout):
-            raise ValueError(f"{self.name}: cotangent {tuple(g.shape)} does not "
-                             f"match the output {(b, ho, wo, cout)}")
+            tensors, x, offsets, mask, weight_shape, g)
         rows = b * ho * wo
         if rows == 0:
             return torch.zeros(weight_shape, dtype=torch.float32, device=x.device)
@@ -742,6 +845,8 @@ dcn_fwd_masked = DcnFwdMaskedKernel()
 dcn_train_fwd_masked = DcnTrainFwdMaskedKernel()
 KERNELS = (dcn_fwd, dcn_train_fwd, dcn_bwd, dcn_wgrad, dcn_fwd_masked,
            dcn_train_fwd_masked)
+for _kernel in KERNELS:
+    register_op(_kernel)
 
 
 class DcnTrain(torch.autograd.Function):

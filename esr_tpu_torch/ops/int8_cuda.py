@@ -18,9 +18,13 @@ Neither has a Pallas counterpart: the JAX package runs its int8 rung
 through XLA. Both are bitwise equal to their plain versions
 (:func:`quantize_per_tensor_plain`, :func:`int8_conv_plain`: a convolution
 of the int8 values held in f64, exact because ``|acc| < 2**31 < 2**53``).
-A wrapper takes the plain version for CPU tensors only; for CUDA tensors it
-launches its kernel or raises. ``launches`` counts kernel launches and
-nothing else. The weights are quantized by the plain
+Each is a ``torch.library`` op of the ``esr_tpu_torch`` namespace
+(``torch.ops.esr_tpu_torch.quantize_per_tensor`` and ``int8_conv``; see
+:mod:`esr_tpu_torch.ops.dcn_cuda`), which its wrapper calls: the op's CPU
+implementation is the plain version (only for CPU tensors), its CUDA one
+launches the kernel or raises, its fake one gives the output's shape for
+``torch.export``. ``launches`` counts kernel launches and nothing else.
+The weights are quantized by the plain
 :func:`~esr_tpu_torch.config.quantize.quantize_symmetric` and packed once per
 weight (:func:`pack_weight`); that is not a hot path.
 """
@@ -35,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from esr_tpu_torch.config.quantize import quantize_symmetric
-from esr_tpu_torch.ops.dcn_cuda import _PKG, CudaLibrary
+from esr_tpu_torch.ops.dcn_cuda import _PKG, CudaLibrary, register_op
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -122,14 +126,14 @@ def int8_conv_plain(xq: torch.Tensor, sx: torch.Tensor, w: PackedWeight,
                     padding: int = 0) -> torch.Tensor:
     """The int8 convolution, exactly: the int8 values in f64 (every product
     and sum an integer below 2**53), then ``acc * (sx * scale[n])`` and the
-    bias, in that order."""
+    bias, in that order; NCHW contiguous, as the kernel writes it."""
     cin = w.shape[1]
     x = xq[..., :cin].permute(0, 3, 1, 2).double()
     acc = F.conv2d(x, w.q.double(), stride=stride, padding=padding)
     out = acc.float() * (sx * w.scale).reshape(1, -1, 1, 1)
     if bias is not None:
         out = out + bias.reshape(1, -1, 1, 1)
-    return out
+    return out.contiguous()
 
 
 def _check(name: str, tensors, dtypes) -> None:
@@ -151,18 +155,32 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
 
 class QuantizePerTensorKernel:
     """K2: ``x`` NCHW f32 -> (q NHWC int8, channels padded to 4; scale
-    ``[1]``). Its plain version is :func:`quantize_per_tensor_plain`."""
+    ``[1]``), as the op ``esr_tpu_torch::quantize_per_tensor``. Its plain
+    version is :func:`quantize_per_tensor_plain`."""
 
     name = "quantize_per_tensor"
+    schema = "(Tensor x) -> (Tensor, Tensor)"
 
     def __init__(self) -> None:
         self.launches = 0
+        self.op = None
 
     def __call__(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if x.dim() != 4:
             raise ValueError(f"{self.name} takes NCHW, got shape {tuple(x.shape)}")
-        if x.device.type == "cpu":
-            return quantize_per_tensor_plain(x)
+        return self.op(x)
+
+    def plain(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return quantize_per_tensor_plain(x)
+
+    def fake(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, c, h, w = x.shape
+        if x.device.type == "cuda" and x.dtype != torch.float32:
+            raise TypeError(f"{self.name} kernel takes {torch.float32}, got {x.dtype}")
+        return (x.new_empty((b, h, w, padded_channels(c)), dtype=torch.int8),
+                x.new_empty((1,), dtype=torch.float32))
+
+    def cuda(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.contiguous()
         _check(self.name, [x], [torch.float32])
         b, c, h, w = x.shape
@@ -182,39 +200,62 @@ class QuantizePerTensorKernel:
 class Int8ConvKernel:
     """K1: ``(xq NHWC int8, sx [1], PackedWeight, bias [N] or None)`` ->
     NCHW f32, ``acc * (sx * scale[n]) + bias[n]``. Dilation 1, one group.
-    Its plain version is :func:`int8_conv_plain`."""
+    The op ``esr_tpu_torch::int8_conv`` takes the packed weight's tensors
+    (``q``, ``scale``, ``wq``) and ``nt``. Its plain version is
+    :func:`int8_conv_plain`."""
 
     name = "int8_conv"
+    schema = ("(Tensor xq, Tensor sx, Tensor q, Tensor scale, Tensor wq, Tensor? bias, "
+              "int stride, int padding, int nt) -> Tensor")
 
     def __init__(self) -> None:
         self.launches = 0
+        self.op = None
 
     def __call__(self, xq: torch.Tensor, sx: torch.Tensor, w: PackedWeight,
                  bias: Optional[torch.Tensor] = None, stride: int = 1,
                  padding: int = 0) -> torch.Tensor:
+        return self.op(xq, sx, w.q, w.scale, w.wq, bias, stride, padding, w.nt)
+
+    def _out_shape(self, xq, q, bias, stride, padding) -> Tuple[int, int, int, int]:
+        """``(b, n, ho, wo)``; raises on a mismatch of the operands."""
         b, h, wd, cp = xq.shape
-        n, cin, kh, kw = w.shape
+        n, cin, kh, kw = q.shape
         if cp != padded_channels(cin):
             raise ValueError(f"{self.name}: input of {cp} channels, weight of {cin}")
         if bias is not None and tuple(bias.shape) != (n,):
             raise ValueError(f"{self.name}: bias {tuple(bias.shape)} for {n} out-channels")
-        if xq.device.type == "cpu":
-            return int8_conv_plain(xq, sx, w, bias, stride, padding)
-        tensors = [xq, sx, w.wq, w.scale] + ([bias] if bias is not None else [])
+        return b, n, conv_out_size(h, kh, stride, padding), conv_out_size(wd, kw, stride,
+                                                                          padding)
+
+    def plain(self, xq, sx, q, scale, wq, bias, stride, padding, nt) -> torch.Tensor:
+        self._out_shape(xq, q, bias, stride, padding)
+        return int8_conv_plain(xq, sx, PackedWeight(q, scale, wq, nt), bias, stride,
+                               padding)
+
+    def fake(self, xq, sx, q, scale, wq, bias, stride, padding, nt) -> torch.Tensor:
+        b, n, ho, wo = self._out_shape(xq, q, bias, stride, padding)
+        if ho < 1 or wo < 1:
+            raise ValueError(f"{self.name}: empty output {ho}x{wo}")
+        return xq.new_empty((b, n, ho, wo), dtype=torch.float32)
+
+    def cuda(self, xq, sx, q, scale, wq, bias, stride, padding, nt) -> torch.Tensor:
+        b, n, ho, wo = self._out_shape(xq, q, bias, stride, padding)
+        _, h, wd, cp = xq.shape
+        _, _, kh, kw = q.shape
+        tensors = [xq, sx, wq, scale] + ([bias] if bias is not None else [])
         _check(self.name, tensors, [torch.int8, torch.float32, torch.int8, torch.float32,
                                     torch.float32])
-        ho = conv_out_size(h, kh, stride, padding)
-        wo = conv_out_size(wd, kw, stride, padding)
         if ho < 1 or wo < 1:
             raise ValueError(f"{self.name}: empty output {ho}x{wo}")
         out = torch.empty((b, n, ho, wo), dtype=torch.float32, device=xq.device)
         if out.numel() >= 2**31 or xq.numel() >= 2**31:
             raise ValueError(f"{self.name} kernel indexes with 32-bit ints; input too large")
-        np_, kp = w.wq.shape
+        np_, kp = wq.shape
         _launch(self.name, INT8_LIBRARY.load().int8_conv_f32, xq.device,
-                xq.data_ptr(), w.wq.data_ptr(), sx.data_ptr(), w.scale.data_ptr(),
+                xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), scale.data_ptr(),
                 bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                b, h, wd, cp, ho, wo, n, np_, kp, kh, kw, stride, padding, 1, w.nt)
+                b, h, wd, cp, ho, wo, n, np_, kp, kh, kw, stride, padding, 1, nt)
         self.launches += 1
         return out
 
@@ -222,6 +263,8 @@ class Int8ConvKernel:
 quantize_per_tensor = QuantizePerTensorKernel()
 int8_conv = Int8ConvKernel()
 KERNELS = (quantize_per_tensor, int8_conv)
+for _kernel in KERNELS:
+    register_op(_kernel)
 
 
 def reset_launches() -> None:

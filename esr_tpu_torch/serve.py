@@ -29,8 +29,12 @@ unless ``--device cpu`` is given. ``--precision`` picks the rung (f32,
 bf16 or int8, or an alias); omitted, the checkpoint's
 ``trainer.precision``, else f32. ``--profile-steps N`` records the first N
 dispatched chunks with ``torch.profiler`` into ``<output_path>/profile``
-(a ``profiler_capture`` event in the telemetry). ``--aot`` is not ported
-yet and raises.
+(a ``profiler_capture`` event in the telemetry). ``--aot`` exports one
+chunk program per distinct class depth (``inference/export.py``, at the
+session's lanes, grid, rung and device) into ``<output_path>/aot/`` before
+serving, and serves through them: the serving loop never traces. A fleet
+resolves them through an ``AotRegistry`` of that directory at each
+replica's cold start.
 """
 
 from __future__ import annotations
@@ -75,7 +79,9 @@ def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--supervise_interval", type=float, default=None, metavar="S",
                    help="poll replicas from a supervisor thread every S seconds "
                         "(default: inline, each router round)")
-    p.add_argument("--aot", action="store_true", default=False, help="not ported: raises")
+    p.add_argument("--aot", action="store_true", default=False,
+                   help="export one chunk program per class depth into "
+                        "<output_path>/aot and serve through them (never traces)")
     p.add_argument("--live-port", dest="live_port", type=int, default=None, metavar="PORT",
                    help="serve /metrics, /healthz, /slo and /snapshot on this port "
                         "(0 = ephemeral; default off)")
@@ -123,8 +129,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     flags = get_flags(argv)
     if (flags.data_list is None) == (flags.loadgen is None):
         raise SystemExit("pass exactly one of --data_list / --loadgen")
-    if flags.aot:
-        raise NotImplementedError("AOT chunk programs (--aot) are not ported yet")
     logging.basicConfig(level=logging.INFO)
 
     from esr_tpu_torch.inference.checkpoint import load_checkpoint
@@ -159,8 +163,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     schedule = poisson_schedule(streams, rate_hz=flags.rate, seed=flags.seed,
                                 classes=tuple(sorted(classes)))
     os.makedirs(flags.output_path, exist_ok=True)
+    aot_programs = export_chunk_programs(flags, streams[0], dataset_config, classes,
+                                         precision) if flags.aot else None
     if flags.replicas > 1:
-        return run_fleet(flags, model, dataset_config, classes, schedule, engine_kw)
+        return run_fleet(flags, model, dataset_config, classes, schedule, engine_kw,
+                         aot_programs)
 
     sink = TelemetrySink(os.path.join(flags.output_path, "telemetry.jsonl"))
     prev = set_active_sink(sink)
@@ -168,7 +175,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     try:
         server = ServingEngine(
             model, dataset_config, lanes=flags.lanes, classes=classes,
-            default_class=flags.default_class, live_port=flags.live_port,
+            default_class=flags.default_class, aot_programs=aot_programs,
+            live_port=flags.live_port,
             live_slo=flags.live_slo if flags.live_port is not None else None, **engine_kw,
         )
         if server.live is not None:
@@ -190,24 +198,49 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     return summary
 
 
+def export_chunk_programs(flags: argparse.Namespace, probe_stream, dataset_config: Dict,
+                          classes: Dict, precision: str) -> Dict[int, str]:
+    """``--aot``: one chunk program per distinct class depth, exported from
+    ``--model_path`` at the session's lanes, GT grid (read off the first
+    stream), rung and device into ``<output_path>/aot/``; ``{W: path}``."""
+    from esr_tpu_torch.inference.export import export_checkpoint
+    from esr_tpu_torch.serving.server import RecordingStream
+
+    kh, kw = RecordingStream(probe_stream, dataset_config).gt_resolution
+    out = {}
+    for w in sorted({c.chunk_windows for c in classes.values()}):
+        path = os.path.join(flags.output_path, "aot", f"chunk_program.w{w}.pt2")
+        export_checkpoint(flags.model_path, path, batch=flags.lanes, height=kh, width=kw,
+                          program="engine_chunk", chunk_windows=w, scale=flags.scale,
+                          precision=precision, device=flags.device)
+        out[w] = path
+    return out
+
+
 def run_fleet(flags: argparse.Namespace, model, dataset_config: Dict, classes: Dict,
-              schedule, engine_kw: Dict) -> Dict:
+              schedule, engine_kw: Dict, aot_programs: Optional[Dict[int, str]] = None
+              ) -> Dict:
     """``--replicas N``: N replicas (each its own ``ServingEngine``,
     telemetry file and live plane) behind a consistent-hash router with
     supervision, drain / handoff and fail-over. Writes
     ``telemetry_r<i>.jsonl``, ``telemetry_router.jsonl``,
     ``fleet_requests.jsonl`` and ``fleet_summary.json``; per-class
-    percentiles come from the merged report over the telemetry files."""
+    percentiles come from the merged report over the telemetry files. With
+    ``aot_programs`` every replica resolves its chunk programs through an
+    ``AotRegistry`` of their directory at its cold start."""
     from esr_tpu_torch.obs import LiveAggregator, TelemetrySink, set_active_sink
     from esr_tpu_torch.serving.fleet import FleetRouter, ReplicaSupervisor
-    from esr_tpu_torch.serving.replica import Replica
+    from esr_tpu_torch.serving.replica import AotRegistry, Replica
 
     out = flags.output_path
+    registry = None
+    if aot_programs:
+        registry = AotRegistry(os.path.dirname(next(iter(aot_programs.values()))))
     replicas = [
         Replica(f"r{i}", model, dataset_config,
                 telemetry_path=os.path.join(out, f"telemetry_r{i}.jsonl"),
                 classes=classes, default_class=flags.default_class, lanes=flags.lanes,
-                live_slo=flags.live_slo, **engine_kw).start()
+                live_slo=flags.live_slo, aot_registry=registry, **engine_kw).start()
         for i in range(flags.replicas)
     ]
     for rep in replicas:

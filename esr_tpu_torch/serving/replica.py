@@ -16,8 +16,9 @@
   terminals, the engine abandoned: its lane states and programs dropped so
   nothing holds their card memory), ``partition()`` an unreachable replica
   whose engine lives on until the router fences it.
-- :class:`AotRegistry` raises: AOT chunk programs need the port's export,
-  which is not written yet.
+- :class:`AotRegistry`: a directory of exported chunk programs
+  (``inference/export.py``), its sidecars checked at cold start; a replica
+  given one resolves its classes' depths there and never traces.
 
 Replicas of one process share the model: a replica's engine moves it to
 the replica's device once and only reads it.
@@ -26,7 +27,9 @@ the replica's device once and only reads it.
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -60,20 +63,76 @@ class HandoffPacket:
 
 
 class AotRegistry:
-    """The directory of exported chunk programs replicas cold-start from.
-    Not ported: it needs the port's AOT export (``inference/export.py``),
-    which is still to be written."""
+    """A directory of exported chunk programs, checked up front.
+
+    ``inference/export.export_checkpoint(..., program="engine_chunk")``
+    writes ``<name>`` + ``<name>.json`` (the geometry sidecar). The registry
+    scans the directory once and parses every sidecar; :meth:`programs_for`
+    returns the ``{chunk_windows: path}`` map of one serving geometry and
+    raises at cold start when a depth is missing or a sidecar disagrees on
+    lanes, grid or ``seqn``, with the inventory in the message. The engine
+    checks again when it loads (``ServingEngine._load_aot``)."""
 
     def __init__(self, root: str):
-        raise NotImplementedError(
-            "AotRegistry needs the port's AOT chunk-program export "
-            "(inference/export.py), which is not ported yet")
+        self.root = root
+        self.artifacts: List[Dict] = []
+        for name in sorted(os.listdir(root)):
+            if not name.endswith(".json"):
+                continue
+            artifact = os.path.join(root, name[: -len(".json")])
+            if not os.path.exists(artifact):
+                continue
+            try:
+                with open(os.path.join(root, name)) as f:
+                    sidecar = json.load(f)
+            except (OSError, ValueError) as e:
+                raise ValueError(f"unreadable artifact sidecar {name!r} in registry "
+                                 f"{root!r}: {e!r}")
+            self.artifacts.append({"path": artifact, "sidecar": sidecar})
+        if not self.artifacts:
+            raise ValueError(f"AOT registry {root!r} holds no artifact/sidecar pairs "
+                             "(export chunk programs first)")
+
+    def programs_for(self, lanes: int, chunk_windows: Tuple[int, ...],
+                     gt_hw: Optional[Tuple[int, int]] = None,
+                     lr_hw: Optional[Tuple[int, int]] = None,
+                     seqn: Optional[int] = None) -> Dict[int, str]:
+        """The ``{W: artifact path}`` map of one serving geometry; every
+        requested depth must resolve to an artifact whose sidecar matches (a
+        field a sidecar lacks passes; one it has must agree)."""
+        want_geo = {"gt_hw": gt_hw, "lr_hw": lr_hw, "seqn": seqn}
+
+        def geo_ok(side: Dict) -> bool:
+            for key, want in (("gt_hw", gt_hw), ("lr_hw", lr_hw)):
+                if (want is not None and side.get(key) is not None
+                        and list(side[key]) != list(want)):
+                    return False
+            return (seqn is None or side.get("seqn") is None
+                    or int(side["seqn"]) == int(seqn))
+
+        out: Dict[int, str] = {}
+        for rec in self.artifacts:
+            side = rec["sidecar"]
+            if side.get("lanes") != int(lanes) or not geo_ok(side):
+                continue
+            w = side.get("chunk_windows")
+            if w is not None:
+                out.setdefault(int(w), rec["path"])
+        missing = sorted(set(int(w) for w in chunk_windows) - set(out))
+        if missing:
+            raise ValueError(
+                f"AOT registry {self.root!r} has no artifact for chunk_windows={missing} "
+                f"at lanes={lanes}, geometry={want_geo} (inventory: "
+                f"{[r['sidecar'].get('chunk_windows') for r in self.artifacts]})")
+        return {int(w): out[int(w)] for w in chunk_windows}
 
 
 class Replica:
     """One fleet replica: engine, per-replica sink, live plane (module
     docstring). ``engine_kw`` go to ``ServingEngine`` (``device``,
-    ``precision``, ``preempt_quantum``, ...)."""
+    ``precision``, ``preempt_quantum``, ...). ``aot_programs`` (``{W:
+    path}``), or else ``aot_registry``, gives the engine its chunk
+    programs."""
 
     def __init__(
         self,
@@ -85,6 +144,8 @@ class Replica:
         default_class: str = "standard",
         lanes: int = 2,
         live_slo: Optional[str] = None,
+        aot_registry: Optional[AotRegistry] = None,
+        aot_programs: Optional[Dict[int, str]] = None,
         **engine_kw,
     ):
         self.replica_id = str(replica_id)
@@ -95,6 +156,8 @@ class Replica:
         self._default_class = default_class
         self._lanes = int(lanes)
         self._live_slo = live_slo
+        self._aot_registry = aot_registry
+        self._aot_programs = dict(aot_programs) if aot_programs else None
         self._engine_kw = dict(engine_kw)
         self.engine = None
         self.sink = None
@@ -121,18 +184,26 @@ class Replica:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "Replica":
-        """Open the sink and build the engine with its live plane on an
-        ephemeral port, namespaced to this replica."""
+        """Open the sink, resolve the chunk programs from the registry when
+        one is configured (the replica then never traces) and build the
+        engine with its live plane on an ephemeral port, namespaced to this
+        replica."""
         from esr_tpu_torch.obs import TelemetrySink
+        from esr_tpu_torch.serving.scheduler import DEFAULT_CLASSES
         from esr_tpu_torch.serving.server import ServingEngine
 
         self.sink = TelemetrySink(self.telemetry_path)
+        aot_programs = self._aot_programs
+        if aot_programs is None and self._aot_registry is not None:
+            classes = self._classes or DEFAULT_CLASSES
+            depths = tuple(sorted({c.chunk_windows for c in classes.values()}))
+            aot_programs = self._aot_registry.programs_for(self._lanes, depths)
         with self.activated():
             self.engine = ServingEngine(
                 self._model, self._dataset_config, lanes=self._lanes,
                 classes=self._classes, default_class=self._default_class,
-                live_port=0, live_slo=self._live_slo, health_ns=self.replica_id,
-                **self._engine_kw,
+                aot_programs=aot_programs, live_port=0, live_slo=self._live_slo,
+                health_ns=self.replica_id, **self._engine_kw,
             )
         self.alive = True
         return self

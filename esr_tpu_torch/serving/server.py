@@ -45,8 +45,17 @@ namespaces the health sources of co-resident replicas.
 
 ``profile_steps`` records the first N dispatched chunks with
 ``torch.profiler`` (CUDA activity on the card) into ``profile_dir`` and
-stamps a ``profiler_capture`` event. Not in this slice: AOT programs
-(``aot_programs`` raises ``NotImplementedError``).
+stamps a ``profiler_capture`` event.
+
+``aot_programs`` (``{chunk_windows: artifact path}``, from
+``inference/export.export_checkpoint(program="engine_chunk")``) serves
+through loaded chunk programs: each depth's artifact is loaded once, its
+sidecar checked against the session first (the rung, ``(lanes,
+chunk_windows)``, the grids and ``seqn``; a missing depth raises
+``KeyError``, an artifact of another device ``ValueError``), and it runs
+this engine's own weights. The first dispatch that needs one loads every
+class depth's artifact, so no later chunk waits on a load. Lane states, eviction, resume and the ESRLANE1
+wire are the traced path's.
 
 ``precision`` is the rung the session serves at (``None``: f32; the entry
 point resolves CLI > checkpoint > f32): at bf16 the lane states live in
@@ -162,8 +171,6 @@ class ServingEngine:
         precision: Optional[str] = None,
         device: DeviceLike = None,
     ):
-        if aot_programs:
-            raise NotImplementedError("AOT chunk programs are not ported yet")
         self.precision = resolve_precision(cli=precision)
         self.compute_dtype = compute_dtype_of(self.precision)
         self.device = resolve_device(device)
@@ -189,6 +196,9 @@ class ServingEngine:
             raise ValueError(f"request_retries must be >= 0, got {self.request_retries}")
         self.activity_tile = int(activity_tile)
         self._programs: Dict[int, object] = {}
+        self._aot_paths = {int(w): p for w, p in (aot_programs or {}).items()}
+        # seconds to build (or load) each depth's program, at its first use
+        self.program_seconds: Dict[int, float] = {}
         self._requests: Dict[str, StreamRequest] = {}
         self._acc: Dict[str, Dict] = {}
         self._pending: deque = deque()
@@ -254,12 +264,62 @@ class ServingEngine:
     # -- programs / device state ---------------------------------------------
 
     def _program(self, w: int):
+        """The fused chunk program at depth ``w``: loaded from its artifact
+        when ``aot_programs`` were given (the session then never traces),
+        else built once per distinct ``w``. The first artifact needed loads
+        every class depth's at once, so no later chunk waits on a load."""
         prog = self._programs.get(w)
-        if prog is None:
-            kh, kw = self._resolutions[1]
-            prog = make_chunk_fn(self.model, self.lanes, w, kh, kw, self.compute_dtype,
-                                 self.precision)
-            self._programs[w] = prog
+        if prog is not None:
+            return prog
+        if self._aot_paths:
+            if w not in self._aot_paths:
+                raise KeyError(
+                    f"no AOT chunk program for chunk_windows={w}; exported depths: "
+                    f"{sorted(self._aot_paths)} (export one per request-class "
+                    "chunk_windows)")
+            depths = {c.chunk_windows for c in self.classes.values()} | {w}
+            for d in sorted(depths & set(self._aot_paths) - set(self._programs)):
+                t0 = time.perf_counter()
+                self._programs[d] = self._load_aot(d)
+                self.program_seconds[d] = time.perf_counter() - t0
+            return self._programs[w]
+        t0 = time.perf_counter()
+        kh, kw = self._resolutions[1]
+        prog = make_chunk_fn(self.model, self.lanes, w, kh, kw, self.compute_dtype,
+                             self.precision)
+        self.program_seconds[w] = time.perf_counter() - t0
+        self._programs[w] = prog
+        return prog
+
+    def _load_aot(self, w: int):
+        """The artifact of depth ``w``, its sidecar checked against this
+        session first (the reference's refusals: another rung, ``(lanes,
+        chunk_windows)``, grid or ``seqn``; the loader refuses another
+        device), then loaded with this engine's weights."""
+        from esr_tpu_torch.inference.export import load_exported_model, read_sidecar
+
+        path = self._aot_paths[w]
+        sidecar = read_sidecar(path)
+        # the rung is baked in at export; another would serve other numerics
+        aot_precision = sidecar.get("precision") or "f32"
+        if aot_precision != self.precision:
+            raise ValueError(
+                f"AOT artifact {path} was exported at precision={aot_precision!r}, "
+                f"serving was asked for {self.precision!r}")
+        got = (sidecar.get("lanes"), sidecar.get("chunk_windows"))
+        if got != (self.lanes, w):
+            raise ValueError(
+                f"AOT artifact {path} was exported for (lanes, chunk_windows)={got}, "
+                f"serving needs ({self.lanes}, {w})")
+        # the grid too: a mismatch would otherwise surface as a shape error
+        # of the program mid-loop
+        want = {"gt_hw": list(self._resolutions[1]), "lr_hw": list(self._resolutions[0]),
+                "seqn": self.seqn}
+        got_geo = {k: sidecar.get(k) for k in want}
+        if any(got_geo[k] is not None and got_geo[k] != want[k] for k in want):
+            raise ValueError(f"AOT artifact {path} geometry {got_geo} does not match "
+                             f"the serving pack's {want}")
+        prog, _ = load_exported_model(path, device=self.device, model=self.model)
         return prog
 
     def _ensure_device(self, stream: RecordingStream) -> None:

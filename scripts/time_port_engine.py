@@ -4,14 +4,16 @@ repository: the A/B yardstick of a change that touches the engine's host
 path (such as its ``DevicePrefetcher``).
 
     python scripts/time_port_engine.py [--root DIR] [--tag NAME] [--runs N]
+        [--precision f32|bf16|int8]
 
 ``--root`` is the checkout whose ``esr_tpu_torch`` and ``chip_smoke.py`` are
 imported (default: this one); run it once per checkout, in turns (parent,
 change, change, parent), in one call on one card. It drives what
 ``chip_smoke.py``'s engine phase drives: the sparse flagship
 (``flagship_model``, seeded weights) at lanes 4 x chunk 8 over the same six
-seeded 720x1280 recordings, one warm run, then ``--runs`` timed runs of the
-whole datalist (host clock to ``synchronize``). It prints one JSON line:
+seeded 720x1280 recordings, at the rung ``--precision`` (f32 by default),
+one warm run, then ``--runs`` timed runs of the whole datalist (host clock
+to ``synchronize``). It prints one JSON line:
 the card and its power limit, windows/s of each run and their median, and
 the chunks' dispatch-to-readback p50.
 """
@@ -31,6 +33,7 @@ def main() -> int:
     p.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     p.add_argument("--tag", default="")
     p.add_argument("--runs", type=int, default=3)
+    p.add_argument("--precision", default="f32")
     args = p.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -52,7 +55,8 @@ def main() -> int:
                                      rungs=("down8", "down16"), seed=30 + i, name=f"engine{i}")
             for i, ev in enumerate((120_000, 200_000, 80_000, 160_000, 100_000, 140_000))]
     model = cs.flagship_model(torch, np, dcn_sparse=True)
-    engine = StreamingEngine(model, 3, lanes=cs.LANES, chunk_windows=cs.CHUNK_WINDOWS, device=dev)
+    engine = StreamingEngine(model, 3, lanes=cs.LANES, chunk_windows=cs.CHUNK_WINDOWS,
+                             precision=args.precision, device=dev)
     engine.run_datalist(recs[:1], cs.FLAGSHIP_DATA)  # warm: cuDNN picks its algorithms
     torch.cuda.synchronize()
     rates, p50s = [], []
@@ -66,6 +70,7 @@ def main() -> int:
         chunk_ms = sorted(s * 1e3 for s in engine.chunk_seconds)
         p50s.append(chunk_ms[len(chunk_ms) // 2])
     print(json.dumps({"tag": args.tag, "root": args.root, "card": card,
+                      "precision": args.precision,
                       "windows_per_sec": [round(r, 3) for r in rates],
                       "median_windows_per_sec": round(sorted(rates)[len(rates) // 2], 3),
                       "chunk_p50_ms": [round(v, 3) for v in p50s]}))

@@ -3,7 +3,9 @@ against the jnp reference and against the Pallas kernels run in interpret
 mode; the direction dispatch and the CUDA kernels' wrappers on CPU
 tensors; the kernels themselves, and gradients through them, on a card.
 The activity-masked DCN (``dcn_sparse``) against the reference's masked
-kernels, to 1e-5 of max |ref| and exactly on masked-off rows.
+kernels, to 1e-5 of max |ref| and exactly on masked-off rows. Every
+hand-written kernel (the six DCN kernels, K1 and K2) is a ``torch.library``
+op with a plain CPU and a fake implementation.
 
 Bound: the reference's scale-normalized criterion (``dcn_parity_ok``
 off-TPU), max|a - b| <= 1e-3 * max(max|ref|, 1), per output and per
@@ -701,3 +703,71 @@ def test_int8_kernels_match_plain_on_card(cuda_device, b, cin, cout, hw, k, stri
     assert torch.equal(xq, pq) and torch.equal(sx, psx)
     ref = int8_cuda.int8_conv_plain(pq, psx, packed, bias, stride, k // 2)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+# -- the kernels as torch.library custom ops ----------------------------------
+
+def _op_args(name):
+    """Arguments of the op ``esr_tpu_torch::<name>`` at a small CPU shape,
+    and a copy with one shape broken."""
+    from esr_tpu_torch.ops import int8_cuda
+
+    inp = _torch(_inputs(11, 2, 6, 7, 16, 8, 2, with_bias=True))
+    x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal((2, 6, 7, 8)).astype(np.float32))
+    geom = (1, 1, 1)
+    if name in ("dcn_fwd", "dcn_train_fwd"):
+        return (x, off, mask, wt, bias, *geom), (x, off[:, :5], mask, wt, bias, *geom)
+    if name in ("dcn_fwd_masked", "dcn_train_fwd_masked"):
+        tm = torch.tensor([1.0, 0.0])
+        return (x, off, mask, wt, bias, tm, *geom), (x, off, mask, wt, bias, tm[:1], *geom)
+    if name == "dcn_bwd":
+        return (x, off, mask, wt, g, *geom), (x, off, mask, wt, g[:, :5], *geom)
+    if name == "dcn_wgrad":
+        return (x, off, mask, list(wt.shape), g, *geom), (x, off, mask, [3, 3, 8, 8], g, *geom)
+    xc = torch.from_numpy(np.random.default_rng(13).standard_normal((2, 6, 5, 7)).astype(np.float32))
+    if name == "quantize_per_tensor":
+        return (xc,), (xc[0],)
+    w = int8_cuda.pack_weight(torch.from_numpy(
+        np.random.default_rng(14).standard_normal((10, 6, 3, 3)).astype(np.float32)))
+    xq, sx = int8_cuda.quantize_per_tensor_plain(xc)
+    return ((xq, sx, w.q, w.scale, w.wq, torch.zeros(10), 1, 1, w.nt),
+            (xq, sx, w.q, w.scale, w.wq, torch.zeros(9), 1, 1, w.nt))
+
+
+@pytest.mark.parametrize("name", ["dcn_fwd", "dcn_fwd_masked", "dcn_train_fwd",
+                                  "dcn_train_fwd_masked", "dcn_bwd", "dcn_wgrad",
+                                  "quantize_per_tensor", "int8_conv"])
+def test_kernels_are_custom_ops_with_plain_and_fake_impls(name):
+    """Each hand-written kernel is the op ``esr_tpu_torch::<name>`` that its
+    wrapper calls: the CPU implementation is the plain version (launching
+    nothing), the fake implementation gives the real outputs' shapes and
+    types (``torch.library.opcheck``: schema and fake tensors) and refuses a
+    shape the kernel would refuse, so a bad call fails at export."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from esr_tpu_torch.ops import int8_cuda
+
+    kernel = {k.name: k for k in dcn_cuda.KERNELS + int8_cuda.KERNELS}[name]
+    assert kernel.op is getattr(torch.ops.esr_tpu_torch, name).default
+    args, bad = _op_args(name)
+    dcn_cuda.reset_launches()
+    int8_cuda.reset_launches()
+    real = kernel.op(*args)
+    if name in ("dcn_bwd", "dcn_wgrad"):
+        # their plain version differentiates the plain forward by autograd,
+        # which opcheck's dispatch modes turn off below them: the fake
+        # outputs are held against the real ones here instead
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            fake = kernel.op(*[mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                               for a in args])
+        for f, r in zip(torch.utils._pytree.tree_leaves(fake),
+                        torch.utils._pytree.tree_leaves(real)):
+            assert (f.shape, f.dtype, f.stride()) == (r.shape, r.dtype, r.stride())
+    else:
+        torch.library.opcheck(kernel.op, args, test_utils=("test_schema", "test_faketensor"))
+    assert kernel.launches == 0
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fakes = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in bad]
+        with pytest.raises(ValueError):
+            kernel.op(*fakes)

@@ -13,10 +13,19 @@
 - the sparse model (``dcn_sparse``) against the reference's, within PR 1's
   model envelope (atol 1e-5 + rtol 1e-4; measured ~1e-7);
 - ``python -m esr_tpu_torch.infer`` on a checkpoint that asks for the
-  engine.
+  engine;
+- the AOT export (``inference/export.py``): the ``engine_chunk`` artifact at
+  f32, bf16 and int8 and the forward artifact against the reference's own
+  artifacts of the same checkpoint (f32 within 1e-5 * max(|ref|, 1), the
+  rungs within the chunk tolerances below), each loaded chunk program
+  bitwise the eager one, the refusals (program, device, weights); serving
+  through the artifact bitwise the traced session, with evictions; the
+  serving tier's refusals at load and ``AotRegistry``.
 
 Measured on the CPU: engine vs harness and vs the JAX engine ~5e-7
-relative at worst (the same f32 model, metrics summed in another order).
+relative at worst (the same f32 model, metrics summed in another order);
+the f32 artifacts against the reference's: 3e-8 to 2e-6 absolute (printed
+by the tests).
 """
 
 import os
@@ -41,6 +50,7 @@ from esr_tpu_torch.data.synthetic import make_synthetic_recording
 from esr_tpu_torch.inference.checkpoint import save_checkpoint
 from esr_tpu_torch.inference.engine import (
     METRIC_KEYS,
+    ChunkProgram,
     StreamingEngine,
     extract_lane_state,
     inject_lane_state,
@@ -409,3 +419,307 @@ def test_chunk_fn_rung_matches_reference_and_tracks_f32(rung_chunks, rung):
         np.testing.assert_allclose(got[k], f32[k], rtol=1e-6, err_msg=k)
     assert not np.array_equal(got["esr_mse"], f32["esr_mse"])
     assert (np.abs(got["esr_psnr"] - f32["esr_psnr"]) / w).max() <= 1.0
+
+
+# -- the AOT export: artifacts against the reference's, and against eager ----
+
+AOT_LANES, AOT_W, AOT_HW = 2, 2, 16
+AOT_CONFIG = {
+    "experiment": "torch_aot",
+    "model": {"name": "DeepRecurrNet", "args": {"inch": 2, "basech": 2, "num_frame": 3}},
+    "optimizer": {"name": "Adam", "args": {"lr": 1e-3, "weight_decay": 1e-4, "amsgrad": True}},
+    "lr_scheduler": {"name": "ExponentialLR", "args": {"gamma": 0.95}},
+    "trainer": {"iteration_based_train": {"enabled": True, "iterations": 1}},
+}
+
+
+def _f32_close(got, ref, what):
+    """``|got - ref| <= 1e-5 * max(|ref|, 1)`` over the tensor; the error is
+    printed."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = float(np.abs(got - ref).max()) if ref.size else 0.0
+    limit = 1e-5 * max(float(np.abs(ref).max()) if ref.size else 0.0, 1.0)
+    print(f"{what}: max abs err {err:.3e} (limit {limit:.3e})")
+    assert err <= limit, what
+
+
+def _aot_windows(seed=7):
+    rng = np.random.default_rng(seed)
+    w, b, hw = AOT_W, AOT_LANES, AOT_HW
+    return {
+        "inp_scaled": rng.poisson(0.6, (w, b, 3, hw, hw, 2)).astype(np.float32),
+        "gt": rng.poisson(0.8, (w, b, hw, hw, 2)).astype(np.float32),
+        "inp_mid": rng.poisson(0.6, (w, b, hw // 2, hw // 2, 2)).astype(np.float32),
+        "valid": np.ones((w, b), np.float32),
+    }
+
+
+@pytest.fixture(scope="module")
+def aot_artifacts(models, tmp_path_factory):
+    """One checkpoint of the seeded weights in each package's format, and
+    each package's ``engine_chunk`` artifact of it at every rung (lanes 2 x
+    chunk 2 on the 16x16 GT grid, the CPU), through ``export_checkpoint``;
+    the port's loaded once per rung with the port model's weights put in
+    (the serving loader's path)."""
+    from esr_tpu.config.build import build_optimizer
+    from esr_tpu.inference.export import export_checkpoint as ref_export_checkpoint
+    from esr_tpu.training import checkpoint as ref_ckpt
+    from esr_tpu.training.train_step import TrainState
+    from esr_tpu_torch.inference.export import export_checkpoint, load_exported_model
+
+    _, params, _ = models
+    tmp = tmp_path_factory.mktemp("torch_aot")
+    opt, _ = build_optimizer(AOT_CONFIG["optimizer"], AOT_CONFIG["lr_scheduler"], 4000)
+    config = dict(AOT_CONFIG, trainer=dict(AOT_CONFIG["trainer"], output_path=str(tmp / "ref")))
+    ref_dir = ref_ckpt.save_checkpoint(str(tmp / "ref"), TrainState.create(params, opt),
+                                       config, 0, 0.0)
+    port_dir = str(tmp / "port")
+    save_checkpoint(port_dir, params, AOT_CONFIG)
+    out = {"ref_dir": ref_dir, "port_dir": port_dir, "port": {}, "ref": {}, "loaded": {}}
+    for rung in RUNGS:
+        kw = dict(batch=AOT_LANES, height=AOT_HW, width=AOT_HW, program="engine_chunk",
+                  chunk_windows=AOT_W, scale=2, precision=rung)
+        out["port"][rung] = export_checkpoint(port_dir, str(tmp / f"port.{rung}.pt2"),
+                                              device="cpu", **kw)
+        out["ref"][rung] = ref_export_checkpoint(ref_dir, str(tmp / f"ref.{rung}.stablehlo"),
+                                                 platforms=("cpu",), **kw)
+        out["loaded"][rung] = load_exported_model(out["port"][rung], device="cpu",
+                                                  model=models[2])
+    return out
+
+
+RUNGS = ("f32", "bf16", "int8")
+
+
+def _port_chunk_inputs(rung, windows):
+    dtype = torch.bfloat16 if rung == "bf16" else None
+    model = DeepRecurrNet(inch=2, basech=2, num_frame=3)
+    states = lane_states(model, AOT_LANES, AOT_HW, AOT_HW, torch.device("cpu"), dtype)
+    return states, torch.ones(AOT_LANES), {k: torch.from_numpy(v) for k, v in windows.items()}
+
+
+@pytest.mark.parametrize("rung", RUNGS)
+def test_engine_chunk_artifact_matches_jax_artifact(models, aot_artifacts, rung):
+    """The port's ``engine_chunk`` artifact, loaded back, against the
+    reference's ``export_checkpoint(program='engine_chunk',
+    platforms=('cpu',))`` on the same seeded chunk: f32 within 1e-5 *
+    max(|ref|, 1) (sums, SSIM pairs, states), bf16 and int8 within the
+    rungs' chunk tolerances; both sidecars record the same geometry and
+    rung."""
+    import jax.numpy as jnp
+
+    from esr_tpu.inference.export import load_exported_model as ref_load
+
+    ref_fn, ref_side = ref_load(aot_artifacts["ref"][rung])
+    fn, side = aot_artifacts["loaded"][rung]
+    for key in ("program", "lanes", "chunk_windows", "gt_hw", "lr_hw", "seqn", "precision"):
+        assert side[key] == ref_side[key], key
+    assert side["device"] == "cpu" and ref_side["platforms"] == ["cpu"]
+    windows = _aot_windows()
+    states, reset, win = _port_chunk_inputs(rung, windows)
+    ref_states = jax.tree.map(lambda z: jnp.asarray(z.float().numpy(), z_dtype(rung)),
+                              tuple(states))
+    got = fn(states, reset, win)
+    want = ref_fn(models[1], ref_states, jnp.asarray(reset.numpy()),
+                  {k: jnp.asarray(v) for k, v in windows.items()})
+    (g_states, g_sums, g_stacked), (r_states, r_sums, r_stacked) = got, want
+    if rung == "f32":
+        for k in METRIC_KEYS + ("count",):
+            _f32_close(g_sums[k].numpy(), r_sums[k], f"f32 sums {k}")
+        for k in g_stacked:
+            _f32_close(g_stacked[k].numpy(), r_stacked[k], f"f32 stacked {k}")
+        for i, (a, b) in enumerate(zip(g_states, r_states)):
+            _f32_close(a.numpy(), b, f"f32 state {i}")
+        return
+    assert all(z.dtype == (torch.bfloat16 if rung == "bf16" else torch.float32)
+               for z in g_states)
+    for k in METRIC_KEYS:
+        np.testing.assert_allclose(g_sums[k].numpy(), np.asarray(r_sums[k]),
+                                   rtol=CHUNK_RTOL[rung], err_msg=k)
+
+
+def z_dtype(rung):
+    import jax.numpy as jnp
+
+    return jnp.bfloat16 if rung == "bf16" else jnp.float32
+
+
+@pytest.mark.parametrize("rung", RUNGS)
+def test_loaded_chunk_program_is_the_eager_chunk_function(models, aot_artifacts, rung):
+    """The loaded artifact, with the serving model's weights put in, is the
+    eager chunk function bitwise (states, sums, SSIM pairs) at every rung;
+    its graph holds the port's ops (the forward DCN; K1 and K2 at int8),
+    not their plain versions."""
+    dtype = torch.bfloat16 if rung == "bf16" else None
+    windows = _aot_windows(seed=8)
+    eager = ChunkProgram(models[2], AOT_LANES, AOT_W, AOT_HW, AOT_HW, dtype, rung)
+    want = eager(*_port_chunk_inputs(rung, windows))
+    fn, _ = aot_artifacts["loaded"][rung]
+    got = fn(*_port_chunk_inputs(rung, windows))
+    for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ops = {str(n.target) for n in fn.graph.nodes if n.op == "call_function"}
+    mine = {o for o in ops if o.startswith("esr_tpu_torch.")}
+    expected = {"esr_tpu_torch.dcn_fwd.default"}
+    if rung == "int8":
+        expected |= {"esr_tpu_torch.int8_conv.default",
+                     "esr_tpu_torch.quantize_per_tensor.default"}
+    assert mine == expected
+
+
+def test_forward_artifact_matches_jax_artifact(models, tmp_path):
+    """``save_exported_model`` / ``load_exported_model`` of one forward
+    against the reference's ``load_exported(export_forward(...,
+    platforms=('cpu',)))`` on the same seeded window and states: output and
+    states within 1e-5 * max(|ref|, 1), run on the weights the artifact
+    carries; the sidecar holds the reference's keys with ``device`` for
+    ``platforms``."""
+    from esr_tpu.inference.export import export_forward as ref_export_forward
+    from esr_tpu.inference.export import load_exported as ref_load_exported
+    from esr_tpu_torch.inference.export import load_exported_model, save_exported_model
+
+    ref, params, port = models
+    rng = np.random.default_rng(9)
+    x = rng.poisson(0.5, (1, 3, 16, 16, 2)).astype(np.float32)
+    states = tuple(rng.standard_normal((1, 2, 2, 16)).astype(np.float32) for _ in range(2))
+    path = save_exported_model(str(tmp_path / "fwd.pt2"), port, torch.from_numpy(x),
+                               tuple(torch.from_numpy(s) for s in states), device="cpu")
+    fn, side = load_exported_model(path, device="cpu")
+    assert {"model", "config", "input", "states"} <= set(side) and side["device"] == "cpu"
+    y, new_states = fn(torch.from_numpy(x), tuple(torch.from_numpy(s) for s in states))
+    ref_fn = ref_load_exported(ref_export_forward(ref, params, x, states, platforms=("cpu",)))
+    ry, r_states = ref_fn(params, x, states)
+    _f32_close(y.numpy(), ry, "forward output")
+    for i, (a, b) in enumerate(zip(new_states, r_states)):
+        _f32_close(a.numpy(), b, f"forward state {i}")
+
+
+def test_export_refusals(models, aot_artifacts, tmp_path):
+    """An unknown program (the reference's message), an artifact loaded for
+    another device than it was exported for (the sidecar's ``device``), and
+    a serving model whose weights do not fit the artifact's are refused."""
+    import json
+    import shutil
+
+    from esr_tpu.inference.export import export_checkpoint as ref_export_checkpoint
+    from esr_tpu_torch.inference.export import export_checkpoint, load_exported_model
+
+    with pytest.raises(ValueError) as port_err:
+        export_checkpoint(aot_artifacts["port_dir"], str(tmp_path / "x"), program="train",
+                          device="cpu")
+    with pytest.raises(ValueError) as ref_err:
+        ref_export_checkpoint(aot_artifacts["ref_dir"], str(tmp_path / "y"), program="train",
+                              platforms=("cpu",))
+    assert str(port_err.value) == str(ref_err.value)
+    cuda_art = str(tmp_path / "cuda.pt2")
+    shutil.copy(aot_artifacts["port"]["f32"], cuda_art)
+    side = json.loads(open(aot_artifacts["port"]["f32"] + ".json").read())
+    with open(cuda_art + ".json", "w") as f:
+        json.dump(dict(side, device="cuda"), f)
+    with pytest.raises(ValueError, match="exported for device 'cuda'"):
+        load_exported_model(cuda_art, device="cpu")
+    wider = DeepRecurrNet(inch=2, basech=4, num_frame=3)
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        load_exported_model(aot_artifacts["port"]["f32"], device="cpu", model=wider)
+
+
+# -- serving through the artifacts --------------------------------------------
+
+def _aot_engine(models, w=AOT_W, lanes=AOT_LANES, **kw):
+    from esr_tpu_torch.serving.scheduler import RequestClass
+    from esr_tpu_torch.serving.server import ServingEngine
+
+    return ServingEngine(models[2], DATASET_CFG, lanes=lanes,
+                         classes={"only": RequestClass("only", chunk_windows=w)},
+                         default_class="only", device="cpu", **kw)
+
+
+def test_aot_serving_matches_traced(recordings, models, aot_artifacts):
+    """The reference's ``test_aot_serving_matches_traced`` (tests/
+    test_serving.py), bitwise: three streams on two lanes with quantum 1
+    (each evicted and resumed) served through the f32 artifact give every
+    request's metrics, windows and preemptions and the final lane states of
+    the traced session; the artifact was loaded once, with the engine's
+    weights."""
+    def serve(aot):
+        srv = _aot_engine(models, preempt_quantum=1,  # esr: noqa(TX001) - two sessions
+                          aot_programs={AOT_W: aot_artifacts["port"]["f32"]} if aot else None)
+        rids = [srv.submit(p) for p in recordings[:3]]
+        srv.run()
+        return srv, [srv.report(r) for r in rids]
+
+    traced, want = serve(False)
+    aot, got = serve(True)
+    assert list(aot.program_seconds) == [AOT_W] and aot._aot_paths
+    assert sum(r["preemptions"] for r in got) > 0
+    for a, t in zip(got, want):
+        assert a["completed"] and a["n_windows"] == t["n_windows"] > 0
+        assert a["preemptions"] == t["preemptions"]
+        for k in METRIC_KEYS:
+            assert a[k] == t[k], k
+    assert all(torch.equal(a, b) for a, b in zip(aot._states, traced._states))
+
+
+def test_aot_serving_refusals(models, aot_artifacts, tmp_path):
+    """The reference's refusals at load (tests/test_serving.py:478,
+    test_precision_ladder.py:361, test_quantize.py:263): a depth with no
+    artifact (``KeyError`` naming it), another rung either way, another
+    ``(lanes, chunk_windows)``, another grid, another device; and the
+    registry: the geometry's map, a missing depth, an empty directory, a
+    replica that resolves its depths through it."""
+    import json
+    import shutil
+
+    from esr_tpu_torch.serving.replica import AotRegistry, Replica
+
+    f32, int8 = aot_artifacts["port"]["f32"], aot_artifacts["port"]["int8"]
+    grids = ((8, 8), (16, 16))
+
+    def program(w=AOT_W, **kw):
+        srv = _aot_engine(models, w=w, **kw)  # esr: noqa(TX001) - never dispatches
+        srv._resolutions = grids
+        return srv
+
+    with pytest.raises(KeyError, match="chunk_windows=4"):
+        program(w=4, aot_programs={AOT_W: f32})._program(4)
+    with pytest.raises(ValueError, match="precision='f32'"):
+        program(aot_programs={AOT_W: f32}, precision="int8")._program(AOT_W)
+    with pytest.raises(ValueError, match="precision='int8'"):
+        program(aot_programs={AOT_W: int8})._program(AOT_W)
+    with pytest.raises(ValueError, match=r"\(lanes, chunk_windows\)=\(2, 2\)"):
+        program(lanes=1, aot_programs={AOT_W: f32})._program(AOT_W)
+    srv = program(aot_programs={AOT_W: f32})
+    srv._resolutions = ((16, 16), (32, 32))
+    with pytest.raises(ValueError, match="geometry"):
+        srv._program(AOT_W)
+    reg_dir = tmp_path / "registry"
+    reg_dir.mkdir()
+    art = str(reg_dir / "chunk_program.w2.pt2")
+    shutil.copy(f32, art)
+    side = json.loads(open(f32 + ".json").read())
+    with open(art + ".json", "w") as f:
+        json.dump(dict(side, device="cuda"), f)
+    with pytest.raises(ValueError, match="exported for device 'cuda'"):
+        program(aot_programs={AOT_W: art})._program(AOT_W)
+    with open(art + ".json", "w") as f:
+        json.dump(side, f)
+    registry = AotRegistry(str(reg_dir))
+    assert registry.programs_for(AOT_LANES, (AOT_W,), gt_hw=(16, 16), lr_hw=(8, 8),
+                                 seqn=3) == {AOT_W: art}
+    with pytest.raises(ValueError, match=r"no artifact for chunk_windows=\[4\]"):
+        registry.programs_for(AOT_LANES, (AOT_W, 4))
+    with pytest.raises(ValueError, match="no artifact"):
+        registry.programs_for(AOT_LANES, (AOT_W,), gt_hw=(32, 32))
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(ValueError, match="holds no artifact"):
+        AotRegistry(str(tmp_path / "empty"))
+    from esr_tpu_torch.serving.scheduler import RequestClass
+
+    rep = Replica("r0", models[2], DATASET_CFG, str(tmp_path / "tel.jsonl"),
+                  classes={"only": RequestClass("only", chunk_windows=AOT_W)},
+                  default_class="only", lanes=AOT_LANES, aot_registry=registry,
+                  device="cpu").start()
+    try:
+        assert rep.engine._aot_paths == {AOT_W: art}
+    finally:
+        rep.close()

@@ -3,8 +3,10 @@ numerics probes (tensor stats and a probed window, the attribution
 helpers), the recovery machinery (anomaly guard, bounded retry, restore
 integrity and fallback), the Chrome trace export and the reference's
 reporter over a port training run's ``telemetry.jsonl``, the chaos
-scenario against the reference's train phase on the same seed, and the
-trainer's remat, bf16 transfer, probes-off parity and profiler capture.
+scenario against the reference's train phase on the same seed, the
+trainer's remat, bf16 transfer, probes-off parity and profiler capture, and
+``calibrate_ranges`` against the reference's on the same weights and corpus
+(rtol 1e-5, plus its rounding to six decimals).
 
 Tolerances: tensor stats and a probed window's per-tag stats rtol 1e-5
 (the sign-carrying ``mean`` also atol 1e-6 x the tag's ``max_abs``: a sum
@@ -624,3 +626,66 @@ def test_chaos_telemetry_passes_the_chaos_slo(chaos, phase):
     assert code == ref_code == 0
     assert doc["report"]["faults"] == ref_doc["report"]["faults"]
     assert doc["report"]["faults"]["unrecovered"] == 0
+
+
+# -- calibrate_ranges: per-layer ranges off the stats probes -----------------
+
+class _Traced:
+    """The reference's model as ``calibrate_ranges`` uses it (``init``,
+    ``apply(..., train=False, mutable=["numerics"])``, ``init_states``),
+    each traced once: run op by op on the CPU they compile every op of the
+    model on its own (~30 s)."""
+
+    def __init__(self, module):
+        self.init = jax.jit(module.init)
+        self._probed = jax.jit(
+            lambda p, x, s: module.apply(p, x, s, train=False, mutable=["numerics"]))
+        self.init_states = module.init_states
+
+    def apply(self, params, x, states, train, mutable):
+        assert train is False and list(mutable) == ["numerics"]
+        return self._probed(params, x, states)
+
+
+def test_calibrate_ranges_matches_reference_on_the_same_weights_and_corpus():
+    """The reference's ``calibrate_ranges`` (its weights from
+    ``init(PRNGKey(seed + 1))``, its corpus from ``jax.random``) against
+    the port's ``calibrate_ranges_on`` given those weights and that corpus:
+    the same tag set, every range within 1e-5 relative (plus the 1e-6 of
+    the reference's rounding to six decimals)."""
+    from esr_tpu.config.quantize import calibrate_ranges as ref_calibrate
+    from esr_tpu_torch.config.quantize import calibrate_ranges_on
+
+    seed, hw, batch, frames, n = 3, 32, 1, 3, 2
+    ref = _Traced(FlaxNet(inch=2, basech=2, num_frame=frames, numerics=True,
+                          numerics_mode="stats"))
+    want = ref_calibrate(ref, hw=hw, batch=batch, frames=frames, seed=seed, n_batches=n)
+    x0 = jax.random.normal(jax.random.PRNGKey(seed), (batch, frames, hw, hw, 2), jnp.float32)
+    params = ref.init(jax.random.PRNGKey(seed + 1), x0, ref.init_states(batch, hw, hw))
+    corpus = [np.asarray(jax.random.normal(jax.random.PRNGKey(seed + 2 + i),
+                                           (batch, frames, hw, hw, 2), jnp.float32))
+              for i in range(n)]
+    port = DeepRecurrNet(inch=2, basech=2, num_frame=frames, numerics=True,
+                         numerics_mode="stats")
+    convert.load_flax_params(port, jax.tree.map(np.asarray, {"params": params["params"]}))
+    got = calibrate_ranges_on(port, corpus, device="cpu")
+    assert sorted(got) == sorted(want) and len(got) == 13
+    for tag in want:
+        np.testing.assert_allclose(got[tag], want[tag], rtol=1e-5, atol=1e-6, err_msg=tag)
+    with pytest.raises(ValueError, match="probe-enabled"):
+        calibrate_ranges_on(DeepRecurrNet(inch=2, basech=2), corpus, device="cpu")
+
+
+def test_calibrate_ranges_is_deterministic_from_seed():
+    """The default model and corpus come from ``seed`` alone (the caller's
+    RNG untouched): the same seed gives the same ranges, another seed
+    others; every tag's range is finite and non-negative."""
+    from esr_tpu_torch.config.quantize import calibrate_ranges
+
+    state = torch.random.get_rng_state()
+    a = calibrate_ranges(basech=2, hw=16, seed=4, device="cpu")
+    b = calibrate_ranges(basech=2, hw=16, seed=4, device="cpu")
+    c = calibrate_ranges(basech=2, hw=16, seed=5, device="cpu")
+    assert torch.equal(torch.random.get_rng_state(), state)
+    assert a == b and a != c and len(a) == 13
+    assert all(np.isfinite(v) and v >= 0.0 for v in a.values())

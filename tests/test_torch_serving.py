@@ -7,7 +7,7 @@
 - preemption and resume (a preempted stream's metrics equal the same
   stream served alone), backpressure (``AdmissionFull``), lane quarantine
   after ``lane_quarantine_k`` faults, bad streams, the refusals of the
-  unported options;
+  options (an AOT session missing a depth);
 - the ``serve_chunk`` fault site: one plan (a lane fault, a preemption
   signal) in both engines gives the same retries, statuses and windows,
   metrics within rtol 1e-5, every fault paired with its recovery;
@@ -21,8 +21,10 @@
   pack to equal bytes in both;
 - the host-only copies (scheduler, load generator, percentile) against the
   reference, and ``python -m esr_tpu_torch.serve --device cpu --loadgen 4``
-  with one replica and with ``--replicas 3`` (the fleet's files), and the
-  fleet with the supervisor's poller thread on (``--supervise_interval``);
+  with one replica and with ``--replicas 3`` (the fleet's files), the
+  fleet with the supervisor's poller thread on (``--supervise_interval``),
+  and ``serve --aot`` with one replica and with ``--replicas 2`` (through
+  an ``AotRegistry``);
 - the fleet, exactly the reference's where it is host code: ``HashRing``
   placement and ownership, ``build_fleet_plan`` for seeds 0-4,
   ``LiveAggregator`` snapshots from one record stream,
@@ -260,8 +262,13 @@ def test_lane_quarantine_after_k_faults(corpus, models):
 
 
 def test_unported_options_raise(models, corpus, tmp_path):
-    with pytest.raises(NotImplementedError):
-        _port(models, aot_programs={2: "x"})
+    # AOT chunk programs are ported: a session whose class depth has no
+    # artifact raises at its first dispatch, naming the depth (the
+    # reference's refusal), before any file is read
+    server = _port(models, aot_programs={8: str(tmp_path / "nope.pt2")})  # esr: noqa(TX001) - raises
+    server.submit(corpus[0])
+    with pytest.raises(KeyError, match="chunk_windows=2"):
+        server.run()
     # the profiler capture is ported: the first chunk is recorded to a
     # Chrome trace, stamped as a profiler_capture event
     from esr_tpu_torch.obs import TelemetrySink, set_active_sink
@@ -484,6 +491,36 @@ def test_fleet_with_the_supervisor_thread(models, tmp_path):
     assert all(view[rid]["scrapes"] >= 1 and view[rid]["misses"] == 0
                for rid in ("r0", "r1", "r2")), view
     assert not [t for t in threading.enumerate() if t.name == "fleet-supervisor"]
+
+
+def test_serve_aot_entry_point_one_replica_and_fleet(models, tmp_path):
+    """``serve --aot --device cpu``: the entry point exports one chunk
+    program per class depth into ``<output_path>/aot`` (the sidecar at the
+    session's lanes, grid, rung and device) and serves every stream through
+    it, with one replica and with ``--replicas 2`` (each replica resolving
+    it through an ``AotRegistry``): every request ok, none lost."""
+    from esr_tpu_torch import serve
+
+    ckpt = tmp_path / "ckpt"
+    save_checkpoint(str(ckpt), models[1], {
+        "model": {"name": "DeepRecurrNet",
+                  "args": {"inch": 2, "basech": 2, "num_frame": 3, "dcn_sparse": True}},
+        "trainer": {"precision": "int8"},
+    })
+    args = ["--model_path", str(ckpt), "--device", "cpu", "--loadgen", "4", "--rate", "50",
+            "--lanes", "2", "--classes", "standard:2", "--scale", "2", "--ori_scale", "down8",
+            "--window", "1024", "--sliding_window", "512", "--seql", "4", "--max_wall", "120",
+            "--aot", "--live-slo", str(REPO / "configs" / "slo.yml")]
+    one = serve.main(args + ["--output_path", str(tmp_path / "one")])
+    assert one["requests"] == one["completed"] == 4 and one["statuses"] == {"ok": 4}
+    side = json.loads((tmp_path / "one" / "aot" / "chunk_program.w2.pt2.json").read_text())
+    assert {k: side[k] for k in ("program", "lanes", "chunk_windows", "gt_hw", "lr_hw",
+                                 "precision", "device")} == {
+        "program": "engine_chunk", "lanes": 2, "chunk_windows": 2, "gt_hw": [16, 16],
+        "lr_hw": [8, 8], "precision": "int8", "device": "cpu"}
+    fleet = serve.main(args + ["--output_path", str(tmp_path / "fleet"), "--replicas", "2"])
+    assert fleet["zero_lost"] and fleet["statuses"] == {"ok": 4}
+    assert fleet["replicas"] == {"r0": "up", "r1": "up"}
 
 
 def _get(url, timeout=10):
