@@ -57,7 +57,8 @@ Phases (any failure exits non-zero):
    ``configs/train_esr_2x.yml`` as written (batch 32, tensorboard and vis
    on), with overrides only for the run's length and paths (iterations 4,
    valid_step 2, save_period 2), fed in-memory synthetic 720x1280
-   recordings. The writer's JSONL records (every iteration's losses,
+   recordings. Its ``k_steps: 8`` groups the epoch's 4 batches into one
+   group: validated and saved once, after iteration 3. The writer's JSONL records (every iteration's losses,
    ``steps_per_sec``, the learning rate, the validation stamp, 5 images per
    vis step) must be there. Each train step must launch ``dcn_train_fwd``,
    ``dcn_bwd`` and ``dcn_wgrad`` 14 times each (2 per window x 7 windows)
@@ -145,14 +146,18 @@ Phases (any failure exits non-zero):
    ``dcn_bwd`` and ``dcn_wgrad`` 14 times each; its losses and every grad
    bitwise the dense step's, and the dense step's bitwise its repeat;
 12. the precision rungs: ``int8_conv`` (K1) and ``quantize_per_tensor``
-   (K2) bitwise against their plain versions at every distinct seam shape
-   of a flagship window at B=1 and at lanes 4 (M, N, K printed, times
-   beside the bound at the int8 tensor rate and ``torch._int_mm`` over an
-   im2col where it takes the shape); the harness over the slice's windows
+   (K2) bitwise against their plain versions, twice (bitwise run to run),
+   at every distinct seam shape of a flagship window at B=1 and at lanes 4
+   (M, N, K and the launch plan printed; times through the op, the C entry
+   point and inside a CUDA graph, whose replayed outputs must match, beside
+   the previous design's recorded ones in the log, the bound at the int8 tensor rate, an empty
+   kernel's launch and ``torch._int_mm`` over an im2col where it takes the
+   shape); the harness over the slice's windows
    at f32, bf16 and int8 (per-window ESR PSNR and SSIM, the mean drop
    against f32 at most 1.0 dB, the reference's bound; launches per window:
    ``dcn_fwd`` 2, K1 and K2 once per seam at int8; a device profile of a
-   window at each rung); ``run_inference`` (what ``infer`` calls) on a
+   window at each rung, naming the int8 kernels and counting their device
+   operations a seam and the memsets); ``run_inference`` (what ``infer`` calls) on a
    checkpoint whose ``trainer.precision`` is bf16, without and with
    ``--precision w8a8``, and ``serve.main --precision int8``; the engine
    (lanes 4 x chunk 8) and serving at each rung, windows/s beside f32's,
@@ -203,6 +208,57 @@ REPLACES.update({
 })
 # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
 PEAK_INT8_OPS_PER_S = 1979e12
+# K1 and K2 of the previous design (K1's warps loading fragments straight
+# from global memory, 4 warps stacked along M, K walked serially; K2 a
+# memset, an amax pass and a quantize pass), as this script measured them on
+# an NVIDIA H100 80GB HBM3 at 700.00 W, shown beside this run's in the
+# per-shape log lines and nowhere else: (batch, NCHW input, Cout, kernel,
+# stride) -> (K1 ms through the op, K1 entry ms, K2 ms through the op, K2
+# entry ms)
+EARLIER_INT8_MS = {
+    (1, (3, 2, 96, 160), 8, 3, 1): (0.05631, 0.01448, 0.06389, 0.01924),
+    (1, (3, 8, 96, 160), 16, 3, 2): (0.05233, 0.00909, 0.05516, 0.01312),
+    (1, (3, 16, 48, 80), 32, 3, 2): (0.0562, 0.01393, 0.0668, 0.01955),
+    (1, (3, 32, 24, 40), 64, 3, 2): (0.05184, 0.01409, 0.03869, 0.01327),
+    (1, (1, 128, 12, 20), 64, 3, 1): (0.05561, 0.04103, 0.06573, 0.02276),
+    (1, (1, 64, 12, 20), 1, 3, 1): (0.0345, 0.01337, 0.04106, 0.01357),
+    (1, (1, 192, 12, 20), 192, 3, 1): (0.06054, 0.05988, 0.04151, 0.01438),
+    (1, (1, 192, 12, 20), 64, 3, 1): (0.06685, 0.05687, 0.06564, 0.01247),
+    (1, (1, 64, 12, 20), 64, 3, 1): (0.04992, 0.02782, 0.05738, 0.02858),
+    (1, (3, 128, 12, 20), 64, 1, 1): (0.03012, 0.00915, 0.03627, 0.01276),
+    (1, (1, 64, 12, 20), 216, 3, 1): (0.03362, 0.02318, 0.03415, 0.01318),
+    (1, (1, 64, 12, 20), 2, 1, 1): (0.03354, 0.00863, 0.0381, 0.01154),
+    (1, (1, 64, 1, 1), 32, 1, 1): (0.03069, 0.00812, 0.03725, 0.01211),
+    (1, (1, 32, 1, 1), 128, 1, 1): (0.05, 0.01405, 0.05771, 0.01837),
+    (1, (3, 64, 12, 20), 1, 3, 1): (0.03525, 0.01384, 0.03722, 0.01335),
+    (1, (1, 64, 24, 40), 32, 3, 1): (0.03362, 0.01395, 0.03741, 0.0179),
+    (1, (3, 32, 24, 40), 1, 3, 1): (0.03212, 0.00854, 0.03821, 0.01271),
+    (1, (1, 32, 48, 80), 16, 3, 1): (0.04503, 0.00894, 0.04126, 0.01838),
+    (1, (3, 16, 48, 80), 1, 3, 1): (0.05095, 0.00888, 0.05702, 0.01202),
+    (1, (1, 16, 96, 160), 8, 3, 1): (0.03385, 0.01435, 0.0484, 0.02058),
+    (1, (1, 8, 96, 160), 2, 3, 1): (0.06045, 0.01531, 0.07243, 0.02047),
+    (4, (12, 2, 96, 160), 8, 3, 1): (0.03987, 0.01277, 0.05516, 0.01681),
+    (4, (12, 8, 96, 160), 16, 3, 2): (0.04001, 0.01201, 0.04763, 0.01709),
+    (4, (12, 16, 48, 80), 32, 3, 2): (0.06235, 0.01453, 0.07224, 0.02147),
+    (4, (12, 32, 24, 40), 64, 3, 2): (0.03358, 0.014, 0.0401, 0.01323),
+    (4, (4, 128, 12, 20), 64, 3, 1): (0.04289, 0.04231, 0.04167, 0.01402),
+    (4, (4, 64, 12, 20), 1, 3, 1): (0.05255, 0.01399, 0.05508, 0.01746),
+    (4, (4, 192, 12, 20), 192, 3, 1): (0.06012, 0.05887, 0.0504, 0.02016),
+    (4, (4, 192, 12, 20), 64, 3, 1): (0.06126, 0.06037, 0.0635, 0.01957),
+    (4, (4, 64, 12, 20), 64, 3, 1): (0.03461, 0.02323, 0.04023, 0.01424),
+    (4, (12, 128, 12, 20), 64, 1, 1): (0.05334, 0.01481, 0.06288, 0.01754),
+    (4, (4, 64, 12, 20), 216, 3, 1): (0.05454, 0.02309, 0.06137, 0.01946),
+    (4, (4, 64, 12, 20), 2, 1, 1): (0.03728, 0.00907, 0.04076, 0.01355),
+    (4, (4, 64, 1, 1), 32, 1, 1): (0.06025, 0.01497, 0.07138, 0.01868),
+    (4, (4, 32, 1, 1), 128, 1, 1): (0.03863, 0.0092, 0.05346, 0.01238),
+    (4, (12, 64, 12, 20), 1, 3, 1): (0.0415, 0.01365, 0.04535, 0.01563),
+    (4, (4, 64, 24, 40), 32, 3, 1): (0.03746, 0.01413, 0.03985, 0.01221),
+    (4, (12, 32, 24, 40), 1, 3, 1): (0.03381, 0.00987, 0.04673, 0.01348),
+    (4, (4, 32, 48, 80), 16, 3, 1): (0.03521, 0.01195, 0.04239, 0.01469),
+    (4, (12, 16, 48, 80), 1, 3, 1): (0.06151, 0.01478, 0.07129, 0.01891),
+    (4, (4, 16, 96, 160), 8, 3, 1): (0.04007, 0.01514, 0.07705, 0.01653),
+    (4, (4, 8, 96, 160), 2, 3, 1): (0.06179, 0.01663, 0.04508, 0.01904),
+}
 # the reference's bound on a rung's ESR PSNR drop against f32
 # (bench.py:INT8_PSNR_DROP_BOUND_DB), held at int8 and at bf16
 PSNR_DROP_DB = 1.0
@@ -964,7 +1020,13 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
         per_valid.append(delta(before))
         return result
 
-    trainer.train_step, trainer._valid = counted_step, counted_valid
+    saved, save = [], trainer._save
+
+    def recorded_save(iteration, best):
+        saved.append(iteration)
+        return save(iteration, best)
+
+    trainer.train_step, trainer._valid, trainer._save = counted_step, counted_valid, recorded_save
     dcn_cuda.reset_launches()
     t0 = time.perf_counter()
     result = trainer.train()
@@ -989,6 +1051,14 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
         log = [json.loads(line) for line in f]
     train_log = [r for r in log if "train_loss" in r]
     print("train log: " + json.dumps(log))
+    # the cadences are the group's (k_steps, the reference's super-steps):
+    # the epoch's batches make one group, validated and saved after its last
+    group_last = min(trainer.k_steps, len(trainer.train_loader)) - 1
+    stamps = [r["iteration"] for r in log if "valid_stamp" in r]
+    if group_last + 1 == trainer.iterations and (stamps != [group_last]
+                                                 or saved != [group_last]):
+        fail(f"validated at {stamps} and saved at {saved}; the group of {group_last + 1} "
+             f"steps should validate and save once, after iteration {group_last}")
     if (len(train_log) != trainer.iterations or not all(
             math.isfinite(r[k]) for r in train_log for k in ("train_loss", "grad_norm"))
             or not all(math.isfinite(v) for v in result.values())):
@@ -1106,7 +1176,8 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
           f"{build_ms:.3f} ms for {batch_size} sequences of L 9; the same step on the plain "
           f"DCN path {sorted(plain_times[1:])[1]:.3f} ms median of 3 "
           f"({', '.join(f'{t:.3f}' for t in plain_times[1:])}); the trainer's run "
-          f"{wall:.3f} s for {trainer.iterations} iterations, 1 validation, 3 saves")
+          f"{wall:.3f} s for {trainer.iterations} iterations in groups of {trainer.k_steps}, "
+          f"1 validation, {len(saved)} save(s) at {saved}")
     device_time_breakdown(torch, prof, 1, prof_ms, "train step", card)
     basech_step(torch, np, dev, trainer, sel, repo, overrides, card, sorted(times)[1], 16)
     # basech 64 (Cg 64: dcn_bwd's wide kernel) at batch 4
@@ -1229,7 +1300,8 @@ def transfer_bf16_step(torch, trainer, batch, repo: Path, overrides, card, recs)
 def phase_train_runtime(torch, np, dev, card, repo: Path, out_root: str, recs):
     """Phase 7b: the trainer's runtime at the flagship width
     (``configs/train_esr_2x.yml``, basech 8, B = 32, the train phase's
-    recordings): one short run with telemetry, probes, the live plane on an
+    recordings): one short run (``k_steps: 1``: one attribution record a
+    step) with telemetry, probes, the live plane on an
     ephemeral port, a 2-step profile and the anomaly guard on, ``/metrics``
     and ``/healthz`` read mid-run, the telemetry reported and exported
     through ``python -m esr_tpu_torch.obs``; the probes and remat steps
@@ -1252,7 +1324,8 @@ def phase_train_runtime(torch, np, dev, card, repo: Path, out_root: str, recs):
     run = RunConfig.from_args(
         str(repo / "configs" / "train_esr_2x.yml"),
         overrides=overrides + ["trainer;numerics=true", "trainer;live_telemetry=0",
-                               "trainer;profile_steps=2", "trainer;max_bad_steps=1"],
+                               "trainer;profile_steps=2", "trainer;max_bad_steps=1",
+                               "trainer;k_steps=1"],
         runid="chip_smoke_runtime", seed=0)
     trainer = Trainer(run, device=dev, train_recordings=recs[0], valid_recordings=recs[1])
     step, scraped = trainer.train_step, {}
@@ -2569,16 +2642,46 @@ def int8_roofline(nbytes_: float, ops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def graph_ms(torch, fn, n: int = 20) -> float:
+    """Device time of one call of ``fn`` inside a CUDA graph of ``n`` calls
+    (captured once and replayed: no host launch in the timing). ``fn``
+    launches on the current stream, which the capture sets."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    torch.cuda.synchronize()
+    return time_ms(torch, graph.replay, iters=20, warmup=3) / n
+
+
 def int8_kernel_shapes(torch, np, dev, card, model, kh, kw):
-    """K1 and K2 against their plain versions, bitwise, at every distinct
-    seam shape of one flagship window at B=1 and at lanes 4; their times
-    beside the plain version, the bound and ``torch._int_mm`` over an
-    im2col (the GEMM alone) where it takes the shape."""
+    """K1 and K2 against their plain versions, bitwise and twice (bitwise
+    run to run), at every distinct seam shape of one flagship window at B=1
+    and at lanes 4; each shape's launch plan; their times through the op
+    and the C entry point (the log line adds the previous design's,
+    :data:`EARLIER_INT8_MS`), their device time a call inside a CUDA graph
+    (which also proves both capturable: the graph's outputs are checked), the
+    bound, an empty kernel's launch (the floor), the plain version and
+    ``torch._int_mm`` over an im2col (the GEMM alone) where it takes the
+    shape."""
     import torch.nn.functional as F
 
     from esr_tpu_torch.ops import int8_cuda
 
     lib = int8_cuda.INT8_LIBRARY.load()
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    floor_ms = time_ms(torch, lambda: lib.empty_launch(stream()), iters=200)
+    floor_graph_ms = graph_ms(torch, lambda: lib.empty_launch(stream()))
+    print(f"int8 launch floor on {card}: an empty kernel's launch {floor_ms:.5f} ms through "
+          f"its C entry point, {floor_graph_ms:.5f} ms inside a CUDA graph")
     rows = []
     for batch in (1, LANES):
         calls = int8_seam_calls(torch, model, dev, batch, kh, kw)
@@ -2592,8 +2695,11 @@ def int8_kernel_shapes(torch, np, dev, card, model, kh, kw):
             w = mod.weight.detach()
             packed = int8_cuda.pack_weight(w if w.dim() == 4 else w[:, :, None, None])
             bias = mod.bias.detach()
-            xq, sx = int8_cuda.quantize_per_tensor(x)
-            out = int8_cuda.int8_conv(xq, sx, packed, bias, stride, pad)
+            runs = []
+            for _ in range(2):
+                xq, sx = int8_cuda.quantize_per_tensor(x)
+                runs.append((xq, sx, int8_cuda.int8_conv(xq, sx, packed, bias, stride, pad)))
+            xq, sx, out = runs[0]
             pq, psx = int8_cuda.quantize_per_tensor_plain(x)
             ref = int8_cuda.int8_conv_plain(pq, psx, packed, bias, stride, pad)
             torch.cuda.synchronize()
@@ -2601,9 +2707,15 @@ def int8_kernel_shapes(torch, np, dev, card, model, kh, kw):
                 fail(f"quantize_per_tensor differs from its plain version at {shape}")
             if not same_bits(torch, out, ref):
                 fail(f"int8_conv differs from its plain version at {shape} -> {cout}, k {k}")
+            if not (torch.equal(runs[1][0], xq) and same_bits(torch, runs[1][1], sx)
+                    and same_bits(torch, runs[1][2], out)):
+                fail(f"K1 or K2 is not bitwise run to run at {shape} -> {cout}, k {k}")
             b, cin, h, wd = shape
             ho, wo = out.shape[2:]
             m_rows, kk = b * ho * wo, k * k * cin
+            np_, kp = packed.wq.shape
+            plan = int8_cuda.conv_plan(m_rows, cout, kp, xq.shape[-1])
+            k2_blocks = int8_cuda.quantize_blocks(int8_cuda.quantize_items(x.shape))
             k1_ms = time_ms(torch, lambda: int8_cuda.int8_conv(xq, sx, packed, bias, stride,
                                                                pad), iters=50)
             k2_ms = time_ms(torch, lambda: int8_cuda.quantize_per_tensor(x), iters=50)
@@ -2612,26 +2724,37 @@ def int8_kernel_shapes(torch, np, dev, card, model, kh, kw):
             # the C entry points alone (not counted): no wrapper checks or
             # allocations
             out_e, q_e = torch.empty_like(out), torch.empty_like(xq)
-            s_e, word = torch.empty_like(sx), torch.empty(1, dtype=torch.int32, device=dev)
-            np_, kp = packed.wq.shape
-            stream = torch.cuda.current_stream().cuda_stream
+            s_e = torch.empty_like(sx)
+            partials = int8_cuda.quantize_per_tensor.partials(dev, stream())
 
             def k1_entry():
-                lib.int8_conv_f32(xq.data_ptr(), packed.wq.data_ptr(), sx.data_ptr(),
-                                  packed.scale.data_ptr(), bias.data_ptr(), out_e.data_ptr(),
-                                  shape[0], shape[2], shape[3], xq.shape[-1], out.shape[2],
-                                  out.shape[3], cout, np_, kp, k, k, stride, pad, 1,
-                                  packed.nt, stream)
+                rc = lib.int8_conv_f32(
+                    xq.data_ptr(), packed.wq.data_ptr(), sx.data_ptr(), packed.scale.data_ptr(),
+                    bias.data_ptr(), out_e.data_ptr(), shape[0], shape[2], shape[3],
+                    xq.shape[-1], out.shape[2], out.shape[3], cout, np_, kp, k, k, stride, pad,
+                    1, plan.wm, plan.wn, plan.nt, plan.mt, plan.split, plan.chunk, stream())
+                if rc:
+                    fail(f"int8_conv_f32 returned {rc} at {shape}")
 
             def k2_entry():
-                lib.quantize_per_tensor_f32(x.data_ptr(), shape[0], shape[1],
-                                            shape[2] * shape[3], xq.shape[-1], q_e.data_ptr(),
-                                            s_e.data_ptr(), word.data_ptr(), stream)
+                rc = lib.quantize_per_tensor_f32(
+                    x.data_ptr(), shape[0], shape[1], shape[2] * shape[3], xq.shape[-1],
+                    q_e.data_ptr(), s_e.data_ptr(), partials.data_ptr(), k2_blocks,
+                    stream())
+                if rc:
+                    fail(f"quantize_per_tensor_f32 returned {rc} at {shape}")
             k1_entry_ms = time_ms(torch, k1_entry, iters=50)
             k2_entry_ms = time_ms(torch, k2_entry, iters=50)
             torch.cuda.synchronize()
             if not (same_bits(torch, out_e, out) and torch.equal(q_e, xq)):
                 fail(f"the int8 entry points disagree with their wrappers at {shape}")
+            out_e.zero_()
+            q_e.zero_()
+            k1_graph_ms = graph_ms(torch, k1_entry)
+            k2_graph_ms = graph_ms(torch, k2_entry)
+            torch.cuda.synchronize()
+            if not (same_bits(torch, out_e, out) and torch.equal(q_e, xq)):
+                fail(f"K1 or K2 replayed from a CUDA graph disagrees at {shape}")
             plain_ms = time_ms(torch, lambda: int8_cuda.int8_conv_plain(
                 pq, psx, packed, bias, stride, pad), iters=5, warmup=2)
             k1_bound = int8_roofline(xq.numel() + cout * kk + 8 * cout + 4 * out.numel(),
@@ -2650,22 +2773,38 @@ def int8_kernel_shapes(torch, np, dev, card, model, kh, kw):
             except RuntimeError as e:
                 lib_ms = None
                 lib_refusal = str(e).splitlines()[0][:80]
+            earlier = EARLIER_INT8_MS.get((batch, tuple(shape), cout, k, stride))
             row = dict(batch=batch, shape=list(shape), cout=cout, k=k, stride=stride,
-                       calls_per_window=n_calls, M=m_rows, N=cout, K=kk,
-                       Kp=int(packed.wq.shape[1]), ms=k1_ms, k2_ms=k2_ms,
-                       entry_ms=k1_entry_ms, k2_entry_ms=k2_entry_ms,
-                       k2_plain_ms=k2_plain_ms,
+                       calls_per_window=n_calls, M=m_rows, N=cout, K=kk, Kp=int(kp),
+                       plan=dict(bm=plan.bm, bn=plan.bn, split=plan.split, chunk=plan.chunk,
+                                 grid=list(plan.grid(m_rows, cout))),
+                       k2_blocks=k2_blocks,
+                       ms=k1_ms, k2_ms=k2_ms, entry_ms=k1_entry_ms, k2_entry_ms=k2_entry_ms,
+                       graph_ms=k1_graph_ms, k2_graph_ms=k2_graph_ms,
+                       launch_floor_ms=floor_ms, k2_plain_ms=k2_plain_ms,
                        plain_ms=plain_ms, bound_ms=k1_bound[0], bound_by=k1_bound[1],
                        k2_bound_ms=k2_bound[0], library_ms=lib_ms)
             rows.append(row)
+            # the previous design's recorded times, on this log line only (not
+            # measured here)
+            was = (f" (previous design, recorded: op {earlier[0]:.5f} / entry "
+                   f"{earlier[1]:.5f})"
+                   if earlier else "")
+            was2 = (f" (previous design, recorded: op {earlier[2]:.5f} / entry "
+                    f"{earlier[3]:.5f})"
+                    if earlier else "")
             print(f"int8 batch {batch} {list(shape)} -> {cout} k{k} s{stride} (x{n_calls}): "
-                  f"M {m_rows} N {cout} K {kk} (Kp {row['Kp']}); int8_conv {k1_ms:.5f} ms "
-                  f"(entry {k1_entry_ms:.5f}), bound {k1_bound[0]:.6f} ({k1_bound[1]}); "
-                  f"quantize_per_tensor {k2_ms:.5f} ms (entry {k2_entry_ms:.5f}), bound "
-                  f"{k2_bound[0]:.6f} (bytes); plain {plain_ms:.5f} ms; "
+                  f"M {m_rows} N {cout} K {kk} (Kp {kp}); plan {plan.bm}x{plan.bn} tiles, "
+                  f"split {plan.split}, grid {plan.grid(m_rows, cout)}, A copies of "
+                  f"{plan.chunk} B; int8_conv op {k1_ms:.5f} / entry {k1_entry_ms:.5f} / "
+                  f"graph {k1_graph_ms:.5f} ms{was}, bound {k1_bound[0]:.6f} "
+                  f"({k1_bound[1]}); quantize_per_tensor (a cooperative grid of "
+                  f"{k2_blocks} blocks) op {k2_ms:.5f} / entry "
+                  f"{k2_entry_ms:.5f} / graph {k2_graph_ms:.5f} ms{was2}, bound "
+                  f"{k2_bound[0]:.6f} (bytes); floor {floor_ms:.5f}; plain {plain_ms:.5f} ms; "
                   + (f"torch._int_mm {lib_ms:.5f} ms" if lib_ms is not None
                      else f"torch._int_mm refuses: {lib_refusal}")
-                  + f"; bitwise; on {card}")
+                  + f"; bitwise, twice; on {card}")
     return rows
 
 
@@ -2705,6 +2844,10 @@ def rung_window_metrics(torch, runner, recording, dev):
     return psnr, ssim, lat, preds
 
 
+# the int8 kernels' names in a profile: K1, then K2
+INT8_KERNEL_NAMES = ("int8_igemm_kernel", "quantize_kernel")
+
+
 def rung_window_profile(torch, runner, recording, dev, card):
     """Device time of one flagship window at the runner's rung, by kernel
     (the int8 kernels' share named)."""
@@ -2732,7 +2875,7 @@ def rung_window_profile(torch, runner, recording, dev, card):
     events = [e for e in prof.key_averages() if e.device_type == cuda and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e3
     named = {}
-    for part in ("int8_conv_kernel", "amax_kernel", "quantize_kernel", "dcn_forward_kernel"):
+    for part in INT8_KERNEL_NAMES + ("dcn_forward_kernel", "Memset"):
         hits = [e for e in events if part in e.key]
         named[part] = (sum(dev_us(e) for e in hits) / 1e3, sum(e.count for e in hits))
     print(f"window profile {runner.precision} on {card}: device busy {busy:.4f} ms; "
@@ -2830,6 +2973,17 @@ def phase_precision(torch, np, dev, card):
             fail(f"the {rung} harness launched {counts} / {k_launches[rung]}; expected "
                  f"dcn_fwd 2 and int8_conv / quantize_per_tensor {seams if want8 else 0} "
                  "a window")
+    busy8, named8 = window_device["int8"]
+    k1_ops = named8["int8_igemm_kernel"][1]
+    k2_ops = sum(named8[k][1] for k in INT8_KERNEL_NAMES[1:])
+    print(f"int8 window on {card}: {k1_ops} K1 and {k2_ops} K2 device operations for {seams} "
+          f"seams ({(k1_ops + k2_ops) / seams:.3f} a seam); K1 "
+          f"{named8['int8_igemm_kernel'][0]:.4f} ms, K2 "
+          f"{sum(named8[k][0] for k in INT8_KERNEL_NAMES[1:]):.4f} ms of {busy8:.4f} ms device "
+          f"busy; memsets {named8['Memset'][1]} (f32 window: "
+          f"{window_device['f32'][1]['Memset'][1]})")
+    if not k1_ops:
+        fail("the int8 window's profile shows no int8_igemm_kernel")
     f32_psnr, f32_ssim, _, f32_preds = per["f32"]
     drops = {}
     for rung in RUNGS:
@@ -3069,7 +3223,9 @@ def main() -> int:
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"],
         "library": "torch._int_mm over an im2col (the GEMM alone)", "shape": shape,
-        "device_ms_per_window": precision["window_device"]["int8"][1]["int8_conv_kernel"][0],
+        "device_ms_per_window": precision["window_device"]["int8"][1]["int8_igemm_kernel"][0],
+        "graph_ms": top["graph_ms"], "launch_floor_ms": top["launch_floor_ms"],
+        "plan": top["plan"],
         "engine_launches": precision["engine_launches"]["int8_conv"],
         "seams_per_window": precision["seams"], "by_shape": precision["shapes"],
     })
@@ -3081,7 +3237,8 @@ def main() -> int:
         "max_abs_err": 0.0, "ms": top["k2_ms"], "entry_ms": top["k2_entry_ms"],
         "plain_ms": top["k2_plain_ms"],
         "device_ms_per_window": sum(precision["window_device"]["int8"][1][k][0]
-                                    for k in ("amax_kernel", "quantize_kernel")),
+                                    for k in INT8_KERNEL_NAMES[1:]),
+        "graph_ms": top["k2_graph_ms"], "launch_floor_ms": top["launch_floor_ms"],
         "bound_ms": top["k2_bound_ms"], "bound_by": "bytes", "library_ms": None,
         "shape": str(top["shape"]),
         "engine_launches": precision["engine_launches"]["quantize_per_tensor"],

@@ -119,6 +119,22 @@ def collate_sequences(
     }
 
 
+def group_batches(source, k: int) -> Iterator[List]:
+    """Lists of ``k`` consecutive batches of ``source``, in order; the
+    epoch's tail (``len(source) % k`` batches) is a last, shorter group.
+    The trainer's super-steps: its cadences are taken per group."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    group: List = []
+    for batch in source:
+        group.append(batch)
+        if len(group) == k:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
 class InferenceSequenceLoader:
     """Streams ONE recording for evaluation: ``{key: (1, L, ...)}`` batches,
     in order; the caller carries the recurrent state across them."""

@@ -1,5 +1,5 @@
-"""The int8 rung's hand-written CUDA kernels, their wrappers and their plain
-versions.
+"""The int8 rung's hand-written CUDA kernels, their wrappers, their launch
+plans and their plain versions.
 
 One source, ``esr_tpu_torch/csrc/int8_conv.cu``, built on first use with
 ``nvcc`` into ``esr_tpu_torch/_build/`` by the same
@@ -9,10 +9,14 @@ One source, ``esr_tpu_torch/csrc/int8_conv.cu``, built on first use with
   quantization of ``esr_tpu/config/quantize.py:quantize_symmetric``
   (``axis=None``), from an NCHW f32 tensor to the NHWC int8 layout the
   convolution reads (channels padded to a multiple of 4 with zeros) and the
-  scale;
+  scale, in one launch: a cooperative grid whose blocks' amax partials sit
+  in a scratch array kept per device and stream (:func:`quantize_blocks`);
 - :data:`int8_conv` (K1): an implicit-GEMM convolution of int8 activations
   and per-output-channel int8 weights with an int32 accumulator
-  (``mma.sync.m16n8k32``), dequantized in its epilogue to NCHW f32.
+  (``mma.sync.m16n8k32`` on operands staged by ``cp.async``, the K steps
+  split across the blocks of a cluster where the output is small),
+  dequantized in its epilogue to NCHW f32; its tiles, split and copy width
+  come from :func:`conv_plan`.
 
 Neither has a Pallas counterpart: the JAX package runs its int8 rung
 through XLA. Both are bitwise equal to their plain versions
@@ -32,8 +36,9 @@ weight (:func:`pack_weight`); that is not a hot path.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,10 +50,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.quantize_per_tensor_f32.argtypes = [_P] + [_I] * 4 + [_P] * 3 + [_P]
-    lib.int8_conv_f32.argtypes = [_P] * 6 + [_I] * 15 + [_P]
-    lib.quantize_per_tensor_f32.restype = _I
-    lib.int8_conv_f32.restype = _I
+    lib.quantize_per_tensor_f32.argtypes = [_P] + [_I] * 4 + [_P] * 3 + [_I] + [_P]
+    lib.int8_conv_f32.argtypes = [_P] * 6 + [_I] * 20 + [_P]
+    lib.empty_launch.argtypes = [_P]
+    for fn in (lib.quantize_per_tensor_f32, lib.int8_conv_f32, lib.empty_launch):
+        fn.restype = _I
 
 
 INT8_LIBRARY = CudaLibrary(_PKG / "csrc" / "int8_conv.cu", _declare)
@@ -68,19 +74,174 @@ def padded_channels(c: int) -> int:
 
 
 def out_tiles(n: int) -> int:
-    """Out-channel tiles of 8 per warp (the kernel's ``NT``): the fewest
-    that cover ``n`` up to 64, else 8 (a block of 64 out-channels)."""
+    """The packing's out-channel granule in tiles of 8: the packed weight
+    has ``Np = 8 * nt * ceil(n / (8 * nt))`` rows (the fewest tiles that
+    cover ``n`` up to 64, else 8)."""
     for nt in (1, 2, 4):
         if n <= 8 * nt:
             return nt
     return 8
 
 
+# -- launch plans ------------------------------------------------------------
+#
+# Pure Python, so the CPU tests check them at every seam shape; the entry
+# points refuse a plan they cannot run (cudaErrorInvalidValue).
+
+_SMS = 132
+# K1's plan: the blocks it lets be in flight (about 4 a streaming
+# multiprocessor), the k-steps a split block aims for and keeps at least,
+# and the K loop it splits no matter how many tiles
+_RESIDENT_BLOCKS = 4 * _SMS
+_STEPS_PER_BLOCK = 4
+_MIN_SPLIT_STEPS = 2
+_SHORT_K_STEPS = 9
+# the most blocks of a portable thread-block cluster (K1's split)
+MAX_CLUSTER = 8
+# K1: threads a block, cp.async stages, the bytes of a staged row, the
+# largest decoded k table, the dynamic shared memory a block may use without
+# opting in (48 KB less its static 1 KB)
+CONV_THREADS = 128
+_CONV_STAGES = 4
+_ROW_BYTES = 48
+_MAX_K_CHUNKS = 1024
+CONV_SMEM_MAX = 47 * 1024
+# the (warps along M, warps along N, 8-column tiles a warp, 16-row tiles a
+# warp) the source builds
+CONV_TILES = ((4, 1, 1, 1), (4, 1, 2, 1), (4, 1, 4, 1), (1, 4, 2, 1), (2, 2, 4, 1),
+              (1, 4, 4, 1), (4, 1, 1, 2), (4, 1, 2, 2), (4, 1, 4, 2))
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """K1's launch: blocks of ``bm = 16 * wm * mt`` rows x ``bn = 8 * nt *
+    wn`` out-channels (4 warps, each ``mt`` tiles of 16 rows), ``split``
+    blocks along K in one cluster (each a contiguous slice of the ``Kp /
+    32`` k-steps), A copied ``chunk`` bytes at a time."""
+
+    wm: int
+    wn: int
+    nt: int
+    split: int
+    chunk: int
+    mt: int = 1
+
+    @property
+    def bm(self) -> int:
+        return 16 * self.wm * self.mt
+
+    @property
+    def bn(self) -> int:
+        return 8 * self.nt * self.wn
+
+    def grid(self, m: int, n: int) -> Tuple[int, int, int]:
+        return -(-m // self.bm), -(-n // self.bn), self.split
+
+    def k_slices(self, kp: int) -> List[Tuple[int, int]]:
+        """Each split block's ``[begin, end)`` of the k-steps (as the kernel
+        cuts them)."""
+        ks = kp // _K_STEP
+        return [(z * ks // self.split, (z + 1) * ks // self.split) for z in range(self.split)]
+
+    def smem_bytes(self, kp: int) -> int:
+        """Dynamic shared memory (``conv_smem_bytes`` in the source): the
+        ring of stages, the k table of the largest slice, and the leader's
+        slots for the other split blocks' int32 partials."""
+        return (_CONV_STAGES * (self.bm + self.bn) * _ROW_BYTES
+                + _round_up(4 * self.k_chunks(kp), 16)
+                + (self.split - 1) * self.mt * self.nt * 4 * CONV_THREADS * 4)
+
+    def k_chunks(self, kp: int) -> int:
+        """Entries of the largest slice's decoded k table."""
+        return -(-(kp // _K_STEP) // self.split) * (_K_STEP // self.chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(m: int, n: int, kp: int, cp: int) -> ConvPlan:
+    """K1's plan for ``m`` output pixels, ``n`` out-channels, ``kp`` packed
+    k-bytes and ``cp`` padded input channels (cached: a window asks for the
+    same few dozen shapes on every call).
+
+    - The tile: up to 32 out-channels, one warp column of 64 rows (the head
+      and tail seams, bound by bytes: the widest rows; 128, two row tiles a
+      warp, where even those make 528 blocks or more); beyond, 16 rows x 64
+      out-channels where the output is small (the bottleneck: more blocks in
+      flight), 32 x 64 where it is large, and 16 x 128 for a handful of rows
+      (the channel MLP's 1x1 convs).
+    - The split: none when the tiles alone fill the card's 132 streaming
+      multiprocessors and K is short (at most 9 k-steps: the head and tail
+      seams, bound by bytes); else blocks along K (one cluster, at most 8)
+      of about 4 k-steps each (2 at least), as many as keep the grid within
+      about 4 resident blocks a streaming multiprocessor and the leader's
+      slots for their partials within 47 KB of shared memory.
+    - The copy: the widest of 16, 8, 4 bytes that divides ``cp``."""
+    if min(m, n, kp, cp) < 1 or kp % _K_STEP or cp % 4:
+        raise ValueError(f"int8_conv: no plan for M {m}, N {n}, Kp {kp}, Cp {cp}")
+    if n <= 32:
+        wm, wn, nt = 4, 1, next(t for t in (1, 2, 4) if n <= 8 * t)
+    elif m <= 16:
+        wm, wn, nt = 1, 4, 4
+    elif m <= 1024:
+        wm, wn, nt = 1, 4, 2
+    else:
+        wm, wn, nt = 2, 2, 4
+    plan = ConvPlan(wm, wn, nt, 1, next(c for c in (16, 8, 4) if cp % c == 0))
+    gm, gn, _ = plan.grid(m, n)
+    ks = kp // _K_STEP
+    if gm * gn >= _SMS and ks <= _SHORT_K_STEPS:
+        if gm * gn >= _RESIDENT_BLOCKS and wm == 4:
+            # two row tiles a warp: half the blocks, each's fixed cost spread
+            # over twice the rows
+            return ConvPlan(wm, wn, nt, 1, plan.chunk, 2)
+        split = 1
+    else:
+        split = max(1, min(MAX_CLUSTER, -(-ks // _STEPS_PER_BLOCK), ks // _MIN_SPLIT_STEPS,
+                           _RESIDENT_BLOCKS // (gm * gn)))
+    plan = ConvPlan(wm, wn, nt, split, plan.chunk)
+    while plan.split > 1 and plan.smem_bytes(kp) > CONV_SMEM_MAX:
+        plan = ConvPlan(wm, wn, nt, plan.split - 1, plan.chunk)
+    while plan.k_chunks(kp) > _MAX_K_CHUNKS and plan.split < min(MAX_CLUSTER, ks):
+        plan = ConvPlan(wm, wn, nt, plan.split + 1, plan.chunk)
+    if plan.k_chunks(kp) > _MAX_K_CHUNKS or plan.smem_bytes(kp) > CONV_SMEM_MAX:
+        raise ValueError(f"int8_conv: Kp {kp} at Cp {cp} exceeds the kernel's k table")
+    return plan
+
+
+# K2: the most (pixel, channel quad) items a block stages (16 bytes each,
+# within 48 KB); the items a block aims for (two a thread of its 512); the
+# most blocks of its cooperative grid (four a streaming multiprocessor: what
+# stays resident at the largest staging)
+QUANTIZE_ITEMS_PER_BLOCK = 3040
+_QUANTIZE_ITEMS_AIM = 1024
+QUANTIZE_MAX_BLOCKS = 4 * _SMS
+
+
+def quantize_items(shape) -> int:
+    """K2's items of an NCHW shape: 4 (padded) channels at one pixel."""
+    b, c, h, w = shape
+    return b * (padded_channels(c) // 4) * h * w
+
+
+@functools.lru_cache(maxsize=None)
+def quantize_blocks(items: int) -> int:
+    """K2's one launch for a tensor of ``items`` (:func:`quantize_items`):
+    the blocks of its cooperative grid, one per 1024 items up to four a
+    streaming multiprocessor, each staging at most 3040 items."""
+    if items < 1:
+        raise ValueError(f"quantize_per_tensor: no plan for {items} items")
+    blocks = max(min(QUANTIZE_MAX_BLOCKS, -(-items // _QUANTIZE_ITEMS_AIM)),
+                 -(-items // QUANTIZE_ITEMS_PER_BLOCK))
+    if blocks > QUANTIZE_MAX_BLOCKS:
+        raise ValueError(f"quantize_per_tensor: {items} items exceed the kernel's grid")
+    return blocks
+
+
 @dataclass(frozen=True)
 class PackedWeight:
     """A conv weight quantized per output channel: ``q`` OIHW int8 and
     ``scale [N]`` (the plain function's), and ``wq [Np, Kp]``, the kernel's
-    layout (row n: k = tap * Cp + c; zeros past Cin, K and N)."""
+    layout (row n: k = tap * Cp + c; zeros past Cin, K and N; ``Np`` a
+    multiple of ``8 * nt``, :func:`out_tiles`, and ``Kp`` of 32)."""
 
     q: torch.Tensor
     scale: torch.Tensor
@@ -146,17 +307,20 @@ def _check(name: str, tensors, dtypes) -> None:
             raise ValueError(f"{name} kernel takes contiguous tensors")
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
+def _launch(name: str, fn, device: torch.device, stream: int, *args) -> None:
     with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 class QuantizePerTensorKernel:
     """K2: ``x`` NCHW f32 -> (q NHWC int8, channels padded to 4; scale
-    ``[1]``), as the op ``esr_tpu_torch::quantize_per_tensor``. Its plain
-    version is :func:`quantize_per_tensor_plain`."""
+    ``[1]``), as the op ``esr_tpu_torch::quantize_per_tensor``, launched by
+    :func:`quantize_blocks`. Its plain version is
+    :func:`quantize_per_tensor_plain`. The blocks' amax partials live in one
+    scratch array per device and stream, allocated at its first use and
+    kept: every partial is written before it is read."""
 
     name = "quantize_per_tensor"
     schema = "(Tensor x) -> (Tensor, Tensor)"
@@ -164,6 +328,7 @@ class QuantizePerTensorKernel:
     def __init__(self) -> None:
         self.launches = 0
         self.op = None
+        self._partials: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
     def __call__(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if x.dim() != 4:
@@ -180,6 +345,14 @@ class QuantizePerTensorKernel:
         return (x.new_empty((b, h, w, padded_channels(c)), dtype=torch.int8),
                 x.new_empty((1,), dtype=torch.float32))
 
+    def partials(self, device: torch.device, stream: int) -> torch.Tensor:
+        """The scratch array of partials on ``device`` for ``stream``."""
+        scratch = self._partials.get((device, stream))
+        if scratch is None:
+            scratch = self._partials[(device, stream)] = torch.empty(
+                QUANTIZE_MAX_BLOCKS, dtype=torch.float32, device=device)
+        return scratch
+
     def cuda(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.contiguous()
         _check(self.name, [x], [torch.float32])
@@ -187,12 +360,13 @@ class QuantizePerTensorKernel:
         cp = padded_channels(c)
         if x.numel() >= 2**31 or b * h * w * cp >= 2**31:
             raise ValueError(f"{self.name} kernel indexes with 32-bit ints; input too large")
+        blocks = quantize_blocks(b * (cp // 4) * h * w)
         q = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
         scale = torch.empty(1, dtype=torch.float32, device=x.device)
-        word = torch.empty(1, dtype=torch.int32, device=x.device)
-        _launch(self.name, INT8_LIBRARY.load().quantize_per_tensor_f32, x.device,
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _launch(self.name, INT8_LIBRARY.load().quantize_per_tensor_f32, x.device, stream,
                 x.data_ptr(), b, c, h * w, cp, q.data_ptr(), scale.data_ptr(),
-                word.data_ptr())
+                self.partials(x.device, stream).data_ptr(), blocks)
         self.launches += 1
         return q, scale
 
@@ -201,8 +375,8 @@ class Int8ConvKernel:
     """K1: ``(xq NHWC int8, sx [1], PackedWeight, bias [N] or None)`` ->
     NCHW f32, ``acc * (sx * scale[n]) + bias[n]``. Dilation 1, one group.
     The op ``esr_tpu_torch::int8_conv`` takes the packed weight's tensors
-    (``q``, ``scale``, ``wq``) and ``nt``. Its plain version is
-    :func:`int8_conv_plain`."""
+    (``q``, ``scale``, ``wq``) and its ``nt``; the launch follows
+    :func:`conv_plan`. Its plain version is :func:`int8_conv_plain`."""
 
     name = "int8_conv"
     schema = ("(Tensor xq, Tensor sx, Tensor q, Tensor scale, Tensor wq, Tensor? bias, "
@@ -252,10 +426,18 @@ class Int8ConvKernel:
         if out.numel() >= 2**31 or xq.numel() >= 2**31:
             raise ValueError(f"{self.name} kernel indexes with 32-bit ints; input too large")
         np_, kp = wq.shape
+        if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+            raise ValueError(f"{self.name} kernel copies 16-byte aligned operands")
+        if np_ % (8 * nt) or np_ < n:
+            raise ValueError(f"{self.name}: packed weight of {np_} rows for {n} "
+                             f"out-channels in tiles of {8 * nt}")
+        plan = conv_plan(b * ho * wo, n, kp, cp)
         _launch(self.name, INT8_LIBRARY.load().int8_conv_f32, xq.device,
+                torch.cuda.current_stream(xq.device).cuda_stream,
                 xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), scale.data_ptr(),
                 bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                b, h, wd, cp, ho, wo, n, np_, kp, kh, kw, stride, padding, 1, nt)
+                b, h, wd, cp, ho, wo, n, np_, kp, kh, kw, stride, padding, 1,
+                plan.wm, plan.wn, plan.nt, plan.mt, plan.split, plan.chunk)
         self.launches += 1
         return out
 

@@ -4,24 +4,29 @@ early stop, checkpoints, and the runtime around them (counterpart of
 
 - Each iteration runs one train step on one batch of ``batch_size``
   sequences (``training.train_step``); the loader turns its epoch over
-  (``set_epoch``) when it runs out. ``device_prefetch`` (default 2) stages
-  that many batches ahead on a ``DevicePrefetcher`` thread (0 stages in
-  the loop).
-- The step's scalars (losses, grad norm and, with ``numerics``, the probe
-  stats) come to the host in one copy per step. Every ``train_log_step``
-  iterations they go to the log and to ``<log_dir>/train_log.jsonl``;
+  (``set_epoch``) when it runs out. The batches come in groups of
+  ``k_steps`` (``data.loader.group_batches``; the epoch's tail is a shorter
+  group), the reference's super-steps: a group's steps run one by one, and
+  every cadence below is taken on the group. ``device_prefetch`` (default
+  2) stages that many batches ahead on a ``DevicePrefetcher`` thread (0
+  stages in the loop), one batch at a time whatever ``k_steps`` is.
+- The group's scalars (losses, grad norms and, with ``numerics``, the
+  probe stats) come to the host in one copy after its last step. Every
+  ``train_log_step`` iterations they go to the log and to
+  ``<log_dir>/train_log.jsonl`` (``step_seconds`` is the group's mean);
   running averages are kept in a ``MetricTracker``.
 - The metric writer (``utils.writer``) records every iteration's losses
   and ``steps_per_sec``, the learning rate every ``train_log_step``
   iterations and the validation stamps, in ``<log_dir>/metrics.jsonl``
   and, with ``tensorboard`` (on unless set false) and TensorBoard
-  importable, in event files; with ``vis.enabled`` every
-  ``vis.train_img_writer_num``-th iteration renders the first sequence's
-  middle window and the prediction (``utils.vis_events``).
+  importable, in event files; with ``vis.enabled`` a group that covers a
+  ``vis.train_img_writer_num``-th iteration renders the first sequence of
+  its last batch (middle window) and the group's last prediction
+  (``utils.vis_events``).
 - ``telemetry`` (on unless set false): a ``TelemetrySink`` at
   ``<log_dir>/telemetry.jsonl``, active for the length of ``train()``: the
   writer's and trackers' scalars, one ``attribution`` record per logged
-  step (``obs.spans``: ``data_wait``, ``stage_megabatch``, ``dispatch``,
+  group (``obs.spans``: ``data_wait``, ``stage_megabatch``, ``dispatch``,
   ``device_step``, ``metric_readback``, ``checkpoint``, ``validate``,
   ``residual``) under a ``train_run`` trace, the prefetcher's health,
   fault and recovery events and ``train_end``. ``python -m
@@ -36,21 +41,24 @@ early stop, checkpoints, and the runtime around them (counterpart of
   to ``profile.trace_dir`` (default ``<log_dir>/profile``), and asking for
   both is an error.
 - ``numerics``: the model's probe taps and the step's ``loss`` /
-  ``grad_norm`` taps (``ops.numerics``), one ``numerics`` record per tag
-  at the ``train_log_step`` cadence; they change no number.
+  ``grad_norm`` taps (``ops.numerics``), merged over the group, one
+  ``numerics`` record per tag at the ``train_log_step`` cadence (stamped
+  with the group's last iteration); they change no number.
 - ``max_bad_steps`` (null: off) arms the anomaly guard
-  (``resilience.recovery.AnomalyGuard``): a step with a non-finite loss is
-  skipped (kept out of the trackers) and logged; after more than
-  ``max_bad_steps`` in a row the trainer restores the last valid committed
-  checkpoint (``restore_with_fallback``; the run-start state when none
-  exists), fast-forwards the ``(seed, epoch)``-deterministic loader to it
-  and replays, at most ``max_rollbacks`` times (default 2). The guard
-  checks each step (the port runs steps one by one).
+  (``resilience.recovery.AnomalyGuard``): a group with a non-finite loss is
+  skipped, all its iterations (kept out of the trackers), and logged; after
+  more than ``max_bad_steps`` bad groups in a row the trainer restores the
+  last valid committed checkpoint (``restore_with_fallback``; the run-start
+  state when none exists), fast-forwards the ``(seed, epoch)``-deterministic
+  loader to it and replays, at most ``max_rollbacks`` times (default 2).
+  The guard checks each group, as the reference checks each super-step.
 - ``dispatch_retries`` (default 1) retries a failing step call,
   ``commit_retries`` / ``commit_backoff_s`` (2, 0.1 s) a failing
   checkpoint commit, and ``prefetch_stall_timeout_s`` arms the
   prefetcher's stall watchdog. The fault plane's ``train_step``,
-  ``ckpt_commit`` and ``prefetch`` sites fire here (``resilience.faults``).
+  ``ckpt_commit`` and ``prefetch`` sites fire here (``resilience.faults``);
+  ``train_step`` is keyed by the group's first iteration, and its
+  ``dispatch_error`` raises at the group's first step.
 - ``remat`` recomputes each window's forward in the backward
   (``torch.utils.checkpoint``): the same bits, less memory.
 - ``transfer_dtype: bf16`` rounds the train batches to bf16 on the host
@@ -62,20 +70,28 @@ early stop, checkpoints, and the runtime around them (counterpart of
   loaders build fixed-capacity raw event windows and the batch is
   rasterized on the device (``training.train_step.make_device_rasterizer``),
   bitwise the host's count images.
-- Every ``valid_step`` iterations a sequential pass over the validation
-  loader (under ``torch.no_grad()``, so the DCN takes its forward kernel)
-  gives ``valid_loss`` / ``valid_mse_loss``; ``monitor`` (``min
-  valid_loss``) picks the best model and ``early_stop`` stops a run that
-  stopped improving.
-- Checkpoints every ``save_period``, on a new best, and at the end
-  (``training.checkpoint``); ``-r <dir>`` resumes, ``-r auto`` resumes the
-  newest committed checkpoint that validates (``restore_with_fallback``),
-  ``--reset`` restarts the progress.
+- After a group that covers a multiple of ``valid_step`` (not 0), a
+  sequential pass over the validation loader (under ``torch.no_grad()``,
+  so the DCN takes its forward kernel) gives ``valid_loss`` /
+  ``valid_mse_loss``, logged with the group's last iteration; ``monitor``
+  (``min valid_loss``) picks the best model and ``early_stop`` stops a run
+  that stopped improving.
+- Checkpoints after a group that covers a multiple of ``save_period``, on
+  a new best, and at the end (``training.checkpoint``), each stamped with
+  the group's last iteration: when ``iterations`` is not a multiple of
+  ``k_steps`` the last group trains past it, and the final checkpoint
+  records the true last iteration, as the reference's does. ``-r <dir>``
+  resumes, ``-r auto`` resumes the newest committed checkpoint that
+  validates (``restore_with_fallback``), ``--reset`` restarts the
+  progress; a resume, like a rollback, starts at a group boundary.
 
-Keys that only steer how XLA compiles or dispatches the reference's
-programs, and cannot change a number, are read and mean here: ``k_steps``
-(steps run one by one), ``train_lookahead`` (the port reads each step's
-scalars after it), ``compile_cache`` (nothing is compiled),
+``k_steps`` changes numbers only through those cadences: the reference
+runs a group as one compiled scan, the port runs its steps one by one (a
+CUDA graph of the group is later work), so the losses are those of
+``k_steps: 1``. Keys that only steer how XLA compiles or dispatches the
+reference's programs, and cannot change a number, are read and mean here:
+``train_lookahead`` (the port reads each group's scalars after it),
+``compile_cache`` (nothing is compiled),
 ``async_checkpoint`` (saves are synchronous), ``validate.fused`` /
 ``validate.chunk_windows`` (validation runs batch by batch).
 
@@ -102,11 +118,17 @@ import torch
 from esr_tpu_torch.config.build import build_model, build_optimizer, build_train_loader
 from esr_tpu_torch.config.parser import RunConfig
 from esr_tpu_torch.config.precision import resolve_precision
-from esr_tpu_torch.data.loader import ConcatSequenceDataset, DevicePrefetcher
+from esr_tpu_torch.data.loader import ConcatSequenceDataset, DevicePrefetcher, group_batches
 from esr_tpu_torch.device import DeviceLike, resolve_device
 from esr_tpu_torch.models import convert
 from esr_tpu_torch.obs import trace
-from esr_tpu_torch.obs.numerics import NSTATS, order_tags, poison_tag, stats_fields
+from esr_tpu_torch.obs.numerics import (
+    NSTATS,
+    merge_readback,
+    order_tags,
+    poison_tag,
+    stats_fields,
+)
 from esr_tpu_torch.obs.spans import StepAttribution, instrument_dispatch
 from esr_tpu_torch.resilience import faults as _faults
 from esr_tpu_torch.resilience.recovery import (
@@ -191,6 +213,14 @@ def _fast_forward_groups(source, n_iters: int):
                                skipped, n_iters)
             continue
         yield group
+
+
+def _group_items(groups):
+    """Each batch of each group, in order, as ``(its place in the group, the
+    group's length, the batch)``."""
+    for group in groups:
+        for j, batch in enumerate(group):
+            yield j, len(group), batch
 
 
 def _host_snapshot(model: torch.nn.Module, optimizer) -> Dict:
@@ -443,32 +473,46 @@ class Trainer:
         there from the raw event windows under ``device_rasterize``)."""
         return self._finish(self._stage(batch))
 
-    def _stage_group(self, group) -> list:
-        return [self._stage(b, for_train=True) for b in group]
-
-    def _stage_group_timed(self, group) -> list:
-        """:meth:`_stage_group` on the prefetcher's thread, its time parked
-        for the step that consumes the group (an overlapped span)."""
+    def _stage_item_timed(self, item) -> Dict:
+        """The host->device copy of a :func:`_group_items` item's batch on
+        the prefetcher's thread, its time parked for the step that consumes
+        it (an overlapped span)."""
         t0 = time.monotonic()
-        staged = self._stage_group(group)
-        self._stage_spans[id(group)] = time.monotonic() - t0
+        staged = self._stage(item[2], for_train=True)
+        self._stage_spans[id(item)] = time.monotonic() - t0
         return staged
 
-    def _readback(self, metrics: Dict) -> Dict:
-        """The step's scalars and probe stats, stacked on the device and
-        brought to the host in one copy."""
-        tags = order_tags(metrics["numerics"]) if "numerics" in metrics else []
-        per_window = metrics["loss_per_window"].reshape(-1)
-        parts = [metrics["loss"].reshape(1), metrics["grad_norm"].reshape(1), per_window]
-        parts += [metrics["numerics"][t].reshape(-1) for t in tags]
+    def _take_staged(self, item, staged) -> Dict:
+        """An item's staged batch: the prefetcher's (its time added as an
+        overlapped span), else staged now."""
+        if staged is None:
+            with self._attr.measure("stage_megabatch"):
+                return self._stage(item[2], for_train=True)
+        self._attr.add("stage_megabatch", self._stage_spans.pop(id(item), 0.0),
+                       overlapped=True)
+        return staged
+
+    def _readback(self, metrics: Sequence[Dict]) -> list:
+        """The group's scalars and probe stats, one dict a step, stacked on
+        the device and brought to the host in one copy."""
+        tags = order_tags(metrics[0]["numerics"]) if "numerics" in metrics[0] else []
+        parts, sizes = [], []
+        for m in metrics:
+            per_window = m["loss_per_window"].reshape(-1)
+            parts += [m["loss"].reshape(1), m["grad_norm"].reshape(1), per_window]
+            parts += [m["numerics"][t].reshape(-1) for t in tags]
+            sizes.append(per_window.numel())
         host = torch.cat(parts).cpu().numpy()
-        nw = per_window.numel()
-        out = {"loss": float(host[0]), "grad_norm": float(host[1]),
-               "loss_per_window": host[2:2 + nw]}
-        if tags:
-            off = 2 + nw
-            out["numerics"] = {t: host[off + i * NSTATS: off + (i + 1) * NSTATS]
-                               for i, t in enumerate(tags)}
+        out, off = [], 0
+        for nw in sizes:
+            step = {"loss": float(host[off]), "grad_norm": float(host[off + 1]),
+                    "loss_per_window": host[off + 2:off + 2 + nw]}
+            off += 2 + nw
+            if tags:
+                step["numerics"] = {t: host[off + i * NSTATS: off + (i + 1) * NSTATS]
+                                    for i, t in enumerate(tags)}
+                off += len(tags) * NSTATS
+            out.append(step)
         return out
 
     # -- logging -------------------------------------------------------------
@@ -670,40 +714,49 @@ class Trainer:
                     set_active_sink(None)
                 self.sink.close()
 
-    def _consume(self, it: int, epoch: int, n: int, lr: float, t0: float, metrics: Dict,
-                 bucket, nan_specs) -> None:
-        """The step's readback (its one device->host copy, the end of its
-        ``device_step`` span), the anomaly guard, and the step's records."""
+    def _consume(self, first: int, epoch: int, n: int, lrs: Sequence[float], t0: float,
+                 metrics: Sequence[Dict], bucket, nan_specs) -> None:
+        """The group's readback (its one device->host copy, the end of its
+        ``device_step`` span), the anomaly guard's check of the group, and
+        the steps' records. ``n`` is the epoch's index of the group's last
+        batch, ``lrs`` each step's learning rate, ``t0`` the group's start."""
         with self._attr.resolving(bucket):
-            host = self._readback(metrics)
-        loss, mse = host["loss"], float(host["loss_per_window"][-1])
-        num_host = host.get("numerics")
+            hosts = self._readback(metrics)
+        r = len(hosts)
+        covered = range(first, first + r)
+        losses = [h["loss"] for h in hosts]
+        mses = [float(h["loss_per_window"][-1]) for h in hosts]
+        num_host = (merge_readback([h["numerics"] for h in hosts])
+                    if "numerics" in hosts[0] else None)
         if nan_specs:
-            # the injected train_step/nan_loss fault: the step's scalars go
+            # the injected train_step/nan_loss fault: the group's scalars go
             # non-finite (parameters untouched), and the loss tap with them
-            loss = mse = float("nan")
+            losses = mses = [float("nan")] * r
             if num_host is not None:
                 num_host = poison_tag(num_host, "loss")
         if self._guard is not None and not self._guard.check(
-                [loss], it, fault_id=nan_specs[0].fault_id if nan_specs else None,
+                losses, first, fault_id=nan_specs[0].fault_id if nan_specs else None,
                 numerics=num_host):
             return  # skipped: kept out of the trackers, the writer and the log
-        self.writer.set_step(it)
-        self.train_metrics.update("train_mse_loss", mse)
-        self.train_metrics.update("train_loss", loss)
-        if it % self.train_log_step == 0:
-            self.writer.add_scalar("learning_rate", lr)
-            logger.info("Train Epoch: %d Iteration: %d/%d train_mse_loss: %.4e "
-                        "train_loss: %.4e lr: %.4e", epoch + 1, it, self.iterations, mse,
-                        loss, lr)
-            self._log({"iteration": it, "epoch": epoch, "train_loss": loss,
-                       "train_mse_loss": mse, "grad_norm": host["grad_norm"], "lr": lr,
-                       "step_seconds": time.perf_counter() - t0})
-            if self.sink is not None and num_host is not None:
-                for tag in order_tags(num_host):
-                    self.sink.numerics(tag, stats_fields(num_host[tag]), step=it)
-        if self.vis_enabled and it % self.train_vis_step == 0:
-            self._log_images(n, metrics["last_pred"][0].cpu().numpy())
+        step_seconds = (time.perf_counter() - t0) / r
+        for it, h, loss, mse, lr in zip(covered, hosts, losses, mses, lrs):
+            self.writer.set_step(it)
+            self.train_metrics.update("train_mse_loss", mse)
+            self.train_metrics.update("train_loss", loss)
+            if it % self.train_log_step == 0:
+                self.writer.add_scalar("learning_rate", lr)
+                logger.info("Train Epoch: %d Iteration: %d/%d train_mse_loss: %.4e "
+                            "train_loss: %.4e lr: %.4e", epoch + 1, it, self.iterations, mse,
+                            loss, lr)
+                self._log({"iteration": it, "epoch": epoch, "train_loss": loss,
+                           "train_mse_loss": mse, "grad_norm": h["grad_norm"], "lr": lr,
+                           "step_seconds": step_seconds})
+        if self.sink is not None and num_host is not None and any(
+                it % self.train_log_step == 0 for it in covered):
+            for tag in order_tags(num_host):
+                self.sink.numerics(tag, stats_fields(num_host[tag]), step=covered[-1])
+        if self.vis_enabled and any(it % self.train_vis_step == 0 for it in covered):
+            self._log_images(n, metrics[-1]["last_pred"][0].cpu().numpy())
 
     def _train_loop(self, progress: Dict, profiler) -> Dict[str, float]:
         it = self.start_iteration
@@ -724,81 +777,93 @@ class Trainer:
             rb_caught = None
             n_next = ff_skip  # the epoch's index of the next batch (vis)
             with contextlib.ExitStack() as stack:
-                # groups of one batch: the reference's k_steps=1 pipeline
-                source = ([b] for b in self.train_loader)
+                # the reference's super-steps: groups of k_steps batches
+                source = group_batches(self.train_loader, self.k_steps)
                 if ff_skip:
                     source = _fast_forward_groups(source, ff_skip)
                     ff_skip = 0
+                # staged (and prefetched) one batch at a time, as with k_steps 1
+                items = _group_items(source)
                 if self.device_prefetch:
                     batches = stack.enter_context(DevicePrefetcher(
-                        source, self._stage_group_timed, depth=self.device_prefetch,
+                        items, self._stage_item_timed, depth=self.device_prefetch,
                         join_timeout=self.prefetch_join_timeout,
                         stall_timeout=self.prefetch_stall_timeout))
                 else:
-                    batches = ((g, None) for g in source)
+                    batches = ((item, None) for item in items)
                 pull = iter(batches)
                 while True:
                     self._attr.begin()
                     with self._attr.measure("data_wait"):
-                        item = next(pull, _END)
-                    if item is _END:
+                        pulled = next(pull, _END)
+                    if pulled is _END:
                         self._attr.discard()
                         break
-                    group, staged = item
-                    n, n_next = n_next, n_next + 1
+                    r = pulled[0][1]
+                    n, n_next = n_next + r - 1, n_next + r
+                    # every cadence is due when any iteration the group covers is
+                    covered = range(it, it + r)
+                    last = covered[-1]
                     try:
-                        if staged is None:
-                            with self._attr.measure("stage_megabatch"):
-                                staged = self._stage_group(group)
-                        else:
-                            self._attr.add("stage_megabatch",
-                                           self._stage_spans.pop(id(group), 0.0),
-                                           overlapped=True)
-                        batch = self._finish(staged[0])
-                        lr = self.optimizer.lr
-                        # the train_step fault site: nan_loss poisons this step's
-                        # readback, dispatch_error raises at the call (retried)
+                        # the train_step fault site, keyed by the group's first
+                        # iteration: nan_loss poisons the group's readback,
+                        # dispatch_error raises at its first step (retried)
                         specs = _faults.fire("train_step", it)
                         nan_specs = [s for s in specs if s.kind == "nan_loss"]
                         err_specs = [s for s in specs if s.kind == "dispatch_error"]
+                        lrs, metrics = [], []
                         t0 = time.perf_counter()
-                        metrics = self._dispatch(self.train_step, batch, err_specs)
-                        self._attr.note(it, 1)
-                        progress["iteration"] = it + 1
-                        self._consume(it, epoch, n, lr, t0, metrics, self._attr.current,
+                        for j in range(r):
+                            if j:
+                                with self._attr.measure("data_wait"):
+                                    pulled = next(pull)
+                            batch = self._finish(self._take_staged(*pulled))
+                            lrs.append(self.optimizer.lr)
+                            step = self._dispatch(self.train_step, batch, err_specs)
+                            if j < r - 1:
+                                step.pop("last_pred", None)  # the vis frame is the last's
+                            metrics.append(step)
+                            err_specs = ()
+                        self._attr.note(it, r)
+                        progress["iteration"] = last + 1
+                        self._consume(it, epoch, n, lrs, t0, metrics, self._attr.current,
                                       nan_specs)
                         if profiler is not None:
                             # after the readback: the capture holds the whole
-                            # step, and writing the trace lands in no span
-                            profiler.step(1)
+                            # group, and writing the trace lands in no span
+                            profiler.step(r)
                         best = False
-                        if self.valid_loader is not None and it % self.valid_step == 0 \
-                                and it != 0:
+                        if self.valid_loader is not None and any(
+                                i % self.valid_step == 0 and i != 0 for i in covered):
                             with self._attr.measure("validate"):
                                 val_log = self._valid()
                             logger.info("Valid stamp %d: %s", valid_stamp,
                                         {k: round(v, 6) for k, v in val_log.items()})
-                            self._log({"iteration": it, "valid_stamp": valid_stamp, **val_log})
+                            self._log({"iteration": last, "valid_stamp": valid_stamp,
+                                       **val_log})
                             for k, v in val_log.items():
                                 self.writer.add_scalar(f"stamp_{k}", v, step=valid_stamp)
                             stop, best = self.eval_model_performance(val_log)
                             valid_stamp += 1
                             if stop:
                                 break
-                        saved = (it % self.save_period == 0 and it != 0) or best
+                        saved = any(i % self.save_period == 0 and i != 0
+                                    for i in covered) or best
                         if saved:
                             with trace.adopt(self._attr.current_ctx()), \
                                     self._attr.measure("checkpoint"):
-                                self._save(it, best)
-                        if it + 1 >= self.iterations:
+                                self._save(last, best)
+                        if last + 1 >= self.iterations:
                             logger.info("Training completes!")
+                            # the group's true last iteration, past
+                            # `iterations` when the last group overshoots it
                             if not saved:
                                 with trace.adopt(self._attr.current_ctx()), \
                                         self._attr.measure("checkpoint"):
-                                    self._save(it, False)
+                                    self._save(last, False)
                             stop = True
                             break
-                        it += 1
+                        it = last + 1
                     except RollbackSignal as rb:
                         # unwind to the epoch level so the prefetcher stops,
                         # then restore and fast-forward below

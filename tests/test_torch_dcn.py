@@ -678,22 +678,35 @@ def test_backward_gx_is_bitwise_run_to_run_and_across_paths_on_card(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,cin,cout,hw,k,stride", [
-    (3, 2, 8, (96, 160), 3, 1), (3, 8, 16, (96, 160), 3, 2), (1, 64, 216, (12, 20), 3, 1),
-    (4, 192, 192, (12, 20), 3, 1), (4, 64, 2, (12, 20), 1, 1), (1, 64, 32, (1, 1), 1, 1),
-    (17, 64, 128, (1, 1), 1, 1)])
-def test_int8_kernels_match_plain_on_card(cuda_device, b, cin, cout, hw, k, stride):
+@pytest.mark.parametrize("b,cin,cout,hw,k,stride,extreme", [
+    (3, 2, 8, (96, 160), 3, 1, False), (3, 8, 16, (96, 160), 3, 2, False),
+    (1, 64, 216, (12, 20), 3, 1, False), (4, 192, 192, (12, 20), 3, 1, False),
+    (4, 64, 2, (12, 20), 1, 1, False), (1, 64, 32, (1, 1), 1, 1, False),
+    (17, 64, 128, (1, 1), 1, 1, False),
+    # the split-K seams (a cluster of blocks along K) at batch 1 and lanes 4
+    (1, 128, 64, (12, 20), 3, 1, False), (4, 128, 64, (12, 20), 3, 1, False),
+    (1, 192, 64, (12, 20), 3, 1, False), (4, 192, 64, (12, 20), 3, 1, False),
+    # +-amax everywhere: |acc| reaches K * 127**2 inside the image
+    (1, 192, 64, (12, 20), 3, 1, True), (12, 2, 8, (96, 160), 3, 1, True)])
+def test_int8_kernels_match_plain_on_card(cuda_device, b, cin, cout, hw, k, stride, extreme):
     """K2 (the per-tensor quantization) and K1 (the int8 convolution) are
     bitwise their plain versions at the flagship's kinds of shapes: the head
     conv (Cin 2), a stride-2 conv, the offset/mask conv (216), the local
-    residual (192), 1x1 convs and the channel MLP as a 1x1 conv."""
+    residual (192), 1x1 convs, the channel MLP as a 1x1 conv, the bottleneck
+    seams that split K across a cluster, and inputs at +-amax; a second call
+    gives the same bits."""
     from esr_tpu_torch.ops import int8_cuda
 
     rng = np.random.default_rng(cin + cout)
-    x = torch.from_numpy(rng.standard_normal((b, cin, *hw)).astype(np.float32)).to(cuda_device)
-    wgt = torch.from_numpy((rng.standard_normal((cout, cin, k, k)) * 0.1).astype(np.float32))
+    if extreme:
+        x = np.where(rng.random((b, cin, *hw)) < 0.5, -3.0, 3.0).astype(np.float32)
+        wgt = np.full((cout, cin, k, k), 0.25, np.float32) * np.sign(x[0, :, :k, :k])[None]
+    else:
+        x = rng.standard_normal((b, cin, *hw)).astype(np.float32)
+        wgt = (rng.standard_normal((cout, cin, k, k)) * 0.1).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda_device)
     bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(cuda_device)
-    packed = int8_cuda.pack_weight(wgt.to(cuda_device))
+    packed = int8_cuda.pack_weight(torch.from_numpy(wgt).to(cuda_device))
     int8_cuda.reset_launches()
     xq, sx = int8_cuda.quantize_per_tensor(x)
     out = int8_cuda.int8_conv(xq, sx, packed, bias, stride, k // 2)
@@ -703,6 +716,105 @@ def test_int8_kernels_match_plain_on_card(cuda_device, b, cin, cout, hw, k, stri
     assert torch.equal(xq, pq) and torch.equal(sx, psx)
     ref = int8_cuda.int8_conv_plain(pq, psx, packed, bias, stride, k // 2)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    again_q, again_s = int8_cuda.quantize_per_tensor(x)
+    again = int8_cuda.int8_conv(again_q, again_s, packed, bias, stride, k // 2)
+    torch.cuda.synchronize()
+    assert torch.equal(again_q, xq) and torch.equal(again_s, sx)
+    assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+    if extreme:
+        # the first image's interior window matches the weight's signs
+        acc = int8_cuda.int8_conv_plain(pq, torch.ones_like(psx), int8_cuda.PackedWeight(
+            packed.q, torch.ones_like(packed.scale), packed.wq, packed.nt), None, stride, k // 2)
+        assert float(acc.abs().max()) == k * k * cin * 127 ** 2
+
+
+# The contraction seams of one flagship window (basech 8, 2x, a 96x160
+# padded input) at batch 1: (NCHW input, out-channels, kernel, stride), in
+# the order chip_smoke.py's int8_kernel_shapes prints them; at lanes 4 every
+# batch is 4 times larger.
+INT8_SEAMS = [
+    ((3, 2, 96, 160), 8, 3, 1), ((3, 8, 96, 160), 16, 3, 2), ((3, 16, 48, 80), 32, 3, 2),
+    ((3, 32, 24, 40), 64, 3, 2), ((1, 128, 12, 20), 64, 3, 1), ((1, 64, 12, 20), 1, 3, 1),
+    ((1, 192, 12, 20), 192, 3, 1), ((1, 192, 12, 20), 64, 3, 1), ((1, 64, 12, 20), 64, 3, 1),
+    ((3, 128, 12, 20), 64, 1, 1), ((1, 64, 12, 20), 216, 3, 1), ((1, 64, 12, 20), 2, 1, 1),
+    ((1, 64, 1, 1), 32, 1, 1), ((1, 32, 1, 1), 128, 1, 1), ((3, 64, 12, 20), 1, 3, 1),
+    ((1, 64, 24, 40), 32, 3, 1), ((3, 32, 24, 40), 1, 3, 1), ((1, 32, 48, 80), 16, 3, 1),
+    ((3, 16, 48, 80), 1, 3, 1), ((1, 16, 96, 160), 8, 3, 1), ((1, 8, 96, 160), 2, 3, 1)]
+
+
+def _seam_geometry(shape, cout, k, stride):
+    """(M, N, Kp, Cp) of a seam, as the wrappers pack and launch it."""
+    from esr_tpu_torch.ops import int8_cuda
+
+    b, cin, h, w = shape
+    cp = int8_cuda.padded_channels(cin)
+    ho = int8_cuda.conv_out_size(h, k, stride, k // 2)
+    wo = int8_cuda.conv_out_size(w, k, stride, k // 2)
+    return b * ho * wo, cout, -(-(k * k * cp) // 32) * 32, cp
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("seam", range(len(INT8_SEAMS)))
+def test_int8_launch_plans_cover_every_seam(seam, lanes):
+    """K1's plan at each seam shape: every output (m, n) is owned by exactly
+    one block, the split blocks' K slices partition the k-steps (none
+    empty), the cluster and the shared memory stay within the card's limits
+    and the tile is one the source builds; large outputs split nothing. K2's
+    launch: its cooperative grid within the blocks that stay resident, each
+    block's staging within 48 KB."""
+    from esr_tpu_torch.ops import int8_cuda
+
+    shape, cout, k, stride = INT8_SEAMS[seam]
+    shape = (shape[0] * lanes,) + shape[1:]
+    m, n, kp, cp = _seam_geometry(shape, cout, k, stride)
+    plan = int8_cuda.conv_plan(m, n, kp, cp)
+    assert (plan.wm, plan.wn, plan.nt, plan.mt) in int8_cuda.CONV_TILES
+    assert plan.wm * plan.wn * 32 == int8_cuda.CONV_THREADS
+    gm, gn, gz = plan.grid(m, n)
+    owners = np.zeros((gm * plan.bm, gn * plan.bn), np.int32)
+    for i in range(gm):
+        for j in range(gn):
+            owners[i * plan.bm:(i + 1) * plan.bm, j * plan.bn:(j + 1) * plan.bn] += 1
+    assert (owners == 1).all() and owners.shape[0] - m < plan.bm and owners.shape[1] - n < plan.bn
+    slices = plan.k_slices(kp)
+    assert gz == plan.split == len(slices) and 1 <= plan.split <= int8_cuda.MAX_CLUSTER
+    assert slices[0][0] == 0 and slices[-1][1] == kp // 32
+    assert all(a < b for a, b in slices) and all(s[1] == t[0] for s, t in zip(slices, slices[1:]))
+    assert cp % plan.chunk == 0 and plan.chunk in (4, 8, 16)
+    assert plan.smem_bytes(kp) <= int8_cuda.CONV_SMEM_MAX
+    if m >= 11520:
+        assert plan.split == 1  # the head and tail seams: bound by bytes already
+    if m <= 960 and kp >= 576:
+        assert plan.split > 1  # the bottleneck's long K loops are split
+    items = int8_cuda.quantize_items(shape)
+    blocks = int8_cuda.quantize_blocks(items)
+    assert 0 < blocks <= int8_cuda.QUANTIZE_MAX_BLOCKS
+    assert -(-items // blocks) <= int8_cuda.QUANTIZE_ITEMS_PER_BLOCK
+
+
+def test_int8_seams_are_the_flagship_windows():
+    """:data:`INT8_SEAMS` are the distinct seams one flagship window runs
+    through the int8 rung (the port's model on the CPU, its seams hooked)."""
+    from esr_tpu_torch.config.quantize import int8_scope
+    from esr_tpu_torch.models.esr import DeepRecurrNet
+    from esr_tpu_torch.models.layers import Conv2d, Linear
+
+    torch.manual_seed(0)
+    model = DeepRecurrNet(inch=2, basech=8, num_frame=3).eval()
+    calls, hooks = [], []
+    for mod in model.modules():
+        if isinstance(mod, Conv2d):
+            hooks.append(mod.register_forward_pre_hook(lambda m, a: calls.append(
+                (tuple(a[0].shape), m.out_channels, m.kernel_size[0], m.stride[0]))))
+        elif isinstance(mod, Linear):
+            hooks.append(mod.register_forward_pre_hook(lambda m, a: calls.append(
+                (tuple(a[0].shape) + (1, 1), m.out_features, 1, 1))))
+    with torch.no_grad(), int8_scope():
+        model(torch.rand(1, 3, 90, 160, 2), model.init_states(1, 90, 160))
+    for h in hooks:
+        h.remove()
+    assert len(calls) == 79
+    assert list(dict.fromkeys(calls)) == INT8_SEAMS
 
 
 # -- the kernels as torch.library custom ops ----------------------------------

@@ -446,6 +446,7 @@ RUNTIME = [
     "trainer;iteration_based_train;valid_step=2",
     "trainer;iteration_based_train;save_period=2",
     "trainer;iteration_based_train;train_log_step=1",
+    "trainer;k_steps=1",  # one attribution record a step
     "trainer;numerics=true", "trainer;live_telemetry=0", "trainer;profile_steps=2",
     "trainer;max_bad_steps=1",
 ] + [f"{block};dataset;{k}={v}" for block in ("train_dataloader", "valid_dataloader")

@@ -340,19 +340,27 @@ TINY = [
     "trainer;iteration_based_train;valid_step=2",
     "trainer;iteration_based_train;save_period=2",
     "trainer;iteration_based_train;train_log_step=1",
+    # steps one group each (the flagship groups 8): these runs pin the
+    # per-step cadences; test_k_steps_groups_the_cadences_as_the_reference
+    # pins the grouped ones
+    "trainer;k_steps=1",
 ] + [f"{block};dataset;{k}={v}" for block in ("train_dataloader", "valid_dataloader")
      for k, v in (("ori_scale", "down8"), ("window", 512), ("sliding_window", 256),
                   ("sequence;sequence_length", 5))]
 
 
-def _run(out, corpus, extra=(), **kw):
-    overrides = TINY + [
+def _overrides(out, corpus, extra=()):
+    return TINY + [
         f"trainer;output_path={out}",
         f"train_dataloader;path_to_datalist_txt={corpus / 'datalist2.txt'}",
         f"valid_dataloader;path_to_datalist_txt={corpus / 'datalist1.txt'}",
         *extra]
+
+
+def _run(out, corpus, extra=(), **kw):
     return T_parser.RunConfig.from_args(str(REPO / "configs" / "train_esr_2x.yml"),
-                                        overrides, runid="run0", seed=5, **kw)
+                                        _overrides(out, corpus, extra), runid="run0", seed=5,
+                                        **kw)
 
 
 @pytest.fixture(scope="module")
@@ -483,6 +491,135 @@ def test_flagship_as_written_writes_metrics_and_images(trained_as_written):
     # TensorBoard is importable here, so its event file is written too
     assert any(p.name.startswith("events.out.tfevents") for p in Path(run.log_dir).iterdir())
 
+
+
+# -- k_steps: the cadences taken on groups ---------------------------------
+
+GROUPED = ["trainer;k_steps=4", "trainer;iteration_based_train;iterations=9",
+           "trainer;iteration_based_train;valid_step=3",
+           "trainer;iteration_based_train;save_period=5", "trainer;max_bad_steps=1",
+           "trainer;compile_cache=false", "trainer;async_checkpoint=false"]
+# datalist2 deals 6 batches an epoch, so the groups are [0-3] [4 5] | [6-9]:
+# validation is due inside [0-3] (3) and [6-9] (6 and 9), a save inside
+# [4 5], and the last group trains past iteration 8. The faults poison the
+# epoch's tail group [4 5] (skipped) and then [6-9], the second bad group
+# in a row (a rollback to checkpoint 5, then the replay)
+NAN_AT = (4, 6)
+
+
+def _record_grouped_run(trainer, plan, installed):
+    """Train under the fault ``plan``; each validation's iteration (the
+    writer's step when it starts), each save, the checkpoints, the
+    ``train_loss`` records and the guard's count."""
+    valids, saves = [], []
+    valid, save = trainer._valid, trainer._save
+
+    def recorded_valid(*args):
+        valids.append(trainer.writer.step)
+        return valid(*args)
+
+    def recorded_save(iteration, best):
+        saves.append((iteration, best))
+        return save(iteration, best)
+
+    trainer._valid, trainer._save = recorded_valid, recorded_save
+    staged = []
+    if hasattr(trainer, "_stage_item_timed"):
+        # the port's prefetcher: what it stages at a time
+        stage = trainer._stage_item_timed
+
+        def recorded_stage(item):
+            staged.append(item[:2])
+            return stage(item)
+        trainer._stage_item_timed = recorded_stage
+    with installed(plan):
+        trainer.train()
+    with open(Path(trainer.run.log_dir) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    return {"valids": valids, "saves": saves,
+            "checkpoints": sorted(p.name for p in Path(trainer.run.save_dir).iterdir()
+                                  if p.name.startswith(("checkpoint-", "model_best"))),
+            "losses": [(r["step"], r["value"]) for r in records
+                       if r["tag"] == "train_loss/train"],
+            "skipped": sorted(set(trainer._guard.skipped_iterations)),
+            "rollbacks": trainer._guard.rollbacks, "staged": staged}
+
+
+@pytest.fixture(scope="module")
+def grouped(shared_corpus_dir, tmp_path_factory):
+    """``k_steps`` 4 through the reference's trainer and the port's, from
+    the reference's initial weights, clean and with ``nan_loss`` faults;
+    then the port clean at ``k_steps`` 1."""
+    from esr_tpu.parallel.mesh import make_mesh
+    from esr_tpu.resilience import faults as J_faults
+    from esr_tpu.training.trainer import Trainer as RefTrainer
+    from esr_tpu_torch.resilience import faults as T_faults
+    from esr_tpu_torch.training.trainer import _host_snapshot
+
+    out = tmp_path_factory.mktemp("torch_k_steps")
+    config = str(REPO / "configs" / "train_esr_2x.yml")
+
+    def port_trainer(path, extra, params):
+        trainer = Trainer(_run(path, shared_corpus_dir, extra), device="cpu")
+        convert.load_flax_params(trainer.model, params)
+        trainer._init_state = _host_snapshot(trainer.model, trainer.optimizer)
+        return trainer
+
+    runs, mesh, first = {}, make_mesh(jax.devices()[:1]), None
+    for case, at in (("clean", ()), ("nan", NAN_AT)):
+        ref = RefTrainer(J_parser.RunConfig.from_args(
+            config, _overrides(out / case / "ref", shared_corpus_dir, GROUPED), runid="run0",
+            seed=5), mesh=mesh)
+        if first is not None:
+            # the same config on the same mesh: the first trainer's compiled
+            # programs, so the second compiles none again
+            for name in ("train_step", "multi_step", "eval_step", "_eval_chunk",
+                         "_eval_accum"):
+                setattr(ref, name, getattr(first, name))
+        first = ref
+        params = jax.tree.map(np.asarray, ref.state.params)
+        port = port_trainer(out / case / "port", GROUPED, params)
+        runs[case] = {
+            "ref": _record_grouped_run(ref, J_faults.FaultPlan(
+                [J_faults.FaultSpec("train_step", i, "nan_loss") for i in at]),
+                J_faults.installed),
+            "port": _record_grouped_run(port, T_faults.FaultPlan(
+                [T_faults.FaultSpec("train_step", i, "nan_loss") for i in at]),
+                T_faults.installed)}
+    one = port_trainer(out / "k1", GROUPED + ["trainer;k_steps=1"], params)
+    runs["k1"] = _record_grouped_run(one, T_faults.FaultPlan(), T_faults.installed)
+    return runs
+
+
+@pytest.mark.parametrize("case", ["clean", "nan"])
+def test_k_steps_groups_the_cadences_as_the_reference(grouped, case):
+    ref, port = grouped[case]["ref"], grouped[case]["port"]
+    for key in ("valids", "saves", "checkpoints", "skipped", "rollbacks"):
+        assert port[key] == ref[key], key
+    assert [i for i, _ in port["losses"]] == [i for i, _ in ref["losses"]]
+    np.testing.assert_allclose([v for _, v in port["losses"]], [v for _, v in ref["losses"]],
+                               rtol=1e-5)
+    if case == "clean":
+        # validated after the groups covering 3 and 6, 9; the last group
+        # trained past iteration 8 and the final checkpoint says so
+        assert ref["valids"] == [3, 9] and ref["saves"][-1][0] == 9
+        assert [i for i, _ in ref["losses"]] == list(range(10))
+        # the port's prefetcher stages one batch at a time (its place in the
+        # group, the group's length), never a whole group; it may have run
+        # ahead into the next epoch's first group when the run stopped
+        assert port["staged"][:10] == [(j, 4) for j in range(4)] + [(0, 2), (1, 2)] + [
+            (j, 4) for j in range(4)]
+    else:
+        assert ref["skipped"] == [4, 5, 6, 7, 8, 9] and ref["rollbacks"] == 1
+
+
+def test_k_steps_one_keeps_the_per_step_cadences(grouped):
+    one, four = grouped["k1"], grouped["clean"]["port"]
+    assert one["valids"] == [3, 6]
+    assert [i for i, _ in one["saves"]][-1] == 8 and (5, False) in one["saves"]
+    assert [i for i, _ in one["losses"]] == list(range(9))
+    # the steps run one by one either way: the same losses, bit for bit
+    assert [v for _, v in one["losses"]] == [v for _, v in four["losses"]][:9]
 
 # keys this test pinned as unported until the port took them up: each such
 # case now checks that the key takes effect
