@@ -17,7 +17,8 @@ Phases (any failure exits non-zero):
    (``host_kernels.cpp``), which must build;
 3. kernel, forward: ``dcn_fwd`` against the plain ``deform_conv2d`` at the
    flagship shape (B=1 as in evaluation, B=4, B=8 as in the trainer's
-   validation, B=32 as in training) and over an odd-size / group / stride /
+   validation, B=32 as in training), at the 4x recipe's 24x40 bottleneck
+   at its validation batch 8, and over an odd-size / group / stride /
    dilation / large-offset / Cg 16-Cout 6 matrix, within 1e-3 * max(|ref|,
    1); CUDA-event times of both (the kernel through its wrapper, which calls
    the kernel's ``torch.library`` op, and its C entry point) next to the
@@ -30,7 +31,8 @@ Phases (any failure exits non-zero):
    ``deform_conv2d_backward``, at the flagship training shape (B=32), B=1,
    the bottlenecks of basech 16, 32, 48 and 64 at B=32 (Cin = Cout = 128 to
    512, Cg 16 to 64) and of basech 128 at B=4 (Cin = Cout = 1024, Cg 128;
-   Cg 48 and more take ``dcn_bwd``'s wide kernel), a 64x64 image of Cg 32 /
+   Cg 48 and more take ``dcn_bwd``'s wide kernel), the 4x recipe's 24x40
+   bottleneck at its batch 8, a 64x64 image of Cg 32 /
    Cout 64 whose slices do not fit shared memory (``dcn_bwd``'s global-red
    path) and the same matrix, each cotangent within 1e-3 * max(|ref|, 1);
    at the seven timed shapes every output twice, each bitwise equal run to
@@ -63,7 +65,13 @@ Phases (any failure exits non-zero):
    vis step) must be there. Each train step must launch ``dcn_train_fwd``,
    ``dcn_bwd`` and ``dcn_wgrad`` 14 times each (2 per window x 7 windows)
    and nothing else; validation only ``dcn_fwd``, 2 per window; losses
-   and grad norms finite; a committed checkpoint that loads and runs.
+   and grad norms finite; a committed checkpoint that loads and runs. The
+   flagship sets ``async_checkpoint: true``: that checkpoint was committed
+   on the ``ckpt-commit`` writer, and it must carry the ``digest.json`` and
+   ``meta.json`` of a sync save of the same state at the same iteration
+   and restore bitwise the same parameters and optimizer state; then the
+   ms a save blocks the loop, sync against async, in turns (sync, async,
+   async, sync), beside the async commit's ms on the writer.
    Then one validation pass (batch 8) on the kernel path and on the plain
    path, and one train step from the same params and batch on both: the
    validation losses, the per-window losses and every parameter's grad
@@ -83,6 +91,15 @@ Phases (any failure exits non-zero):
    each train kernel, losses and grads within 1e-3 of their scale of the
    plain path's, their step times; at basech 64 both paths' grads against
    the plain path in f64, printed.
+7c. the 4x recipe: ``Trainer`` from ``configs/train_esr_4x.yml`` as
+   written (batch 8, vis, tensorboard, async checkpoint), overriding only
+   the run's length and paths (3 iterations, a validation after the
+   third), on in-memory 720x1280 recordings with a down4 GT stream: 14
+   launches of each train kernel a step at the 24x40 bottleneck, the
+   validation only ``dcn_fwd``, a committed final checkpoint; one step's
+   losses and grads within 1e-3 of their scale of the plain path's; the
+   step's time and device busy time beside each kernel's time and bound
+   at that shape (from phases 3 and 4).
 
 8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
    ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
@@ -129,9 +146,10 @@ Phases (any failure exits non-zero):
    files written, the merged telemetry green against ``configs/slo.yml``;
 10c. the AOT export: from a port checkpoint of the sparse flagship,
    ``inference.export.export_checkpoint(program="engine_chunk")`` at lanes
-   4 for depths 8 and 4 (the serving classes') at f32 and int8, each
-   export's seconds and bytes printed; the serving phase's 8 streams
-   replayed on a virtual clock (0.05 s a round, so both sessions bind,
+   4 for depths 8 and 4 (the serving classes') at f32 and int8, and for
+   depth 8 at bf16 (its sessions serve every stream in the standard
+   class), each export's seconds and bytes and each program's load ms
+   printed; the serving phase's 8 streams replayed on a virtual clock (0.05 s a round, so both sessions bind,
    preempt and chunk alike) through a traced session and through
    ``aot_programs`` at each rung: every request's metrics, windows, skips
    and preemptions and the final lane states bitwise equal, the same
@@ -164,7 +182,7 @@ Phases (any failure exits non-zero):
    every recording and request within 1.0 dB of f32.
 
 The phases run in the order 1-5, 8, 6, 9, 10, 10b, 10c, 12, 7 (with 11
-inside 7).
+inside 7), 7c, then the trainer's runtime.
 The line before the last is the ``{"kernels": [...]}`` record (eight
 kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -173,6 +191,7 @@ kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -450,6 +469,10 @@ def phase_fwd_kernel(torch, np, card):
     worst_rel = 0.0
     cases = [(f"flagship_b{b}", dict(b=b, h=12, w=20, cin=64, cout=64, dg=8), {})
              for b in (1, 4, 8, 32)]
+    # the 4x recipe's bottleneck (a 180x320 HR grid padded to 192x320, /8)
+    # at its validation batch
+    cases.append(("valid_4x_b8", dict(b=8, h=24, w=40, cin=64, cout=64, dg=8), {}))
+    timed = {name for name, _, _ in cases}
     for name, shape, geom in cases + kernel_cases():
         inp = dcn_inputs(torch, rng, **shape)
         out = dcn_fwd(**inp, **geom)
@@ -460,10 +483,10 @@ def phase_fwd_kernel(torch, np, card):
         if not bool(torch.isfinite(out).all()) or not err <= limit:
             fail(f"dcn_fwd disagrees with the plain version on {name}")
         worst_rel = max(worst_rel, err * TOL / limit)
-        if name.startswith("flagship"):
+        if name in timed:
             b = shape["b"]
             entry = fwd_entry(torch, lib, "dcn_fwd_f32", inp, torch.empty_like(out),
-                              dcn_cuda.fwd_config(b * 240, 64))
+                              dcn_cuda.fwd_config(b * shape["h"] * shape["w"], 64))
             ms = time_ms(torch, lambda: dcn_fwd(**inp, **geom), iters=300)
             entry_ms = time_ms(torch, entry, iters=300)
             plain_ms = time_ms(torch, lambda: deform_conv2d(**inp, **geom), iters=50)
@@ -474,7 +497,7 @@ def phase_fwd_kernel(torch, np, card):
             print(f"time {name}: kernel {ms:.5f} ms through the op (entry point "
                   f"{entry_ms:.5f}), plain "
                   f"{plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}")
-            if b in (1, 32):
+            if name in ("flagship_b1", "flagship_b32"):
                 config_sweep(torch, inp, card)
     batch_invariance(torch, rng)
     return flagship, worst_rel
@@ -611,10 +634,11 @@ def wgrad_entry(torch, lib, inp, g):
 
 # the train-direction cases that are timed: the flagship at the training
 # batch and at B=1, the bottlenecks of basech 16, 32, 48 and 64 at batch 32
-# and of basech 128 at batch 4 (Cg 48-128 take dcn_bwd's wide kernel)
+# and of basech 128 at batch 4 (Cg 48-128 take dcn_bwd's wide kernel), and
+# the 4x recipe's bottleneck (24x40) at its batch 8
 TIMED_TRAIN_CASES = ("train_flagship_b32", "train_flagship_b1", "train_basech16_b32",
                      "train_basech32_b32", "train_basech48_b32", "train_basech64_b32",
-                     "train_basech128_b4")
+                     "train_basech128_b4", "train_4x_b8")
 # dcn_bwd's entry point at those cases in PR 6 (gx by float atomics; PERF.md
 # section 6, NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
 PR6_BWD_ENTRY_MS = {"train_flagship_b32": 0.1192, "train_flagship_b1": 0.1040,
@@ -645,6 +669,7 @@ def phase_train_kernels(torch, np, card):
              ("train_basech48_b32", dict(b=32, h=12, w=20, cin=384, cout=384, dg=8), {}),
              ("train_basech64_b32", dict(b=32, h=12, w=20, cin=512, cout=512, dg=8), {}),
              ("train_basech128_b4", dict(b=4, h=12, w=20, cin=1024, cout=1024, dg=8), {}),
+             ("train_4x_b8", dict(b=8, h=24, w=40, cin=64, cout=64, dg=8), {}),
              ("bwd_global_64x64", dict(b=1, h=64, w=64, cin=64, cout=64, dg=2), {})]
     for name, shape, geom in cases + kernel_cases():
         inp = dcn_inputs(torch, rng, **shape)
@@ -727,13 +752,14 @@ def phase_train_kernels(torch, np, card):
             ms = time_ms(torch, kernel_fn, iters=iters)
             entry_ms = time_ms(torch, entry_fn, iters=iters)
             plain_ms = (time_ms(torch, plain_fn, iters=20, warmup=3)
-                        if name.startswith("train_flagship") else
+                        if name.startswith(("train_flagship", "train_4x")) else
                         time_ms(torch, plain_fn, iters=5, warmup=2))
             bound_ms, bound_by = bounds[kname]
             record[name][kname] = dict(err=errs[kname], ms=ms, entry_ms=entry_ms,
                                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
             before = (f"; PR 6's entry point (float atomics, PERF.md) "
-                      f"{PR6_BWD_ENTRY_MS[name]} ms" if kname == "dcn_bwd" else "")
+                      f"{PR6_BWD_ENTRY_MS[name]} ms"
+                      if kname == "dcn_bwd" and name in PR6_BWD_ENTRY_MS else "")
             print(f"time {name} {kname}: kernel {ms:.5f} ms through the op (entry point "
                   f"{entry_ms:.5f}), "
                   f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}"
@@ -971,7 +997,6 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
     from esr_tpu_torch.inference.checkpoint import load_checkpoint
     from esr_tpu_torch.ops import dcn_cuda
     from esr_tpu_torch.training.checkpoint import find_latest_checkpoint
-    from esr_tpu_torch.training.train_step import window_losses
     from esr_tpu_torch.training.trainer import Trainer
 
     t0 = time.perf_counter()
@@ -1084,6 +1109,7 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
     if not bool(torch.isfinite(out).all()):
         fail("the loaded checkpoint's forward is not finite")
     print(f"checkpoint {Path(ckpt).name}: loads, forward {tuple(out.shape)} finite")
+    checkpoint_ways(torch, trainer, ckpt, os.path.join(out_root, "checkpoint_ways"), card)
     batch_build(np, train_recs, dataset.config, batch_size, card)
     device_rasterize_step(torch, dev, trainer, repo, overrides, train_recs, valid_recs)
 
@@ -1108,39 +1134,7 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
         if not e <= lim:
             fail(f"the kernel path's {key} differs from the plain path's")
 
-    # one step from the same params and batch: the kernel path and the plain
-    losses, grads = {}, {}
-    for path in ("kernel", "plain"):
-        model = copy.deepcopy(trainer.model).train()
-        model.spacetime_fuse.dcn_impl = "auto" if path == "kernel" else "plain"
-        dcn_cuda.reset_launches()
-        per_window, _ = window_losses(model, sel, trainer.seqn)
-        per_window.sum().backward()
-        torch.cuda.synchronize()
-        launched = sum(k.launches for k in dcn_cuda.KERNELS)
-        if (launched == 0) != (path == "plain"):
-            fail(f"the {path} path launched {launched} DCN kernels")
-        losses[path] = per_window.detach()
-        grads[path] = {n: p.grad for n, p in model.named_parameters()}
-    err, scale, limit = rel_err_of(torch, losses["kernel"], losses["plain"])
-    print(f"step kernel vs plain: loss_per_window max_abs_err {err:.3e} "
-          f"(scale {scale:.3e}, limit {limit:.3e})")
-    if not err <= limit:
-        fail("the kernel path's losses differ from the plain path's")
-    # every parameter's grad, each against its own scale
-    rows = sorted(((e / max(s, TINY), n, e, s, lim) for n, ref in grads["plain"].items()
-                   for e, s, lim in [rel_err_of(torch, grads["kernel"][n], ref)]),
-                  reverse=True)
-    print(f"step kernel vs plain grads: {len(rows)} parameters; worst err/scale "
-          + "; ".join(f"{n} {e:.3e}/{s:.3e} = {r:.3e}" for r, n, e, s, _ in rows[:5]))
-    print("step kernel vs plain grads, DCN params: " + "; ".join(
-        f"{n} {e:.3e}/{s:.3e} = {r:.3e}" for r, n, e, s, _ in rows
-        if n.startswith(("spacetime_fuse.dcn_weight", "spacetime_fuse.dcn_bias",
-                         "spacetime_fuse.dcn_offset_mask"))))
-    bad = [n for _, n, e, _, lim in rows if not e <= lim]
-    if bad:
-        fail(f"the kernel path's grads differ from the plain path's beyond "
-             f"{TOL} of their own scale: {bad}")
+    step_kernel_vs_plain(torch, trainer, sel)
 
     c2_bitwise_step(torch, trainer, sel)
     sparse_launches = sparse_train_step(torch, dev, trainer, sel, repo, overrides)
@@ -1184,6 +1178,218 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
     basech_step(torch, np, dev, trainer, {k: v[:4] for k, v in sel.items()}, repo,
                 overrides, card, None, 64, f64=True)
     return totals, sparse_launches, (train_recs, valid_recs)
+
+
+def step_kernel_vs_plain(torch, trainer, sel, what: str = "step") -> None:
+    """One step from the trainer's params on batch ``sel`` through the
+    kernels and through the plain path: the per-window losses and every
+    parameter's grad within 1e-3 of their own scale (max |plain|)."""
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.training.train_step import window_losses
+
+    losses, grads = {}, {}
+    for path in ("kernel", "plain"):
+        model = copy.deepcopy(trainer.model).train()
+        model.spacetime_fuse.dcn_impl = "auto" if path == "kernel" else "plain"
+        dcn_cuda.reset_launches()
+        per_window, _ = window_losses(model, sel, trainer.seqn)
+        per_window.sum().backward()
+        torch.cuda.synchronize()
+        launched = sum(k.launches for k in dcn_cuda.KERNELS)
+        if (launched == 0) != (path == "plain"):
+            fail(f"the {path} path launched {launched} DCN kernels")
+        losses[path] = per_window.detach()
+        grads[path] = {n: p.grad for n, p in model.named_parameters()}
+        del model
+    err, scale, limit = rel_err_of(torch, losses["kernel"], losses["plain"])
+    print(f"{what} kernel vs plain: loss_per_window max_abs_err {err:.3e} "
+          f"(scale {scale:.3e}, limit {limit:.3e})")
+    if not err <= limit:
+        fail(f"the kernel path's losses differ from the plain path's ({what})")
+    # every parameter's grad, each against its own scale
+    rows = sorted(((e / max(s, TINY), n, e, s, lim) for n, ref in grads["plain"].items()
+                   for e, s, lim in [rel_err_of(torch, grads["kernel"][n], ref)]),
+                  reverse=True)
+    print(f"{what} kernel vs plain grads: {len(rows)} parameters; worst err/scale "
+          + "; ".join(f"{n} {e:.3e}/{s:.3e} = {r:.3e}" for r, n, e, s, _ in rows[:5]))
+    print(f"{what} kernel vs plain grads, DCN params: " + "; ".join(
+        f"{n} {e:.3e}/{s:.3e} = {r:.3e}" for r, n, e, s, _ in rows
+        if n.startswith(("spacetime_fuse.dcn_weight", "spacetime_fuse.dcn_bias",
+                         "spacetime_fuse.dcn_offset_mask"))))
+    bad = [n for _, n, e, _, lim in rows if not e <= lim]
+    if bad:
+        fail(f"the kernel path's grads differ from the plain path's beyond "
+             f"{TOL} of their own scale ({what}): {bad}")
+
+
+def checkpoint_ways(torch, trainer, ckpt: str, root: str, card: str) -> None:
+    """The flagship's asynchronous checkpoint against the sync path on the
+    B=32 run's final state. The run's own last checkpoint (``ckpt``,
+    committed on the writer thread) against a sync save of the same state
+    at the same iteration: the same ``digest.json`` and ``meta.json``, and
+    the restored parameters and optimizer state bitwise. Then the seconds a
+    save blocks the loop, sync against async, in turns (sync, async,
+    async, sync), beside each async commit's seconds."""
+    import numpy as np
+
+    from esr_tpu_torch.training.async_checkpoint import AsyncCheckpointer
+    from esr_tpu_torch.training.checkpoint import read_meta, restore_state, save_checkpoint
+
+    if trainer._async_ckpt is None or trainer._async_ckpt.commits < 1:
+        fail("the flagship's async_checkpoint: true did not commit on the writer")
+    iteration = read_meta(ckpt)["trainer"]["iteration"]
+    args = (trainer.model, trainer.optimizer, trainer.run.config)
+    sync_dir = os.path.join(root, "sync_final")
+    save_checkpoint(sync_dir, *args, iteration, trainer.mnt_best)
+    sync_ckpt = os.path.join(sync_dir, f"checkpoint-iteration{iteration}")
+    for name in ("digest.json", "meta.json"):
+        if Path(ckpt, name).read_bytes() != Path(sync_ckpt, name).read_bytes():
+            fail(f"the async checkpoint's {name} differs from the sync one's")
+    got, want = restore_state(ckpt), restore_state(sync_ckpt)
+    if sorted(got) != sorted(want) or not all(
+            np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes() for k in want):
+        fail("the async checkpoint's restored state is not bitwise the sync one's")
+    state_bytes = sum(np.asarray(v).nbytes for v in want.values())
+    ck = AsyncCheckpointer(trainer.commit_retries, trainer.commit_backoff_s)
+    blocked, commits = {"sync": [], "async": []}, []
+    for i, way in enumerate(("sync", "async", "async", "sync")):
+        where = os.path.join(root, f"turn{i}")
+        torch.cuda.synchronize()
+        if way == "sync":
+            t0 = time.perf_counter()
+            save_checkpoint(where, *args, iteration, trainer.mnt_best)
+            blocked[way].append(time.perf_counter() - t0)
+        else:
+            blocked[way].append(ck.save(where, *args, iteration, trainer.mnt_best))
+            ck.wait()
+            commits.append(ck.last_commit_s)
+    print(f"checkpoint {Path(ckpt).name} (async, the run's): digest.json and meta.json the "
+          f"sync save's, restored params and optimizer state ({len(want)} arrays, "
+          f"{state_bytes} bytes) bitwise")
+    print(f"checkpoint blocked ms a save on {card} (B=32 flagship state, {state_bytes} bytes; "
+          f"turns sync, async, async, sync): sync "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in blocked['sync'])}; async snapshot "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in blocked['async'])}; async commit on the "
+          f"writer {', '.join(f'{t * 1e3:.3f}' for t in commits)}")
+
+
+def phase_train_4x(torch, np, dev, card, repo: Path, out_root: str, fwd_b8: dict,
+                   train_b8: dict):
+    """Phase 7c: ``configs/train_esr_4x.yml`` as written (batch 8, its
+    async checkpoint, vis and tensorboard on), overriding only the run's
+    length and paths, on in-memory 720x1280 recordings with a down4 GT
+    stream: 3 steps and one validation. Each step launches ``dcn_train_fwd``,
+    ``dcn_bwd`` and ``dcn_wgrad`` 14 times (the 24x40 bottleneck), the
+    validation only ``dcn_fwd``; a committed final checkpoint; one step's
+    losses and grads against the plain path within 1e-3 of their scale; the
+    step's time and device busy time beside the kernels' times and bounds
+    at that shape (``fwd_b8``, ``train_b8``, from phases 3 and 4). Returns
+    the run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.data.loader import collate_sequences
+    from esr_tpu_torch.data.synthetic import make_synthetic_recording
+    from esr_tpu_torch.ops import dcn_cuda
+    from esr_tpu_torch.training.checkpoint import find_latest_checkpoint
+    from esr_tpu_torch.training.trainer import Trainer
+
+    def rec(events, seed):
+        return make_synthetic_recording((720, 1280), base_events=events, num_frames=2,
+                                        rungs=("down4", "down16"), seed=seed)
+
+    t0 = time.perf_counter()
+    train_recs, valid_recs = [rec(300_000, 30)], [rec(40_000, 31)]
+    print(f"train 4x setup: recordings in {time.perf_counter() - t0:.2f} s")
+    overrides = [
+        f"trainer;output_path={out_root}",
+        "trainer;iteration_based_train;iterations=3",
+        "trainer;iteration_based_train;valid_step=2",
+        "trainer;iteration_based_train;train_log_step=1",
+    ]
+    run = RunConfig.from_args(str(repo / "configs" / "train_esr_4x.yml"),
+                              overrides=overrides, runid="chip_smoke_4x", seed=0)
+    trainer = Trainer(run, device=dev, train_recordings=train_recs,
+                      valid_recordings=valid_recs)
+    batch_size = run.config["train_dataloader"]["batch_size"]
+    if len(trainer.train_loader) < trainer.iterations or trainer._async_ckpt is None:
+        fail("the 4x run holds fewer batches than iterations, or saves synchronously")
+    per_step, per_valid, step_ms = [], [], []
+    train_step, valid = trainer.train_step, trainer._valid
+
+    def counted_step(batch):
+        before = counts_of()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({n: c - before[n] for n, c in counts_of().items()})
+        return metrics
+
+    def counted_valid():
+        before = counts_of()
+        result = valid()
+        per_valid.append({n: c - before[n] for n, c in counts_of().items()})
+        return result
+
+    trainer.train_step, trainer._valid = counted_step, counted_valid
+    dcn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = counts_of()
+    trainer.train_step, trainer._valid = train_step, valid
+    want_step = {"dcn_fwd": 0, "dcn_train_fwd": 2 * TRAIN_WINDOWS,
+                 "dcn_bwd": 2 * TRAIN_WINDOWS, "dcn_wgrad": 2 * TRAIN_WINDOWS,
+                 "dcn_fwd_masked": 0, "dcn_train_fwd_masked": 0}
+    want_valid = only("dcn_fwd", 2 * len(trainer.valid_loader) * TRAIN_WINDOWS)
+    print(f"train 4x: {len(per_step)} steps of batch {batch_size} + {len(per_valid)} "
+          f"validation(s) in {wall:.3f} s; result {json.dumps(result)}; launches per step "
+          f"{per_step}; per validation {per_valid}")
+    if len(per_step) != trainer.iterations or any(c != want_step for c in per_step):
+        fail(f"4x train steps launched {per_step}, each should be {want_step}")
+    if per_valid != [want_valid]:
+        fail(f"the 4x validation launched {per_valid}, should be [{want_valid}]")
+    if not all(math.isfinite(v) for v in result.values()):
+        fail(f"the 4x run's losses are not finite: {result}")
+    ckpt = find_latest_checkpoint(os.path.dirname(run.save_dir))
+    if ckpt is None or not ckpt.endswith(f"checkpoint-iteration{trainer.iterations - 1}"):
+        fail(f"the 4x run committed no final checkpoint (found {ckpt})")
+    dataset = trainer.train_loader.dataset
+    sel = trainer._select(collate_sequences([dataset.get_item(i, seed=i)
+                                             for i in range(batch_size)]))
+    print(f"train 4x batch: inp {tuple(sel['inp'].shape)}, gt {tuple(sel['gt'].shape)}")
+    step_kernel_vs_plain(torch, trainer, sel, what="4x step")
+    train_step(sel)  # warm
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(sel)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(sel)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    print(f"train 4x step on {card}: batch {batch_size}, step (host clock to synchronize) "
+          f"{sorted(times)[1]:.3f} ms median of 3 ({', '.join(f'{t:.3f}' for t in times)}); "
+          f"in the run {', '.join(f'{t:.3f}' for t in step_ms)} ms")
+    busy = device_time_breakdown(torch, prof, 1, prof_ms, "4x train step", card)
+    rows = [("dcn_fwd (validation, B=8)", fwd_b8)] + [
+        (f"{k} (B=8)", train_b8[k]) for k in ("dcn_train_fwd", "dcn_bwd", "dcn_wgrad")]
+    print(f"train 4x kernels at 24x40x64 on {card}: " + "; ".join(
+        f"{name} {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
+        f"({r['bound_by']}), max_abs_err {r['err']:.3e}" for name, r in rows)
+        + f"; 14 launches a step each of the train kernels: "
+        f"{sum(train_b8[k]['ms'] for k in ('dcn_train_fwd', 'dcn_bwd', 'dcn_wgrad')) * 14:.3f} "
+        f"ms of the step's " + ("device busy not measured" if busy is None
+                                else f"{busy:.3f} ms device busy"))
+    return {k: totals[k] for k in ("dcn_fwd", "dcn_train_fwd", "dcn_bwd", "dcn_wgrad")}
 
 
 def step_ways(torch, trainer, sel, card):
@@ -2427,7 +2633,10 @@ def fleet_entry_point(model, repo: Path, root: str) -> None:
 
 
 AOT_DEPTHS = (8, 4)  # the serving classes' chunk_windows (standard, gated)
-AOT_RUNGS = ("f32", "int8")
+AOT_RUNGS = ("f32", "int8", "bf16")
+# the depths exported at each rung: bf16 at the standard class's only (its
+# session serves every stream in that class), to keep the phase short
+AOT_RUNG_DEPTHS = {"f32": AOT_DEPTHS, "int8": AOT_DEPTHS, "bf16": (8,)}
 AOT_ROUND_S = 0.05  # the replayed schedule's virtual seconds per round
 
 
@@ -2461,9 +2670,10 @@ def drive_replay(server, schedule, round_s: float = AOT_ROUND_S):
 
 def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
     """The AOT export on the sparse flagship at lanes 4: the chunk programs
-    of depths 8 and 4 at f32 and int8 exported from a port checkpoint
-    (``inference.export.export_checkpoint``, ``program="engine_chunk"``),
-    loaded back, and the serving phase's 8 streams served through
+    of depths 8 and 4 at f32 and int8, and of depth 8 at bf16, exported
+    from a port checkpoint (``inference.export.export_checkpoint``,
+    ``program="engine_chunk"``), loaded back, and the serving phase's 8
+    streams (at bf16 all in the standard class) served through
     ``aot_programs`` against a traced session on the same replayed schedule:
     every request's metrics and the final lane states bitwise, the same
     launches (``dcn_fwd_masked``; K1 and K2 at int8), which the loaded
@@ -2490,27 +2700,40 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
              f"x{SERVE_DATA['scale']} pair")
     if sorted({c.chunk_windows for c in classes.values()}) != sorted(AOT_DEPTHS):
         fail(f"the serving classes' depths are not {AOT_DEPTHS}")
-    artifacts = {}
+    artifacts, table = {}, {}
     for rung in AOT_RUNGS:
-        for w in AOT_DEPTHS:
+        for w in AOT_RUNG_DEPTHS[rung]:
             path = os.path.join(out_dir, "aot", f"chunk_program.{rung}.w{w}.pt2")
             t0 = time.perf_counter()
             export_checkpoint(ckpt, path, batch=LANES, height=kh, width=kw,
                               program="engine_chunk", chunk_windows=w,
                               scale=SERVE_DATA["scale"], precision=rung, device=dev)
+            seconds = time.perf_counter() - t0
             artifacts.setdefault(rung, {})[w] = path
+            table[rung, w] = {"export_s": seconds, "bytes": os.path.getsize(path)}
             print(f"aot export {rung} w{w} (lanes {LANES}, GT {kh}x{kw}) on {card}: "
-                  f"{time.perf_counter() - t0:.2f} s, {os.path.getsize(path)} bytes (+ "
+                  f"{seconds:.2f} s, {os.path.getsize(path)} bytes (+ "
                   f"sidecar {os.path.getsize(path + '.json')})")
 
+    def traffic(rung):
+        """The classes a rung's sessions serve, and the schedule: arrivals
+        of a class without an artifact at this rung go to the standard
+        class."""
+        kept = {n: c for n, c in classes.items()
+                if c.chunk_windows in AOT_RUNG_DEPTHS[rung]}
+        return kept, [a if a.request_class in kept
+                      else dataclasses.replace(a, request_class="standard")
+                      for a in schedule]
+
     def session(rung, aot):
-        server = ServingEngine(model, SERVE_DATA, lanes=LANES, classes=classes,
+        kept, arrivals = traffic(rung)
+        server = ServingEngine(model, SERVE_DATA, lanes=LANES, classes=kept,
                                default_class="standard", activity_tile=SERVE_ACTIVITY_TILE,
                                preempt_quantum=2, precision=rung, device=dev,
                                aot_programs=artifacts[rung] if aot else None)
         dcn_cuda.reset_launches()
         int8_cuda.reset_launches()
-        summary, first_s = drive_replay(server, schedule)
+        summary, first_s = drive_replay(server, arrivals)
         torch.cuda.synchronize()
         counts = {**counts_of(), **{k.name: k.launches for k in int8_cuda.KERNELS}}
         return server, summary, first_s, counts
@@ -2542,6 +2765,8 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
         print(f"aot serving {rung}: {len(reports_a)} requests bitwise the traced session "
               f"(metrics, windows, skips, preemptions) and the final lane states bitwise; "
               f"launches {a_counts}, the traced session's the same")
+        for w, secs in aot.program_seconds.items():
+            table[rung, w]["load_ms"] = secs * 1e3
         for tag, summ, first, srv in (("traced", t_sum, t_first, traced),
                                       ("aot", a_sum, a_first, aot)):
             cls = {n: (c["p50_window_ms"], c["p99_window_ms"])
@@ -2555,6 +2780,9 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
                   f"{summ['p50_window_ms']} ms, p99 "
                   f"{summ['p99_window_ms']} ms, per class (p50, p99) {cls}; "
                   f"{summ['windows_per_sec']} windows/s computed")
+    print(f"aot artifacts on {card} (lanes {LANES}): " + "; ".join(
+        f"{rung} w{w} export {r['export_s']:.2f} s, {r['bytes']} bytes, load "
+        f"{r['load_ms']:.1f} ms" for (rung, w), r in table.items()))
     aot_entry_point(model, repo, os.path.join(out_dir, "entry"))
 
 
@@ -3167,6 +3395,9 @@ def main() -> int:
     out_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         totals, sparse_launches, recs = phase_train(torch, np, dev, card, repo, out_root)
+        # -- 7c. the 4x recipe --------------------------------------------
+        totals_4x = phase_train_4x(torch, np, dev, card, repo, os.path.join(out_root, "x4"),
+                                   fwd["valid_4x_b8"], train_kernels["train_4x_b8"])
         # -- 8b. the trainer's runtime, and the chaos scenario ------------
         phase_train_runtime(torch, np, dev, card, repo, os.path.join(out_root, "runtime"), recs)
     finally:
@@ -3181,7 +3412,8 @@ def main() -> int:
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"], "library_ms": None,
         "matrix_max_rel_err": fwd_worst, "b4": fwd["flagship_b4"],
         "validation_b8": fwd["flagship_b8"], "b32": fwd["flagship_b32"],
-        "train_run_launches": totals["dcn_fwd"],
+        "train_run_launches": totals["dcn_fwd"], "validation_4x_b8": fwd["valid_4x_b8"],
+        "train_4x_run_launches": totals_4x["dcn_fwd"],
     }]
     for name in ("dcn_train_fwd", "dcn_bwd", "dcn_wgrad"):
         r = train_kernels["train_flagship_b32"][name]
@@ -3192,6 +3424,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "matrix_max_rel_err": train_worst[name], "shape": "B=32 flagship training",
+            "train_4x_run_launches": totals_4x[name],
             "by_shape": {case: train_kernels[case][name] for case in TIMED_TRAIN_CASES[1:]},
         })
     for name, source, b, launches, extra in (

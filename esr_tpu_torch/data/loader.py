@@ -526,9 +526,11 @@ class DevicePrefetcher:
         self._stop = threading.Event()
         self._it = iter(source)
         self._stage_fn = stage_fn
-        # the source is pulled under _it_lock after a generation check; the
-        # watchdog bumps the generation under _put_lock, which also covers
-        # each producer's (check, enqueue) pair
+        # _it_lock serialises the pulls from the source, taken with the
+        # watchdog's timeout; _put_lock is never held across a wait: it
+        # orders the generation, the item ordinal, each producer's (check,
+        # enqueue) pair and the counters that health() reads from the live
+        # plane's thread
         self._it_lock = threading.Lock()
         self._put_lock = threading.Lock()
         self._gen = 0
@@ -538,11 +540,15 @@ class DevicePrefetcher:
         register_health_source("device_prefetch", self.health)
 
     def health(self) -> dict:
-        """The ``/healthz`` source: unhealthy once the watchdog fired."""
-        return {"healthy": not self.degraded and self.restarts == 0, "gets": self.gets,
-                "stalls": self.stalls, "stall_s": round(self.stall_s, 6),
-                "restarts": self.restarts, "degraded": self.degraded,
-                "queue_depth": self._q.qsize()}
+        """The ``/healthz`` source: unhealthy once the watchdog fired. Runs
+        on the live plane's thread, so it reads the counters under the lock
+        their writers hold."""
+        with self._put_lock:
+            out = {"healthy": not self.degraded and self.restarts == 0, "gets": self.gets,
+                   "stalls": self.stalls, "stall_s": round(self.stall_s, 6),
+                   "restarts": self.restarts, "degraded": self.degraded}
+        out["queue_depth"] = self._q.qsize()
+        return out
 
     def _spawn_producer(self) -> threading.Thread:
         th = threading.Thread(target=self._produce, args=(self._gen,), daemon=True,
@@ -557,7 +563,9 @@ class DevicePrefetcher:
             self._produce_inner(gen)
 
     def _abandoned(self, gen: int) -> bool:
-        # a stale read is re-checked under _put_lock at enqueue
+        """Whether producer ``gen`` was stopped or replaced; called only
+        with ``_put_lock`` held, the lock the watchdog bumps ``_gen``
+        under."""
         return self._stop.is_set() or gen != self._gen
 
     def _acquire_source(self) -> bool:
@@ -576,9 +584,10 @@ class DevicePrefetcher:
         if not self._acquire_source():
             return "abandoned", None
         try:
-            if self._abandoned(gen):
-                return "abandoned", None
-            idx = self._item_idx
+            with self._put_lock:
+                if self._abandoned(gen):
+                    return "abandoned", None
+                idx = self._item_idx
         finally:
             self._it_lock.release()
         from esr_tpu_torch.resilience import faults
@@ -590,13 +599,17 @@ class DevicePrefetcher:
         if not self._acquire_source():
             return "abandoned", None
         try:
-            if self._abandoned(gen):
-                return "abandoned", None
+            with self._put_lock:
+                if self._abandoned(gen):
+                    return "abandoned", None
+            # outside _put_lock: a pull that hangs must leave the watchdog
+            # free to bump the generation
             try:
                 item = next(self._it)
             except StopIteration:
                 return "end", None
-            self._item_idx = idx + 1
+            with self._put_lock:
+                self._item_idx = idx + 1
         finally:
             self._it_lock.release()
         for spec in specs:
@@ -645,8 +658,8 @@ class DevicePrefetcher:
         from esr_tpu_torch.resilience.recovery import emit_recovery
 
         if self.restarts == 0:
-            self.restarts += 1
             with self._put_lock:
+                self.restarts += 1
                 self._gen += 1
             emit_recovery("recovery_prefetch_restart", site="prefetch",
                           waited_s=round(waited, 6), timeout_s=self._stall_timeout)
@@ -654,8 +667,8 @@ class DevicePrefetcher:
                           "abandoned the thread and started a replacement", stacklevel=3)
             self._thread = self._spawn_producer()
         elif not self.degraded:
-            self.degraded = True
             with self._put_lock:
+                self.degraded = True
                 self._gen += 1
             emit_recovery("recovery_prefetch_degrade", site="prefetch",
                           waited_s=round(waited, 6), timeout_s=self._stall_timeout)
@@ -684,8 +697,9 @@ class DevicePrefetcher:
                             kind, payload = self._next_sync()
                         break
         waited = time.monotonic() - t0
-        self.stalls += 1
-        self.stall_s += waited
+        with self._put_lock:
+            self.stalls += 1
+            self.stall_s += waited
         sink = active_sink()
         if sink is not None:
             sink.counter("prefetch_stall", waited_s=round(waited, 6))
@@ -713,7 +727,8 @@ class DevicePrefetcher:
                 kind, payload = self._next_sync()
             else:
                 kind, payload = self._get_blocking()
-        self.gets += 1
+        with self._put_lock:
+            self.gets += 1
         if self.gets % self._gauge_every == 0:
             from esr_tpu_torch.obs import active_sink
 

@@ -132,10 +132,11 @@ def load_flax_params(model: nn.Module, tree: Dict) -> int:
 
 
 def export_flax_params(model: nn.Module) -> Dict:
-    """The model's parameters as a flax tree ``{"params": {...}}`` of numpy."""
+    """The model's parameters as a flax tree ``{"params": {...}}`` of numpy
+    arrays that own their memory (a CPU parameter is copied, not viewed)."""
     root: Dict = {}
     for path, param, transposed in _leaves(model):
-        arr = param.detach().cpu().numpy()
+        arr = param.detach().to("cpu", copy=True).numpy()
         node = root
         for name in path[:-1]:
             node = node.setdefault(name, {})

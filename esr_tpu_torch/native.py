@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -44,14 +44,17 @@ class HostLibrary:
         self._tried = False
         self._lock = threading.Lock()
 
-    def _build(self) -> Optional[Path]:
+    def _build(self) -> Tuple[Optional[Path], str]:
+        """The library's path (``None`` when it does not build) and the
+        compiler's output."""
         tag = hashlib.sha256(self.source.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
         so_path = BUILD_DIR / f"libhost_kernels_{tag}.so"
         if so_path.exists():
-            return so_path
+            return so_path, ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        log = ""
         try:
             # without OpenMP when the compiler has none, as the reference
             for flags in (_FLAGS, tuple(f for f in _FLAGS if f != "-fopenmp")):
@@ -59,27 +62,33 @@ class HostLibrary:
                     proc = subprocess.run(["g++", *flags, str(self.source), "-o", tmp],
                                           capture_output=True, text=True, timeout=120)
                 except (OSError, subprocess.TimeoutExpired) as e:
-                    self.build_log += f"{e}\n"
-                    return None
-                self.build_log += proc.stdout + proc.stderr
+                    return None, log + f"{e}\n"
+                log += proc.stdout + proc.stderr
                 if proc.returncode == 0:
                     os.replace(tmp, so_path)
-                    return so_path
-            return None
+                    return so_path, log
+            return None, log
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
 
     def load(self) -> Optional[ctypes.CDLL]:
-        """The library, or ``None`` when it is unavailable."""
+        """The library, or ``None`` when it is unavailable. The build runs
+        outside ``_lock``, which guards only ``_tried`` and ``_lib``: two
+        threads that both find the library missing build it twice, each
+        into its own temp file that ``os.replace`` publishes whole, and
+        the first to finish is the one kept."""
         if os.environ.get("ESR_TPU_NATIVE", "1") == "0":
             return None
         with self._lock:
+            if self._tried:
+                return self._lib
+        so, log = self._build()
+        lib = _declare(ctypes.CDLL(str(so))) if so is not None else None
+        with self._lock:
             if not self._tried:
-                self._tried = True
-                so = self._build()
-                if so is not None:
-                    self._lib = _declare(ctypes.CDLL(str(so)))
+                self._tried, self._lib = True, lib
+                self.build_log += log
             return self._lib
 
 

@@ -256,6 +256,26 @@ def _rel_error(ref, cand) -> float:
     return worst
 
 
+def drift_ladder(ref: Dict, cand: Dict, tolerance: float) -> Dict:
+    """The per-tag relative-error ladder of candidate taps against
+    reference taps (``{tag: [tensor per firing]}``), in tag order: each
+    rung's ``rel_err`` and whether it ``exceeds`` ``tolerance``, the first
+    tag over it and the worst tag."""
+    ladder = []
+    first = None
+    worst_tag, worst_rel = None, -1.0
+    for tag in order_tags(ref):
+        rel = _rel_error(ref[tag], cand[tag])
+        exceeds = rel > tolerance
+        ladder.append({"tag": tag, "rel_err": round(rel, 6), "exceeds": exceeds})
+        if exceeds and first is None:
+            first = tag
+        if rel > worst_rel:
+            worst_rel, worst_tag = rel, tag
+    return {"first_offender": first, "worst_tag": worst_tag,
+            "n_exceeding": sum(1 for e in ladder if e["exceeds"]), "ladder": ladder}
+
+
 def run_drift(dtype: str = "bfloat16", basech: int = 8, hw: int = 32, frames: int = 3,
               batch: int = 1, seed: int = 0, tolerance: float = 0.25,
               break_tag: Optional[str] = None, inch: int = 2, device=None) -> Dict:
@@ -304,17 +324,7 @@ def run_drift(dtype: str = "bfloat16", basech: int = 8, hw: int = 32, frames: in
     else:
         twin = copy.deepcopy(model).to(cand_dtype)
         cand = taps(twin, x.to(cand_dtype), tuple(s.to(cand_dtype) for s in states))
-    ladder = []
-    first = None
-    worst_tag, worst_rel = None, -1.0
-    for tag in order_tags(ref):
-        rel = _rel_error(ref[tag], cand[tag])
-        exceeds = rel > tolerance
-        ladder.append({"tag": tag, "rel_err": round(rel, 6), "exceeds": exceeds})
-        if exceeds and first is None:
-            first = tag
-        if rel > worst_rel:
-            worst_rel, worst_tag = rel, tag
+    found = drift_ladder(ref, cand, tolerance)
     return {
         "dtype": "int8" if cand_dtype is None else str(cand_dtype).replace("torch.", ""),
         "reference": "float32",
@@ -324,8 +334,5 @@ def run_drift(dtype: str = "bfloat16", basech: int = 8, hw: int = 32, frames: in
         "model": {"name": "DeepRecurrNet", "basech": basech, "hw": hw, "frames": frames,
                   "batch": batch, "inch": inch},
         "break_tag": break_tag,
-        "first_offender": first,
-        "worst_tag": worst_tag,
-        "n_exceeding": sum(1 for e in ladder if e["exceeds"]),
-        "ladder": ladder,
+        **found,
     }

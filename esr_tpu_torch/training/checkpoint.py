@@ -17,10 +17,14 @@ best, ``model_best_until_iteration{N}/``) holding
   ``os.replace``, so a save cut short leaves a directory that
   :func:`find_latest_checkpoint` ignores.
 
-The ``ckpt_commit`` fault site fires once per save attempt, keyed by the
-iteration: ``fail`` raises before a byte is written, ``torn`` between the
-arrays and the marker (the trainer retries the commit,
-``trainer.commit_retries``).
+A save is two parts: :func:`snapshot_state` copies the model's and the
+optimizer's state into host memory the snapshot owns, and
+:func:`commit_checkpoint` writes that host state. :func:`save_checkpoint`
+runs both inline; ``training.async_checkpoint`` runs the commit on a
+writer thread. The ``ckpt_commit`` fault site fires once per commit
+attempt, keyed by the iteration: ``fail`` raises before a byte is
+written, ``torn`` between the arrays and the marker (the trainer retries
+the commit, ``trainer.commit_retries``).
 
 Resume checks names as the reference does: another model name skips the
 restore; another optimizer name restores the parameters only; ``reset``
@@ -30,6 +34,7 @@ progress.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import os
@@ -84,12 +89,45 @@ def restore_state(path: str) -> Dict[str, np.ndarray]:
     return host_state(inference_checkpoint.read_params(path), opt_state)
 
 
+def host_copy(obj):
+    """``obj`` (a nested state of dicts, lists and tensors) with every
+    tensor copied to host memory of its own: PyTorch updates parameters
+    and optimizer moments in place, and ``state_dict()`` holds the live
+    tensors, not copies."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [host_copy(v) for v in obj]
+    return copy.deepcopy(obj)
+
+
+def snapshot_state(model: nn.Module, optimizer: ScheduledOptimizer) -> Tuple[Dict, Dict]:
+    """``(params, opt_state)``: the flax parameter tree (numpy) and the
+    optimizer's state dict, both in host memory that no later step
+    touches. Blocks until the device's copies are done."""
+    return convert.export_flax_params(model), host_copy(optimizer.state_dict())
+
+
 def save_checkpoint(save_dir: str, model: nn.Module, optimizer: ScheduledOptimizer,
                     config: Dict, iteration: int, monitor_best: float,
                     training_mode: str = "iteration_based_train",
                     save_best: bool = False) -> str:
-    """Write ``checkpoint-iteration{N}`` (and the best alias when asked);
-    returns the last path written."""
+    """Write ``checkpoint-iteration{N}`` (and the best alias when asked)
+    from the live model and optimizer; returns the last path written."""
+    params, opt_state = snapshot_state(model, optimizer)
+    return commit_checkpoint(save_dir, params, opt_state, config, iteration, monitor_best,
+                             training_mode=training_mode, save_best=save_best)
+
+
+def commit_checkpoint(save_dir: str, params: Dict, opt_state: Dict, config: Dict,
+                      iteration: int, monitor_best: float,
+                      training_mode: str = "iteration_based_train",
+                      save_best: bool = False) -> str:
+    """Write a :func:`snapshot_state` as ``checkpoint-iteration{N}`` (and
+    the best alias when asked): the arrays, then the digest, then the
+    marker. Returns the last path written."""
     from esr_tpu_torch.resilience import faults
     from esr_tpu_torch.resilience.recovery import state_digest, write_digest
 
@@ -108,8 +146,6 @@ def save_checkpoint(save_dir: str, model: nn.Module, optimizer: ScheduledOptimiz
     names = [f"checkpoint-iteration{iteration}"]
     if save_best:
         names.append(f"model_best_until_iteration{iteration}")
-    params = convert.export_flax_params(model)
-    opt_state = optimizer.state_dict()
     paths = [os.path.join(os.path.abspath(save_dir), n) for n in names]
     for path in paths:
         marker = os.path.join(path, META)

@@ -84,6 +84,14 @@ early stop, checkpoints, and the runtime around them (counterpart of
   resumes, ``-r auto`` resumes the newest committed checkpoint that
   validates (``restore_with_fallback``), ``--reset`` restarts the
   progress; a resume, like a rollback, starts at a group boundary.
+- ``async_checkpoint`` (the flagship sets it): a save blocks only for the
+  snapshot of the state to host memory (the ``checkpoint_snapshot`` span);
+  the commit runs on a ``ckpt-commit`` writer thread
+  (``training.async_checkpoint``, the ``checkpoint_commit`` span), one at
+  a time. Barriers join it before the next snapshot, before a rollback's
+  restore, after the final save (a failed commit fails the run there) and
+  first in ``train()``'s teardown. The run-start rollback snapshot is
+  freed once a commit has landed. Off, each save commits inline.
 
 ``k_steps`` changes numbers only through those cadences: the reference
 runs a group as one compiled scan, the port runs its steps one by one (a
@@ -91,8 +99,7 @@ CUDA graph of the group is later work), so the losses are those of
 ``k_steps: 1``. Keys that only steer how XLA compiles or dispatches the
 reference's programs, and cannot change a number, are read and mean here:
 ``train_lookahead`` (the port reads each group's scalars after it),
-``compile_cache`` (nothing is compiled),
-``async_checkpoint`` (saves are synchronous), ``validate.fused`` /
+``compile_cache`` (nothing is compiled), ``validate.fused`` /
 ``validate.chunk_windows`` (validation runs batch by batch).
 
 Refused: ``precision: bf16`` raises ``NotImplementedError`` naming the
@@ -138,7 +145,8 @@ from esr_tpu_torch.resilience.recovery import (
     restore_with_fallback,
     retry_with_backoff,
 )
-from esr_tpu_torch.training.checkpoint import resume_checkpoint, save_checkpoint
+from esr_tpu_torch.training.async_checkpoint import AsyncCheckpointer
+from esr_tpu_torch.training.checkpoint import resume_checkpoint, save_checkpoint, snapshot_state
 from esr_tpu_torch.training.train_step import (
     make_device_rasterizer,
     make_eval_step,
@@ -223,23 +231,6 @@ def _group_items(groups):
             yield j, len(group), batch
 
 
-def _host_snapshot(model: torch.nn.Module, optimizer) -> Dict:
-    """The model's and the optimizer's state on the host (the rollback of
-    last resort when no checkpoint was committed yet)."""
-    opt = optimizer.state_dict()
-
-    def host(obj):
-        if isinstance(obj, torch.Tensor):
-            return obj.detach().cpu().clone()
-        if isinstance(obj, dict):
-            return {k: host(v) for k, v in obj.items()}
-        if isinstance(obj, list):
-            return [host(v) for v in obj]
-        return copy.deepcopy(obj)
-
-    return {"params": convert.export_flax_params(model), "optimizer": host(opt)}
-
-
 class Trainer:
     """``Trainer(run).train()``; ``device`` defaults to the card.
     ``train_recordings`` / ``valid_recordings`` (paths or in-memory
@@ -283,6 +274,8 @@ class Trainer:
         self.commit_backoff_s = float(tcfg.get("commit_backoff_s", 0.1))
         if self.commit_backoff_s <= 0:
             raise ValueError(f"commit_backoff_s must be > 0, got {self.commit_backoff_s}")
+        self._async_ckpt = (AsyncCheckpointer(self.commit_retries, self.commit_backoff_s)
+                            if bool(tcfg.get("async_checkpoint", False)) else None)
         self.prefetch_stall_timeout = tcfg.get("prefetch_stall_timeout_s", None)
         self.device_prefetch = int(tcfg.get("device_prefetch", 2))
         if self.device_prefetch < 0:
@@ -436,7 +429,7 @@ class Trainer:
             if best is not None:
                 self.mnt_best = best
         # the rollback target of last resort (no committed checkpoint yet)
-        self._init_state = (_host_snapshot(self.model, self.optimizer)
+        self._init_state = (snapshot_state(self.model, self.optimizer)
                             if self._guard is not None else None)
 
     # -- batches -------------------------------------------------------------
@@ -569,15 +562,27 @@ class Trainer:
     # -- resilience ----------------------------------------------------------
 
     def _save(self, iteration: int, best: bool) -> None:
-        """A checkpoint commit, retried ``commit_retries`` times
+        """A checkpoint: with ``async_checkpoint`` the snapshot here (the
+        ``checkpoint_snapshot`` span) and the commit on the writer; else the
+        commit inline. Either commit is retried ``commit_retries`` times
         (``recovery_ckpt_retry``)."""
-        retry_with_backoff(
-            lambda: save_checkpoint(self.run.save_dir, self.model, self.optimizer,
-                                    self.run.config, iteration, self.mnt_best, save_best=best),
-            retries=self.commit_retries, backoff_s=self.commit_backoff_s, site="ckpt_commit",
-            event="recovery_ckpt_retry", iteration=iteration)
-        # a committed checkpoint exists: the run-start snapshot is dead weight
-        self._init_state = None
+        if self._async_ckpt is not None:
+            snap_s = self._async_ckpt.save(self.run.save_dir, self.model, self.optimizer,
+                                           self.run.config, iteration, self.mnt_best,
+                                           save_best=best)
+            if self.sink is not None:
+                self.sink.span("checkpoint_snapshot", snap_s, iteration=int(iteration),
+                               best=bool(best))
+        else:
+            retry_with_backoff(
+                lambda: save_checkpoint(self.run.save_dir, self.model, self.optimizer,
+                                        self.run.config, iteration, self.mnt_best,
+                                        save_best=best),
+                retries=self.commit_retries, backoff_s=self.commit_backoff_s,
+                site="ckpt_commit", event="recovery_ckpt_retry", iteration=iteration)
+        # once a commit has landed the run-start snapshot is dead weight
+        if self._async_ckpt is None or self._async_ckpt.commits > 0:
+            self._init_state = None
 
     def _dispatch(self, fn, batch, err_specs=()):
         """The step call, retried ``dispatch_retries`` times with the same
@@ -603,14 +608,18 @@ class Trainer:
             raise RuntimeError(f"anomaly guard rolled back {self._guard.rollbacks} times "
                                f"(budget {self.max_rollbacks}); training diverges "
                                "deterministically — refusing to loop") from rb
+        if self._async_ckpt is not None:
+            # a failed commit is no error here: the restore falls back past it
+            self._async_ckpt.wait(raise_error=False)
         start_iter, best, path = restore_with_fallback(
             self.run.save_dir, self.model, self.optimizer, self.run.config)
         if path is None:
             if self._init_state is None:
                 raise RuntimeError("rollback requested but no committed checkpoint and no "
                                    "run-start snapshot exists") from rb
-            convert.load_flax_params(self.model, self._init_state["params"])
-            self.optimizer.load_state_dict(self._init_state["optimizer"])
+            params, opt_state = self._init_state
+            convert.load_flax_params(self.model, params)
+            self.optimizer.load_state_dict(opt_state)
             start_iter, best = self.start_iteration, None
         if best is not None:
             self.mnt_best = best
@@ -682,9 +691,16 @@ class Trainer:
                                            site="train", cuda=cuda)
                 profiler.maybe_start()
             result = self._train_loop(progress, profiler)
+            if self._async_ckpt is not None:
+                # the final commit: a failed one fails the run here
+                self._async_ckpt.wait()
             completed = True
             return result
         finally:
+            if self._async_ckpt is not None:
+                # no commit outlives the run or writes after the sink closes;
+                # logged, not raised: the exception on its way owns the run
+                self._async_ckpt.wait(raise_error=False)
             self._stage_spans.clear()
             if whole_run is not None:
                 stop_trace(whole_run, self.trace_dir, "train")

@@ -1,7 +1,8 @@
 """The port stands alone: ``esr_tpu_torch`` imports no JAX, nothing of
 ``esr_tpu`` and no PyYAML, loads ``h5py`` only when a recording is opened,
 and its entry points (evaluation and training) run on the card unless the
-CPU is asked for by name."""
+CPU is asked for by name. The reference's thread audit
+(``esr_tpu.analysis.concurrency``, pure AST) finds nothing over it."""
 
 import ast
 import subprocess
@@ -46,6 +47,31 @@ def test_package_imports_no_jax_and_no_reference():
     bad = {str(f.relative_to(PKG.parent)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
+
+
+def test_thread_audit_over_the_port_is_clean_and_models_the_commit_writer():
+    import ast as _ast
+
+    from esr_tpu.analysis.concurrency import audit_concurrency, extract_module_model
+    from esr_tpu.analysis.core import ModuleContext
+
+    audit = audit_concurrency([str(PKG)], relative_to=str(PKG.parent))
+    assert [f"{f.rule} {f.path}:{f.line} {f.message}" for f in audit.findings] == []
+    model = audit.model
+    assert model["files"] == len(list(PKG.rglob("*.py")))
+    # the loader's two worker pools, the prefetcher's producer, the memory
+    # watermark poller, the live plane's and the fleet view's HTTP servers,
+    # the fleet supervisor, and the checkpoint writer
+    assert model["threads_modeled"] == 8 and model["classes_modeled"] == 7
+    path = PKG / "training" / "async_checkpoint.py"
+    ctx = ModuleContext(str(path), path.read_text(), rel_path="training/async_checkpoint.py")
+    writer = {m.name: m for m in extract_module_model(ctx)}["AsyncCheckpointer"]
+    (spawn,) = writer.spawns
+    name = next(k.value for k in spawn.node.keywords if k.arg == "name")
+    assert (spawn.kind, spawn.target, spawn.daemon, spawn.store) == (
+        "thread", "self._commit", True, "self._thread")
+    assert isinstance(name, _ast.Constant) and name.value == "ckpt-commit"
+    assert writer.entries == {"_commit": "thread:_commit"}
 
 
 def test_importing_the_harness_loads_no_jax_and_no_h5py():

@@ -4,17 +4,19 @@ helpers), the recovery machinery (anomaly guard, bounded retry, restore
 integrity and fallback), the Chrome trace export and the reference's
 reporter over a port training run's ``telemetry.jsonl``, the chaos
 scenario against the reference's train phase on the same seed, the
-trainer's remat, bf16 transfer, probes-off parity and profiler capture, and
+trainer's remat, bf16 transfer, probes-off parity and profiler capture,
 ``calibrate_ranges`` against the reference's on the same weights and corpus
-(rtol 1e-5, plus its rounding to six decimals).
+(rtol 1e-5, plus its rounding to six decimals), the int8 drift ladder
+against the reference's on the probed window, and asynchronous
+checkpointing (``training.async_checkpoint``) against the sync save.
 
 Tolerances: tensor stats and a probed window's per-tag stats rtol 1e-5
 (the sign-carrying ``mean`` also atol 1e-6 x the tag's ``max_abs``: a sum
 of mixed signs cancels), ``count`` and ``nonfinite`` exact; the chaos run
 rejoins its twin within 1e-5 relative (it is bitwise on the CPU); a remat
 train step within the train-step parity tolerance of
-``tests/test_torch_train.py`` (rtol 1e-5, atol 1e-6); everything else
-exact.
+``tests/test_torch_train.py`` (rtol 1e-5, atol 1e-6); the int8 ladder's
+rungs rtol 1e-3, atol 2e-6; everything else exact.
 """
 
 import json
@@ -55,7 +57,14 @@ from esr_tpu_torch.resilience import recovery as T_recovery
 from esr_tpu_torch.resilience.faults import FaultPlan, FaultSpec, installed
 from esr_tpu_torch.training import optim as T_optim
 from esr_tpu_torch.training import train_step as T_step
-from esr_tpu_torch.training.checkpoint import restore_state, save_checkpoint
+from esr_tpu_torch.training.async_checkpoint import AsyncCheckpointer, AsyncCheckpointError
+from esr_tpu_torch.training.checkpoint import (
+    find_latest_checkpoint,
+    host_state,
+    restore_state,
+    save_checkpoint,
+    snapshot_state,
+)
 from esr_tpu_torch.training.trainer import Trainer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -158,7 +167,8 @@ def probed():
     convert.load_flax_params(port, params)
     with torch.no_grad(), T_numerics.collect() as sown:
         port.eval()(torch.from_numpy(x), port.init_states(B, H, W))
-    return {"want": want, "got": {k: v.numpy() for k, v in sown.items()}}
+    return {"want": want, "got": {k: v.numpy() for k, v in sown.items()}, "params": params,
+            "x": x}
 
 
 def test_probed_window_stats_match_reference(probed):
@@ -196,6 +206,50 @@ def test_first_offending_tag_and_poison_tag_match_reference(probed, case):
         np.testing.assert_array_equal(merged[tag], ref_merged[tag])
         assert T_obs_numerics.stats_fields(merged[tag]) == J_obs_numerics.stats_fields(
             ref_merged[tag])
+
+
+def test_int8_drift_ladder_matches_reference(probed):
+    """The probed window's raw taps at f32 and under each package's own
+    ``int8_scope``, the same weights: the port's ladder has the reference's
+    tags in its order and its ``worst_tag``, each rung's rel_err within
+    0.1% of the reference's, plus 2e-6 for the port's rounding of the rung
+    to six decimals (the f32 feeds differ by rounding, so a value on a
+    quantization step's edge may round the other way)."""
+    from esr_tpu.config.quantize import int8_scope as ref_int8_scope
+    from esr_tpu_torch.config.quantize import int8_scope
+
+    params, x = probed["params"], probed["x"]
+    ref = FlaxNet(inch=2, basech=4, num_frame=3, dcn_impl="jnp", numerics=True,
+                  numerics_mode="raw")
+
+    def ref_taps(p, xx, ss, int8):
+        with ref_int8_scope(int8):
+            _, mut = ref.apply(p, xx, ss, train=False, mutable=["numerics"])
+        return mut["numerics"]
+
+    traced = jax.jit(ref_taps, static_argnums=3)
+    want = {int8: J_numerics.flatten_probes(jax.device_get(
+        traced(params, x, ref.init_states(B, H, W), int8))) for int8 in (False, True)}
+    port = DeepRecurrNet(inch=2, basech=4, num_frame=3, numerics=True, numerics_mode="raw")
+    convert.load_flax_params(port, params)
+    port.eval()
+
+    def port_taps():
+        with torch.no_grad(), T_numerics.collect() as sown:
+            port(torch.from_numpy(x), port.init_states(B, H, W))
+        return {tag: [t.numpy() for t in vals] for tag, vals in sown.items()}
+
+    f32 = port_taps()
+    with int8_scope():
+        int8 = port_taps()
+    got = T_obs_numerics.drift_ladder(f32, int8, tolerance=0.25)
+    ref_tags = J_obs_numerics.order_tags(want[False])
+    ref_rel = [J_obs_numerics._rel_error(want[False][t], want[True][t]) for t in ref_tags]
+    assert [e["tag"] for e in got["ladder"]] == ref_tags
+    assert got["worst_tag"] == ref_tags[int(np.argmax(ref_rel))]
+    np.testing.assert_allclose([e["rel_err"] for e in got["ladder"]], ref_rel, rtol=1e-3,
+                               atol=2e-6)
+    assert min(ref_rel) > 0  # every seam quantized
 
 
 def test_drift_names_the_broken_tag_and_only_it():
@@ -567,6 +621,122 @@ def test_transfer_bf16_rounds_on_the_host_as_the_reference(runtime_run):
     assert torch.equal(trainer._stage(batch)["gt"], torch.from_numpy(batch["gt_cnt"]))
 
 
+@pytest.fixture(scope="module")
+def checkpoint_twins(shared_corpus_dir, tmp_path_factory):
+    """The run of :func:`runtime_run` without its observers (live plane,
+    profiler, probes), as the flagship writes it (``async_checkpoint:
+    true``) and with ``async_checkpoint`` off; the async run records its
+    barriers (the caller, ``raise_error``) and, after each save, whether
+    the run-start snapshot is still held."""
+    import sys
+
+    out = tmp_path_factory.mktemp("torch_ckpt_twins")
+    quiet = ["trainer;live_telemetry=false", "trainer;profile_steps=0",
+             "trainer;numerics=false"]
+    runs = {}
+    for name, extra in (("async", []), ("sync", ["trainer;async_checkpoint=false"])):
+        run = _run_config(out, shared_corpus_dir, quiet + extra, runid=name)
+        trainer = Trainer(run, device="cpu")
+        barriers, held = [], []
+        if trainer._async_ckpt is not None:
+            wait = trainer._async_ckpt.wait
+
+            def recorded_wait(raise_error=True, timeout=None, wait=wait):
+                barriers.append((sys._getframe(1).f_code.co_name, raise_error))
+                return wait(raise_error, timeout)
+
+            trainer._async_ckpt.wait = recorded_wait
+        save = trainer._save
+
+        def recorded_save(iteration, best, save=save, trainer=trainer, held=held):
+            save(iteration, best)
+            held.append((iteration, trainer._init_state is not None))
+
+        trainer._save = recorded_save
+        trainer.train()
+        runs[name] = {"run": run, "trainer": trainer, "barriers": barriers, "held": held}
+    return runs
+
+
+def test_async_checkpoints_are_the_sync_ones_and_barriered_as_the_reference(
+        checkpoint_twins):
+    """``async_checkpoint: true`` commits on the writer thread what the sync
+    path commits inline: every checkpoint's digest and marker, and the
+    restored state bitwise. The barriers are the reference's: one in each
+    save, the final commit's inside the run (raising), the teardown's
+    (logging); the run-start snapshot is freed once a commit has landed."""
+    a, s = checkpoint_twins["async"], checkpoint_twins["sync"]
+    assert a["trainer"]._async_ckpt is not None and s["trainer"]._async_ckpt is None
+    assert a["trainer"]._async_ckpt.commits == 2 and not a["trainer"]._async_ckpt.in_flight
+    assert a["barriers"] == [("save", True), ("save", True), ("train", True),
+                             ("train", False)]
+    assert a["held"] == [(2, True), (3, False)] and s["held"] == [(2, False), (3, False)]
+    adir, sdir = Path(a["run"].save_dir), Path(s["run"].save_dir)
+    names = sorted(p.name for p in adir.iterdir() if p.is_dir())
+    assert names == sorted(p.name for p in sdir.iterdir() if p.is_dir()) == [
+        "checkpoint-iteration2", "checkpoint-iteration3", "model_best_until_iteration2"]
+    for name in names:
+        for f in ("digest.json", "meta.json"):
+            assert (adir / name / f).read_bytes() == (sdir / name / f).read_bytes(), (name, f)
+        got, want = restore_state(str(adir / name)), restore_state(str(sdir / name))
+        assert sorted(got) == sorted(want)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{name} {key}")
+    spans = [r for r in _records(Path(a["run"].log_dir) / "telemetry.jsonl")
+             if r["type"] == "span"]
+    snaps = [r for r in spans if r["name"] == "checkpoint_snapshot"]
+    commits = [r for r in spans if r["name"] == "checkpoint_commit"]
+    assert [r["iteration"] for r in snaps] == [r["iteration"] for r in commits] == [2, 3]
+    assert {r["thread"] for r in commits} == {"ckpt-commit"}
+    assert "ckpt-commit" not in {r["thread"] for r in snaps}
+    # each commit carries the trace of the group that took its snapshot
+    assert [r["trace_id"] for r in commits] == [r["trace_id"] for r in snaps]
+    assert not any(r["name"].startswith("checkpoint_")
+                   for r in _records(Path(s["run"].log_dir) / "telemetry.jsonl"))
+
+
+def test_rollback_restores_after_the_commit_in_flight_lands(runtime_run, tmp_path,
+                                                           monkeypatch):
+    """The rollback's barrier: with a commit held open on the writer, the
+    rollback waits for it and restores what it committed (without the
+    barrier no checkpoint exists yet, and the run-start state would be
+    restored)."""
+    import threading
+
+    from esr_tpu_torch.resilience.recovery import RollbackSignal
+    from esr_tpu_torch.training import async_checkpoint as T_async
+
+    trainer = runtime_run["bf16"]  # built with the guard and the async writer, never run
+    ck = trainer._async_ckpt
+    assert ck is not None and trainer._guard is not None and trainer._init_state is not None
+    monkeypatch.setattr(trainer.run, "save_dir", str(tmp_path / "models"))
+    release, commit = threading.Event(), T_async.commit_checkpoint
+
+    def held_open(*args, **kwargs):
+        release.wait(timeout=60)
+        return commit(*args, **kwargs)
+
+    monkeypatch.setattr(T_async, "commit_checkpoint", held_open)
+    want = host_state(*snapshot_state(trainer.model, trainer.optimizer))
+    ck.save(trainer.run.save_dir, trainer.model, trainer.optimizer, trainer.run.config, 41,
+            trainer.mnt_best)
+    assert ck.in_flight and find_latest_checkpoint(str(tmp_path)) is None
+    timer = threading.Timer(0.2, release.set)
+    timer.start()
+    try:
+        start = trainer._perform_rollback(RollbackSignal(at_iteration=43, bad_steps=2))
+    finally:
+        timer.cancel()
+        release.set()
+    assert start == 42 and ck.commits == 1 and not ck.in_flight
+    assert find_latest_checkpoint(str(tmp_path)) == str(
+        tmp_path / "models" / "checkpoint-iteration41")
+    got = host_state(*snapshot_state(trainer.model, trainer.optimizer))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
 @pytest.mark.parametrize("extra,error", [
     (["trainer;transfer_dtype=bf16", "trainer;device_rasterize=true"], "transfer_dtype=bf16"),
     (["trainer;profile;enabled=true"], "mutually exclusive"),
@@ -582,6 +752,182 @@ def test_runtime_keys_raise_the_reference_errors(shared_corpus_dir, tmp_path, ex
                    *extra], runid="run0", seed=5, make_dirs=False)
     with pytest.raises(ValueError, match=error):
         Trainer(run, device="cpu")
+
+
+# -- asynchronous checkpointing ----------------------------------------------
+
+
+def _take_step(model, opt, seed):
+    """One optimizer update from seeded gradients: it changes the
+    parameters and Adam's moments in place."""
+    g = torch.Generator().manual_seed(seed)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=g)
+    opt.step()
+
+
+@pytest.fixture
+def ckpt_setup():
+    """A tiny model and an Adam optimizer one update in, the checkpoint
+    config, and the host state they hold now."""
+    resolve_device("cpu")
+    torch.manual_seed(0)
+    model = DeepRecurrNet(inch=2, basech=2, num_frame=3)
+    opt = T_optim.make_optimizer("Adam", model.parameters(), lr=1e-3, weight_decay=1e-4)
+    _take_step(model, opt, 0)
+    return model, opt, T_chaos.train_config("unused", basech=2)
+
+
+def _state_now(model, opt):
+    return host_state(*snapshot_state(model, opt))
+
+
+def _assert_state_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+def test_async_save_restores_bitwise_the_sync_save(tmp_path, ckpt_setup):
+    model, opt, config = ckpt_setup
+    want = _state_now(model, opt)
+    save_checkpoint(str(tmp_path / "sync"), model, opt, config, 5, 0.25)
+    ck = AsyncCheckpointer()
+    blocked = ck.save(str(tmp_path / "async"), model, opt, config, 5, 0.25)
+    # the next update changes the live tensors while the commit may still run
+    _take_step(model, opt, 1)
+    ck.wait(timeout=60)
+    assert ck.commits == 1 and blocked >= 0 and ck.last_commit_s > 0 and not ck.in_flight
+    a = tmp_path / "async" / "checkpoint-iteration5"
+    s = tmp_path / "sync" / "checkpoint-iteration5"
+    for name in ("digest.json", "meta.json"):
+        assert (a / name).read_bytes() == (s / name).read_bytes(), name
+    _assert_state_equal(restore_state(str(a)), want)
+    _assert_state_equal(restore_state(str(s)), want)
+    assert T_recovery.validate_restored(str(a), restore_state(str(a))) == (True, "ok")
+
+
+def test_async_torn_commit_is_invisible_and_the_prior_restores_bitwise(tmp_path, ckpt_setup):
+    model, opt, config = ckpt_setup
+    root = tmp_path / "ckpt"
+    ck = AsyncCheckpointer(commit_retries=0)
+    ck.save(str(root), model, opt, config, 3, 0.5)
+    ck.wait(timeout=60)
+    prior = _state_now(model, opt)
+    _take_step(model, opt, 1)
+    with installed(FaultPlan([FaultSpec("ckpt_commit", 7, "torn")])):
+        ck.save(str(root), model, opt, config, 7, 0.5)
+        with pytest.raises(AsyncCheckpointError, match="torn"):
+            ck.wait(timeout=60)
+    torn = root / "checkpoint-iteration7"
+    assert (torn / "params.npz").is_file() and not (torn / "meta.json").exists()
+    assert find_latest_checkpoint(str(root)) == str(root / "checkpoint-iteration3")
+    _assert_state_equal(restore_state(str(root / "checkpoint-iteration3")), prior)
+    # the trainer's restore lands on it too, bitwise
+    torch.manual_seed(1)
+    fresh = DeepRecurrNet(inch=2, basech=2, num_frame=3)
+    fresh_opt = T_optim.make_optimizer("Adam", fresh.parameters(), lr=1e-3, weight_decay=1e-4)
+    start, _, path = T_recovery.restore_with_fallback(str(root), fresh, fresh_opt, config)
+    assert (start, Path(path).name) == (4, "checkpoint-iteration3")
+    _assert_state_equal(_state_now(fresh, fresh_opt), prior)
+
+
+def test_async_barrier_allows_one_commit_in_flight(tmp_path, ckpt_setup, monkeypatch):
+    import threading
+
+    from esr_tpu_torch.training import async_checkpoint as T_async
+
+    model, opt, config = ckpt_setup
+    root = tmp_path / "ckpt"
+    release, entered = threading.Event(), threading.Semaphore(0)
+    live, most, lock = [0], [0], threading.Lock()
+    commit = T_async.commit_checkpoint
+
+    def held_open(*args, **kwargs):
+        with lock:
+            live[0] += 1
+            most[0] = max(most[0], live[0])
+        entered.release()
+        release.wait(timeout=60)
+        try:
+            return commit(*args, **kwargs)
+        finally:
+            with lock:
+                live[0] -= 1
+
+    monkeypatch.setattr(T_async, "commit_checkpoint", held_open)
+    ck = AsyncCheckpointer()
+    ck.save(str(root), model, opt, config, 1, 0.0)
+    assert entered.acquire(timeout=60)
+    second = threading.Thread(target=ck.save, args=(str(root), model, opt, config, 2, 0.0))
+    second.start()
+    # the second save waits at its barrier: its commit cannot start
+    assert not entered.acquire(timeout=0.5)
+    assert second.is_alive() and ck.in_flight
+    assert not (root / "checkpoint-iteration1" / "meta.json").exists()
+    release.set()
+    second.join(timeout=60)
+    assert not second.is_alive()
+    ck.wait(timeout=60)
+    assert most[0] == 1 and ck.commits == 2
+    assert find_latest_checkpoint(str(root)) == str(root / "checkpoint-iteration2")
+
+
+def test_async_garbage_meta_falls_back_to_the_prior_commit(tmp_path, ckpt_setup):
+    model, opt, config = ckpt_setup
+    root = tmp_path / "ckpt"
+    ck = AsyncCheckpointer()
+    ck.save(str(root), model, opt, config, 1, 0.0)
+    prior = _state_now(model, opt)
+    _take_step(model, opt, 1)
+    ck.save(str(root), model, opt, config, 2, 0.0)
+    ck.wait(timeout=60)
+    (root / "checkpoint-iteration2" / "meta.json").write_text("{not json")
+    assert find_latest_checkpoint(str(root)) == str(root / "checkpoint-iteration1")
+    _assert_state_equal(restore_state(str(root / "checkpoint-iteration1")), prior)
+
+
+def test_async_commit_retries_an_injected_fault_then_commits(tmp_path, ckpt_setup):
+    model, opt, config = ckpt_setup
+    root = tmp_path / "ckpt"
+    sink = TelemetrySink(str(tmp_path / "telemetry.jsonl"))
+    prev = set_active_sink(sink)
+    try:
+        with installed(FaultPlan([FaultSpec("ckpt_commit", 4, "fail")])):
+            ck = AsyncCheckpointer(commit_retries=2, commit_backoff_s=0.01)
+            ck.save(str(root), model, opt, config, 4, 0.0)
+            ck.wait(timeout=60)
+    finally:
+        set_active_sink(prev)
+        sink.close()
+    assert ck.commits == 1
+    assert find_latest_checkpoint(str(root)) == str(root / "checkpoint-iteration4")
+    records = _records(tmp_path / "telemetry.jsonl")
+    retries = [r for r in records if r["name"] == "recovery_ckpt_retry"]
+    commits = [r for r in records if r["name"] == "checkpoint_commit"]
+    assert [(r["attempt"], r["iteration"]) for r in retries] == [(1, 4)]
+    assert len(commits) == 1 and commits[0]["type"] == "span"
+    assert commits[0]["thread"] == "ckpt-commit" and commits[0]["iteration"] == 4
+
+
+def test_async_failed_commit_raises_at_the_next_barrier(tmp_path, ckpt_setup):
+    model, opt, config = ckpt_setup
+    root = tmp_path / "ckpt"
+    ck = AsyncCheckpointer(commit_retries=0)
+    with installed(FaultPlan([FaultSpec("ckpt_commit", 2, "fail"),
+                              FaultSpec("ckpt_commit", 3, "fail")])):
+        ck.save(str(root), model, opt, config, 2, 0.0)
+        # the next save's own barrier raises, before it snapshots
+        with pytest.raises(AsyncCheckpointError, match="ckpt_commit"):
+            ck.save(str(root), model, opt, config, 9, 0.0)
+        assert not ck.in_flight and not (root / "checkpoint-iteration9").exists()
+        # a teardown barrier logs the failure and does not raise
+        ck.save(str(root), model, opt, config, 3, 0.0)
+        ck.wait(raise_error=False, timeout=60)
+    assert ck.commits == 0 and find_latest_checkpoint(str(root)) is None
+    ck.save(str(root), model, opt, config, 4, 0.0)
+    ck.wait(timeout=60)
+    assert ck.commits == 1
 
 
 # -- the chaos scenario ------------------------------------------------------

@@ -554,7 +554,7 @@ def grouped(shared_corpus_dir, tmp_path_factory):
     from esr_tpu.resilience import faults as J_faults
     from esr_tpu.training.trainer import Trainer as RefTrainer
     from esr_tpu_torch.resilience import faults as T_faults
-    from esr_tpu_torch.training.trainer import _host_snapshot
+    from esr_tpu_torch.training.checkpoint import snapshot_state
 
     out = tmp_path_factory.mktemp("torch_k_steps")
     config = str(REPO / "configs" / "train_esr_2x.yml")
@@ -562,7 +562,7 @@ def grouped(shared_corpus_dir, tmp_path_factory):
     def port_trainer(path, extra, params):
         trainer = Trainer(_run(path, shared_corpus_dir, extra), device="cpu")
         convert.load_flax_params(trainer.model, params)
-        trainer._init_state = _host_snapshot(trainer.model, trainer.optimizer)
+        trainer._init_state = snapshot_state(trainer.model, trainer.optimizer)
         return trainer
 
     runs, mesh, first = {}, make_mesh(jax.devices()[:1]), None
