@@ -1180,6 +1180,418 @@ def phase_train(torch, np, dev, card, repo: Path, out_root: str):
     return totals, sparse_launches, (train_recs, valid_recs)
 
 
+GRAPH_K = 8  # the flagship's k_steps
+GRAPH_ITERATIONS = 2 * GRAPH_K + 1  # two full groups, then a tail of one
+
+
+def graph_recordings(np):
+    """In-memory 720x1280 recordings for the graphs phase: 17 of 32
+    sequences of L 9 (an epoch of 17 batches of 32: two full groups of 8 and
+    a tail of 1), and 5 to validate (160 sequences: 20 batches of 8, two
+    chunks of 8 and a tail of 4)."""
+    from esr_tpu_torch.data.synthetic import make_synthetic_recording
+
+    def rec(events, seed):
+        return make_synthetic_recording((720, 1280), base_events=events, num_frames=2,
+                                        rungs=("down8", "down16"), seed=seed)
+
+    return ([rec(300_000, 100 + i) for i in range(GRAPH_ITERATIONS)],
+            [rec(300_000, 200 + i) for i in range(5)])
+
+
+def train_state(torch, trainer):
+    """The parameters and Adam's moments of ``trainer``, copied on the card."""
+    params = [p.detach().clone() for p in trainer.model.parameters()]
+    moments = [v.detach().clone() for st in trainer.optimizer.optimizer.state.values()
+               for k, v in sorted(st.items()) if k != "step"]
+    return params, moments
+
+
+def track_groups(torch, trainer, at):
+    """Record each step's loss, and after each group that ends at an
+    iteration in ``at`` the parameters and moments (every visit: a rollback
+    replays iterations)."""
+    rec = {"losses": {}, "state": {}}
+    consume = trainer._consume
+
+    def recorded(first, epoch, n, lrs, t0, metrics, bucket, nan_specs):
+        out = consume(first, epoch, n, lrs, t0, metrics, bucket, nan_specs)
+        for j, m in enumerate(metrics):
+            rec["losses"].setdefault(first + j, []).append(m["loss"].detach().clone())
+        last = first + len(metrics) - 1
+        if last in at:
+            rec["state"].setdefault(last, []).append(train_state(torch, trainer))
+        return out
+
+    trainer._consume = recorded
+    return rec
+
+
+def same_state(torch, a, b) -> bool:
+    return (len(a[0]) == len(b[0]) and len(a[1]) == len(b[1])
+            and all(same_bits(torch, x, y) for x, y in zip(a[0] + a[1], b[0] + b[1])))
+
+
+def group_times(torch, trainer, batches, card):
+    """A full group of the flagship at batch 32, eagerly (8 train steps) and
+    captured (the batches copied into the slots, one replay), in turns;
+    device busy, idle share and peak memory of an eager step and of a
+    replayed group under the profiler (the device only: an eager group's
+    ~40,000 launches take a minute to aggregate), and the kernels it saw in
+    the replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    multi = trainer.multi_step
+    k = len(batches)
+
+    def eager():
+        for b in batches:
+            trainer.train_step(b)
+
+    def captured():
+        for j, b in enumerate(batches):
+            multi.load(j, b)
+        multi()
+
+    # the graph's pool: captured anew from an emptied cache
+    multi.release()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    captured()
+    torch.cuda.synchronize()
+    pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2**30
+    times = {"eager": [], "captured": []}
+    for way in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (eager if way == "eager" else captured)()
+        torch.cuda.synchronize()
+        times[way].append((time.perf_counter() - t0) * 1e3)
+    busy, peak = {}, {}
+    for way, fn in (("eager", lambda: trainer.train_step(batches[0])),
+                    ("captured", captured)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        peak[way] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        busy[way] = (device_busy_ms(torch, prof), wall)
+        if way == "captured":
+            seen = {}
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    for name in ("dcn_forward_kernel", "dcn_bwd_pixel", "dcn_wgrad_kernel"):
+                        if name in e.key:
+                            seen[name] = seen.get(name, 0) + e.count
+            print(f"graphs: the profiler saw in one replay {seen} (kernels of the graph, "
+                  f"{k} steps)")
+            want = {"dcn_forward_kernel": k * 2 * TRAIN_WINDOWS,
+                    "dcn_bwd_pixel": k * 2 * TRAIN_WINDOWS,
+                    "dcn_wgrad_kernel": k * 2 * TRAIN_WINDOWS}
+            if seen != want:
+                fail(f"the profiler saw {seen} DCN kernels in a replayed group, expected {want}")
+    windows = k * batches[0]["inp"].shape[0] * TRAIN_WINDOWS
+    for way in ("eager", "captured"):
+        med = sum(times[way]) / len(times[way])
+        b_ms, wall = busy[way]
+        what = "a step" if way == "eager" else "the group"
+        print(f"graphs on {card}: the flagship group ({k} steps of batch 32), {way}: "
+              f"{', '.join(f'{t:.3f}' for t in times[way])} ms (mean {med:.3f}; a step "
+              f"{med / k:.3f} ms), {windows / (med / 1e3):.1f} windows/s; profiled, {what}: "
+              f"device busy {b_ms:.3f} ms of {wall:.3f} ms (idle share "
+              f"{1 - b_ms / wall:.3f}); peak memory above the state "
+              f"{peak[way]:.3f} GiB" + (" outside the graph's pool" if way == "captured" else ""))
+    print(f"graphs on {card}: the captured group's memory pool {pool_gib:.3f} GiB "
+          "(memory reserved by its capture)")
+
+
+def phase_graphs(torch, np, dev, card, repo: Path, out_root: str):
+    """Phase 8c: the flagship recipe as written (``k_steps`` 8, fused
+    validation) with its full groups as CUDA graph replays, bitwise the
+    ``k_steps: 1`` run, also across a rollback; fused validation against the
+    per-batch pass; the engine's graphed chunk bitwise the eager chunk at
+    every rung, dense and sparse; captured against eager times."""
+    from itertools import islice
+
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.resilience import faults
+    from esr_tpu_torch.training.multistep import launch_counts
+    from esr_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+
+    def at(what: str) -> None:
+        print(f"graphs: {what} at {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    train_recs, valid_recs = graph_recordings(np)
+    print(f"graphs setup: recordings in {time.perf_counter() - t_phase:.2f} s")
+    groups_at = {GRAPH_K - 1, 2 * GRAPH_K - 1, GRAPH_ITERATIONS - 1}
+
+    def trainer_of(name, extra=()):
+        # the flagship as written; run length and paths set, saves and
+        # validation off for the comparison
+        overrides = [f"trainer;output_path={os.path.join(out_root, name)}",
+                     f"trainer;iteration_based_train;iterations={GRAPH_ITERATIONS}",
+                     "trainer;iteration_based_train;valid_step=1000000000",
+                     "trainer;iteration_based_train;save_period=1000000000",
+                     "trainer;iteration_based_train;train_log_step=1", *extra]
+        run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"),
+                                  overrides=overrides, runid="chip_smoke_graphs", seed=0)
+        return Trainer(run, device=dev, train_recordings=train_recs,
+                       valid_recordings=valid_recs)
+
+    runs = {}
+    for name, extra, plan in (
+            ("k1", ["trainer;k_steps=1"], None),
+            ("k8", [], None),
+            ("k8_rollback", ["trainer;max_bad_steps=0"],
+             faults.FaultPlan([faults.FaultSpec("train_step", GRAPH_K, "nan_loss")]))):
+        trainer = trainer_of(name, extra)
+        at(f"trainer {name} built")
+        if name == "k1" and len(trainer.train_loader) != GRAPH_ITERATIONS:
+            fail(f"the graphs phase's epoch holds {len(trainer.train_loader)} batches, "
+                 f"not {GRAPH_ITERATIONS}")
+        rec = track_groups(torch, trainer, groups_at)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        if plan is None:
+            trainer.train()
+        else:
+            with faults.installed(plan):
+                trainer.train()
+        torch.cuda.synchronize()
+        runs[name] = {"trainer": trainer, "rec": rec, "launches": launch_counts(),
+                      "wall": time.perf_counter() - t0}
+        print(f"graphs: run {name} ({trainer.k_steps} steps a group), {GRAPH_ITERATIONS} "
+              f"iterations in {runs[name]['wall']:.3f} s; launches {runs[name]['launches']}")
+
+    want = {n: (GRAPH_ITERATIONS * 2 * TRAIN_WINDOWS
+                if n in ("dcn_train_fwd", "dcn_bwd", "dcn_wgrad") else 0)
+            for n in launch_counts()}
+    for name in ("k1", "k8"):
+        if runs[name]["launches"] != want:
+            fail(f"run {name} launched {runs[name]['launches']}, expected {want} "
+                 "(14/14/14 a step)")
+    eight = runs["k8"]["trainer"]
+    opt = eight.optimizer
+    if not (opt.capturable and all(g["lr"] is opt.lr_tensor for g in opt.optimizer.param_groups)
+            and float(opt.lr_tensor) == float(np.float32(opt.schedule(opt.count - 1)))):
+        fail("the optimizer's updates do not read the device lr the schedule wrote")
+    graph = eight.multi_step.graph
+    per_group = {n: GRAPH_K * 2 * TRAIN_WINDOWS for n in ("dcn_train_fwd", "dcn_bwd",
+                                                          "dcn_wgrad")}
+    if graph is None or graph.replays != 1 or graph.launches != per_group:
+        fail(f"the k_steps 8 run should replay its second group once from a graph that "
+             f"captured {per_group}: graph {graph and (graph.replays, graph.launches)}")
+    print(f"graphs: counted launches = eager steps' launches + the {graph.launches} captured "
+          f"a group x {graph.replays} replay(s); 14/14/14 a step in both runs")
+    k8_launches, graph_launches = runs["k8"]["launches"], dict(graph.launches)
+
+    ref = runs["k1"]["rec"]
+    for name in ("k8", "k8_rollback"):
+        got = runs[name]["rec"]
+        bad = [i for i in range(GRAPH_ITERATIONS)
+               if not same_bits(torch, got["losses"][i][-1], ref["losses"][i][-1])]
+        if bad or sorted(got["losses"]) != list(range(GRAPH_ITERATIONS)):
+            fail(f"run {name}: the losses at iterations {bad} differ from k_steps 1's")
+        for it in sorted(groups_at):
+            if not same_state(torch, got["state"][it][-1], ref["state"][it][-1]):
+                fail(f"run {name}: the parameters or moments after iteration {it} differ "
+                     "from k_steps 1's")
+        n_params = len(ref["state"][GRAPH_ITERATIONS - 1][-1][0])
+        print(f"graphs: run {name}: {GRAPH_ITERATIONS} losses, {n_params} parameters and "
+              f"their Adam moments after the groups ending at {sorted(groups_at)} bitwise "
+              "the k_steps 1 run's")
+    if n_params != 68:
+        fail(f"the flagship has {n_params} parameters, expected 68")
+    rb = runs["k8_rollback"]["trainer"]
+    if rb._guard.rollbacks != 1 or rb.multi_step.graph.replays != 1:
+        fail(f"the rollback run rolled back {rb._guard.rollbacks} times and replayed "
+             f"{rb.multi_step.graph.replays} groups after it (expected 1 and 1)")
+    print("graphs: the rollback run skipped group 2 (nan_loss), restored the run-start "
+          "state (no moments yet), ran group 1 again as the warm-up, captured again and "
+          "replayed group 2, to the k_steps 1 run's bits")
+
+    # captured against eager, one group
+    batches = [eight._select(b) for b in islice(iter(eight.train_loader), GRAPH_K)]
+    at("the timed group's batches built")
+    group_times(torch, eight, batches, card)
+    del batches
+    at("the group timed")
+
+    # fused validation against the per-batch pass, on the k8 trainer's state
+    n_valid = len(eight.valid_loader)
+    if n_valid < 2 * eight.valid_chunk + 1 or n_valid % eight.valid_chunk == 0:
+        fail(f"{n_valid} validation batches: not two chunks of {eight.valid_chunk} and a tail")
+    out, pass_ms = {}, {"fused": [], "sequential": []}
+    for fused in (True, False, False, True):
+        eight.valid_fused = fused
+        way = "fused" if fused else "sequential"
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = eight._valid()
+        torch.cuda.synchronize()
+        pass_ms[way].append((time.perf_counter() - t0) * 1e3)
+        want_valid = only("dcn_fwd", 2 * TRAIN_WINDOWS * n_valid)
+        if counts_of() != want_valid:
+            fail(f"the {way} validation launched {counts_of()}, expected {want_valid}")
+        readbacks = 1 if fused else n_valid
+        if eight.last_valid_readbacks != readbacks:
+            fail(f"the {way} validation read back {eight.last_valid_readbacks} times, "
+                 f"expected {readbacks}")
+        out.setdefault(way, result)
+    chunk = next(iter(eight._eval_chunks.values()))
+    if chunk.graph is None or chunk.graph.replays < 2:
+        fail("fused validation did not replay its chunk from a graph")
+    for key in ("valid_loss", "valid_mse_loss"):
+        f, s_ = out["fused"][key], out["sequential"][key]
+        rel = abs(f - s_) / max(abs(s_), 1e-30)
+        print(f"graphs: validation {key} fused {f!r} vs per batch {s_!r}: relative "
+              f"{rel:.3e} (limit 1e-5)")
+        if not rel <= 1e-5:
+            fail(f"fused validation's {key} differs from the per-batch pass's")
+    print(f"graphs on {card}: validation pass ({n_valid} batches of 8, chunks of "
+          f"{eight.valid_chunk}; the first fused pass runs its first chunk eagerly and "
+          f"captures; {chunk.graph.replays} chunk replays in all), fused "
+          f"{', '.join(f'{t:.3f}' for t in pass_ms['fused'])} ms (1 readback) vs per batch "
+          f"{', '.join(f'{t:.3f}' for t in pass_ms['sequential'])} ms ({n_valid} readbacks), "
+          "in turns")
+    # the trainers and their graphs' pools go before the engine's graphs
+    del runs, eight, rb, graph, chunk
+    torch.cuda.empty_cache()
+    at("validation done")
+
+    engine_graphs(torch, np, dev, card)
+    print(f"graphs phase {time.perf_counter() - t_phase:.1f} s")
+    return {"k8": k8_launches, "graph": graph_launches}
+
+
+def reset_all_launches():
+    """Every hand-written kernel's launch count to 0, the DCN's and the
+    int8 rung's."""
+    from esr_tpu_torch.ops import dcn_cuda, int8_cuda
+
+    dcn_cuda.reset_launches()
+    int8_cuda.reset_launches()
+
+
+def engine_graphs(torch, np, dev, card):
+    """The engine's chunk as a CUDA graph: at f32, bf16 and int8, dense and
+    sparse, 4 chunks of lanes 4 x 8 windows driven in lockstep through the
+    graph and the eager ``ChunkProgram`` from the same states (the lane
+    states, sums and SSIM pairs bitwise, the same launches); then the sparse
+    flagship's engine run graphed and eager in turns at f32 and int8."""
+    from itertools import islice
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from esr_tpu_torch.config.precision import compute_dtype_of, resolve_precision
+    from esr_tpu_torch.data.loader import LanePackedChunks
+    from esr_tpu_torch.data.synthetic import make_synthetic_recording
+    from esr_tpu_torch.inference.engine import (
+        GraphedChunk,
+        StreamingEngine,
+        lane_states,
+        make_chunk_fn,
+    )
+    from esr_tpu_torch.training.multistep import launch_counts
+
+    recs = [make_synthetic_recording((720, 1280), base_events=ev, num_frames=2,
+                                     rungs=("down8", "down16"), seed=30 + i,
+                                     name=f"engine{i}")
+            for i, ev in enumerate((120_000, 200_000, 80_000, 160_000, 100_000, 140_000))]
+    packer = LanePackedChunks(recs, FLAGSHIP_DATA, lanes=LANES, chunk_windows=CHUNK_WINDOWS)
+    kh, kw = packer.gt_resolution
+    host_chunks = list(islice(iter(packer), 4))
+    staged = [{k: torch.from_numpy(v).to(dev)
+               for k, v in dict(c["windows"], reset_keep=c["reset_keep"]).items()}
+              for c in host_chunks]
+    for sparse in (False, True):
+        model = flagship_model(torch, np, dcn_sparse=sparse).to(dev).eval()
+        for rung in RUNGS:
+            precision = resolve_precision(cli=rung)
+            dtype = compute_dtype_of(precision)
+            program = make_chunk_fn(model, LANES, CHUNK_WINDOWS, kh, kw, dtype, precision)
+            graphed = GraphedChunk(program)
+            s_g = lane_states(model, LANES, kh, kw, dev, dtype)
+            s_e = tuple(z.clone() for z in s_g)
+            launched = {}
+            for c in staged:
+                windows = {k: c[k] for k in ("inp_scaled", "gt", "inp_mid", "valid")}
+                for way in ("graphed", "eager"):
+                    before = launch_counts()
+                    if way == "graphed":
+                        s_g, sums_g, st_g = graphed(s_g, c["reset_keep"], windows)
+                    else:
+                        s_e, sums_e, st_e = program(s_e, c["reset_keep"], windows)
+                    torch.cuda.synchronize()
+                    for n, v in launch_counts().items():
+                        launched.setdefault(way, {}).setdefault(n, 0)
+                        launched[way][n] += v - before[n]
+                pairs = ([(a, b) for a, b in zip(s_g, s_e)]
+                         + [(sums_g[k], sums_e[k]) for k in sums_e]
+                         + [(st_g[k], st_e[k]) for k in st_e])
+                if not all(tuple(a.shape) == tuple(b.shape) and torch.equal(
+                        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+                        for a, b in pairs):
+                    fail(f"engine chunk {rung} {'sparse' if sparse else 'dense'}: the graphed "
+                         "chunk's states or sums differ from the eager chunk's")
+            if graphed.graph is None or graphed.graph.replays != len(staged) - 1:
+                fail(f"engine chunk {rung}: {graphed.graph and graphed.graph.replays} replays "
+                     f"of {len(staged)} chunks")
+            if launched["graphed"] != launched["eager"] or not any(launched["eager"].values()):
+                fail(f"engine chunk {rung}: launches graphed {launched['graphed']} vs eager "
+                     f"{launched['eager']}")
+            print(f"graphs: engine chunk {rung} {'sparse' if sparse else 'dense'}: "
+                  f"{len(staged)} chunks (1 eager, {graphed.graph.replays} replays), lane "
+                  f"states, sums and SSIM pairs bitwise the eager chunk's; launches "
+                  f"{ {n: v for n, v in launched['graphed'].items() if v} } each way")
+            del graphed, program
+    # windows/s, chunk ms and idle share, graphed against eager, in turns
+    model = flagship_model(torch, np, dcn_sparse=True)
+    for rung in ("f32", "int8"):
+        engine = StreamingEngine(model, 3, lanes=LANES, chunk_windows=CHUNK_WINDOWS,
+                                 precision=rung, device=dev)
+        engine.run_datalist(recs[:2], FLAGSHIP_DATA)  # warm-up and capture
+        graphed = engine._run_chunk
+        stats = {"graphed": [], "eager": []}
+        for way in ("graphed", "eager", "eager", "graphed"):
+            engine._run_chunk = graphed if way == "graphed" else graphed.program
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results, _ = engine.run_datalist(recs, FLAGSHIP_DATA)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_windows = int(sum(r["n_windows"] for r in results))
+            chunk_ms = sorted(s * 1e3 for s in engine.chunk_seconds)
+            stats[way].append((n_windows / wall, chunk_ms[len(chunk_ms) // 2], wall,
+                               len(chunk_ms)))
+        c = staged[1]
+        windows = {k: c[k] for k in ("inp_scaled", "gt", "inp_mid", "valid")}
+        states = lane_states(model.to(dev), LANES, kh, kw, dev,
+                             compute_dtype_of(resolve_precision(cli=rung)))
+        for way in ("graphed", "eager"):
+            fn = graphed if way == "graphed" else graphed.program
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(states, c["reset_keep"], windows)
+                torch.cuda.synchronize()
+            busy = device_busy_ms(torch, prof)
+            idle = ", ".join(f"{1 - n * busy / (w * 1e3):.3f}" for _, _, w, n in stats[way])
+            print(f"graphs on {card}: engine {rung} (sparse flagship, lanes {LANES} x chunk "
+                  f"{CHUNK_WINDOWS}), {way}: "
+                  + ", ".join(f"{r:.3f}" for r, _, _, _ in stats[way])
+                  + " windows/s; chunk (dispatch to readback) p50 "
+                  + ", ".join(f"{p:.3f}" for _, p, _, _ in stats[way])
+                  + f" ms; a chunk's device busy {busy:.3f} ms; idle share of the run {idle}")
+        engine._run_chunk = graphed
+
+
 def step_kernel_vs_plain(torch, trainer, sel, what: str = "step") -> None:
     """One step from the trainer's params on batch ``sel`` through the
     kernels and through the plain path: the per-window losses and every
@@ -3366,40 +3778,59 @@ def main() -> int:
         fail(f"the native host kernels did not build:\n{native.LIBRARY.build_log}")
     print(f"build host_kernels.cpp: g++ {time.perf_counter() - t0:.2f} s")
 
+    def done(phase: str) -> None:
+        print(f"chip_smoke: {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     # -- 3.-5. kernels -----------------------------------------------------
     fwd, fwd_worst = phase_fwd_kernel(torch, np, card)
+    done("the forward kernel phase")
     train_kernels, train_worst = phase_train_kernels(torch, np, card)
+    done("the train kernel phase")
     phase_autograd(torch, np)
     masked, masked_worst = phase_masked_kernels(torch, np, card)
+    done("the masked kernel phase")
 
     # -- 6. inference slice ------------------------------------------------
     fwd_launches = phase_slice(torch, np, dev, card)
 
     # -- 7. the streaming engine and serving (sparse flagship) -------------
     engine_launches, engine_stats = phase_engine(torch, np, dev, card)
+    done("the slice and engine phases")
     serve_root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
         serve_launches, serve_summary = phase_serving(torch, np, dev, card, repo, serve_root)
+        done("the serving phase")
         # -- 10b. the serving fleet (3 replicas, the fleet view, faults) ----
         fleet_launches, _ = phase_fleet(torch, np, dev, card, repo,
                                         os.path.join(serve_root, "fleet"))
+        done("the fleet phase")
         # -- 10c. the AOT export, served -----------------------------------
         phase_aot(torch, np, dev, card, repo, os.path.join(serve_root, "aot"))
+        done("the AOT phase")
     finally:
         shutil.rmtree(serve_root, ignore_errors=True)
 
     # -- 12. the precision rungs (bf16, int8) -----------------------------
     precision = phase_precision(torch, np, dev, card)
+    done("the precision phase")
 
     # -- 8. training, and the sparse train step ----------------------------
     out_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         totals, sparse_launches, recs = phase_train(torch, np, dev, card, repo, out_root)
+        done("the train phase")
+        # -- 8c. the flagship's groups, validation and the engine's chunk as
+        # CUDA graphs ------------------------------------------------------
+        graph_launches = phase_graphs(torch, np, dev, card, repo,
+                                      os.path.join(out_root, "graphs"))
+        done("the graphs phase")
         # -- 7c. the 4x recipe --------------------------------------------
         totals_4x = phase_train_4x(torch, np, dev, card, repo, os.path.join(out_root, "x4"),
                                    fwd["valid_4x_b8"], train_kernels["train_4x_b8"])
+        done("the 4x phase")
         # -- 8b. the trainer's runtime, and the chaos scenario ------------
         phase_train_runtime(torch, np, dev, card, repo, os.path.join(out_root, "runtime"), recs)
+        done("the train runtime phase")
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
@@ -3425,6 +3856,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "matrix_max_rel_err": train_worst[name], "shape": "B=32 flagship training",
             "train_4x_run_launches": totals_4x[name],
+            "graphs_k8_run_launches": graph_launches["k8"][name],
+            "captured_group_launches": graph_launches["graph"][name],
             "by_shape": {case: train_kernels[case][name] for case in TIMED_TRAIN_CASES[1:]},
         })
     for name, source, b, launches, extra in (

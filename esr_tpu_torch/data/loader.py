@@ -135,6 +135,14 @@ def group_batches(source, k: int) -> Iterator[List]:
         yield group
 
 
+def collate_megabatch(batches: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """``[k batch dicts of (B, L, ...)] -> {key: (k, B, L, ...)}``, a numpy
+    stack: the megabatch of a super-step (``training.multistep``). All
+    ``k`` batches share their shapes (a full group of the loader's)."""
+    keys = batches[0].keys()
+    return {k_: np.stack([b[k_] for b in batches]) for k_ in keys}
+
+
 class InferenceSequenceLoader:
     """Streams ONE recording for evaluation: ``{key: (1, L, ...)}`` batches,
     in order; the caller carries the recurrent state across them."""

@@ -8,6 +8,12 @@
 - **Chunks.** ``W = chunk_windows`` consecutive windows per lane run in one
   call of the chunk function (:func:`make_chunk_fn`): a Python loop over the
   windows where the reference scans, the recurrent state carried across.
+  On the card the engine runs it as one CUDA graph (:class:`GraphedChunk`):
+  the first chunk runs eagerly (the warm-up), the second captures, and
+  each chunk after is its inputs copied into the graph's static ones and
+  one replay, the output states carried into the next chunk's inputs in
+  the graph. Serving and the AOT programs call :class:`ChunkProgram`
+  eagerly.
 - **Metrics on the card.** Per-window l1/mse/ssim/psnr of the ESR output and
   of the bicubic baseline are summed per lane on the card, masked by window
   validity; the per-window SSIM pairs come back stacked ``(W, B)`` for the
@@ -59,6 +65,7 @@ from esr_tpu_torch.device import DeviceLike, resolve_device
 from esr_tpu_torch.obs import active_sink, trace
 from esr_tpu_torch.ops.resize import interpolate
 from esr_tpu_torch.serving.wire import BF16_WORDS
+from esr_tpu_torch.training.multistep import GraphedCall
 
 logger = logging.getLogger(__name__)
 
@@ -215,6 +222,62 @@ def make_chunk_fn(model: torch.nn.Module, lanes: int, chunk_windows: int, kh: in
     return ChunkProgram(model, lanes, chunk_windows, kh, kw, compute_dtype, precision)
 
 
+class GraphedChunk:
+    """A :class:`ChunkProgram`'s call as one CUDA graph replay (module
+    docstring), the same bits as the eager call. Its static inputs are the
+    ``states``, ``reset_keep`` and ``windows`` of the program; a call copies
+    the staged chunk in (and the states, unless they are the graph's own,
+    returned by the last call), replays, and returns the graph's states
+    and copies of the chunk's sums and SSIM pairs (the next replay writes
+    the graph's outputs again)."""
+
+    def __init__(self, program: ChunkProgram):
+        self.program = program
+        self._graph: Optional[GraphedCall] = None
+        self._inputs = None
+        self._warm = False
+
+    @property
+    def graph(self) -> Optional[GraphedCall]:
+        return self._graph
+
+    def _capture(self, states: States, reset_keep: torch.Tensor,
+                 windows: Dict[str, torch.Tensor]) -> None:
+        s_states = tuple(torch.empty_like(z) for z in states)
+        s_keep = torch.empty_like(reset_keep)
+        s_windows = {k: torch.empty_like(v) for k, v in windows.items()}
+        self._inputs = (s_states, s_keep, s_windows)
+
+        def run():
+            out_states, sums, stacked = self.program(s_states, s_keep, s_windows)
+            # the carry: the next replay starts from this one's states
+            for s, o in zip(s_states, out_states):
+                s.copy_(o)
+            return (torch.stack([sums[k] for k in METRIC_KEYS + ("count",)]),
+                    torch.stack([stacked[k] for k in ("esr_ssim", "bicubic_ssim")]))
+
+        self._graph = GraphedCall(run, reset_keep.device)
+
+    def __call__(self, states: States, reset_keep: torch.Tensor,
+                 windows: Dict[str, torch.Tensor]):
+        if not self._warm:
+            self._warm = True
+            return self.program(states, reset_keep, windows)
+        if self._graph is None:
+            self._capture(states, reset_keep, windows)
+        s_states, s_keep, s_windows = self._inputs
+        if states is not s_states:
+            for s, z in zip(s_states, states):
+                s.copy_(z)
+        s_keep.copy_(reset_keep)
+        for k, v in windows.items():
+            s_windows[k].copy_(v)
+        sums, stacked = (t.clone() for t in self._graph.replay())
+        return (s_states,
+                {k: sums[i] for i, k in enumerate(METRIC_KEYS + ("count",))},
+                {k: stacked[i] for i, k in enumerate(("esr_ssim", "bicubic_ssim"))})
+
+
 # -- per-lane recurrent state save / restore ----------------------------------
 # A stream evicted from its lane resumes bit-identically later, possibly in
 # another lane or process: f32 round-trips card -> numpy -> card exactly, and
@@ -334,6 +397,8 @@ class StreamingEngine:
         if self._run_chunk is None or self._chunk_key != (kh, kw):
             self._run_chunk = make_chunk_fn(self.model, self.lanes, self.chunk_windows,
                                             kh, kw, self.compute_dtype, self.precision)
+            if self.device.type == "cuda":
+                self._run_chunk = GraphedChunk(self._run_chunk)
             self._chunk_key = (kh, kw)
         acc = [{"sums": {k: 0.0 for k in METRIC_KEYS}, "count": 0, "time_s": 0.0,
                 "ssim": {"esr_ssim": [], "bicubic_ssim": []}} for _ in data_list]

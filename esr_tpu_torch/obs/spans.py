@@ -26,8 +26,8 @@ named spans (the reference's schema; the port's "super-step" is one step):
 Derived per record: ``samples_per_sec`` and ``goodput = device_step /
 wall``. Each record also emits its ``super_step`` span tree (the root for
 every step, the children at the ``train_log_step`` cadence).
-:func:`instrument_dispatch` wraps the step callable so its call is the
-``dispatch`` span. Stdlib only.
+:func:`esr_tpu_torch.training.multistep.instrument_dispatch` wraps the
+step callable so its call is the ``dispatch`` span. Stdlib only.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ class StepSpans:
     ambient context at :meth:`StepAttribution.begin`, the trainer's
     ``train_run`` span), and every :meth:`measure` block records its
     begin/end edges (``marks``) so emission gives nested child spans. The
-    dispatch wrapper (:func:`instrument_dispatch`) adopts :attr:`ctx`
+    dispatch wrapper (``training.multistep.instrument_dispatch``) adopts :attr:`ctx`
     around the step call.
     """
 
@@ -356,30 +356,3 @@ class StepAttribution:
                 parent_id=bucket.span_id,
                 **_edges(bucket.t_dispatch, bucket.t_resolved),
             )
-
-
-class _InstrumentedStep:
-    """A step callable whose calls are the open bucket's ``dispatch`` span
-    (run under the bucket's trace context), stamping the start of its
-    ``device_step``. With no open bucket it is a plain pass-through."""
-
-    def __init__(self, step, attribution: StepAttribution):
-        self._step = step
-        self._attribution = attribution
-
-    def __call__(self, *args, **kwargs):
-        attribution = self._attribution
-        with trace.adopt(attribution.current_ctx()):
-            with attribution.measure("dispatch"):
-                out = self._step(*args, **kwargs)
-            attribution.dispatched()
-        return out
-
-    def __getattr__(self, name):
-        return getattr(self._step, name)
-
-
-def instrument_dispatch(step, attribution: StepAttribution):
-    """Wrap ``step`` so each call records its ``dispatch`` span and the
-    dispatch timestamp into ``attribution``."""
-    return _InstrumentedStep(step, attribution)

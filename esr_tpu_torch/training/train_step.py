@@ -20,6 +20,14 @@ window) to the same bits. ``numerics`` collects the model's probe taps
 ``loss`` and ``grad_norm`` taps, as ``metrics["numerics"]`` (``{tag:
 f32[NSTATS]}`` on the device); the probes observe detached copies, so the
 losses, gradients and parameters are the same bits with them off.
+
+The train step is capture-safe (``training.multistep`` replays ``k`` of
+them as one CUDA graph): it reads no value back to the host, and
+``zero_grad`` sets the grads to ``None``, so each step's backward
+allocates them afresh (from the graph's pool under a capture), as
+PyTorch's whole-network capture does. :func:`make_fused_eval_accum` is the
+eval step that adds its scalars into device sums, the body of fused
+validation.
 """
 
 from __future__ import annotations
@@ -116,3 +124,21 @@ def make_eval_step(model: nn.Module, seqn: int = 3) -> Callable[[Dict], Dict]:
         return {"valid_loss": losses.sum(), "valid_mse_loss": losses[-1]}
 
     return eval_step
+
+
+def make_fused_eval_accum(model: nn.Module, seqn: int = 3) -> Callable:
+    """``accum(sums, batch) -> sums``: the eval step on ``batch`` adding its
+    ``valid_loss`` and ``valid_mse_loss`` into ``sums`` (a dict of device
+    scalars, updated in place) and 1 into ``sums["count"]`` (counterpart of
+    the reference's ``make_fused_eval_accum``; chained through
+    ``training.multistep.make_multi_step`` for fused validation)."""
+    eval_step = make_eval_step(model, seqn)
+
+    def accum(sums: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+        out = eval_step(batch)
+        sums["valid_loss"].add_(out["valid_loss"])
+        sums["valid_mse_loss"].add_(out["valid_mse_loss"])
+        sums["count"].add_(1.0)
+        return sums
+
+    return accum

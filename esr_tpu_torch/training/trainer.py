@@ -6,10 +6,16 @@ early stop, checkpoints, and the runtime around them (counterpart of
   sequences (``training.train_step``); the loader turns its epoch over
   (``set_epoch``) when it runs out. The batches come in groups of
   ``k_steps`` (``data.loader.group_batches``; the epoch's tail is a shorter
-  group), the reference's super-steps: a group's steps run one by one, and
-  every cadence below is taken on the group. ``device_prefetch`` (default
+  group), the reference's super-steps, and every cadence below is taken on
+  the group. A full group is one super-step (``training.multistep``): on
+  the card one replay of a CUDA graph of its ``k_steps`` steps (the first
+  full group runs them eagerly, the warm-up, and the next captures), on the
+  CPU its steps in a loop; the epoch's shorter tail, and ``k_steps: 1``,
+  run step by step, as the reference's do. ``device_prefetch`` (default
   2) stages that many batches ahead on a ``DevicePrefetcher`` thread (0
-  stages in the loop), one batch at a time whatever ``k_steps`` is.
+  stages in the loop), one batch at a time whatever ``k_steps`` is; each
+  staged batch of a full group is copied into its slot of the super-step's
+  static megabatch (the ``stage_megabatch`` span).
 - The group's scalars (losses, grad norms and, with ``numerics``, the
   probe stats) come to the host in one copy after its last step. Every
   ``train_log_step`` iterations they go to the log and to
@@ -70,10 +76,18 @@ early stop, checkpoints, and the runtime around them (counterpart of
   loaders build fixed-capacity raw event windows and the batch is
   rasterized on the device (``training.train_step.make_device_rasterizer``),
   bitwise the host's count images.
-- After a group that covers a multiple of ``valid_step`` (not 0), a
-  sequential pass over the validation loader (under ``torch.no_grad()``,
-  so the DCN takes its forward kernel) gives ``valid_loss`` /
-  ``valid_mse_loss``, logged with the group's last iteration; ``monitor``
+- After a group that covers a multiple of ``valid_step`` (not 0), a pass
+  over the validation loader (under ``torch.no_grad()``, so the DCN takes
+  its forward kernel) gives ``valid_loss`` / ``valid_mse_loss``, logged
+  with the group's last iteration. ``validate.fused`` (default true) runs
+  ``validate.chunk_windows`` (default 8) eval batches a dispatch, adding
+  into sums on the device (``train_step.make_fused_eval_accum``; on the
+  card a chunk is one replay of a CUDA graph, captured after the first
+  chunk ran eagerly), with one readback a pass; a shorter or
+  shape-changing run of batches goes through the single-batch
+  accumulator. ``fused: false`` is the per-batch pass, one readback a batch
+  kept at most 2 batches behind the dispatch. ``last_valid_readbacks`` is
+  the last pass's count (1 when fused); ``monitor``
   (``min valid_loss``) picks the best model and ``early_stop`` stops a run
   that stopped improving.
 - Checkpoints after a group that covers a multiple of ``save_period``, on
@@ -93,14 +107,16 @@ early stop, checkpoints, and the runtime around them (counterpart of
   first in ``train()``'s teardown. The run-start rollback snapshot is
   freed once a commit has landed. Off, each save commits inline.
 
-``k_steps`` changes numbers only through those cadences: the reference
-runs a group as one compiled scan, the port runs its steps one by one (a
-CUDA graph of the group is later work), so the losses are those of
-``k_steps: 1``. Keys that only steer how XLA compiles or dispatches the
-reference's programs, and cannot change a number, are read and mean here:
-``train_lookahead`` (the port reads each group's scalars after it),
-``compile_cache`` (nothing is compiled), ``validate.fused`` /
-``validate.chunk_windows`` (validation runs batch by batch).
+``k_steps`` changes numbers only through those cadences: a replayed group
+runs the kernels its eager steps run, in the same order (on the card the
+optimizer takes its capturable form either way, ``training.optim``), so
+the losses, parameters and moments are those of ``k_steps: 1``, bit for
+bit. After a restore that rebinds the optimizer's state (a rollback) the
+next full group is the warm-up again and the one after captures again.
+Keys that only steer how XLA
+compiles or dispatches the reference's programs, and cannot change a
+number, are read and mean here: ``train_lookahead`` (the port reads each
+group's scalars after it) and ``compile_cache`` (nothing is compiled).
 
 Refused: ``precision: bf16`` raises ``NotImplementedError`` naming the
 override that turns it off (bf16 training has no oracle while the
@@ -117,7 +133,8 @@ import logging
 import math
 import os
 import time
-from typing import Dict, Optional, Sequence
+from collections import deque
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -136,7 +153,7 @@ from esr_tpu_torch.obs.numerics import (
     poison_tag,
     stats_fields,
 )
-from esr_tpu_torch.obs.spans import StepAttribution, instrument_dispatch
+from esr_tpu_torch.obs.spans import StepAttribution
 from esr_tpu_torch.resilience import faults as _faults
 from esr_tpu_torch.resilience.recovery import (
     AnomalyGuard,
@@ -147,9 +164,11 @@ from esr_tpu_torch.resilience.recovery import (
 )
 from esr_tpu_torch.training.async_checkpoint import AsyncCheckpointer
 from esr_tpu_torch.training.checkpoint import resume_checkpoint, save_checkpoint, snapshot_state
+from esr_tpu_torch.training.multistep import instrument_dispatch, make_multi_step
 from esr_tpu_torch.training.train_step import (
     make_device_rasterizer,
     make_eval_step,
+    make_fused_eval_accum,
     make_train_step,
 )
 from esr_tpu_torch.utils.trackers import MetricTracker
@@ -164,6 +183,8 @@ RAW_KEYS = ["inp_norm_events", "inp_events_valid", "gt_raw_events", "gt_events_v
 VIS_KEYS = ["inp_cnt", "gt_img", "inp_scaled_cnt", "gt_cnt"]
 
 _END = object()
+# the fused validation's device sums, in readback order
+VALID_SUMS = ("valid_loss", "valid_mse_loss", "count")
 
 
 def resolve_device_rasterize(config: Dict) -> bool:
@@ -259,6 +280,13 @@ class Trainer:
         self.train_lookahead = int(tcfg.get("train_lookahead", 2))
         if self.train_lookahead < 0:
             raise ValueError(f"train_lookahead must be >= 0, got {self.train_lookahead}")
+        vcfg = tcfg.get("validate") or {}
+        self.valid_fused = bool(vcfg.get("fused", True))
+        self.valid_chunk = int(vcfg.get("chunk_windows", 8))
+        if self.valid_chunk < 1:
+            raise ValueError(f"validate.chunk_windows must be >= 1, got {self.valid_chunk}")
+        # the readbacks of the last validation pass (1 when fused)
+        self.last_valid_readbacks = 0
 
         # resilience knobs
         self.max_bad_steps = tcfg.get("max_bad_steps", None)
@@ -342,6 +370,11 @@ class Trainer:
         self.mid_idx = (self.seqn - 1) // 2
         self.remat = bool(tcfg.get("remat", False))
         self.eval_step = make_eval_step(self.model, self.seqn)
+        # fused validation: the single-batch accumulator, one super-step of
+        # valid_chunk batches per batch shape, and the sums they add into
+        self._eval_accum = make_fused_eval_accum(self.model, self.seqn)
+        self._eval_chunks: Dict[tuple, object] = {}
+        self._eval_sums: Optional[Dict[str, torch.Tensor]] = None
 
         self.monitor = tcfg.get("monitor", "off")
         if self.monitor == "off":
@@ -397,9 +430,13 @@ class Trainer:
         b = int(config["train_dataloader"]["batch_size"])
         self._attr = StepAttribution(sink=self.sink, batch_size=b, log_step=self.train_log_step)
         self._stage_spans: Dict[int, float] = {}
-        self.train_step = instrument_dispatch(
-            make_train_step(self.model, self.optimizer, self.seqn, remat=self.remat,
-                            numerics=self.numerics), self._attr)
+        step = make_train_step(self.model, self.optimizer, self.seqn, remat=self.remat,
+                               numerics=self.numerics)
+        self.train_step = instrument_dispatch(step, self._attr)
+        # a full group's super-step (the epoch's tail runs train_step)
+        self.multi_step = (instrument_dispatch(
+            make_multi_step(step, self.k_steps, optimizer=self.optimizer), self._attr)
+            if self.k_steps > 1 else None)
 
         self.profile_cfg = tcfg.get("profile") or {}
         self.profile_steps = int(tcfg.get("profile_steps", 0) or 0)
@@ -528,12 +565,98 @@ class Trainer:
             f.write(json.dumps(record) + "\n")
 
     def _valid(self) -> Dict[str, float]:
-        """A sequential pass over the validation loader (f32 batches)."""
+        """A pass over the validation loader (f32 batches): fused or per
+        batch, as ``validate.fused`` says (module docstring); the averages
+        agree to f32 summation order."""
+        if self.valid_fused:
+            return self._valid_fused()
+        return self._valid_sequential()
+
+    def _valid_sequential(self) -> Dict[str, float]:
+        """One eval dispatch and one readback a batch, the readback kept at
+        most 2 batches behind the dispatch."""
         self.valid_metrics.reset()
+        pending: deque = deque()
+        readbacks = 0
+
+        def drain(out) -> None:
+            nonlocal readbacks
+            host = torch.stack([out["valid_loss"], out["valid_mse_loss"]]).cpu()
+            self.valid_metrics.update("valid_loss", float(host[0]))
+            self.valid_metrics.update("valid_mse_loss", float(host[1]))
+            readbacks += 1
+
         for batch in self.valid_loader:
-            out = self.eval_step(self._select(batch))
-            self.valid_metrics.update("valid_loss", float(out["valid_loss"]))
-            self.valid_metrics.update("valid_mse_loss", float(out["valid_mse_loss"]))
+            pending.append(self.eval_step(self._select(batch)))
+            if len(pending) > 2:
+                drain(pending.popleft())
+        while pending:
+            drain(pending.popleft())
+        self.last_valid_readbacks = readbacks
+        return self.valid_metrics.result()
+
+    def _eval_chunk(self, batch: Dict[str, torch.Tensor]):
+        """The super-step of ``valid_chunk`` accumulations for batches of
+        this shape."""
+        key = tuple((k, tuple(v.shape)) for k, v in batch.items())
+        if key not in self._eval_chunks:
+            def step(b):
+                self._eval_accum(self._eval_sums, b)
+                return {}
+
+            self._eval_chunks[key] = make_multi_step(step, self.valid_chunk)
+        return self._eval_chunks[key]
+
+    def _valid_fused(self) -> Dict[str, float]:
+        """``valid_chunk`` eval batches a dispatch, the sums on the device,
+        one readback a pass; a group cut short by the loader's end or a
+        shape change goes through the single-batch accumulator."""
+        self.valid_metrics.reset()
+        t0 = time.monotonic()
+        if self._eval_sums is None:
+            # one set of sums for the run: a captured chunk adds into them
+            self._eval_sums = {k: torch.zeros((), dtype=torch.float32, device=self.device)
+                               for k in VALID_SUMS}
+        for v in self._eval_sums.values():
+            v.zero_()
+        n_batches = n_dispatches = 0
+        buf: List[Dict[str, torch.Tensor]] = []
+
+        def flush() -> None:
+            nonlocal n_dispatches
+            if len(buf) == self.valid_chunk:
+                chunk = self._eval_chunk(buf[0])
+                for j, sel in enumerate(buf):
+                    chunk.load(j, sel)
+                chunk()
+                n_dispatches += 1
+            else:
+                for sel in buf:
+                    self._eval_accum(self._eval_sums, sel)
+                    n_dispatches += 1
+            buf.clear()
+
+        for batch in self.valid_loader:
+            sel = self._select(batch)
+            if buf and any(sel[k].shape != buf[0][k].shape for k in sel):
+                flush()
+            buf.append(sel)
+            n_batches += 1
+            if len(buf) == self.valid_chunk:
+                flush()
+        flush()
+        # the pass's one device->host copy
+        host = torch.stack([self._eval_sums[k] for k in VALID_SUMS]).cpu()
+        self.last_valid_readbacks = 1
+        n = int(round(float(host[2])))
+        if n:
+            # one n-weighted update a key: the averages of n per-batch updates
+            self.valid_metrics.update("valid_loss", float(host[0]) / n, n=n)
+            self.valid_metrics.update("valid_mse_loss", float(host[1]) / n, n=n)
+        if self.sink is not None:
+            self.sink.span("validate_fused", time.monotonic() - t0, batches=n_batches,
+                           dispatches=n_dispatches, chunk_windows=self.valid_chunk,
+                           readbacks=1)
         return self.valid_metrics.result()
 
     def eval_model_performance(self, log: Dict[str, float]):
@@ -774,6 +897,41 @@ class Trainer:
         if self.vis_enabled and any(it % self.train_vis_step == 0 for it in covered):
             self._log_images(n, metrics[-1]["last_pred"][0].cpu().numpy())
 
+    def _run_steps(self, pull, pulled, r: int, err_specs):
+        """A group's ``r`` steps one by one (``k_steps: 1``, the epoch's
+        tail); the learning rates and metrics, one a step."""
+        lrs, metrics = [], []
+        for j in range(r):
+            if j:
+                with self._attr.measure("data_wait"):
+                    pulled = next(pull)
+            batch = self._finish(self._take_staged(*pulled))
+            lrs.append(self.optimizer.lr)
+            step = self._dispatch(self.train_step, batch, err_specs)
+            if j < r - 1:
+                step.pop("last_pred", None)  # the vis frame is the last's
+            metrics.append(step)
+            err_specs = ()
+        return lrs, metrics
+
+    def _run_group(self, pull, pulled, r: int, err_specs):
+        """A full group as one super-step: each batch into its slot, then
+        one call (on the card a replay); the learning rates and the
+        stacked metrics as one dict a step."""
+        lrs = self.optimizer.group_lrs(r)
+        for j in range(r):
+            if j:
+                with self._attr.measure("data_wait"):
+                    pulled = next(pull)
+            batch = self._finish(self._take_staged(*pulled))
+            with self._attr.measure("stage_megabatch"):
+                self.multi_step.load(j, batch)
+        stacked = self._dispatch(lambda _: self.multi_step(), None, err_specs)
+        metrics = [{k: ({t: x[j] for t, x in v.items()} if isinstance(v, dict) else v[j])
+                    for k, v in stacked.items() if k != "last_pred"} for j in range(r)]
+        metrics[-1]["last_pred"] = stacked["last_pred"]
+        return lrs, metrics
+
     def _train_loop(self, progress: Dict, profiler) -> Dict[str, float]:
         it = self.start_iteration
         epoch = 0
@@ -827,19 +985,11 @@ class Trainer:
                         specs = _faults.fire("train_step", it)
                         nan_specs = [s for s in specs if s.kind == "nan_loss"]
                         err_specs = [s for s in specs if s.kind == "dispatch_error"]
-                        lrs, metrics = [], []
                         t0 = time.perf_counter()
-                        for j in range(r):
-                            if j:
-                                with self._attr.measure("data_wait"):
-                                    pulled = next(pull)
-                            batch = self._finish(self._take_staged(*pulled))
-                            lrs.append(self.optimizer.lr)
-                            step = self._dispatch(self.train_step, batch, err_specs)
-                            if j < r - 1:
-                                step.pop("last_pred", None)  # the vis frame is the last's
-                            metrics.append(step)
-                            err_specs = ()
+                        if r == self.k_steps and self.multi_step is not None:
+                            lrs, metrics = self._run_group(pull, pulled, r, err_specs)
+                        else:
+                            lrs, metrics = self._run_steps(pull, pulled, r, err_specs)
                         self._attr.note(it, r)
                         progress["iteration"] = last + 1
                         self._consume(it, epoch, n, lrs, t0, metrics, self._attr.current,

@@ -4,7 +4,7 @@ repository: the A/B yardstick of a change that touches the engine's host
 path (such as its ``DevicePrefetcher``).
 
     python scripts/time_port_engine.py [--root DIR] [--tag NAME] [--runs N]
-        [--precision f32|bf16|int8]
+        [--precision f32|bf16|int8] [--eager]
 
 ``--root`` is the checkout whose ``esr_tpu_torch`` and ``chip_smoke.py`` are
 imported (default: this one); run it once per checkout, in turns (parent,
@@ -15,7 +15,12 @@ seeded 720x1280 recordings, at the rung ``--precision`` (f32 by default),
 one warm run, then ``--runs`` timed runs of the whole datalist (host clock
 to ``synchronize``). It prints one JSON line:
 the card and its power limit, windows/s of each run and their median, and
-the chunks' dispatch-to-readback p50.
+the chunks' dispatch-to-readback p50. On the card a checkout with
+``GraphedChunk`` (``inference/engine.py``) runs its chunk as a CUDA graph;
+``--eager`` swaps in the eager ``ChunkProgram`` after the warm run (the
+path before the graph, and what a checkout without it runs anyway), so
+graphed and eager are timed in turns in one call, with the key ``chunk``
+naming what ran.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ def main() -> int:
     p.add_argument("--tag", default="")
     p.add_argument("--runs", type=int, default=3)
     p.add_argument("--precision", default="f32")
+    p.add_argument("--eager", action="store_true")
     args = p.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -59,6 +65,10 @@ def main() -> int:
                              precision=args.precision, device=dev)
     engine.run_datalist(recs[:1], cs.FLAGSHIP_DATA)  # warm: cuDNN picks its algorithms
     torch.cuda.synchronize()
+    program = getattr(engine._run_chunk, "program", None)
+    if args.eager and program is not None:
+        engine._run_chunk = program
+    chunk = "graphed" if getattr(engine._run_chunk, "program", None) is not None else "eager"
     rates, p50s = [], []
     for _ in range(args.runs):
         engine.chunk_seconds.clear()
@@ -70,7 +80,7 @@ def main() -> int:
         chunk_ms = sorted(s * 1e3 for s in engine.chunk_seconds)
         p50s.append(chunk_ms[len(chunk_ms) // 2])
     print(json.dumps({"tag": args.tag, "root": args.root, "card": card,
-                      "precision": args.precision,
+                      "precision": args.precision, "chunk": chunk,
                       "windows_per_sec": [round(r, 3) for r in rates],
                       "median_windows_per_sec": round(sorted(rates)[len(rates) // 2], 3),
                       "chunk_p50_ms": [round(v, 3) for v in p50s]}))

@@ -75,6 +75,18 @@ RTOL = 1e-5
 MODEL_TOL = dict(atol=1e-5, rtol=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work in one intra-op thread: at these sizes a
+    thread team gains nothing, and beside other busy processes its
+    spinning workers slow every op by orders of magnitude (the engine
+    runs and exports of this module most of all)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def recordings(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_engine")
@@ -723,3 +735,46 @@ def test_aot_serving_refusals(models, aot_artifacts, tmp_path):
         assert rep.engine._aot_paths == {AOT_W: art}
     finally:
         rep.close()
+
+
+@pytest.fixture(scope="module")
+def card_engine_runs(recordings, models):
+    """On the card: the engine at lanes 4 x chunk 8 over the six recordings
+    at f32, bf16 and int8, dense and ``dcn_sparse``, once with its chunk a
+    CUDA graph (the first chunk eager, the second captured, the rest
+    replayed) and once with the eager ``ChunkProgram``; each run's results
+    and final lane states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the DCN and int8 kernels and CUDA graphs have no "
+                    "CPU mode (chip_smoke.py runs the same checks at the flagship on the "
+                    "H100)")
+    from esr_tpu_torch.inference import engine as engine_mod
+
+    runs = {}
+    for sparse in (False, True):
+        port = DeepRecurrNet(inch=2, basech=2, num_frame=3, dcn_sparse=sparse)
+        convert.load_flax_params(port, models[1])
+        for rung in ("f32", "bf16", "int8"):
+            engine = StreamingEngine(port, 3, lanes=4, chunk_windows=8, precision=rung,
+                                     device="cuda")
+            graphed = engine.run_datalist(recordings, DATASET_CFG)[0]
+            replays = (engine._run_chunk.graph.replays, len(engine.chunk_seconds))
+            program = engine._run_chunk.program
+            assert isinstance(engine._run_chunk, engine_mod.GraphedChunk)
+            engine._run_chunk = program  # the eager chunk from here
+            eager = engine.run_datalist(recordings, DATASET_CFG)[0]
+            runs[(sparse, rung)] = {"graphed": graphed, "eager": eager, "replays": replays}
+    return runs
+
+
+@pytest.mark.gpu
+def test_graphed_chunk_is_the_eager_chunk_bitwise_on_card(card_engine_runs):
+    """Every rung, dense and sparse: the graphed engine's per-recording
+    metrics are the eager chunk's, bit for bit, and every chunk but the
+    first (the warm-up) was a replay."""
+    for key, run in card_engine_runs.items():
+        replays, chunks = run["replays"]
+        assert chunks >= 2 and replays == chunks - 1, key
+        for g, e in zip(run["graphed"], run["eager"]):
+            for k in METRIC_KEYS:
+                assert np.float64(g[k]).tobytes() == np.float64(e[k]).tobytes(), (key, k)

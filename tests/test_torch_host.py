@@ -52,6 +52,18 @@ import export_torch_checkpoint  # noqa: E402
 FLAGSHIP = REPO / "configs" / "train_esr_2x.yml"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work in one intra-op thread: at these sizes a
+    thread team gains nothing, and beside other busy processes its
+    spinning workers slow every op by orders of magnitude (the trainer runs of
+    this module most of all)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # -- the checkpoint exporter ------------------------------------------------
 
 @pytest.fixture(scope="module")

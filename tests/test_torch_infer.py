@@ -48,6 +48,18 @@ METRICS = ["esr_l1", "esr_mse", "esr_ssim", "esr_psnr", "esr_rmse",
 TOL = dict(rtol=1e-4, atol=1e-6)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work in one intra-op thread: at these sizes a
+    thread team gains nothing, and beside other busy processes its
+    spinning workers slow every op by orders of magnitude (the harness
+    and engine runs of this module most of all)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def runs(shared_corpus_dir, tmp_path_factory):
     """Both harnesses over rec0.h5 with the same seeded weights."""

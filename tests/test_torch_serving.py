@@ -96,6 +96,19 @@ from esr_tpu_torch.serving.replica import Replica
 from esr_tpu_torch.serving.scheduler import AdmissionFull, LaneScheduler, RequestClass, StreamRequest
 from esr_tpu_torch.serving.server import ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work in one intra-op thread: at these sizes a
+    thread team gains nothing, and beside other busy processes its
+    spinning workers slow every op by orders of magnitude (the serving
+    and fleet runs of this module most of all)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parent.parent
 SLO_FILES = ("slo.yml", "slo_fleet.yml")
 MIN_ACTIVITY = 0.3
