@@ -100,6 +100,23 @@ Phases (any failure exits non-zero):
    losses and grads within 1e-3 of their scale of the plain path's; the
    step's time and device busy time beside each kernel's time and bound
    at that shape (from phases 3 and 4).
+8d. the second shipped recipe: ``Trainer`` from
+   ``configs/train_srunet_2x.yml`` as written (``SRUNetRecurrentSeq``,
+   f32, batch 8 on the 90x160 grid), overriding only the run's length and
+   paths: 3 steps and a validation, finite losses, a committed checkpoint
+   that reloads bitwise; two steps from one state bitwise (C2); one
+   full-width window at B=1 on the card against the CPU (the output within
+   1e-3 * max(|ref|, 1), every gradient within 1e-3 of its own scale); a
+   step's time, device busy (the union of the profiler's kernel
+   intervals), idle share and peak memory. Then ``k_steps: 8`` on 17
+   batches (two full groups, the second a graph replay, and a tail)
+   bitwise the ``k_steps: 1`` run (losses, 38 parameters, Adam's moments),
+   a group captured against eager and the graph's pool; then the
+   checkpoint through ``run_inference`` by the harness and by the engine
+   (lanes 4 x chunk 8) over 5 recordings (finite, the engine within 1e-4
+   of the harness), the engine's graphed chunk bitwise the eager one,
+   windows/s and the harness's per-window p50. No hand-written kernel may
+   launch in it: the recipe has no DCN.
 
 8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
    ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
@@ -148,8 +165,8 @@ Phases (any failure exits non-zero):
    ``inference.export.export_checkpoint(program="engine_chunk")`` at lanes
    4 for depths 8 and 4 (the serving classes') at f32 and int8, and for
    depth 8 at bf16 (its sessions serve every stream in the standard
-   class), each export's seconds and bytes and each program's load ms
-   printed; the serving phase's 8 streams replayed on a virtual clock (0.05 s a round, so both sessions bind,
+   class), the five exports at once, a process each; each export's seconds
+   and bytes and each program's load ms printed; the serving phase's 8 streams replayed on a virtual clock (0.05 s a round, so both sessions bind,
    preempt and chunk alike) through a traced session and through
    ``aot_programs`` at each rung: every request's metrics, windows, skips
    and preemptions and the final lane states bitwise equal, the same
@@ -401,14 +418,26 @@ def rel_err_of(torch, got, ref):
     return err, scale, TOL * max(scale, TINY)
 
 
-def device_busy_ms(torch, prof) -> float:
-    """The summed device time of a ``torch.profiler`` capture's kernels and
-    copies, in ms."""
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
+def device_union_ms(torch, prof) -> float:
+    """The time the card was busy in a ``torch.profiler`` capture, in ms:
+    the union of its kernels' and copies' intervals. A sum of their
+    durations counts twice where they overlap (a kernel launched with
+    programmatic dependent launch starts before the one ahead of it ends),
+    and can pass the wall."""
     cuda = torch.autograd.DeviceType.CUDA
-    busy = sum(dev_us(e) for e in prof.key_averages() if e.device_type == cuda) / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda and e.time_range.end > e.time_range.start)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3
+
+
+def device_busy_ms(torch, prof) -> float:
+    """:func:`device_union_ms`, failing when the profiler saw no device time."""
+    busy = device_union_ms(torch, prof)
     if busy <= 0:
         fail("the profiler saw no device time")
     return busy
@@ -427,9 +456,12 @@ def device_time_breakdown(torch, prof, n: int, wall_ms: float, what: str, card: 
     if not events:
         print(f"profile {what}: device time not measured (the profiler saw no device events)")
         return None
-    busy_ms = sum(dev_us(e) for e in events) / 1e3 / n
+    # busy: the union of the device intervals; the kernels below: summed
+    busy_ms = device_union_ms(torch, prof) / n
     print(f"profile on {card}: {n} {what}s, wall {wall_ms:.3f} ms/{what}, device busy "
-          f"{busy_ms:.3f} ms/{what}, idle share {1 - busy_ms / wall_ms:.3f}")
+          f"{busy_ms:.3f} ms/{what} (the union of its kernels' intervals; their summed "
+          f"time {sum(dev_us(e) for e in events) / 1e3 / n:.3f}), idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         print(f"profile kernel: {dev_us(e) / 1e3 / n:.4f} ms/{what}, "
               f"{e.count / n:g} calls/{what}: {e.key[:90]}")
@@ -1232,13 +1264,15 @@ def same_state(torch, a, b) -> bool:
             and all(same_bits(torch, x, y) for x, y in zip(a[0] + a[1], b[0] + b[1])))
 
 
-def group_times(torch, trainer, batches, card):
-    """A full group of the flagship at batch 32, eagerly (8 train steps) and
-    captured (the batches copied into the slots, one replay), in turns;
-    device busy, idle share and peak memory of an eager step and of a
-    replayed group under the profiler (the device only: an eager group's
-    ~40,000 launches take a minute to aggregate), and the kernels it saw in
-    the replay."""
+def group_times(torch, trainer, batches, card, what: str = "the flagship",
+                dcn: bool = True):
+    """A full group of ``trainer``'s recipe (the flagship at batch 32 unless
+    ``what`` names another), eagerly (its train steps) and captured (the
+    batches copied into the slots, one replay), in turns; device busy, idle
+    share and peak memory of an eager step and of a replayed group under
+    the profiler (the device only: an eager group's ~40,000 launches take a
+    minute to aggregate), and, with ``dcn``, the DCN kernels it saw in the
+    replay."""
     from torch.profiler import ProfilerActivity, profile
 
     multi = trainer.multi_step
@@ -1281,7 +1315,7 @@ def group_times(torch, trainer, batches, card):
             wall = (time.perf_counter() - t0) * 1e3
         peak[way] = (torch.cuda.max_memory_allocated() - base) / 2**30
         busy[way] = (device_busy_ms(torch, prof), wall)
-        if way == "captured":
+        if way == "captured" and dcn:
             seen = {}
             for e in prof.key_averages():
                 if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1295,18 +1329,20 @@ def group_times(torch, trainer, batches, card):
                     "dcn_wgrad_kernel": k * 2 * TRAIN_WINDOWS}
             if seen != want:
                 fail(f"the profiler saw {seen} DCN kernels in a replayed group, expected {want}")
-    windows = k * batches[0]["inp"].shape[0] * TRAIN_WINDOWS
+    batch = batches[0]["inp"].shape[0]
+    windows = k * batch * TRAIN_WINDOWS
     for way in ("eager", "captured"):
         med = sum(times[way]) / len(times[way])
         b_ms, wall = busy[way]
-        what = "a step" if way == "eager" else "the group"
-        print(f"graphs on {card}: the flagship group ({k} steps of batch 32), {way}: "
+        unit = "a step" if way == "eager" else "the group"
+        idle = f"idle share {1 - b_ms / wall:.3f}"
+        print(f"graphs on {card}: {what} group ({k} steps of batch {batch}), {way}: "
               f"{', '.join(f'{t:.3f}' for t in times[way])} ms (mean {med:.3f}; a step "
-              f"{med / k:.3f} ms), {windows / (med / 1e3):.1f} windows/s; profiled, {what}: "
-              f"device busy {b_ms:.3f} ms of {wall:.3f} ms (idle share "
-              f"{1 - b_ms / wall:.3f}); peak memory above the state "
-              f"{peak[way]:.3f} GiB" + (" outside the graph's pool" if way == "captured" else ""))
-    print(f"graphs on {card}: the captured group's memory pool {pool_gib:.3f} GiB "
+              f"{med / k:.3f} ms), {windows / (med / 1e3):.1f} windows/s; profiled, {unit}: "
+              f"device busy {b_ms:.3f} ms of {wall:.3f} ms ({idle}); peak memory above the "
+              f"state {peak[way]:.3f} GiB"
+              + (" outside the graph's pool" if way == "captured" else ""))
+    print(f"graphs on {card}: {what}'s captured group's memory pool {pool_gib:.3f} GiB "
           "(memory reserved by its capture)")
 
 
@@ -1590,6 +1626,319 @@ def engine_graphs(torch, np, dev, card):
                   + ", ".join(f"{p:.3f}" for _, p, _, _ in stats[way])
                   + f" ms; a chunk's device busy {busy:.3f} ms; idle share of the run {idle}")
         engine._run_chunk = graphed
+
+
+SR_K = 8  # the captured group's k_steps
+SR_ITERATIONS = 2 * SR_K + 1  # 17 batches of 8: two full groups, then a tail of 1
+SR_BATCH = 8  # configs/train_srunet_2x.yml
+
+
+def srunet_recordings(np, recs):
+    """The train phase's recordings (four of 32 sequences of L 9: 16
+    batches of 8) and one more of ~11 sequences, so an epoch of the SR
+    recipe holds 17 batches of 8; the train phase's validation recording;
+    and 5 recordings of unequal length to evaluate (the lanes refill)."""
+    from esr_tpu_torch.data.synthetic import make_synthetic_recording
+
+    def rec(events, seed, name=None):
+        return make_synthetic_recording((720, 1280), base_events=events, num_frames=2,
+                                        rungs=("down8", "down16"), seed=seed, name=name)
+
+    train_recs, valid_recs = recs
+    evals = [rec(ev, 50 + i, f"srunet_eval{i}")
+             for i, ev in enumerate((120_000, 200_000, 80_000, 160_000, 100_000))]
+    return train_recs + [rec(110_000, 40)], valid_recs, evals
+
+
+def srunet_trainer(dev, repo: Path, out_dir: str, recs, iterations: int, extra=()):
+    """``configs/train_srunet_2x.yml`` as written: only the run's length and
+    paths are set (and ``extra``)."""
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.training.trainer import Trainer
+
+    overrides = [f"trainer;output_path={out_dir}",
+                 f"trainer;iteration_based_train;iterations={iterations}",
+                 "trainer;iteration_based_train;valid_step=2",
+                 "trainer;iteration_based_train;save_period=2",
+                 "trainer;iteration_based_train;train_log_step=1", *extra]
+    run = RunConfig.from_args(str(repo / "configs" / "train_srunet_2x.yml"),
+                              overrides=overrides, runid="chip_smoke_srunet", seed=0)
+    return run, Trainer(run, device=dev, train_recordings=recs[0], valid_recordings=recs[1])
+
+
+def srunet_card_vs_cpu(torch, trainer, sel) -> None:
+    """One window at full width and B=1 from the trainer's weights, on the
+    card and on the CPU: the output within 1e-3 * max(|ref|, 1), and every
+    parameter's gradient of its MSE within 1e-3 of its own scale max|ref|
+    (a gradient's scale may be far below 1)."""
+    outs, grads = {}, {}
+    for way in ("card", "cpu"):
+        model = copy.deepcopy(trainer.model).train()
+        if way == "cpu":
+            model = model.cpu()
+        d = next(model.parameters()).device
+        x, gt = sel["inp"][:1, :3].to(d), sel["gt"][:1, 1].to(d)
+        out, _ = model(x, model.init_states(1, *x.shape[2:4], device=d))
+        ((out - gt) ** 2).mean().backward()
+        outs[way] = out.detach().cpu()
+        grads[way] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    err, lim = err_of(torch, outs["card"], outs["cpu"])
+    rows = [(n, *rel_err_of(torch, grads["card"][n], g)) for n, g in grads["cpu"].items()]
+    worst = max(rows, key=lambda r: r[1] / r[3])
+    print(f"srunet card vs CPU: a window at B=1, {tuple(outs['cpu'].shape)} out, max_abs_err "
+          f"{err:.3e} (limit {lim:.3e}); {len(rows)} gradients, the worst {worst[0]} "
+          f"{worst[1]:.3e} of its scale {worst[2]:.3e} (limit {worst[3]:.3e})")
+    bad = ([] if err <= lim else ["output"]) + [n for n, e, _, lim in rows if not e <= lim]
+    if bad:
+        fail(f"the SRUNet window on the card differs from the CPU's: {bad}")
+
+
+def srunet_graphs(torch, np, dev, card, repo: Path, out_root: str, recs) -> None:
+    """The recipe with ``k_steps: 8`` on 17 batches (two full groups, the
+    second captured and replayed, and a tail of 1) bitwise the ``k_steps:
+    1`` run: the losses, the parameters and Adam's moments after each
+    group; then a group's time captured against eager."""
+    from itertools import islice
+
+    groups_at = {SR_K - 1, 2 * SR_K - 1, SR_ITERATIONS - 1}
+    runs = {}
+    for name, extra in (("k1", ["trainer;k_steps=1"]), ("k8", [f"trainer;k_steps={SR_K}"])):
+        _, trainer = srunet_trainer(dev, repo, os.path.join(out_root, name), recs,
+                                    SR_ITERATIONS, extra + [
+                                        "trainer;iteration_based_train;valid_step=1000000000",
+                                        "trainer;iteration_based_train;save_period=1000000000"])
+        if len(trainer.train_loader) != SR_ITERATIONS:
+            fail(f"the SR recipe's epoch holds {len(trainer.train_loader)} batches of "
+                 f"{SR_BATCH}, not {SR_ITERATIONS}")
+        rec = track_groups(torch, trainer, groups_at)
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        runs[name] = {"trainer": trainer, "rec": rec, "wall": time.perf_counter() - t0}
+        print(f"srunet graphs: run {name}, {SR_ITERATIONS} iterations in "
+              f"{runs[name]['wall']:.3f} s")
+    eight = runs["k8"]["trainer"]
+    graph = eight.multi_step.graph
+    if graph is None or graph.replays != 1:
+        fail(f"the k_steps {SR_K} run should replay its second group once: "
+             f"{graph and graph.replays}")
+    ref, got = runs["k1"]["rec"], runs["k8"]["rec"]
+    bad = [i for i in range(SR_ITERATIONS)
+           if not same_bits(torch, got["losses"][i][-1], ref["losses"][i][-1])]
+    if bad or sorted(got["losses"]) != list(range(SR_ITERATIONS)):
+        fail(f"srunet k_steps {SR_K}: the losses at iterations {bad} differ from k_steps 1's")
+    for it in sorted(groups_at):
+        if not same_state(torch, got["state"][it][-1], ref["state"][it][-1]):
+            fail(f"srunet k_steps {SR_K}: the parameters or moments after iteration {it} "
+                 "differ from k_steps 1's")
+    n_params = len(ref["state"][SR_ITERATIONS - 1][-1][0])
+    print(f"srunet graphs: {SR_ITERATIONS} losses, {n_params} parameters and their Adam "
+          f"moments after the groups ending at {sorted(groups_at)} bitwise the k_steps 1 "
+          "run's (the second group a graph replay)")
+    if n_params != 38:
+        fail(f"the SR recipe has {n_params} parameters, expected 38")
+    batches = [eight._select(b) for b in islice(iter(eight.train_loader), SR_K)]
+    group_times(torch, eight, batches, card, what="the SRUNet recipe", dcn=False)
+    del runs, eight, graph, batches
+    torch.cuda.empty_cache()
+
+
+def srunet_evaluate(torch, np, dev, card, ckpt: str, out_root: str, evals) -> None:
+    """The trained checkpoint through ``run_inference`` (what ``python -m
+    esr_tpu_torch.infer`` calls), by the sequential harness and by the
+    engine (lanes 4 x chunk 8) on the checkpoint's validation data config:
+    finite metrics, the engine within 1e-4 of the harness; the engine's
+    graphed chunk bitwise the eager chunk; windows/s and the per-window p50."""
+    from itertools import islice
+
+    from esr_tpu_torch.config.parser import load_config
+    from esr_tpu_torch.data.loader import LanePackedChunks
+    from esr_tpu_torch.inference.checkpoint import load_checkpoint
+    from esr_tpu_torch.inference.engine import (
+        METRIC_KEYS, GraphedChunk, StreamingEngine, lane_states, make_chunk_fn)
+    from esr_tpu_torch.inference.harness import InferenceRunner, run_inference
+
+    model, config = load_checkpoint(ckpt)
+    data = config["valid_dataloader"]["dataset"]
+    reports, walls = {}, {}
+    for way, engine in (("harness", False), ("engine", True)):
+        out = os.path.join(out_root, f"eval_{way}")
+        t0 = time.perf_counter()
+        run_inference(ckpt, evals, out, engine=engine, device=dev, lanes=LANES,
+                      chunk_windows=CHUNK_WINDOWS)
+        walls[way] = time.perf_counter() - t0
+        reports[way] = load_config(os.path.join(out, "inference_all.yml"))[
+            "breakdown results for each data"]
+    worst, n_windows = 0.0, 0
+    for rec in evals:
+        h = {k: reports["harness"][k][rec.name] for k in reports["harness"]}
+        e = {k: reports["engine"][k][rec.name] for k in reports["engine"]}
+        n_windows += int(h["n_windows"])
+        if h["n_windows"] != e["n_windows"]:
+            fail(f"srunet {rec.name}: the engine ran {e['n_windows']} windows, the harness "
+                 f"{h['n_windows']}")
+        for k in METRIC_KEYS + ("esr_rmse", "bicubic_rmse"):
+            if not (math.isfinite(h[k]) and math.isfinite(e[k])):
+                fail(f"srunet {rec.name}: {k} is not finite")
+            worst = max(worst, abs(e[k] - h[k]) / max(abs(h[k]), 1e-12))
+    print(f"srunet evaluation: the checkpoint through run_inference, {n_windows} windows of "
+          f"{len(evals)} recordings; harness {walls['harness']:.3f} s, engine "
+          f"{walls['engine']:.3f} s (each with its set-up); engine vs harness worst relative "
+          f"metric difference {worst:.3e} (limit {ENGINE_TOL})")
+    if not worst <= ENGINE_TOL:
+        fail("the SRUNet engine's metrics differ from the sequential harness's")
+
+    # the engine's chunk: graphed against eager, bitwise
+    model = model.to(dev).eval()
+    packer = LanePackedChunks(evals, data, lanes=LANES, chunk_windows=CHUNK_WINDOWS)
+    kh, kw = packer.gt_resolution
+    staged = [{k: torch.from_numpy(v).to(dev)
+               for k, v in dict(c["windows"], reset_keep=c["reset_keep"]).items()}
+              for c in islice(iter(packer), 3)]
+    program = make_chunk_fn(model, LANES, CHUNK_WINDOWS, kh, kw)
+    graphed = GraphedChunk(program)
+    s_g = lane_states(model, LANES, kh, kw, dev)
+    s_e = tuple(z.clone() for z in s_g)
+    for c in staged:
+        windows = {k: c[k] for k in ("inp_scaled", "gt", "inp_mid", "valid")}
+        s_g, sums_g, st_g = graphed(s_g, c["reset_keep"], windows)
+        s_e, sums_e, st_e = program(s_e, c["reset_keep"], windows)
+        pairs = (list(zip(s_g, s_e)) + [(sums_g[k], sums_e[k]) for k in sums_e]
+                 + [(st_g[k], st_e[k]) for k in st_e])
+        if not all(same_bits(torch, a.contiguous(), b.contiguous()) for a, b in pairs):
+            fail("srunet: the engine's graphed chunk differs from the eager chunk")
+    if graphed.graph is None or graphed.graph.replays != len(staged) - 1:
+        fail(f"srunet: {graphed.graph and graphed.graph.replays} chunk replays")
+    print(f"srunet engine chunk: {len(staged)} chunks (1 eager, {graphed.graph.replays} "
+          f"replays), {len(s_g)} lane-state leaves, sums and SSIM pairs bitwise the eager "
+          "chunk's")
+    del graphed, program, staged
+
+    # windows/s of the engine (graphed) and the harness's per-window latency
+    engine = StreamingEngine(model, 3, lanes=LANES, chunk_windows=CHUNK_WINDOWS, device=dev)
+    engine.run_datalist(evals[:2], data)  # warm-up and capture
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, _ = engine.run_datalist(evals, data)
+        torch.cuda.synchronize()
+        rates.append(sum(r["n_windows"] for r in results) / (time.perf_counter() - t0))
+    chunk_ms = sorted(s * 1e3 for s in engine.chunk_seconds)
+    runner = InferenceRunner(model, 3, device=dev)
+    forward, window_ms = runner.forward, []
+
+    def timed(inp, states):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(inp, states)
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    runner.forward = timed
+    runner.run_recording(evals[1], data, report=False)
+    window_ms = sorted(window_ms[1:])
+    print(f"srunet evaluation on {card}: engine (lanes {LANES} x chunk {CHUNK_WINDOWS}, "
+          f"graphed) {', '.join(f'{r:.3f}' for r in rates)} windows/s, chunk p50 "
+          f"{chunk_ms[len(chunk_ms) // 2]:.3f} ms; harness a window (B=1, dispatch to "
+          f"synchronize) p50 {window_ms[len(window_ms) // 2]:.3f} ms over {len(window_ms)} "
+          f"windows (max {window_ms[-1]:.3f})")
+
+
+def phase_srunet(torch, np, dev, card, repo: Path, out_root: str, recs) -> None:
+    """Phase 8d: the second shipped recipe, ``configs/train_srunet_2x.yml``
+    (``SRUNetRecurrentSeq``, f32), through the port's entry points on the
+    card: 3 steps at batch 8 and a validation, the checkpoint reloaded; two
+    identical steps bitwise; a window on the card against the CPU; the
+    step's device time; ``k_steps: 8`` as a captured group bitwise the
+    eager loop; the checkpoint evaluated by the harness and the engine. The
+    recipe has no DCN: no hand-written kernel launches in the phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esr_tpu_torch.inference.checkpoint import load_checkpoint
+    from esr_tpu_torch.training.checkpoint import find_latest_checkpoint
+    from esr_tpu_torch.training.multistep import launch_counts
+
+    t_phase = time.perf_counter()
+    train_recs, valid_recs, evals = srunet_recordings(np, recs)
+    reset_all_launches()
+    run, trainer = srunet_trainer(dev, repo, os.path.join(out_root, "train"),
+                                  (train_recs, valid_recs), 3)
+    if run.config["model"]["name"] != "SRUNetRecurrentSeq" or trainer.k_steps != 1:
+        fail("the SR recipe did not build SRUNetRecurrentSeq at k_steps 1")
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"srunet: {type(trainer.model).__name__} ({n_params} parameters), "
+          f"{len(trainer.train_loader)} batches of {SR_BATCH} per epoch, "
+          f"{len(trainer.valid_loader)} validation batch(es); built in "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    if n_params != 3_222_546:
+        fail(f"the SR recipe's model has {n_params} parameters, expected 3222546")
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(trainer.log_path) as f:
+        log = [json.loads(line) for line in f]
+    steps = [r for r in log if "train_loss" in r]
+    stamps = [r["iteration"] for r in log if "valid_stamp" in r]
+    if (len(steps) != 3 or len(stamps) != 1 or not all(
+            math.isfinite(r[k]) for r in steps for k in ("train_loss", "grad_norm"))
+            or not all(math.isfinite(v) for v in result.values())):
+        fail(f"srunet: non-finite or missing losses, or not one validation: {log}")
+    print(f"srunet train: 3 steps + 1 validation in {wall:.3f} s; losses "
+          f"{[round(r['train_loss'], 6) for r in steps]}; result {json.dumps(result)}")
+    ckpt = find_latest_checkpoint(os.path.dirname(run.save_dir))
+    if ckpt is None or not ckpt.endswith("checkpoint-iteration2"):
+        fail(f"srunet: no committed final checkpoint (found {ckpt})")
+    loaded, _ = load_checkpoint(ckpt)
+    for (n, p), q in zip(loaded.named_parameters(), trainer.model.parameters()):
+        if not torch.equal(p, q.detach().cpu()):
+            fail(f"srunet: the reloaded checkpoint's {n} differs from the trainer's")
+    print(f"srunet checkpoint {Path(ckpt).name}: committed, reloads bitwise the trainer's "
+          "parameters")
+
+    sel = trainer._select(next(iter(trainer.train_loader)))
+    c2_bitwise_step(torch, trainer, sel, what=f"B={SR_BATCH} SRUNet")
+    srunet_card_vs_cpu(torch, trainer, sel)
+
+    # where a step's time goes
+    for _ in range(2):  # warm
+        trainer.train_step(sel)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(sel)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(sel)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"srunet train step on {card}: batch {SR_BATCH}, step (host clock to synchronize) "
+          f"{sorted(times)[1]:.3f} ms median of 3 ({', '.join(f'{t:.3f}' for t in times)}); "
+          f"peak memory above the state {peak:.3f} GiB")
+    busy = device_time_breakdown(torch, prof, 1, prof_ms, "srunet train step", card)
+    if busy is None:
+        fail("srunet: the profiler saw no device time in a train step")
+    print(f"srunet train step on {card}: device_busy_ms {busy:.3f}, wall {prof_ms:.3f} ms, "
+          f"idle share {1 - busy / prof_ms:.3f}")
+    del trainer, sel
+    torch.cuda.empty_cache()
+
+    srunet_graphs(torch, np, dev, card, repo, os.path.join(out_root, "graphs"),
+                  (train_recs, valid_recs))
+    srunet_evaluate(torch, np, dev, card, ckpt, out_root, evals)
+    if any(launch_counts().values()):
+        fail(f"the SRUNet phase launched hand-written kernels: {launch_counts()}")
+    print(f"srunet phase {time.perf_counter() - t_phase:.1f} s; no hand-written kernel "
+          "launched (the recipe has no DCN and runs at f32)")
 
 
 def step_kernel_vs_plain(torch, trainer, sel, what: str = "step") -> None:
@@ -2090,7 +2439,7 @@ def batch_build(np, train_recs, dataset_config, batch_size, card):
     """The B=32 batch build of the trainer's loader (its item keys, its
     augmentation), with the native host kernels and with numpy
     (``ESR_TPU_NATIVE=0``), each at ``num_workers`` 0, 2 and 4: ms per batch
-    over two epochs after warm ones (the worker pool up), the warm epochs'
+    over one epoch after warm ones (the worker pool up), the warm epochs'
     wall beside it. The native route must take every encoder call of the
     in-process build and numpy none, and the reverse; every configuration's
     first batch is bitwise the in-process native one."""
@@ -2120,7 +2469,7 @@ def batch_build(np, train_recs, dataset_config, batch_size, card):
                         sum(1 for _ in loader)
                     t1 = time.perf_counter()
                     n = 0
-                    for epoch in range(warm, warm + 2):
+                    for epoch in range(warm, warm + 1):
                         loader.set_epoch(epoch)
                         n += sum(1 for _ in loader)
                     t2 = time.perf_counter()
@@ -2133,7 +2482,7 @@ def batch_build(np, train_recs, dataset_config, batch_size, card):
                 per_batch[route, workers] = (t2 - t1) / n * 1e3
                 print(f"batch build on the host of {card}: B={batch_size} {route} "
                       f"num_workers {workers}: {per_batch[route, workers]:.3f} ms per batch "
-                      f"over {n} batches of two epochs after {warm} warm ones (those, pool "
+                      f"over {n} batches of one epoch after {warm} warm ones (those, pool "
                       f"start included, {(t1 - t0) * 1e3:.3f} ms); in-process routes {routes}")
         finally:
             os.environ.pop("ESR_TPU_NATIVE", None)
@@ -2301,9 +2650,9 @@ def basech_step(torch, np, dev, trainer, sel, repo: Path, overrides, card, step8
           + " (host clock to synchronize, optimizer included)")
 
 
-def c2_bitwise_step(torch, trainer, sel):
-    """C2: two B=32 flagship train steps (the trainer's step: BPTT, the
-    backward, Adam-amsgrad) from the same params, optimizer state and
+def c2_bitwise_step(torch, trainer, sel, what: str = "B=32 flagship"):
+    """C2: two train steps of ``trainer``'s model (the trainer's step: BPTT,
+    the backward, Adam-amsgrad) from the same params, optimizer state and
     batch give the same bits: the per-window losses, every gradient and
     every updated parameter. Fails otherwise."""
     from esr_tpu_torch.training.train_step import make_train_step
@@ -2319,7 +2668,7 @@ def c2_bitwise_step(torch, trainer, sel):
     (l0, g0, p0), (l1, g1, p1) = runs
     bad_g = [n for n in g0 if not same_bits(torch, g0[n], g1[n])]
     bad_p = [n for n in p0 if not same_bits(torch, p0[n], p1[n])]
-    print(f"C2: two B=32 flagship train steps from the same state: losses "
+    print(f"C2: two {what} train steps from the same state: losses "
           f"{'bitwise' if same_bits(torch, l0, l1) else 'DIFFER'}; "
           f"{len(g0) - len(bad_g)} of {len(g0)} grads and {len(p0) - len(bad_p)} of "
           f"{len(p0)} updated params bitwise")
@@ -3084,7 +3433,8 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
     """The AOT export on the sparse flagship at lanes 4: the chunk programs
     of depths 8 and 4 at f32 and int8, and of depth 8 at bf16, exported
     from a port checkpoint (``inference.export.export_checkpoint``,
-    ``program="engine_chunk"``), loaded back, and the serving phase's 8
+    ``program="engine_chunk"``, the five at once, a process each), loaded
+    back, and the serving phase's 8
     streams (at bf16 all in the standard class) served through
     ``aot_programs`` against a traced session on the same replayed schedule:
     every request's metrics and the final lane states bitwise, the same
@@ -3093,7 +3443,6 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
     and ``--replicas 2`` (through ``AotRegistry``)."""
     from esr_tpu_torch.inference.checkpoint import save_checkpoint
     from esr_tpu_torch.inference.engine import METRIC_KEYS
-    from esr_tpu_torch.inference.export import export_checkpoint
     from esr_tpu_torch.models import convert
     from esr_tpu_torch.ops import dcn_cuda, int8_cuda
     from esr_tpu_torch.serving.server import RecordingStream, ServingEngine
@@ -3112,20 +3461,24 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
              f"x{SERVE_DATA['scale']} pair")
     if sorted({c.chunk_windows for c in classes.values()}) != sorted(AOT_DEPTHS):
         fail(f"the serving classes' depths are not {AOT_DEPTHS}")
+    jobs = {(rung, w): {"ckpt_path": ckpt, "batch": LANES, "height": kh, "width": kw,
+                        "program": "engine_chunk", "chunk_windows": w,
+                        "scale": SERVE_DATA["scale"], "precision": rung,
+                        "out_path": os.path.join(out_dir, "aot",
+                                                 f"chunk_program.{rung}.w{w}.pt2")}
+            for rung in AOT_RUNGS for w in AOT_RUNG_DEPTHS[rung]}
+    t0 = time.perf_counter()
+    seconds = export_in_processes(repo, jobs)
+    print(f"aot exports on {card}: {len(jobs)} at once, a process each, in "
+          f"{time.perf_counter() - t0:.2f} s")
     artifacts, table = {}, {}
-    for rung in AOT_RUNGS:
-        for w in AOT_RUNG_DEPTHS[rung]:
-            path = os.path.join(out_dir, "aot", f"chunk_program.{rung}.w{w}.pt2")
-            t0 = time.perf_counter()
-            export_checkpoint(ckpt, path, batch=LANES, height=kh, width=kw,
-                              program="engine_chunk", chunk_windows=w,
-                              scale=SERVE_DATA["scale"], precision=rung, device=dev)
-            seconds = time.perf_counter() - t0
-            artifacts.setdefault(rung, {})[w] = path
-            table[rung, w] = {"export_s": seconds, "bytes": os.path.getsize(path)}
-            print(f"aot export {rung} w{w} (lanes {LANES}, GT {kh}x{kw}) on {card}: "
-                  f"{seconds:.2f} s, {os.path.getsize(path)} bytes (+ "
-                  f"sidecar {os.path.getsize(path + '.json')})")
+    for (rung, w), job in jobs.items():
+        path = job["out_path"]
+        artifacts.setdefault(rung, {})[w] = path
+        table[rung, w] = {"export_s": seconds[rung, w], "bytes": os.path.getsize(path)}
+        print(f"aot export {rung} w{w} (lanes {LANES}, GT {kh}x{kw}) on {card}: "
+              f"{seconds[rung, w]:.2f} s (beside the other exports), "
+              f"{os.path.getsize(path)} bytes (+ sidecar {os.path.getsize(path + '.json')})")
 
     def traffic(rung):
         """The classes a rung's sessions serve, and the schedule: arrivals
@@ -3196,6 +3549,34 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
         f"{rung} w{w} export {r['export_s']:.2f} s, {r['bytes']} bytes, load "
         f"{r['load_ms']:.1f} ms" for (rung, w), r in table.items()))
     aot_entry_point(model, repo, os.path.join(out_dir, "entry"))
+
+
+def export_in_processes(repo: Path, jobs: dict) -> dict:
+    """``inference.export.export_checkpoint(**job)`` for every job at once,
+    each in a process of its own on the card (a trace is one core's work);
+    each job's seconds. Fails, and ends the others, if one fails."""
+    code = ("import json, sys, time\n"
+            "from esr_tpu_torch.inference.export import export_checkpoint\n"
+            "t0 = time.perf_counter()\n"
+            "export_checkpoint(**json.loads(sys.argv[1]))\n"
+            "print(time.perf_counter() - t0)\n")
+    procs = {key: subprocess.Popen([sys.executable, "-c", code, json.dumps(job)],
+                                   cwd=str(repo), stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+             for key, job in jobs.items()}
+    seconds = {}
+    try:
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"aot export {key}: exit {proc.returncode}: {err[-2000:]}")
+            seconds[key] = float(out.split()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return seconds
 
 
 def aot_entry_point(model, repo: Path, root: str) -> None:
@@ -3513,7 +3894,7 @@ def rung_window_profile(torch, runner, recording, dev, card):
 
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.key_averages() if e.device_type == cuda and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in events) / 1e3
+    busy = device_union_ms(torch, prof)
     named = {}
     for part in INT8_KERNEL_NAMES + ("dcn_forward_kernel", "Memset"):
         hits = [e for e in events if part in e.key]
@@ -3824,6 +4205,9 @@ def main() -> int:
         graph_launches = phase_graphs(torch, np, dev, card, repo,
                                       os.path.join(out_root, "graphs"))
         done("the graphs phase")
+        # -- 8d. the second shipped recipe (SRUNetRecurrentSeq) -------------
+        phase_srunet(torch, np, dev, card, repo, os.path.join(out_root, "srunet"), recs)
+        done("the SRUNet phase")
         # -- 7c. the 4x recipe --------------------------------------------
         totals_4x = phase_train_4x(torch, np, dev, card, repo, os.path.join(out_root, "x4"),
                                    fwd["valid_4x_b8"], train_kernels["train_4x_b8"])

@@ -21,15 +21,13 @@ import numpy as np
 import torch.nn as nn
 
 from esr_tpu_torch.models import convert
-from esr_tpu_torch.models.esr import DeepRecurrNet
+from esr_tpu_torch.models.registry import get_model
 
 
-def build_model(model_config: Dict) -> DeepRecurrNet:
-    """``{"name": "DeepRecurrNet", "args": {...}}`` -> the port's model."""
-    name = model_config.get("name")
-    if name != "DeepRecurrNet":
-        raise NotImplementedError(f"model {name!r} is not ported yet")
-    return DeepRecurrNet(**(model_config.get("args") or {}))
+def build_model(model_config: Dict) -> nn.Module:
+    """``{"name": <a registered model>, "args": {...}}`` -> the port's model
+    (``models.registry``)."""
+    return get_model(model_config.get("name"), **(model_config.get("args") or {}))
 
 
 def save_checkpoint(path: str, params: Dict, config: Dict) -> None:

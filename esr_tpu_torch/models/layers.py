@@ -7,7 +7,9 @@ choice); BatchNorm/InstanceNorm wait for a later slice and raise here.
 Default initializers are torch's own (kaiming-uniform with a=sqrt(5), i.e.
 U(+-1/sqrt(fan_in)) for weights and biases), which is what the reference's
 flax initializers mirror; the ConvGRU gates use orthogonal weights and zero
-biases like the reference.
+biases like the reference. The recurrent blocks are ConvGRU (the
+flagship's) and ConvLSTM (the UNet family's); :class:`TransposedConvLayer`
+and :class:`ConvLayer1D` complete the reference's layer set.
 
 **The precision seams.** Every convolution is a :class:`Conv2d` and every
 dense a :class:`Linear` (subclasses of ``nn.Conv2d`` / ``nn.Linear``, so the
@@ -22,14 +24,14 @@ mirrors ``wide_accum_conv_general_dilated`` / ``wide_accum_dot_general`` of
   (``quantized_conv2d`` / ``quantized_linear``), its weight quantized and
   packed once per weight.
 
-The 2x bilinear upsampling keeps ``F.interpolate`` as its forward; its
-backward is a product with the interpolation's matrices, which sums in a
-fixed order (the stock CUDA backward scatters with atomics).
+The bilinear upsampling is :func:`esr_tpu_torch.ops.resize.resize`:
+``F.interpolate`` as its forward, and a backward that is a product with
+the interpolation's matrices, which sums in a fixed order (the stock CUDA
+backward scatters with atomics).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -37,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from esr_tpu_torch.config.quantize import int8_enabled, quantized_conv2d, quantized_linear
+from esr_tpu_torch.ops.resize import resize
 
 _ACTIVATIONS = {
     None: None,
@@ -153,48 +156,11 @@ class Linear(nn.Linear):
         return super().forward(x)
 
 
-class _Upsample(torch.autograd.Function):
-    """Bilinear upsampling by an integer factor (``align_corners=False``):
-    ``F.interpolate`` forward, a backward by the interpolation matrices."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, scale: int) -> torch.Tensor:
-        h, w = x.shape[-2:]
-        ctx.geom = (h, w, scale)
-        return F.interpolate(x, size=(h * scale, w * scale), mode="bilinear",
-                             align_corners=False)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        h, w, scale = ctx.geom
-        ah = interpolation_matrix(h, scale, g.dtype, g.device)  # [h*s, h]
-        aw = interpolation_matrix(w, scale, g.dtype, g.device)  # [w*s, w]
-        return torch.matmul(torch.matmul(ah.t(), g), aw), None
-
-
-@functools.lru_cache(maxsize=64)
-def interpolation_matrix(n: int, scale: int, dtype: torch.dtype,
-                         device: torch.device) -> torch.Tensor:
-    """``A [n*scale, n]``: the bilinear interpolation (``align_corners=False``)
-    of ``n`` samples to ``n*scale`` as a matrix, with PyTorch's weights (the
-    source index ``(d + 0.5) / scale - 0.5`` clamped at 0, the right
-    neighbour clamped to the edge)."""
-    d = torch.arange(n * scale, dtype=torch.float64)
-    src = ((d + 0.5) / scale - 0.5).clamp_min(0.0)
-    i0 = src.floor().long().clamp_max(n - 1)
-    i1 = (i0 + 1).clamp_max(n - 1)
-    l1 = src - i0
-    a = torch.zeros(n * scale, n, dtype=torch.float64)
-    rows = torch.arange(n * scale)
-    a.index_put_((rows, i0), 1.0 - l1, accumulate=True)
-    a.index_put_((rows, i1), l1, accumulate=True)
-    return a.to(device=device, dtype=dtype)
-
-
 def upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Bilinear x``scale`` of NCHW ``x`` (``align_corners=False``); its
-    backward sums in a fixed order."""
-    return _Upsample.apply(x, int(scale))
+    backward sums in a fixed order (:func:`esr_tpu_torch.ops.resize.resize`)."""
+    h, w = x.shape[-2:]
+    return resize(x, (h * int(scale), w * int(scale)), "bilinear")
 
 
 def _check_norm(norm: Optional[str]) -> None:
@@ -288,9 +254,36 @@ class ConvGRUCell(nn.Module):
         return state * (1.0 - update) + out * update
 
 
+class ConvLSTMCell(nn.Module):
+    """Convolutional LSTM: ``(x [B,Cin,H,W], (hidden, cell) [B,Ch,H,W]) ->
+    (hidden, (hidden, cell))``. One conv over ``cat([x, hidden])`` gives the
+    in, remember, out and cell gates, in that order along the channels."""
+
+    def __init__(self, in_channels: int, hidden: int, kernel_size: int = 3):
+        super().__init__()
+        self.hidden = hidden
+        self.gates = Conv2d(in_channels + hidden, 4 * hidden, kernel_size,
+                            padding=kernel_size // 2)
+
+    def forward(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        prev_hidden, prev_cell = state
+        gates = self.gates(torch.cat([x, prev_hidden], dim=1))
+        in_gate, remember_gate, out_gate, cell_gate = gates.chunk(4, dim=1)
+        cell = (torch.sigmoid(remember_gate) * prev_cell
+                + torch.sigmoid(in_gate) * torch.tanh(cell_gate))
+        hidden = torch.sigmoid(out_gate) * torch.tanh(cell)
+        return hidden, (hidden, cell)
+
+
+RECURRENT_BLOCKS = ("convgru", "convlstm")
+
+
 class RecurrentConvLayer(nn.Module):
-    """ConvLayer + ConvGRU (the ported recurrent block type).
-    ``(x, state) -> (output, new_state)``; the output IS the new state."""
+    """ConvLayer + a recurrent cell (``recurrent_block_type``: ``convgru``
+    or ``convlstm``, kernel 3). ``(x, state) -> (output, new_state)``; for
+    ConvGRU the output IS the new state, for ConvLSTM the state is
+    ``(hidden, cell)`` and the output the hidden."""
 
     def __init__(
         self,
@@ -301,18 +294,61 @@ class RecurrentConvLayer(nn.Module):
         padding: int = 0,
         activation: Optional[str] = "relu",
         norm: Optional[str] = None,
+        recurrent_block_type: str = "convgru",
     ):
         super().__init__()
+        if recurrent_block_type not in RECURRENT_BLOCKS:
+            raise ValueError(f"unsupported recurrent block: {recurrent_block_type}")
+        self.recurrent_block_type = recurrent_block_type
         self.conv_layer = ConvLayer(
             in_channels, out_channels, kernel_size, stride, padding, activation, norm
         )
-        self.cell = ConvGRUCell(out_channels, out_channels, kernel_size=3)
+        cell = ConvGRUCell if recurrent_block_type == "convgru" else ConvLSTMCell
+        self.cell = cell(out_channels, out_channels, kernel_size=3)
 
-    def forward(
-        self, x: torch.Tensor, state: torch.Tensor
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        new_state = self.cell(self.conv_layer(x), state)
+    def forward(self, x: torch.Tensor, state):
+        x = self.conv_layer(x)
+        if self.recurrent_block_type == "convlstm":
+            return self.cell(x, state)
+        new_state = self.cell(x, state)
         return new_state, new_state
+
+
+class TransposedConvLayer(nn.Module):
+    """Stride-2 transposed conv (exactly x2: ``output_padding=1``), then the
+    activation. The flax kernel ``[kh, kw, in, out]`` is this weight
+    ``[in, out, kh, kw]`` flipped in space (``models.convert``); the init's
+    fan-in is ``out * k * k``, torch's own for a transposed conv."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 padding: int = 0, activation: Optional[str] = "relu",
+                 norm: Optional[str] = None):
+        super().__init__()
+        _check_norm(norm)
+        self.conv = nn.ConvTranspose2d(in_channels, out_channels, kernel_size, stride=2,
+                                       padding=padding, output_padding=1)
+        self.activation = get_activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        return self.activation(x) if self.activation is not None else x
+
+
+class ConvLayer1D(nn.Module):
+    """Conv1d + activation on ``[B, C, N]``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 0, activation: Optional[str] = "relu",
+                 norm: Optional[str] = None):
+        super().__init__()
+        _check_norm(norm)
+        self.conv = nn.Conv1d(in_channels, out_channels, kernel_size, stride=stride,
+                              padding=padding)
+        self.activation = get_activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        return self.activation(x) if self.activation is not None else x
 
 
 class MLP(nn.Module):

@@ -2,7 +2,8 @@
 
 Pad an image so H and W divide a factor (top/left take the ceil half of the
 slack) and crop a (possibly upscaled) output back, on channel-last
-``[..., H, W, C]`` tensors.
+``[..., H, W, C]`` tensors; and the UNet family's skip connections, which
+align the two sides by zero-padding or centre-cropping, on NCHW tensors.
 """
 
 from __future__ import annotations
@@ -55,3 +56,31 @@ def crop_image(x: torch.Tensor, spec: PadSpec, scale: int = 1) -> torch.Tensor:
     iy0 = cy - math.floor(spec.height * scale / 2)
     iy1 = cy + math.ceil(spec.height * scale / 2)
     return x[..., iy0:iy1, ix0:ix1, :]
+
+
+def _align_to(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Zero-pad or centre-crop ``x1 [..., C, H, W]`` to ``x2``'s H and W.
+    The difference splits as ``d // 2`` before and ``d - d // 2`` after
+    (floor division, so a negative difference crops one more row or column
+    after than before when it is odd), as ``ZeroPad2d`` takes negative pads."""
+    dy = x2.shape[-2] - x1.shape[-2]
+    dx = x2.shape[-1] - x1.shape[-1]
+    if dy == 0 and dx == 0:
+        return x1
+    top, bottom = dy // 2, dy - dy // 2
+    left, right = dx // 2, dx - dx // 2
+    pads = (max(left, 0), max(right, 0), max(top, 0), max(bottom, 0))
+    if any(pads):
+        x1 = F.pad(x1, pads)
+    h, w = x1.shape[-2], x1.shape[-1]
+    return x1[..., max(-top, 0):h + min(bottom, 0), max(-left, 0):w + min(right, 0)]
+
+
+def skip_concat(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Channel concat skip (NCHW) with ``x1`` aligned to ``x2``."""
+    return torch.cat([_align_to(x1, x2), x2], dim=1)
+
+
+def skip_sum(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Additive skip (NCHW) with ``x1`` aligned to ``x2``."""
+    return _align_to(x1, x2) + x2

@@ -1,0 +1,46 @@
+"""Model registry: config name -> model class or factory (counterpart of
+``esr_tpu/models/registry.py``), the same seven names.
+
+:func:`refuse_unported` names what the UNet family cannot run yet in the
+port: serving and the fleet, the AOT export, and the bf16 and int8 rungs.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch.nn as nn
+
+from esr_tpu_torch.models.adapters import srunet_recurrent_seq, unet_recurrent_seq
+from esr_tpu_torch.models.esr import DeepRecurrNet
+from esr_tpu_torch.models.unet import MultiResUNet, SRUNetRecurrent, UNetFlow, UNetRecurrent
+
+MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+    "DeepRecurrNet": DeepRecurrNet,
+    "UNetFlow": UNetFlow,
+    "UNetRecurrent": UNetRecurrent,
+    "MultiResUNet": MultiResUNet,
+    "SRUNetRecurrent": SRUNetRecurrent,
+    # windowed-trainer peers (the same YAML and trainer as DeepRecurrNet)
+    "SRUNetRecurrentSeq": srunet_recurrent_seq,
+    "UNetRecurrentSeq": unet_recurrent_seq,
+}
+
+
+def get_model(name: str, **kwargs) -> nn.Module:
+    """Instantiate a registered model by config name. An argument the model
+    does not take (a UNet given ``dcn_sparse`` or ``numerics``) raises the
+    constructor's ``TypeError``, the kind the reference's dataclasses raise."""
+    if name not in MODEL_REGISTRY:
+        raise KeyError(f"unknown model '{name}'; registered: {sorted(MODEL_REGISTRY)}")
+    return MODEL_REGISTRY[name](**kwargs)
+
+
+def refuse_unported(model: nn.Module, what: str) -> None:
+    """Raise ``NotImplementedError`` when ``what`` (serving, the AOT
+    export, a precision rung) is asked of a model other than
+    ``DeepRecurrNet``: the UNet family's port of it is ROADMAP.md A12a-2."""
+    if not isinstance(model, DeepRecurrNet):
+        raise NotImplementedError(
+            f"{what} of {type(model).__name__} is not ported yet (ROADMAP.md A12a-2: the "
+            "UNet family at serving, the fleet, AOT and the bf16 and int8 rungs)")

@@ -5,6 +5,13 @@ Bilinear and bicubic (Keys a=-0.75) with half-pixel source mapping and
 border replication are exactly ``torch.nn.functional.interpolate``, so the
 tensor path calls it. The data path (numpy, host side) keeps the separable
 interpolation matrices, built here in numpy.
+
+:func:`resize` is the differentiable form on NCHW tensors (the models'
+bilinear upsampling, ``models.layers.upsample``, and the UNet adapter's
+bicubic inside the training forward): ``F.interpolate`` forward,
+and a backward that is the product ``A_h^T g A_w`` with the same matrices,
+which sums in a fixed order where the stock CUDA backward scatters with
+atomics (and raises under deterministic algorithms).
 """
 
 from __future__ import annotations
@@ -81,3 +88,40 @@ def interpolate_scale(x: torch.Tensor, scale: int, mode: str = "bilinear") -> to
     """Scale-factor form of :func:`interpolate`."""
     h, w = x.shape[-3], x.shape[-2]
     return interpolate(x, (h * scale, w * scale), mode)
+
+
+@functools.lru_cache(maxsize=64)
+def resize_matrix(in_size: int, out_size: int, mode: str, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`_interp_matrix` as a tensor on ``device``, made once per
+    (sizes, mode, dtype, device): a CUDA graph's capture cannot copy from
+    host memory, so the first (eager) backward makes it."""
+    return torch.from_numpy(_interp_matrix(in_size, out_size, mode)).to(device=device,
+                                                                        dtype=dtype)
+
+
+class _Resize(torch.autograd.Function):
+    """``F.interpolate`` forward, the interpolation matrices' backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, size: Tuple[int, int], mode: str) -> torch.Tensor:
+        ctx.geom = (x.shape[-2], x.shape[-1], size[0], size[1], mode)
+        return F.interpolate(x, size=size, mode=mode, align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h, w, oh, ow, mode = ctx.geom
+        ah = resize_matrix(h, oh, mode, g.dtype, g.device)  # [oh, h]
+        aw = resize_matrix(w, ow, mode, g.dtype, g.device)  # [ow, w]
+        return torch.matmul(torch.matmul(ah.t(), g), aw), None, None
+
+
+def resize(x: torch.Tensor, size: Tuple[int, int], mode: str = "bicubic") -> torch.Tensor:
+    """Resize NCHW ``x`` to ``size`` (bilinear or bicubic,
+    ``align_corners=False``); its backward sums in a fixed order."""
+    if mode not in ("bilinear", "bicubic"):
+        raise ValueError(f"unsupported resize mode: {mode}")
+    size = (int(size[0]), int(size[1]))
+    if tuple(x.shape[-2:]) == size:
+        return x
+    return _Resize.apply(x, size, mode)

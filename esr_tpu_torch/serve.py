@@ -132,11 +132,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     logging.basicConfig(level=logging.INFO)
 
     from esr_tpu_torch.inference.checkpoint import load_checkpoint
+    from esr_tpu_torch.models.registry import refuse_unported
     from esr_tpu_torch.obs import TelemetrySink, set_active_sink
     from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
     from esr_tpu_torch.serving.server import ServingEngine
 
     model, config = load_checkpoint(flags.model_path)
+    refuse_unported(model, "serving")
     precision = resolve_precision(
         cli=flags.precision, config=(config.get("trainer") or {}).get("precision"))
     classes = parse_classes(flags.classes)

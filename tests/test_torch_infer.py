@@ -7,7 +7,10 @@ entry point on a port checkpoint.
 
 Metric tolerance: rtol 1e-4 + atol 1e-6 (measured ~1e-7 relative: the same
 f32 model and metrics summed in another order). ``time`` is a wall clock
-and is only checked for presence.
+and is only checked for presence. The second shipped recipe's model
+(``SRUNetRecurrentSeq``) is evaluated the same way from a port checkpoint,
+through the harness and through the streaming engine (engine vs harness
+rtol 1e-5).
 """
 
 import logging
@@ -24,6 +27,7 @@ import yaml
 from esr_tpu.data.dataset import EventWindowDataset as RefDataset
 from esr_tpu.inference.harness import InferenceRunner as RefRunner
 from esr_tpu.models.esr import DeepRecurrNet as FlaxNet
+from esr_tpu.models.registry import get_model as j_get_model
 from esr_tpu_torch import infer as port_infer
 from esr_tpu_torch.data.dataset import EventWindowDataset
 from esr_tpu_torch.inference.checkpoint import save_checkpoint
@@ -318,3 +322,67 @@ def test_precision_resolves_cli_over_checkpoint_over_f32(runs, tmp_path):
     finally:
         harness.InferenceRunner = orig
     assert seen == ["bf16", "int8", "f32"]
+
+
+# -- the second shipped recipe's model (SRUNetRecurrentSeq) -----------------
+
+SR_ARGS = {"num_frame": 3, "base_num_channels": 4, "num_encoders": 2,
+           "num_residual_blocks": 1}
+SR_METRICS = METRICS
+
+
+@pytest.fixture(scope="module")
+def srunet_runs(shared_corpus_dir, tmp_path_factory):
+    """A seeded SRUNetRecurrentSeq saved as a port checkpoint, evaluated on
+    rec0 and rec1 by the reference's harness and by the port's ``infer``
+    entry point, once through the sequential harness and once through the
+    engine (lanes 2 x chunk 2)."""
+    out = tmp_path_factory.mktemp("torch_infer_srunet")
+    recs = [str(shared_corpus_dir / f"rec{i}.h5") for i in (0, 1)]
+    ref = j_get_model("SRUNetRecurrentSeq", **SR_ARGS)
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
+                            np.zeros((1, 3, 16, 16, 2), np.float32),
+                            ref.init_states(1, 16, 16))
+    rng = np.random.default_rng(1)
+    params = jax.tree.map(
+        lambda s: rng.uniform(-1.0, 1.0, s.shape).astype(np.float32)
+        / np.sqrt(max(np.prod(s.shape[:-1]), 1)), shapes)
+    ref_results = [RefRunner(ref, params, 3).run_recording(r, DATASET, str(out / f"ref{i}"))
+                   for i, r in enumerate(recs)]
+    ckpt = out / "ckpt"
+    save_checkpoint(str(ckpt), params, {
+        "model": {"name": "SRUNetRecurrentSeq", "args": SR_ARGS},
+        "trainer": {"precision": "f32"}, "valid_dataloader": {"dataset": DATASET}})
+    datalist = out / "datalist.txt"
+    datalist.write_text("\n".join(recs) + "\n")
+    means = {}
+    for way in ("no_engine", "engine"):
+        means[way] = port_infer.main([
+            "--model_path", str(ckpt), "--data_list", str(datalist),
+            "--output_path", str(out / way), "--device", "cpu", "--scale", "2",
+            "--ori_scale", "down8", "--window", "512", "--sliding_window", "256",
+            "--seql", "4", "--no_need_gt_frame", f"--{way}", "--lanes", "2",
+            "--chunk_windows", "2"])
+    reports = {}
+    for way in means:
+        with open(out / way / "inference_all.yml") as f:
+            reports[way] = yaml.safe_load(f)["breakdown results for each data"]
+    return {"recs": recs, "ref": ref_results, "means": means, "reports": reports,
+            "ckpt": ckpt}
+
+
+@pytest.mark.parametrize("key", SR_METRICS)
+def test_srunet_harness_matches_reference(srunet_runs, key):
+    report = srunet_runs["reports"]["no_engine"]
+    for rec, ref in zip(srunet_runs["recs"], srunet_runs["ref"]):
+        np.testing.assert_allclose(report[key][os.path.basename(rec)], ref[key], **TOL)
+
+
+@pytest.mark.parametrize("key", SR_METRICS)
+def test_srunet_engine_matches_harness(srunet_runs, key):
+    harness, engine = (srunet_runs["reports"][w] for w in ("no_engine", "engine"))
+    for rec in srunet_runs["recs"]:
+        name = os.path.basename(rec)
+        np.testing.assert_allclose(engine[key][name], harness[key][name], rtol=1e-5,
+                                   atol=1e-7)
+    assert srunet_runs["means"]["engine"]["n_windows"] >= 3

@@ -4,8 +4,14 @@ reference at f32 on the CPU.
 Both sides get the same seeded numpy inputs and the same weights (the flax
 init, brought across by ``esr_tpu_torch.models.convert``). Tolerance:
 atol 1e-5 + rtol 1e-5; the measured envelope is ~1e-7 (the same f32 convs
-summed in another order).
+summed in another order). The UNet family's pieces are here too: the
+ConvLSTM cell and block, the transposed conv at k 3 and 5 and p 0-2 (its
+kernel crosses the bridge flipped in space), the 1D conv, the skips'
+pad-or-crop alignment, the x4 bilinear upsampling and the bicubic resize
+with its matrix backward.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -62,7 +68,26 @@ CASES = {
                        [(2, 6, 8, 3), (2, 6, 8, 4)], "recurrent"),
     "mlp": (FL.MLP(hidden_dim=4, output_dim=6, num_layers=2),
             lambda: TL.MLP(5, 4, 6, num_layers=2), [(3, 5)], "vector"),
+    "convlstm_cell": (FL.ConvLSTMCell(4), lambda: TL.ConvLSTMCell(3, 4),
+                      [(2, 6, 8, 3), (2, 6, 8, 4), (2, 6, 8, 4)], "lstm"),
+    "recurrent_convlstm": (FL.RecurrentConvLayer(4, 5, stride=2, padding=2,
+                                                 recurrent_block_type="convlstm"),
+                           lambda: TL.RecurrentConvLayer(3, 4, 5, stride=2, padding=2,
+                                                         recurrent_block_type="convlstm"),
+                           [(2, 9, 11, 3), (2, 5, 6, 4), (2, 5, 6, 4)], "lstm"),
+    "conv1d": (FL.ConvLayer1D(4, 3, padding=1), lambda: TL.ConvLayer1D(3, 4, 3, padding=1),
+               [(2, 9, 3)], "image"),
+    "conv1d_stride2_linear": (FL.ConvLayer1D(5, 5, stride=2, padding=2, activation=None),
+                              lambda: TL.ConvLayer1D(2, 5, 5, stride=2, padding=2,
+                                                     activation=None),
+                              [(3, 11, 2)], "image"),
 }
+for _k in (3, 5):
+    for _p in (0, 1, 2):
+        CASES[f"transposed_conv_k{_k}_p{_p}"] = (
+            FL.TransposedConvLayer(4, _k, padding=_p),
+            functools.partial(TL.TransposedConvLayer, 3, 4, _k, padding=_p),
+            [(2, 5, 7, 3)], "image")
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +98,7 @@ def layer_pairs():
     for i, (name, (fmod, tctor, shapes, kind)) in enumerate(CASES.items()):
         rng = np.random.default_rng(i)
         xs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
-        params = fmod.init(jax.random.PRNGKey(i), *xs)
+        params = fmod.init(jax.random.PRNGKey(i), *_cell_args(kind, xs))
         params = jax.tree.map(np.asarray, params)
         tmod = tctor()
         convert.load_flax_params(tmod, params)
@@ -81,21 +106,28 @@ def layer_pairs():
     return out
 
 
+def _cell_args(kind, xs):
+    """A ConvLSTM's state is the pair ``(hidden, cell)``."""
+    return (xs[0], (xs[1], xs[2])) if kind == "lstm" else tuple(xs)
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_layer_matches_flax(layer_pairs, name):
     fmod, params, tmod, xs, kind = layer_pairs[name]
-    ref = fmod.apply(params, *xs)
+    ref = fmod.apply(params, *_cell_args(kind, xs))
     with torch.no_grad():
         if kind == "vector":
             got = tmod(torch.from_numpy(xs[0])).numpy()
             np.testing.assert_allclose(got, np.asarray(ref), **TOL)
             return
-        outs = tmod(*[_nchw(x) for x in xs])
-    if kind == "recurrent":
-        for r, g in zip(ref, outs):
-            np.testing.assert_allclose(_nhwc(g), np.asarray(r), **TOL)
-    else:
-        np.testing.assert_allclose(_nhwc(outs), np.asarray(ref), **TOL)
+        outs = tmod(*_cell_args(kind, [_nchw(x) for x in xs]))
+    # every output leaf: the image, or (output, state) with a ConvLSTM's
+    # state the pair (hidden, cell)
+    refs = jax.tree.leaves(ref)
+    gots = torch.utils._pytree.tree_leaves(outs)
+    assert len(gots) == len(refs) >= 1
+    for r, g in zip(refs, gots):
+        np.testing.assert_allclose(_nhwc(g), np.asarray(r), **TOL)
 
 
 def test_f32_policy_turns_tf32_off():
@@ -368,3 +400,83 @@ def test_upsample_backward_is_the_interpolation_gradient(shape):
         jnp.moveaxis(jnp.asarray(x), 1, -1))
     np.testing.assert_allclose(xt.grad.numpy(), np.moveaxis(np.asarray(gj), -1, 1),
                                atol=1e-5, rtol=1e-5)
+
+
+# -- the UNet family's skips and resizes ------------------------------------
+
+# (x1 [H, W], x2 [H, W]): equal; padded (decoder 0 of the SR recipe, 12x20 ->
+# 24x40); cropped (decoders 1 and 2, 96x160 -> 46x80 and 92x160 -> 90x160);
+# odd differences each way; padded in one axis and cropped in the other
+SKIP_SHAPES = [((6, 8), (6, 8)), ((12, 20), (24, 40)), ((96, 160), (46, 80)),
+               ((92, 160), (90, 160)), ((7, 9), (4, 4)), ((3, 5), (6, 8)),
+               ((5, 12), (8, 7))]
+
+
+@pytest.mark.parametrize("kind", ["sum", "concat"])
+@pytest.mark.parametrize("hw1,hw2", SKIP_SHAPES)
+def test_skip_alignment_matches_reference(kind, hw1, hw2):
+    rng = np.random.default_rng(hw1[0] * 100 + hw2[1])
+    c2 = 3 if kind == "sum" else 2
+    x1 = rng.standard_normal((2, *hw1, 3)).astype(np.float32)
+    x2 = rng.standard_normal((2, *hw2, c2)).astype(np.float32)
+    ref = np.asarray(getattr(FU, f"skip_{kind}")(jnp.asarray(x1), jnp.asarray(x2)))
+    got = _nhwc(getattr(TU, f"skip_{kind}")(_nchw(x1), _nchw(x2)))
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_upsample_x4_is_the_interpolation_and_its_gradient():
+    """Decoder 0 of SRUNetRecurrent upsamples x4: the forward is the
+    reference's bilinear x4 and the matrix backward is autograd's through
+    ``F.interpolate`` at scale 4 (measured ~1.4e-6 on values up to ~10)."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 3, 5, 7)).astype(np.float32)
+    g = rng.standard_normal((2, 3, 20, 28)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    up = TL.upsample(xt, 4)
+    ref = FR.interpolate_scale(jnp.moveaxis(jnp.asarray(x), 1, -1), 4, mode="bilinear")
+    np.testing.assert_allclose(_nhwc(up), np.asarray(ref), atol=2e-5, rtol=1e-4)
+    (up * torch.from_numpy(g)).sum().backward()
+    xr = torch.from_numpy(x).requires_grad_(True)
+    (F.interpolate(xr, scale_factor=4, mode="bilinear", align_corners=False)
+     * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), xr.grad.numpy(), atol=1e-6, rtol=1e-6)
+
+
+# (NCHW input, output size): the SR adapter's exact halvings, the recipe's
+# 180x320 -> 90x160 among them, and one upscale
+RESIZE_CASES = [((2, 2, 36, 64), (18, 32)), ((1, 3, 34, 46), (17, 23)),
+                ((2, 2, 180, 320), (90, 160)), ((2, 2, 8, 10), (16, 20))]
+
+
+@pytest.mark.parametrize("mode", ["bicubic", "bilinear"])
+@pytest.mark.parametrize("shape,size", RESIZE_CASES)
+def test_resize_forward_and_backward(mode, shape, size):
+    """``ops.resize.resize``: the forward is ``F.interpolate`` bit for bit
+    and the reference's resize within f32 rounding; the backward (the
+    interpolation matrices) is autograd's through ``F.interpolate`` on the
+    CPU within 1e-6 (measured <= 2.4e-7) and the reference's gradient."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(shape[-1] + size[-1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal((*shape[:2], *size)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = TR.resize(xt, size, mode)
+    xr = torch.from_numpy(x).requires_grad_(True)
+    want = F.interpolate(xr, size=size, mode=mode, align_corners=False)
+    assert torch.equal(out, want)
+    ref = FR.interpolate(jnp.moveaxis(jnp.asarray(x), 1, -1), size, mode=mode)
+    np.testing.assert_allclose(_nhwc(out), np.asarray(ref), atol=2e-5, rtol=1e-4)
+    (out * torch.from_numpy(g)).sum().backward()
+    (want * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), xr.grad.numpy(), atol=1e-6, rtol=1e-6)
+    gj = jax.grad(lambda a: jnp.sum(FR.interpolate(a, size, mode=mode)
+                                    * jnp.moveaxis(jnp.asarray(g), 1, -1)))(
+        jnp.moveaxis(jnp.asarray(x), 1, -1))
+    np.testing.assert_allclose(xt.grad.numpy(), np.moveaxis(np.asarray(gj), -1, 1),
+                               atol=1e-5, rtol=1e-5)
+    # the same size is the input itself
+    assert TR.resize(xt, shape[2:], mode) is xt

@@ -8,7 +8,10 @@ offset 0 and every mask 0.5 and the fractional gather untested. The map
 (20, 28) is not a multiple of 8, so padding and cropping are exercised.
 The reference runs its DCN both through the jnp formulation and through
 the Pallas forward kernel in interpret mode. Tolerance: atol 1e-5 + rtol
-1e-4 on outputs and states; the measured envelope is ~5e-8.
+1e-4 on outputs and states; the measured envelope is ~5e-8. Then the UNet
+family (the four UNets and both windowed adapters, built by name through
+both registries) the same way, and the second shipped recipe's full-width
+parameter tree through the bridge.
 """
 
 import jax
@@ -19,8 +22,11 @@ import torch
 from esr_tpu.inference.harness import _num_params
 from esr_tpu.models.esr import DeepRecurrNet as FlaxNet
 from esr_tpu.models.esr import STFusion as FlaxSTFusion
+from esr_tpu.models.registry import MODEL_REGISTRY as J_REGISTRY
 from esr_tpu_torch.device import resolve_device
+from esr_tpu_torch.models import adapters as TA
 from esr_tpu_torch.models import convert
+from esr_tpu_torch.models import registry as TR
 from esr_tpu_torch.models.esr import DeepRecurrNet
 
 H, W = 20, 28
@@ -124,3 +130,194 @@ def test_converter_refuses_a_tree_that_does_not_fit(nets, fault, message):
     with pytest.raises(ValueError, match=message):
         convert.load_flax_params(target, tree)
     assert torch.equal(target.head.conv.weight, before)  # nothing copied
+
+
+# -- the UNet family ----------------------------------------------------------
+#
+# Each model at base 4 on a 17x23 grid (odd sizes: the encoders' ceil
+# halvings and the skips' pad-or-crop both ways), seeded flax weights
+# brought across by the bridge, 3 frames threading the states. Tolerance
+# 1e-5 * max(|ref|, 1) on every output and state leaf (measured ~1e-7).
+
+UH, UW = 17, 23
+UNETS = {
+    "srunet_sum_lstm": ("SRUNetRecurrent", dict(base_num_channels=4, num_encoders=3,
+                                                num_bins=2, num_output_channels=2)),
+    "srunet_concat_gru": ("SRUNetRecurrent", dict(base_num_channels=4, num_encoders=2,
+                                                  skip_type="concat", kernel_size=3,
+                                                  recurrent_block_type="convgru",
+                                                  final_activation="sigmoid")),
+    "unet_sum_lstm": ("UNetRecurrent", dict(base_num_channels=4, num_encoders=3,
+                                            num_bins=2)),
+    "unet_concat_lstm": ("UNetRecurrent", dict(base_num_channels=4, num_encoders=2,
+                                               skip_type="concat", num_bins=3)),
+    "unet_sum_gru": ("UNetRecurrent", dict(base_num_channels=4, num_encoders=2,
+                                           recurrent_block_type="convgru", num_bins=2)),
+    "unet_concat_gru_transposed": ("UNetRecurrent", dict(
+        base_num_channels=4, num_encoders=3, skip_type="concat",
+        recurrent_block_type="convgru", use_upsample_conv=False, kernel_size=3,
+        num_bins=2, final_activation="tanh")),
+    "unet_flow": ("UNetFlow", dict(base_num_channels=4, num_encoders=2, num_bins=2)),
+    "multires": ("MultiResUNet", dict(base_num_channels=4, num_encoders=3, num_bins=2,
+                                      num_output_channels=2, final_activation="sigmoid")),
+    "multires_transposed": ("MultiResUNet", dict(base_num_channels=4, num_encoders=2,
+                                                 num_bins=2, use_upsample_conv=False,
+                                                 kernel_size=3)),
+}
+ADAPTERS = {"srunet_seq": "SRUNetRecurrentSeq", "unet_seq": "UNetRecurrentSeq"}
+
+
+def _seeded_params(shapes, rng):
+    def draw(leaf):
+        bound = 1.0 / np.sqrt(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else 0.3
+        return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
+
+    return jax.tree.map(draw, shapes)
+
+
+def _close(got, ref):
+    ref = np.asarray(ref)
+    assert tuple(got.shape) == ref.shape
+    scale = max(float(np.abs(ref).max()), 1.0)
+    assert float(np.abs(got.detach().numpy() - ref).max()) <= 1e-5 * scale
+
+
+@pytest.fixture(scope="module")
+def unets():
+    """Each UNet case: the flax model, its seeded params, the port model
+    (built by name through the port's registry) and 3 seeded frames."""
+    resolve_device("cpu")
+    out = {}
+    for i, (case, (name, kw)) in enumerate({**UNETS, **{
+            k: (n, dict(base_num_channels=4, num_encoders=2)) for k, n in ADAPTERS.items()
+    }}.items()):
+        rng = np.random.default_rng(100 + i)
+        ref = J_REGISTRY[name](**kw)
+        port = TR.get_model(name, **kw)
+        if case in ADAPTERS:
+            frames = [rng.poisson(0.7, (2, 3, UH, UW, ref.inch)).astype(np.float32)
+                      for _ in range(2)]
+            args = (frames[0], ref.init_states(2, UH, UW))
+        else:
+            frames = [rng.standard_normal((2, UH, UW, ref.num_bins)).astype(np.float32)
+                      for _ in range(3)]
+            args = ((frames[0],) if name == "MultiResUNet"
+                    else (frames[0], ref.init_states(2, UH, UW)))
+        params = _seeded_params(jax.eval_shape(ref.init, jax.random.PRNGKey(0), *args), rng)
+        n_leaves = convert.load_flax_params(port, params)
+        out[case] = {"name": name, "ref": ref, "port": port.eval(), "params": params,
+                     "frames": frames, "n_leaves": n_leaves}
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(UNETS))
+def test_unet_matches_flax(unets, case):
+    u = unets[case]
+    ref, port, params = u["ref"], u["port"], u["params"]
+    if u["name"] == "MultiResUNet":
+        for x in u["frames"]:
+            want = ref.apply(params, x)
+            with torch.no_grad():
+                got = port(torch.from_numpy(x))
+            assert len(got) == len(want) == ref.num_encoders
+            for g, r in zip(got, want):
+                _close(g, r)
+        return
+    rs = ref.init_states(2, UH, UW)
+    ts = port.init_states(2, UH, UW)
+    # the port's flat state is the reference's leaves, in order
+    assert [tuple(t.shape) for t in ts] == [r.shape for r in jax.tree.leaves(rs)]
+    for x in u["frames"]:
+        want, rs = ref.apply(params, x, rs)
+        with torch.no_grad():
+            got, ts = port(torch.from_numpy(x), ts)
+        if isinstance(want, dict):
+            assert sorted(got) == sorted(want) == ["flow", "image"]
+            for k in want:
+                _close(got[k], want[k])
+        else:
+            _close(got, want)
+        assert len(ts) == len(jax.tree.leaves(rs))
+        for t, r in zip(ts, jax.tree.leaves(rs)):
+            _close(t, r)
+
+
+@pytest.mark.parametrize("case", sorted(ADAPTERS))
+def test_adapter_matches_flax(unets, case):
+    """Two windows of 3 frames through ``FrameRecurrentSR``: the middle
+    frame's output on the input grid (the SR variant's 2x output resized by
+    bicubic) and the states after each window."""
+    u = unets[case]
+    ref, port, params = u["ref"], u["port"], u["params"]
+    assert port.inch == ref.inch == 2 and port.num_frame == ref.num_frame == 3
+    rs = ref.init_states(2, UH, UW)
+    ts = port.init_states(2, UH, UW)
+    for x in u["frames"]:
+        want, rs = ref.apply(params, x, rs)
+        with torch.no_grad():
+            got, ts = port(torch.from_numpy(x), ts)
+        assert tuple(got.shape) == (2, UH, UW, 2)
+        _close(got, want)
+        for t, r in zip(ts, jax.tree.leaves(rs)):
+            _close(t, r)
+    # the window asserts of the reference
+    with pytest.raises(AssertionError, match="num_frame"):
+        port(torch.zeros((1, 5, UH, UW, 2)), port.init_states(1, UH, UW))
+    even = TA.FrameRecurrentSR(port.model, num_frame=2)
+    with pytest.raises(AssertionError, match="odd"):
+        even(torch.zeros((1, 2, UH, UW, 2)), port.init_states(1, UH, UW))
+
+
+@pytest.mark.parametrize("case", sorted(UNETS) + sorted(ADAPTERS))
+def test_converter_consumes_every_unet_leaf(unets, case):
+    u = unets[case]
+    flat = convert.flatten_tree(u["params"])
+    assert u["n_leaves"] == len(flat)
+    assert sum(p.numel() for p in u["port"].parameters()) / 1e6 == _num_params(u["params"])
+    back = convert.flatten_tree(convert.export_flax_params(u["port"]))
+    assert set(back) == set(flat)
+    for k in flat:
+        np.testing.assert_array_equal(back[k], flat[k])
+
+
+def test_recipe_tree_loads_leaf_for_leaf():
+    """``configs/train_srunet_2x.yml``'s model at full width: the
+    reference's tree (38 leaves, 3,222,546 parameters, all under
+    ``params/model``) loads into the port with nothing missing or left over,
+    and exports back; its states are three (h, c) pairs at batch 8 on the
+    90x160 grid."""
+    args = dict(num_frame=3, num_bins=2, num_output_channels=2, base_num_channels=16,
+                num_encoders=3, num_residual_blocks=2, skip_type="sum",
+                recurrent_block_type="convlstm", kernel_size=5)
+    ref = J_REGISTRY["SRUNetRecurrentSeq"](**args)
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
+                            np.zeros((1, 3, 90, 160, 2), np.float32),
+                            ref.init_states(1, 90, 160))
+    tree = jax.tree.map(lambda s: np.full(s.shape, 0.01, np.float32), shapes)
+    flat = convert.flatten_tree(tree)
+    assert len(flat) == 38 and sum(v.size for v in flat.values()) == 3_222_546
+    assert {k[:2] for k in flat} == {("params", "model")}
+    port = TR.get_model("SRUNetRecurrentSeq", **args)
+    assert convert.load_flax_params(port, tree) == 38
+    assert sum(p.numel() for p in port.parameters()) == 3_222_546
+    assert set(convert.flatten_tree(convert.export_flax_params(port))) == set(flat)
+    assert [tuple(s.shape) for s in port.init_states(8, 90, 160)] == [
+        (8, 45, 80, 32), (8, 45, 80, 32), (8, 23, 40, 64), (8, 23, 40, 64),
+        (8, 12, 20, 128), (8, 12, 20, 128)]
+
+
+def test_registry_names_are_the_references():
+    assert sorted(TR.MODEL_REGISTRY) == sorted(J_REGISTRY)
+    with pytest.raises(KeyError, match="unknown model"):
+        TR.get_model("NoSuchNet")
+
+
+@pytest.mark.parametrize("key", ["dcn_sparse", "numerics"])
+def test_flagship_args_refused_for_unets_as_the_reference(key):
+    """The reference's UNets take no DCN or probe arguments (a ``TypeError``
+    from the flax dataclass); the port refuses with the same kind, naming
+    the argument."""
+    with pytest.raises(TypeError, match=key):
+        J_REGISTRY["SRUNetRecurrentSeq"](base_num_channels=4, **{key: True})
+    with pytest.raises(TypeError, match=key):
+        TR.get_model("SRUNetRecurrentSeq", base_num_channels=4, **{key: True})

@@ -37,7 +37,10 @@
   ``miss_budget`` misses, recovered); the scripted chaos scenario on the
   corpus served twice (8 streams, a gated class): zero lost requests,
   three faults recovered, every stream within rtol 1e-5 of the JAX
-  package's single ``ServingEngine`` with equal window counts.
+  package's single ``ServingEngine`` with equal window counts;
+- the UNet family's refusals (ROADMAP.md A12a-2): serving, ``serve`` (one
+  replica, the fleet, ``--aot``), the AOT export and the bf16 and int8
+  rungs raise ``NotImplementedError`` naming the item.
 
 Measured on the CPU: served metric means ~5e-7 relative from the JAX tier.
 """
@@ -963,3 +966,68 @@ def test_supervisor_over_loopback_http(tmp_path):
     finally:
         plane.close()
         sink.close()
+
+
+# -- what the UNet family cannot run yet (ROADMAP.md A12a-2) ----------------
+
+UNET_REFUSALS = ["serving_engine", "serve", "serve_fleet", "serve_aot", "export_forward",
+                 "export_chunk", "export_checkpoint", "harness_bf16", "harness_int8",
+                 "engine_bf16", "engine_int8", "infer_int8"]
+
+
+@pytest.fixture(scope="module")
+def unet_refusal_calls(tmp_path_factory):
+    """An SRUNetRecurrentSeq (the second shipped recipe's model) and its port
+    checkpoint, and for each entry of ``UNET_REFUSALS`` the call that asks
+    serving, the fleet, the AOT export or a rung of it."""
+    from esr_tpu_torch import infer as port_infer
+    from esr_tpu_torch import serve as port_serve
+    from esr_tpu_torch.inference import export as port_export
+    from esr_tpu_torch.inference.engine import StreamingEngine
+    from esr_tpu_torch.inference.harness import InferenceRunner
+    from esr_tpu_torch.models.registry import get_model
+
+    root = tmp_path_factory.mktemp("unet_refusals")
+    args = {"num_frame": 3, "base_num_channels": 2, "num_encoders": 2}
+    model = get_model("SRUNetRecurrentSeq", **args)
+    ckpt = root / "ckpt"
+    save_checkpoint(str(ckpt), convert.export_flax_params(model),
+                    {"model": {"name": "SRUNetRecurrentSeq", "args": args},
+                     "trainer": {"precision": "f32"}, "valid_dataloader": {
+                         "dataset": DATASET_CFG}})
+    out = root / "out"
+    serve_argv = ["--model_path", str(ckpt), "--output_path", str(out), "--loadgen", "2",
+                  "--device", "cpu"]
+    calls = {
+        "serving_engine": lambda: ServingEngine(model, DATASET_CFG, lanes=2, device="cpu"),
+        "serve": lambda: port_serve.main(serve_argv),
+        "serve_fleet": lambda: port_serve.main(serve_argv + ["--replicas", "2"]),
+        "serve_aot": lambda: port_serve.main(serve_argv + ["--aot"]),
+        "export_forward": lambda: port_export.export_forward(
+            model, torch.zeros((1, 3, 16, 16, 2)), model.init_states(1, 16, 16), "cpu"),
+        "export_chunk": lambda: port_export.export_chunk_program(
+            model, 2, 2, (16, 16), device="cpu"),
+        "export_checkpoint": lambda: port_export.export_checkpoint(
+            str(ckpt), str(root / "a.pt2"), height=16, width=16, device="cpu"),
+        "harness_bf16": lambda: InferenceRunner(model, 3, device="cpu", precision="bf16"),
+        "harness_int8": lambda: InferenceRunner(model, 3, device="cpu", precision="int8"),
+        "engine_bf16": lambda: StreamingEngine(model, 3, device="cpu", precision="bf16"),
+        "engine_int8": lambda: StreamingEngine(model, 3, device="cpu", precision="int8"),
+        "infer_int8": lambda: port_infer.main([
+            "--model_path", str(ckpt), "--data_path", str(root / "none.h5"),
+            "--output_path", str(root / "infer"), "--device", "cpu",
+            "--precision", "int8", "--engine"]),
+    }
+    return {"calls": calls, "out": out, "artifact": root / "a.pt2"}
+
+
+@pytest.mark.parametrize("what", UNET_REFUSALS)
+def test_unet_family_refusals_name_the_roadmap_item(unet_refusal_calls, what):
+    """Serving, the fleet, the AOT export and the bf16 and int8 rungs each
+    refuse an SRUNetRecurrentSeq with ``NotImplementedError`` naming
+    ROADMAP.md A12a-2, before any work: no serving output, no artifact."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A12a-2"):
+        unet_refusal_calls["calls"][what]()
+    out = unet_refusal_calls["out"]
+    assert not out.exists() or not any(out.iterdir())
+    assert not unet_refusal_calls["artifact"].exists()

@@ -10,7 +10,12 @@ with its digest, inference load, ``-r auto`` resume, the flagship config
 as written with its writer and visualizations, the keys it takes up and
 the ones it refuses), the super-step (``training.multistep``) against the
 reference's ``make_multi_step``, and fused validation against the
-reference trainer's.
+reference trainer's. The second shipped recipe
+(``configs/train_srunet_2x.yml``, ``SRUNetRecurrentSeq``): two train steps
+against the reference's (losses, gradients and parameters after
+Adam-amsgrad within 1e-5 of each leaf's scale; measured ~1e-7), and its
+trainer on the CPU with remat, ``k_steps``, the anomaly guard and async
+checkpoints.
 
 The JAX train step runs ``DeepRecurrNet(dcn_impl="jnp")``: what
 ``train=True`` resolves to off-TPU, and the oracle the fused Pallas
@@ -44,7 +49,9 @@ from esr_tpu.data.loader import ConcatSequenceDataset as RefConcat
 from esr_tpu.data.loader import SequenceLoader as RefLoader
 from esr_tpu.data.loader import ShardedSampler as RefSampler
 from esr_tpu.data.loader import collate_megabatch as ref_collate_megabatch
+from esr_tpu.config.build import build_model as j_build_model
 from esr_tpu.models.esr import DeepRecurrNet as FlaxNet
+from esr_tpu.models.registry import get_model as j_get_model
 from esr_tpu.training import multistep as J_multi
 from esr_tpu.training import optim as J_optim
 from esr_tpu.training import schedule as J_schedule
@@ -57,9 +64,12 @@ from esr_tpu_torch.data.dataset import SequenceDataset
 from esr_tpu_torch.data.loader import ConcatSequenceDataset, SequenceLoader, ShardedSampler
 from esr_tpu_torch.data.loader import collate_megabatch, read_datalist
 from esr_tpu_torch.device import resolve_device
-from esr_tpu_torch.inference.checkpoint import load_checkpoint
+from esr_tpu_torch.inference.checkpoint import load_checkpoint, read_params
 from esr_tpu_torch.models import convert
+from esr_tpu_torch.models.adapters import FrameRecurrentSR
 from esr_tpu_torch.models.esr import DeepRecurrNet
+from esr_tpu_torch.models.registry import get_model as t_get_model
+from esr_tpu_torch.resilience.faults import FaultPlan, FaultSpec, installed
 from esr_tpu_torch.training import multistep as T_multi
 from esr_tpu_torch.training import optim as T_optim
 from esr_tpu_torch.training import schedule as T_schedule
@@ -1015,3 +1025,324 @@ def test_replay_after_a_rollback_is_the_eager_loop_bitwise_on_card(card_groups):
     assert card_groups["recaptured"] and card_groups["count"] == 9
     for eager, rolled in zip(card_groups["eager"][1:], card_groups["rolled"]):
         _same_state(eager, rolled)
+
+
+# -- the second shipped recipe: configs/train_srunet_2x.yml -----------------
+
+SR_ARGS = dict(num_frame=3, num_bins=2, num_output_channels=2, base_num_channels=4,
+               num_encoders=2, num_residual_blocks=1, skip_type="sum",
+               recurrent_block_type="convlstm", kernel_size=5)
+SR_H, SR_W = 12, 14  # the model emits 24x28, resized by bicubic to 12x14
+SR_STEPS = 2
+
+
+def _leaf_close(got, want, what, rtol=1e-5):
+    """``got`` within ``rtol`` of the scale (max |.|) of ``want``, leaf by
+    leaf (flat flax trees or arrays)."""
+    if not isinstance(want, dict):
+        got, want = {(): got}, {(): want}
+    assert set(got) == set(want), what
+    for k in want:
+        w = np.asarray(want[k], np.float64)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(np.asarray(got[k], np.float64) - w).max())
+        assert err <= rtol * scale, f"{what} {'/'.join(k)}: {err:.3e} of {scale:.3e}"
+
+
+@pytest.fixture(scope="module")
+def srunet_parity():
+    """Two train steps of a small SRUNetRecurrentSeq in both packages from
+    the same weights on the same seeded batches (Adam-amsgrad, weight decay
+    1e-4, the gated schedule), and the first step's gradients: the
+    reference's by ``jax.grad`` of its BPTT loss (the window losses its
+    ``make_train_step`` sums), the port's by the backward of
+    ``window_losses``."""
+    import copy
+
+    resolve_device("cpu")
+    rng = np.random.default_rng(3)
+    ref = j_get_model("SRUNetRecurrentSeq", **SR_ARGS)
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
+                            np.zeros((1, 3, SR_H, SR_W, 2), np.float32),
+                            ref.init_states(1, SR_H, SR_W))
+
+    def draw(leaf):
+        bound = 1.0 / np.sqrt(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else 0.3
+        return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
+
+    params = jax.tree.map(draw, shapes)
+    batches = [{k: rng.poisson(0.7, (B, L, SR_H, SR_W, 2)).astype(np.float32)
+                for k in ("inp", "gt")} for _ in range(SR_STEPS)]
+    opt_kw = dict(weight_decay=1e-4, amsgrad=True)
+
+    def bptt_loss(p, batch):
+        states = ref.init_states(B, SR_H, SR_W)
+        total = 0.0
+        for i in range(L - 2):
+            pred, states = ref.apply(p, batch["inp"][:, i:i + 3], states, True)
+            total = total + jnp.mean((pred - batch["gt"][:, i + 1]) ** 2)
+        return total
+
+    j_grads = jax.jit(jax.grad(bptt_loss))(params, batches[0])
+    j_opt = J_optim.make_optimizer(
+        "Adam", lr=J_schedule.exponential_with_floor(1e-3, **SCHEDULE), **opt_kw)
+    j_step = jax.jit(j_make_train_step(ref, j_opt, seqn=3))
+    state = TrainState.create(params, j_opt)
+    j_metrics, j_params = [], []
+    for batch in batches:
+        state, m = j_step(state, batch)
+        j_metrics.append({k: np.asarray(v) for k, v in m.items()})
+        j_params.append(jax.tree.map(np.asarray, state.params))
+
+    port = t_get_model("SRUNetRecurrentSeq", **SR_ARGS)
+    convert.load_flax_params(port, params)
+    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    graded = copy.deepcopy(port)
+    T_step.window_losses(graded, tb[0], 3)[0].sum().backward()
+    for p in graded.parameters():
+        p.data = p.grad
+    t_grads = convert.export_flax_params(graded)
+    t_opt = T_optim.make_optimizer(
+        "Adam", port.parameters(), lr=T_schedule.exponential_with_floor(1e-3, **SCHEDULE),
+        **opt_kw)
+    t_step = T_step.make_train_step(port, t_opt, seqn=3)
+    t_metrics, t_params = [], []
+    for batch in tb:
+        t_metrics.append({k: v.numpy() for k, v in t_step(batch).items()})
+        t_params.append(convert.export_flax_params(port))
+    return {"jax": j_metrics, "port": t_metrics, "jax_params": j_params,
+            "port_params": t_params, "jax_grads": j_grads, "port_grads": t_grads,
+            "start": params}
+
+
+@pytest.mark.parametrize("key", ["loss", "loss_per_window", "grad_norm", "last_pred"])
+def test_srunet_train_steps_match_reference(srunet_parity, key):
+    for j, t in zip(srunet_parity["jax"], srunet_parity["port"]):
+        assert t[key].shape == j[key].shape
+        _leaf_close(t[key], j[key], key)
+    assert srunet_parity["port"][0]["last_pred"].shape == (B, SR_H, SR_W, 2)
+
+
+def test_srunet_gradients_match_reference(srunet_parity):
+    got = convert.flatten_tree(srunet_parity["port_grads"])
+    want = convert.flatten_tree(jax.tree.map(np.asarray, srunet_parity["jax_grads"]))
+    _leaf_close(got, want, "grad")
+    assert len(want) == 26
+
+
+@pytest.mark.parametrize("step", range(SR_STEPS))
+def test_srunet_params_after_adam_match_reference(srunet_parity, step):
+    got = convert.flatten_tree(srunet_parity["port_params"][step])
+    want = convert.flatten_tree(srunet_parity["jax_params"][step])
+    _leaf_close(got, want, f"params after step {step + 1}")
+    start = convert.flatten_tree(srunet_parity["start"])
+    assert max(float(np.abs(want[k] - start[k]).max()) for k in want) > 1e-4
+
+
+SR_TINY = [
+    "trainer;tensorboard=false", "model;args;base_num_channels=4",
+    "model;args;num_encoders=2", "train_dataloader;batch_size=2",
+    "valid_dataloader;batch_size=2", "trainer;iteration_based_train;iterations=4",
+    "trainer;iteration_based_train;valid_step=2",
+    "trainer;iteration_based_train;save_period=2",
+    "trainer;iteration_based_train;train_log_step=1",
+] + [f"{block};dataset;{k}={v}" for block in ("train_dataloader", "valid_dataloader")
+     for k, v in (("ori_scale", "down8"), ("window", 512), ("sliding_window", 256),
+                  ("sequence;sequence_length", 5))]
+
+# the same four iterations each way: the plain run, the trainer's runtime
+# options together (model-agnostic: they must give the plain run's bits on
+# the CPU), and a run whose guard rolls back a NaN group
+SR_RUNS = {
+    "plain": ["trainer;k_steps=1", "trainer;async_checkpoint=false"],
+    "runtime": ["trainer;k_steps=2", "trainer;remat=true", "trainer;async_checkpoint=true",
+                "trainer;max_bad_steps=1"],
+    "rollback": ["trainer;k_steps=1", "trainer;max_bad_steps=0"],
+}
+
+
+def _sr_run(out, corpus, extra=(), **kw):
+    return T_parser.RunConfig.from_args(
+        str(REPO / "configs" / "train_srunet_2x.yml"),
+        SR_TINY + [f"trainer;output_path={out}",
+                   f"train_dataloader;path_to_datalist_txt={corpus / 'datalist2.txt'}",
+                   f"valid_dataloader;path_to_datalist_txt={corpus / 'datalist1.txt'}",
+                   *extra], runid="run0", seed=5, **kw)
+
+
+@pytest.fixture(scope="module")
+def srunet_trained(shared_corpus_dir, tmp_path_factory):
+    """``configs/train_srunet_2x.yml`` cut to base 4, 2 encoders and batch 2,
+    trained 4 iterations on the CPU each way of ``SR_RUNS`` (the rollback
+    run with a ``nan_loss`` at iteration 2)."""
+    out = {}
+    for name, extra in SR_RUNS.items():
+        run = _sr_run(tmp_path_factory.mktemp(f"srunet_{name}"), shared_corpus_dir, extra)
+        trainer = Trainer(run, device="cpu")
+        if name == "rollback":
+            with installed(FaultPlan([FaultSpec("train_step", 2, "nan_loss")])):
+                result = trainer.train()
+        else:
+            result = trainer.train()
+        with open(trainer.log_path) as f:
+            log = [json.loads(line) for line in f]
+        out[name] = {"run": run, "trainer": trainer, "result": result, "log": log}
+    # trainer.numerics: true puts `numerics` into the model's args
+    run = _sr_run(tmp_path_factory.mktemp("srunet_numerics"), shared_corpus_dir,
+                  ["trainer;numerics=true"])
+    out["numerics"] = {"run": run}
+    for side, build in (("ref", lambda: j_build_model({
+            "name": run.config["model"]["name"],
+            "args": {**run.config["model"]["args"], "numerics": True}})),
+                        ("port", lambda: Trainer(run, device="cpu"))):
+        try:
+            build()
+            out["numerics"][side] = None
+        except TypeError as e:  # the refusal under test, raised in a fixture
+            out["numerics"][side] = e
+    return out
+
+
+def test_srunet_recipe_trains_and_its_checkpoint_loads(srunet_trained):
+    plain = srunet_trained["plain"]
+    trainer, run = plain["trainer"], plain["run"]
+    assert isinstance(trainer.model, FrameRecurrentSR)
+    assert all(np.isfinite(v) for v in plain["result"].values())
+    steps = [r for r in plain["log"] if "train_loss" in r]
+    assert [r["iteration"] for r in steps] == [0, 1, 2, 3]
+    assert all(np.isfinite(r[k]) for r in steps for k in ("train_loss", "grad_norm"))
+    valid = [r for r in plain["log"] if "valid_stamp" in r]
+    assert [r["iteration"] for r in valid] == [2] and np.isfinite(valid[0]["valid_loss"])
+    ckpt = find_latest_checkpoint(str(Path(run.save_dir).parent))
+    assert ckpt.endswith("checkpoint-iteration3")
+    model, config = load_checkpoint(ckpt)
+    assert config["model"]["name"] == "SRUNetRecurrentSeq"
+    assert isinstance(model, FrameRecurrentSR) and model.model.base_num_channels == 4
+    batch = next(iter(trainer.valid_loader))
+    inp = torch.from_numpy(batch["inp_scaled_cnt"][:, :3])
+    states = model.init_states(inp.shape[0], *inp.shape[2:4])
+    with torch.no_grad():
+        got, _ = model.eval()(inp, states)
+        want, _ = trainer.model.eval()(inp, states)
+    assert got.shape == inp.shape[:1] + inp.shape[2:]
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_srunet_runtime_options_are_the_plain_run(srunet_trained):
+    """remat, ``k_steps: 2``, async checkpoints and an armed guard run the
+    recipe to the plain run's losses, parameters and checkpoints, bit for
+    bit (on the CPU a group is its steps in a loop)."""
+    plain, rt = srunet_trained["plain"], srunet_trained["runtime"]
+    assert rt["trainer"].remat and rt["trainer"].k_steps == 2
+    assert rt["trainer"]._async_ckpt is not None and rt["trainer"]._guard is not None
+    losses = [[r["train_loss"] for r in x["log"] if "train_loss" in r] for x in (plain, rt)]
+    assert losses[0] == losses[1]
+    for (n, p), q in zip(plain["trainer"].model.named_parameters(),
+                         rt["trainer"].model.parameters()):
+        np.testing.assert_array_equal(p.detach().numpy(), q.detach().numpy(), err_msg=n)
+    # the final checkpoints (k_steps 2 saves on its groups: iteration 3
+    # covers the save due at 2) hold the same parameters
+    a, b = (convert.flatten_tree(read_params(str(Path(x["run"].save_dir)
+                                                 / "checkpoint-iteration3")))
+            for x in (plain, rt))
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_srunet_guard_rolls_back_a_nan_group(srunet_trained):
+    rb = srunet_trained["rollback"]
+    assert rb["trainer"]._guard.rollbacks == 1
+    assert all(np.isfinite(v) for v in rb["result"].values())
+    for p in rb["trainer"].model.parameters():
+        assert bool(torch.isfinite(p).all())
+
+
+def test_srunet_numerics_refused_as_the_reference(srunet_trained):
+    """``trainer.numerics: true`` puts ``numerics`` into the model's args;
+    the reference's UNets have no probe taps and raise ``TypeError`` there
+    (its trainer builds the model the same way), and so does the port's
+    trainer."""
+    errors = srunet_trained["numerics"]
+    for side in ("ref", "port"):
+        assert isinstance(errors[side], TypeError), (side, errors[side])
+        assert "numerics" in str(errors[side])
+
+
+@pytest.mark.gpu
+def test_srunet_bicubic_backward_is_bitwise_run_to_run_on_card():
+    """The adapter's bicubic resize (180x320 -> 90x160 at batch 8) through
+    ``ops.resize.resize``: its backward on the card the same bits twice,
+    and within 1e-6 of the CPU's."""
+    from esr_tpu_torch.ops.resize import resize
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the recipe's step on the H100)")
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 2, 180, 320)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((8, 2, 90, 160)).astype(np.float32))
+    grads = []
+    for d in (dev, dev, torch.device("cpu")):
+        xt = x.to(d).requires_grad_(True)
+        (resize(xt, (90, 160), "bicubic") * g.to(d)).sum().backward()
+        grads.append(xt.grad.cpu())
+    assert torch.equal(grads[0].view(torch.int32), grads[1].view(torch.int32))
+    np.testing.assert_allclose(grads[0].numpy(), grads[2].numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def srunet_card_groups():
+    """On the card: a small SRUNetRecurrentSeq trained 3 groups of 3 steps
+    step by step and as super-steps (the first eager, then captured and
+    replayed): each group's losses, parameters and Adam moments."""
+    import copy
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode (chip_smoke.py runs "
+                    "the recipe's k_steps 8 group on the H100)")
+    dev = resolve_device("cuda")
+    torch.manual_seed(0)
+    base = t_get_model("SRUNetRecurrentSeq", **SR_ARGS).to(dev)
+    rng = np.random.default_rng(0)
+    k = 3
+    batches = [{key: torch.from_numpy(rng.poisson(0.5, (4, 5, 32, 48, 2))
+                                      .astype(np.float32)).to(dev) for key in ("inp", "gt")}
+               for _ in range(3 * k)]
+
+    def fresh():
+        model = copy.deepcopy(base).train()
+        opt = T_optim.make_optimizer(
+            "Adam", model.parameters(), lr=T_schedule.exponential_with_floor(1e-3, **SCHEDULE),
+            weight_decay=1e-4, amsgrad=True)
+        return model, opt, T_step.make_train_step(model, opt, seqn=3)
+
+    def state(model, opt, losses):
+        return ([losses.detach().clone()] + [p.detach().clone() for p in model.parameters()]
+                + [v.detach().clone() for st in opt.optimizer.state.values()
+                   for n, v in sorted(st.items()) if n != "step"])
+
+    model, opt, step = fresh()
+    eager = [state(model, opt, torch.stack([step(b)["loss"] for b in batches[g * k:(g + 1) * k]]))
+             for g in range(3)]
+    model, opt, step = fresh()
+    multi = T_multi.make_multi_step(step, k, optimizer=opt)
+    captured = []
+    for g in range(3):
+        for j, b in enumerate(batches[g * k:(g + 1) * k]):
+            multi.load(j, b)
+        captured.append(state(model, opt, multi()["loss"]))
+    return {"eager": eager, "captured": captured, "replays": multi.graph and multi.graph.replays,
+            "n_params": len(list(base.parameters()))}
+
+
+@pytest.mark.gpu
+def test_srunet_captured_group_is_the_eager_loop_bitwise_on_card(srunet_card_groups):
+    """Each group's losses, parameters and Adam moments bit for bit those of
+    the same steps run one by one; groups 2 and 3 were graph replays."""
+    g = srunet_card_groups
+    assert g["replays"] == 2
+    for e, c in zip(g["eager"], g["captured"]):
+        # the losses, the parameters, Adam-amsgrad's three moments of each
+        assert len(e) == len(c) == 1 + 4 * g["n_params"]
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(e, c))
