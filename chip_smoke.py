@@ -117,6 +117,21 @@ Phases (any failure exits non-zero):
    of the harness), the engine's graphed chunk bitwise the eager one,
    windows/s and the harness's per-window p50. No hand-written kernel may
    launch in it: the recipe has no DCN.
+8e. that checkpoint at serving, the fleet, AOT and the rungs: K1 and K2
+   bitwise their plain versions, twice and from a CUDA graph, at the
+   recipe's 16 int8 seams (41 a window; 5x5 taps, K split across clusters
+   of up to 8 blocks) at B=1 and lanes 4, K2 at four large shapes (those
+   past its staging read x twice); served at f32, bf16 and int8 on one
+   replica at lanes 4 (the serving traffic, quantum 2: every request done,
+   each within 1.0 dB of its f32 twin, K1 and K2 41 a window step at int8
+   only; windows/s and p50/p99 per class and rung; a window's device ms
+   through the harness at each rung); the int8 engine at lanes 4 x chunk 8
+   (through K2's large path) within 1.0 dB of the f32 engine; the fleet at
+   f32 (``run_fleet_scenario``: 3 replicas x 4 lanes, a handoff, a kill, a
+   partition; zero lost, every stream within 1e-5 of its twin); and its
+   depth-8 artifacts at f32 and int8 (exported in phase 10c's pool from
+   seeded weights, loaded with the trained ones) bitwise the traced
+   sessions.
 
 8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
    ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
@@ -165,7 +180,8 @@ Phases (any failure exits non-zero):
    ``inference.export.export_checkpoint(program="engine_chunk")`` at lanes
    4 for depths 8 and 4 (the serving classes') at f32 and int8, and for
    depth 8 at bf16 (its sessions serve every stream in the standard
-   class), the five exports at once, a process each; each export's seconds
+   class), the five exports at once, a process each, beside the SR
+   recipe's two of phase 8e; each export's seconds
    and bytes and each program's load ms printed; the serving phase's 8 streams replayed on a virtual clock (0.05 s a round, so both sessions bind,
    preempt and chunk alike) through a traced session and through
    ``aot_programs`` at each rung: every request's metrics, windows, skips
@@ -199,7 +215,7 @@ Phases (any failure exits non-zero):
    every recording and request within 1.0 dB of f32.
 
 The phases run in the order 1-5, 8, 6, 9, 10, 10b, 10c, 12, 7 (with 11
-inside 7), 7c, then the trainer's runtime.
+inside 7), 8c, 8d, 8e, 7c, then the trainer's runtime.
 The line before the last is the ``{"kernels": [...]}`` record (eight
 kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -207,6 +223,7 @@ kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import json
@@ -1670,18 +1687,21 @@ def srunet_card_vs_cpu(torch, trainer, sel) -> None:
     """One window at full width and B=1 from the trainer's weights, on the
     card and on the CPU: the output within 1e-3 * max(|ref|, 1), and every
     parameter's gradient of its MSE within 1e-3 of its own scale max|ref|
-    (a gradient's scale may be far below 1)."""
+    (a gradient's scale may be far below 1). On a failure, each side's
+    distance from the CPU in f64 says which one strayed."""
     outs, grads = {}, {}
-    for way in ("card", "cpu"):
-        model = copy.deepcopy(trainer.model).train()
-        if way == "cpu":
-            model = model.cpu()
-        d = next(model.parameters()).device
-        x, gt = sel["inp"][:1, :3].to(d), sel["gt"][:1, 1].to(d)
-        out, _ = model(x, model.init_states(1, *x.shape[2:4], device=d))
+
+    def window(way, device, dtype):
+        model = copy.deepcopy(trainer.model).train().to(device=device, dtype=dtype)
+        x, gt = sel["inp"][:1, :3].to(device, dtype), sel["gt"][:1, 1].to(device, dtype)
+        states = tuple(s.to(dtype) for s in model.init_states(1, *x.shape[2:4], device=device))
+        out, _ = model(x, states)
         ((out - gt) ** 2).mean().backward()
         outs[way] = out.detach().cpu()
         grads[way] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    window("card", next(trainer.model.parameters()).device, torch.float32)
+    window("cpu", "cpu", torch.float32)
     err, lim = err_of(torch, outs["card"], outs["cpu"])
     rows = [(n, *rel_err_of(torch, grads["card"][n], g)) for n, g in grads["cpu"].items()]
     worst = max(rows, key=lambda r: r[1] / r[3])
@@ -1690,6 +1710,13 @@ def srunet_card_vs_cpu(torch, trainer, sel) -> None:
           f"{worst[1]:.3e} of its scale {worst[2]:.3e} (limit {worst[3]:.3e})")
     bad = ([] if err <= lim else ["output"]) + [n for n, e, _, lim in rows if not e <= lim]
     if bad:
+        window("f64", "cpu", torch.float64)
+        for n in bad:
+            side = (outs if n == "output" else {w: grads[w][n] for w in grads})
+            ref = side["f64"]
+            print(f"srunet card vs CPU: {n} against the CPU in f64 (scale "
+                  f"{float(ref.abs().max()):.3e}): card {float((side['card'] - ref).abs().max()):.3e},"
+                  f" CPU {float((side['cpu'] - ref).abs().max()):.3e}")
         fail(f"the SRUNet window on the card differs from the CPU's: {bad}")
 
 
@@ -1939,6 +1966,251 @@ def phase_srunet(torch, np, dev, card, repo: Path, out_root: str, recs) -> None:
         fail(f"the SRUNet phase launched hand-written kernels: {launch_counts()}")
     print(f"srunet phase {time.perf_counter() - t_phase:.1f} s; no hand-written kernel "
           "launched (the recipe has no DCN and runs at f32)")
+    return ckpt, evals
+
+
+# Part of phase 8e: the SR recipe's int8 seams (hooked at B=1 on a 90x160
+# window: 41 a window, 16 distinct) and K2's shapes above its staging
+SR_SEAM_CALLS = 41
+SR_DISTINCT_SEAMS = 16
+K2_LARGE_SHAPES = ((4, 128, 96, 160), (8, 32, 180, 320), (32, 8, 96, 160), (96, 8, 96, 160))
+
+
+def k2_large_shapes(torch, dev, card):
+    """K2 at large shapes (the SR recipe's decoder 0 input at lanes 4 and
+    its decoder 2 input at lanes 8, the flagship's head output at batch 32
+    and at lanes 32): one cooperative launch, which reads x twice where a
+    block's share passes its shared memory (all but the third), bitwise its
+    plain version, twice; its time through the op, the C entry point and a
+    CUDA graph, beside the bound (f32 read, int8 written, at 3.35 TB/s) and
+    the plain version's."""
+    from esr_tpu_torch.ops import int8_cuda
+
+    lib = int8_cuda.INT8_LIBRARY.load()
+    rows = []
+    for shape in K2_LARGE_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(sum(shape))
+        x = torch.randn(shape, device=dev, generator=gen)
+        items = int8_cuda.quantize_items(shape)
+        blocks = int8_cuda.quantize_blocks(items)
+        staged = items <= int8_cuda.QUANTIZE_MAX_BLOCKS * int8_cuda.QUANTIZE_ITEMS_PER_BLOCK
+        runs = [int8_cuda.quantize_per_tensor(x) for _ in range(2)]
+        pq, psx = int8_cuda.quantize_per_tensor_plain(x)
+        torch.cuda.synchronize()
+        if not all(torch.equal(q, pq) and same_bits(torch, sc, psx) for q, sc in runs):
+            fail(f"quantize_per_tensor differs from its plain version (or run to run) at "
+                 f"{shape}")
+        op_ms = time_ms(torch, lambda: int8_cuda.quantize_per_tensor(x), iters=50)
+        q_e, s_e = torch.zeros_like(pq), torch.empty_like(psx)
+        b, c, h, w = shape
+
+        def entry():
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.quantize_per_tensor_f32(
+                x.data_ptr(), b, c, h * w, pq.shape[-1], q_e.data_ptr(), s_e.data_ptr(),
+                int8_cuda.quantize_per_tensor.partials(dev, stream).data_ptr(), blocks, stream)
+            if rc:
+                fail(f"quantize_per_tensor_f32 returned {rc} at {shape}")
+
+        entry_ms = time_ms(torch, entry, iters=50)
+        q_e.zero_()
+        g_ms = graph_ms(torch, entry)
+        torch.cuda.synchronize()
+        if not torch.equal(q_e, pq):
+            fail(f"K2 replayed from a CUDA graph disagrees at {shape}")
+        plain_ms = time_ms(torch, lambda: int8_cuda.quantize_per_tensor_plain(x), iters=5,
+                           warmup=2)
+        bound, _ = int8_roofline(4 * x.numel() + pq.numel(), 0.0)
+        rows.append(dict(shape=list(shape), items=items, blocks=blocks, staged=staged,
+                         ms=op_ms, entry_ms=entry_ms, graph_ms=g_ms, plain_ms=plain_ms,
+                         bound_ms=bound))
+        print(f"K2 large {list(shape)} ({items} items, a cooperative grid of {blocks} blocks, "
+              f"{'x staged' if staged else 'x read twice'}) on {card}: op {op_ms:.5f} / entry "
+              f"{entry_ms:.5f} / graph "
+              f"{g_ms:.5f} ms, bound {bound:.6f} ms (bytes), plain {plain_ms:.5f} ms; bitwise "
+              "the plain version, twice and replayed")
+    return rows
+
+
+def srunet_rung_serving(torch, np, dev, card, model, evals):
+    """The SR recipe served at each rung on one replica: lanes 4, the
+    serving traffic (``standard:8``, ``gated:4:0.3``, 8 streams at 8/s),
+    preemption quantum 2. Every request done, at each rung within 1.0 dB of
+    its f32 twin; no DCN launch, K1 and K2 once a seam a window step at
+    int8 only; windows/s and p50/p99 per class; a window's device ms through
+    the harness at each rung."""
+    from esr_tpu_torch.inference.harness import InferenceRunner
+    from esr_tpu_torch.ops import int8_cuda
+    from esr_tpu_torch.serving.server import ServingEngine
+
+    classes, streams, schedule = serving_traffic()
+    out = {}
+    for rung in RUNGS:
+        def server(**kw):
+            return ServingEngine(model, SERVE_DATA, lanes=LANES, classes=classes,
+                                 default_class="standard", precision=rung,
+                                 activity_tile=SERVE_ACTIVITY_TILE, device=dev, **kw)
+
+        server(preempt_quantum=0).run(schedule[:1])  # warm
+        srv = server(preempt_quantum=2)
+        reset_all_launches()
+        summary = srv.run(schedule, max_wall_s=600)
+        torch.cuda.synchronize()
+        k12 = {k.name: k.launches for k in int8_cuda.KERNELS}
+        want = SR_SEAM_CALLS * summary["window_steps"] if rung == "int8" else 0
+        if any(counts_of().values()) or any(v != want for v in k12.values()):
+            fail(f"srunet serving {rung} launched {counts_of()} / {k12}: no DCN, and K1 and "
+                 f"K2 {want} each expected")
+        reports = srv.reports()
+        if summary["completed"] != len(streams) or any(
+                r["status"] != "ok" for r in reports.values()):
+            fail(f"srunet serving {rung}: not every request ended done ({summary['statuses']})")
+        out[rung] = reports
+        cls = {n: (c["p50_window_ms"], c["p99_window_ms"]) for n, c in summary["classes"].items()}
+        print(f"srunet serving {rung} on {card}: {summary['windows_per_sec']} windows/s "
+              f"computed, {summary['served_windows_per_sec']} served, "
+              f"{summary['preemptions']} preemptions, {summary['window_steps']} window steps; "
+              f"window (p50, p99) ms by class {cls}; launches K1/K2 {k12} "
+              f"({SR_SEAM_CALLS if rung == 'int8' else 0} each a window step)")
+    for rung in ("bf16", "int8"):
+        diffs = {rid: r["esr_psnr"] - out["f32"][rid]["esr_psnr"]
+                 for rid, r in out[rung].items() if r["n_windows"]}
+        worst = max(diffs.values(), key=abs)
+        print(f"srunet serving {rung}: {len(diffs)} requests' ESR PSNR against f32, the "
+              f"farthest {worst:+.5f} dB (limit {PSNR_DROP_DB})")
+        if not all(abs(d) <= PSNR_DROP_DB for d in diffs.values()):
+            fail(f"srunet serving at {rung}: a request is farther than {PSNR_DROP_DB} dB "
+                 "from f32")
+    for rung in RUNGS:
+        runner = InferenceRunner(model, 3, device=dev, precision=rung)
+        reset_all_launches()
+        busy, named = rung_window_profile(torch, runner, evals[0], dev, card)
+        launched = {k.name: k.launches for k in int8_cuda.KERNELS}
+        want = 2 * SR_SEAM_CALLS if rung == "int8" else 0  # a warm window, then the profiled
+        print(f"srunet window device time {rung} on {card}: {busy:.4f} ms a window (B=1, "
+              f"the harness); K1/K2 launched {launched} in 2 windows, the profiler saw "
+              f"{named['int8_igemm_kernel'][1]} K1 and {named['quantize_kernel'][1]} K2 in "
+              "the profiled one")
+        if any(v != want for v in launched.values()):
+            fail(f"srunet harness {rung}: K1/K2 launched {launched}, {want} each expected")
+
+
+def srunet_int8_engine(torch, dev, card, model, evals):
+    """The int8 engine at lanes 4 x chunk 8 over the evaluation recordings
+    (its chunk a CUDA graph on the card), against the f32 engine: every
+    recording within 1.0 dB; K1 and K2 once a seam a window step, among
+    them the seams past K2's staging (its large path)."""
+    from esr_tpu_torch.data.loader import InferenceSequenceLoader
+    from esr_tpu_torch.inference.engine import StreamingEngine
+    from esr_tpu_torch.ops import int8_cuda
+
+    kh, kw = InferenceSequenceLoader(evals[0], FLAGSHIP_DATA).gt_resolution
+    cap = int8_cuda.QUANTIZE_MAX_BLOCKS * int8_cuda.QUANTIZE_ITEMS_PER_BLOCK
+    big = [shape for _, shape, *_ in int8_seam_calls(torch, model, dev, LANES, kh, kw)
+           if int8_cuda.quantize_items(shape) > cap]
+    if not big:
+        fail("no SR seam at lanes 4 takes K2's large path")
+    results = {}
+    for rung in ("f32", "int8"):
+        engine = StreamingEngine(model, 3, lanes=LANES, chunk_windows=CHUNK_WINDOWS,
+                                 precision=rung, device=dev)
+        engine.run_datalist(evals[:2], FLAGSHIP_DATA)  # warm and capture
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res, _ = engine.run_datalist(evals, FLAGSHIP_DATA)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = CHUNK_WINDOWS * len(engine.chunk_seconds)
+        k12 = {k.name: k.launches for k in int8_cuda.KERNELS}
+        want = SR_SEAM_CALLS * steps if rung == "int8" else 0
+        if any(counts_of().values()) or any(v != want for v in k12.values()):
+            fail(f"the SR {rung} engine launched {counts_of()} / {k12} ({want} K1/K2 expected)")
+        results[rung] = res
+        n = int(sum(r["n_windows"] for r in res))
+        print(f"srunet engine {rung} on {card} (lanes {LANES} x chunk {CHUNK_WINDOWS}): {n} "
+              f"windows in {wall:.3f} s, {n / wall:.3f} windows/s; K1/K2 {k12}"
+              + (f"; {len(big)} seams a window step past K2's staging: "
+                 f"{sorted(set(big))}" if rung == "int8" else ""))
+    worst = max((f["esr_psnr"] - r["esr_psnr"] for f, r in zip(results["f32"],
+                                                                results["int8"])), key=abs)
+    print(f"srunet engine int8: the farthest recording's ESR PSNR against f32 {worst:+.5f} dB")
+    if not abs(worst) <= PSNR_DROP_DB:
+        fail(f"the SR int8 engine is {worst:.3f} dB from f32")
+
+
+def phase_srunet_serving(torch, np, dev, card, repo: Path, out_dir: str, ckpt: str, evals,
+                         artifacts) -> dict:
+    """Phase 8e: the SR recipe's checkpoint from phase 8d (full width) at
+    serving, the fleet, AOT and the bf16 and int8 rungs. K1 and K2 bitwise
+    their plain versions at the recipe's 16 seams at lanes 1 and 4 (5x5
+    taps among them) and K2 at :data:`K2_LARGE_SHAPES`; served at each rung
+    (:func:`srunet_rung_serving`); the int8 engine at lanes 4
+    (:func:`srunet_int8_engine`); the fleet at f32, 3 replicas x 4 lanes
+    under ``build_fleet_plan(0)`` (a forced handoff, a kill, a partition):
+    zero lost, every stream within 1e-5 of its one-replica twin; and the
+    depth-8 artifacts of phase 10c at f32 and int8, loaded with the trained
+    weights, bitwise the traced sessions. Returns the kernels' rows."""
+    from esr_tpu_torch.inference.checkpoint import load_checkpoint
+    from esr_tpu_torch.resilience.chaos_fleet import N_REPLICAS, run_fleet_scenario
+
+    t_phase = time.perf_counter()
+    model, _ = load_checkpoint(ckpt)
+    model = model.to(dev).eval()
+    kh, kw = 90, 160
+    seams = int8_seam_calls(torch, model, dev, 1, kh, kw)
+    distinct = {c[1:] for c in seams}
+    print(f"srunet int8 seams: {len(seams)} a window, {len(distinct)} distinct (B=1, "
+          f"{kh}x{kw})")
+    if (len(seams), len(distinct)) != (SR_SEAM_CALLS, SR_DISTINCT_SEAMS):
+        fail(f"the SR recipe has {len(seams)} int8 seams a window ({len(distinct)} distinct), "
+             f"expected {SR_SEAM_CALLS} ({SR_DISTINCT_SEAMS})")
+    shapes = int8_kernel_shapes(torch, np, dev, card, model, kh, kw)
+    k2_rows = k2_large_shapes(torch, dev, card)
+    print(f"srunet kernels: {time.perf_counter() - t_phase:.1f} s")
+
+    srunet_rung_serving(torch, np, dev, card, model, evals)
+    srunet_int8_engine(torch, dev, card, model, evals)
+    print(f"srunet rungs: {time.perf_counter() - t_phase:.1f} s")
+
+    classes, streams, schedule = serving_traffic()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    result = run_fleet_scenario(os.path.join(out_dir, "fleet"), model, streams, SERVE_DATA,
+                                classes, seed=0, lanes=LANES,
+                                activity_tile=SERVE_ACTIVITY_TILE, device=dev)
+    torch.cuda.synchronize()
+    summary, twin = result["summary"], result["twin_summary"]
+    print(f"srunet fleet: {N_REPLICAS} replicas x {LANES} lanes at f32, {len(streams)} streams, "
+          f"{time.perf_counter() - t0:.2f} s; statuses {summary['statuses']}, zero lost "
+          f"{summary['zero_lost']}; checks {json.dumps(result['checks'])}")
+    print(f"srunet fleet vs twin: worst relative metric difference "
+          f"{result['parity']['max_rel_diff']:.3e} over {result['parity']['compared']} streams "
+          f"(limit 1e-5), window counts equal {result['parity']['windows_match']}; handoffs "
+          f"{summary['migrations']}, fail-overs {summary['failovers']}; "
+          f"{summary['windows_per_sec']} windows/s against the twin's "
+          f"{twin['windows_per_sec']} on {card}")
+    for name, c in result["classes"].items():
+        print(f"srunet fleet class {name} on {card}: window latency p50 "
+              f"{c['window_latency_p50_ms']} ms, p99 {c['window_latency_p99_ms']} ms over "
+              f"{c['windows']} windows")
+    if not result["ok"] or not summary["zero_lost"] or any(counts_of().values()):
+        fail("the SR fleet failed: " + json.dumps(
+            {k: v for k, v in result["checks"].items() if not v}))
+    del result
+
+    for rung in SR_AOT_RUNGS:
+        a_sum, counts, loads = aot_vs_traced(torch, model, dev, card, rung, artifacts[rung],
+                                             classes, schedule, "srunet")
+        want = SR_SEAM_CALLS * a_sum["window_steps"] if rung == "int8" else 0
+        if any(counts[k] for k in counts_of()) or (counts["int8_conv"],
+                                                    counts["quantize_per_tensor"]) != (want,
+                                                                                       want):
+            fail(f"aot srunet {rung}: launches {counts}, K1/K2 {want} each expected")
+        print(f"aot srunet {rung}: the artifact loaded with the trained weights in "
+              f"{[round(v * 1e3, 1) for v in loads.values()]} ms")
+    print(f"srunet serving phase {time.perf_counter() - t_phase:.1f} s")
+    return {"shapes": shapes, "k2_large": k2_rows}
 
 
 def step_kernel_vs_plain(torch, trainer, sel, what: str = "step") -> None:
@@ -2440,41 +2712,63 @@ def batch_build(np, train_recs, dataset_config, batch_size, card):
     augmentation), with the native host kernels and with numpy
     (``ESR_TPU_NATIVE=0``), each at ``num_workers`` 0, 2 and 4: ms per batch
     over one epoch after warm ones (the worker pool up), the warm epochs'
-    wall beside it. The native route must take every encoder call of the
-    in-process build and numpy none, and the reverse; every configuration's
-    first batch is bitwise the in-process native one."""
+    wall beside it. A route's two worker pools boot side by side first (a
+    spawn pickles the recordings to its worker and takes seconds; a pool
+    spawns its workers one by one, and only while none is idle, so each
+    worker's first task waits for all of them), then each configuration is
+    timed alone.
+    The native route must take every encoder call of the in-process build
+    and numpy none, and the reverse; every configuration's first batch is
+    bitwise the in-process native one."""
+    import multiprocessing
+    import threading
+
     from esr_tpu_torch.data import np_encodings as NE
     from esr_tpu_torch.data.loader import ConcatSequenceDataset, SequenceLoader
+
+    def boot(loader, barrier, errors):
+        try:
+            pool = loader._get_pool()
+            for f in [pool.submit(barrier.wait, 300) for _ in range(loader.num_workers)]:
+                f.result(timeout=600)
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            errors.append(f"num_workers {loader.num_workers}: {e!r}")
 
     dataset = ConcatSequenceDataset(train_recs, dataset_config)
     first, per_batch = {}, {}
     for route in ("native", "numpy"):
         if route == "numpy":
             os.environ["ESR_TPU_NATIVE"] = "0"
+        loaders = {w: SequenceLoader(dataset, batch_size, seed=0, prefetch=2, num_workers=w)
+                   for w in (0, 2, 4)}
         try:
-            for workers in (0, 2, 4):
-                loader = SequenceLoader(dataset, batch_size, seed=0, prefetch=2,
-                                        num_workers=workers)
+            t0 = time.perf_counter()
+            errors = []
+            with multiprocessing.get_context("spawn").Manager() as manager:
+                boots = [threading.Thread(target=boot, args=(loaders[w], manager.Barrier(w),
+                                                             errors)) for w in (2, 4)]
+                for t in boots:
+                    t.start()
+                for t in boots:
+                    t.join()
+            if errors:
+                fail(f"the {route} batch build's worker pools did not boot: {errors}")
+            booted = time.perf_counter() - t0
+            for workers, loader in loaders.items():
                 NE.ROUTES.reset()
-                try:
-                    t0 = time.perf_counter()
-                    # warm epochs first: the pool spawns a worker only when
-                    # none is idle, and a spawn (the recordings pickled to
-                    # it) takes seconds, so the last workers start within
-                    # the second or third epoch
-                    first[route, workers] = next(iter(list(loader)))
-                    warm = 3 if workers else 1
-                    for epoch in range(1, warm):
-                        loader.set_epoch(epoch)
-                        sum(1 for _ in loader)
-                    t1 = time.perf_counter()
-                    n = 0
-                    for epoch in range(warm, warm + 1):
-                        loader.set_epoch(epoch)
-                        n += sum(1 for _ in loader)
-                    t2 = time.perf_counter()
-                finally:
-                    loader.close()
+                t0 = time.perf_counter()
+                first[route, workers] = next(iter(list(loader)))
+                warm = 3 if workers else 1
+                for epoch in range(1, warm):
+                    loader.set_epoch(epoch)
+                    sum(1 for _ in loader)
+                t1 = time.perf_counter()
+                n = 0
+                for epoch in range(warm, warm + 1):
+                    loader.set_epoch(epoch)
+                    n += sum(1 for _ in loader)
+                t2 = time.perf_counter()
+                loader.close()
                 routes = NE.ROUTES.snapshot()
                 if workers == 0 and (routes[route] == 0 or routes["numpy" if route == "native"
                                                                  else "native"] != 0):
@@ -2482,9 +2776,13 @@ def batch_build(np, train_recs, dataset_config, batch_size, card):
                 per_batch[route, workers] = (t2 - t1) / n * 1e3
                 print(f"batch build on the host of {card}: B={batch_size} {route} "
                       f"num_workers {workers}: {per_batch[route, workers]:.3f} ms per batch "
-                      f"over {n} batches of one epoch after {warm} warm ones (those, pool "
-                      f"start included, {(t1 - t0) * 1e3:.3f} ms); in-process routes {routes}")
+                      f"over {n} batches of one epoch after {warm} warm ones (those "
+                      f"{(t1 - t0) * 1e3:.3f} ms"
+                      + (f"; the route's pools booted side by side in {booted:.3f} s"
+                         if workers else "") + f"); in-process routes {routes}")
         finally:
+            for loader in loaders.values():
+                loader.close()
             os.environ.pop("ESR_TPU_NATIVE", None)
     ref = first["native", 0]
     for key, batch in first.items():
@@ -3399,6 +3697,9 @@ AOT_RUNGS = ("f32", "int8", "bf16")
 # session serves every stream in that class), to keep the phase short
 AOT_RUNG_DEPTHS = {"f32": AOT_DEPTHS, "int8": AOT_DEPTHS, "bf16": (8,)}
 AOT_ROUND_S = 0.05  # the replayed schedule's virtual seconds per round
+# the SR recipe's artifacts: the standard class's depth, at f32 and int8
+SR_AOT_DEPTH = 8
+SR_AOT_RUNGS = ("f32", "int8")
 
 
 def drive_replay(server, schedule, round_s: float = AOT_ROUND_S):
@@ -3429,23 +3730,101 @@ def drive_replay(server, schedule, round_s: float = AOT_ROUND_S):
     return server.summary(), first
 
 
-def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
+def aot_session(torch, model, dev, rung, classes, arrivals, programs=None):
+    """One replayed serving session at ``rung`` on the card, traced or
+    through ``programs`` (``aot_programs``); the launches counted from 0."""
+    from esr_tpu_torch.ops import int8_cuda
+    from esr_tpu_torch.serving.server import ServingEngine
+
+    server = ServingEngine(model, SERVE_DATA, lanes=LANES, classes=classes,
+                           default_class="standard", activity_tile=SERVE_ACTIVITY_TILE,
+                           preempt_quantum=2, precision=rung, device=dev,
+                           aot_programs=programs)
+    reset_all_launches()
+    summary, first_s = drive_replay(server, arrivals)
+    torch.cuda.synchronize()
+    counts = {**counts_of(), **{k.name: k.launches for k in int8_cuda.KERNELS}}
+    return server, summary, first_s, counts
+
+
+def aot_vs_traced(torch, model, dev, card, rung, artifacts, classes, schedule, what):
+    """The serving schedule replayed through a traced session and through
+    the depths ``artifacts`` (``{w: path}``) at ``rung``; arrivals of a class
+    without an artifact go to the standard class. Every request's metrics,
+    windows, skips and preemptions and the final lane states bitwise, the
+    same launches. Returns the AOT session's summary, its launches and its
+    programs' load seconds."""
+    from esr_tpu_torch.inference.engine import METRIC_KEYS
+
+    kept = {n: c for n, c in classes.items() if c.chunk_windows in artifacts}
+    arrivals = [a if a.request_class in kept
+                else dataclasses.replace(a, request_class="standard") for a in schedule]
+    traced, t_sum, t_first, t_counts = aot_session(torch, model, dev, rung, kept, arrivals)
+    aot, a_sum, a_first, a_counts = aot_session(torch, model, dev, rung, kept, arrivals,
+                                                artifacts)
+    reports_t, reports_a = traced.reports(), aot.reports()
+    n = len({a.request_id for a in schedule})
+    if t_sum["completed"] != n or a_sum["completed"] != n:
+        fail(f"aot {what} {rung}: not every request completed ({t_sum['statuses']}, "
+             f"{a_sum['statuses']})")
+    for rid, r in reports_t.items():
+        a = reports_a[rid]
+        keys = ("n_windows", "n_windows_skipped", "preemptions", "status")
+        if any(r[k] != a[k] for k in keys) or any(r[k] != a[k] for k in METRIC_KEYS):
+            fail(f"aot {what} {rung}: request {rid} differs from the traced session: "
+                 f"{ {k: (r[k], a[k]) for k in keys + METRIC_KEYS if r[k] != a[k]} }")
+    if not all(same_bits(torch, x.float(), y.float())
+               for x, y in zip(traced._states, aot._states)):
+        fail(f"aot {what} {rung}: the final lane states differ from the traced session's")
+    if t_counts != a_counts:
+        fail(f"aot {what} {rung}: launches {a_counts} against the traced session's "
+             f"{t_counts}")
+    print(f"aot serving {what} {rung}: {len(reports_a)} requests bitwise the traced session "
+          f"(metrics, windows, skips, preemptions) and the final lane states bitwise "
+          f"({len(aot._states)} leaves); launches {a_counts}, the traced session's the same")
+    for tag, summ, first, srv in (("traced", t_sum, t_first, traced),
+                                  ("aot", a_sum, a_first, aot)):
+        cls = {n: (c["p50_window_ms"], c["p99_window_ms"])
+               for n, c in summ["classes"].items()}
+        # an AOT session's program time is the artifact's load with the
+        # serving weights (sidecar checks, deserialization, weights in)
+        print(f"aot serving {what} {rung} {tag} on {card}: first chunk read back "
+              f"{first * 1e3:.1f} ms after the first round; programs "
+              f"{ {w: round(v * 1e3, 1) for w, v in srv.program_seconds.items()} } ms "
+              f"({'load' if tag == 'aot' else 'build'}); window p50 "
+              f"{summ['p50_window_ms']} ms, p99 "
+              f"{summ['p99_window_ms']} ms, per class (p50, p99) {cls}; "
+              f"{summ['windows_per_sec']} windows/s computed")
+    return a_sum, a_counts, aot.program_seconds
+
+
+def srunet_spec(repo: Path) -> dict:
+    """The second shipped recipe's ``model`` section, as written."""
+    from esr_tpu_torch.config.parser import load_config
+
+    return load_config(str(repo / "configs" / "train_srunet_2x.yml"))["model"]
+
+
+def phase_aot(torch, np, dev, card, repo: Path, out_dir: str, sr_dir: str):
     """The AOT export on the sparse flagship at lanes 4: the chunk programs
     of depths 8 and 4 at f32 and int8, and of depth 8 at bf16, exported
     from a port checkpoint (``inference.export.export_checkpoint``,
-    ``program="engine_chunk"``, the five at once, a process each), loaded
-    back, and the serving phase's 8
+    ``program="engine_chunk"``), loaded back, and the serving phase's 8
     streams (at bf16 all in the standard class) served through
     ``aot_programs`` against a traced session on the same replayed schedule:
     every request's metrics and the final lane states bitwise, the same
     launches (``dcn_fwd_masked``; K1 and K2 at int8), which the loaded
     artifacts make through the custom ops. Then ``serve --aot``, one replica
-    and ``--replicas 2`` (through ``AotRegistry``)."""
+    and ``--replicas 2`` (through ``AotRegistry``). With them, a process
+    each and all at once, the SR recipe's chunk programs of depth 8 at f32
+    and int8 (:data:`SR_AOT_RUNGS`), exported into ``sr_dir`` from a
+    checkpoint of its model with seeded weights (an artifact takes the
+    serving model's weights when it loads): returned, ``{rung: {8: path}}``,
+    for phase 8e to serve the trained checkpoint through."""
     from esr_tpu_torch.inference.checkpoint import save_checkpoint
-    from esr_tpu_torch.inference.engine import METRIC_KEYS
     from esr_tpu_torch.models import convert
-    from esr_tpu_torch.ops import dcn_cuda, int8_cuda
-    from esr_tpu_torch.serving.server import RecordingStream, ServingEngine
+    from esr_tpu_torch.models.registry import get_model
+    from esr_tpu_torch.serving.server import RecordingStream
 
     model = flagship_model(torch, np, dcn_sparse=True)
     classes, streams, schedule = serving_traffic()
@@ -3454,6 +3833,11 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
         "model": {"name": "DeepRecurrNet",
                   "args": {"inch": 2, "basech": model.basech, "num_frame": 3,
                            "dcn_sparse": True}}})
+    spec = srunet_spec(repo)
+    torch.manual_seed(0)
+    sr_ckpt = os.path.join(sr_dir, "ckpt")
+    save_checkpoint(sr_ckpt, convert.export_flax_params(get_model(spec["name"], **spec["args"])),
+                    {"model": spec})
     probe = RecordingStream(streams[0], SERVE_DATA)
     kh, kw = probe.gt_resolution
     if tuple(probe.inp_resolution) != (kh // SERVE_DATA["scale"], kw // SERVE_DATA["scale"]):
@@ -3461,94 +3845,50 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str):
              f"x{SERVE_DATA['scale']} pair")
     if sorted({c.chunk_windows for c in classes.values()}) != sorted(AOT_DEPTHS):
         fail(f"the serving classes' depths are not {AOT_DEPTHS}")
-    jobs = {(rung, w): {"ckpt_path": ckpt, "batch": LANES, "height": kh, "width": kw,
-                        "program": "engine_chunk", "chunk_windows": w,
-                        "scale": SERVE_DATA["scale"], "precision": rung,
-                        "out_path": os.path.join(out_dir, "aot",
-                                                 f"chunk_program.{rung}.w{w}.pt2")}
+
+    def job(path, rung, w, root, tag):
+        return {"ckpt_path": path, "batch": LANES, "height": kh, "width": kw,
+                "program": "engine_chunk", "chunk_windows": w, "scale": SERVE_DATA["scale"],
+                "precision": rung,
+                "out_path": os.path.join(root, "aot", f"chunk_program.{tag}{rung}.w{w}.pt2")}
+
+    jobs = {("flagship", rung, w): job(ckpt, rung, w, out_dir, "")
             for rung in AOT_RUNGS for w in AOT_RUNG_DEPTHS[rung]}
+    jobs.update({("srunet", rung, SR_AOT_DEPTH): job(sr_ckpt, rung, SR_AOT_DEPTH, sr_dir,
+                                                      "srunet.")
+                 for rung in SR_AOT_RUNGS})
     t0 = time.perf_counter()
     seconds = export_in_processes(repo, jobs)
     print(f"aot exports on {card}: {len(jobs)} at once, a process each, in "
           f"{time.perf_counter() - t0:.2f} s")
     artifacts, table = {}, {}
-    for (rung, w), job in jobs.items():
-        path = job["out_path"]
-        artifacts.setdefault(rung, {})[w] = path
-        table[rung, w] = {"export_s": seconds[rung, w], "bytes": os.path.getsize(path)}
-        print(f"aot export {rung} w{w} (lanes {LANES}, GT {kh}x{kw}) on {card}: "
-              f"{seconds[rung, w]:.2f} s (beside the other exports), "
+    for (what, rung, w), j in jobs.items():
+        path = j["out_path"]
+        artifacts.setdefault(what, {}).setdefault(rung, {})[w] = path
+        table[what, rung, w] = {"export_s": seconds[what, rung, w],
+                                "bytes": os.path.getsize(path)}
+        print(f"aot export {what} {rung} w{w} (lanes {LANES}, GT {kh}x{kw}) on {card}: "
+              f"{seconds[what, rung, w]:.2f} s (beside the other exports), "
               f"{os.path.getsize(path)} bytes (+ sidecar {os.path.getsize(path + '.json')})")
 
-    def traffic(rung):
-        """The classes a rung's sessions serve, and the schedule: arrivals
-        of a class without an artifact at this rung go to the standard
-        class."""
-        kept = {n: c for n, c in classes.items()
-                if c.chunk_windows in AOT_RUNG_DEPTHS[rung]}
-        return kept, [a if a.request_class in kept
-                      else dataclasses.replace(a, request_class="standard")
-                      for a in schedule]
-
-    def session(rung, aot):
-        kept, arrivals = traffic(rung)
-        server = ServingEngine(model, SERVE_DATA, lanes=LANES, classes=kept,
-                               default_class="standard", activity_tile=SERVE_ACTIVITY_TILE,
-                               preempt_quantum=2, precision=rung, device=dev,
-                               aot_programs=artifacts[rung] if aot else None)
-        dcn_cuda.reset_launches()
-        int8_cuda.reset_launches()
-        summary, first_s = drive_replay(server, arrivals)
-        torch.cuda.synchronize()
-        counts = {**counts_of(), **{k.name: k.launches for k in int8_cuda.KERNELS}}
-        return server, summary, first_s, counts
-
-    session("f32", False)  # warm: cuDNN picks its algorithms
+    aot_session(torch, model, dev, "f32", classes, schedule[:1])  # warm: cuDNN's algorithms
     for rung in AOT_RUNGS:
-        traced, t_sum, t_first, t_counts = session(rung, False)
-        aot, a_sum, a_first, a_counts = session(rung, True)
-        reports_t, reports_a = traced.reports(), aot.reports()
-        if t_sum["completed"] != len(streams) or a_sum["completed"] != len(streams):
-            fail(f"aot {rung}: not every request completed ({t_sum['statuses']}, "
-                 f"{a_sum['statuses']})")
-        for rid, r in reports_t.items():
-            a = reports_a[rid]
-            keys = ("n_windows", "n_windows_skipped", "preemptions", "status")
-            if any(r[k] != a[k] for k in keys) or any(r[k] != a[k] for k in METRIC_KEYS):
-                fail(f"aot {rung}: request {rid} differs from the traced session: "
-                     f"{ {k: (r[k], a[k]) for k in keys + METRIC_KEYS if r[k] != a[k]} }")
-        if not all(same_bits(torch, x.float(), y.float())
-                   for x, y in zip(traced._states, aot._states)):
-            fail(f"aot {rung}: the final lane states differ from the traced session's")
-        want = 2 * t_sum["window_steps"]
-        if t_counts != a_counts or t_counts["dcn_fwd_masked"] != want:
-            fail(f"aot {rung}: launches {a_counts} against the traced session's {t_counts} "
-                 f"(dcn_fwd_masked {want} expected)")
-        k12 = (a_counts["int8_conv"], a_counts["quantize_per_tensor"])
-        if (rung == "int8") != (min(k12) > 0):
-            fail(f"aot {rung}: K1/K2 launched {k12}")
-        print(f"aot serving {rung}: {len(reports_a)} requests bitwise the traced session "
-              f"(metrics, windows, skips, preemptions) and the final lane states bitwise; "
-              f"launches {a_counts}, the traced session's the same")
-        for w, secs in aot.program_seconds.items():
-            table[rung, w]["load_ms"] = secs * 1e3
-        for tag, summ, first, srv in (("traced", t_sum, t_first, traced),
-                                      ("aot", a_sum, a_first, aot)):
-            cls = {n: (c["p50_window_ms"], c["p99_window_ms"])
-                   for n, c in summ["classes"].items()}
-            # an AOT session's program time is the artifact's load with the
-            # serving weights (sidecar checks, deserialization, weights in)
-            print(f"aot serving {rung} {tag} on {card}: first chunk read back "
-                  f"{first * 1e3:.1f} ms after the first round; programs "
-                  f"{ {w: round(v * 1e3, 1) for w, v in srv.program_seconds.items()} } ms "
-                  f"({'load' if tag == 'aot' else 'build'}); window p50 "
-                  f"{summ['p50_window_ms']} ms, p99 "
-                  f"{summ['p99_window_ms']} ms, per class (p50, p99) {cls}; "
-                  f"{summ['windows_per_sec']} windows/s computed")
+        a_sum, counts, loads = aot_vs_traced(torch, model, dev, card, rung,
+                                             artifacts["flagship"][rung], classes, schedule,
+                                             "flagship")
+        want = 2 * a_sum["window_steps"]
+        k12 = (counts["int8_conv"], counts["quantize_per_tensor"])
+        if counts["dcn_fwd_masked"] != want or (rung == "int8") != (min(k12) > 0):
+            fail(f"aot {rung}: launches {counts} (dcn_fwd_masked {want} expected, K1/K2 at "
+                 "int8 only)")
+        for w, secs in loads.items():
+            table["flagship", rung, w]["load_ms"] = secs * 1e3
     print(f"aot artifacts on {card} (lanes {LANES}): " + "; ".join(
-        f"{rung} w{w} export {r['export_s']:.2f} s, {r['bytes']} bytes, load "
-        f"{r['load_ms']:.1f} ms" for (rung, w), r in table.items()))
+        f"{what} {rung} w{w} export {r['export_s']:.2f} s, {r['bytes']} bytes"
+        + (f", load {r['load_ms']:.1f} ms" if "load_ms" in r else "")
+        for (what, rung, w), r in table.items()))
     aot_entry_point(model, repo, os.path.join(out_dir, "entry"))
+    return artifacts["srunet"]
 
 
 def export_in_processes(repo: Path, jobs: dict) -> dict:
@@ -4178,6 +4518,9 @@ def main() -> int:
     engine_launches, engine_stats = phase_engine(torch, np, dev, card)
     done("the slice and engine phases")
     serve_root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    # the SR recipe's artifacts, exported in phase 10c and served in 8e
+    sr_aot_root = tempfile.mkdtemp(prefix="chip_smoke_sr_aot_")
+    atexit.register(shutil.rmtree, sr_aot_root, True)
     try:
         serve_launches, serve_summary = phase_serving(torch, np, dev, card, repo, serve_root)
         done("the serving phase")
@@ -4186,7 +4529,8 @@ def main() -> int:
                                         os.path.join(serve_root, "fleet"))
         done("the fleet phase")
         # -- 10c. the AOT export, served -----------------------------------
-        phase_aot(torch, np, dev, card, repo, os.path.join(serve_root, "aot"))
+        sr_artifacts = phase_aot(torch, np, dev, card, repo, os.path.join(serve_root, "aot"),
+                                 sr_aot_root)
         done("the AOT phase")
     finally:
         shutil.rmtree(serve_root, ignore_errors=True)
@@ -4206,8 +4550,14 @@ def main() -> int:
                                       os.path.join(out_root, "graphs"))
         done("the graphs phase")
         # -- 8d. the second shipped recipe (SRUNetRecurrentSeq) -------------
-        phase_srunet(torch, np, dev, card, repo, os.path.join(out_root, "srunet"), recs)
+        sr_ckpt, sr_evals = phase_srunet(torch, np, dev, card, repo,
+                                         os.path.join(out_root, "srunet"), recs)
         done("the SRUNet phase")
+        # -- 8e. the SR recipe at serving, the fleet, AOT and the rungs -----
+        srunet = phase_srunet_serving(torch, np, dev, card, repo,
+                                      os.path.join(out_root, "srunet_serving"), sr_ckpt,
+                                      sr_evals, sr_artifacts)
+        done("the SRUNet serving phase")
         # -- 7c. the 4x recipe --------------------------------------------
         totals_4x = phase_train_4x(torch, np, dev, card, repo, os.path.join(out_root, "x4"),
                                    fwd["valid_4x_b8"], train_kernels["train_4x_b8"])
@@ -4278,6 +4628,7 @@ def main() -> int:
         "plan": top["plan"],
         "engine_launches": precision["engine_launches"]["int8_conv"],
         "seams_per_window": precision["seams"], "by_shape": precision["shapes"],
+        "srunet_seams_per_window": SR_SEAM_CALLS, "srunet_by_shape": srunet["shapes"],
     })
     records.append({
         "name": "quantize_per_tensor", "route": "cuda",
@@ -4292,6 +4643,7 @@ def main() -> int:
         "bound_ms": top["k2_bound_ms"], "bound_by": "bytes", "library_ms": None,
         "shape": str(top["shape"]),
         "engine_launches": precision["engine_launches"]["quantize_per_tensor"],
+        "large_shapes": srunet["k2_large"],
     })
     for r in records:
         # the torch.library op the wrapper calls (``ms`` is through it)

@@ -18,11 +18,15 @@ on CPU tensors the same wrappers run their plain versions, which are
 bitwise the kernels'. A kernel that does not build or launch raises.
 
 The trigger is :func:`int8_scope`, a ``ContextVar``, so the serving pump's
-thread and any other thread cannot leak the rung into each other.
+thread and any other thread cannot leak the rung into each other. The scope
+covers every seam of whichever model runs inside it: the flagship and the
+UNet family alike (a ``TransposedConvLayer`` is no seam and stays f32, as in
+the reference).
 
 :func:`calibrate_ranges` reads per-layer activation ranges off the numerics
-plane's stats probes over a seeded corpus (the reference's calibration);
-the rung itself stays dynamic per tensor and does not consume them.
+plane's stats probes over a seeded corpus (the reference's calibration, the
+flagship's taps only); the rung itself stays dynamic per tensor and does not
+consume them.
 """
 
 from __future__ import annotations

@@ -220,17 +220,19 @@ __device__ __forceinline__ void store_item(int8_t* __restrict__ q, const Item& i
   *reinterpret_cast<unsigned*>(q + it.dst) = packed;
 }
 
-// One launch. Block b takes a contiguous range of the items, reads their 4
-// channels from x once into its shared memory (two items in flight a
-// thread) and reduces their amax; with more than one block, it stores it
-// into partials[b], a grid barrier publishes them, and every block reduces
-// them (every partial is written before it is read: nothing to zero). Then
-// each block quantizes its items from shared memory (each thread reads back
-// what it wrote).
+// One launch. Block b takes a contiguous range of the items and reduces the
+// amax of their 4 channels; with more than one block, it stores it into
+// partials[b], a grid barrier publishes them, and every block reduces them
+// (every partial is written before it is read: nothing to zero). Then each
+// block quantizes its items. With `stage` (a range that fits the block's
+// shared memory) the first pass keeps what it read there (two items in
+// flight a thread) and the second reads it back (each thread what it
+// wrote); without, each block reads its range of x again in the second pass
+// (from L2 where it stayed), so the one launch takes a tensor of any size.
 __global__ void __launch_bounds__(kQuantThreads, kQuantBlocksPerSm)
 quantize_kernel(const float* __restrict__ x, int B, int C, int HW, int Cp, FastDiv fd_hw,
-                FastDiv fd_nq, float* __restrict__ partials, int8_t* __restrict__ q,
-                float* __restrict__ scale_out) {
+                FastDiv fd_nq, int stage, float* __restrict__ partials,
+                int8_t* __restrict__ q, float* __restrict__ scale_out) {
   extern __shared__ __align__(16) unsigned char qsmem[];
   float4* staged = reinterpret_cast<float4*>(qsmem);
   __shared__ float red[32], red2[32];
@@ -244,8 +246,10 @@ quantize_kernel(const float* __restrict__ x, int B, int C, int HW, int Cp, FastD
     const float4 v = load_item(x, i, C, HW, Cp, fd_hw, fd_nq);
     float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
     if (i2 < i1) w = load_item(x, i2, C, HW, Cp, fd_hw, fd_nq);
-    staged[i - i0] = v;
-    if (i2 < i1) staged[i2 - i0] = w;
+    if (stage) {
+      staged[i - i0] = v;
+      if (i2 < i1) staged[i2 - i0] = w;
+    }
     a = amax4(amax4(a, v), w);
   }
   float amax = block_amax(a, red);
@@ -258,8 +262,20 @@ quantize_kernel(const float* __restrict__ x, int B, int C, int HW, int Cp, FastD
   }
   const float scale = scale_of(amax);
   if (blockIdx.x == 0 && threadIdx.x == 0) scale_out[0] = scale;
-  for (int i = i0 + threadIdx.x; i < i1; i += kQuantThreads) {
-    store_item(q, item_at(i, C, HW, Cp, fd_hw, fd_nq), staged[i - i0], scale);
+  if (stage) {
+    for (int i = i0 + threadIdx.x; i < i1; i += kQuantThreads) {
+      store_item(q, item_at(i, C, HW, Cp, fd_hw, fd_nq), staged[i - i0], scale);
+    }
+    return;
+  }
+  for (int i = i0 + threadIdx.x; i < i1; i += 2 * kQuantThreads) {
+    const int i2 = i + kQuantThreads;
+    const float4 v = load_item(x, i, C, HW, Cp, fd_hw, fd_nq);
+    if (i2 < i1) {
+      const float4 w = load_item(x, i2, C, HW, Cp, fd_hw, fd_nq);
+      store_item(q, item_at(i2, C, HW, Cp, fd_hw, fd_nq), w, scale);
+    }
+    store_item(q, item_at(i, C, HW, Cp, fd_hw, fd_nq), v, scale);
   }
 }
 
@@ -607,9 +623,10 @@ __global__ void empty_kernel() {}
 
 // x NCHW [B, C, H*W] f32 (contiguous) -> q NHWC [B, H*W, Cp] int8 and
 // scale [1] f32, in one cooperative launch of `blocks` blocks (1..1024, all
-// resident at once) of 512 threads, each staging at most 3040 of the B *
-// Cp/4 * H*W items, through partials [blocks] f32, which the caller keeps
-// (it needs no initial value).
+// resident at once) of 512 threads, each taking its share of the B * Cp/4 *
+// H*W items: staged in shared memory when the share is at most 3040 items,
+// else read twice from x. Through partials [blocks] f32, which the caller
+// keeps (it needs no initial value).
 extern "C" int quantize_per_tensor_f32(const float* x, int B, int C, int HW, int Cp,
                                        int8_t* q, float* scale, float* partials, int blocks,
                                        void* stream) {
@@ -620,7 +637,7 @@ extern "C" int quantize_per_tensor_f32(const float* x, int B, int C, int HW, int
   }
   const int items = B * (Cp / 4) * HW;
   const int per = (items + blocks - 1) / blocks;
-  if (per > kQuantItemsMax) return (int)cudaErrorInvalidValue;
+  const int stage = per <= kQuantItemsMax;
   // the most blocks resident at once (at the largest staging), once per device
   static int resident[64] = {};
   int device = 0;
@@ -641,15 +658,15 @@ extern "C" int quantize_per_tensor_f32(const float* x, int B, int C, int HW, int
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks, 1, 1);
   cfg.blockDim = dim3(kQuantThreads, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)per * sizeof(float4);
+  cfg.dynamicSmemBytes = stage ? (size_t)per * sizeof(float4) : 0;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, quantize_kernel, x, B, C, HW, Cp, fd_hw, fd_nq, partials, q,
-                           scale);
+  err = cudaLaunchKernelEx(&cfg, quantize_kernel, x, B, C, HW, Cp, fd_hw, fd_nq, stage,
+                           partials, q, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -62,7 +62,6 @@ from esr_tpu_torch.config.quantize import int8_scope
 from esr_tpu_torch.data.loader import DevicePrefetcher, LanePackedChunks
 from esr_tpu_torch.data.records import recording_name
 from esr_tpu_torch.device import DeviceLike, resolve_device
-from esr_tpu_torch.models.registry import refuse_unported
 from esr_tpu_torch.obs import active_sink, trace
 from esr_tpu_torch.ops.resize import interpolate
 from esr_tpu_torch.serving.wire import BF16_WORDS
@@ -346,8 +345,6 @@ class StreamingEngine:
         if chunk_windows < 1:
             raise ValueError(f"chunk_windows must be >= 1, got {chunk_windows}")
         self.precision = resolve_precision(cli=precision)
-        if self.precision != "f32":
-            refuse_unported(model, f"the {self.precision} rung")
         self.compute_dtype = compute_dtype_of(self.precision)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()

@@ -45,7 +45,6 @@ from esr_tpu_torch.config.precision import compute_dtype_of, resolve_precision
 from esr_tpu_torch.device import DeviceLike, resolve_device
 from esr_tpu_torch.inference.engine import ChunkProgram, lane_states
 from esr_tpu_torch.models.layers import pack_int8_buffers, repack_int8_buffers
-from esr_tpu_torch.models.registry import refuse_unported
 
 PROGRAMS = ("forward", "engine_chunk")
 # the weights' prefix in each program's state_dict
@@ -93,7 +92,6 @@ def export_forward(model: torch.nn.Module, example_input: torch.Tensor,
                    device: DeviceLike = None) -> bytes:
     """Capture ``model(x, states) -> (y, states)`` on ``device`` (the card
     unless the CPU is asked for) and serialize it."""
-    refuse_unported(model, "the AOT export")
     dev = resolve_device(device)
     model = _export_copy(model, dev)
     return _export(model, (example_input.to(dev), tuple(s.to(dev) for s in example_states)))
@@ -187,7 +185,6 @@ def export_chunk_program(model: torch.nn.Module, lanes: int, chunk_windows: int,
     ``{"inp_scaled": (W, B, seqn, ih, iw, c), "gt": (W, B, kh, kw, c),
     "inp_mid": (W, B, lh, lw, c), "valid": (W, B)}``. ``inp_hw`` and
     ``lr_hw`` default to the GT grid, as in the reference."""
-    refuse_unported(model, "the AOT export")
     dev = resolve_device(device)
     kh, kw = gt_hw
     ih, iw = inp_hw if inp_hw is not None else gt_hw

@@ -52,7 +52,6 @@ from esr_tpu_torch.data.loader import InferenceSequenceLoader
 from esr_tpu_torch.data.records import Recording, open_recording, recording_name
 from esr_tpu_torch.device import DeviceLike, resolve_device, synchronize
 from esr_tpu_torch.losses.restore import l1_metric, mse_metric, psnr_metric, ssim_metric
-from esr_tpu_torch.models.registry import refuse_unported
 from esr_tpu_torch.ops.resize import interpolate
 from esr_tpu_torch.utils.trackers import MetricTracker, YamlLogger
 from esr_tpu_torch.utils.vis_events import render_event_cnt, render_frame, save_image
@@ -90,8 +89,6 @@ class InferenceRunner:
                  precision: Optional[str] = None):
         self.device = resolve_device(device)
         self.precision = resolve_precision(cli=precision)
-        if self.precision != "f32":
-            refuse_unported(model, f"the {self.precision} rung")
         self.compute_dtype = compute_dtype_of(self.precision)
         self.model = model.to(self.device).eval()
         if self.compute_dtype is not None:

@@ -17,6 +17,9 @@ parameter names and every checkpoint are unchanged), whose contraction
 mirrors ``wide_accum_conv_general_dilated`` / ``wide_accum_dot_general`` of
 ``esr_tpu/models/layers.py``:
 
+- the operands promote first, as flax's ``promote_dtype`` does: an input
+  and a weight of different widths both take the wider (an f32 input with
+  bf16 weights computes in f32, the weights and bias widened);
 - f32 operands: the stock contraction, the program unchanged;
 - bf16 operands: bf16 x bf16 with an f32 accumulator, the output rounded to
   bf16, then the bias added in bf16 (flax adds it after the seam returns);
@@ -27,7 +30,10 @@ mirrors ``wide_accum_conv_general_dilated`` / ``wide_accum_dot_general`` of
 The bilinear upsampling is :func:`esr_tpu_torch.ops.resize.resize`:
 ``F.interpolate`` as its forward, and a backward that is a product with
 the interpolation's matrices, which sums in a fixed order (the stock CUDA
-backward scatters with atomics).
+backward scatters with atomics). A bf16 input comes out of it f32, as the
+reference's product with f32 matrices does, so at the bf16 rung every
+layer after an upsampling runs f32 (the flagship's decoder, the UNet
+family's decoders and skips).
 """
 
 from __future__ import annotations
@@ -118,6 +124,17 @@ def repack_int8_buffers(module: nn.Module) -> None:
                     buffers[f"{prefix}int8_{field}"].copy_(getattr(p, field))
 
 
+def _promote(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]):
+    """The operands of a contraction at their common (wider) float dtype,
+    as flax's ``promote_dtype`` gives them to its ``nn.Conv`` and
+    ``nn.Dense``."""
+    if x.dtype == weight.dtype:
+        return x, weight, bias
+    dtype = torch.promote_types(x.dtype, weight.dtype)
+    return (x.to(dtype), weight.to(dtype),
+            None if bias is None else bias.to(dtype))
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose contraction is the precision seam (module
     docstring)."""
@@ -132,6 +149,7 @@ class Conv2d(nn.Conv2d):
                     "dilation 1")
             return quantized_conv2d(x, _packed(self, weight), bias, self.stride[0],
                                     self.padding[0])
+        x, weight, bias = _promote(x, weight, bias)
         if x.dtype == torch.bfloat16:
             # bf16 operands; cuDNN (and the CPU's oneDNN) accumulate a bf16
             # convolution in f32 and round its output to bf16 once
@@ -148,12 +166,13 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if int8_enabled() and x.is_floating_point():
             return quantized_linear(x, _packed(self, self.weight), self.bias)
+        x, weight, bias = _promote(x, self.weight, self.bias)
         if x.dtype == torch.bfloat16:
             # bf16 operands, an f32 accumulator (cuBLAS's reduced-precision
             # reduction is off: esr_tpu_torch.device), the output rounded to bf16
-            out = F.linear(x, self.weight)
-            return out if self.bias is None else out + self.bias
-        return super().forward(x)
+            out = F.linear(x, weight)
+            return out if bias is None else out + bias
+        return F.linear(x, weight, bias)
 
 
 def upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -330,8 +349,17 @@ class TransposedConvLayer(nn.Module):
         self.activation = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
-        return self.activation(x) if self.activation is not None else x
+        # no precision seam (nor int8): a narrower float input climbs to f32
+        # for the whole layer, the weights widened, and the output is rounded
+        # back to the incoming width, as the reference's layer does
+        in_dtype = x.dtype
+        conv = self.conv
+        x = F.conv_transpose2d(
+            x.float(), conv.weight.float(),
+            None if conv.bias is None else conv.bias.float(), conv.stride, conv.padding,
+            conv.output_padding, conv.groups, conv.dilation)
+        x = self.activation(x) if self.activation is not None else x
+        return x.to(in_dtype)
 
 
 class ConvLayer1D(nn.Module):

@@ -1,8 +1,5 @@
 """Model registry: config name -> model class or factory (counterpart of
 ``esr_tpu/models/registry.py``), the same seven names.
-
-:func:`refuse_unported` names what the UNet family cannot run yet in the
-port: serving and the fleet, the AOT export, and the bf16 and int8 rungs.
 """
 
 from __future__ import annotations
@@ -35,12 +32,3 @@ def get_model(name: str, **kwargs) -> nn.Module:
         raise KeyError(f"unknown model '{name}'; registered: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name](**kwargs)
 
-
-def refuse_unported(model: nn.Module, what: str) -> None:
-    """Raise ``NotImplementedError`` when ``what`` (serving, the AOT
-    export, a precision rung) is asked of a model other than
-    ``DeepRecurrNet``: the UNet family's port of it is ROADMAP.md A12a-2."""
-    if not isinstance(model, DeepRecurrNet):
-        raise NotImplementedError(
-            f"{what} of {type(model).__name__} is not ported yet (ROADMAP.md A12a-2: the "
-            "UNet family at serving, the fleet, AOT and the bf16 and int8 rungs)")

@@ -226,14 +226,15 @@ def quantize_items(shape) -> int:
 def quantize_blocks(items: int) -> int:
     """K2's one launch for a tensor of ``items`` (:func:`quantize_items`):
     the blocks of its cooperative grid, one per 1024 items up to four a
-    streaming multiprocessor, each staging at most 3040 items."""
+    streaming multiprocessor. Each block stages its share of x in shared
+    memory, read once, while the share is at most
+    ``QUANTIZE_ITEMS_PER_BLOCK`` items, that is for ``items`` up to
+    ``QUANTIZE_MAX_BLOCKS * QUANTIZE_ITEMS_PER_BLOCK``; above that the grid
+    is the most blocks, and each reads its share of x twice (for the amax,
+    then to quantize), so any size takes one launch."""
     if items < 1:
         raise ValueError(f"quantize_per_tensor: no plan for {items} items")
-    blocks = max(min(QUANTIZE_MAX_BLOCKS, -(-items // _QUANTIZE_ITEMS_AIM)),
-                 -(-items // QUANTIZE_ITEMS_PER_BLOCK))
-    if blocks > QUANTIZE_MAX_BLOCKS:
-        raise ValueError(f"quantize_per_tensor: {items} items exceed the kernel's grid")
-    return blocks
+    return min(QUANTIZE_MAX_BLOCKS, -(-items // _QUANTIZE_ITEMS_AIM))
 
 
 @dataclass(frozen=True)

@@ -12,6 +12,11 @@ bicubic inside the training forward): ``F.interpolate`` forward,
 and a backward that is the product ``A_h^T g A_w`` with the same matrices,
 which sums in a fixed order where the stock CUDA backward scatters with
 atomics (and raises under deterministic algorithms).
+
+Both forms promote as the reference's does: its product with f32
+interpolation matrices turns a narrower float input (bf16) into an f32
+output, so a bf16 input is widened to f32 first; the gradient of a bf16
+input comes back bf16.
 """
 
 from __future__ import annotations
@@ -68,6 +73,14 @@ def _interp_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
     return mat.astype(np.float32)
 
 
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """A float narrower than f32 as f32 (the reference's promotion against
+    its f32 interpolation matrices); f32 and wider unchanged."""
+    if x.is_floating_point() and x.dtype.itemsize < 4:
+        return x.float()
+    return x
+
+
 def interpolate(
     x: torch.Tensor, size: Tuple[int, int], mode: str = "bilinear"
 ) -> torch.Tensor:
@@ -77,7 +90,7 @@ def interpolate(
     if tuple(x.shape[-3:-1]) == tuple(size):
         return x
     squeeze = x.dim() == 3
-    xt = (x[None] if squeeze else x).permute(0, 3, 1, 2)
+    xt = _widen(x[None] if squeeze else x).permute(0, 3, 1, 2)
     kwargs = {} if mode == "nearest" else {"align_corners": False}
     out = F.interpolate(xt, size=tuple(size), mode=mode, **kwargs)
     out = out.permute(0, 2, 3, 1)
@@ -101,24 +114,27 @@ def resize_matrix(in_size: int, out_size: int, mode: str, dtype: torch.dtype,
 
 
 class _Resize(torch.autograd.Function):
-    """``F.interpolate`` forward, the interpolation matrices' backward."""
+    """``F.interpolate`` forward (of the input widened to f32 when it is
+    narrower), the interpolation matrices' backward in the output's dtype,
+    rounded to the input's."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, size: Tuple[int, int], mode: str) -> torch.Tensor:
-        ctx.geom = (x.shape[-2], x.shape[-1], size[0], size[1], mode)
-        return F.interpolate(x, size=size, mode=mode, align_corners=False)
+        ctx.geom = (x.shape[-2], x.shape[-1], size[0], size[1], mode, x.dtype)
+        return F.interpolate(_widen(x), size=size, mode=mode, align_corners=False)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        h, w, oh, ow, mode = ctx.geom
+        h, w, oh, ow, mode, dtype = ctx.geom
         ah = resize_matrix(h, oh, mode, g.dtype, g.device)  # [oh, h]
         aw = resize_matrix(w, ow, mode, g.dtype, g.device)  # [ow, w]
-        return torch.matmul(torch.matmul(ah.t(), g), aw), None, None
+        return torch.matmul(torch.matmul(ah.t(), g), aw).to(dtype), None, None
 
 
 def resize(x: torch.Tensor, size: Tuple[int, int], mode: str = "bicubic") -> torch.Tensor:
     """Resize NCHW ``x`` to ``size`` (bilinear or bicubic,
-    ``align_corners=False``); its backward sums in a fixed order."""
+    ``align_corners=False``; a bf16 input gives an f32 output); its
+    backward sums in a fixed order."""
     if mode not in ("bilinear", "bicubic"):
         raise ValueError(f"unsupported resize mode: {mode}")
     size = (int(size[0]), int(size[1]))

@@ -34,7 +34,9 @@ chunk program per distinct class depth (``inference/export.py``, at the
 session's lanes, grid, rung and device) into ``<output_path>/aot/`` before
 serving, and serves through them: the serving loop never traces. A fleet
 resolves them through an ``AotRegistry`` of that directory at each
-replica's cold start.
+replica's cold start. The checkpoint's model is the flagship or a
+UNet-family windowed model (the second shipped recipe's
+``SRUNetRecurrentSeq``), whose lane state is its flat ``(h, c)`` leaves.
 """
 
 from __future__ import annotations
@@ -132,13 +134,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     logging.basicConfig(level=logging.INFO)
 
     from esr_tpu_torch.inference.checkpoint import load_checkpoint
-    from esr_tpu_torch.models.registry import refuse_unported
     from esr_tpu_torch.obs import TelemetrySink, set_active_sink
     from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
     from esr_tpu_torch.serving.server import ServingEngine
 
     model, config = load_checkpoint(flags.model_path)
-    refuse_unported(model, "serving")
     precision = resolve_precision(
         cli=flags.precision, config=(config.get("trainer") or {}).get("precision"))
     classes = parse_classes(flags.classes)

@@ -85,7 +85,6 @@ from esr_tpu_torch.inference.engine import (
     lane_states,
     make_chunk_fn,
 )
-from esr_tpu_torch.models.registry import refuse_unported
 from esr_tpu_torch.obs import active_sink, trace
 from esr_tpu_torch.obs.report import percentile_ms
 from esr_tpu_torch.resilience import faults as _faults
@@ -147,9 +146,10 @@ class RecordingStream:
 
 class ServingEngine:
     """Multi-tenant continuous-batching serving session (module docstring).
-    ``model`` is a trained ``DeepRecurrNet`` (the UNet family refuses:
-    ROADMAP.md A12a-2); it is moved to ``device`` (the card unless the CPU
-    is asked for)."""
+    ``model`` is a trained ``DeepRecurrNet`` or a UNet-family windowed model
+    (``SRUNetRecurrentSeq``, ``UNetRecurrentSeq``): any model with
+    ``init_states`` and the windowed ``forward``; it is moved to ``device``
+    (the card unless the CPU is asked for)."""
 
     def __init__(
         self,
@@ -173,7 +173,6 @@ class ServingEngine:
         precision: Optional[str] = None,
         device: DeviceLike = None,
     ):
-        refuse_unported(model, "serving")
         self.precision = resolve_precision(cli=precision)
         self.compute_dtype = compute_dtype_of(self.precision)
         self.device = resolve_device(device)

@@ -5,7 +5,9 @@ tensors; the kernels themselves, and gradients through them, on a card.
 The activity-masked DCN (``dcn_sparse``) against the reference's masked
 kernels, to 1e-5 of max |ref| and exactly on masked-off rows. Every
 hand-written kernel (the six DCN kernels, K1 and K2) is a ``torch.library``
-op with a plain CPU and a fake implementation.
+op with a plain CPU and a fake implementation. The int8 kernels' launch
+plans at every seam of a flagship window (lanes 1, 4 and 32) and of the SR
+recipe's (lanes 1, 4 and 8), K2's at any size.
 
 Bound: the reference's scale-normalized criterion (``dcn_parity_ok``
 off-TPU), max|a - b| <= 1e-3 * max(max|ref|, 1), per output and per
@@ -687,14 +689,25 @@ def test_backward_gx_is_bitwise_run_to_run_and_across_paths_on_card(
     (1, 128, 64, (12, 20), 3, 1, False), (4, 128, 64, (12, 20), 3, 1, False),
     (1, 192, 64, (12, 20), 3, 1, False), (4, 192, 64, (12, 20), 3, 1, False),
     # +-amax everywhere: |acc| reaches K * 127**2 inside the image
-    (1, 192, 64, (12, 20), 3, 1, True), (12, 2, 8, (96, 160), 3, 1, True)])
+    (1, 192, 64, (12, 20), 3, 1, True), (12, 2, 8, (96, 160), 3, 1, True),
+    # the SR recipe's 5x5 taps: its head, the stride-2 encoders whose K splits
+    # across clusters of 7 and 8 blocks, decoder 0 (Kp 3200)
+    (1, 2, 16, (90, 160), 5, 1, False), (1, 32, 64, (45, 80), 5, 2, False),
+    (1, 64, 128, (23, 40), 5, 2, False), (1, 128, 128, (24, 40), 5, 1, False),
+    (1, 128, 128, (24, 40), 5, 1, True),
+    # K2 past its staging (each block reads its share of x twice): the SR
+    # recipe's decoder 0 input at lanes 4, decoder 2's at lanes 8, the
+    # flagship's head output at lanes 32
+    (4, 128, 64, (96, 160), 5, 1, False), (8, 32, 16, (180, 320), 5, 1, False),
+    (96, 8, 2, (96, 160), 3, 1, False)])
 def test_int8_kernels_match_plain_on_card(cuda_device, b, cin, cout, hw, k, stride, extreme):
     """K2 (the per-tensor quantization) and K1 (the int8 convolution) are
     bitwise their plain versions at the flagship's kinds of shapes: the head
     conv (Cin 2), a stride-2 conv, the offset/mask conv (216), the local
     residual (192), 1x1 convs, the channel MLP as a 1x1 conv, the bottleneck
-    seams that split K across a cluster, and inputs at +-amax; a second call
-    gives the same bits."""
+    seams that split K across a cluster, and inputs at +-amax; the SR
+    recipe's 5x5 seams; K2 above its staging; a second call gives the same
+    bits."""
     from esr_tpu_torch.ops import int8_cuda
 
     rng = np.random.default_rng(cin + cout)
@@ -753,19 +766,64 @@ def _seam_geometry(shape, cout, k, stride):
     return b * ho * wo, cout, -(-(k * k * cp) // 32) * 32, cp
 
 
-@pytest.mark.parametrize("lanes", [1, 4])
+# The contraction seams of one window of the SR recipe (SRUNetRecurrentSeq
+# at full width: base 16, 3 ConvLSTM encoders, kernel 5, a 90x160 input) at
+# batch 1, in the order its window runs them (41 calls).
+SR_INT8_SEAMS = [
+    ((1, 2, 90, 160), 16, 5, 1), ((1, 16, 90, 160), 32, 5, 2), ((1, 64, 45, 80), 128, 3, 1),
+    ((1, 32, 45, 80), 64, 5, 2), ((1, 128, 23, 40), 256, 3, 1), ((1, 64, 23, 40), 128, 5, 2),
+    ((1, 256, 12, 20), 512, 3, 1), ((1, 128, 12, 20), 128, 3, 1),
+    ((1, 128, 24, 40), 128, 5, 1), ((1, 128, 96, 160), 64, 5, 1), ((1, 64, 46, 80), 64, 5, 1),
+    ((1, 64, 92, 160), 32, 5, 1), ((1, 32, 90, 160), 32, 5, 1), ((1, 32, 180, 320), 16, 5, 1),
+    ((1, 16, 180, 320), 16, 5, 1), ((1, 16, 180, 320), 2, 1, 1)]
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 32])
 @pytest.mark.parametrize("seam", range(len(INT8_SEAMS)))
 def test_int8_launch_plans_cover_every_seam(seam, lanes):
     """K1's plan at each seam shape: every output (m, n) is owned by exactly
     one block, the split blocks' K slices partition the k-steps (none
     empty), the cluster and the shared memory stay within the card's limits
     and the tile is one the source builds; large outputs split nothing. K2's
-    launch: its cooperative grid within the blocks that stay resident, each
-    block's staging within 48 KB."""
+    launch at any size: its cooperative grid within the blocks that stay
+    resident, each block's staging within 48 KB, or above that (lanes 32)
+    the whole grid, each block reading its share of x twice."""
+    shape, cout, k, stride = INT8_SEAMS[seam]
+    _check_seam_plans((shape[0] * lanes,) + shape[1:], cout, k, stride, flagship=True)
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+@pytest.mark.parametrize("seam", range(len(SR_INT8_SEAMS)))
+def test_int8_launch_plans_cover_every_sr_seam(seam, lanes):
+    """:func:`test_int8_launch_plans_cover_every_seam` at the SR recipe's
+    16 seams (5x5 taps, Kp up to 3200; K split across clusters of up to 8
+    blocks), at lanes 1, 4 and 8: at lanes 4 two seams, at lanes 8 five,
+    pass K2's staging (C9)."""
+    shape, cout, k, stride = SR_INT8_SEAMS[seam]
+    _check_seam_plans((shape[0] * lanes,) + shape[1:], cout, k, stride, flagship=False)
+
+
+def test_k2_plans_any_size():
+    """K2's plan takes any size of at least one item: one block up to 1024
+    items, one per 1024 items up to the grid's 528 blocks, each staging at
+    most 3040; above 528 x 3040 items the grid stays 528 blocks and stages
+    nothing; a size of 0 has no plan."""
     from esr_tpu_torch.ops import int8_cuda
 
-    shape, cout, k, stride = INT8_SEAMS[seam]
-    shape = (shape[0] * lanes,) + shape[1:]
+    cap = int8_cuda.QUANTIZE_MAX_BLOCKS * int8_cuda.QUANTIZE_ITEMS_PER_BLOCK
+    for items in (1, 1024, 1025, 528 * 1024, cap, cap + 1, 2 ** 29 - 1):
+        blocks = int8_cuda.quantize_blocks(items)
+        assert 1 <= blocks <= int8_cuda.QUANTIZE_MAX_BLOCKS
+        if items > cap:
+            assert blocks == int8_cuda.QUANTIZE_MAX_BLOCKS
+    assert int8_cuda.quantize_blocks(1) == 1 and int8_cuda.quantize_blocks(1025) == 2
+    with pytest.raises(ValueError):
+        int8_cuda.quantize_blocks(0)
+
+
+def _check_seam_plans(shape, cout, k, stride, flagship):
+    from esr_tpu_torch.ops import int8_cuda
+
     m, n, kp, cp = _seam_geometry(shape, cout, k, stride)
     plan = int8_cuda.conv_plan(m, n, kp, cp)
     assert (plan.wm, plan.wn, plan.nt, plan.mt) in int8_cuda.CONV_TILES
@@ -782,14 +840,17 @@ def test_int8_launch_plans_cover_every_seam(seam, lanes):
     assert all(a < b for a, b in slices) and all(s[1] == t[0] for s, t in zip(slices, slices[1:]))
     assert cp % plan.chunk == 0 and plan.chunk in (4, 8, 16)
     assert plan.smem_bytes(kp) <= int8_cuda.CONV_SMEM_MAX
-    if m >= 11520:
+    if flagship and m >= 11520:
         assert plan.split == 1  # the head and tail seams: bound by bytes already
-    if m <= 960 and kp >= 576:
+    if flagship and m <= 960 and kp >= 576:
         assert plan.split > 1  # the bottleneck's long K loops are split
     items = int8_cuda.quantize_items(shape)
     blocks = int8_cuda.quantize_blocks(items)
     assert 0 < blocks <= int8_cuda.QUANTIZE_MAX_BLOCKS
-    assert -(-items // blocks) <= int8_cuda.QUANTIZE_ITEMS_PER_BLOCK
+    if items <= int8_cuda.QUANTIZE_MAX_BLOCKS * int8_cuda.QUANTIZE_ITEMS_PER_BLOCK:
+        assert -(-items // blocks) <= int8_cuda.QUANTIZE_ITEMS_PER_BLOCK  # staged
+    else:
+        assert blocks == int8_cuda.QUANTIZE_MAX_BLOCKS
 
 
 def test_int8_seams_are_the_flagship_windows():
@@ -815,6 +876,32 @@ def test_int8_seams_are_the_flagship_windows():
         h.remove()
     assert len(calls) == 79
     assert list(dict.fromkeys(calls)) == INT8_SEAMS
+
+
+def test_int8_seams_are_the_sr_recipe_windows():
+    """:data:`SR_INT8_SEAMS` are the distinct seams one window of the SR
+    recipe (``configs/train_srunet_2x.yml``'s model, full width, B=1 on a
+    90x160 input) runs through the int8 rung: 41 calls (the two outer
+    frames' encoders, then the middle frame whole), every one a Conv2d."""
+    from esr_tpu_torch.config.quantize import int8_scope
+    from esr_tpu_torch.models.layers import Conv2d
+    from esr_tpu_torch.models.registry import get_model
+
+    torch.manual_seed(0)
+    model = get_model("SRUNetRecurrentSeq", num_frame=3, num_bins=2, num_output_channels=2,
+                      base_num_channels=16, num_encoders=3, num_residual_blocks=2,
+                      skip_type="sum", recurrent_block_type="convlstm", kernel_size=5).eval()
+    calls, hooks = [], []
+    for mod in model.modules():
+        if isinstance(mod, Conv2d):
+            hooks.append(mod.register_forward_pre_hook(lambda m, a: calls.append(
+                (tuple(a[0].shape), m.out_channels, m.kernel_size[0], m.stride[0]))))
+    with torch.no_grad(), int8_scope():
+        model(torch.rand(1, 3, 90, 160, 2), model.init_states(1, 90, 160))
+    for h in hooks:
+        h.remove()
+    assert len(calls) == 41
+    assert list(dict.fromkeys(calls)) == SR_INT8_SEAMS
 
 
 # -- the kernels as torch.library custom ops ----------------------------------

@@ -20,7 +20,11 @@
   rungs within the chunk tolerances below), each loaded chunk program
   bitwise the eager one, the refusals (program, device, weights); serving
   through the artifact bitwise the traced session, with evictions; the
-  serving tier's refusals at load and ``AotRegistry``.
+  serving tier's refusals at load and ``AotRegistry``;
+- the UNet family (``SRUNetRecurrentSeq``, narrow): the chunk function at
+  f32, bf16 and int8 against the reference's, and its ``engine_chunk``
+  artifacts at each rung and its ``forward`` artifact bitwise the eager
+  programs.
 
 Measured on the CPU: engine vs harness and vs the JAX engine ~5e-7
 relative at worst (the same f32 model, metrics summed in another order);
@@ -433,6 +437,85 @@ def test_chunk_fn_rung_matches_reference_and_tracks_f32(rung_chunks, rung):
     assert (np.abs(got["esr_psnr"] - f32["esr_psnr"]) / w).max() <= 1.0
 
 
+# The UNet family's chunk at each rung: the second shipped recipe's model at
+# a narrow width against the reference's ``make_chunk_fn`` on the same
+# windows and states: the per-lane sums within UNET_CHUNK_TOL (rtol) and
+# atol 1e-5 (measured on the CPU: relative 2.0e-7 at f32 and int8, 2.0e-5 at
+# bf16, past the SSIM sums, which sit near 0 under random weights: absolute
+# 3.7e-8, 5.0e-6 at bf16), the final states' dtypes the reference's (bf16 at
+# bf16) and their values within 2**-7 of their scale at bf16 (measured
+# 3.9e-3 at 0.33: a few bf16 ulps after three windows), 1e-5 otherwise.
+UNET_ARGS = {"num_frame": 3, "base_num_channels": 2, "num_encoders": 2,
+             "num_residual_blocks": 1}
+UNET_CHUNK_TOL = {"f32": 1e-5, "bf16": 2e-4, "int8": 1e-4}
+
+
+@pytest.fixture(scope="module")
+def unet_rung_chunks():
+    import jax.numpy as jnp
+
+    from esr_tpu.inference.engine import make_chunk_fn as ref_make_chunk_fn
+    from esr_tpu.models.registry import get_model as ref_get_model
+    from esr_tpu_torch.models.registry import get_model
+
+    lanes, w, hw = 2, 3, 16
+    ref = ref_get_model("SRUNetRecurrentSeq", **UNET_ARGS)
+    params = seeded_params(ref, seed=6)
+    port = get_model("SRUNetRecurrentSeq", **UNET_ARGS)
+    convert.load_flax_params(port, params)
+    port.eval()
+    rng = np.random.default_rng(1)
+    windows = {
+        "inp_scaled": rng.poisson(0.6, (w, lanes, 3, hw, hw, 2)).astype(np.float32),
+        "inp_mid": rng.poisson(0.6, (w, lanes, hw, hw, 2)).astype(np.float32),
+        "gt": rng.poisson(0.8, (w, lanes, hw, hw, 2)).astype(np.float32),
+        "valid": np.ones((w, lanes), np.float32),
+    }
+    reset = np.ones(lanes, np.float32)
+    out = {}
+    for rung, dtype in (("f32", None), ("bf16", torch.bfloat16), ("int8", None)):
+        jdt = jnp.bfloat16 if dtype is not None else None
+        run = ref_make_chunk_fn(ref, lanes, w, hw, hw, compute_dtype=jdt, precision=rung)
+        states = ref.init_states(lanes, hw, hw)
+        if jdt is not None:
+            states = jax.tree.map(lambda z: z.astype(jdt), states)
+        ref_states, ref_sums, _ = run(params, states, jnp.asarray(reset),
+                                      {k: jnp.asarray(v) for k, v in windows.items()})
+        prun = make_chunk_fn(port, lanes, w, hw, hw, compute_dtype=dtype, precision=rung)
+        pstates = lane_states(port, lanes, hw, hw, torch.device("cpu"), dtype)
+        new_states, sums, _ = prun(pstates, torch.from_numpy(reset),
+                                   {k: torch.from_numpy(v) for k, v in windows.items()})
+        out[rung] = {"ref": {k: np.asarray(v) for k, v in ref_sums.items()},
+                     "port": {k: v.numpy() for k, v in sums.items()},
+                     "ref_states": jax.tree.leaves(ref_states), "states": new_states, "w": w}
+    return out
+
+
+@pytest.mark.parametrize("rung", ["f32", "bf16", "int8"])
+def test_unet_chunk_fn_rung_matches_reference(unet_rung_chunks, rung):
+    """``make_chunk_fn`` over SRUNetRecurrentSeq at the rung against the
+    reference's: the metric sums, the final states (the flat ``(h, c)``
+    leaves, 4 at 2 encoders) in the reference's dtypes; the rung a real
+    one, within 1.0 dB of f32 a window."""
+    got, ref = unet_rung_chunks[rung]["port"], unet_rung_chunks[rung]["ref"]
+    for k in METRIC_KEYS:
+        assert got[k].dtype == np.float32
+        np.testing.assert_allclose(got[k], ref[k], rtol=UNET_CHUNK_TOL[rung], atol=1e-5,
+                                   err_msg=k)
+    states, ref_states = unet_rung_chunks[rung]["states"], unet_rung_chunks[rung]["ref_states"]
+    assert len(states) == len(ref_states) == 2 * UNET_ARGS["num_encoders"]
+    for z, r in zip(states, ref_states):
+        assert str(z.dtype).replace("torch.", "") == str(r.dtype)
+        r32 = np.asarray(r.astype(np.float32))
+        tol = 2.0 ** -7 if rung == "bf16" else 1e-5
+        assert np.abs(z.float().numpy() - r32).max() <= tol * max(np.abs(r32).max(), 1.0)
+    f32 = unet_rung_chunks["f32"]["port"]
+    if rung != "f32":
+        assert not np.array_equal(got["esr_mse"], f32["esr_mse"])
+        w = unet_rung_chunks[rung]["w"]
+        assert (np.abs(got["esr_psnr"] - f32["esr_psnr"]) / w).max() <= 1.0
+
+
 # -- the AOT export: artifacts against the reference's, and against eager ----
 
 AOT_LANES, AOT_W, AOT_HW = 2, 2, 16
@@ -577,6 +660,86 @@ def test_loaded_chunk_program_is_the_eager_chunk_function(models, aot_artifacts,
         expected |= {"esr_tpu_torch.int8_conv.default",
                      "esr_tpu_torch.quantize_per_tensor.default"}
     assert mine == expected
+
+
+@pytest.fixture(scope="module")
+def unet_aot(tmp_path_factory):
+    """A port checkpoint of SRUNetRecurrentSeq (seeded, narrow) and its
+    ``engine_chunk`` artifact at each rung (lanes 2 x chunk 2 on the 16x16
+    GT grid, the CPU) and its ``forward`` artifact, through
+    ``export_checkpoint``; each loaded with the model's weights put in."""
+    from esr_tpu_torch.inference.export import export_checkpoint, load_exported_model
+    from esr_tpu_torch.models.registry import get_model
+
+    tmp = tmp_path_factory.mktemp("torch_unet_aot")
+    torch.manual_seed(3)
+    model = get_model("SRUNetRecurrentSeq", **UNET_ARGS).eval()
+    ckpt = str(tmp / "ckpt")
+    save_checkpoint(ckpt, convert.export_flax_params(model),
+                    {"model": {"name": "SRUNetRecurrentSeq", "args": UNET_ARGS}})
+    loaded = {}
+    for rung in RUNGS:
+        path = export_checkpoint(ckpt, str(tmp / f"chunk.{rung}.pt2"), batch=AOT_LANES,
+                                 height=AOT_HW, width=AOT_HW, program="engine_chunk",
+                                 chunk_windows=AOT_W, scale=2, precision=rung, device="cpu")
+        loaded[rung] = load_exported_model(path, device="cpu", model=model)
+    fwd = export_checkpoint(ckpt, str(tmp / "forward.pt2"), height=AOT_HW, width=AOT_HW,
+                            device="cpu")
+    return {"model": model, "chunk": loaded,
+            "forward": load_exported_model(fwd, device="cpu", model=model)}
+
+
+@pytest.mark.parametrize("rung", RUNGS)
+def test_unet_chunk_artifact_is_the_eager_chunk(unet_aot, rung):
+    """The UNet family's ``engine_chunk`` artifact (``torch.export`` of the
+    ``ChunkProgram`` over the adapter, the bicubic resize's forward only),
+    loaded with the model's weights, is the eager chunk bitwise at every
+    rung: states (bf16 at bf16, the flat ``(h, c)`` leaves), sums, SSIM
+    pairs; at int8 its graph holds K1 and K2 (the packed weights as
+    buffers), no DCN; the sidecar records the rung and geometry."""
+    model = unet_aot["model"]
+    dtype = torch.bfloat16 if rung == "bf16" else None
+    windows = {k: torch.from_numpy(v) for k, v in _aot_windows(seed=10).items()}
+
+    def inputs():
+        return (lane_states(model, AOT_LANES, AOT_HW, AOT_HW, torch.device("cpu"), dtype),
+                torch.ones(AOT_LANES), windows)
+
+    want = ChunkProgram(model, AOT_LANES, AOT_W, AOT_HW, AOT_HW, dtype, rung)(*inputs())
+    fn, side = unet_aot["chunk"][rung]
+    got = fn(*inputs())
+    leaves = torch.utils._pytree.tree_leaves
+    assert len(got[0]) == 2 * UNET_ARGS["num_encoders"]
+    assert all(z.dtype == (dtype or torch.float32) for z in got[0])
+    for a, b in zip(leaves(got), leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ops = {str(n.target) for n in fn.graph.nodes if n.op == "call_function"}
+    mine = {o for o in ops if o.startswith("esr_tpu_torch.")}
+    assert mine == ({"esr_tpu_torch.int8_conv.default",
+                     "esr_tpu_torch.quantize_per_tensor.default"} if rung == "int8" else set())
+    assert (side["precision"], side["lanes"], side["chunk_windows"], side["gt_hw"],
+            side["lr_hw"]) == (rung, AOT_LANES, AOT_W, [AOT_HW, AOT_HW],
+                               [AOT_HW // 2, AOT_HW // 2])
+
+
+def test_unet_forward_artifact_is_the_eager_forward(unet_aot):
+    """The UNet family's ``forward`` artifact (``export_checkpoint(program=
+    'forward')``), loaded with the model's weights: the eager forward's
+    output and states bitwise on a seeded window."""
+    model = unet_aot["model"]
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.poisson(0.5, (1, 3, AOT_HW, AOT_HW, 2)).astype(np.float32))
+    states = tuple(torch.from_numpy(rng.standard_normal(tuple(z.shape)).astype(np.float32))
+                   for z in model.init_states(1, AOT_HW, AOT_HW))
+    fn, side = unet_aot["forward"]
+    with torch.no_grad():
+        want = model(x, states)
+    got = fn(x, states)
+    leaves = torch.utils._pytree.tree_leaves
+    assert len(leaves(got)) == 1 + 2 * UNET_ARGS["num_encoders"]
+    for a, b in zip(leaves(got), leaves(want)):
+        assert torch.equal(a, b)
+    assert side["device"] == "cpu"
 
 
 def test_forward_artifact_matches_jax_artifact(models, tmp_path):

@@ -8,7 +8,8 @@ summed in another order). The UNet family's pieces are here too: the
 ConvLSTM cell and block, the transposed conv at k 3 and 5 and p 0-2 (its
 kernel crosses the bridge flipped in space), the 1D conv, the skips'
 pad-or-crop alignment, the x4 bilinear upsampling and the bicubic resize
-with its matrix backward.
+with its matrix backward. At bf16 (C8): the resize's and each layer's
+output dtype and values against the reference's promotion.
 """
 
 import functools
@@ -480,3 +481,96 @@ def test_resize_forward_and_backward(mode, shape, size):
                                atol=1e-5, rtol=1e-5)
     # the same size is the input itself
     assert TR.resize(xt, shape[2:], mode) is xt
+
+
+
+# -- C8: the bf16 rung's dtype promotion, as the reference's ----------------
+#
+# The reference's resize multiplies by f32 interpolation matrices, so a bf16
+# input comes out f32 (its gradient back in bf16), and flax's Conv and Dense
+# promote their operands to the wider dtype (an f32 input with bf16 weights
+# computes in f32); its transposed conv climbs to f32 for the whole layer
+# and rounds back to the incoming width. Each case: the port's output dtype
+# is the reference's, and its values within one bf16 ulp of the output's
+# scale (2**-8; measured bitwise, or 2.4e-7 where f32 sums run in another
+# order, on the CPU).
+
+C8_LAYERS = {
+    "upsample_conv_bf16": (lambda: FL.UpsampleConvLayer(4, 3, padding=1),
+                           lambda: TL.UpsampleConvLayer(3, 4, 3, padding=1), "bf16"),
+    "upsample_conv_x4_bf16": (lambda: FL.UpsampleConvLayer(4, 3, padding=1, scale=4),
+                              lambda: TL.UpsampleConvLayer(3, 4, 3, padding=1, scale=4),
+                              "bf16"),
+    "conv_f32_input_bf16_weights": (lambda: FL.ConvLayer(4, 3, padding=1),
+                                    lambda: TL.ConvLayer(3, 4, 3, padding=1), "f32"),
+    "mlp_f32_input_bf16_weights": (lambda: FL.MLP(hidden_dim=4, output_dim=6, num_layers=2),
+                                   lambda: TL.MLP(3, 4, 6, num_layers=2), "f32"),
+    "transposed_conv_k3_bf16": (lambda: FL.TransposedConvLayer(4, 3, padding=1),
+                                lambda: TL.TransposedConvLayer(3, 4, 3, padding=1), "bf16"),
+    "transposed_conv_k5_bf16": (lambda: FL.TransposedConvLayer(4, 5, padding=2),
+                                lambda: TL.TransposedConvLayer(3, 4, 5, padding=2), "bf16"),
+    "transposed_conv_k5_f32_input": (lambda: FL.TransposedConvLayer(4, 5, padding=2),
+                                     lambda: TL.TransposedConvLayer(3, 4, 5, padding=2),
+                                     "f32"),
+}
+# the output dtype each case must have (the reference's, checked too)
+C8_DTYPES = {"upsample_conv_bf16": torch.float32, "upsample_conv_x4_bf16": torch.float32,
+             "conv_f32_input_bf16_weights": torch.float32,
+             "mlp_f32_input_bf16_weights": torch.float32,
+             "transposed_conv_k3_bf16": torch.bfloat16, "transposed_conv_k5_bf16": torch.bfloat16,
+             "transposed_conv_k5_f32_input": torch.float32}
+
+
+def _assert_c8(got, ref, want_dtype):
+    assert str(ref.dtype) == str(want_dtype).replace("torch.", "")
+    assert got.dtype == want_dtype
+    ref32 = np.asarray(ref.astype(jnp.float32))
+    got32 = got.detach().float().numpy()
+    if got32.ndim == 4:
+        got32 = np.moveaxis(got32, 1, -1)
+    scale = max(float(np.abs(ref32).max()), 1.0)
+    assert np.abs(got32 - ref32).max() <= BF16_SEAM_TOL * scale
+
+
+@pytest.mark.parametrize("name", sorted(C8_LAYERS))
+def test_bf16_layer_promotion_matches_reference(name):
+    """A layer with bf16 weights: its output dtype is the reference's (f32
+    after an upsampling or from an f32 input, bf16 from a transposed conv
+    given bf16), its values within one bf16 ulp of the output's scale."""
+    fctor, tctor, xin = C8_LAYERS[name]
+    fmod, tmod = fctor(), tctor()
+    rng = np.random.default_rng(sum(map(ord, name)))
+    x = rng.standard_normal((2, 5, 7, 3)).astype(np.float32)
+    if name.startswith("mlp"):
+        x = x[:, 0, 0, :]
+    params = jax.tree.map(np.asarray, fmod.init(jax.random.PRNGKey(3), x))
+    convert.load_flax_params(tmod, params)
+    pb = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), params)
+    ref = fmod.apply(pb, jnp.asarray(x) if xin == "f32" else jnp.asarray(x).astype(jnp.bfloat16))
+    xt = torch.from_numpy(x) if x.ndim == 2 else _nchw(x)
+    with torch.no_grad():
+        got = tmod.to(torch.bfloat16)(xt if xin == "f32" else xt.to(torch.bfloat16))
+    _assert_c8(got, ref, C8_DTYPES[name])
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+def test_bf16_resize_promotes_and_its_gradient_is_bf16(mode):
+    """``resize`` of a bf16 input gives f32, the reference's values within
+    one bf16 ulp (measured bitwise / 2.4e-7); the gradient comes back bf16,
+    the reference's within one bf16 ulp of its scale; ``interpolate`` (the
+    channel-last form) promotes the same way."""
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((2, 5, 7, 3)).astype(np.float32)
+    g = rng.standard_normal((2, 10, 14, 3)).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = FR.interpolate(xj, (10, 14), mode)
+    ref_grad = jax.grad(lambda a: jnp.sum(FR.interpolate(a, (10, 14), mode)
+                                          * jnp.asarray(g)))(xj)
+    xt = _nchw(x).to(torch.bfloat16).requires_grad_(True)
+    got = TR.resize(xt, (10, 14), mode)
+    _assert_c8(got, ref, torch.float32)
+    (got * _nchw(g)).sum().backward()
+    assert xt.grad.dtype == torch.bfloat16 and str(ref_grad.dtype) == "bfloat16"
+    _assert_c8(xt.grad, ref_grad, torch.bfloat16)
+    _assert_c8(TR.interpolate(torch.from_numpy(x).to(torch.bfloat16), (10, 14), mode).permute(
+        0, 3, 1, 2), ref, torch.float32)

@@ -38,9 +38,12 @@
   corpus served twice (8 streams, a gated class): zero lost requests,
   three faults recovered, every stream within rtol 1e-5 of the JAX
   package's single ``ServingEngine`` with equal window counts;
-- the UNet family's refusals (ROADMAP.md A12a-2): serving, ``serve`` (one
-  replica, the fleet, ``--aot``), the AOT export and the bf16 and int8
-  rungs raise ``NotImplementedError`` naming the item.
+- the UNet family (the second shipped recipe's ``SRUNetRecurrentSeq``,
+  narrow): served by both packages at f32, bf16 and int8, every stream; its
+  4-leaf lane state drained from one replica into another at bf16; and
+  serving, ``serve`` (one replica, the
+  fleet, ``--aot``), the AOT exports and the bf16 and int8 rungs through
+  their entry points, each run to completion.
 
 Measured on the CPU: served metric means ~5e-7 relative from the JAX tier.
 """
@@ -968,66 +971,258 @@ def test_supervisor_over_loopback_http(tmp_path):
         sink.close()
 
 
-# -- what the UNet family cannot run yet (ROADMAP.md A12a-2) ----------------
+# -- the UNet family at serving, the fleet and AOT --------------------------
+#
+# The second shipped recipe's model (SRUNetRecurrentSeq) at a narrow width
+# (base 2, 2 encoders; its lane state the flat (h, c) leaves, 4 here),
+# seeded, served by both packages' ServingEngine over the half-idle corpus
+# at each rung: every stream's windows and skips equal, its metrics within
+# UNET_SERVE_RTOL (measured on the CPU: f32 ~1e-6 relative, bf16 3e-5, int8
+# 2.3e-4 where one quantization step flips on a 1-ulp difference upstream;
+# the SSIM means sit near 0 under random weights, so atol 1e-5).
 
-UNET_REFUSALS = ["serving_engine", "serve", "serve_fleet", "serve_aot", "export_forward",
-                 "export_chunk", "export_checkpoint", "harness_bf16", "harness_int8",
-                 "engine_bf16", "engine_int8", "infer_int8"]
+UNET_ARGS = {"num_frame": 3, "base_num_channels": 2, "num_encoders": 2}
+UNET_SERVE_RTOL = {"f32": 1e-5, "bf16": 1e-3, "int8": 1e-3}
 
 
 @pytest.fixture(scope="module")
-def unet_refusal_calls(tmp_path_factory):
-    """An SRUNetRecurrentSeq (the second shipped recipe's model) and its port
-    checkpoint, and for each entry of ``UNET_REFUSALS`` the call that asks
-    serving, the fleet, the AOT export or a rung of it."""
+def unet_models():
+    from esr_tpu.models.registry import get_model as ref_get_model
+    from esr_tpu_torch.models.registry import get_model
+
+    ref = ref_get_model("SRUNetRecurrentSeq", **UNET_ARGS)
+    rng = np.random.default_rng(5)
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
+                            np.zeros((1, 3, 16, 16, 2), np.float32), ref.init_states(1, 16, 16))
+    params = jax.tree.map(lambda s: (rng.uniform(-1.0, 1.0, s.shape)
+                                     / np.sqrt(max(np.prod(s.shape[:-1]), 1))).astype(
+                                         np.float32), shapes)
+    port = get_model("SRUNetRecurrentSeq", **UNET_ARGS)
+    convert.load_flax_params(port, params)
+    return ref, params, port.eval()
+
+
+@pytest.fixture(scope="module")
+def unet_served(corpus, unet_models):
+    out = {}
+    for rung in ("f32", "bf16", "int8"):
+        ref = _ref(unet_models, precision=rung)
+        ref_ids = [ref.submit(p) for p in corpus]
+        ref.run()
+        port = _port(unet_models, precision=rung)
+        port_ids = [port.submit(p) for p in corpus]
+        summary = port.run()
+        out[rung] = ([ref.report(r) for r in ref_ids], [port.report(r) for r in port_ids],
+                     summary, port._states)
+    return out
+
+
+@pytest.mark.parametrize("rung", ["f32", "bf16", "int8"])
+def test_unet_serving_matches_jax_serving(unet_served, rung):
+    """``ServingEngine`` with SRUNetRecurrentSeq against the reference's at
+    the rung, every stream: the same windows and skips (the gated class),
+    metrics within :data:`UNET_SERVE_RTOL`; the lane states the flat
+    ``(h, c)`` leaves in the rung's dtype; each rung within 1.0 dB of f32."""
+    ref, port, summary, states = unet_served[rung]
+    assert summary["completed"] == len(port) and summary["windows_skipped"] > 0
+    assert len(states) == 2 * UNET_ARGS["num_encoders"]
+    assert all(z.dtype == (torch.bfloat16 if rung == "bf16" else torch.float32)
+               for z in states)
+    for r, p in zip(ref, port):
+        assert p["status"] == "ok"
+        assert (p["n_windows"], p["n_windows_skipped"]) == (r["n_windows"],
+                                                             r["n_windows_skipped"])
+        for k in METRIC_KEYS:
+            np.testing.assert_allclose(p[k], r[k], rtol=UNET_SERVE_RTOL[rung], atol=1e-5,
+                                       err_msg=k)
+    f32 = unet_served["f32"][1]
+    for p, f in zip(port, f32):
+        if p["n_windows"]:
+            assert abs(p["esr_psnr"] - f["esr_psnr"]) <= 1.0
+
+
+@pytest.fixture(scope="module")
+def unet_handoff(corpus, unet_models, tmp_path_factory):
+    """The ``handoff`` fixture's drain -> admit across replicas with a
+    UNet-family model at bf16 (its 4 leaves as bf16 words on the wire)."""
+    tmp = tmp_path_factory.mktemp("torch_unet_handoff")
+    reps = [Replica(rid, unet_models[2], DATASET_CFG, telemetry_path=str(tmp / f"{rid}.jsonl"),
+                    classes=_fleet_classes(RequestClass), lanes=1, activity_tile=ACTIVITY_TILE,
+                    preempt_quantum=0, precision="bf16", device="cpu").start()
+            for rid in "abc"]
+    try:
+        a, b, c = reps
+        for rep in (a, c):
+            rep.submit(corpus[1], "standard", request_id="s")
+        for _ in range(2):
+            a.pump()
+        packets = a.drain()
+        b.admit_handoff(packets[0])
+        for rep in (b, c):
+            while rep.pump() != "drained":
+                pass
+        return packets, a.engine.report("s"), b.engine.report("s"), c.engine.report("s")
+    finally:
+        for rep in reps:
+            rep.close()
+
+
+def test_unet_drain_and_admit_handoff_resume_bitwise(unet_handoff):
+    packets, src, got, want = unet_handoff
+    header, _ = wire.read_wire(packets[0].state_bytes)
+    assert header["dtypes"] == ["bfloat16"] * 2 * UNET_ARGS["num_encoders"]
+    assert src["status"] == "migrated" and 0 < packets[0].entry["windows_done"]
+    assert got["status"] == "ok" and got["handoffs"] == 1
+    assert got["n_windows"] == want["n_windows"]
+    for k in METRIC_KEYS:
+        assert got[k] == want[k], k
+
+
+# The entry points that refused the UNet family before it was ported, each
+# run to completion on the CPU on the second shipped recipe's model (base 2,
+# 2 encoders, 16x16) and its output checked.
+UNET_ENTRY_POINTS = ["serving_engine", "serve", "serve_fleet", "serve_aot", "export_forward",
+                     "export_chunk", "export_checkpoint", "harness_bf16", "harness_int8",
+                     "engine_bf16", "engine_int8", "infer_int8"]
+
+
+@pytest.fixture(scope="module")
+def unet_entry_points(corpus, unet_models, tmp_path_factory):
+    """An SRUNetRecurrentSeq port checkpoint and, for each of
+    :data:`UNET_ENTRY_POINTS`, a call that runs it and returns what the test
+    checks."""
     from esr_tpu_torch import infer as port_infer
     from esr_tpu_torch import serve as port_serve
     from esr_tpu_torch.inference import export as port_export
     from esr_tpu_torch.inference.engine import StreamingEngine
     from esr_tpu_torch.inference.harness import InferenceRunner
-    from esr_tpu_torch.models.registry import get_model
 
-    root = tmp_path_factory.mktemp("unet_refusals")
-    args = {"num_frame": 3, "base_num_channels": 2, "num_encoders": 2}
-    model = get_model("SRUNetRecurrentSeq", **args)
+    root = tmp_path_factory.mktemp("unet_entry_points")
+    _, params, model = unet_models
     ckpt = root / "ckpt"
-    save_checkpoint(str(ckpt), convert.export_flax_params(model),
-                    {"model": {"name": "SRUNetRecurrentSeq", "args": args},
+    save_checkpoint(str(ckpt), params,
+                    {"model": {"name": "SRUNetRecurrentSeq", "args": UNET_ARGS},
                      "trainer": {"precision": "f32"}, "valid_dataloader": {
                          "dataset": DATASET_CFG}})
-    out = root / "out"
-    serve_argv = ["--model_path", str(ckpt), "--output_path", str(out), "--loadgen", "2",
-                  "--device", "cpu"]
+    slo = str(REPO / "configs" / "slo.yml")
+    # the uniform streams (the bursty ones hold idle windows whose GT is
+    # empty, where PSNR is infinite)
+    uniform = corpus[1::2]
+    datalist = root / "streams.txt"
+    datalist.write_text("\n".join(uniform) + "\n")
+    # the dataset config serve.main builds from the flags below
+    serve_cfg = dict(DATASET_CFG, mode="events", window=1024, sliding_window=512)
+
+    def serve(tag, rung, *extra):
+        """``serve.main`` over the uniform streams at ``rung``, its request
+        reports by stream, and the reference's ``ServingEngine`` over the
+        same streams at the same rung, by stream."""
+        out = root / tag
+        summary = port_serve.main([
+            "--model_path", str(ckpt), "--output_path", str(out), "--data_list",
+            str(datalist), "--rate", "50", "--lanes", "2", "--classes", "standard:2",
+            "--scale", "2", "--ori_scale", "down8", "--window", "1024", "--sliding_window",
+            "512", "--seql", "4", "--max_wall", "120", "--live-slo", slo, "--device", "cpu",
+            "--precision", rung, *extra])
+        name = "fleet_requests.jsonl" if "--replicas" in extra else "serve_requests.jsonl"
+        rows = [json.loads(line) for line in (out / name).read_text().splitlines()]
+        ref = RefServing(unet_models[0], unet_models[1], serve_cfg, lanes=2,
+                         classes={"standard": RefClass("standard", chunk_windows=2)},
+                         default_class="standard", precision=rung)
+        ref_ids = {p: ref.submit(p) for p in uniform}
+        ref.run()
+        return (summary, {r["path"]: r for r in rows},
+                {p: ref.report(rid) for p, rid in ref_ids.items()}, rung)
+
+    def serving_engine():
+        srv = _port(unet_models)
+        rid = srv.submit(corpus[1])
+        srv.run()
+        return srv.report(rid)
+
+    def runner(rung):
+        return InferenceRunner(model, 3, device="cpu", precision=rung).run_recording(
+            uniform[0], DATASET_CFG, report=False)
+
+    def engine(rung):
+        results, _ = StreamingEngine(model, 3, lanes=2, chunk_windows=2, precision=rung,
+                                     device="cpu").run_datalist(uniform, DATASET_CFG)
+        return results
+
+    def infer(rung):
+        return port_infer.main([
+            "--model_path", str(ckpt), "--data_path", uniform[0], "--output_path",
+            str(root / f"infer_{rung}"), "--device", "cpu", "--precision", rung, "--engine",
+            "--lanes", "2", "--chunk_windows", "2", "--scale", "2", "--ori_scale", "down8",
+            "--window", "512", "--sliding_window", "256", "--seql", "4",
+            "--no_need_gt_frame"])
+
+    x = torch.zeros((1, 3, 16, 16, 2))
     calls = {
-        "serving_engine": lambda: ServingEngine(model, DATASET_CFG, lanes=2, device="cpu"),
-        "serve": lambda: port_serve.main(serve_argv),
-        "serve_fleet": lambda: port_serve.main(serve_argv + ["--replicas", "2"]),
-        "serve_aot": lambda: port_serve.main(serve_argv + ["--aot"]),
-        "export_forward": lambda: port_export.export_forward(
-            model, torch.zeros((1, 3, 16, 16, 2)), model.init_states(1, 16, 16), "cpu"),
+        "serving_engine": serving_engine,
+        "serve": lambda: serve("serve", "bf16"),
+        "serve_fleet": lambda: serve("fleet", "f32", "--replicas", "3"),
+        "serve_aot": lambda: serve("aot", "int8", "--aot"),
+        "export_forward": lambda: port_export.export_forward(model, x,
+                                                             model.init_states(1, 16, 16),
+                                                             "cpu"),
         "export_chunk": lambda: port_export.export_chunk_program(
-            model, 2, 2, (16, 16), device="cpu"),
+            model, 2, 2, (16, 16), precision="bf16", device="cpu"),
         "export_checkpoint": lambda: port_export.export_checkpoint(
             str(ckpt), str(root / "a.pt2"), height=16, width=16, device="cpu"),
-        "harness_bf16": lambda: InferenceRunner(model, 3, device="cpu", precision="bf16"),
-        "harness_int8": lambda: InferenceRunner(model, 3, device="cpu", precision="int8"),
-        "engine_bf16": lambda: StreamingEngine(model, 3, device="cpu", precision="bf16"),
-        "engine_int8": lambda: StreamingEngine(model, 3, device="cpu", precision="int8"),
-        "infer_int8": lambda: port_infer.main([
-            "--model_path", str(ckpt), "--data_path", str(root / "none.h5"),
-            "--output_path", str(root / "infer"), "--device", "cpu",
-            "--precision", "int8", "--engine"]),
+        "harness_bf16": lambda: runner("bf16"),
+        "harness_int8": lambda: runner("int8"),
+        "engine_bf16": lambda: engine("bf16"),
+        "engine_int8": lambda: engine("int8"),
+        "infer_int8": lambda: {rung: infer(rung) for rung in ("int8", "f32")},
     }
-    return {"calls": calls, "out": out, "artifact": root / "a.pt2"}
+    return {"calls": calls, "root": root, "f32": runner("f32")}
 
 
-@pytest.mark.parametrize("what", UNET_REFUSALS)
-def test_unet_family_refusals_name_the_roadmap_item(unet_refusal_calls, what):
+@pytest.mark.parametrize("what", UNET_ENTRY_POINTS)
+def test_unet_family_entry_points_run(unet_entry_points, what):
     """Serving, the fleet, the AOT export and the bf16 and int8 rungs each
-    refuse an SRUNetRecurrentSeq with ``NotImplementedError`` naming
-    ROADMAP.md A12a-2, before any work: no serving output, no artifact."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12a-2"):
-        unet_refusal_calls["calls"][what]()
-    out = unet_refusal_calls["out"]
-    assert not out.exists() or not any(out.iterdir())
-    assert not unet_refusal_calls["artifact"].exists()
+    run a SRUNetRecurrentSeq to completion on the CPU: ``serve`` (bf16),
+    ``serve --replicas 3`` (f32) and ``serve --aot`` (int8) every request ok
+    and none lost, each stream within :data:`UNET_SERVE_RTOL` of the JAX
+    package's ``ServingEngine`` at the same rung; the artifacts written
+    (and their sidecars); the rungs' finite metrics within 1.0 dB of the
+    f32 harness's."""
+    got = unet_entry_points["calls"][what]()
+    root, f32 = unet_entry_points["root"], unet_entry_points["f32"]
+    if what == "serving_engine":
+        assert got["status"] == "ok" and got["n_windows"] > 0
+    elif what.startswith("serve"):
+        summary, rows, ref, rung = got
+        assert summary["statuses"] == {"ok": 2} and sorted(rows) == sorted(ref)
+        if what == "serve_fleet":
+            assert summary["zero_lost"]
+            assert summary["replicas"] == {"r0": "up", "r1": "up", "r2": "up"}
+        else:
+            assert summary["completed"] == 2
+        if what == "serve_aot":
+            side = json.loads((root / "aot" / "aot" / "chunk_program.w2.pt2.json").read_text())
+            assert (side["precision"], side["model"]) == ("int8", "FrameRecurrentSR")
+        for path, r in ref.items():
+            assert rows[path]["n_windows"] == r["n_windows"] > 0
+            for k in METRIC_KEYS:
+                np.testing.assert_allclose(rows[path][k], r[k], rtol=UNET_SERVE_RTOL[rung],
+                                           atol=1e-5, err_msg=k)
+    elif what.startswith("export"):
+        if what == "export_checkpoint":
+            assert got.endswith("a.pt2") and (root / "a.pt2.json").is_file()
+            got = (root / "a.pt2").read_bytes()
+        assert isinstance(got, bytes) and got[:2] == b"PK"
+    elif what == "infer_int8":
+        got, f32 = got["int8"], got["f32"]
+        assert got["n_windows"] == f32["n_windows"] >= 3 and np.isfinite(got["esr_psnr"])
+        assert got["esr_mse"] != f32["esr_mse"]
+        assert abs(got["esr_psnr"] - f32["esr_psnr"]) <= 1.0
+    elif what.startswith("harness"):
+        assert got["n_windows"] >= 3 and np.isfinite(got["esr_psnr"])
+        assert abs(got["esr_psnr"] - f32["esr_psnr"]) <= 1.0
+        if what == "harness_bf16":
+            assert got["esr_mse"] != f32["esr_mse"]
+    else:
+        assert len(got) == 2 and all(r["n_windows"] > 0 and np.isfinite(r["esr_psnr"])
+                                     for r in got)
