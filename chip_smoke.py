@@ -106,7 +106,9 @@ Phases (any failure exits non-zero):
    paths: 3 steps and a validation, finite losses, a committed checkpoint
    that reloads bitwise; two steps from one state bitwise (C2); one
    full-width window at B=1 on the card against the CPU (the output within
-   1e-3 * max(|ref|, 1), every gradient within 1e-3 of its own scale); a
+   1e-3 * max(|ref|, 1), every gradient within 1e-3 of its own scale; the
+   numerics flags, the host's CPU and threads, the card's free memory and
+   each side's distance from the CPU in f64 printed on every call); a
    step's time, device busy (the union of the profiler's kernel
    intervals), idle share and peak memory. Then ``k_steps: 8`` on 17
    batches (two full groups, the second a graph replay, and a tail)
@@ -132,6 +134,21 @@ Phases (any failure exits non-zero):
    depth-8 artifacts at f32 and int8 (exported in phase 10c's pool from
    seeded weights, loaded with the trained ones) bitwise the traced
    sessions.
+8f. the data options and LPIPS: ``Trainer`` from ``configs/train_esr_2x.yml``
+   as written at batch 32 with ``add_noise`` (noise level 0.1),
+   ``hot_filter`` and ``sequence.pause`` (the shipped 0.05 / 0.9) on, no
+   workers, rasterized on the card, over the graphs phase's recordings:
+   the first batch's device-rasterized count images bitwise the host's of
+   the same sequences (the noise in, the paused windows empty); 16
+   iterations (``k_steps`` 8: an eager group, then a replay) twice, finite
+   and bitwise run to run, 14/14/14 launches a step; the batch build with
+   the options against without, in turns. Then the run's checkpoint through
+   ``run_inference`` with ``allow_uncalibrated_lpips`` and with a seeded
+   alex backbone npz: ``esr_lpips`` and ``bicubic_lpips`` in each report,
+   every window's distances within 1e-4 relative of LPIPS on the CPU over
+   the same images; the harness's per-window p50 with and without LPIPS,
+   LPIPS's device ms a window. Last, phase 8d's card-against-CPU window
+   again, three times (C10).
 
 8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
    ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
@@ -159,7 +176,7 @@ Phases (any failure exits non-zero):
    ``esr_tpu_torch.obs.report`` green against ``configs/slo.yml``, each
    preempted stream within 1e-5 of itself served alone, an ESRLANE1 round
    trip of a lane state bitwise; windows/s with and without a sink, in
-   turns (sink, none, none, sink);
+   turns (live plane, none, sink);
 10b. the fleet (``resilience.chaos_fleet.run_fleet_scenario`` at this
    width): the same 8 streams as a burst through a fault-free twin engine,
    then through 3 replicas x 4 lanes on the card behind ``FleetRouter``
@@ -191,7 +208,8 @@ Phases (any failure exits non-zero):
    program's build or load ms, the first chunk's readback and window
    p50/p99 beside the traced session's. Then ``serve.main --aot`` with one
    replica and with ``--replicas 2`` (each replica through an
-   ``AotRegistry``): every request ok, none lost, the artifact written;
+   ``AotRegistry``), at once, a process each: every request ok, none
+   lost, the artifact written, the process's ``dcn_fwd_masked`` launched;
 11. the sparse train step: one B=32 step from the flagship config with
    ``model;args;dcn_sparse=true`` launches ``dcn_train_fwd_masked``,
    ``dcn_bwd`` and ``dcn_wgrad`` 14 times each; its losses and every grad
@@ -215,7 +233,7 @@ Phases (any failure exits non-zero):
    every recording and request within 1.0 dB of f32.
 
 The phases run in the order 1-5, 8, 6, 9, 10, 10b, 10c, 12, 7 (with 11
-inside 7), 8c, 8d, 8e, 7c, then the trainer's runtime.
+inside 7), 8c, 8d, 8e, 8f, 7c, then the trainer's runtime.
 The line before the last is the ``{"kernels": [...]}`` record (eight
 kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -235,6 +253,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 from pathlib import Path
 
@@ -328,6 +347,8 @@ FLAGSHIP_DATA = {
     "data_augment": {"enabled": False, "augment": [], "augment_prob": []},
     "sequence": {"sequence_length": 9, "seqn": 3, "step_size": None,
                  "pause": {"enabled": False}},
+    # the items the loops here read (the dataset builds every key by default)
+    "item_keys": ["inp_scaled_cnt", "gt_cnt", "inp_cnt"],
 }
 
 
@@ -905,7 +926,8 @@ def phase_slice(torch, np, dev, card):
     print("slice metrics: " + json.dumps({k: result[k] for k in sorted(result)}))
 
     # every window again, kernel path and plain path side by side
-    loader = InferenceSequenceLoader(recording, dataset_config)
+    loader = InferenceSequenceLoader(recording, {**dataset_config,
+                                                 "item_keys": FLAGSHIP_DATA["item_keys"]})
     kh, kw = loader.gt_resolution
     states_k = model.init_states(1, kh, kw, device=dev)
     states_p = model.init_states(1, kh, kw, device=dev)
@@ -1004,7 +1026,8 @@ def evaluate_checkpoint(np, dev, tree, recording, dataset_config, want):
         if pngs != want_tree:
             fail(f"infer --save_images wrote {len(pngs)} PNGs, not the reference's tree "
                  f"of {len(want_tree)}")
-        loader = InferenceSequenceLoader(recording, dataset_config)
+        loader = InferenceSequenceLoader(recording, {**dataset_config,
+                                                     "item_keys": FLAGSHIP_DATA["item_keys"]})
         (h, w), (kh, kw) = loader.inp_resolution, loader.gt_resolution
         for name in pngs:
             img = decode_png(np, str(rec_dir / name))
@@ -1285,7 +1308,7 @@ def group_times(torch, trainer, batches, card, what: str = "the flagship",
                 dcn: bool = True):
     """A full group of ``trainer``'s recipe (the flagship at batch 32 unless
     ``what`` names another), eagerly (its train steps) and captured (the
-    batches copied into the slots, one replay), in turns; device busy, idle
+    batches copied into the slots, one replay), one after the other; device busy, idle
     share and peak memory of an eager step and of a replayed group under
     the profiler (the device only: an eager group's ~40,000 launches take a
     minute to aggregate), and, with ``dcn``, the DCN kernels it saw in the
@@ -1313,7 +1336,7 @@ def group_times(torch, trainer, batches, card, what: str = "the flagship",
     torch.cuda.synchronize()
     pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2**30
     times = {"eager": [], "captured": []}
-    for way in ("eager", "captured", "captured", "eager"):
+    for way in ("eager", "captured"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (eager if way == "eager" else captured)()
@@ -1482,7 +1505,8 @@ def phase_graphs(torch, np, dev, card, repo: Path, out_root: str):
     if n_valid < 2 * eight.valid_chunk + 1 or n_valid % eight.valid_chunk == 0:
         fail(f"{n_valid} validation batches: not two chunks of {eight.valid_chunk} and a tail")
     out, pass_ms = {}, {"fused": [], "sequential": []}
-    for fused in (True, False, False, True):
+    # the first fused pass captures its chunk, the second replays it
+    for fused in (True, False, True):
         eight.valid_fused = fused
         way = "fused" if fused else "sequential"
         reset_all_launches()
@@ -1514,7 +1538,7 @@ def phase_graphs(torch, np, dev, card, repo: Path, out_root: str):
           f"captures; {chunk.graph.replays} chunk replays in all), fused "
           f"{', '.join(f'{t:.3f}' for t in pass_ms['fused'])} ms (1 readback) vs per batch "
           f"{', '.join(f'{t:.3f}' for t in pass_ms['sequential'])} ms ({n_valid} readbacks), "
-          "in turns")
+          "in turns (fused, per batch, fused)")
     # the trainers and their graphs' pools go before the engine's graphs
     del runs, eight, rb, graph, chunk
     torch.cuda.empty_cache()
@@ -1522,7 +1546,7 @@ def phase_graphs(torch, np, dev, card, repo: Path, out_root: str):
 
     engine_graphs(torch, np, dev, card)
     print(f"graphs phase {time.perf_counter() - t_phase:.1f} s")
-    return {"k8": k8_launches, "graph": graph_launches}
+    return {"k8": k8_launches, "graph": graph_launches, "recordings": (train_recs, valid_recs)}
 
 
 def reset_all_launches():
@@ -1539,7 +1563,7 @@ def engine_graphs(torch, np, dev, card):
     sparse, 4 chunks of lanes 4 x 8 windows driven in lockstep through the
     graph and the eager ``ChunkProgram`` from the same states (the lane
     states, sums and SSIM pairs bitwise, the same launches); then the sparse
-    flagship's engine run graphed and eager in turns at f32 and int8."""
+    flagship's engine run graphed, then eager, at f32 and int8."""
     from itertools import islice
 
     from torch.profiler import ProfilerActivity, profile
@@ -1606,7 +1630,7 @@ def engine_graphs(torch, np, dev, card):
                   f"states, sums and SSIM pairs bitwise the eager chunk's; launches "
                   f"{ {n: v for n, v in launched['graphed'].items() if v} } each way")
             del graphed, program
-    # windows/s, chunk ms and idle share, graphed against eager, in turns
+    # windows/s, chunk ms and idle share, graphed against eager
     model = flagship_model(torch, np, dcn_sparse=True)
     for rung in ("f32", "int8"):
         engine = StreamingEngine(model, 3, lanes=LANES, chunk_windows=CHUNK_WINDOWS,
@@ -1614,7 +1638,7 @@ def engine_graphs(torch, np, dev, card):
         engine.run_datalist(recs[:2], FLAGSHIP_DATA)  # warm-up and capture
         graphed = engine._run_chunk
         stats = {"graphed": [], "eager": []}
-        for way in ("graphed", "eager", "eager", "graphed"):
+        for way in ("graphed", "eager"):
             engine._run_chunk = graphed if way == "graphed" else graphed.program
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1683,41 +1707,102 @@ def srunet_trainer(dev, repo: Path, out_dir: str, recs, iterations: int, extra=(
     return run, Trainer(run, device=dev, train_recordings=recs[0], valid_recordings=recs[1])
 
 
-def srunet_card_vs_cpu(torch, trainer, sel) -> None:
-    """One window at full width and B=1 from the trainer's weights, on the
-    card and on the CPU: the output within 1e-3 * max(|ref|, 1), and every
-    parameter's gradient of its MSE within 1e-3 of its own scale max|ref|
-    (a gradient's scale may be far below 1). On a failure, each side's
-    distance from the CPU in f64 says which one strayed."""
-    outs, grads = {}, {}
+def cpu_identity() -> str:
+    """The host CPU's architecture and model and the cores this process may
+    use: an f32 CPU result depends on all three (the kernels the CPU's
+    instruction set selects, and the thread team)."""
+    import platform
 
-    def window(way, device, dtype):
+    model = "model not listed"
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f if ln.split(":", 1)[0].strip()
+                          in ("model name", "Model", "CPU part")), model)
+    except OSError:
+        pass
+    return f"{platform.machine()} {model}, {len(os.sched_getaffinity(0))} cores usable"
+
+
+def srunet_window(torch, trainer, sel, device, dtype, threads=None):
+    """One full-width window at B=1 from the trainer's weights on
+    ``device`` at ``dtype`` (the CPU side at ``threads`` intra-op threads,
+    then restored): ``(output, {name: gradient of the MSE})`` on the CPU."""
+    saved = torch.get_num_threads()
+    if threads is not None:
+        torch.set_num_threads(threads)
+    try:
         model = copy.deepcopy(trainer.model).train().to(device=device, dtype=dtype)
         x, gt = sel["inp"][:1, :3].to(device, dtype), sel["gt"][:1, 1].to(device, dtype)
         states = tuple(s.to(dtype) for s in model.init_states(1, *x.shape[2:4], device=device))
         out, _ = model(x, states)
         ((out - gt) ** 2).mean().backward()
-        outs[way] = out.detach().cpu()
-        grads[way] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        return (out.detach().cpu(),
+                {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    finally:
+        torch.set_num_threads(saved)
 
-    window("card", next(trainer.model.parameters()).device, torch.float32)
-    window("cpu", "cpu", torch.float32)
-    err, lim = err_of(torch, outs["card"], outs["cpu"])
-    rows = [(n, *rel_err_of(torch, grads["card"][n], g)) for n, g in grads["cpu"].items()]
+
+def from_f64(torch, side, f64) -> dict:
+    """A window's distance from the f64 run: the output's max abs error and
+    the gradient farthest from f64 relative to its own scale."""
+    out, grads = side
+    worst = max(((n, float((g - f64[1][n]).abs().max()), float(f64[1][n].abs().max()))
+                 for n, g in grads.items()), key=lambda r: r[1] / max(r[2], TINY))
+    return {"output": float((out - f64[0]).abs().max()), "grad": worst[0],
+            "grad_err": worst[1], "grad_scale": worst[2]}
+
+
+def srunet_card_vs_cpu(torch, trainer, sel, cpu_threads=None, f64=None) -> dict:
+    """One window at full width and B=1 from the trainer's weights, on the
+    card and on the CPU (``cpu_threads`` intra-op threads; None keeps the
+    process's): the output within 1e-3 * max(|ref|, 1), and every
+    parameter's gradient of its MSE within 1e-3 of its own scale max|ref|
+    (a gradient's scale may be far below 1). The numerics flags at the
+    check, the host's CPU and each side's distance from the same window on
+    the CPU in f64 are printed on every call, so a failure says which side
+    strayed. Returns the distances and the f64 run (``f64`` reuses one)."""
+    flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.benchmark": torch.backends.cudnn.benchmark,
+             "deterministic": torch.are_deterministic_algorithms_enabled()}
+    if flags["cudnn.allow_tf32"] or flags["matmul.allow_tf32"] or not flags["deterministic"]:
+        fail(f"srunet card vs CPU: the numerics policy is not in force at the check: {flags}")
+    card = srunet_window(torch, trainer, sel, next(trainer.model.parameters()).device,
+                         torch.float32)
+    cpu = srunet_window(torch, trainer, sel, "cpu", torch.float32, cpu_threads)
+    if f64 is None:
+        f64 = srunet_window(torch, trainer, sel, "cpu", torch.float64)
+    err, lim = err_of(torch, card[0], cpu[0])
+    rows = [(n, *rel_err_of(torch, card[1][n], g)) for n, g in cpu[1].items()]
     worst = max(rows, key=lambda r: r[1] / r[3])
-    print(f"srunet card vs CPU: a window at B=1, {tuple(outs['cpu'].shape)} out, max_abs_err "
+    threads = torch.get_num_threads() if cpu_threads is None else cpu_threads
+    free, total = torch.cuda.mem_get_info()
+    dist = {"card": from_f64(torch, card, f64), "cpu": from_f64(torch, cpu, f64),
+            "cpu_threads": threads, "output_err": err, "worst": worst[0],
+            "worst_ratio": worst[1] / worst[3]}
+    print(f"srunet card vs CPU: a window at B=1, {tuple(cpu[0].shape)} out, max_abs_err "
           f"{err:.3e} (limit {lim:.3e}); {len(rows)} gradients, the worst {worst[0]} "
-          f"{worst[1]:.3e} of its scale {worst[2]:.3e} (limit {worst[3]:.3e})")
+          f"{worst[1]:.3e} of its scale {worst[2]:.3e} (limit {worst[3]:.3e}); CPU at "
+          f"{threads} threads ({cpu_identity()}, default {torch.get_num_threads()}); "
+          f"flags {json.dumps(flags)}; the card's memory {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB free")
+    for way in ("card", "cpu"):
+        d = dist[way]
+        print(f"srunet card vs CPU: {way} against the CPU in f64: output {d['output']:.3e}, "
+              f"farthest gradient {d['grad']} {d['grad_err']:.3e} of its scale "
+              f"{d['grad_scale']:.3e} ({d['grad_err'] / max(d['grad_scale'], TINY):.3e})")
     bad = ([] if err <= lim else ["output"]) + [n for n, e, _, lim in rows if not e <= lim]
     if bad:
-        window("f64", "cpu", torch.float64)
         for n in bad:
-            side = (outs if n == "output" else {w: grads[w][n] for w in grads})
-            ref = side["f64"]
+            side = {"card": card[0], "cpu": cpu[0]} if n == "output" else {
+                "card": card[1][n], "cpu": cpu[1][n]}
+            ref = f64[0] if n == "output" else f64[1][n]
             print(f"srunet card vs CPU: {n} against the CPU in f64 (scale "
                   f"{float(ref.abs().max()):.3e}): card {float((side['card'] - ref).abs().max()):.3e},"
                   f" CPU {float((side['cpu'] - ref).abs().max()):.3e}")
         fail(f"the SRUNet window on the card differs from the CPU's: {bad}")
+    dist["f64"] = f64
+    return dist
 
 
 def srunet_graphs(torch, np, dev, card, repo: Path, out_root: str, recs) -> None:
@@ -1928,6 +2013,8 @@ def phase_srunet(torch, np, dev, card, repo: Path, out_root: str, recs) -> None:
     sel = trainer._select(next(iter(trainer.train_loader)))
     c2_bitwise_step(torch, trainer, sel, what=f"B={SR_BATCH} SRUNet")
     srunet_card_vs_cpu(torch, trainer, sel)
+    # the same window's weights and inputs, for phase 8f to repeat (C10)
+    c10 = (copy.deepcopy(trainer.model).cpu(), {k: sel[k][:1].cpu() for k in ("inp", "gt")})
 
     # where a step's time goes
     for _ in range(2):  # warm
@@ -1966,7 +2053,258 @@ def phase_srunet(torch, np, dev, card, repo: Path, out_root: str, recs) -> None:
         fail(f"the SRUNet phase launched hand-written kernels: {launch_counts()}")
     print(f"srunet phase {time.perf_counter() - t_phase:.1f} s; no hand-written kernel "
           "launched (the recipe has no DCN and runs at f32)")
-    return ckpt, evals
+    return ckpt, evals, c10
+
+
+# Phase 8f: the flagship with the data options on (the shipped pause
+# probabilities), two full k_steps groups (the first eager, the second a
+# replay), run twice
+OPTION_ITERATIONS = 2 * GRAPH_K
+OPTION_OVERRIDES = [
+    "train_dataloader;dataset;add_noise;enabled=true",
+    "train_dataloader;dataset;add_noise;noise_level=0.1",
+    "train_dataloader;dataset;hot_filter;enabled=true",
+    "train_dataloader;dataset;sequence;pause;enabled=true",
+    "train_dataloader;num_workers=0",
+]
+LPIPS_REL = 1e-4  # the card's per-window LPIPS against the port's CPU run, relative
+C10_REPEATS = 3
+
+
+def options_batch(np, cfg, recs, keys, batches: int = 0):
+    """The first B=32 batch of a fresh loader over ``recs`` with ``cfg``
+    and ``keys`` (each build in turn, no prefetch), and the ms a batch of
+    the next ``batches``."""
+    from esr_tpu_torch.data.loader import ConcatSequenceDataset, SequenceLoader
+
+    loader = SequenceLoader(ConcatSequenceDataset(recs, {**cfg, "item_keys": keys}), 32,
+                            seed=0, prefetch=0)
+    it = iter(loader)
+    first = next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    return first, (time.perf_counter() - t0) * 1e3 / max(batches, 1)
+
+
+def options_training(torch, np, dev, card, repo: Path, out_root: str, recs) -> str:
+    """The flagship as written at batch 32 with ``add_noise`` (0.1),
+    ``hot_filter`` and ``sequence.pause`` on and ``device_rasterize``: a
+    first batch rasterized on the card bitwise the host's count images of
+    the same sequences (noise in, paused windows empty); 16 iterations
+    (``k_steps`` 8: one eager group, one replayed) twice, finite and bitwise
+    run to run (losses, parameters, Adam's moments), 14/14/14 launches a
+    step; the batch build with the options against without. Returns the
+    first run's final checkpoint."""
+    from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.data import np_encodings as NE
+    from esr_tpu_torch.training.checkpoint import find_latest_checkpoint
+    from esr_tpu_torch.training.multistep import launch_counts
+    from esr_tpu_torch.training.trainer import RAW_KEYS, TRAIN_KEYS, Trainer
+
+    train_recs, valid_recs = recs
+
+    def trainer_of(name):
+        overrides = [f"trainer;output_path={os.path.join(out_root, name)}",
+                     f"trainer;iteration_based_train;iterations={OPTION_ITERATIONS}",
+                     "trainer;iteration_based_train;valid_step=1000000000",
+                     "trainer;iteration_based_train;save_period=1000000000",
+                     "trainer;iteration_based_train;train_log_step=1",
+                     "trainer;device_rasterize=true", *OPTION_OVERRIDES]
+        run = RunConfig.from_args(str(repo / "configs" / "train_esr_2x.yml"),
+                                  overrides=overrides, runid="chip_smoke_options", seed=0)
+        return run, Trainer(run, device=dev, train_recordings=train_recs,
+                            valid_recordings=valid_recs)
+
+    runs = {}
+    for name in ("first", "again"):
+        t0 = time.perf_counter()
+        run, trainer = trainer_of(name)
+        data = trainer.train_loader.dataset.datasets[0]
+        if not (trainer.device_rasterize and data.pause_enabled and data.dataset.add_noise[
+                "enabled"] and data.dataset.hot_filter is not None and trainer.k_steps == GRAPH_K):
+            fail("the data options did not reach the trainer's dataset")
+        if name == "first":
+            cfg = run.config["train_dataloader"]["dataset"]
+            raw, _ = options_batch(np, cfg, train_recs, RAW_KEYS)
+            host, _ = options_batch(np, cfg, train_recs, TRAIN_KEYS)
+            dense = trainer._select(raw)
+            for k, hk in (("inp", "inp_scaled_cnt"), ("gt", "gt_cnt")):
+                if not same_bits(torch, dense[k], torch.from_numpy(host[hk]).to(dev)):
+                    fail(f"options: the device-rasterized {k} is not bitwise the host's")
+            valid = raw["inp_events_valid"].sum(axis=-1)
+            cap = raw["inp_events_valid"].shape[-1]
+            paused = int((valid == 0).sum())
+            if cap != 2048 + 204 or not paused or not (valid > 2048).any():
+                fail(f"options: capacity {cap}, {paused} paused windows, most events "
+                     f"{int(valid.max())}: no noise or no pause in the first batch")
+            print(f"options: the first B=32 batch rasterized on the card bitwise the host's "
+                  f"count images; capacity {cap} rows a window (2048 + 204 noise), "
+                  f"{paused} of {valid.size} windows paused, the rest {int(valid[valid > 0].min())}"
+                  f"-{int(valid.max())} events")
+        rec = track_groups(torch, trainer, {GRAPH_K - 1, OPTION_ITERATIONS - 1})
+        reset_all_launches()
+        t1 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        graph = trainer.multi_step.graph
+        launches = launch_counts()
+        want = {n: (OPTION_ITERATIONS * 2 * TRAIN_WINDOWS
+                    if n in ("dcn_train_fwd", "dcn_bwd", "dcn_wgrad") else 0) for n in launches}
+        losses = [float(rec["losses"][i][-1]) for i in range(OPTION_ITERATIONS)]
+        if launches != want or graph is None or graph.replays != 1:
+            fail(f"options run {name}: launches {launches} (want {want}), graph "
+                 f"{graph and graph.replays} replays")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"options run {name}: non-finite losses {losses}")
+        runs[name] = {"rec": rec, "save_dir": run.save_dir}
+        print(f"options run {name}: {OPTION_ITERATIONS} iterations in {wall:.3f} s (the second "
+              f"group one replay), built in {t1 - t0:.3f} s; launches {launches}; losses "
+              f"{[round(v, 6) for v in losses]}")
+        del trainer
+        torch.cuda.empty_cache()
+    a, b = runs["first"]["rec"], runs["again"]["rec"]
+    if not all(same_bits(torch, a["losses"][i][-1], b["losses"][i][-1])
+               for i in range(OPTION_ITERATIONS)):
+        fail("options: the two runs' losses differ")
+    for it in (GRAPH_K - 1, OPTION_ITERATIONS - 1):
+        if not same_state(torch, a["state"][it][-1], b["state"][it][-1]):
+            fail(f"options: the two runs' parameters or moments differ after iteration {it}")
+    print(f"options: the two runs bitwise equal ({OPTION_ITERATIONS} losses; parameters and "
+          f"Adam's moments after iterations {GRAPH_K - 1} and {OPTION_ITERATIONS - 1})")
+
+    off = copy.deepcopy(cfg)
+    off["add_noise"] = {"enabled": False}
+    off["hot_filter"] = {"enabled": False}
+    off["sequence"]["pause"]["enabled"] = False
+    times = {}
+    NE.ROUTES.reset()
+    for label, dcfg in (("off", off), ("on", cfg), ("on", cfg), ("off", off)):
+        times.setdefault(label, []).append(options_batch(np, dcfg, train_recs, TRAIN_KEYS, 2)[1])
+    print(f"options batch build on the host of {card}: B=32 native, no workers, ms a batch "
+          f"(mean of 2 after a first, in turns off/on/on/off) with the options "
+          f"{', '.join(f'{t:.3f}' for t in times['on'])} against without "
+          f"{', '.join(f'{t:.3f}' for t in times['off'])} "
+          f"({sum(times['on']) / sum(times['off']):.3f}x); routes {NE.ROUTES.snapshot()}")
+    ckpt = find_latest_checkpoint(os.path.dirname(runs["first"]["save_dir"]))
+    if ckpt is None:
+        fail("options: the run committed no final checkpoint")
+    return ckpt
+
+
+def lpips_evaluation(torch, np, dev, card, ckpt: str, out_root: str) -> None:
+    """The options run's checkpoint through ``run_inference`` (what ``infer
+    --no_engine`` calls; the recording stays in memory) with
+    ``--allow_uncalibrated_lpips`` and with ``--lpips_backbone`` from a
+    seeded alex npz: each report holds ``esr_lpips`` and ``bicubic_lpips``,
+    and every window's two values are within 1e-4 relative of the same
+    LPIPS on the CPU over the same images; the harness's per-window p50
+    with LPIPS and without it, and LPIPS's device ms a window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esr_tpu_torch.config.parser import loads
+    from esr_tpu_torch.data.synthetic import make_synthetic_recording
+    from esr_tpu_torch.inference.harness import InferenceRunner, run_inference
+    from esr_tpu_torch.losses import lpips as L
+
+    recording = make_synthetic_recording((720, 1280), base_events=80_000, num_frames=2,
+                                         rungs=("down8", "down16"), seed=0)
+    eval_cfg = {k: v for k, v in FLAGSHIP_DATA.items() if k != "item_keys"}
+    rng = np.random.default_rng(16)
+    npz = os.path.join(out_root, "lpips_alex.npz")
+    np.savez(npz, **{f"{prefix}.{part}": (
+        rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:])) if part == "weight"
+        else rng.uniform(-0.1, 0.1, shape[0])).astype(np.float32)
+        for prefix, shape in L.backbone_layout("alex") for part in ("weight", "bias")})
+    # what run_inference builds from each way's arguments
+    ways = {"uncalibrated": ({"allow_uncalibrated_lpips": True}, {"allow_uncalibrated": True}),
+            "backbone": ({"lpips_backbone_npz": npz},
+                         {"backbone_state": L.load_backbone_npz(npz)}),
+            "none": ({}, None)}
+
+    def evaluate(name):
+        pairs, starts = [], []
+        multi_channel, forward = L.LPIPS.multi_channel, InferenceRunner.forward
+
+        def recorded(self, pred, tgt):
+            out = multi_channel(self, pred, tgt)
+            pairs.append((out.detach(), pred.detach().clone(), tgt.detach().clone()))
+            return out
+
+        def timed(self, inp, states):
+            starts.append(time.perf_counter())
+            return forward(self, inp, states)
+
+        L.LPIPS.multi_channel, InferenceRunner.forward = recorded, timed
+        out = os.path.join(out_root, f"lpips_{name}")
+        try:
+            mean = run_inference(ckpt, [recording], out, eval_cfg, engine=False, device=dev,
+                                 **ways[name][0])
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+        finally:
+            L.LPIPS.multi_channel, InferenceRunner.forward = multi_channel, forward
+        with open(os.path.join(out, recording.name, "inference.yml")) as f:
+            report = loads(f.read())["evaluation results"]
+        has = [k for k in ("esr_lpips", "bicubic_lpips") if k in report]
+        if has != (["esr_lpips", "bicubic_lpips"] if name != "none" else []) or not all(
+                math.isfinite(v) for v in report.values()):
+            fail(f"lpips {name}: the report holds {has}: {report}")
+        walls = sorted(np.diff(starts) * 1e3)
+        return pairs, report, walls[len(walls) // 2]
+
+    p50 = {}
+    for name in ("uncalibrated", "backbone"):
+        pairs, report, p50[name] = evaluate(name)
+        if len(pairs) != 2 * int(report["n_windows"]):
+            fail(f"lpips {name}: {len(pairs)} distances for {report['n_windows']} windows")
+        cpu = L.build_lpips(L.load_lpips_params(**ways[name][1]), "alex", "cpu")
+        with torch.no_grad():
+            rel = max(abs(float(v) - float(cpu.multi_channel(p.cpu(), t.cpu())))
+                      / max(abs(float(v)), TINY) for v, p, t in pairs)
+        print(f"lpips {name}: {int(report['n_windows'])} windows, esr_lpips "
+              f"{report['esr_lpips']:.6f}, bicubic_lpips {report['bicubic_lpips']:.6f} in the "
+              f"report; every window's distances within {rel:.3e} of the CPU's on the same "
+              f"images (limit {LPIPS_REL})")
+        if not rel <= LPIPS_REL:
+            fail(f"lpips {name}: the card's per-window values differ from the CPU's by {rel:.3e}")
+    _, _, p50["none"] = evaluate("none")
+
+    lpips = L.build_lpips(L.load_lpips_params(**ways["backbone"][1]), "alex", dev)
+    pred, gt = pairs[0][1], pairs[0][2]
+    with torch.no_grad():
+        lpips.multi_channel(pred, gt)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                lpips.multi_channel(pred, gt)
+                lpips.multi_channel(pred, gt)
+            torch.cuda.synchronize()
+    busy = device_busy_ms(torch, prof) / 3
+    print(f"lpips on {card}: the harness's per-window p50 {p50['none']:.3f} ms without LPIPS, "
+          f"{p50['uncalibrated']:.3f} / {p50['backbone']:.3f} ms with it (seeded / npz "
+          f"backbone); LPIPS's device time {busy:.3f} ms a window (alex, two distances of "
+          f"{tuple(pred.shape)} images, f32)")
+
+
+def phase_data_options(torch, np, dev, card, repo: Path, out_root: str, recs, c10) -> None:
+    """Phase 8f: the flagship trained with every data option of the
+    reference that the shipped configs carry, its checkpoint evaluated with
+    LPIPS, and the SR recipe's card-against-CPU window repeated (C10)."""
+    t_phase = time.perf_counter()
+    ckpt = options_training(torch, np, dev, card, repo, out_root, recs)
+    t_train = time.perf_counter()
+    lpips_evaluation(torch, np, dev, card, ckpt, out_root)
+    t_lpips = time.perf_counter()
+    model, sel = c10
+    holder = types.SimpleNamespace(model=model.to(dev))
+    f64 = None
+    for _ in range(C10_REPEATS):
+        f64 = srunet_card_vs_cpu(torch, holder, sel, f64=f64)["f64"]
+    print(f"data options and LPIPS phase {time.perf_counter() - t_phase:.1f} s (training "
+          f"{t_train - t_phase:.1f} s, LPIPS {t_lpips - t_train:.1f} s, C10's window x"
+          f"{C10_REPEATS} {time.perf_counter() - t_lpips:.1f} s)")
 
 
 # Part of phase 8e: the SR recipe's int8 seams (hooked at B=1 on a 90x160
@@ -2758,7 +3096,7 @@ def batch_build(np, train_recs, dataset_config, batch_size, card):
                 NE.ROUTES.reset()
                 t0 = time.perf_counter()
                 first[route, workers] = next(iter(list(loader)))
-                warm = 3 if workers else 1
+                warm = 2 if workers else 1
                 for epoch in range(1, warm):
                     loader.set_epoch(epoch)
                     sum(1 for _ in loader)
@@ -3529,14 +3867,14 @@ def phase_serving(torch, np, dev, card, repo: Path, out_dir: str):
     # plane, in turns: the first difference is the sink's per-record write
     # and flush, the second the live plane's observer and HTTP thread
     rates = {"sink and live plane": [summary["windows_per_sec"]], "sink": [], "no sink": []}
-    for i, tag in enumerate(("no sink", "sink", "sink and live plane", "sink", "no sink")):
+    for i, tag in enumerate(("no sink", "sink")):
         if tag == "no sink":
             again, _ = drive_serving(torch, engine(preempt_quantum=2), schedule)
         else:
             _, again, _, _, _ = with_sink(f"serving_{i}", live=tag != "sink")
         rates[tag].append(again["windows_per_sec"])
-    print(f"serving on {card}, windows/s computed (runs in the order live, none, sink, live, "
-          f"sink, none): " + json.dumps(rates))
+    print(f"serving on {card}, windows/s computed (runs in the order live, none, sink): "
+          + json.dumps(rates))
     sink_write_cost(tel, out_dir, summary["window_steps"], "window step", card)
 
     # every preempted stream against the same stream served alone
@@ -3919,18 +4257,27 @@ def export_in_processes(repo: Path, jobs: dict) -> dict:
     return seconds
 
 
+# ``serve.main --aot`` in a process of its own: its summary and its
+# process's launch counts on the last line
+AOT_ENTRY_CODE = (
+    "import json, sys, time\n"
+    "from esr_tpu_torch import serve\n"
+    "from esr_tpu_torch.ops import dcn_cuda\n"
+    "t0 = time.perf_counter()\n"
+    "summary = serve.main(json.loads(sys.argv[1]))\n"
+    "counts = {k.name: k.launches for k in dcn_cuda.KERNELS}\n"
+    "print(json.dumps({'summary': summary, 'counts': counts,\n"
+    "                  'wall': time.perf_counter() - t0}, default=str))\n")
+
+
 def aot_entry_point(model, repo: Path, root: str) -> None:
     """``esr_tpu_torch.serve.main --aot`` (the card by default) on 4
     load-generated streams, one replica and ``--replicas 2`` (each replica
-    resolves its program through an ``AotRegistry``): every request ok, no
-    request lost, the artifact and its sidecar written, the loaded program's
-    ``dcn_fwd_masked`` launched."""
-    import logging
-
-    from esr_tpu_torch import serve
+    resolves its program through an ``AotRegistry``), at once, a process
+    each: every request ok, no request lost, the artifact and its sidecar
+    written, the loaded program's ``dcn_fwd_masked`` launched."""
     from esr_tpu_torch.inference.checkpoint import save_checkpoint
     from esr_tpu_torch.models import convert
-    from esr_tpu_torch.ops import dcn_cuda
 
     ckpt = os.path.join(root, "ckpt")
     save_checkpoint(ckpt, convert.export_flax_params(model), {
@@ -3938,36 +4285,45 @@ def aot_entry_point(model, repo: Path, root: str) -> None:
                   "args": {"inch": 2, "basech": model.basech, "num_frame": 3,
                            "dcn_sparse": True}}})
     slo = str(repo / "configs" / "slo.yml")
-    level = logging.getLogger().level
-    for replicas in (1, 2):
-        out = os.path.join(root, f"serve_r{replicas}")
-        dcn_cuda.reset_launches()
-        t0 = time.perf_counter()
-        try:
-            summary = serve.main(["--model_path", ckpt, "--output_path", out, "--loadgen",
-                                  "4", "--rate", "50", "--lanes", "4", "--replicas",
-                                  str(replicas), "--aot", "--classes", "standard:4",
-                                  "--default_class", "standard", "--live-slo", slo,
-                                  "--scale", "2", "--ori_scale", "down8", "--window", "1024",
-                                  "--sliding_window", "512", "--seql", "4",
-                                  "--max_wall", "300"])
-        finally:
-            logging.getLogger().setLevel(level)  # serve.main sets INFO
-        wall = time.perf_counter() - t0
-        counts = counts_of()
-        art = os.path.join(out, "aot", "chunk_program.w4.pt2")
-        ok = (summary["statuses"] == {"ok": 4} and os.path.isfile(art)
-              and os.path.isfile(art + ".json") and counts["dcn_fwd_masked"] > 0
-              and counts == only("dcn_fwd_masked", counts["dcn_fwd_masked"]))
-        if replicas > 1:
-            ok = ok and summary["zero_lost"]
-        print(f"serve --aot --replicas {replicas}: statuses {summary['statuses']}, "
-              f"{summary['windows']} windows, launches {counts}, "
-              + (f"zero lost {summary['zero_lost']}, " if replicas > 1 else "")
-              + f"{wall:.1f} s with the export")
-        if not ok:
-            fail(f"serve --aot --replicas {replicas} did not serve every stream through its "
-                 "artifact")
+
+    def argv(replicas):
+        return ["--model_path", ckpt, "--output_path", os.path.join(root, f"serve_r{replicas}"),
+                "--loadgen", "4", "--rate", "50", "--lanes", "4", "--replicas", str(replicas),
+                "--aot", "--classes", "standard:4", "--default_class", "standard",
+                "--live-slo", slo, "--scale", "2", "--ori_scale", "down8", "--window", "1024",
+                "--sliding_window", "512", "--seql", "4", "--max_wall", "300"]
+
+    t0 = time.perf_counter()
+    procs = {r: subprocess.Popen([sys.executable, "-c", AOT_ENTRY_CODE, json.dumps(argv(r))],
+                                 cwd=str(repo), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True) for r in (1, 2)}
+    try:
+        for replicas, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"serve --aot --replicas {replicas}: exit {proc.returncode}: {err[-2000:]}")
+            print(out.rstrip())
+            got = json.loads(out.strip().splitlines()[-1])
+            summary, counts = got["summary"], got["counts"]
+            art = os.path.join(root, f"serve_r{replicas}", "aot", "chunk_program.w4.pt2")
+            ok = (summary["statuses"] == {"ok": 4} and os.path.isfile(art)
+                  and os.path.isfile(art + ".json") and counts["dcn_fwd_masked"] > 0
+                  and all(v == 0 for k, v in counts.items() if k != "dcn_fwd_masked"))
+            if replicas > 1:
+                ok = ok and summary["zero_lost"]
+            print(f"serve --aot --replicas {replicas}: statuses {summary['statuses']}, "
+                  f"{summary['windows']} windows, launches {counts}, "
+                  + (f"zero lost {summary['zero_lost']}, " if replicas > 1 else "")
+                  + f"{got['wall']:.1f} s with the export, in its own process")
+            if not ok:
+                fail(f"serve --aot --replicas {replicas} did not serve every stream through "
+                     "its artifact")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"serve --aot: one replica and two, at once, in {time.perf_counter() - t0:.1f} s")
 
 
 def int8_seam_calls(torch, model, dev, batch: int, kh: int, kw: int):
@@ -4499,8 +4855,12 @@ def main() -> int:
         fail(f"the native host kernels did not build:\n{native.LIBRARY.build_log}")
     print(f"build host_kernels.cpp: g++ {time.perf_counter() - t0:.2f} s")
 
+    marks = [time.perf_counter()]
+
     def done(phase: str) -> None:
-        print(f"chip_smoke: {phase} done at {time.perf_counter() - t_start:.1f} s")
+        marks.append(time.perf_counter())
+        print(f"chip_smoke: {phase} done at {marks[-1] - t_start:.1f} s, "
+              f"{marks[-1] - marks[-2]:.1f} s in it")
 
     # -- 3.-5. kernels -----------------------------------------------------
     fwd, fwd_worst = phase_fwd_kernel(torch, np, card)
@@ -4550,14 +4910,18 @@ def main() -> int:
                                       os.path.join(out_root, "graphs"))
         done("the graphs phase")
         # -- 8d. the second shipped recipe (SRUNetRecurrentSeq) -------------
-        sr_ckpt, sr_evals = phase_srunet(torch, np, dev, card, repo,
-                                         os.path.join(out_root, "srunet"), recs)
+        sr_ckpt, sr_evals, c10 = phase_srunet(torch, np, dev, card, repo,
+                                              os.path.join(out_root, "srunet"), recs)
         done("the SRUNet phase")
         # -- 8e. the SR recipe at serving, the fleet, AOT and the rungs -----
         srunet = phase_srunet_serving(torch, np, dev, card, repo,
                                       os.path.join(out_root, "srunet_serving"), sr_ckpt,
                                       sr_evals, sr_artifacts)
         done("the SRUNet serving phase")
+        # -- 8f. the data options, LPIPS, and C10's window again -------------
+        phase_data_options(torch, np, dev, card, repo, os.path.join(out_root, "options"),
+                           graph_launches.pop("recordings"), c10)
+        done("the data options and LPIPS phase")
         # -- 7c. the 4x recipe --------------------------------------------
         totals_4x = phase_train_4x(torch, np, dev, card, repo, os.path.join(out_root, "x4"),
                                    fwd["valid_4x_b8"], train_kernels["train_4x_b8"])

@@ -1,64 +1,64 @@
 """Windowed event dataset: one recording -> model-ready numpy dicts
 (counterpart of ``esr_tpu/data/dataset.py``).
 
-Covered: the three windowing modes (events / time / frame), the scale^2*N
-GT event windowing, the seeded flip/polarity augmentation of the training
-recipe, and the items the harness and the trainer read: by default the
-count images ``inp_cnt``, ``inp_scaled_cnt`` and ``gt_cnt``; on request
-(``item_keys``) also ``gt_img`` (the GT frame at the window's middle, for
-the visualizations) and the fixed-capacity raw event windows of device
-rasterization (``inp_norm_events`` / ``inp_events_valid``: ``[window, 4]``
-rows (x/W, y/H, t, p) and their validity; ``gt_raw_events`` /
-``gt_events_valid``: ``[scale^2 * window, 4]`` raw GT-grid rows). Noise
-injection, the hot-pixel filter, sensor pauses, custom resolutions and the
-other item encodings raise ``NotImplementedError``.
+The three windowing modes (events / time / frame), the scale^2*N GT event
+windowing, and per item, in the reference's order: the input window, the
+stateful hot-pixel filter (``hot_filter``), the seeded flip/polarity
+augmentation, the timestamps normalized to [0, 1], then the injected noise
+(``add_noise``). A sequence may stall (``sequence.pause``): a paused window
+repeats the index with no events and no noise. Every key of
+:data:`ALL_KEYS` can be built (the default set, as the reference's); a
+caller names the ones it reads in ``item_keys`` and only those are built.
+``custom_resolution`` adds the five bicubic ``*_custom_*`` items.
 
 Augmentation makes the reference's draws exactly: each mechanism flips when
 ``random.Random(seed + i).random() < p`` (``i`` = 0, 1, 2 for Horizontal,
-Vertical, Polarity), applied to the raw input and GT windows, so a seeded
-item is bit for bit the reference's.
+Vertical, Polarity); noise draws from ``default_rng(seed + 3)`` and pauses
+from ``default_rng(seed ^ 0x5EED)``. So a seeded item, and a sequence with
+its pauses, is bit for bit the reference's.
 """
 
 from __future__ import annotations
 
 import functools
 import random
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
 from esr_tpu_torch.data import np_encodings as NE
+from esr_tpu_torch.data.hot_filter import HotPixelFilter
 from esr_tpu_torch.data.records import Recording, open_recording, resolve_scale_ladder
 
+#: the count images the trainer and the harness read
 ITEM_KEYS = ("inp_cnt", "inp_scaled_cnt", "gt_cnt")
-# every key get_item can build
-KNOWN_KEYS = ITEM_KEYS + ("gt_img", "inp_norm_events", "inp_events_valid",
-                          "gt_raw_events", "gt_events_valid")
+#: every key get_item can build (the reference's item schema and the
+#: fixed-capacity raw event windows of device rasterization); the default
+ALL_KEYS = (
+    "inp_stack", "inp_cnt",
+    "inp_bicubic_cnt", "inp_bicubic_stack",
+    "inp_near_cnt", "inp_near_stack",
+    "inp_scaled_cnt", "inp_scaled_stack",
+    "inp_activity",
+    "inp_down_cnt", "inp_down_scaled_cnt",
+    "gt_stack", "gt_cnt", "gt_img", "gt_inp_size_img", "frame",
+    "inp_norm_events", "inp_events_valid",
+    "gt_raw_events", "gt_events_valid",
+)
+#: the items ``custom_resolution`` resamples, and what they become
+CUSTOM_SOURCES = ("inp_cnt", "inp_scaled_cnt", "inp_down_cnt", "inp_down_scaled_cnt", "gt_cnt")
 AUGMENTS = ("Horizontal", "Vertical", "Polarity")
 
 
 def _refuse_training_options(config: Dict) -> None:
-    enabled = [
-        name for name in ("add_noise", "hot_filter")
-        if (config.get(name) or {}).get("enabled", False)
-    ]
+    """Refuse an augment mechanism the reference does not define (it would
+    skip it without a word)."""
     augment = config.get("data_augment") or {}
     if augment.get("enabled", False):
         unknown = sorted(set(augment.get("augment", [])) - set(AUGMENTS))
         if unknown:
-            enabled.append(f"data_augment mechanisms {unknown}")
-    if (config.get("sequence") or {}).get("pause", {}).get("enabled", False):
-        enabled.append("sequence.pause")
-    if config.get("custom_resolution") is not None:
-        enabled.append("custom_resolution")
-    extra = set(config.get("item_keys") or ITEM_KEYS) - set(KNOWN_KEYS)
-    if extra:
-        enabled.append(f"item_keys {sorted(extra)}")
-    if enabled:
-        raise NotImplementedError(
-            f"dataset options {enabled} are not ported (the port builds "
-            f"{list(KNOWN_KEYS)} with {list(AUGMENTS)} augmentation)"
-        )
+            raise NotImplementedError(f"data_augment mechanisms {unknown} are not defined "
+                                      f"(the mechanisms are {list(AUGMENTS)})")
 
 
 @functools.lru_cache(maxsize=4096)
@@ -70,11 +70,18 @@ def _flip_coin(seed: int, prob: float) -> bool:
     return random.Random(seed).random() < prob
 
 
-class EventWindowDataset:
-    """One recording -> indexed event windows with their count images.
+def _resize(x: np.ndarray, size, mode: str) -> np.ndarray:
+    """``[H, W, C]`` resize, ``align_corners=False``."""
+    return NE.interpolate_np(x, tuple(size), mode)
 
-    ``config`` keeps the reference's dataset schema: scale, ori_scale, mode,
-    window, sliding_window, need_gt_events, dataset_length, real_world_test.
+
+class EventWindowDataset:
+    """One recording -> indexed event windows and their encodings.
+
+    ``config`` keeps the reference's dataset schema: scale, ori_scale,
+    time_bins, stack_binning, mode, window, sliding_window, need_gt_events,
+    need_gt_frame, data_augment, dataset_length, custom_resolution,
+    add_noise, hot_filter, activity.tile, real_world_test, item_keys.
     """
 
     def __init__(self, recording, config: Dict):
@@ -82,10 +89,19 @@ class EventWindowDataset:
         self.config = config
         self.recording: Recording = open_recording(recording)
         self.scale = int(config["scale"])
+        self.time_bins = int(config.get("time_bins", 1))
+        self.stack_binning = config.get("stack_binning", "half_open")
         self.need_gt_events = config.get("need_gt_events", False)
         self.need_gt_frame = config.get("need_gt_frame", False)
         self.augment_cfg = config.get("data_augment") or {"enabled": False}
-        self.item_keys = tuple(config.get("item_keys") or ITEM_KEYS)
+        self.add_noise = config.get("add_noise") or {"enabled": False}
+        self.custom_resolution = config.get("custom_resolution", None)
+        self.activity_tile = int((config.get("activity") or {}).get("tile", 8))
+        self.item_keys = tuple(config.get("item_keys") or ALL_KEYS)
+        if self.custom_resolution is not None:
+            missing = [k for k in CUSTOM_SOURCES if k not in self.item_keys]
+            if missing:
+                raise ValueError(f"custom_resolution needs item_keys to include {missing}")
         ladder = resolve_scale_ladder(
             self.recording.sensor_resolution, self.scale, config["ori_scale"],
             need_gt_events=self.need_gt_events,
@@ -93,10 +109,14 @@ class EventWindowDataset:
         )
         self.inp_resolution = ladder.inp_resolution
         self.gt_resolution = ladder.gt_resolution
+        self.inp_down_resolution = ladder.inp_down_resolution
         self.inp_stream = self.recording.stream(ladder.inp_prefix)
         self.gt_stream = (
             self.recording.stream(ladder.gt_prefix) if self.need_gt_events else None
         )
+        hot_cfg = config.get("hot_filter") or {"enabled": False}
+        self.hot_filter = (HotPixelFilter(self.inp_resolution, hot_cfg)
+                           if hot_cfg.get("enabled", False) else None)
         self._compute_windows(config)
 
     def _compute_windows(self, config: Dict) -> None:
@@ -156,6 +176,19 @@ class EventWindowDataset:
     def __len__(self) -> int:
         return self.length
 
+    @property
+    def inp_event_capacity(self) -> int:
+        """Rows of ``inp_norm_events``: the window, plus the noise budget."""
+        cap = int(self.config["window"])
+        if self.add_noise.get("enabled", False):
+            cap += int(cap * self.add_noise.get("noise_level", 0.0))
+        return cap
+
+    @property
+    def gt_event_capacity(self) -> int:
+        """Rows of ``gt_raw_events``: GT windows hold scale^2 x the input's."""
+        return self.scale**2 * int(self.config["window"])
+
     @staticmethod
     def _format(events: np.ndarray) -> np.ndarray:
         """float32 ``[4, N]`` with ts normalized to [0, 1] within the window."""
@@ -186,20 +219,69 @@ class EventWindowDataset:
                 img = np.flip(img, 0)
         return img
 
-    def _gt_img(self, idx0: int, idx1: int, seed: int) -> np.ndarray:
-        """``[kH, kW, 1]``: the GT frame nearest after the window's middle
-        event, in [0, 1], bicubic onto the GT grid; zeros without
-        ``need_gt_frame``."""
-        kh, kw = self.gt_resolution
-        if not self.need_gt_frame:
-            return np.zeros((kh, kw, 1), np.float32)
-        t = self.inp_stream.ts[(idx0 + idx1) // 2]
-        fi = int(np.clip(np.searchsorted(self.recording.frame_ts, t, side="left"),
-                         0, self.recording.num_frames - 1))
-        raw = self.recording.frame(fi)
+    @staticmethod
+    def _noise_events(window: int, resolution, seed: int, noise_level: float) -> np.ndarray:
+        """``int(window * noise_level)`` spurious events: x, y uniform on the
+        grid, t = 1, p = +-1, drawn in f32 from ``default_rng(seed + 3)``."""
+        n = int(window * noise_level)
+        u = np.random.default_rng(seed + 3).random((4, n)).astype(np.float32)
+        return np.stack([
+            np.floor(u[0] * resolution[1]),
+            np.floor(u[1] * resolution[0]),
+            np.ones(n, np.float32),
+            np.floor(u[3] * 2) * 2 - 1,
+        ])
+
+    def _input_events(self, idx0: int, idx1: int, seed: int, pause: bool) -> np.ndarray:
+        """The input window ``[4, N]`` f32: filtered, augmented, formatted,
+        then noised; no events at all when paused."""
+        if pause:
+            return np.zeros((4, 0), np.float32)
+        ev = self.inp_stream.window(idx0, idx1)
+        if self.hot_filter is not None:
+            ev = self.hot_filter.filter_events(ev)
         if self.augment_cfg.get("enabled", False):
-            raw = self._augment_frame(raw, seed)
-        return NE.interpolate_np(raw.astype(np.float32)[..., None] / 255.0, (kh, kw), "bicubic")
+            ev = self._augment_events(ev, self.inp_resolution, seed)
+        ev = self._format(ev)
+        if self.add_noise.get("enabled", False):
+            noise = self._noise_events(self.config["window"], self.inp_resolution, seed,
+                                       self.add_noise["noise_level"])
+            ev = np.concatenate([ev, noise], axis=1)
+        return ev
+
+    def _stack(self, ev: np.ndarray, resolution) -> np.ndarray:
+        return NE.events_to_stack_np(ev[0], ev[1], ev[2], ev[3], self.time_bins,
+                                     tuple(resolution), binning=self.stack_binning)
+
+    @staticmethod
+    def _normalized(ev: np.ndarray, resolution) -> np.ndarray:
+        """x/W, y/H in [0, 1): the scale-free cloud re-scattered onto grids."""
+        out = ev.copy()
+        out[0] = ev[0] / resolution[1]
+        out[1] = ev[1] / resolution[0]
+        return out
+
+    def _scaled(self, norm_ev: np.ndarray, resolution, kind: str) -> np.ndarray:
+        """Normalized events re-scattered onto ``resolution`` as counts, a
+        stack, or floored event coordinates."""
+        xs = norm_ev[0] * resolution[1]
+        ys = norm_ev[1] * resolution[0]
+        if kind == "cnt":
+            return NE.events_to_channels_np(xs, ys, norm_ev[3], tuple(resolution))
+        if kind == "stack":
+            return NE.events_to_stack_np(xs, ys, norm_ev[2], norm_ev[3], self.time_bins,
+                                         tuple(resolution), binning=self.stack_binning)
+        return np.stack([np.floor(xs), np.floor(ys), norm_ev[2], norm_ev[3]])
+
+    def _unsupervised(self, norm_ev: np.ndarray):
+        """The down-scaled self-supervision pair: events quantized onto the
+        /scale grid, counts floor-divided by scale^2, on that grid and
+        re-scattered onto the input's."""
+        down = self._scaled(norm_ev, self.inp_down_resolution, "events")
+        down_norm = self._normalized(down, self.inp_down_resolution)
+        k2 = float(self.scale**2)
+        return (np.floor_divide(self._scaled(down_norm, self.inp_down_resolution, "cnt"), k2),
+                np.floor_divide(self._scaled(down_norm, self.inp_resolution, "cnt"), k2))
 
     @staticmethod
     def _padded(ev: np.ndarray, capacity: int):
@@ -213,56 +295,152 @@ class EventWindowDataset:
             valid[:n] = 1.0
         return out, valid
 
-    def _window(self, stream, idx0: int, idx1: int, resolution, seed: int) -> np.ndarray:
-        ev = stream.window(idx0, idx1)
+    def _frame_pair(self, idx0: int, idx1: int, seed: int):
+        """The GT frame nearest after the window's middle event, in [0, 1],
+        bicubic onto the GT grid and onto the input grid; zeros without
+        ``need_gt_frame``."""
+        kh, kw = self.gt_resolution
+        h, w = self.inp_resolution
+        if not self.need_gt_frame:
+            return np.zeros((kh, kw, 1), np.float32), np.zeros((h, w, 1), np.float32)
+        t = self.inp_stream.ts[(idx0 + idx1) // 2]
+        fi = int(np.clip(np.searchsorted(self.recording.frame_ts, t, side="left"),
+                         0, self.recording.num_frames - 1))
+        raw = self.recording.frame(fi)
         if self.augment_cfg.get("enabled", False):
-            ev = self._augment_events(ev, resolution, seed)
-        return self._format(ev)
+            raw = self._augment_frame(raw, seed)
+        raw = raw.astype(np.float32)[..., None] / 255.0
+        return _resize(raw, (kh, kw), "bicubic"), _resize(raw, (h, w), "bicubic")
 
-    def get_item(self, index: int, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
-        """Count images of one window, channel-last float32 ``[H, W, 2]``.
-        ``seed`` draws the augmentation (a random one when None)."""
+    def _mode_frame(self, index: int, seed: int) -> np.ndarray:
+        """In ``frame`` mode the window's own frame, bicubic onto the GT
+        grid; zeros otherwise."""
+        kh, kw = self.gt_resolution
+        if self.config["mode"] != "frame":
+            return np.zeros((kh, kw, 1), np.float32)
+        raw = self.recording.frame(index).astype(np.float32)[..., None] / 255.0
+        if self.augment_cfg.get("enabled", False):
+            raw = self._augment_frame(raw, seed)
+        return _resize(raw, (kh, kw), "bicubic")
+
+    def get_item(self, index: int, pause: bool = False,
+                 seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """The ``item_keys`` of one window, channel-last float32: counts
+        ``[H, W, 2]``, stacks ``[H, W, time_bins]``, frames ``[H, W, 1]``.
+        ``seed`` draws the augmentation and the noise (a random one when
+        None); ``pause`` gives the window no events."""
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
         idx0, idx1 = (int(i) for i in self.event_indices[index])
-        inp_ev = self._window(self.inp_stream, idx0, idx1, self.inp_resolution, seed)
-        h, w = self.inp_resolution
+        inp_ev = self._input_events(idx0, idx1, seed, pause)
         kh, kw = self.gt_resolution
-        # the SR input: LR coordinates renormalized onto the HR grid
-        xs = inp_ev[0] / w * kw
-        ys = inp_ev[1] / h * kh
-        if self.need_gt_events:
+        memo: Dict[Callable, object] = {}
+
+        def shared(build: Callable) -> Callable:
+            """An intermediate several keys read: built at most once."""
+            def get():
+                if build not in memo:
+                    memo[build] = build()
+                return memo[build]
+            return get
+
+        @shared
+        def gt():
+            if not self.need_gt_events:
+                return np.zeros((4, 0), np.float32)
             g0, g1 = (int(i) for i in self.gt_event_indices[index])
-            gt_ev = self._window(self.gt_stream, g0, g1, self.gt_resolution, seed)
-        else:
-            gt_ev = np.zeros((4, 0), np.float32)
-        window = int(self.config["window"])
+            ev = self.gt_stream.window(g0, g1)
+            if self.augment_cfg.get("enabled", False):
+                ev = self._augment_events(ev, self.gt_resolution, seed)
+            return self._format(ev)
 
-        def norm_ev():
-            ev = inp_ev.copy()
-            ev[0] = inp_ev[0] / w
-            ev[1] = inp_ev[1] / h
-            return ev
+        @shared
+        def norm():
+            return self._normalized(inp_ev, self.inp_resolution)
 
-        encoders = {
-            "inp_cnt": lambda: NE.events_to_channels_np(
-                inp_ev[0], inp_ev[1], inp_ev[3], (h, w)),
-            "inp_scaled_cnt": lambda: NE.events_to_channels_np(xs, ys, inp_ev[3], (kh, kw)),
-            "gt_cnt": lambda: NE.events_to_channels_np(
-                gt_ev[0], gt_ev[1], gt_ev[3], (kh, kw)),
-            "gt_img": lambda: self._gt_img(idx0, idx1, seed),
-            "inp_norm_events": lambda: self._padded(norm_ev(), window)[0],
-            "inp_events_valid": lambda: self._padded(inp_ev, window)[1],
-            "gt_raw_events": lambda: self._padded(gt_ev, self.scale**2 * window)[0],
-            "gt_events_valid": lambda: self._padded(gt_ev, self.scale**2 * window)[1],
+        @shared
+        def cnt():
+            return NE.events_to_channels_np(inp_ev[0], inp_ev[1], inp_ev[3],
+                                            tuple(self.inp_resolution))
+
+        @shared
+        def stack():
+            return self._stack(inp_ev, self.inp_resolution)
+
+        @shared
+        def scaled_cnt():
+            return self._scaled(norm(), self.gt_resolution, "cnt")
+
+        @shared
+        def unsup():
+            return self._unsupervised(norm())
+
+        @shared
+        def frames():
+            return self._frame_pair(idx0, idx1, seed)
+
+        @shared
+        def inp_pad():
+            return self._padded(norm(), self.inp_event_capacity)
+
+        @shared
+        def gt_pad():
+            return self._padded(gt(), self.gt_event_capacity)
+
+        builders = {
+            "inp_stack": stack,
+            "inp_cnt": cnt,
+            "inp_bicubic_cnt": lambda: _resize(cnt(), (kh, kw), "bicubic"),
+            "inp_bicubic_stack": lambda: _resize(stack(), (kh, kw), "bicubic"),
+            "inp_near_cnt": lambda: _resize(cnt(), (kh, kw), "nearest"),
+            "inp_near_stack": lambda: _resize(stack(), (kh, kw), "nearest"),
+            "inp_scaled_cnt": scaled_cnt,
+            "inp_scaled_stack": lambda: self._scaled(norm(), self.gt_resolution, "stack"),
+            # a reduction of the model-input counts just built (the
+            # device's events_to_channels_activity twin)
+            "inp_activity": lambda: NE.tile_activity_np(scaled_cnt(), self.activity_tile),
+            "inp_down_cnt": lambda: unsup()[0],
+            "inp_down_scaled_cnt": lambda: unsup()[1],
+            "gt_stack": lambda: self._stack(gt(), self.gt_resolution),
+            "gt_cnt": lambda: NE.events_to_channels_np(gt()[0], gt()[1], gt()[3], (kh, kw)),
+            "gt_img": lambda: frames()[0],
+            "gt_inp_size_img": lambda: frames()[1],
+            "frame": lambda: self._mode_frame(index, seed),
+            "inp_norm_events": lambda: inp_pad()[0],
+            "inp_events_valid": lambda: inp_pad()[1],
+            "gt_raw_events": lambda: gt_pad()[0],
+            "gt_events_valid": lambda: gt_pad()[1],
         }
-        return {k: np.ascontiguousarray(encoders[k](), np.float32) for k in self.item_keys}
+        item = {k: builders[k]() for k in self.item_keys}
+        if self.custom_resolution is not None:
+            item.update(self._custom_items(item))
+        return {k: np.ascontiguousarray(v, np.float32) for k, v in item.items()}
+
+    def _custom_items(self, item: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Bicubic resamples at an arbitrary evaluation resolution, rounded
+        back to integral counts."""
+        ch, cw = self.custom_resolution
+        k = self.scale
+        out = {
+            "inp_custom_cnt": _resize(item["inp_cnt"], (ch, cw), "bicubic"),
+            "inp_custom_scaled_cnt": _resize(item["inp_scaled_cnt"], (ch * k, cw * k), "bicubic"),
+            "inp_custom_down_cnt": _resize(item["inp_down_cnt"],
+                                           (round(ch / k), round(cw / k)), "bicubic"),
+            "inp_custom_down_scaled_cnt": _resize(item["inp_down_scaled_cnt"], (ch, cw),
+                                                  "bicubic"),
+            "gt_custom_cnt": _resize(item["gt_cnt"], (ch * k, cw * k), "bicubic"),
+        }
+        return {kk: np.round(vv) for kk, vv in out.items()}
 
     __getitem__ = get_item
 
 
 class SequenceDataset:
-    """Length-L sequences of consecutive windows (``step_size`` apart)."""
+    """Length-L sequences of consecutive windows (``step_size`` apart),
+    with optional sensor pauses: a two-state chain (running / paused) that
+    pauses with ``proba_pause_when_running`` and stays paused with
+    ``proba_pause_when_paused``; a paused step repeats the window index
+    with no events."""
 
     def __init__(self, recording, config: Dict):
         self.config = config
@@ -272,6 +450,10 @@ class SequenceDataset:
         self.step_size = int(step) if step is not None else self.L
         if self.L <= 0 or self.step_size <= 0:
             raise ValueError("sequence_length and step_size must be positive")
+        pause = seq.get("pause") or {"enabled": False}
+        self.pause_enabled = bool(pause.get("enabled", False))
+        self.p_pause_running = float(pause.get("proba_pause_when_running", 0.0))
+        self.p_pause_paused = float(pause.get("proba_pause_when_paused", 0.0))
         self.dataset = EventWindowDataset(recording, config)
         if self.L >= len(self.dataset):
             self.length = 1
@@ -285,13 +467,23 @@ class SequenceDataset:
         return self.length
 
     def get_item(self, i: int, seed: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
-        """The L windows of sequence ``i``, all augmented with one ``seed``
-        (a random one when None), so flips agree across the sequence."""
+        """The L windows of sequence ``i``, all drawn with one ``seed`` (a
+        random one when None), so flips agree across the sequence; the
+        pause chain draws from ``default_rng(seed ^ 0x5EED)``."""
         if not 0 <= i < self.length:
             raise IndexError(i)
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
+        rng = np.random.default_rng(seed ^ 0x5EED)
         j = i * self.step_size
-        return [self.dataset.get_item(j + k, seed=seed) for k in range(self.L)]
+        sequence = [self.dataset.get_item(j, seed=seed)]
+        k, paused = 0, False
+        for _ in range(self.L - 1):
+            if self.pause_enabled:
+                paused = rng.random() < (self.p_pause_paused if paused else self.p_pause_running)
+            if not paused:
+                k += 1
+            sequence.append(self.dataset.get_item(j + k, pause=paused, seed=seed))
+        return sequence
 
     __getitem__ = get_item

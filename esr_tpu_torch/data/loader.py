@@ -7,7 +7,8 @@ augmentation seed per sequence, and batches built in order by a thread pool
 ``prefetch`` deep, or with ``num_workers > 0`` by a pool of that many
 spawned processes (each rebuilds the dataset once from the recordings and
 the config); the batches and their augmentation seeds are the same either
-way.
+way. The stateful hot-pixel filter takes no workers, and its batches are
+built by one prefetch thread, in the sampler's order.
 The evaluation loader is synchronous: batch 1, in order, non-overlapping
 sequences. :class:`LanePackedChunks` packs recordings into lanes for the
 streaming engine, and :class:`DevicePrefetcher` stages the engine's chunks
@@ -301,7 +302,10 @@ class SequenceLoader:
             for idx in batches:
                 yield self._build(idx)
             return
-        with ThreadPoolExecutor(max_workers=self.prefetch) as pool:
+        # the stateful hot-pixel filter must see the windows in the
+        # sampler's order: then one thread builds ahead, in turn
+        hot = (self.dataset.config.get("hot_filter") or {}).get("enabled", False)
+        with ThreadPoolExecutor(max_workers=1 if hot else self.prefetch) as pool:
             yield from self._in_order(pool, self.prefetch, batches,
                                       lambda pool, idx: pool.submit(self._build, idx))
 

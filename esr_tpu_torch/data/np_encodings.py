@@ -75,13 +75,23 @@ def channels_numpy(xs, ys, ps, sensor_size: Tuple[int, int]) -> np.ndarray:
 
 
 def events_to_stack_np(xs: np.ndarray, ys: np.ndarray, ts: np.ndarray, ps: np.ndarray,
-                       num_bins: int, sensor_size: Tuple[int, int]) -> np.ndarray:
-    """Signed time-binned stack ``[H, W, B]``, half-open bins ``floor((t -
-    t0) / (t1 - t0 + 1e-6) * B)`` (the reference's default binning; its
-    ``inclusive`` one is not ported): the native kernel when available,
-    else :func:`stack_numpy`."""
+                       num_bins: int, sensor_size: Tuple[int, int],
+                       binning: str = "half_open") -> np.ndarray:
+    """Signed time-binned stack ``[H, W, B]``.
+
+    ``half_open`` (the default): bins ``floor((t - t0) / (t1 - t0 + 1e-6) *
+    B)``, each event in one bin; the native kernel when available, else
+    :func:`stack_numpy`. ``inclusive``: the original closed intervals, an
+    event on a bin edge counted in both bins, and a window of <= 3 events
+    or all-zero timestamps an all-zero stack; numpy on both routes. ``ts``
+    must ascend (true for stream windows)."""
     if xs.size == 0:
         return np.zeros((*sensor_size, num_bins), np.float32)
+    if binning == "inclusive":
+        ROUTES.add("numpy")
+        return stack_inclusive(xs, ys, ts, ps, num_bins, sensor_size)
+    if binning != "half_open":
+        raise ValueError(f"unknown stack binning {binning!r}")
     out = native.rasterize_stack(xs, ys, ts, ps, num_bins, sensor_size)
     if out is not None:
         ROUTES.add("native")
@@ -102,6 +112,39 @@ def stack_numpy(xs, ys, ts, ps, num_bins: int, sensor_size: Tuple[int, int]) -> 
     flat = (ys[inb].astype(np.int64) * w + xs[inb].astype(np.int64)) * num_bins + b[inb]
     binned = np.bincount(flat, weights=ps[inb], minlength=h * w * num_bins)
     return binned.astype(np.float32).reshape(h, w, num_bins)
+
+
+def stack_inclusive(xs, ys, ts, ps, num_bins: int, sensor_size: Tuple[int, int]) -> np.ndarray:
+    """The ``inclusive`` binning of :func:`events_to_stack_np`: bin ``b``
+    holds the events in ``[t0 + delta * b, t0 + delta * b + delta]``,
+    ``delta = (t1 - t0 + 1e-6) / B``, found by binary search."""
+    h, w = sensor_size
+    out = np.zeros((h, w, num_bins), np.float32)
+    if ts.sum() == 0 or len(ts) <= 3:
+        return out
+    t0 = ts[0]
+    delta = (ts[-1] - t0 + 1e-6) / num_bins
+    for bi in range(num_bins):
+        # tstart + delta, not t0 + delta * (bi + 1): float addition is not
+        # associative, and an edge one ulp off moves a boundary event
+        tstart = t0 + delta * bi
+        beg = int(np.searchsorted(ts, tstart, side="left"))
+        end = int(np.searchsorted(ts, tstart + delta, side="right"))
+        out[:, :, bi] = events_to_image_np(xs[beg:end], ys[beg:end], ps[beg:end], sensor_size)
+    return out
+
+
+def events_to_voxel_np(xs: np.ndarray, ys: np.ndarray, ts: np.ndarray, ps: np.ndarray,
+                       num_bins: int, sensor_size: Tuple[int, int]) -> np.ndarray:
+    """Voxel grid ``[H, W, B]``: each event's polarity split between its
+    two nearest bins by temporal bilinear weights; ``ts`` normalized to
+    [0, 1]."""
+    tnorm = ts.astype(np.float32) * (num_bins - 1)
+    bins = []
+    for b in range(num_bins):
+        wgt = np.maximum(0.0, 1.0 - np.abs(tnorm - b))
+        bins.append(events_to_image_np(xs, ys, ps.astype(np.float32) * wgt, sensor_size))
+    return np.stack(bins, axis=-1)
 
 
 def interpolate_np(x: np.ndarray, size: Tuple[int, int], mode: str) -> np.ndarray:
@@ -134,3 +177,13 @@ def activity_fraction_np(act: np.ndarray) -> float:
     statistic ``RequestClass.min_activity`` compares against)."""
     act = np.asarray(act)
     return float((act > 0).mean()) if act.size else 0.0
+
+
+def events_to_channels_activity_np(xs: np.ndarray, ys: np.ndarray, ps: np.ndarray,
+                                   sensor_size: Tuple[int, int],
+                                   tile: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """The count image and its per-tile activity map in one pass: the
+    activity is a reduction of the counts just summed, never a second scan
+    of the events."""
+    cnt = events_to_channels_np(xs, ys, ps, sensor_size)
+    return cnt, tile_activity_np(cnt, tile)

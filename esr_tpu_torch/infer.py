@@ -14,8 +14,13 @@ sequential harness. ``--save_images`` writes each window's PNG views in the
 reference's layout (sequential harness only; the engine warns and ignores
 it). ``--precision`` picks the rung (f32, bf16 or int8, or any of their
 aliases: ``esr_tpu_torch.config.precision``); omitted, the checkpoint's
-``trainer.precision``, else f32. LPIPS is not ported yet and raises when
-asked for.
+``trainer.precision``, else f32. ``--lpips_backbone <npz>`` (a converted
+torchvision backbone: ``losses.lpips.convert_backbone_pth``) or
+``--allow_uncalibrated_lpips`` (a seeded backbone, and constant ``lin``
+weights where none are given) adds ``esr_lpips`` and ``bicubic_lpips`` to
+every window's metrics; ``--lpips_net`` picks the trunk (alex, vgg16/vgg,
+squeeze), ``--lpips_lins`` its ``lin`` npz (alex's ships with the port).
+LPIPS runs in the sequential harness only; the engine refuses it.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="PNG views of every window (sequential harness only)")
     p.add_argument("--no_save_images", dest="save_images", action="store_false")
     p.add_argument("--lpips_backbone", type=str, default=None,
-                   help="LPIPS (not ported yet: raises)")
+                   help="converted LPIPS backbone npz (sequential harness only)")
     p.add_argument("--lpips_net", type=str, default="alex",
                    choices=["alex", "vgg", "vgg16", "squeeze"])
     p.add_argument("--lpips_lins", type=str, default=None)
@@ -76,8 +81,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     flags = get_flags(argv)
     if (flags.data_path is None) == (flags.data_list is None):
         raise SystemExit("pass exactly one of --data_path / --data_list")
-    if flags.lpips_backbone is not None or flags.allow_uncalibrated_lpips:
-        raise NotImplementedError("LPIPS is not ported yet")
     logging.basicConfig(level=logging.INFO)
 
     dataset_config = {
@@ -104,8 +107,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                  else [flags.data_path])
     mean = run_inference(
         flags.model_path, data_list, flags.output_path, dataset_config,
-        save_images=flags.save_images, engine=flags.engine, precision=flags.precision, device=flags.device,
-        lanes=flags.lanes, chunk_windows=flags.chunk_windows,
+        save_images=flags.save_images, lpips_backbone_npz=flags.lpips_backbone,
+        allow_uncalibrated_lpips=flags.allow_uncalibrated_lpips, lpips_net=flags.lpips_net,
+        lpips_lin_npz=flags.lpips_lins, engine=flags.engine, precision=flags.precision,
+        device=flags.device, lanes=flags.lanes, chunk_windows=flags.chunk_windows,
     )
     print(json.dumps({k: round(v, 6) for k, v in mean.items()}))
     return mean

@@ -6,8 +6,9 @@
 - Each length-L sequence contributes its FIRST seqn-window
   (``inputs_seq[0]``); sequences are non-overlapping, batch 1, in order.
 - Per window: esr_{l1,mse,ssim,psnr} against the GT count image of the
-  middle frame, and the same for the bicubic-upsampled LR input; the
-  forward's latency is timed up to ``torch.cuda.synchronize()``.
+  middle frame, and the same for the bicubic-upsampled LR input; with an
+  LPIPS module (``losses.lpips``), esr_lpips and bicubic_lpips after them;
+  the forward's latency is timed up to ``torch.cuda.synchronize()``.
 - The per-recording ``inference.yml`` and the datalist ``inference_all.yml``
   keep the reference's schema.
 - ``save_images`` dumps each window's views as PNGs in the reference's
@@ -23,7 +24,10 @@ true, or when it is None and the checkpoint's ``inference.engine`` is
 block, else 4 and 8. The reports and their schema are the same.
 
 The engine dumps no PNGs: with ``save_images`` it warns and ignores it, as
-the reference does. LPIPS is not ported (it raises ``NotImplementedError``).
+the reference does, and refuses LPIPS with ``ValueError`` (both need
+per-window host tensors). LPIPS runs when a backbone npz is given or the
+uncalibrated fallback is asked for (``allow_uncalibrated_lpips``), at f32
+whatever the model's rung.
 
 The precision rung (``esr_tpu_torch.config.precision``) is resolved once:
 the caller's ``precision`` > the checkpoint's ``trainer.precision`` > f32.
@@ -83,16 +87,18 @@ def _metrics(pred, base, gt) -> Dict[str, torch.Tensor]:
 class InferenceRunner:
     """Sequential evaluation of one model at one precision rung (``None``:
     f32). The model is moved to the device; at bf16 the runner evaluates a
-    bf16 copy of it."""
+    bf16 copy of it. ``lpips`` (an ``LPIPS`` module) adds the windows'
+    perceptual distances, computed at f32."""
 
     def __init__(self, model: torch.nn.Module, seqn: int = 3, device: DeviceLike = None,
-                 precision: Optional[str] = None):
+                 precision: Optional[str] = None, lpips: Optional[torch.nn.Module] = None):
         self.device = resolve_device(device)
         self.precision = resolve_precision(cli=precision)
         self.compute_dtype = compute_dtype_of(self.precision)
         self.model = model.to(self.device).eval()
         if self.compute_dtype is not None:
             self.model = copy.deepcopy(self.model).to(self.compute_dtype)
+        self.lpips = None if lpips is None else lpips.to(self.device, torch.float32).eval()
         self.seqn = seqn
         self.mid_idx = (seqn - 1) // 2
 
@@ -133,10 +139,11 @@ class InferenceRunner:
             for d in IMG_DIRS:
                 os.makedirs(os.path.join(img_dir, "event_img", d), exist_ok=True)
             os.makedirs(os.path.join(img_dir, "img", "gt_img"), exist_ok=True)
-            if dataset_config.get("item_keys") is None:
-                # the GT frame beside the count images, as the reference's
-                # loader builds it
-                dataset_config = {**dataset_config, "item_keys": ITEM_KEYS + ("gt_img",)}
+        if dataset_config.get("item_keys") is None:
+            # the items this loop reads, of all the dataset can build: the
+            # count images, and the GT frame beside the PNG views
+            dataset_config = {**dataset_config, "item_keys": ITEM_KEYS + (
+                ("gt_img",) if img_dir is not None else ())}
         loader = InferenceSequenceLoader(recording, dataset_config)
         kh, kw = loader.gt_resolution
         dev = self.device
@@ -144,7 +151,7 @@ class InferenceRunner:
             "esr_l1", "esr_mse", "esr_ssim", "esr_psnr",
             "bicubic_l1", "bicubic_mse", "bicubic_ssim", "bicubic_psnr",
             "time", "params",
-        ])
+        ] + (["esr_lpips", "bicubic_lpips"] if self.lpips is not None else []))
         track.update("params", _num_params(self.model))
         # state persists across the WHOLE recording
         states = self.model.init_states(1, kh, kw, device=dev)
@@ -154,11 +161,15 @@ class InferenceRunner:
         # the metrics of window i are read back while window i+1 runs
         pending: deque = deque()
 
-        def resolve(metrics: Dict[str, torch.Tensor]) -> None:
+        def resolve(entry) -> None:
+            metrics, lpips_pair = entry
             for k, v in metrics.items():
                 track.update(k, float(v))
                 if k in ssim_samples:
                     ssim_samples[k].append(float(v))
+            if lpips_pair is not None:
+                track.update("esr_lpips", float(lpips_pair[0]))
+                track.update("bicubic_lpips", float(lpips_pair[1]))
 
         for i, batch in enumerate(loader):
             window = {k: v[:, : self.seqn] for k, v in batch.items()}  # inputs_seq[0]
@@ -176,7 +187,11 @@ class InferenceRunner:
             if tuple(pred0.shape[:2]) != (kh, kw):
                 pred0 = interpolate(pred0, (kh, kw), "bicubic")
             bicubic = interpolate(inp_cnt, (kh, kw), "bicubic")
-            pending.append(_metrics(pred0, bicubic, gt))
+            lpips_pair = None
+            if self.lpips is not None:
+                lpips_pair = (self.lpips.multi_channel(pred0, gt),
+                              self.lpips.multi_channel(bicubic, gt))
+            pending.append((_metrics(pred0, bicubic, gt), lpips_pair))
             if len(pending) > 1:
                 resolve(pending.popleft())
             if img_dir is not None:
@@ -287,6 +302,8 @@ def run_inference(
     save_images: bool = False,
     lpips_backbone_npz: Optional[str] = None,
     allow_uncalibrated_lpips: bool = False,
+    lpips_net: str = "alex",
+    lpips_lin_npz: Optional[str] = None,
     engine: Optional[bool] = None,
     precision: Optional[str] = None,
     device: DeviceLike = None,
@@ -295,11 +312,13 @@ def run_inference(
 ) -> Dict[str, float]:
     """Checkpoint -> model, datalist -> per-recording + mean reports under
     ``output_path``, through the sequential harness or the streaming engine
-    (module docstring). Returns the datalist-mean metrics."""
+    (module docstring). Returns the datalist-mean metrics. LPIPS
+    (``lpips_backbone_npz``, or the seeded backbone with
+    ``allow_uncalibrated_lpips``; ``lpips_net``, ``lpips_lin_npz``: see
+    ``losses.lpips.load_lpips_params``) runs in the sequential harness only."""
     from esr_tpu_torch.inference.checkpoint import load_checkpoint
 
-    if lpips_backbone_npz is not None or allow_uncalibrated_lpips:
-        raise NotImplementedError("LPIPS is not ported yet (a later slice)")
+    want_lpips = lpips_backbone_npz is not None or allow_uncalibrated_lpips
     model, config = load_checkpoint(checkpoint_path)
     precision = resolve_precision(
         cli=precision, config=(config.get("trainer") or {}).get("precision"))
@@ -318,6 +337,9 @@ def run_inference(
 
     os.makedirs(output_path, exist_ok=True)
     if engine:
+        if want_lpips:
+            raise ValueError("engine mode does not support LPIPS (per-window host tensors); "
+                             "run sequential mode for LPIPS reports")
         if save_images:
             logger.warning("engine mode does not dump per-window images; "
                            "--save_images ignored (use sequential mode for PNGs)")
@@ -330,7 +352,15 @@ def run_inference(
             _write_recording_report(os.path.join(output_path, name), str(data_path),
                                     dataset_config, result)
     else:
-        runner = InferenceRunner(model, seqn, device=device, precision=precision)
+        lpips = None
+        if want_lpips:
+            from esr_tpu_torch.losses import lpips as L
+
+            backbone = L.load_backbone_npz(lpips_backbone_npz) if lpips_backbone_npz else None
+            lpips = L.build_lpips(L.load_lpips_params(
+                backbone_state=backbone, net=lpips_net, lin_npz_path=lpips_lin_npz,
+                allow_uncalibrated=allow_uncalibrated_lpips), lpips_net)
+        runner = InferenceRunner(model, seqn, device=device, precision=precision, lpips=lpips)
         results, names = [], []
         for data_path in data_list:
             name = recording_name(data_path)

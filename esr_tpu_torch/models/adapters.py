@@ -24,6 +24,8 @@ Registered names: ``SRUNetRecurrentSeq``, ``UNetRecurrentSeq``.
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 import torch.nn as nn
 
@@ -52,6 +54,9 @@ class FrameRecurrentSR(nn.Module):
 
     def init_states(self, batch: int, height: int, width: int, device=None) -> States:
         return self.model.init_states(batch, height, width, device=device)
+
+    def lane_state_keys(self) -> List[str]:
+        return self.model.lane_state_keys()
 
     def forward(self, x: torch.Tensor, states: States):
         b, n, h, w, c = x.shape

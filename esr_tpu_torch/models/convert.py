@@ -12,7 +12,8 @@ layout).
 One table, :func:`_children`, says for each port module which flax name
 each child carries. :func:`load_flax_params` walks it to fill a model and
 raises on any leaf that is missing, left over, or of the wrong shape;
-:func:`export_flax_params` walks it the other way.
+:func:`export_flax_params` walks it the other way. The table covers the
+models and the LPIPS module (``losses/lpips.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from esr_tpu_torch.losses import lpips
 from esr_tpu_torch.models import adapters, esr, layers, unet
 
 
@@ -89,6 +91,10 @@ def _children(mod: nn.Module) -> List[Tuple[str, object]]:
                 ("out_gate", mod.out_gate)]
     if isinstance(mod, layers.MLP):
         return [(f"Dense_{i}", m) for i, m in enumerate(mod.layers)]
+    if isinstance(mod, lpips.LPIPS):
+        return [(mod.net, mod.trunk)] + [(f"lin{i}", p) for i, p in enumerate(mod.lins)]
+    if isinstance(mod, (lpips._Trunk, lpips._Fire)):
+        return list(mod.named_children())
     if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
         return [("kernel", mod.weight), ("bias", mod.bias)]
     raise TypeError(f"no flax mapping for {type(mod).__name__}")

@@ -133,6 +133,16 @@ class _UNetBase(nn.Module):
     def _leaves_per_state(self) -> int:
         return 1 if self.recurrent_block_type == "convgru" else 2
 
+    def lane_state_keys(self) -> List[str]:
+        """Each flat state leaf's key as ``jax.tree_util.keystr`` writes it
+        for the reference's per-encoder tuple: ``[i]`` for a ConvGRU state,
+        ``[i][0]`` and ``[i][1]`` for a ConvLSTM's ``(h, c)`` pair (the
+        ESRLANE1 wire's keys, ``serving/wire.py``)."""
+        n = len(self.encoder_output_sizes)
+        if self._leaves_per_state == 1:
+            return [f"[{i}]" for i in range(n)]
+        return [f"[{i}][{j}]" for i in range(n) for j in range(2)]
+
     def init_states(self, batch: int, height: int, width: int,
                     device: Optional[torch.device] = None) -> States:
         """Zero recurrent states, flat and channel-last (module docstring):

@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from esr_tpu_torch.serving.wire import pack_lane_state, unpack_lane_state
+from esr_tpu_torch.serving.wire import lane_state_keys, pack_lane_state, unpack_lane_state
 
 logger = logging.getLogger(__name__)
 
@@ -266,8 +266,8 @@ class Replica:
         packets = []
         for entry in entries:
             state = entry.pop("state")
-            packets.append(HandoffPacket(entry, None if state is None
-                                         else pack_lane_state(state)))
+            packets.append(HandoffPacket(entry, None if state is None else pack_lane_state(
+                state, lane_state_keys(self._model, len(state)))))
         return packets
 
     def admit_handoff(self, packet: HandoffPacket) -> str:
@@ -275,7 +275,9 @@ class Replica:
         key checks) and the stream re-admitted outside the queue cap."""
         state = None
         if packet.state_bytes is not None:
-            state = unpack_lane_state(packet.state_bytes, self._model.init_states(1, 1, 1))
+            template = self._model.init_states(1, 1, 1)
+            state = unpack_lane_state(packet.state_bytes, template,
+                                      lane_state_keys(self._model, len(template)))
         # a returning stream replaces its migrated-out record: its new
         # terminal must reach the router
         self._reported.discard(packet.request_id)

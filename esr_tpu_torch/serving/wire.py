@@ -5,11 +5,17 @@
 One stream's recurrent state (``inference.engine.extract_lane_state``: a
 tuple of numpy arrays, forward and backward ConvGRU states) to bytes and
 back, bit-exactly: the ``ESRLANE1`` magic, a little-endian u64 header
-length, a JSON header (``schema``, the leaves' key paths ``[0]``, ``[1]``
-as ``jax.tree_util.keystr`` writes them for a tuple, and a sha256 over each
-leaf's key, shape, dtype and bytes), then an uncompressed ``.npz`` body. A
-packet from either package unpacks in the other; a torn or altered packet
-raises ``ValueError``.
+length, a JSON header (``schema``, each leaf's key path as
+``jax.tree_util.keystr`` writes it for the reference's state tree, and a
+sha256 over each leaf's key, shape, dtype and bytes), then an uncompressed
+``.npz`` body. A packet from either package unpacks in the other; a torn
+or altered packet raises ``ValueError``.
+
+The port keeps every lane state a flat tuple, in the reference's
+``tree_leaves`` order; only the keys follow the reference's tree
+(:func:`lane_state_keys`): ``[0]``, ``[1]`` for the flagship's pair of
+ConvGRU states, ``[i][0]``, ``[i][1]`` for a UNet ConvLSTM encoder's
+``(h, c)`` pair.
 
 A bf16 lane state (the bf16 rung) travels as its raw 16-bit words: numpy
 has no bfloat16, and neither has the card's machine a package that adds
@@ -28,11 +34,12 @@ import hashlib
 import io
 import json
 import struct
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["BF16_WORDS", "WIRE_MAGIC", "pack_lane_state", "read_wire", "unpack_lane_state"]
+__all__ = ["BF16_WORDS", "WIRE_MAGIC", "lane_state_keys", "pack_lane_state", "read_wire",
+           "unpack_lane_state"]
 
 WIRE_MAGIC = b"ESRLANE1"
 _LEN = struct.Struct("<Q")
@@ -51,6 +58,16 @@ def _keys(n: int) -> List[str]:
     return [f"[{i}]" for i in range(n)]
 
 
+def lane_state_keys(model, n: int) -> List[str]:
+    """The wire keys of ``model``'s ``n``-leaf lane state: the model's own
+    ``lane_state_keys()`` where it has one (the UNet family), else the
+    flat tuple's ``[i]`` (the flagship's)."""
+    keys = model.lane_state_keys() if hasattr(model, "lane_state_keys") else _keys(n)
+    if len(keys) != n:
+        raise ValueError(f"the model names {len(keys)} lane-state leaves, the state has {n}")
+    return keys
+
+
 def _wire_digest(keys: Sequence[str], arrays: Sequence[np.ndarray]) -> str:
     h = hashlib.sha256()
     for key, arr in zip(keys, arrays):
@@ -62,10 +79,13 @@ def _wire_digest(keys: Sequence[str], arrays: Sequence[np.ndarray]) -> str:
     return h.hexdigest()
 
 
-def pack_lane_state(state: Sequence[np.ndarray]) -> bytes:
-    """A lane state tuple -> bytes; equal states give equal bytes."""
+def pack_lane_state(state: Sequence[np.ndarray], keys: Optional[Sequence[str]] = None) -> bytes:
+    """A lane state tuple -> bytes under ``keys`` (:func:`lane_state_keys`;
+    the flat ``[i]`` when None); equal states give equal bytes."""
     arrays = [np.asarray(a) for a in state]
-    keys = _keys(len(arrays))
+    keys = _keys(len(arrays)) if keys is None else list(keys)
+    if len(keys) != len(arrays):
+        raise ValueError(f"{len(keys)} keys for {len(arrays)} lane-state leaves")
     buf = io.BytesIO()
     # bf16 words are stored as plain uint16; the header names them
     np.savez(buf, **{f"a{i}": a.view(np.uint16) if _dtype_name(a) == _BF16 else a
@@ -106,11 +126,13 @@ def read_wire(data: bytes) -> Tuple[Dict, List[np.ndarray]]:
     return header, arrays
 
 
-def unpack_lane_state(data: bytes, template: Sequence) -> Tuple[np.ndarray, ...]:
-    """Bytes -> a lane state tuple shaped like ``template`` (only its
-    number of leaves is read); a packet of another state structure raises."""
+def unpack_lane_state(data: bytes, template: Sequence,
+                      keys: Optional[Sequence[str]] = None) -> Tuple[np.ndarray, ...]:
+    """Bytes -> a flat lane state tuple shaped like ``template`` (only its
+    number of leaves is read) whose packet carries ``keys`` (the flat
+    ``[i]`` when None); a packet of another state structure raises."""
     header, arrays = read_wire(data)
-    want = _keys(len(template))
+    want = _keys(len(template)) if keys is None else list(keys)
     if header["keys"] != want:
         raise ValueError(f"lane-state packet keys {header['keys']} do not match "
                          f"the model state structure {want}")

@@ -335,8 +335,10 @@ def test_raw_event_and_frame_items_are_bitwise_the_reference(shared_corpus_dir, 
     """The fixed-capacity raw event windows and the GT frame at the
     reference's capacity, layout and augmentation."""
     from esr_tpu.data.dataset import EventWindowDataset as RefDataset
-    from esr_tpu_torch.data.dataset import KNOWN_KEYS, EventWindowDataset
+    from esr_tpu_torch.data.dataset import ITEM_KEYS, EventWindowDataset
 
+    KNOWN_KEYS = ITEM_KEYS + ("gt_img", "inp_norm_events", "inp_events_valid",
+                              "gt_raw_events", "gt_events_valid")
     cfg = {**LOADER_DATA, "need_gt_frame": True, "item_keys": list(KNOWN_KEYS)}
     if not augment:
         cfg["data_augment"] = {"enabled": False, "augment": [], "augment_prob": []}
@@ -351,6 +353,156 @@ def test_raw_event_and_frame_items_are_bitwise_the_reference(shared_corpus_dir, 
             for k in a:
                 assert a[k].dtype == b[k].dtype == np.float32, k
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+# -- every dataset option and item key (A16) ---------------------------------
+
+OPTIONS_DATA = {
+    **LOADER_DATA, "need_gt_frame": True, "time_bins": 3, "item_keys": None,
+    "add_noise": {"enabled": True, "noise_level": 0.1},
+    "hot_filter": {"enabled": True, "max_px": 20, "min_obvs": 2, "max_rate": 0.3},
+    "custom_resolution": (20, 24), "activity": {"tile": 4},
+}
+CUSTOM_KEYS = ("inp_custom_cnt", "inp_custom_scaled_cnt", "inp_custom_down_cnt",
+               "inp_custom_down_scaled_cnt", "gt_custom_cnt")
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+@pytest.mark.parametrize("variant", ["defaults", "options", "inclusive", "frame_mode"])
+def test_every_item_key_is_bitwise_the_reference(shared_corpus_dir, monkeypatch, route,
+                                                 variant):
+    """The default key set is the reference's ``ALL_KEYS``; with noise, the
+    hot filter (stateful: the items are built in one order on both sides),
+    a custom resolution, the activity tile, three time bins, the inclusive
+    binning and the frame mode, every item (the five ``*_custom_*`` ones
+    too) is bitwise the reference's for several seeds, on the native and
+    on the numpy route."""
+    from esr_tpu.data.dataset import EventWindowDataset as RefDataset
+    from esr_tpu_torch.data.dataset import ALL_KEYS, EventWindowDataset
+
+    monkeypatch.setenv("ESR_TPU_NATIVE", "1" if route == "native" else "0")
+    cfg = {"defaults": {**LOADER_DATA, "need_gt_frame": True, "item_keys": None},
+           "options": OPTIONS_DATA,
+           "inclusive": {**OPTIONS_DATA, "stack_binning": "inclusive"},
+           "frame_mode": {**OPTIONS_DATA, "mode": "frame", "window": 512,
+                          "sliding_window": 0}}[variant]
+    rec = str(shared_corpus_dir / "rec1.h5")
+    ref, port = RefDataset(rec, cfg), EventWindowDataset(rec, cfg)
+    assert port.item_keys == ALL_KEYS == RefDataset.ALL_KEYS
+    assert len(port) == len(ref) > 1
+    NE.ROUTES.reset()
+    want_keys = sorted(ALL_KEYS + (CUSTOM_KEYS if variant != "defaults" else ()))
+    for i in range(len(ref)):
+        for seed in (0, 1, 6):
+            a, b = port.get_item(i, seed=seed), ref.get_item(i, seed=seed)
+            assert sorted(a) == sorted(b) == want_keys
+            for k in a:
+                assert a[k].dtype == b[k].dtype == np.float32, k
+                assert a[k].shape == b[k].shape and a[k].tobytes() == b[k].tobytes(), (i, k)
+    routes = NE.ROUTES.snapshot()
+    assert routes["native" if route == "native" else "numpy"] > 0
+    if route == "numpy":
+        assert routes["native"] == 0
+    if variant != "defaults":
+        assert a["inp_norm_events"].shape == (512 + 51, 4)
+
+
+def test_hot_filter_over_a_sequence_of_items_is_the_references():
+    """``tests/test_hot_filter.py``'s cases on both filters: the mask's
+    ``min_obvs`` and threshold, the ``max_px`` cap, a persistent pixel
+    dropped after enough windows, and the state over a sequence of random
+    windows bitwise the reference's."""
+    from esr_tpu.data.hot_filter import HotPixelFilter as RefFilter
+    from esr_tpu.data.hot_filter import hot_mask_from_rate as ref_mask
+    from esr_tpu_torch.data.hot_filter import HotPixelFilter, hot_mask_from_rate
+
+    rate = np.zeros((4, 4))
+    rate[1, 2] = 0.95
+    assert hot_mask_from_rate(rate.copy(), idx=3, min_obvs=5).min() == 1.0
+    m = hot_mask_from_rate(rate.copy(), idx=10, min_obvs=5, max_rate=0.8)
+    assert m[1, 2] == 0.0 and m.sum() == 15
+    full = np.full((3, 3), 0.9)
+    assert (hot_mask_from_rate(full.copy(), idx=10, min_obvs=5, max_px=4) == 0).sum() == 4
+    for args in ((rate, 10, 100, 5, 0.8), (full, 10, 4, 5, 0.8), (full, 3, 4, 5, 0.8)):
+        np.testing.assert_array_equal(hot_mask_from_rate(args[0].copy(), *args[1:]),
+                                      ref_mask(args[0].copy(), *args[1:]))
+    cfg = {"max_px": 10, "min_obvs": 3, "max_rate": 0.8}
+    port, ref = HotPixelFilter((8, 8), cfg), RefFilter((8, 8), cfg)
+    for i in range(6):
+        ev = np.array([[3.0, float(i % 8)], [2.0, float((i + 1) % 8)],
+                       [0.1 * i, 0.1 * i + 0.05], [1.0, -1.0]])
+        out = port.filter_events(ev)
+        np.testing.assert_array_equal(out, ref.filter_events(ev))
+    assert out.shape[1] == 1 and (out[0, 0], out[1, 0]) != (3.0, 2.0)
+    rng = np.random.default_rng(0)
+    cfg = {"max_px": 6, "min_obvs": 2, "max_rate": 0.4}
+    port, ref = HotPixelFilter((12, 10), cfg), RefFilter((12, 10), cfg)
+    for i in range(12):
+        n = int(rng.integers(0, 40))
+        ev = np.stack([rng.integers(-1, 11, n), rng.integers(-1, 13, n), np.sort(rng.random(n)),
+                       rng.choice([-1.0, 1.0], n)]).astype(np.float64)
+        ev[:, : n // 3] = [[4.0], [5.0], [0.0], [1.0]]  # a hot pixel
+        np.testing.assert_array_equal(port.filter_events(ev), ref.filter_events(ev))
+        np.testing.assert_array_equal(port.hot_events, ref.hot_events)
+    assert port.hot_idx == ref.hot_idx == 12
+
+
+@pytest.mark.parametrize("num_bins", [1, 3, 5])
+def test_voxel_and_inclusive_stacks_are_the_references(num_bins):
+    """``events_to_voxel_np`` and the inclusive binning (boundary events in
+    both bins, the degenerate-window guard) bitwise the reference's; the
+    half-open binning stays the default."""
+    rng = np.random.default_rng(num_bins)
+    for n in (0, 3, 4, 200):
+        xs = rng.integers(-1, 18, n).astype(np.float32)
+        ys = rng.integers(-1, 14, n).astype(np.float32)
+        ts = np.sort(rng.random(n)).astype(np.float32)
+        if n > 10:
+            ts[n // 2: n // 2 + 5] = ts[n // 2]  # ties on a possible edge
+        ps = rng.choice([-1.0, 1.0], n).astype(np.float32)
+        tnorm = (ts - ts[0]) / (ts[-1] - ts[0] + 1e-6) if n else ts
+        np.testing.assert_array_equal(NE.events_to_voxel_np(xs, ys, tnorm, ps, num_bins, (13, 17)),
+                                      ref_enc.events_to_voxel_np(xs, ys, tnorm, ps, num_bins,
+                                                                 (13, 17)))
+        for binning in ("inclusive", "half_open"):
+            np.testing.assert_array_equal(
+                NE.events_to_stack_np(xs, ys, ts, ps, num_bins, (13, 17), binning=binning),
+                ref_enc.events_to_stack_np(xs, ys, ts, ps, num_bins, (13, 17), binning=binning))
+        cnt, act = NE.events_to_channels_activity_np(xs, ys, ps, (13, 17), tile=4)
+        want = ref_enc.events_to_channels_activity_np(xs, ys, ps, (13, 17), tile=4)
+        np.testing.assert_array_equal(cnt, want[0])
+        np.testing.assert_array_equal(act, want[1])
+    with pytest.raises(ValueError, match="binning"):
+        NE.events_to_stack_np(xs, ys, ts, ps, num_bins, (13, 17), binning="closed")
+
+
+def test_noise_fills_device_rasterization_capacity(shared_corpus_dir):
+    """With ``add_noise`` the raw input window holds the events plus the
+    noise budget (the reference's capacity), and the device encoder gives
+    the host's ``inp_scaled_cnt``, noise included, bitwise."""
+    from esr_tpu.data.dataset import EventWindowDataset as RefDataset
+    from esr_tpu_torch.data.dataset import EventWindowDataset
+
+    cfg = {**LOADER_DATA, "add_noise": {"enabled": True, "noise_level": 0.25},
+           "item_keys": ["inp_scaled_cnt", "gt_cnt", "inp_norm_events", "inp_events_valid",
+                         "gt_raw_events", "gt_events_valid"]}
+    rec = str(shared_corpus_dir / "rec1.h5")
+    port, ref = EventWindowDataset(rec, cfg), RefDataset(rec, cfg)
+    assert port.inp_event_capacity == ref.inp_event_capacity == 512 + 128
+    encode = make_device_encoder(port.gt_resolution)
+    for i in (0, len(port) - 1):
+        item = port.get_item(i, seed=i)
+        want = ref.get_item(i, seed=i)
+        for k in item:
+            np.testing.assert_array_equal(item[k], want[k], err_msg=k)
+        assert item["inp_events_valid"].sum() > 128  # the window and its noise
+        dense = encode({
+            "inp_events": torch.from_numpy(item["inp_norm_events"])[None, None],
+            "inp_valid": torch.from_numpy(item["inp_events_valid"])[None, None],
+            "gt_events": torch.from_numpy(item["gt_raw_events"])[None, None],
+            "gt_valid": torch.from_numpy(item["gt_events_valid"])[None, None]})
+        np.testing.assert_array_equal(dense["inp"][0, 0].numpy(), item["inp_scaled_cnt"])
+        np.testing.assert_array_equal(dense["gt"][0, 0].numpy(), item["gt_cnt"])
 
 
 def test_device_encoder_is_bitwise_the_host_and_jax():

@@ -189,9 +189,10 @@ def test_infer_entry_point_on_a_port_checkpoint(runs):
 def test_unported_requests_raise(runs, request_, caplog):
     """Each request that is not ported raises; ``save_images`` (the PNG
     views), the checkpoint's engine request with ``save_images`` (the
-    engine warns and ignores it, as the reference's does) and the bf16 rung
-    (the engine's and ``run_inference``'s) are ported now, and their cases
-    check that they work."""
+    engine warns and ignores it, as the reference's does), the bf16 rung
+    (the engine's and ``run_inference``'s) and LPIPS (the seeded backbone,
+    on the 32x32 GT grid of ``down4``, which AlexNet's pools need) are
+    ported now, and their cases check that they work."""
     ckpt = runs["out"] / "ckpt_refusals"
     config = {"model": {"name": "DeepRecurrNet",
                         "args": {"inch": 2, "basech": 2, "num_frame": 3}}}
@@ -226,19 +227,232 @@ def test_unported_requests_raise(runs, request_, caplog):
                              precision="bf16", device="cpu")
         assert np.isfinite(mean["esr_mse"])
         return
+    if request_ == "lpips":
+        mean = run_inference(str(ckpt), [runs["rec"]], str(runs["out"] / "lpips"),
+                             {**DATASET, "ori_scale": "down4"},
+                             allow_uncalibrated_lpips=True, device="cpu")
+        assert all(np.isfinite(mean[k]) and mean[k] > 0 for k in LPIPS_KEYS)
+        return
     with pytest.raises(NotImplementedError):
-        if request_ == "augment":
-            # Horizontal/Vertical/Polarity are ported; an unknown mechanism
-            # is refused rather than silently skipped
-            cfg = {**DATASET, "data_augment": {"enabled": True,
-                                               "augment": ["Horizontal", "Rotate"],
-                                               "augment_prob": [0.5, 0.5]}}
-            EventWindowDataset(runs["rec"], cfg)
-        else:
-            run_inference(
-                str(ckpt), [runs["rec"]], str(runs["out"] / "y"), DATASET,
-                allow_uncalibrated_lpips=request_ == "lpips", device="cpu",
-            )
+        # Horizontal/Vertical/Polarity are ported; an unknown mechanism
+        # is refused rather than silently skipped
+        cfg = {**DATASET, "data_augment": {"enabled": True,
+                                           "augment": ["Horizontal", "Rotate"],
+                                           "augment_prob": [0.5, 0.5]}}
+        EventWindowDataset(runs["rec"], cfg)
+
+
+# -- LPIPS at evaluation ------------------------------------------------------
+#
+# The three trunks on seeded weights (the reference's own parameter tree,
+# its lin weights drawn at random, signs included) through multi_channel on
+# 2-channel images: rtol 1e-5 (measured 2e-7). The harness with LPIPS
+# against the reference's: the reference's harness passes its window
+# unbatched to multi_channel, whose mean over axes (1, 2) then fails, so
+# its LPIPS call is given the batch axis it drops (what the port's
+# multi_channel does); the report within TOL (measured ~1e-7).
+
+LPIPS_KEYS = ("esr_lpips", "bicubic_lpips")
+LPIPS_NETS = ("alex", "vgg16", "squeeze")
+
+
+def _lpips_state(net, seed):
+    """A seeded torchvision-style ``features.*`` state dict of ``net``."""
+    from esr_tpu.losses import lpips as R
+    from esr_tpu_torch.losses.lpips import LPIPS
+
+    trunk = LPIPS(net=net).trunk
+    if net == "squeeze":
+        convs = [("features.0", trunk.conv0)] + [
+            (f"features.{li}.{m}", getattr(getattr(trunk, f"fire{i}"), m))
+            for i, li in enumerate(R._SQUEEZE_FIRE_IDX)
+            for m in ("squeeze", "expand1x1", "expand3x3")]
+    else:
+        idx = R._ALEX_CONV_IDX if net == "alex" else R._VGG_CONV_IDX
+        convs = [(f"features.{li}", getattr(trunk, f"conv{i}")) for i, li in enumerate(idx)]
+    rng = np.random.default_rng(seed)
+    state = {}
+    for key, conv in convs:
+        fan_in = np.prod(conv.weight.shape[1:])
+        state[f"{key}.weight"] = (rng.standard_normal(tuple(conv.weight.shape))
+                                  / np.sqrt(fan_in)).astype(np.float32)
+        state[f"{key}.bias"] = rng.uniform(-0.1, 0.1, conv.bias.shape[0]).astype(np.float32)
+    return state
+
+
+@pytest.mark.parametrize("net", LPIPS_NETS)
+def test_lpips_trunks_match_reference(net):
+    from esr_tpu.losses import lpips as R
+    from esr_tpu_torch.losses import lpips as L
+
+    params = jax.tree.map(np.asarray, R.load_lpips_params(allow_uncalibrated=True, net=net))
+    rng = np.random.default_rng(4)
+    for k in params["params"]:
+        if k.startswith("lin"):
+            params["params"][k] = rng.standard_normal(params["params"][k].shape).astype(
+                np.float32)
+    model = L.build_lpips(params, net)
+    x, y = (rng.random((2, 34, 38, 2)).astype(np.float32) for _ in range(2))
+    with torch.no_grad():
+        got = [float(model.multi_channel(torch.from_numpy(x), torch.from_numpy(y))),
+               float(model.multi_channel(torch.from_numpy(x[0]), torch.from_numpy(y[0]))),
+               float(model.multi_channel(torch.from_numpy(x[..., :1].repeat(3, -1)),
+                                         torch.from_numpy(y[..., :1].repeat(3, -1))))]
+    ref = R.LPIPS(net=net)
+    want = [float(ref.multi_channel(params, x, y)),
+            float(ref.multi_channel(params, x[:1], y[:1])),
+            float(ref.multi_channel(params, x[..., :1].repeat(3, -1),
+                                    y[..., :1].repeat(3, -1)))]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert min(got) > 0
+    # the port's own tree has the reference's structure and shapes
+    own = L.load_lpips_params(allow_uncalibrated=True, net=net)
+    assert (jax.tree.map(np.shape, own) == jax.tree.map(np.shape, params))
+
+
+@pytest.mark.parametrize("net", LPIPS_NETS)
+def test_lpips_backbone_loads_and_converts_as_the_reference(net, tmp_path):
+    """A torchvision-layout backbone: the ``.pth`` converter writes the
+    reference's npz, and the loaded trunk is bitwise the reference's."""
+    from esr_tpu.losses import lpips as R
+    from esr_tpu_torch.losses import lpips as L
+
+    state = _lpips_state(net, 1)
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, tmp_path / "b.pth")
+    L.convert_backbone_pth(str(tmp_path / "b.pth"), str(tmp_path / "port.npz"), net)
+    R.convert_backbone_pth(str(tmp_path / "b.pth"), str(tmp_path / "ref.npz"), net)
+    got, want = L.load_backbone_npz(str(tmp_path / "port.npz")), R.load_backbone_npz(
+        str(tmp_path / "ref.npz"))
+    assert sorted(got) == sorted(want) == sorted(state)
+    kw = dict(backbone_state=got, net=net, allow_uncalibrated=net != "alex")
+    mine = L.load_lpips_params(**kw)["params"]
+    theirs = jax.tree.map(np.asarray, R.load_lpips_params(**kw)["params"])
+    assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+    for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(theirs)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def test_lpips_bundled_lin_weights_load():
+    from esr_tpu.losses import lpips as R
+    from esr_tpu_torch.losses import lpips as L
+
+    assert L.LIN_WEIGHTS_FILE != R._LIN_WEIGHTS_FILE and "esr_tpu_torch" in L.LIN_WEIGHTS_FILE
+    mine = L.load_lpips_params(allow_uncalibrated=True)["params"]
+    theirs = R.load_lpips_params(allow_uncalibrated=True)["params"]
+    for i, c in enumerate(L.NET_CHNS["alex"]):
+        assert mine[f"lin{i}"].shape == (c,)
+        np.testing.assert_array_equal(mine[f"lin{i}"], np.asarray(theirs[f"lin{i}"]))
+        assert not np.allclose(mine[f"lin{i}"], 1.0 / c)
+
+
+@pytest.mark.parametrize("case", ["no_backbone", "missing_lins", "no_lins"])
+def test_lpips_uncalibrated_refusals_match_reference(case, tmp_path):
+    from esr_tpu.losses import lpips as R
+    from esr_tpu_torch.losses import lpips as L
+
+    kw, err = {
+        "no_backbone": ({}, ValueError),
+        "missing_lins": ({"lin_npz_path": str(tmp_path / "nope.npz"),
+                          "allow_uncalibrated": True}, FileNotFoundError),
+        "no_lins": ({"net": "vgg", "backbone_state": _lpips_state("vgg16", 2)}, ValueError),
+    }[case]
+    with pytest.raises(err) as want:
+        R.load_lpips_params(**kw)
+    with pytest.raises(err) as got:
+        L.load_lpips_params(**kw)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.fixture(scope="module")
+def lpips_runs(runs, tmp_path_factory):
+    """The ``runs`` weights on the 32x32 GT grid, with LPIPS from a seeded
+    alex backbone npz and the bundled lins: the reference's harness (its
+    LPIPS call batched) and the port's ``run_inference``, and the port's
+    with the seeded uncalibrated backbone."""
+    from esr_tpu.losses import lpips as R
+
+    out = tmp_path_factory.mktemp("torch_lpips")
+    cfg = {**DATASET, "ori_scale": "down4"}
+    np.savez(out / "alex.npz", **_lpips_state("alex", 3))
+    lpips_params = R.load_lpips_params(backbone_state=R.load_backbone_npz(str(out / "alex.npz")))
+    ref_lpips = R.LPIPS()
+    ref_runner = RefRunner(FlaxNet(inch=2, basech=2, num_frame=3), runs["params"], 3,
+                           lpips_model=ref_lpips, lpips_params=lpips_params)
+    ref_runner.lpips = jax.jit(
+        lambda a, b: ref_lpips.multi_channel(lpips_params, a[None], b[None]))
+    ref = ref_runner.run_recording(runs["rec"], cfg)
+    ckpt = out / "ckpt"
+    save_checkpoint(str(ckpt), runs["params"], {
+        "model": {"name": "DeepRecurrNet", "args": {"inch": 2, "basech": 2, "num_frame": 3}},
+        "inference": {"engine": True}})
+    name = os.path.basename(runs["rec"])
+    port = {}
+    for way, kw in (("npz", {"lpips_backbone_npz": str(out / "alex.npz")}),
+                    ("seeded", {"allow_uncalibrated_lpips": True})):
+        run_inference(str(ckpt), [runs["rec"]], str(out / way), cfg, engine=False,
+                      device="cpu", **kw)
+        with open(out / way / name / "inference.yml") as f:
+            port[way] = yaml.safe_load(f)["evaluation results"]
+    return {"ref": ref, "port": port, "ckpt": ckpt, "cfg": cfg, "out": out}
+
+
+@pytest.mark.parametrize("way", ["npz", "seeded"])
+def test_run_inference_with_lpips_gives_the_reference_report(lpips_runs, way):
+    ref, got = lpips_runs["ref"], lpips_runs["port"][way]
+    assert sorted(got) == sorted(ref) and set(LPIPS_KEYS) <= set(got)
+    assert all(np.isfinite(got[k]) and got[k] > 0 for k in LPIPS_KEYS)
+    keys = METRICS + list(LPIPS_KEYS) if way == "npz" else METRICS
+    for k in keys:
+        np.testing.assert_allclose(got[k], ref[k], **TOL, err_msg=k)
+
+
+def test_engine_refuses_lpips(lpips_runs, runs):
+    """The checkpoint asks for the engine; LPIPS there raises, as the
+    reference's does."""
+    with pytest.raises(ValueError, match="engine mode does not support LPIPS"):
+        run_inference(str(lpips_runs["ckpt"]), [runs["rec"]],
+                      str(lpips_runs["out"] / "engine"), lpips_runs["cfg"],
+                      allow_uncalibrated_lpips=True, device="cpu")
+
+
+def test_infer_entry_point_takes_the_lpips_flags(lpips_runs, runs):
+    out = lpips_runs["out"] / "cli"
+    mean = port_infer.main([
+        "--model_path", str(lpips_runs["ckpt"]), "--data_path", runs["rec"],
+        "--output_path", str(out), "--device", "cpu", "--scale", "2",
+        "--ori_scale", "down4", "--window", "512", "--sliding_window", "256",
+        "--seql", "4", "--no_need_gt_frame", "--no_engine",
+        "--lpips_backbone", str(lpips_runs["out"] / "alex.npz"), "--lpips_net", "alex",
+        "--allow_uncalibrated_lpips"])
+    with open(out / "inference_all.yml") as f:
+        report = yaml.safe_load(f)["mean results for the whole data"]
+    for k in LPIPS_KEYS:
+        np.testing.assert_allclose(mean[k], lpips_runs["ref"][k], **TOL)
+        np.testing.assert_allclose(report[k], lpips_runs["ref"][k], **TOL)
+
+
+@pytest.mark.gpu
+def test_lpips_on_card_matches_its_cpu_run():
+    """Each trunk on the card (f32, TF32 off: the port's numerics policy)
+    within 1e-4 relative of the same module on the CPU, through
+    multi_channel on 2-channel images, batched and not."""
+    from esr_tpu_torch.device import resolve_device
+    from esr_tpu_torch.losses import lpips as L
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py phase 8f runs the same check on the "
+                    "H100)")
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(5)
+    x, y = (torch.from_numpy(rng.random((2, 66, 70, 2)).astype(np.float32)) for _ in range(2))
+    for net in LPIPS_NETS:
+        params = L.load_lpips_params(allow_uncalibrated=True, net=net)
+        cpu, card = L.build_lpips(params, net, "cpu"), L.build_lpips(params, net, dev)
+        with torch.no_grad():
+            for a, b in ((x, y), (x[0], y[0])):
+                want = float(cpu.multi_channel(a, b))
+                got = float(card.multi_channel(a.to(dev), b.to(dev)))
+                assert abs(got - want) <= 1e-4 * abs(want), (net, got, want)
 
 
 # -- the precision rungs through the sequential harness -----------------------

@@ -376,6 +376,38 @@ def test_wire_rejects_torn_and_foreign_packets():
         wire.unpack_lane_state(packet, (None,))
 
 
+@pytest.mark.parametrize("packer", ["jax", "port"])
+@pytest.mark.parametrize("family", ["flagship", "unet"])
+def test_lane_state_crosses_the_wire_in_both_families(models, unet_models, family, packer):
+    """A lane of the flagship (two ConvGRU states) or of the UNet family
+    (an ``(h, c)`` pair per ConvLSTM encoder, nested in the reference's
+    tree, flat in the port), packed by either package, unpacks bitwise in
+    the other: the same keys (``jax.tree_util.keystr`` of the reference's
+    tree), the same bytes; a packet read under the other family's keys
+    raises."""
+    ref_model, _, port = models if family == "flagship" else unet_models
+    template = ref_model.init_states(1, 16, 16)
+    paths, treedef = jax.tree_util.tree_flatten_with_path(template)
+    assert [p.shape for p in port.init_states(1, 16, 16)] == [leaf.shape for _, leaf in paths]
+    rng = np.random.default_rng(7)
+    flat = tuple(rng.standard_normal(leaf.shape[1:]).astype(np.float32) for _, leaf in paths)
+    keys = wire.lane_state_keys(port, len(flat))
+    assert keys == [jax.tree_util.keystr(p) for p, _ in paths]
+    assert (family == "unet") == any("][" in k for k in keys)
+    ref_state = jax.tree_util.tree_unflatten(treedef, flat)
+    packet = ref_pack(ref_state) if packer == "jax" else wire.pack_lane_state(flat, keys)
+    assert packet == ref_pack(ref_state) == wire.pack_lane_state(flat, keys)
+    if packer == "jax":
+        got = wire.unpack_lane_state(packet, port.init_states(1, 1, 1), keys)
+    else:
+        got = jax.tree_util.tree_leaves(ref_unpack(packet, ref_model.init_states(1, 1, 1)))
+    assert len(got) == len(flat)
+    for a, b in zip(got, flat):
+        assert np.asarray(a).dtype == b.dtype and np.asarray(a).tobytes() == b.tobytes()
+    with pytest.raises(ValueError, match="structure"):
+        wire.unpack_lane_state(packet, flat, [k + "[0]" for k in keys])
+
+
 def test_scheduler_copy_matches_reference():
     """The same admissions, binds, preemptions and releases give the same
     lane maps, queues and chunk sizes in both schedulers."""
@@ -1071,6 +1103,9 @@ def test_unet_drain_and_admit_handoff_resume_bitwise(unet_handoff):
     packets, src, got, want = unet_handoff
     header, _ = wire.read_wire(packets[0].state_bytes)
     assert header["dtypes"] == ["bfloat16"] * 2 * UNET_ARGS["num_encoders"]
+    # the reference's keys of its nested (h, c) pairs
+    assert header["keys"] == [f"[{i}][{j}]" for i in range(UNET_ARGS["num_encoders"])
+                              for j in range(2)]
     assert src["status"] == "migrated" and 0 < packets[0].entry["windows_done"]
     assert got["status"] == "ok" and got["handoffs"] == 1
     assert got["n_windows"] == want["n_windows"]

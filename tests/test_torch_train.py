@@ -150,6 +150,45 @@ def test_augmented_sequence_is_bitwise_the_reference(datasets, flips):
     assert any(changed) == any(flips)
 
 
+PAUSE_CASES = {"always": (1.0, 1.0), "never": (0.0, 0.0), "shipped": (0.05, 0.9),
+               "flaky": (0.4, 0.5)}
+
+
+@pytest.mark.parametrize("case", PAUSE_CASES)
+def test_paused_sequence_is_bitwise_the_reference(datasets, case):
+    """Sensor pauses (``sequence.pause``) over sequences with augmentation,
+    noise and the hot filter: the chain's draws, which windows pause
+    (zero input events, no noise, the GT unaffected, the index repeated)
+    and every item bitwise the reference's SequenceDataset, for several
+    seeds (``tests/test_data_pipeline.py``'s pause cases)."""
+    run_p, paused_p = PAUSE_CASES[case]
+    cfg = {**DATASET, "item_keys": KEYS + ["inp_stack"],
+           "add_noise": {"enabled": True, "noise_level": 0.1},
+           "hot_filter": {"enabled": True, "min_obvs": 2, "max_rate": 0.5},
+           "sequence": {**DATASET["sequence"], "sequence_length": 6,
+                        "pause": {"enabled": True, "proba_pause_when_running": run_p,
+                                  "proba_pause_when_paused": paused_p}}}
+    rec = datasets["port"].dataset.recording
+    ref, port = RefSequenceDataset(rec.path, cfg), SequenceDataset(rec, cfg)
+    assert len(port) == len(ref) > 1
+    n_paused = 0
+    for i in range(len(ref)):
+        for seed in (3, 9, 40):
+            a, b = port.get_item(i, seed=seed), ref.get_item(i, seed=seed)
+            assert len(a) == len(b) == 6
+            for wa, wb in zip(a, b):
+                assert sorted(wa) == sorted(wb)
+                for k in wa:
+                    np.testing.assert_array_equal(wa[k], wb[k], err_msg=k)
+                if wa["inp_cnt"].sum() == 0:
+                    n_paused += 1
+                    assert wa["inp_scaled_cnt"].sum() == 0 and wa["gt_cnt"].sum() > 0
+            assert a[0]["inp_cnt"].sum() > 0
+    windows = len(ref) * 3 * 5
+    assert {"always": n_paused == windows, "never": n_paused == 0,
+            "shipped": n_paused < windows, "flaky": 0 < n_paused < windows}[case]
+
+
 @pytest.mark.parametrize("num_items,batch,shuffle,drop_last", [
     (10, 3, True, True), (10, 3, False, False), (7, 2, True, False),
     (2, 4, True, False), (9, 2, False, True)])
@@ -821,7 +860,28 @@ NOW_PORTED = {
     "trainer;live_telemetry=0": lambda t: t.live_cfg["port"] == 0,
     "trainer;profile;enabled=true": lambda t: t.profile_cfg["enabled"],
     "trainer;max_bad_steps=2": lambda t: t._guard.max_bad_steps == 2,
+    "train_dataloader;dataset;add_noise;enabled=true": lambda t: _one_finite_step(
+        t, lambda ds: all(d.dataset.add_noise["enabled"] for d in ds)),
+    "train_dataloader;dataset;hot_filter;enabled=true": lambda t: _one_finite_step(
+        t, lambda ds: all(d.dataset.hot_filter is not None for d in ds)
+        and any(d.dataset.hot_filter.hot_idx > 0 for d in ds)),
+    "train_dataloader;dataset;sequence;pause;enabled=true": lambda t: _one_finite_step(
+        t, lambda ds: all(d.pause_enabled for d in ds)),
 }
+
+
+# what a case of NOW_PORTED needs beside its key (the reference reads a
+# noise level whenever noise is on)
+NOW_PORTED_WITH = {"train_dataloader;dataset;add_noise;enabled=true": [
+    "train_dataloader;dataset;add_noise;noise_level=0.1"]}
+
+
+def _one_finite_step(trainer, took):
+    """The trainer takes one step on the option's batch: finite losses, and
+    the option took effect in the recordings' datasets (``took``)."""
+    metrics = trainer.train_step(trainer._select(next(iter(trainer.train_loader))))
+    return (all(np.isfinite(metrics[k].numpy()).all() for k in ("loss", "grad_norm"))
+            and took(trainer.train_loader.dataset.datasets))
 # keys the reference itself refuses: the port raises its error
 REFUSED_AS_REFERENCE = {
     "trainer;epoch_based_train;enabled=true": "epoch_based_train is not supported",
@@ -841,10 +901,13 @@ REFUSED_AS_REFERENCE = {
     ("trainer;epoch_based_train;enabled=true", "trainer;epoch_based_train;enabled=false"),
     ("trainer;max_bad_steps=2", "trainer;max_bad_steps=null"),
     ("train_dataloader;dataset;add_noise;enabled=true", "add_noise"),
+    ("train_dataloader;dataset;hot_filter;enabled=true", "hot_filter"),
+    ("train_dataloader;dataset;sequence;pause;enabled=true", "sequence.pause"),
     ("train_dataloader;num_workers=2", "num_workers to 0"),
 ])
 def test_unported_keys_raise_naming_the_override(trained, override, named):
-    run = _run(trained["out"], trained["corpus"], extra=[override], make_dirs=False)
+    run = _run(trained["out"], trained["corpus"], extra=[override, *NOW_PORTED_WITH.get(
+        override, ())], make_dirs=False)
     if override in NOW_PORTED:
         assert NOW_PORTED[override](Trainer(run, device="cpu"))
         return
@@ -911,6 +974,44 @@ def test_train_step_is_bitwise_run_to_run_on_card():
     for i in (1, 2):
         bad = [n for n in runs[0][i] if not same(runs[0][i][n], runs[1][i][n])]
         assert not bad, bad
+
+
+@pytest.fixture(scope="module")
+def card_option_runs(shared_corpus_dir, tmp_path_factory):
+    """On the card: the flagship config cut to size with ``add_noise``,
+    ``hot_filter`` and ``sequence.pause`` on, ``k_steps`` 2 over 4
+    iterations (an eager group, then a replay), run twice; each run's
+    logged losses, its graph's replays and its parameters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the DCN kernels have no CPU mode (chip_smoke.py "
+                    "phase 8f runs the same check at the flagship on the H100)")
+    extra = ["train_dataloader;dataset;add_noise;enabled=true",
+             "train_dataloader;dataset;add_noise;noise_level=0.1",
+             "train_dataloader;dataset;hot_filter;enabled=true",
+             "train_dataloader;dataset;sequence;pause;enabled=true",
+             "trainer;k_steps=2", "trainer;iteration_based_train;valid_step=1000000000"]
+    out = tmp_path_factory.mktemp("card_options")
+    runs = []
+    for name in ("a", "b"):
+        trainer = Trainer(_run(out / name, shared_corpus_dir, extra=extra), device="cuda")
+        trainer.train()
+        with open(trainer.log_path) as f:
+            losses = [json.loads(line)["train_loss"] for line in f if "train_loss" in line]
+        runs.append((losses, trainer.multi_step.graph.replays,
+                     [p.detach().cpu() for p in trainer.model.parameters()]))
+    return runs
+
+
+@pytest.mark.gpu
+def test_options_group_is_bitwise_run_to_run_on_card(card_option_runs):
+    """The two runs with the data options on: a replayed group each, the
+    same losses and parameters, bit for bit."""
+    (losses_a, replays_a, params_a), (losses_b, replays_b, params_b) = card_option_runs
+    assert replays_a >= 1 and replays_b >= 1
+    assert len(losses_a) == 4 and np.isfinite(losses_a).all()
+    assert losses_a == losses_b
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(params_a, params_b))
 
 
 @pytest.fixture(scope="module")
