@@ -149,6 +149,30 @@ Phases (any failure exits non-zero):
    the same images; the harness's per-window p50 with and without LPIPS,
    LPIPS's device ms a window. Last, phase 8d's card-against-CPU window
    again, three times (C10).
+8g. data parallelism and the norms: (a) the flagship at batch 32, 16
+   iterations (``k_steps`` 8: an eager group, a captured one), a
+   validation and a checkpoint, through ``esr_tpu_torch.train`` with
+   ``--multihost`` under ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` (this script's ``--dp-worker`` mode: the ``train``
+   entry point on phase 7's in-memory recordings, since this machine has
+   no h5py; NCCL, the gradient all-reduce inside the captured group), then
+   in this process without ``--multihost``: the losses, the validation,
+   the checkpoint's parameters, Adam's state and digest bitwise; the DP
+   checkpoint resumed with ``-r auto`` for one group more; 14/14/14
+   launches a step in both; a captured step's ms each way. (b) where the
+   machine has two cards, world 2 at batch 16 a card against (a): losses
+   within 1e-4 relative, parameters within 1e-3 of their scale; else it
+   prints why it was skipped. (c) ``configs/train_srunet_2x.yml`` with
+   ``norm`` BN, then IN: 3 eager steps, a validation and a checkpoint; a
+   ``k_steps`` 8 group's warm-up (eager), then from the same state put back
+   in place the captured group, bitwise it (the running statistics too);
+   two steps from one state bitwise; phase 8d's card-against-CPU window
+   (an InstanceNorm's removed conv biases held at noise level); the
+   checkpoint through ``run_inference`` by the harness and the graphed
+   engine at f32 (within 1e-4 of each other) and int8 (within 1.0 dB of
+   f32). The DP worker of (a) runs beside this process's plain run and
+   (c)'s checks, which take no time; then each captured step (a) and each
+   norm's eager and captured step (c) is timed alone on the card.
 
 8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
    ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
@@ -198,7 +222,8 @@ Phases (any failure exits non-zero):
    4 for depths 8 and 4 (the serving classes') at f32 and int8, and for
    depth 8 at bf16 (its sessions serve every stream in the standard
    class), the five exports at once, a process each, beside the SR
-   recipe's two of phase 8e; each export's seconds
+   recipe's two of phase 8e and the two ``serve.main --aot`` processes
+   below; each export's seconds
    and bytes and each program's load ms printed; the serving phase's 8 streams replayed on a virtual clock (0.05 s a round, so both sessions bind,
    preempt and chunk alike) through a traced session and through
    ``aot_programs`` at each rung: every request's metrics, windows, skips
@@ -206,10 +231,11 @@ Phases (any failure exits non-zero):
    launches (``dcn_fwd_masked`` 2 a window step; K1 and K2 at int8, which
    only the loaded artifact can have launched in that session); each
    program's build or load ms, the first chunk's readback and window
-   p50/p99 beside the traced session's. Then ``serve.main --aot`` with one
+   p50/p99 beside the traced session's. ``serve.main --aot`` with one
    replica and with ``--replicas 2`` (each replica through an
-   ``AotRegistry``), at once, a process each: every request ok, none
-   lost, the artifact written, the process's ``dcn_fwd_masked`` launched;
+   ``AotRegistry``), at once, a process each, started with the exports and
+   joined before the sessions: every request ok, none lost, the artifact
+   written, the process's ``dcn_fwd_masked`` launched;
 11. the sparse train step: one B=32 step from the flagship config with
    ``model;args;dcn_sparse=true`` launches ``dcn_train_fwd_masked``,
    ``dcn_bwd`` and ``dcn_wgrad`` 14 times each; its losses and every grad
@@ -233,7 +259,7 @@ Phases (any failure exits non-zero):
    every recording and request within 1.0 dB of f32.
 
 The phases run in the order 1-5, 8, 6, 9, 10, 10b, 10c, 12, 7 (with 11
-inside 7), 8c, 8d, 8e, 8f, 7c, then the trainer's runtime.
+inside 7), 8c, 8d, 8e, 8f, 8g, 7c, then the trainer's runtime.
 The line before the last is the ``{"kernels": [...]}`` record (eight
 kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -1742,14 +1768,31 @@ def srunet_window(torch, trainer, sel, device, dtype, threads=None):
         torch.set_num_threads(saved)
 
 
-def from_f64(torch, side, f64) -> dict:
+def from_f64(torch, side, f64, skip=()) -> dict:
     """A window's distance from the f64 run: the output's max abs error and
-    the gradient farthest from f64 relative to its own scale."""
+    the gradient farthest from f64 relative to its own scale (``skip``:
+    gradients of no scale of their own)."""
     out, grads = side
     worst = max(((n, float((g - f64[1][n]).abs().max()), float(f64[1][n].abs().max()))
-                 for n, g in grads.items()), key=lambda r: r[1] / max(r[2], TINY))
+                 for n, g in grads.items() if n not in skip),
+                key=lambda r: r[1] / max(r[2], TINY))
     return {"output": float((out - f64[0]).abs().max()), "grad": worst[0],
             "grad_err": worst[1], "grad_scale": worst[2]}
+
+
+def zero_gradient_biases(model) -> set:
+    """The conv biases an InstanceNorm takes right after its conv: the
+    instance mean removes them, so their gradient is 0 in exact arithmetic
+    and f32 leaves noise of no scale of its own."""
+    from esr_tpu_torch.models.layers import TorchInstanceNorm
+
+    out = set()
+    for name, m in model.named_modules():
+        for conv, norm in (("conv", "norm"), ("conv1", "norm1"), ("conv2", "norm2")):
+            if (isinstance(getattr(m, norm, None), TorchInstanceNorm)
+                    and getattr(m, conv).bias is not None):
+                out.add(f"{name}.{conv}.bias")
+    return out
 
 
 def srunet_card_vs_cpu(torch, trainer, sel, cpu_threads=None, f64=None) -> dict:
@@ -1757,7 +1800,9 @@ def srunet_card_vs_cpu(torch, trainer, sel, cpu_threads=None, f64=None) -> dict:
     card and on the CPU (``cpu_threads`` intra-op threads; None keeps the
     process's): the output within 1e-3 * max(|ref|, 1), and every
     parameter's gradient of its MSE within 1e-3 of its own scale max|ref|
-    (a gradient's scale may be far below 1). The numerics flags at the
+    (a gradient's scale may be far below 1); a conv bias an InstanceNorm
+    removes (:func:`zero_gradient_biases`) within 1e-3 of the largest
+    gradient's scale on both sides instead. The numerics flags at the
     check, the host's CPU and each side's distance from the same window on
     the CPU in f64 are printed on every call, so a failure says which side
     strayed. Returns the distances and the f64 run (``f64`` reuses one)."""
@@ -1773,11 +1818,19 @@ def srunet_card_vs_cpu(torch, trainer, sel, cpu_threads=None, f64=None) -> dict:
     if f64 is None:
         f64 = srunet_window(torch, trainer, sel, "cpu", torch.float64)
     err, lim = err_of(torch, card[0], cpu[0])
-    rows = [(n, *rel_err_of(torch, card[1][n], g)) for n, g in cpu[1].items()]
+    zeros = zero_gradient_biases(trainer.model)
+    largest = max(float(g.abs().max()) for g in f64[1].values())
+    noise = max(float(side[1][n].abs().max()) for side in (card, cpu) for n in zeros) \
+        if zeros else 0.0
+    if not noise <= TOL * largest:
+        fail(f"srunet card vs CPU: a bias an InstanceNorm removes has a gradient of {noise:.3e},"
+             f" not noise under {TOL * largest:.3e}")
+    rows = [(n, *rel_err_of(torch, card[1][n], g)) for n, g in cpu[1].items()
+            if n not in zeros]
     worst = max(rows, key=lambda r: r[1] / r[3])
     threads = torch.get_num_threads() if cpu_threads is None else cpu_threads
     free, total = torch.cuda.mem_get_info()
-    dist = {"card": from_f64(torch, card, f64), "cpu": from_f64(torch, cpu, f64),
+    dist = {"card": from_f64(torch, card, f64, zeros), "cpu": from_f64(torch, cpu, f64, zeros),
             "cpu_threads": threads, "output_err": err, "worst": worst[0],
             "worst_ratio": worst[1] / worst[3]}
     print(f"srunet card vs CPU: a window at B=1, {tuple(cpu[0].shape)} out, max_abs_err "
@@ -1785,7 +1838,9 @@ def srunet_card_vs_cpu(torch, trainer, sel, cpu_threads=None, f64=None) -> dict:
           f"{worst[1]:.3e} of its scale {worst[2]:.3e} (limit {worst[3]:.3e}); CPU at "
           f"{threads} threads ({cpu_identity()}, default {torch.get_num_threads()}); "
           f"flags {json.dumps(flags)}; the card's memory {free / 2**30:.2f} of "
-          f"{total / 2**30:.2f} GiB free")
+          f"{total / 2**30:.2f} GiB free"
+          + (f"; {len(zeros)} biases an InstanceNorm removes at most {noise:.3e} (the largest "
+             f"gradient {largest:.3e})" if zeros else ""))
     for way in ("card", "cpu"):
         d = dist[way]
         print(f"srunet card vs CPU: {way} against the CPU in f64: output {d['output']:.3e}, "
@@ -2305,6 +2360,430 @@ def phase_data_options(torch, np, dev, card, repo: Path, out_root: str, recs, c1
     print(f"data options and LPIPS phase {time.perf_counter() - t_phase:.1f} s (training "
           f"{t_train - t_phase:.1f} s, LPIPS {t_lpips - t_train:.1f} s, C10's window x"
           f"{C10_REPEATS} {time.perf_counter() - t_lpips:.1f} s)")
+
+
+# Phase 8g: data parallelism (``train --multihost``) at world 1 over NCCL,
+# world 2 where the machine has two cards, and the SR recipe with norms
+DP_ITERATIONS = 2 * GRAPH_K  # an eager group, then a captured one
+DP_OVERRIDES = [f"trainer;k_steps={GRAPH_K}", "train_dataloader;num_workers=0",
+                f"trainer;iteration_based_train;valid_step={GRAPH_K}",
+                f"trainer;iteration_based_train;save_period={GRAPH_K}",
+                "trainer;iteration_based_train;train_log_step=1",
+                "trainer;tensorboard=false", "trainer;vis;enabled=false"]
+DP_TIMEOUT_S = 400
+DP2_LOSS_RTOL = 1e-4  # world 2 at B=16 against world 1 at B=32
+DP2_PARAM_TOL = 1e-3  # of each parameter's scale
+DP_EXPERIMENT = "DeepRecurrentNetwork"  # configs/train_esr_2x.yml's experiment
+
+
+def dp_recordings(np):
+    """Phase 8g's flagship data: the graphs phase's first 8 training
+    recordings (an epoch of 8 batches of 32, one full group) and phase 7's
+    validation recording, made from their seeds."""
+    from esr_tpu_torch.data.synthetic import make_synthetic_recording
+
+    def rec(events, seed):
+        return make_synthetic_recording((720, 1280), base_events=events, num_frames=2,
+                                        rungs=("down8", "down16"), seed=seed)
+
+    return [rec(300_000, 100 + i) for i in range(GRAPH_K)], [rec(40_000, 20)]
+
+
+def dp_args(repo: Path, out_dir: str, iterations: int, extra=()):
+    """The ``train`` command line of phase 8g's flagship runs."""
+    args = ["-c", str(repo / "configs" / "train_esr_2x.yml"), "-id", "chip_smoke_dp",
+            "-seed", "0"]
+    for ov in DP_OVERRIDES + [f"trainer;output_path={out_dir}",
+                              f"trainer;iteration_based_train;iterations={iterations}",
+                              *extra]:
+        args += ["-o", ov]
+    return args
+
+
+def captured_step_ms(torch, multi, replays: int = 1) -> float:
+    """A step of the captured group ``multi`` (a ``MultiStep``), replayed
+    ``replays`` times on its last slots (host clock to ``synchronize``), in
+    ms. It steps the model on: time after what is compared."""
+    if multi.graph is None:
+        fail("the run did not capture its group")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        multi()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (replays * multi.k)
+
+
+def dp_worker(argv) -> int:
+    """``chip_smoke.py --dp-worker <out_dir> <batch> <resume 0|1> <go|->``,
+    one process of ``torch.distributed.run``: the flagship through the
+    ``train`` entry point with ``--multihost`` (NCCL) on
+    :func:`dp_recordings`; with ``resume``, ``-r auto`` one group more in
+    the same group; then, once the file ``go`` exists (the parent's work on
+    the card done; ``-``: at once), a step of the first run's captured
+    group timed. Rank 0 prints its launches and the step ms."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    from esr_tpu_torch import train as entry
+    from esr_tpu_torch.parallel import mesh
+    from esr_tpu_torch.training.multistep import launch_counts
+
+    t0 = time.perf_counter()
+    out_dir, batch, resume, go = argv[0], int(argv[1]), argv[2] == "1", argv[3]
+    train_recs, valid_recs = dp_recordings(np)
+    seconds = {"recordings": time.perf_counter() - t0}
+    size = [f"train_dataloader;batch_size={batch}"]
+    args = entry.get_args(dp_args(repo, out_dir, DP_ITERATIONS, size) + ["--multihost"])
+    trainer, result = entry.run(args, train_recordings=train_recs, valid_recordings=valid_recs)
+    seconds["run"] = time.perf_counter() - t0 - sum(seconds.values())
+    report = {"rank": trainer.shard_id, "world": trainer.num_shards,
+              "device": str(trainer.device), "launches": launch_counts(), "result": result,
+              "seconds": seconds}
+    if resume:
+        t1 = time.perf_counter()
+        args = entry.get_args(dp_args(repo, out_dir, DP_ITERATIONS + GRAPH_K, size)
+                              + ["--multihost", "-r", "auto"])
+        again, _ = entry.run(args, train_recordings=train_recs, valid_recordings=valid_recs)
+        report["resumed_at"] = again.start_iteration
+        seconds["resume"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    while go != "-" and not os.path.exists(go):
+        if time.perf_counter() - t1 > DP_TIMEOUT_S:
+            print(f"dp_worker: {go} did not appear in {DP_TIMEOUT_S} s", file=sys.stderr)
+            return 1
+        time.sleep(0.05)
+    seconds["waited"] = time.perf_counter() - t1
+    report["step_ms"] = captured_step_ms(torch, trainer.multi_step._step)
+    if trainer.is_main:
+        print("dp_worker: " + json.dumps(report))
+    mesh.destroy()
+    return 0
+
+
+def end_process_group(proc) -> None:
+    """Kill ``proc`` (started in a session of its own) and every process it
+    started."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+
+
+def torchrun_start(repo: Path, nproc: int, worker_args, log_dir: str):
+    """``python -m torch.distributed.run --standalone`` of this script's
+    ``--dp-worker`` in ``nproc`` processes, one card each, started in the
+    background (its output in files under ``log_dir``); killed with its
+    workers when this script exits before :func:`torchrun_join`."""
+    os.makedirs(log_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(repo / "chip_smoke.py"), "--dp-worker",
+           *worker_args]
+    with open(os.path.join(log_dir, "out.txt"), "w") as out, \
+            open(os.path.join(log_dir, "err.txt"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=str(repo), stdout=out, stderr=err,
+                                start_new_session=True)
+    atexit.register(end_process_group, proc)
+    return {"proc": proc, "nproc": nproc, "log_dir": log_dir, "t0": time.perf_counter()}
+
+
+def torchrun_join(run, timeout: float = DP_TIMEOUT_S):
+    """Wait for :func:`torchrun_start`'s launcher, at most ``timeout`` s
+    from its start (then the launcher and its workers are killed
+    together); rank 0's report and the seconds since the start."""
+    proc, nproc = run["proc"], run["nproc"]
+    try:
+        proc.wait(timeout=max(1.0, run["t0"] + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        end_process_group(proc)
+        fail(f"torchrun --nproc_per_node {nproc} did not end in {timeout} s")
+    seconds = time.perf_counter() - run["t0"]
+    with open(os.path.join(run["log_dir"], "out.txt")) as f:
+        out = f.read()
+    with open(os.path.join(run["log_dir"], "err.txt")) as f:
+        err = f.read()
+    if proc.returncode != 0:
+        fail(f"torchrun --nproc_per_node {nproc}: exit {proc.returncode}:\n{err[-4000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("dp_worker: ")]
+    if len(lines) != 1:
+        fail(f"torchrun --nproc_per_node {nproc}: {len(lines)} reports (rank 0 prints one)")
+    return json.loads(lines[0][len("dp_worker: "):]), seconds
+
+
+def run_log(out_dir: str):
+    with open(os.path.join(out_dir, "logs", DP_EXPERIMENT, "chip_smoke_dp",
+                           "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def ckpt_state(torch, out_dir: str, iteration: int):
+    """A committed checkpoint's host state and its recorded digest."""
+    from esr_tpu_torch.resilience.recovery import read_digest
+    from esr_tpu_torch.training.checkpoint import restore_state
+
+    path = os.path.join(out_dir, "models", DP_EXPERIMENT, "chip_smoke_dp",
+                        f"checkpoint-iteration{iteration}")
+    if not os.path.isfile(os.path.join(path, "meta.json")):
+        fail(f"data parallelism: {path} is not committed")
+    return restore_state(path), read_digest(path)
+
+
+def dp_plain_run(torch, repo: Path, plain_dir: str, recs):
+    """8g (a)'s plain side: the same flagship run in this process without
+    ``--multihost``; the trainer, its run's launches and its seconds."""
+    from esr_tpu_torch import train as entry
+    from esr_tpu_torch.training.multistep import launch_counts
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    plain, _ = entry.run(entry.get_args(dp_args(repo, plain_dir, DP_ITERATIONS)),
+                         train_recordings=recs[0], valid_recordings=recs[1])
+    seconds = time.perf_counter() - t0
+    if plain.num_shards != 1 or plain.multi_step._step.graph is None:
+        fail("data parallelism: the plain run is not one process with a captured group")
+    return plain, launch_counts(), seconds
+
+
+def dp_world_one(torch, np, card, worker, plain_side, dp_dir: str, plain_dir: str) -> dict:
+    """8g (a): the worker's run through ``train --multihost`` under
+    ``torch.distributed.run`` at world 1 (NCCL; the gradient all-reduce
+    inside the captured group) joined and held against ``plain_side``
+    (:func:`dp_plain_run`'s): the losses, the validation, the checkpoint's
+    parameters, Adam's state and digest bitwise; the DP checkpoint resumed
+    for one more group; a captured step each way, each timed alone."""
+    report, dp_s = torchrun_join(worker)
+    if (report["world"], report["device"]) != (1, "cuda:0"):
+        fail(f"data parallelism: the worker ran at world {report['world']} on "
+             f"{report['device']}")
+    plain, launches, plain_s = plain_side
+    dp_log, plain_log = run_log(dp_dir), run_log(plain_dir)
+    keys = ("iteration", "train_loss", "train_mse_loss", "grad_norm", "valid_loss",
+            "valid_mse_loss")
+    rows = [[{k: r[k] for k in keys if k in r} for r in log if r["iteration"] < DP_ITERATIONS]
+            for log in (dp_log, plain_log)]
+    if rows[0] != rows[1] or len(rows[0]) != DP_ITERATIONS + 1:
+        fail(f"data parallelism: the world-1 losses are not bitwise the plain run's: "
+             f"{rows[0][:3]} vs {rows[1][:3]}")
+    (dp_state, dp_digest), (plain_state, plain_digest) = (
+        ckpt_state(torch, d, DP_ITERATIONS - 1) for d in (dp_dir, plain_dir))
+    bad = sorted(k for k in plain_state if k not in dp_state
+                 or not np.array_equal(dp_state[k], plain_state[k]))
+    if bad or dp_digest != plain_digest or sorted(dp_state) != sorted(plain_state):
+        fail(f"data parallelism: the world-1 checkpoint differs from the plain run's: {bad[:5]}"
+             f", digests {dp_digest} / {plain_digest}")
+    resumed = [r["iteration"] for r in dp_log if "train_loss" in r][DP_ITERATIONS:]
+    if report["resumed_at"] != DP_ITERATIONS or resumed != list(
+            range(DP_ITERATIONS, DP_ITERATIONS + GRAPH_K)):
+        fail(f"data parallelism: the resume started at {report['resumed_at']} and trained "
+             f"{resumed}")
+    ckpt_state(torch, dp_dir, DP_ITERATIONS + GRAPH_K - 1)
+    steps = 14 * DP_ITERATIONS
+    for name in ("dcn_train_fwd", "dcn_bwd", "dcn_wgrad"):
+        if report["launches"][name] != steps or launches[name] != steps:
+            fail(f"data parallelism: {name} launched {report['launches'][name]} (DP) and "
+                 f"{launches[name]} (plain) times in {DP_ITERATIONS} steps, not {steps}")
+    if report["launches"]["dcn_fwd"] != launches["dcn_fwd"] or not launches["dcn_fwd"]:
+        fail(f"data parallelism: validation's dcn_fwd {report['launches']['dcn_fwd']} vs "
+             f"{launches['dcn_fwd']}")
+    plain_ms = captured_step_ms(torch, plain.multi_step._step)
+    print(f"data parallelism on {card}: the flagship at B=32, {DP_ITERATIONS} iterations "
+          f"(k_steps {GRAPH_K}: an eager group, a captured one), a validation and a "
+          f"checkpoint: train --multihost under torch.distributed.run at world 1 (NCCL, the "
+          f"gradient all-reduce in the captured group) bitwise the plain run (losses, "
+          f"{len(plain_state)} state arrays, digest {plain_digest[:16]}); resumed -r auto at "
+          f"{report['resumed_at']} for one group; launches a run {report['launches']}")
+    print(f"data parallelism on {card}: a captured step {report['step_ms']:.3f} ms with the "
+          f"group (world 1) against {plain_ms:.3f} ms without, each timed alone on the card; "
+          f"the worker {dp_s:.1f} s (launcher, process start and its "
+          f"{json.dumps({k: round(v, 1) for k, v in report['seconds'].items()})} s), beside "
+          f"it the plain run {plain_s:.1f} s and the norms")
+    return {"launches": report["launches"], "dp_dir": dp_dir}
+
+
+def dp_world_two(torch, np, card, repo: Path, out_root: str, world_one: dict) -> None:
+    """8g (b): world 2 at B=16 a card against world 1 at B=32, where the
+    machine has two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"data parallelism: world 2 skipped: this machine has {n} card(s), the run "
+              "needs 2 (one process a card)")
+        return
+    dp2 = os.path.join(out_root, "dp2")
+    torchrun_join(torchrun_start(repo, 2, [dp2, "16", "0", "-"],
+                                 os.path.join(out_root, "torchrun2")))
+    one = [r for r in run_log(world_one["dp_dir"]) if "train_loss" in r][:DP_ITERATIONS]
+    two = [r for r in run_log(dp2) if "train_loss" in r]
+    worst = max(abs(a["train_loss"] - b["train_loss"]) / abs(a["train_loss"])
+                for a, b in zip(one, two))
+    if len(two) != DP_ITERATIONS or not worst <= DP2_LOSS_RTOL:
+        fail(f"data parallelism: world 2's losses differ from world 1's by {worst:.3e}")
+    (s1, _), (s2, _) = (ckpt_state(torch, d, DP_ITERATIONS - 1)
+                        for d in (world_one["dp_dir"], dp2))
+    ratios = {k: float(np.abs(s2[k] - s1[k]).max()) / max(float(np.abs(s1[k]).max()), TINY)
+              for k in s1 if k.startswith("params/")}
+    key = max(ratios, key=ratios.get)
+    if not ratios[key] <= DP2_PARAM_TOL:
+        fail(f"data parallelism: world 2's {key} is {ratios[key]:.3e} of its scale from "
+             "world 1's")
+    print(f"data parallelism on {card}: world 2 (B=16 a card) against world 1 (B=32): "
+          f"losses within {worst:.3e}, parameters within {ratios[key]:.3e} of their scale "
+          f"({key})")
+
+
+def norm_recipe(torch, np, dev, card, repo: Path, out_root: str, recs, evals, norm: str):
+    """8g (c): ``configs/train_srunet_2x.yml`` with ``norm``: 3 eager steps
+    through the trainer, a validation and a checkpoint; then a group of
+    ``k_steps`` 8 from that state twice: its warm-up (eager), and, the state
+    put back in place (the graph holds its tensors), the captured group,
+    bitwise (losses, parameters, Adam's moments, the running statistics);
+    two steps from one state bitwise; a window on the card against the CPU
+    (C10's check and prints); the checkpoint through ``run_inference``'s
+    harness and its graphed engine at f32 (within 1e-4 of each other) and
+    int8 (the norms f32 there; each within 1.0 dB of its f32 PSNR).
+    Nothing here is timed, so it may run beside phase 8g's DP worker: the
+    returned function times an eager step and a step of the captured group
+    later, alone on the card."""
+    from itertools import islice
+
+    from esr_tpu_torch.config.parser import load_config
+    from esr_tpu_torch.inference.engine import METRIC_KEYS
+    from esr_tpu_torch.inference.harness import run_inference
+    from esr_tpu_torch.training.checkpoint import find_latest_checkpoint
+    from esr_tpu_torch.training.multistep import launch_counts, make_multi_step
+
+    t0 = time.perf_counter()
+    run, trainer = srunet_trainer(dev, repo, os.path.join(out_root, norm), recs, 3,
+                                  [f"model;args;norm={norm}", "trainer;k_steps=1"])
+    trainer.train()
+    with open(trainer.log_path) as f:
+        losses = [r["train_loss"] for r in map(json.loads, f) if "train_loss" in r]
+    ckpt = find_latest_checkpoint(os.path.dirname(run.save_dir))
+    stats = [n for n, _ in trainer.model.named_buffers() if n.endswith("running_var")]
+    if len(losses) != 3 or not all(map(math.isfinite, losses)) or not stats or ckpt is None:
+        fail(f"norm {norm}: losses {losses}, {len(stats)} norms, checkpoint {ckpt}")
+    t_train = time.perf_counter()
+    batches = [trainer._select(b) for b in islice(iter(trainer.train_loader), SR_K)]
+    multi = make_multi_step(trainer.train_step._step, SR_K, optimizer=trainer.optimizer)
+
+    def group():
+        for j, b in enumerate(batches):
+            multi.load(j, b)
+        return multi()
+
+    opt = trainer.optimizer
+    tensors = (list(trainer.model.parameters()) + list(trainer.model.buffers())
+               + [v for st in opt.optimizer.state.values() for v in st.values()
+                  if isinstance(v, torch.Tensor)])
+    count = opt.count
+    start = [t.detach().clone() for t in tensors]
+    eager = group()["loss"].clone()  # the warm-up: eager
+    after = [t.detach().clone() for t in tensors]
+    with torch.no_grad():
+        for t, v in zip(tensors, start):
+            t.copy_(v)
+    opt.count = count
+    captured = group()
+    torch.cuda.synchronize()
+    if multi.graph is None or multi.graph.replays != 1:
+        fail(f"norm {norm}: the second group was not captured and replayed once")
+    same = same_bits(torch, captured["loss"], eager) and all(
+        same_bits(torch, t, v) for t, v in zip(tensors, after))
+    if not same:
+        fail(f"norm {norm}: the captured group differs from the same 8 steps run eagerly")
+    t_group = time.perf_counter()
+    print(f"norm {norm}: the SR recipe ({len(stats)} norms' running statistics), 3 eager steps, "
+          f"a validation and a checkpoint in {t_train - t0:.2f} s (losses "
+          f"{[round(v, 6) for v in losses]}); a captured group of {SR_K} bitwise the same "
+          f"steps run eagerly (losses, parameters, Adam's moments, the running statistics) in "
+          f"{t_group - t_train:.2f} s with the batches")
+    c2_bitwise_step(torch, trainer, batches[0], what=f"B={SR_BATCH} SRUNet {norm}")
+    srunet_card_vs_cpu(torch, trainer, batches[0])
+    step, first = trainer.train_step._step, batches[0]
+    del trainer, opt, batches, captured, tensors, start, after
+    reports = {}
+    for rung in ("f32", "int8"):
+        reset_all_launches()
+        for way, engine in (("harness", False), ("engine", True)):
+            out = os.path.join(out_root, f"{norm}_eval_{rung}_{way}")
+            run_inference(ckpt, evals, out, engine=engine, device=dev, lanes=LANES,
+                          chunk_windows=CHUNK_WINDOWS, precision=rung)
+            got = load_config(os.path.join(out, "inference_all.yml"))[
+                "breakdown results for each data"]
+            reports[rung, way] = {rec.name: {k: got[k][rec.name] for k in got} for rec in evals}
+        counts = launch_counts()
+        k12 = {k: counts[k] for k in ("int8_conv", "quantize_per_tensor")}
+        if (rung == "int8") != all(k12.values()):
+            fail(f"norm {norm} {rung}: K1/K2 launched {k12}")
+    worst, drop = 0.0, 0.0
+    for rec in evals:
+        for rung, way in reports:
+            r = reports[rung, way][rec.name]
+            if not all(math.isfinite(r[k]) for k in METRIC_KEYS):
+                fail(f"norm {norm} {rung} {way} {rec.name}: a metric is not finite: {r}")
+        h, e = reports["f32", "harness"][rec.name], reports["f32", "engine"][rec.name]
+        if h["n_windows"] != e["n_windows"]:
+            fail(f"norm {norm} {rec.name}: windows {h['n_windows']} / {e['n_windows']}")
+        worst = max([worst] + [abs(e[k] - h[k]) / max(abs(h[k]), 1e-12) for k in METRIC_KEYS])
+        for way in ("harness", "engine"):
+            drop = max(drop, abs(reports["int8", way][rec.name]["esr_psnr"]
+                                 - reports["f32", way][rec.name]["esr_psnr"]))
+    if not (worst <= ENGINE_TOL and drop <= PSNR_DROP_DB):
+        fail(f"norm {norm}: the f32 engine is {worst:.3e} from the harness, or int8 "
+             f"{drop:.3f} dB from f32")
+    print(f"norm {norm}: the checkpoint through run_inference over {len(evals)} recordings, "
+          f"the harness and the graphed engine: at f32 within {worst:.3e} of each other (limit "
+          f"{ENGINE_TOL}); at int8 (K1/K2 launched, the norms f32) within {drop:.4f} dB of f32 "
+          f"(limit {PSNR_DROP_DB})")
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(first)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        print(f"norm {norm} on {card}: alone on the card, batch {SR_BATCH}, every frame's "
+              f"decoders, host clock to synchronize: an eager step {eager_ms:.3f} ms, a step of "
+              f"the captured group {captured_step_ms(torch, multi):.3f} ms")
+    return timed
+
+
+def phase_dp_norms(torch, np, dev, card, repo: Path, out_root: str, recs, dp_recs,
+                   sr_evals) -> None:
+    """Phase 8g: data parallelism and the norms (module docstring).
+    ``dp_recs``: :func:`dp_recordings`' (the graphs phase's and phase 7's).
+    The DP worker runs beside this process's plain run and norm checks,
+    which take no time; once they are done the worker times its step, then
+    this process its own, each alone on the card."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the worker process shares the card
+    dp_dir, plain_dir = os.path.join(out_root, "dp"), os.path.join(out_root, "plain")
+    go = os.path.join(out_root, "go")
+    worker = torchrun_start(repo, 1, [dp_dir, "32", "1", go], os.path.join(out_root, "torchrun1"))
+    plain_side = dp_plain_run(torch, repo, plain_dir, dp_recs)
+    train_recs, valid_recs, _ = srunet_recordings(np, recs)
+    timers = [norm_recipe(torch, np, dev, card, repo, out_root, (train_recs, valid_recs),
+                          sr_evals[:1], norm) for norm in ("BN", "IN")]
+    t_beside = time.perf_counter()
+    Path(go).touch()
+    world_one = dp_world_one(torch, np, card, worker, plain_side, dp_dir, plain_dir)
+    t_joined = time.perf_counter()
+    for timed in timers:
+        timed()
+    del plain_side, timers
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    dp_world_two(torch, np, card, repo, out_root, world_one)
+    print(f"data parallelism and norms phase {time.perf_counter() - t_phase:.1f} s (the plain "
+          f"run and the norms beside the DP worker {t_beside - t_phase:.1f} s, then the "
+          f"worker's end and the world-1 checks {t_joined - t_beside:.1f} s, the norms' times "
+          f"{t_a - t_joined:.1f} s, world 2 {time.perf_counter() - t_a:.1f} s)")
+    return world_one["launches"]
 
 
 # Part of phase 8e: the SR recipe's int8 seams (hooked at B=1 on a 90x160
@@ -2977,18 +3456,27 @@ def phase_train_runtime(torch, np, dev, card, repo: Path, out_root: str, recs):
     if not kernels:
         fail("the profiler trace holds no dcn_* kernel")
     del prof
+    # obs report and obs export at once, a process each
     cli = [sys.executable, "-m", "esr_tpu_torch.obs"]
-    rep = subprocess.run(cli + ["report", tel, "--slo", str(repo / "configs" / "slo.yml")],
-                         capture_output=True, text=True, timeout=300, cwd=str(repo))
-    if rep.returncode != 0:
-        fail(f"obs report on the runtime run exited {rep.returncode}: {rep.stderr[-2000:]}")
-    goodput = json.loads(rep.stdout)["report"]["goodput"]
-    exp = subprocess.run(cli + ["export", tel, "-o",
-                                os.path.join(trainer.trace_dir, "telemetry.trace.json")],
-                         capture_output=True, text=True, timeout=300, cwd=str(repo))
-    if exp.returncode != 0:
-        fail(f"obs export exited {exp.returncode}: {exp.stderr[-2000:]}")
-    print(f"obs report: slo.yml green, goodput {goodput}; obs export: {exp.stdout.strip()}")
+    procs = {what: subprocess.Popen(cli + args, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, cwd=str(repo)) for what, args in (
+        ("report", ["report", tel, "--slo", str(repo / "configs" / "slo.yml")]),
+        ("export", ["export", tel, "-o", os.path.join(trainer.trace_dir,
+                                                      "telemetry.trace.json")]))}
+    outs = {}
+    try:
+        for what, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"obs {what} on the runtime run exited {proc.returncode}: {err[-2000:]}")
+            outs[what] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    goodput = json.loads(outs["report"])["report"]["goodput"]
+    print(f"obs report: slo.yml green, goodput {goodput}; obs export: {outs['export'].strip()}")
 
     dataset = trainer.train_loader.dataset
     batch = collate_sequences([dataset.get_item(i, seed=i) for i in range(32)])
@@ -3045,83 +3533,101 @@ def check_writer_records(run, trainer):
           f"tensorboard importable: {importlib.util.find_spec('tensorboard') is not None}")
 
 
+def boot_worker(barrier, route: str) -> bool:
+    """A loader worker's first task in :func:`batch_build`: take ``route``
+    (``numpy``: ``ESR_TPU_NATIVE=0`` in this worker, read at every encoder
+    call), wait until every worker of the pool holds such a task, and say
+    whether the native kernels are on here."""
+    if route == "numpy":
+        os.environ["ESR_TPU_NATIVE"] = "0"
+    barrier.wait(300)
+    from esr_tpu_torch import native
+
+    return native.available()
+
+
 def batch_build(np, train_recs, dataset_config, batch_size, card):
     """The B=32 batch build of the trainer's loader (its item keys, its
     augmentation), with the native host kernels and with numpy
     (``ESR_TPU_NATIVE=0``), each at ``num_workers`` 0, 2 and 4: ms per batch
     over one epoch after warm ones (the worker pool up), the warm epochs'
-    wall beside it. A route's two worker pools boot side by side first (a
-    spawn pickles the recordings to its worker and takes seconds; a pool
-    spawns its workers one by one, and only while none is idle, so each
-    worker's first task waits for all of them), then each configuration is
-    timed alone.
+    wall beside it. The four worker pools boot side by side first (a spawn
+    pickles the recordings to its worker and takes seconds; a pool spawns
+    its workers one by one, and only while none is idle, so each worker's
+    first task waits for all of them; a numpy pool's workers take their
+    route in that task), then each configuration is timed alone.
     The native route must take every encoder call of the in-process build
-    and numpy none, and the reverse; every configuration's first batch is
-    bitwise the in-process native one."""
+    and numpy none, and the reverse, and every worker of a pool its route;
+    every configuration's first batch is bitwise the in-process native
+    one."""
     import multiprocessing
     import threading
 
     from esr_tpu_torch.data import np_encodings as NE
     from esr_tpu_torch.data.loader import ConcatSequenceDataset, SequenceLoader
 
-    def boot(loader, barrier, errors):
+    def boot(loader, route, barrier, errors):
         try:
             pool = loader._get_pool()
-            for f in [pool.submit(barrier.wait, 300) for _ in range(loader.num_workers)]:
-                f.result(timeout=600)
+            on = [f.result(timeout=600) for f in [pool.submit(boot_worker, barrier, route)
+                                                  for _ in range(loader.num_workers)]]
+            if on != [route == "native"] * loader.num_workers:
+                errors.append(f"{route} num_workers {loader.num_workers}: the native kernels "
+                              f"on in its workers {on}")
         except Exception as e:  # noqa: BLE001 - reported by the caller
-            errors.append(f"num_workers {loader.num_workers}: {e!r}")
+            errors.append(f"{route} num_workers {loader.num_workers}: {e!r}")
 
     dataset = ConcatSequenceDataset(train_recs, dataset_config)
+    loaders = {(route, w): SequenceLoader(dataset, batch_size, seed=0, prefetch=2,
+                                          num_workers=w)
+               for route in ("native", "numpy") for w in (0, 2, 4)}
     first, per_batch = {}, {}
-    for route in ("native", "numpy"):
-        if route == "numpy":
-            os.environ["ESR_TPU_NATIVE"] = "0"
-        loaders = {w: SequenceLoader(dataset, batch_size, seed=0, prefetch=2, num_workers=w)
-                   for w in (0, 2, 4)}
-        try:
+    try:
+        t0 = time.perf_counter()
+        errors = []
+        with multiprocessing.get_context("spawn").Manager() as manager:
+            boots = [threading.Thread(target=boot, args=(loader, route, manager.Barrier(w),
+                                                         errors))
+                     for (route, w), loader in loaders.items() if w]
+            for t in boots:
+                t.start()
+            for t in boots:
+                t.join()
+        if errors:
+            fail(f"the batch build's worker pools did not boot: {errors}")
+        booted = time.perf_counter() - t0
+        for (route, workers), loader in loaders.items():
+            if route == "numpy":
+                os.environ["ESR_TPU_NATIVE"] = "0"
+            NE.ROUTES.reset()
             t0 = time.perf_counter()
-            errors = []
-            with multiprocessing.get_context("spawn").Manager() as manager:
-                boots = [threading.Thread(target=boot, args=(loaders[w], manager.Barrier(w),
-                                                             errors)) for w in (2, 4)]
-                for t in boots:
-                    t.start()
-                for t in boots:
-                    t.join()
-            if errors:
-                fail(f"the {route} batch build's worker pools did not boot: {errors}")
-            booted = time.perf_counter() - t0
-            for workers, loader in loaders.items():
-                NE.ROUTES.reset()
-                t0 = time.perf_counter()
-                first[route, workers] = next(iter(list(loader)))
-                warm = 2 if workers else 1
-                for epoch in range(1, warm):
-                    loader.set_epoch(epoch)
-                    sum(1 for _ in loader)
-                t1 = time.perf_counter()
-                n = 0
-                for epoch in range(warm, warm + 1):
-                    loader.set_epoch(epoch)
-                    n += sum(1 for _ in loader)
-                t2 = time.perf_counter()
-                loader.close()
-                routes = NE.ROUTES.snapshot()
-                if workers == 0 and (routes[route] == 0 or routes["numpy" if route == "native"
-                                                                 else "native"] != 0):
-                    fail(f"the {route} batch build took the routes {routes}")
-                per_batch[route, workers] = (t2 - t1) / n * 1e3
-                print(f"batch build on the host of {card}: B={batch_size} {route} "
-                      f"num_workers {workers}: {per_batch[route, workers]:.3f} ms per batch "
-                      f"over {n} batches of one epoch after {warm} warm ones (those "
-                      f"{(t1 - t0) * 1e3:.3f} ms"
-                      + (f"; the route's pools booted side by side in {booted:.3f} s"
-                         if workers else "") + f"); in-process routes {routes}")
-        finally:
-            for loader in loaders.values():
-                loader.close()
-            os.environ.pop("ESR_TPU_NATIVE", None)
+            first[route, workers] = next(iter(list(loader)))
+            warm = 2 if workers else 1
+            for epoch in range(1, warm):
+                loader.set_epoch(epoch)
+                sum(1 for _ in loader)
+            t1 = time.perf_counter()
+            n = 0
+            for epoch in range(warm, warm + 1):
+                loader.set_epoch(epoch)
+                n += sum(1 for _ in loader)
+            t2 = time.perf_counter()
+            loader.close()
+            routes = NE.ROUTES.snapshot()
+            if workers == 0 and (routes[route] == 0 or routes["numpy" if route == "native"
+                                                             else "native"] != 0):
+                fail(f"the {route} batch build took the routes {routes}")
+            per_batch[route, workers] = (t2 - t1) / n * 1e3
+            print(f"batch build on the host of {card}: B={batch_size} {route} "
+                  f"num_workers {workers}: {per_batch[route, workers]:.3f} ms per batch "
+                  f"over {n} batches of one epoch after {warm} warm ones (those "
+                  f"{(t1 - t0) * 1e3:.3f} ms"
+                  + (f"; the four pools booted side by side in {booted:.3f} s"
+                     if workers else "") + f"); in-process routes {routes}")
+    finally:
+        for loader in loaders.values():
+            loader.close()
+        os.environ.pop("ESR_TPU_NATIVE", None)
     ref = first["native", 0]
     for key, batch in first.items():
         if sorted(batch) != sorted(ref) or not all(np.array_equal(batch[k], ref[k]) for k in ref):
@@ -4152,8 +4658,9 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str, sr_dir: str):
     ``aot_programs`` against a traced session on the same replayed schedule:
     every request's metrics and the final lane states bitwise, the same
     launches (``dcn_fwd_masked``; K1 and K2 at int8), which the loaded
-    artifacts make through the custom ops. Then ``serve --aot``, one replica
-    and ``--replicas 2`` (through ``AotRegistry``). With them, a process
+    artifacts make through the custom ops. Beside the exports, before the
+    sessions, ``serve --aot``, one replica and ``--replicas 2`` (through
+    ``AotRegistry``). With the exports, a process
     each and all at once, the SR recipe's chunk programs of depth 8 at f32
     and int8 (:data:`SR_AOT_RUNGS`), exported into ``sr_dir`` from a
     checkpoint of its model with seeded weights (an artifact takes the
@@ -4195,10 +4702,13 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str, sr_dir: str):
     jobs.update({("srunet", rung, SR_AOT_DEPTH): job(sr_ckpt, rung, SR_AOT_DEPTH, sr_dir,
                                                       "srunet.")
                  for rung in SR_AOT_RUNGS})
+    # the entry points' processes run beside the exports, before the timed sessions
+    entry_points = aot_entry_point(model, repo, os.path.join(out_dir, "entry"))
     t0 = time.perf_counter()
     seconds = export_in_processes(repo, jobs)
-    print(f"aot exports on {card}: {len(jobs)} at once, a process each, in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"aot exports on {card}: {len(jobs)} at once, a process each, beside the two "
+          f"serve --aot processes, in {time.perf_counter() - t0:.2f} s")
+    entry_points()
     artifacts, table = {}, {}
     for (what, rung, w), j in jobs.items():
         path = j["out_path"]
@@ -4206,7 +4716,7 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str, sr_dir: str):
         table[what, rung, w] = {"export_s": seconds[what, rung, w],
                                 "bytes": os.path.getsize(path)}
         print(f"aot export {what} {rung} w{w} (lanes {LANES}, GT {kh}x{kw}) on {card}: "
-              f"{seconds[what, rung, w]:.2f} s (beside the other exports), "
+              f"{seconds[what, rung, w]:.2f} s (beside the other exports and serve --aot), "
               f"{os.path.getsize(path)} bytes (+ sidecar {os.path.getsize(path + '.json')})")
 
     aot_session(torch, model, dev, "f32", classes, schedule[:1])  # warm: cuDNN's algorithms
@@ -4225,7 +4735,6 @@ def phase_aot(torch, np, dev, card, repo: Path, out_dir: str, sr_dir: str):
         f"{what} {rung} w{w} export {r['export_s']:.2f} s, {r['bytes']} bytes"
         + (f", load {r['load_ms']:.1f} ms" if "load_ms" in r else "")
         for (what, rung, w), r in table.items()))
-    aot_entry_point(model, repo, os.path.join(out_dir, "entry"))
     return artifacts["srunet"]
 
 
@@ -4270,12 +4779,14 @@ AOT_ENTRY_CODE = (
     "                  'wall': time.perf_counter() - t0}, default=str))\n")
 
 
-def aot_entry_point(model, repo: Path, root: str) -> None:
+def aot_entry_point(model, repo: Path, root: str):
     """``esr_tpu_torch.serve.main --aot`` (the card by default) on 4
     load-generated streams, one replica and ``--replicas 2`` (each replica
     resolves its program through an ``AotRegistry``), at once, a process
-    each: every request ok, no request lost, the artifact and its sidecar
-    written, the loaded program's ``dcn_fwd_masked`` launched."""
+    each, started here and checked by the returned function (the AOT
+    exports run meanwhile): every request ok, no request lost, the
+    artifact and its sidecar written, the loaded program's
+    ``dcn_fwd_masked`` launched."""
     from esr_tpu_torch.inference.checkpoint import save_checkpoint
     from esr_tpu_torch.models import convert
 
@@ -4297,6 +4808,13 @@ def aot_entry_point(model, repo: Path, root: str) -> None:
     procs = {r: subprocess.Popen([sys.executable, "-c", AOT_ENTRY_CODE, json.dumps(argv(r))],
                                  cwd=str(repo), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                  text=True) for r in (1, 2)}
+    # a failure before the checks ends them too
+    atexit.register(lambda: [p.kill() for p in procs.values() if p.poll() is None])
+    return lambda: aot_entry_point_checks(procs, root, t0)
+
+
+def aot_entry_point_checks(procs, root: str, t0: float) -> None:
+    """:func:`aot_entry_point`'s processes joined and checked."""
     try:
         for replicas, proc in procs.items():
             out, err = proc.communicate(timeout=600)
@@ -4323,7 +4841,8 @@ def aot_entry_point(model, repo: Path, root: str) -> None:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    print(f"serve --aot: one replica and two, at once, in {time.perf_counter() - t0:.1f} s")
+    print(f"serve --aot: one replica and two, at once, in {time.perf_counter() - t0:.1f} s "
+          "(beside the AOT exports)")
 
 
 def int8_seam_calls(torch, model, dev, batch: int, kh: int, kw: int):
@@ -4793,6 +5312,8 @@ def phase_precision(torch, np, dev, card):
             "windows_per_s": {r: engine_out[r][1] for r in RUNGS}}
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2:])
     t_start = time.perf_counter()
     import torch
 
@@ -4919,9 +5440,14 @@ def main() -> int:
                                       sr_evals, sr_artifacts)
         done("the SRUNet serving phase")
         # -- 8f. the data options, LPIPS, and C10's window again -------------
+        graph_recs = graph_launches.pop("recordings")
         phase_data_options(torch, np, dev, card, repo, os.path.join(out_root, "options"),
-                           graph_launches.pop("recordings"), c10)
+                           graph_recs, c10)
         done("the data options and LPIPS phase")
+        # -- 8g. data parallelism (train --multihost) and the norms ---------
+        dp_launches = phase_dp_norms(torch, np, dev, card, repo, os.path.join(out_root, "dp"),
+                                     recs, (graph_recs[0][:GRAPH_K], recs[1]), sr_evals)
+        done("the data parallelism and norms phase")
         # -- 7c. the 4x recipe --------------------------------------------
         totals_4x = phase_train_4x(torch, np, dev, card, repo, os.path.join(out_root, "x4"),
                                    fwd["valid_4x_b8"], train_kernels["train_4x_b8"])
@@ -4943,6 +5469,7 @@ def main() -> int:
         "validation_b8": fwd["flagship_b8"], "b32": fwd["flagship_b32"],
         "train_run_launches": totals["dcn_fwd"], "validation_4x_b8": fwd["valid_4x_b8"],
         "train_4x_run_launches": totals_4x["dcn_fwd"],
+        "data_parallel_run_launches": dp_launches["dcn_fwd"],
     }]
     for name in ("dcn_train_fwd", "dcn_bwd", "dcn_wgrad"):
         r = train_kernels["train_flagship_b32"][name]
@@ -4956,6 +5483,7 @@ def main() -> int:
             "train_4x_run_launches": totals_4x[name],
             "graphs_k8_run_launches": graph_launches["k8"][name],
             "captured_group_launches": graph_launches["graph"][name],
+            "data_parallel_run_launches": dp_launches[name],
             "by_shape": {case: train_kernels[case][name] for case in TIMED_TRAIN_CASES[1:]},
         })
     for name, source, b, launches, extra in (

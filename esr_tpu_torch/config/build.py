@@ -50,10 +50,13 @@ def build_optimizer(optimizer_cfg: Dict, params: Iterable[torch.nn.Parameter],
 
 
 def build_train_loader(loader_cfg: Dict, seed: int = 0,
-                       recordings: Optional[Sequence] = None) -> SequenceLoader:
-    """A ``train_dataloader``/``valid_dataloader`` block -> loader. The
-    recordings are the datalist's paths, or ``recordings`` (paths or
-    in-memory recordings) when given."""
+                       recordings: Optional[Sequence] = None, shard_id: int = 0,
+                       num_shards: int = 1) -> SequenceLoader:
+    """A ``train_dataloader``/``valid_dataloader`` block -> this process's
+    loader (``shard_id`` of ``num_shards``; ``batch_size`` is per process).
+    The recordings are the datalist's paths, or ``recordings`` (paths or
+    in-memory recordings) when given. The reference schema's ``use_ddp`` is
+    read and means nothing: sharding is always on, a no-op at one shard."""
     if recordings is None:
         recordings = read_datalist(loader_cfg["path_to_datalist_txt"])
     dataset = ConcatSequenceDataset(recordings, loader_cfg["dataset"])
@@ -65,4 +68,6 @@ def build_train_loader(loader_cfg: Dict, seed: int = 0,
         seed=seed,
         prefetch=int(loader_cfg.get("prefetch", 2)),
         num_workers=int(loader_cfg.get("num_workers", 0)),
+        shard_id=shard_id,
+        num_shards=num_shards,
     )

@@ -324,11 +324,13 @@ def apply_overrides(config: Dict, overrides: Sequence[str]) -> Dict:
 class RunConfig:
     """Effective config + run directories of one training run:
     ``<output>/models/<experiment>/<runid>`` (checkpoints, the effective
-    ``config.yml``) and ``<output>/logs/<experiment>/<runid>``."""
+    ``config.yml``) and ``<output>/logs/<experiment>/<runid>``. Under data
+    parallelism every process makes the directories and only the main one
+    (``is_main``) writes ``config.yml``."""
 
     def __init__(self, config: Dict, runid: Optional[str] = None,
                  resume: Optional[str] = None, reset: bool = False, seed: int = 123,
-                 make_dirs: bool = True):
+                 make_dirs: bool = True, is_main: bool = True):
         self.config = config
         self.resume = resume
         self.reset = reset
@@ -341,16 +343,17 @@ class RunConfig:
         if make_dirs:
             os.makedirs(self.save_dir, exist_ok=True)
             os.makedirs(self.log_dir, exist_ok=True)
-            with open(os.path.join(self.save_dir, "config.yml"), "w") as f:
-                f.write(to_yaml(config))
+            if is_main:
+                with open(os.path.join(self.save_dir, "config.yml"), "w") as f:
+                    f.write(to_yaml(config))
 
     @classmethod
     def from_args(cls, config_path: str, overrides: Sequence[str] = (),
                   runid: Optional[str] = None, resume: Optional[str] = None,
                   reset: bool = False, seed: int = 123,
-                  make_dirs: bool = True) -> "RunConfig":
+                  make_dirs: bool = True, is_main: bool = True) -> "RunConfig":
         config = apply_overrides(load_config(config_path), overrides)
-        return cls(config, runid, resume, reset, seed, make_dirs)
+        return cls(config, runid, resume, reset, seed, make_dirs, is_main)
 
     def __getitem__(self, name: str):
         return self.config[name]

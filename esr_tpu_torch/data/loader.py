@@ -75,17 +75,25 @@ class ConcatSequenceDataset:
 
 
 class ShardedSampler:
-    """The reference's sampler at one shard (data parallelism is not
-    ported): the (optionally shuffled) indices are cut to (``drop_last``)
-    or wrap-padded to a multiple of ``batch_size`` and dealt in batches."""
+    """The reference's per-process sampler: the (optionally shuffled)
+    indices are cut to (``drop_last``) or wrap-padded to a multiple of
+    ``num_shards x batch_size``, and process ``shard_id`` is dealt its
+    ``batch_size`` of each ``num_shards x batch_size`` (``batch_size`` is
+    per process: the global batch is the ``num_shards`` shards in rank
+    order). Every process sees the same number of batches."""
 
     def __init__(self, num_items: int, batch_size: int, shuffle: bool = True,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0, shard_id: int = 0,
+                 num_shards: int = 1):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} is not in [0, {num_shards})")
         self.num_items = num_items
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -95,18 +103,19 @@ class ShardedSampler:
         idx = np.arange(self.num_items)
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
-        batch = self.batch_size
+        chunk = self.batch_size * self.num_shards
         if self.drop_last:
-            idx = idx[: (len(idx) // batch) * batch]
-        elif len(idx) % batch:
-            # np.resize tiles, so this also covers num_items < batch_size
-            idx = np.resize(idx, -(-len(idx) // batch) * batch)
-        yield from idx.reshape(-1, batch)
+            idx = idx[: (len(idx) // chunk) * chunk]
+        elif len(idx) % chunk:
+            # np.resize tiles, so this also covers num_items < chunk
+            idx = np.resize(idx, -(-len(idx) // chunk) * chunk)
+        yield from idx.reshape(-1, self.num_shards, self.batch_size)[:, self.shard_id]
 
     def __len__(self) -> int:
+        chunk = self.batch_size * self.num_shards
         if self.drop_last:
-            return self.num_items // self.batch_size
-        return -(-self.num_items // self.batch_size)
+            return self.num_items // chunk
+        return -(-self.num_items // chunk)
 
 
 def collate_sequences(
@@ -230,12 +239,15 @@ class SequenceLoader:
     Batches come in the sampler's order; ``prefetch`` > 0 builds that many
     ahead on a thread pool, ``num_workers`` > 0 at least ``num_workers``
     ahead on a pool of spawned processes (the consumer still receives them
-    in order). :meth:`close` shuts the process pool down.
+    in order). :meth:`close` shuts the process pool down. ``shard_id`` /
+    ``num_shards``: this process's share of each global batch (data
+    parallelism: each process boots its own pool).
     """
 
     def __init__(self, dataset: ConcatSequenceDataset, batch_size: int,
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
-                 prefetch: int = 2, num_workers: int = 0):
+                 prefetch: int = 2, num_workers: int = 0, shard_id: int = 0,
+                 num_shards: int = 1):
         # the stateful hot-pixel filter gathers its statistics across
         # get_item calls: split over workers it would mask other pixels,
         # batch by batch (the reference refuses the pair too)
@@ -244,7 +256,8 @@ class SequenceLoader:
                              "(each worker would gather its own hot-pixel statistics); "
                              "use num_workers=0")
         self.dataset = dataset
-        self.sampler = ShardedSampler(len(dataset), batch_size, shuffle, drop_last, seed)
+        self.sampler = ShardedSampler(len(dataset), batch_size, shuffle, drop_last, seed,
+                                      shard_id, num_shards)
         self.prefetch = prefetch
         self.num_workers = num_workers
         self.seed = seed

@@ -17,7 +17,9 @@ of ``DeepRecurrNet``, ``forward(x [B, N, H, W, inch], states) ->
 
 The other frames' outputs are never used, so only their encoders run (the
 states are all they pass on): the same outputs and states, and the same
-gradients, as running every frame whole.
+gradients, as running every frame whole. A model with norms (``norm: BN``
+/ ``IN``) runs every frame whole in training, as the reference does, since
+each frame's decoder norms update their running statistics.
 
 Registered names: ``SRUNetRecurrentSeq``, ``UNetRecurrentSeq``.
 """
@@ -71,9 +73,12 @@ class FrameRecurrentSR(nn.Module):
         frames = x.permute(0, 1, 4, 2, 3).contiguous()
         states = states_to_nchw(states)
         out_mid = None
+        whole = self.training and self.model.norm is not None
         for i in range(n):
             if i == mid:
                 out_mid, states = self.model.forward_nchw(frames[:, i], states)
+            elif whole:
+                states = self.model.forward_nchw(frames[:, i], states)[1]
             else:
                 states = self.model.encode(frames[:, i], states)[3]
         if tuple(out_mid.shape[-2:]) != (h, w):

@@ -14,6 +14,13 @@ each child carries. :func:`load_flax_params` walks it to fill a model and
 raises on any leaf that is missing, left over, or of the wrong shape;
 :func:`export_flax_params` walks it the other way. The table covers the
 models and the LPIPS module (``losses/lpips.py``).
+
+A model with norms (``norm: BN`` / ``IN``) also has the reference's
+``batch_stats`` collection: each norm's running ``mean`` and ``var`` (the
+port's ``running_mean`` / ``running_var`` buffers) under the flax path of
+its module (``_NormWrapper_0/TorchBatchNorm_0/mean``). The tree is then
+``{"params": ..., "batch_stats": ...}``, both ways; BatchNorm's affine
+``scale`` and ``bias`` are parameters.
 """
 
 from __future__ import annotations
@@ -74,11 +81,16 @@ def _children(mod: nn.Module) -> List[Tuple[str, object]]:
     if isinstance(mod, unet._RecurrentEncoderStack):
         return _numbered(mod, "encoder")
     if isinstance(mod, (layers.ConvLayer, layers.ConvLayer1D)):
-        return [("Conv_0", mod.conv)]
+        return [("Conv_0", mod.conv)] + _norms(mod.norm)
     if isinstance(mod, layers.TransposedConvLayer):
-        return [("ConvTranspose_0", mod.conv)]
+        return [("ConvTranspose_0", mod.conv)] + _norms(mod.norm)
     if isinstance(mod, layers.ResidualBlock):
-        return [("Conv_0", mod.conv1), ("Conv_1", mod.conv2)]
+        return [("Conv_0", mod.conv1), ("Conv_1", mod.conv2)] + _norms(mod.norm1, mod.norm2)
+    if isinstance(mod, layers.TorchBatchNorm):
+        return [("scale", mod.weight), ("bias", mod.bias), ("mean", mod.running_mean),
+                ("var", mod.running_var)]
+    if isinstance(mod, layers.TorchInstanceNorm):
+        return [("mean", mod.running_mean), ("var", mod.running_var)]
     if isinstance(mod, layers.UpsampleConvLayer):
         return [("ConvLayer_0", mod.conv_layer)]
     if isinstance(mod, layers.RecurrentConvLayer):
@@ -96,24 +108,37 @@ def _children(mod: nn.Module) -> List[Tuple[str, object]]:
     if isinstance(mod, (lpips._Trunk, lpips._Fire)):
         return list(mod.named_children())
     if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-        return [("kernel", mod.weight), ("bias", mod.bias)]
+        # a conv before BatchNorm has no bias
+        return [("kernel", mod.weight)] + ([] if mod.bias is None else [("bias", mod.bias)])
     raise TypeError(f"no flax mapping for {type(mod).__name__}")
 
 
+def _norms(*norms) -> List[Tuple[str, object]]:
+    """Each norm a layer has (None: no norm) under the reference's two
+    names, ``_NormWrapper_i/<its class>_0``: the flax layer holds a
+    ``_NormWrapper`` that holds the norm."""
+    return [(f"_NormWrapper_{i}/{type(n).__name__}_0", n) for i, n in enumerate(norms)
+            if n is not None]
+
+
 def _leaves(mod: nn.Module, prefix: Tuple[str, ...] = ()) -> Iterator[
-        Tuple[Tuple[str, ...], nn.Parameter, Optional[str]]]:
-    """``(flax path, parameter, layout)`` for every leaf; ``layout`` is
-    ``"kernel"`` for a conv or dense kernel, ``"transposed"`` for a
-    transposed conv's, and None for leaves stored in the flax layout
-    (biases, ``dcn_weight``)."""
+        Tuple[Tuple[str, ...], torch.Tensor, Optional[str]]]:
+    """``(flax path, tensor, layout)`` for every leaf (a ``/`` in a name of
+    :func:`_children` nests it), the path led by its
+    collection (``params`` or, for a norm's running statistics,
+    ``batch_stats``); ``layout`` is ``"kernel"`` for a conv or dense kernel,
+    ``"transposed"`` for a transposed conv's, and None for leaves stored in
+    the flax layout (biases, ``dcn_weight``, the statistics)."""
     for name, child in _children(mod):
         if isinstance(child, nn.Parameter):
             layout = None
             if name == "kernel":
                 layout = "transposed" if isinstance(mod, nn.ConvTranspose2d) else "kernel"
-            yield prefix + (name,), child, layout
+            yield ("params",) + prefix + (name,), child, layout
+        elif isinstance(child, torch.Tensor):
+            yield ("batch_stats",) + prefix + (name,), child, None
         else:
-            yield from _leaves(child, prefix + (name,))
+            yield from _leaves(child, prefix + tuple(name.split("/")))
 
 
 def _transpose(arr: np.ndarray, to_port: bool, layout: Optional[str]) -> np.ndarray:
@@ -146,13 +171,20 @@ def flatten_tree(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ..
     return out
 
 
+def _collections(tree: Dict) -> Dict:
+    """``tree`` as ``{"params": ..., "batch_stats": ...}``: a bare parameter
+    tree is the ``params`` collection."""
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        return tree
+    return {"params": tree}
+
+
 def load_flax_params(model: nn.Module, tree: Dict) -> int:
-    """Copy the flax parameter ``tree`` into ``model`` in place. Returns
-    the number of leaves copied; raises ``ValueError`` on any missing,
-    left-over or mis-shaped leaf (nothing is copied then)."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
-    flat = flatten_tree(tree)
+    """Copy the flax ``tree`` (a bare parameter tree, or ``{"params": ...}``
+    with ``"batch_stats"`` for a model with norms) into ``model`` in place.
+    Returns the number of leaves copied; raises ``ValueError`` on any
+    missing, left-over or mis-shaped leaf (nothing is copied then)."""
+    flat = flatten_tree(_collections(tree))
     wanted = list(_leaves(model))
     problems = []
     staged = []
@@ -181,13 +213,14 @@ def load_flax_params(model: nn.Module, tree: Dict) -> int:
 
 
 def export_flax_params(model: nn.Module) -> Dict:
-    """The model's parameters as a flax tree ``{"params": {...}}`` of numpy
-    arrays that own their memory (a CPU parameter is copied, not viewed)."""
-    root: Dict = {}
+    """The model's parameters as a flax tree ``{"params": {...}}`` (and
+    ``"batch_stats"`` for a model with norms) of f32 numpy arrays that own
+    their memory (a CPU parameter is copied, not viewed)."""
+    root: Dict = {"params": {}}
     for path, param, layout in _leaves(model):
         arr = param.detach().to("cpu", copy=True).numpy()
         node = root
         for name in path[:-1]:
             node = node.setdefault(name, {})
         node[path[-1]] = np.ascontiguousarray(_transpose(arr, False, layout))
-    return {"params": root}
+    return root

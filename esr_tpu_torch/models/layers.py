@@ -1,8 +1,10 @@
 """Core NN building blocks (counterpart of ``esr_tpu/models/layers.py``).
 
 Same layer semantics as the reference, in PyTorch idiom: ``nn.Module``s on
-NCHW tensors with OIHW weights. Only ``norm=None`` is ported (the flagship's
-choice); BatchNorm/InstanceNorm wait for a later slice and raise here.
+NCHW tensors with OIHW weights. ``norm`` is ``None`` (the flagship's),
+``"BN"`` (:class:`TorchBatchNorm`, the conv's bias dropped) or ``"IN"``
+(:class:`TorchInstanceNorm`), held by the layer itself (the reference's
+``_NormWrapper`` exists only in the flax names, ``models.convert``).
 
 Default initializers are torch's own (kaiming-uniform with a=sqrt(5), i.e.
 U(+-1/sqrt(fan_in)) for weights and biases), which is what the reference's
@@ -38,6 +40,9 @@ family's decoders and skips).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -46,6 +51,7 @@ import torch.nn.functional as F
 
 from esr_tpu_torch.config.quantize import int8_enabled, quantized_conv2d, quantized_linear
 from esr_tpu_torch.ops.resize import resize
+from esr_tpu_torch.parallel.mesh import all_reduce_sum, reduce_mean, world_size
 
 _ACTIVATIONS = {
     None: None,
@@ -182,15 +188,136 @@ def upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
     return resize(x, (h * int(scale), w * int(scale)), "bilinear")
 
 
-def _check_norm(norm: Optional[str]) -> None:
-    if norm is not None:
-        raise NotImplementedError(
-            f"norm={norm!r} is not ported yet (only norm=None, the flagship's)"
-        )
+# set while ``torch.utils.checkpoint`` recomputes a forward in the backward
+# (``training.train_step``'s remat): the norms' running statistics were
+# updated by the forward itself, as the reference's pure ``jax.checkpoint``
+# updates them once
+_RECOMPUTING: contextvars.ContextVar = contextvars.ContextVar(
+    "esr_torch_norm_recompute", default=False)
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a remat recompute: the norms leave their running
+    statistics alone inside it."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def _channel_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A ``[C]`` vector shaped to broadcast over ``[B, C, *spatial]``."""
+    return v.reshape((1, -1) + (1,) * (ndim - 2))
+
+
+class TorchBatchNorm(nn.Module):
+    """``torch.nn.BatchNorm{1,2}d`` semantics on ``[B, C, *spatial]`` with the
+    reference's formulas (``esr_tpu/models/layers.py:TorchBatchNorm``).
+
+    In training the moments are f32 ``E[x]`` and ``E[x^2]`` over the batch
+    and space, summed over the process group by a differentiable all-reduce
+    and divided by its size (``parallel.mesh.all_reduce_sum``: the global
+    batch's moments, the reference's GSPMD mean and its ``SyncBatchNorm``;
+    one process takes the same formula with no collective); the variance is
+    ``max(E[x^2] - E[x]^2, 0)``; the running mean and variance blend ``new =
+    (1 - m) * old + m * batch`` (``momentum`` weights the new value), the
+    variance Bessel-corrected with the global count. In evaluation it
+    normalizes with the running statistics. A narrower input is widened to
+    f32 and the output rounded back (the bf16 rung)."""
+
+    def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = float(momentum)
+        self.eps = float(eps)
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            red = [0] + list(range(2, x.dim()))
+            moments = torch.stack([xf.mean(red), (xf * xf).mean(red)])
+            world = world_size()
+            if world > 1:
+                moments = all_reduce_sum(moments) / world
+            mean, mean2 = moments[0], moments[1]
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            if not _RECOMPUTING.get():
+                n = (x.numel() // x.shape[1]) * world
+                bessel = n / (n - 1) if n > 1 else 1.0
+                m = self.momentum
+                with torch.no_grad():
+                    self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_((1.0 - m) * self.running_var + m * var * bessel)
+            use_mean, use_var = mean, var
+        else:
+            use_mean, use_var = self.running_mean, self.running_var
+        y = ((xf - _channel_view(use_mean, x.dim()))
+             * torch.rsqrt(_channel_view(use_var, x.dim()) + self.eps))
+        y = y * _channel_view(self.weight, x.dim()) + _channel_view(self.bias, x.dim())
+        return y.to(x.dtype)
+
+
+class TorchInstanceNorm(nn.Module):
+    """``torch.nn.InstanceNorm{1,2}d(affine=False, track_running_stats=True)``
+    on ``[B, C, *spatial]`` (``esr_tpu/models/layers.py:TorchInstanceNorm``).
+    In training each instance is normalized with its own f32 spatial
+    moments, and the running statistics blend the batch mean of the
+    instances' (the variance Bessel-corrected with the spatial count), the
+    batch mean taken over the process group; in evaluation it normalizes
+    with the running statistics. No affine parameters."""
+
+    def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = float(momentum)
+        self.eps = float(eps)
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if not self.training:
+            y = ((xf - _channel_view(self.running_mean, x.dim()))
+                 * torch.rsqrt(_channel_view(self.running_var, x.dim()) + self.eps))
+            return y.to(x.dtype)
+        red = list(range(2, x.dim()))
+        mean_i = xf.mean(red, keepdim=True)
+        var_i = torch.clamp_min((xf * xf).mean(red, keepdim=True) - mean_i * mean_i, 0.0)
+        if not _RECOMPUTING.get():
+            n = math.prod(x.shape[2:])
+            bessel = n / (n - 1) if n > 1 else 1.0
+            m = self.momentum
+            with torch.no_grad():
+                b, c = x.shape[:2]
+                batch = torch.stack([mean_i.reshape(b, c).mean(0),
+                                     (var_i.reshape(b, c) * bessel).mean(0)])
+                batch = reduce_mean(batch)
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * batch[0])
+                self.running_var.copy_((1.0 - m) * self.running_var + m * batch[1])
+        y = (xf - mean_i) * torch.rsqrt(var_i + self.eps)
+        return y.to(x.dtype)
+
+
+def make_norm(norm: Optional[str], channels: int) -> Optional[nn.Module]:
+    """The optional norm after a conv: :class:`TorchBatchNorm` for ``"BN"``,
+    :class:`TorchInstanceNorm` for ``"IN"``, None for ``norm=None``; refuses
+    any other name, as the reference's ``_NormWrapper`` does."""
+    if norm is None:
+        return None
+    if norm == "BN":
+        return TorchBatchNorm(channels)
+    if norm == "IN":
+        return TorchInstanceNorm(channels)
+    raise NotImplementedError(f"norm={norm!r} is not supported ('BN', 'IN' or None)")
 
 
 class ConvLayer(nn.Module):
-    """Conv2d + activation."""
+    """Conv2d + optional norm + activation; the conv has no bias under
+    BN."""
 
     def __init__(
         self,
@@ -203,14 +330,17 @@ class ConvLayer(nn.Module):
         norm: Optional[str] = None,
     ):
         super().__init__()
-        _check_norm(norm)
         self.conv = Conv2d(
-            in_channels, out_channels, kernel_size, stride=stride, padding=padding
+            in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+            bias=norm != "BN"
         )
+        self.norm = make_norm(norm, out_channels)
         self.activation = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
         return self.activation(x) if self.activation is not None else x
 
 
@@ -239,16 +369,23 @@ class UpsampleConvLayer(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """conv-relu-conv + identity, then relu."""
+    """conv-norm-relu-conv-norm + identity, then relu."""
 
     def __init__(self, channels: int, norm: Optional[str] = None):
         super().__init__()
-        _check_norm(norm)
-        self.conv1 = Conv2d(channels, channels, 3, padding=1)
-        self.conv2 = Conv2d(channels, channels, 3, padding=1)
+        self.conv1 = Conv2d(channels, channels, 3, padding=1, bias=norm != "BN")
+        self.norm1 = make_norm(norm, channels)
+        self.conv2 = Conv2d(channels, channels, 3, padding=1, bias=norm != "BN")
+        self.norm2 = make_norm(norm, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.conv2(torch.relu(self.conv1(x))) + x)
+        out = self.conv1(x)
+        if self.norm1 is not None:
+            out = self.norm1(out)
+        out = self.conv2(torch.relu(out))
+        if self.norm2 is not None:
+            out = self.norm2(out)
+        return torch.relu(out + x)
 
 
 class ConvGRUCell(nn.Module):
@@ -343,9 +480,10 @@ class TransposedConvLayer(nn.Module):
                  padding: int = 0, activation: Optional[str] = "relu",
                  norm: Optional[str] = None):
         super().__init__()
-        _check_norm(norm)
         self.conv = nn.ConvTranspose2d(in_channels, out_channels, kernel_size, stride=2,
-                                       padding=padding, output_padding=1)
+                                       padding=padding, output_padding=1,
+                                       bias=norm != "BN")
+        self.norm = make_norm(norm, out_channels)
         self.activation = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -358,24 +496,29 @@ class TransposedConvLayer(nn.Module):
             x.float(), conv.weight.float(),
             None if conv.bias is None else conv.bias.float(), conv.stride, conv.padding,
             conv.output_padding, conv.groups, conv.dilation)
+        if self.norm is not None:
+            x = self.norm(x)
         x = self.activation(x) if self.activation is not None else x
         return x.to(in_dtype)
 
 
 class ConvLayer1D(nn.Module):
-    """Conv1d + activation on ``[B, C, N]``."""
+    """Conv1d + optional norm + activation on ``[B, C, N]``; the conv has
+    no bias under BN."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, activation: Optional[str] = "relu",
                  norm: Optional[str] = None):
         super().__init__()
-        _check_norm(norm)
         self.conv = nn.Conv1d(in_channels, out_channels, kernel_size, stride=stride,
-                              padding=padding)
+                              padding=padding, bias=norm != "BN")
+        self.norm = make_norm(norm, out_channels)
         self.activation = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
         return self.activation(x) if self.activation is not None else x
 
 

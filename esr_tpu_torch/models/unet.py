@@ -26,6 +26,11 @@ reference threads a tuple of per-encoder states; its leaves in
 convolution runs NCHW. The modules carry the reference's flax names
 (``head``, ``encoders.encoder_i``, ``res_i``, ``decoder_i``, ``skip_up_i``,
 ``pred``, ``pred_i``), so the weight bridge (``models.convert``) is a table.
+``norm`` (``"BN"`` / ``"IN"``) reaches every layer the reference gives it
+to (not the recurrent models' head, nor ``UNetFlow``'s prediction), and
+``train()`` / ``eval()`` is the reference's ``train`` flag: the norms'
+batch moments and running statistics in training, the running statistics
+in evaluation.
 """
 
 from __future__ import annotations

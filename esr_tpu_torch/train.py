@@ -4,9 +4,18 @@
     python -m esr_tpu_torch.train -c cfg.yml -r <ckpt-dir>|auto [--reset]
     python -m esr_tpu_torch.train -c cfg.yml ... --device cpu
     python -m esr_tpu_torch.train -c cfg.yml --live-port 0 --profile-steps 2
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m esr_tpu_torch.train -c cfg.yml -id run0 --multihost [--device cpu]
 
 It trains on the CUDA card unless ``--device cpu`` asks for the CPU, and
-prints the final train log as one JSON line. ``--live-port PORT`` is
+prints the final train log as one JSON line. ``--multihost`` joins the
+process group that ``torch.distributed.run`` describes in the environment
+(``esr_tpu_torch.parallel.mesh``: NCCL, one card a process at
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and trains data-parallel:
+``train_dataloader.batch_size`` is per process, each process reads its own
+rows of every global batch, the gradients are averaged across the group,
+and only rank 0 writes the logs, telemetry and checkpoints and prints the
+final line. Without ``-id`` the run id is rank 0's timestamp. ``--live-port PORT`` is
 ``-o "trainer;live_telemetry=PORT"`` (0 an ephemeral port: ``/metrics``,
 ``/healthz``, ``/slo`` and ``/snapshot`` during the run, the bound port in
 the ``live_telemetry`` event of ``telemetry.jsonl``), ``--profile-steps
@@ -22,6 +31,7 @@ import argparse
 import json
 import logging
 import os
+from datetime import datetime
 from typing import Optional, Sequence
 
 
@@ -38,6 +48,9 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    metavar="key;path=value",
                    help="config override by semicolon key path (repeatable)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torch.distributed.run process group (NCCL on cuda:"
+                        "LOCAL_RANK, gloo with --device cpu) and train data-parallel")
     p.add_argument("--live-port", type=int, default=None, metavar="PORT",
                    help="serve live telemetry (/metrics, /healthz, /slo) on this port while "
                         "training (0 = ephemeral; default off): -o 'trainer;live_telemetry=PORT'")
@@ -47,11 +60,13 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None, log_to_file: bool = False) -> dict:
-    """Parse ``argv``, train, print the final train log. ``log_to_file``
-    (the command line's choice) sends the log to the console and to
-    ``<log_dir>/info.txt``."""
-    args = get_args(argv)
+def run(args: argparse.Namespace, log_to_file: bool = False, train_recordings=None,
+        valid_recordings=None):
+    """Train as the parsed command line says; returns ``(trainer,
+    result)``. With ``--multihost`` the process group stays up (the caller
+    leaves it: a captured group replays its collectives).
+    ``train_recordings`` / ``valid_recordings`` (in-memory recordings)
+    replace the datalists, as the trainer takes them."""
     # config shorthands: appended as overrides, so they land in the
     # effective config (and its fingerprint)
     if args.live_port is not None:
@@ -59,16 +74,41 @@ def main(argv: Optional[Sequence[str]] = None, log_to_file: bool = False) -> dic
     if args.profile_steps is not None:
         args.override.append(f"trainer;profile_steps={args.profile_steps}")
     from esr_tpu_torch.config.parser import RunConfig
+    from esr_tpu_torch.parallel import mesh
     from esr_tpu_torch.training.trainer import Trainer
 
-    run = RunConfig.from_args(args.config, overrides=args.override, runid=args.runid,
-                              resume=args.resume, reset=args.reset, seed=args.seed)
+    runid = args.runid
+    if args.multihost:
+        mesh.initialize_multihost(args.device)
+        # one run directory for the group: rank 0's timestamp
+        runid = mesh.broadcast_object(runid or datetime.now().strftime(r"%m%d_%H%M%S"))
+    is_main = mesh.process_shard_info()[0] == 0
+    config = RunConfig.from_args(args.config, overrides=args.override, runid=runid,
+                                 resume=args.resume, reset=args.reset, seed=args.seed,
+                                 is_main=is_main)
     if log_to_file:
-        logging.basicConfig(level=logging.INFO, format="%(message)s", handlers=[
-            logging.StreamHandler(),
-            logging.FileHandler(os.path.join(run.log_dir, "info.txt"))])
-    result = Trainer(run, device=args.device).train()
-    print(json.dumps({k: round(v, 6) for k, v in result.items()}))
+        handlers = [logging.StreamHandler()]
+        if is_main:
+            handlers.append(logging.FileHandler(os.path.join(config.log_dir, "info.txt")))
+        logging.basicConfig(level=logging.INFO, format="%(message)s", handlers=handlers)
+    trainer = Trainer(config, device=args.device, train_recordings=train_recordings,
+                      valid_recordings=valid_recordings)
+    return trainer, trainer.train()
+
+
+def main(argv: Optional[Sequence[str]] = None, log_to_file: bool = False) -> dict:
+    """Parse ``argv``, train, print the final train log (rank 0 alone under
+    ``--multihost``). ``log_to_file`` (the command line's choice) sends the
+    log to the console and to ``<log_dir>/info.txt``."""
+    args = get_args(argv)
+    trainer, result = run(args, log_to_file)
+    if args.multihost:
+        # a process that raised leaves the group to the launcher, which ends it
+        from esr_tpu_torch.parallel import mesh
+
+        mesh.destroy()
+    if trainer.is_main:
+        print(json.dumps({k: round(v, 6) for k, v in result.items()}))
     return result
 
 

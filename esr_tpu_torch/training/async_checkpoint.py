@@ -24,6 +24,10 @@ holds at most one extra copy of the state. The trainer adds three more:
 before a rollback's restore, after the final save, and first in
 ``train()``'s ``finally``.
 
+Under data parallelism rank 0 alone holds one (``training.trainer``): the
+other processes skip the save, and every process joins rank 0's commit at
+a rollback's restore and at the end of the run.
+
 Telemetry: the trainer emits the blocking ``checkpoint_snapshot`` span;
 the writer emits ``checkpoint_commit`` through the process-active sink,
 under the trace context that was current when the save was submitted.

@@ -26,6 +26,10 @@ attempt, keyed by the iteration: ``fail`` raises before a byte is
 written, ``torn`` between the arrays and the marker (the trainer retries
 the commit, ``trainer.commit_retries``).
 
+Under data parallelism rank 0 writes the checkpoint and the other
+processes wait for an inline commit at a barrier (``training.trainer``);
+every process resumes from it.
+
 Resume checks names as the reference does: another model name skips the
 restore; another optimizer name restores the parameters only; ``reset``
 (or another training mode) keeps the weights and restarts the trainer's

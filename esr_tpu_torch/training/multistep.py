@@ -30,6 +30,9 @@ call the warm-up again and the one after capture again: a restored state
 may lack the moments (a run-start snapshot), and the optimizer would
 create them inside the capture, so that every replay zeroed them.
 A capture or replay that fails raises; nothing runs eagerly in its place.
+Under data parallelism (``parallel.mesh``) the step's collectives (the
+gradient all-reduce, the metrics', BatchNorm's moments) run in the warm-up
+and are captured with the rest, so each replay issues them again.
 
 :class:`GraphedCall` is the graph itself, shared with fused validation
 (``training.trainer``) and the streaming engine's chunk

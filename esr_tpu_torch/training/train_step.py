@@ -15,11 +15,22 @@ and one optimizer update per batch, as the reference's loop does.
 runs each window's forward under ``torch.utils.checkpoint.checkpoint(...,
 use_reentrant=False)``: the window keeps only its inputs, and the backward
 recomputes the forward (on the card the DCN's train forward runs twice per
-window) to the same bits. ``numerics`` collects the model's probe taps
+window) to the same bits; the recompute runs under
+``models.layers.recomputing``, so the norms' running statistics are
+updated once a window, by the forward, as the reference's pure
+``jax.checkpoint`` updates them. ``numerics`` collects the model's probe taps
 (a model built with ``numerics=True``) over the step's windows, plus
 ``loss`` and ``grad_norm`` taps, as ``metrics["numerics"]`` (``{tag:
 f32[NSTATS]}`` on the device); the probes observe detached copies, so the
 losses, gradients and parameters are the same bits with them off.
+
+Data parallelism (``parallel.mesh``): with a process group up, each
+process runs the step on its rows of the global batch; after the backward
+the gradients are averaged across the group in one all-reduce, before the
+grad norm and the optimizer, and the per-window losses (so ``loss``) are
+averaged too, and the probes' stats merged, so every metric is the global
+batch's, as the reference's step returns it. Without a group the step
+launches no collective.
 
 The train step is capture-safe (``training.multistep`` replays ``k`` of
 them as one CUDA graph): it reads no value back to the host, and
@@ -32,15 +43,24 @@ validation.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from esr_tpu_torch.models.layers import recomputing
 from esr_tpu_torch.ops.encodings import make_device_encoder
-from esr_tpu_torch.ops.numerics import collect, flatten_probes, tensor_stats
+from esr_tpu_torch.ops.numerics import collect, flatten_probes, merge_stat_vectors, tensor_stats
+from esr_tpu_torch.parallel.mesh import gather_merge, mean_gradients, reduce_mean
 from esr_tpu_torch.training.optim import ScheduledOptimizer
+
+
+def _remat_contexts():
+    """The forward's context and the recompute's (``checkpoint``'s
+    ``context_fn``)."""
+    return contextlib.nullcontext(), recomputing()
 
 
 def make_device_rasterizer(gt_resolution: Tuple[int, int]) -> Callable[[Dict], Dict]:
@@ -64,7 +84,8 @@ def window_losses(model: nn.Module, batch: Dict[str, torch.Tensor], seqn: int,
         if remat:
             # the model draws no random numbers: no RNG state to stash
             pred, states = checkpoint(model, inp[:, i:i + seqn], states,
-                                      use_reentrant=False, preserve_rng_state=False)
+                                      use_reentrant=False, preserve_rng_state=False,
+                                      context_fn=_remat_contexts)
         else:
             pred, states = model(inp[:, i:i + seqn], states)
         losses.append(((pred - gt[:, i + mid]) ** 2).mean())
@@ -97,15 +118,18 @@ def make_train_step(model: nn.Module, optimizer: ScheduledOptimizer, seqn: int =
                 losses, pred = window_losses(model, batch, seqn, remat)
         else:
             losses, pred = window_losses(model, batch, seqn, remat)
-        loss = losses.sum()
-        loss.backward()
+        losses.sum().backward()
+        # the group's mean gradient (nothing without a group)
+        mean_gradients(params)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         grad_norm = global_norm(grads)
         optimizer.step()
-        metrics = {"loss": loss.detach(), "loss_per_window": losses.detach(),
+        losses = reduce_mean(losses.detach())
+        metrics = {"loss": losses.sum(), "loss_per_window": losses,
                    "grad_norm": grad_norm, "last_pred": pred.detach()}
         if numerics:
-            metrics["numerics"] = {**flatten_probes(sown), "loss": tensor_stats(losses),
+            probes = gather_merge(flatten_probes(sown), merge_stat_vectors)
+            metrics["numerics"] = {**probes, "loss": tensor_stats(losses),
                                    "grad_norm": tensor_stats(grad_norm)}
         return metrics
 

@@ -107,6 +107,24 @@ early stop, checkpoints, and the runtime around them (counterpart of
   first in ``train()``'s teardown. The run-start rollback snapshot is
   freed once a commit has landed. Off, each save commits inline.
 
+- Data parallelism (``train --multihost``, ``parallel.mesh``): with a
+  process group up, each process builds its loaders at its shard
+  (``shard_id`` / ``num_shards``: ``batch_size`` is per process, the
+  global batch is ``batch_size x world``), seeds numpy with ``seed +
+  rank``, and checks by a gathered digest that the model and optimizer
+  start the same on every process. The step averages the gradients across
+  the group (``training.train_step``), so every metric, the anomaly
+  guard's decision and a rollback are the same on every process; fused
+  validation averages its sums once a pass. Rank 0 alone runs the sink, the
+  live plane, the profiler, the writer, the visualizations and the logs,
+  and writes the checkpoints; at each save the processes first agree on
+  their state's digest, and the others wait for an inline commit at a
+  barrier (an asynchronous one is joined by every process at a rollback's
+  restore and at the end of the run). ``dispatch_retries`` and
+  ``commit_retries`` are 0 there (a retry would desynchronize the group's
+  collectives), and ``-r auto`` must find the same checkpoint on every
+  process.
+
 ``k_steps`` changes numbers only through those cadences: a replayed group
 runs the kernels its eager steps run, in the same order (on the card the
 optimizer takes its capturable form either way, ``training.optim``), so
@@ -154,6 +172,14 @@ from esr_tpu_torch.obs.numerics import (
     stats_fields,
 )
 from esr_tpu_torch.obs.spans import StepAttribution
+from esr_tpu_torch.parallel.mesh import (
+    agree,
+    barrier,
+    local_device,
+    process_shard_info,
+    reduce_mean,
+    stage_batch,
+)
 from esr_tpu_torch.resilience import faults as _faults
 from esr_tpu_torch.resilience.recovery import (
     AnomalyGuard,
@@ -161,9 +187,15 @@ from esr_tpu_torch.resilience.recovery import (
     emit_recovery,
     restore_with_fallback,
     retry_with_backoff,
+    state_digest,
 )
 from esr_tpu_torch.training.async_checkpoint import AsyncCheckpointer
-from esr_tpu_torch.training.checkpoint import resume_checkpoint, save_checkpoint, snapshot_state
+from esr_tpu_torch.training.checkpoint import (
+    host_state,
+    resume_checkpoint,
+    save_checkpoint,
+    snapshot_state,
+)
 from esr_tpu_torch.training.multistep import instrument_dispatch, make_multi_step
 from esr_tpu_torch.training.train_step import (
     make_device_rasterizer,
@@ -271,7 +303,11 @@ class Trainer:
         self.save_period = int(it_cfg.get("save_period", 10**9))
         self.train_log_step = int(it_cfg.get("train_log_step", 50))
         self.valid_step = int(it_cfg.get("valid_step", 1000))
-        self.device = resolve_device(device)
+        # data parallelism (parallel.mesh): this process's shard of every
+        # global batch, and its card (cuda:LOCAL_RANK) under a group
+        self.shard_id, self.num_shards = process_shard_info()
+        self.is_main = self.shard_id == 0
+        self.device = local_device(resolve_device(device))
 
         # the reference's knobs that only steer XLA; read and range-checked
         self.k_steps = int(tcfg.get("k_steps", 1))
@@ -296,14 +332,25 @@ class Trainer:
         self.dispatch_retries = int(tcfg.get("dispatch_retries", 1))
         if self.dispatch_retries < 0:
             raise ValueError(f"dispatch_retries must be >= 0, got {self.dispatch_retries}")
+        if self.dispatch_retries and self.num_shards > 1:
+            # the step is collective across the group: one process retrying
+            # alone would desynchronize the others' collectives
+            logger.info("dispatch_retries disabled under data parallelism (%d processes)",
+                        self.num_shards)
+            self.dispatch_retries = 0
         self.commit_retries = int(tcfg.get("commit_retries", 2))
         if self.commit_retries < 0:
             raise ValueError(f"commit_retries must be >= 0, got {self.commit_retries}")
         self.commit_backoff_s = float(tcfg.get("commit_backoff_s", 0.1))
         if self.commit_backoff_s <= 0:
             raise ValueError(f"commit_backoff_s must be > 0, got {self.commit_backoff_s}")
+        if self.num_shards > 1:
+            # rank 0 commits while the others wait at a barrier: a retry
+            # would desynchronize the barriers' count
+            self.commit_retries = 0
+        self._async_wanted = bool(tcfg.get("async_checkpoint", False))
         self._async_ckpt = (AsyncCheckpointer(self.commit_retries, self.commit_backoff_s)
-                            if bool(tcfg.get("async_checkpoint", False)) else None)
+                            if self._async_wanted and self.is_main else None)
         self.prefetch_stall_timeout = tcfg.get("prefetch_stall_timeout_s", None)
         self.device_prefetch = int(tcfg.get("device_prefetch", 2))
         if self.device_prefetch < 0:
@@ -313,8 +360,10 @@ class Trainer:
             raise ValueError(f"prefetch_join_timeout must be > 0, got "
                              f"{self.prefetch_join_timeout}")
 
+        # the model's initial weights are the same on every process (checked
+        # below); numpy's global stream is the process's own
         torch.manual_seed(run.seed)
-        np.random.seed(run.seed)
+        np.random.seed(run.seed + self.shard_id)
 
         self.device_rasterize = resolve_device_rasterize(config)
         transfer = tcfg.get("transfer_dtype", None)
@@ -330,7 +379,7 @@ class Trainer:
                              "device_rasterize already ships compact integer event windows "
                              "— drop one of the two options")
         vis_cfg = tcfg.get("vis") or {}
-        self.vis_enabled = bool(vis_cfg.get("enabled", False))
+        self.vis_enabled = bool(vis_cfg.get("enabled", False)) and self.is_main
         self.train_vis_step = int(vis_cfg.get("train_img_writer_num", 20))
         self.tensorboard = bool(tcfg.get("tensorboard", True))
         stream_keys = RAW_KEYS if self.device_rasterize else TRAIN_KEYS
@@ -341,14 +390,15 @@ class Trainer:
             cfg["dataset"].pop("encode", None)
             return cfg
 
+        shards = dict(shard_id=self.shard_id, num_shards=self.num_shards)
         self.train_loader = build_train_loader(
             loader_cfg(config["train_dataloader"], stream_keys), seed=run.seed,
-            recordings=train_recordings)
+            recordings=train_recordings, **shards)
         self.valid_loader = None
         if config.get("valid_dataloader") is not None:
             self.valid_loader = build_train_loader(
                 loader_cfg(config["valid_dataloader"], stream_keys), seed=run.seed,
-                recordings=valid_recordings)
+                recordings=valid_recordings, **shards)
         self._rasterize = (make_device_rasterizer(self.train_loader.gt_resolution)
                            if self.device_rasterize else None)
         self.vis_dataset = None
@@ -388,14 +438,16 @@ class Trainer:
         self.not_improved_count = 0
 
         # the telemetry sink; train() activates it and its finally closes it
+        # rank 0 alone runs the sink, the live plane, the profiler, the
+        # writer and the visualizations
         self.sink = None
-        if bool(tcfg.get("telemetry", True)):
+        if bool(tcfg.get("telemetry", True)) and self.is_main:
             from esr_tpu_torch.obs import TelemetrySink, config_fingerprint, run_manifest
 
             self.sink = TelemetrySink(
                 os.path.join(run.log_dir, "telemetry.jsonl"),
                 manifest=run_manifest(config_fingerprint=config_fingerprint(config)))
-        lt = tcfg.get("live_telemetry", False)
+        lt = tcfg.get("live_telemetry", False) if self.is_main else False
         self.live_cfg = None
         # identity checks: live_telemetry: 0 is an ephemeral port, not off
         if lt is not False and lt is not None:
@@ -445,6 +497,8 @@ class Trainer:
         if self.profile_steps and self.profile_cfg.get("enabled", False):
             raise ValueError("trainer.profile_steps and trainer.profile.enabled are mutually "
                              "exclusive (one profiler trace at a time)")
+        if not self.is_main:
+            self.profile_cfg, self.profile_steps = {}, 0
         self.trace_dir = (self.profile_cfg.get("trace_dir")
                           or os.path.join(run.log_dir, "profile"))
 
@@ -456,6 +510,9 @@ class Trainer:
             self.start_iteration, best, found = restore_with_fallback(
                 os.path.dirname(run.save_dir), self.model, self.optimizer, config,
                 reset=run.reset)
+            # every process must resume the same checkpoint (or none)
+            agree(found, "the auto-resume checkpoint (put save_dir on shared storage "
+                         "or pass -r <path>)")
             if found is None:
                 logger.info("auto-resume: no checkpoint found; fresh start")
             elif best is not None:
@@ -465,9 +522,17 @@ class Trainer:
                 resume_path, self.model, self.optimizer, config, reset=run.reset)
             if best is not None:
                 self.mnt_best = best
+        if self.num_shards > 1:
+            # the replicas start from the same bits
+            agree(self._state_digest(), "the initial model and optimizer state")
         # the rollback target of last resort (no committed checkpoint yet)
         self._init_state = (snapshot_state(self.model, self.optimizer)
                             if self._guard is not None else None)
+
+    def _state_digest(self) -> str:
+        """sha256 of this process's model and optimizer state (the
+        checkpoint's digest)."""
+        return state_digest(host_state(*snapshot_state(self.model, self.optimizer)))
 
     # -- batches -------------------------------------------------------------
 
@@ -491,8 +556,8 @@ class Trainer:
     def _stage(self, batch: Dict[str, np.ndarray], for_train: bool = False) -> Dict:
         """The host->device copy of a batch's streams (a bf16 transfer is
         widened to f32 on the card)."""
-        return {k: v.to(self.device).float() if v.dtype == torch.bfloat16 else v.to(self.device)
-                for k, v in self._host_select(batch, for_train).items()}
+        staged = stage_batch(self._host_select(batch, for_train), self.device)
+        return {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in staged.items()}
 
     def _finish(self, staged: Dict) -> Dict[str, torch.Tensor]:
         """A staged batch as the step's dense ``{"inp", "gt"}``."""
@@ -561,6 +626,8 @@ class Trainer:
         self.writer.add_image("train_gt_frame", render_frame(views["gt_img"]))
 
     def _log(self, record: Dict) -> None:
+        if not self.is_main:
+            return
         with open(self.log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -581,7 +648,7 @@ class Trainer:
 
         def drain(out) -> None:
             nonlocal readbacks
-            host = torch.stack([out["valid_loss"], out["valid_mse_loss"]]).cpu()
+            host = reduce_mean(torch.stack([out["valid_loss"], out["valid_mse_loss"]])).cpu()
             self.valid_metrics.update("valid_loss", float(host[0]))
             self.valid_metrics.update("valid_mse_loss", float(host[1]))
             readbacks += 1
@@ -645,8 +712,9 @@ class Trainer:
             if len(buf) == self.valid_chunk:
                 flush()
         flush()
-        # the pass's one device->host copy
-        host = torch.stack([self._eval_sums[k] for k in VALID_SUMS]).cpu()
+        # the pass's one device->host copy, of the group's sums (each
+        # process's batch means averaged: the global batch's)
+        host = reduce_mean(torch.stack([self._eval_sums[k] for k in VALID_SUMS])).cpu()
         self.last_valid_readbacks = 1
         n = int(round(float(host[2])))
         if n:
@@ -688,7 +756,20 @@ class Trainer:
         """A checkpoint: with ``async_checkpoint`` the snapshot here (the
         ``checkpoint_snapshot`` span) and the commit on the writer; else the
         commit inline. Either commit is retried ``commit_retries`` times
-        (``recovery_ckpt_retry``)."""
+        (``recovery_ckpt_retry``). Under data parallelism the processes
+        first check that their states are the same bits (a gathered
+        digest); rank 0 saves, and the others wait at a barrier for its
+        inline commit (an asynchronous one is joined at the next barrier:
+        a rollback's restore and the end of the run)."""
+        if self.num_shards > 1:
+            digest = agree(self._state_digest(), f"the replicas' state at iteration {iteration}")
+            if not self.is_main:
+                if not self._async_wanted:
+                    barrier()  # rank 0's inline commit has landed
+                    self._init_state = None
+                return
+            logger.info("the %d replicas' states agree at iteration %d (sha256 %s)",
+                        self.num_shards, iteration, digest)
         if self._async_ckpt is not None:
             snap_s = self._async_ckpt.save(self.run.save_dir, self.model, self.optimizer,
                                            self.run.config, iteration, self.mnt_best,
@@ -703,6 +784,7 @@ class Trainer:
                                         save_best=best),
                 retries=self.commit_retries, backoff_s=self.commit_backoff_s,
                 site="ckpt_commit", event="recovery_ckpt_retry", iteration=iteration)
+            barrier()
         # once a commit has landed the run-start snapshot is dead weight
         if self._async_ckpt is None or self._async_ckpt.commits > 0:
             self._init_state = None
@@ -734,6 +816,8 @@ class Trainer:
         if self._async_ckpt is not None:
             # a failed commit is no error here: the restore falls back past it
             self._async_ckpt.wait(raise_error=False)
+        # every process restores what rank 0 committed
+        barrier()
         start_iter, best, path = restore_with_fallback(
             self.run.save_dir, self.model, self.optimizer, self.run.config)
         if path is None:
@@ -781,8 +865,9 @@ class Trainer:
             stop_trace,
         )
 
-        self.writer = MetricWriter(self.run.log_dir, logger,
-                                   enable_tensorboard=self.tensorboard, sink=self._own_sink)
+        self.writer = (MetricWriter(self.run.log_dir, logger,
+                                    enable_tensorboard=self.tensorboard, sink=self._own_sink)
+                       if self.is_main else None)
         self.train_metrics = MetricTracker(["train_mse_loss", "train_loss"],
                                            writer=self.writer, sink=self._own_sink)
         cuda = self.device.type == "cuda"
@@ -817,6 +902,8 @@ class Trainer:
             if self._async_ckpt is not None:
                 # the final commit: a failed one fails the run here
                 self._async_ckpt.wait()
+            # no process ends before rank 0's last commit has landed
+            barrier()
             completed = True
             return result
         finally:
@@ -834,7 +921,8 @@ class Trainer:
             if self.live_plane is not None:
                 self.live_plane.close()
                 self.live_plane = None
-            self.writer.close()
+            if self.writer is not None:
+                self.writer.close()
             self.writer = self.train_metrics.writer = None
             for loader in (self.train_loader, self.valid_loader):
                 if loader is not None:
@@ -879,11 +967,13 @@ class Trainer:
             return  # skipped: kept out of the trackers, the writer and the log
         step_seconds = (time.perf_counter() - t0) / r
         for it, h, loss, mse, lr in zip(covered, hosts, losses, mses, lrs):
-            self.writer.set_step(it)
+            if self.writer is not None:
+                self.writer.set_step(it)
             self.train_metrics.update("train_mse_loss", mse)
             self.train_metrics.update("train_loss", loss)
             if it % self.train_log_step == 0:
-                self.writer.add_scalar("learning_rate", lr)
+                if self.writer is not None:
+                    self.writer.add_scalar("learning_rate", lr)
                 logger.info("Train Epoch: %d Iteration: %d/%d train_mse_loss: %.4e "
                             "train_loss: %.4e lr: %.4e", epoch + 1, it, self.iterations, mse,
                             loss, lr)
@@ -1008,7 +1098,8 @@ class Trainer:
                             self._log({"iteration": last, "valid_stamp": valid_stamp,
                                        **val_log})
                             for k, v in val_log.items():
-                                self.writer.add_scalar(f"stamp_{k}", v, step=valid_stamp)
+                                if self.writer is not None:
+                                    self.writer.add_scalar(f"stamp_{k}", v, step=valid_stamp)
                             stop, best = self.eval_model_performance(val_log)
                             valid_stamp += 1
                             if stop:

@@ -7,9 +7,11 @@ PyTorch port (``esr_tpu_torch``):
 ``<ckpt-dir>`` is a committed ``checkpoint-iteration{N}/`` or
 ``model_best_until_iteration{N}/`` (Orbax ``state/`` plus the ``meta.yml``
 commit marker). It is read through the reference's own
-``esr_tpu.training.checkpoint.load_for_inference``; only the parameters
-are kept. ``<out-dir>`` receives ``params.npz`` (flax paths joined with
-``/``) and ``config.json`` (``meta["config"]``), which
+``esr_tpu.training.checkpoint.load_for_inference``; the model's variables
+are kept (the ``params`` collection and, for a model with norms, the
+``batch_stats`` running statistics), the optimizer state is not.
+``<out-dir>`` receives ``params.npz`` (flax paths joined with ``/``, each
+led by its collection) and ``config.json`` (``meta["config"]``), which
 ``esr_tpu_torch.inference.checkpoint.load_checkpoint`` and
 ``python -m esr_tpu_torch.infer --model_path <out-dir>`` read.
 

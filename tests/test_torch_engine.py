@@ -111,11 +111,14 @@ def seeded_params(ref, h=16, w=16, seed=0):
     shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
                             np.zeros((1, 3, h, w, 2), np.float32), ref.init_states(1, h, w))
 
-    def draw(leaf):
+    def draw(path, leaf):
+        if jax.tree_util.keystr(path).endswith("['var']"):
+            # a norm's running variance
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
         bound = 1.0 / np.sqrt(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else 0.3
         return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
 
-    return jax.tree.map(draw, shapes)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 @pytest.fixture(scope="module")
@@ -450,8 +453,7 @@ UNET_ARGS = {"num_frame": 3, "base_num_channels": 2, "num_encoders": 2,
 UNET_CHUNK_TOL = {"f32": 1e-5, "bf16": 2e-4, "int8": 1e-4}
 
 
-@pytest.fixture(scope="module")
-def unet_rung_chunks():
+def _unet_rung_chunks(args):
     import jax.numpy as jnp
 
     from esr_tpu.inference.engine import make_chunk_fn as ref_make_chunk_fn
@@ -459,9 +461,9 @@ def unet_rung_chunks():
     from esr_tpu_torch.models.registry import get_model
 
     lanes, w, hw = 2, 3, 16
-    ref = ref_get_model("SRUNetRecurrentSeq", **UNET_ARGS)
+    ref = ref_get_model("SRUNetRecurrentSeq", **args)
     params = seeded_params(ref, seed=6)
-    port = get_model("SRUNetRecurrentSeq", **UNET_ARGS)
+    port = get_model("SRUNetRecurrentSeq", **args)
     convert.load_flax_params(port, params)
     port.eval()
     rng = np.random.default_rng(1)
@@ -491,17 +493,33 @@ def unet_rung_chunks():
     return out
 
 
+@pytest.fixture(scope="module")
+def unet_rung_chunks():
+    return _unet_rung_chunks(UNET_ARGS)
+
+
+@pytest.fixture(scope="module")
+def unet_norm_rung_chunks():
+    """The same with each norm: the engine's chunk evaluates with the
+    running statistics (drawn away from their defaults)."""
+    return {norm: _unet_rung_chunks({**UNET_ARGS, "norm": norm}) for norm in ("BN", "IN")}
+
+
+@pytest.mark.parametrize("norm", ["BN", "IN"])
 @pytest.mark.parametrize("rung", ["f32", "bf16", "int8"])
-def test_unet_chunk_fn_rung_matches_reference(unet_rung_chunks, rung):
-    """``make_chunk_fn`` over SRUNetRecurrentSeq at the rung against the
-    reference's: the metric sums, the final states (the flat ``(h, c)``
-    leaves, 4 at 2 encoders) in the reference's dtypes; the rung a real
-    one, within 1.0 dB of f32 a window."""
+def test_unet_norm_chunk_fn_rung_matches_reference(unet_norm_rung_chunks, rung, norm):
+    """:func:`test_unet_chunk_fn_rung_matches_reference`'s checks for the
+    model with ``norm``: BN and IN at every rung (the norms f32 at int8).
+    At bf16 the sums within 1e-3 (rtol): the norms' bf16 statistics scale
+    each window's rounding (measured 4.4e-4 under IN)."""
+    _check_unet_chunk(unet_norm_rung_chunks[norm], rung, {**UNET_CHUNK_TOL, "bf16": 1e-3})
+
+
+def _check_unet_chunk(unet_rung_chunks, rung, tol=UNET_CHUNK_TOL):
     got, ref = unet_rung_chunks[rung]["port"], unet_rung_chunks[rung]["ref"]
     for k in METRIC_KEYS:
         assert got[k].dtype == np.float32
-        np.testing.assert_allclose(got[k], ref[k], rtol=UNET_CHUNK_TOL[rung], atol=1e-5,
-                                   err_msg=k)
+        np.testing.assert_allclose(got[k], ref[k], rtol=tol[rung], atol=1e-5, err_msg=k)
     states, ref_states = unet_rung_chunks[rung]["states"], unet_rung_chunks[rung]["ref_states"]
     assert len(states) == len(ref_states) == 2 * UNET_ARGS["num_encoders"]
     for z, r in zip(states, ref_states):
@@ -514,6 +532,15 @@ def test_unet_chunk_fn_rung_matches_reference(unet_rung_chunks, rung):
         assert not np.array_equal(got["esr_mse"], f32["esr_mse"])
         w = unet_rung_chunks[rung]["w"]
         assert (np.abs(got["esr_psnr"] - f32["esr_psnr"]) / w).max() <= 1.0
+
+
+@pytest.mark.parametrize("rung", ["f32", "bf16", "int8"])
+def test_unet_chunk_fn_rung_matches_reference(unet_rung_chunks, rung):
+    """``make_chunk_fn`` over SRUNetRecurrentSeq at the rung against the
+    reference's: the metric sums, the final states (the flat ``(h, c)``
+    leaves, 4 at 2 encoders) in the reference's dtypes; the rung a real
+    one, within 1.0 dB of f32 a window."""
+    _check_unet_chunk(unet_rung_chunks, rung)
 
 
 # -- the AOT export: artifacts against the reference's, and against eager ----
@@ -662,31 +689,56 @@ def test_loaded_chunk_program_is_the_eager_chunk_function(models, aot_artifacts,
     assert mine == expected
 
 
+def _unet_aot(tmp, args, rungs=RUNGS, forward=True):
+    from esr_tpu_torch.inference.export import export_checkpoint, load_exported_model
+    from esr_tpu_torch.models.registry import get_model
+
+    torch.manual_seed(3)
+    model = get_model("SRUNetRecurrentSeq", **args).eval()
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            # a norm's running statistics, away from their defaults
+            if name.endswith(("running_mean", "running_var")):
+                buf.copy_(torch.rand(buf.shape) + 0.5)
+    ckpt = str(tmp / "ckpt")
+    save_checkpoint(ckpt, convert.export_flax_params(model),
+                    {"model": {"name": "SRUNetRecurrentSeq", "args": args}})
+    loaded = {}
+    for rung in rungs:
+        path = export_checkpoint(ckpt, str(tmp / f"chunk.{rung}.pt2"), batch=AOT_LANES,
+                                 height=AOT_HW, width=AOT_HW, program="engine_chunk",
+                                 chunk_windows=AOT_W, scale=2, precision=rung, device="cpu")
+        loaded[rung] = load_exported_model(path, device="cpu", model=model)
+    out = {"model": model, "chunk": loaded}
+    if forward:
+        fwd = export_checkpoint(ckpt, str(tmp / "forward.pt2"), height=AOT_HW, width=AOT_HW,
+                                device="cpu")
+        out["forward"] = load_exported_model(fwd, device="cpu", model=model)
+    return out
+
+
 @pytest.fixture(scope="module")
 def unet_aot(tmp_path_factory):
     """A port checkpoint of SRUNetRecurrentSeq (seeded, narrow) and its
     ``engine_chunk`` artifact at each rung (lanes 2 x chunk 2 on the 16x16
     GT grid, the CPU) and its ``forward`` artifact, through
     ``export_checkpoint``; each loaded with the model's weights put in."""
-    from esr_tpu_torch.inference.export import export_checkpoint, load_exported_model
-    from esr_tpu_torch.models.registry import get_model
+    return _unet_aot(tmp_path_factory.mktemp("torch_unet_aot"), UNET_ARGS)
 
-    tmp = tmp_path_factory.mktemp("torch_unet_aot")
-    torch.manual_seed(3)
-    model = get_model("SRUNetRecurrentSeq", **UNET_ARGS).eval()
-    ckpt = str(tmp / "ckpt")
-    save_checkpoint(ckpt, convert.export_flax_params(model),
-                    {"model": {"name": "SRUNetRecurrentSeq", "args": UNET_ARGS}})
-    loaded = {}
-    for rung in RUNGS:
-        path = export_checkpoint(ckpt, str(tmp / f"chunk.{rung}.pt2"), batch=AOT_LANES,
-                                 height=AOT_HW, width=AOT_HW, program="engine_chunk",
-                                 chunk_windows=AOT_W, scale=2, precision=rung, device="cpu")
-        loaded[rung] = load_exported_model(path, device="cpu", model=model)
-    fwd = export_checkpoint(ckpt, str(tmp / "forward.pt2"), height=AOT_HW, width=AOT_HW,
-                            device="cpu")
-    return {"model": model, "chunk": loaded,
-            "forward": load_exported_model(fwd, device="cpu", model=model)}
+
+@pytest.fixture(scope="module")
+def unet_norm_aot(tmp_path_factory):
+    """The same with BN (its running statistics drawn away from their
+    defaults), the chunk at f32 and int8."""
+    return _unet_aot(tmp_path_factory.mktemp("torch_unet_norm_aot"),
+                     {**UNET_ARGS, "norm": "BN"}, rungs=("f32", "int8"), forward=False)
+
+
+@pytest.mark.parametrize("rung", ["f32", "int8"])
+def test_unet_norm_chunk_artifact_is_the_eager_chunk(unet_norm_aot, rung):
+    """A BN model's ``engine_chunk`` artifact (the running statistics as
+    buffers, in evaluation) is its eager chunk bitwise."""
+    test_unet_chunk_artifact_is_the_eager_chunk(unet_norm_aot, rung)
 
 
 @pytest.mark.parametrize("rung", RUNGS)

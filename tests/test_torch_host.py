@@ -107,6 +107,46 @@ def test_exported_checkpoint_evaluates_as_the_jax_model(exported):
         np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("norm", ["BN", "IN"])
+def test_exported_norm_checkpoint_carries_the_running_stats(tmp_path, norm):
+    """``configs/train_srunet_2x.yml``'s model with ``norm``, saved by
+    ``esr_tpu`` with its running statistics drawn away from their defaults,
+    exported: ``params.npz`` holds the ``batch_stats`` collection under the
+    flax names, and the port evaluates with them as the reference does."""
+    from esr_tpu.models.registry import get_model as j_get_model
+
+    with open(REPO / "configs" / "train_srunet_2x.yml") as f:
+        config = yaml.safe_load(f)
+    config["model"]["args"].update(base_num_channels=2, num_encoders=2, norm=norm)
+    model = j_get_model(config["model"]["name"], **config["model"]["args"])
+    x = np.zeros((1, 3, 16, 16, 2), np.float32)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x, model.init_states(1, 16, 16))
+    rng = np.random.default_rng(6)
+
+    def draw(path, s):
+        if jax.tree_util.keystr(path).endswith("['var']"):
+            return jnp.asarray(rng.uniform(0.5, 1.5, s.shape).astype(np.float32))
+        return jnp.asarray(rng.uniform(-0.3, 0.3, s.shape).astype(np.float32)
+                           / np.sqrt(max(np.prod(s.shape[:-1]), 1)))
+
+    variables = jax.tree_util.tree_map_with_path(draw, shapes)
+    optimizer, _ = j_build_optimizer(config["optimizer"], config.get("lr_scheduler"),
+                                     config["trainer"]["iteration_based_train"]["lr_change_rate"])
+    src = j_save_checkpoint(str(tmp_path / "ckpt"), TrainState.create(variables, optimizer),
+                            config, iteration=3, monitor_best=0.5)
+    dst = export_torch_checkpoint.main([src, str(tmp_path / "torch")])
+    with np.load(os.path.join(dst, "params.npz")) as npz:
+        stats = [k for k in npz.files if k.startswith("batch_stats/")]
+    assert stats and all(f"/TorchBatchNorm_0/" in k or "/TorchInstanceNorm_0/" in k
+                         for k in stats)
+    port, _ = load_checkpoint(dst)
+    inp = rng.poisson(0.5, (2, 3, 16, 16, 2)).astype(np.float32)
+    want, _ = model.apply(variables, jnp.asarray(inp), model.init_states(2, 16, 16))
+    with torch.no_grad():
+        got, _ = port.eval()(torch.from_numpy(inp), port.init_states(2, 16, 16))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 def test_exporter_refuses_an_uncommitted_checkpoint(exported):
     torn = exported["root"] / "torn"
     shutil.copytree(os.path.join(exported["src"], "state"), torn / "state")

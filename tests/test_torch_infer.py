@@ -673,6 +673,14 @@ UNET_RUNG_MODELS = {
                            "num_residual_blocks": 1},
     "UNetRecurrentSeq": {"num_frame": 3, "base_num_channels": 2, "num_encoders": 2,
                          "num_residual_blocks": 1, "use_upsample_conv": False},
+    # with norms: evaluation normalizes with the running statistics (drawn
+    # positive for the variances), which cross the bridge as batch_stats;
+    # at int8 the norms stay f32, as the reference's rung keeps them
+    "SRUNetRecurrentSeq+BN": {"num_frame": 3, "base_num_channels": 2, "num_encoders": 2,
+                              "num_residual_blocks": 1, "norm": "BN"},
+    "UNetRecurrentSeq+IN": {"num_frame": 3, "base_num_channels": 2, "num_encoders": 2,
+                            "num_residual_blocks": 1, "use_upsample_conv": False,
+                            "norm": "IN"},
 }
 UNET_RUNG_ATOL = 1e-4
 
@@ -682,18 +690,24 @@ def unet_rungs(runs):
     from esr_tpu_torch.models.registry import get_model
 
     out = {}
-    for name, args in UNET_RUNG_MODELS.items():
+    for case, args in UNET_RUNG_MODELS.items():
+        name = case.split("+")[0]
         ref = j_get_model(name, **args)
         shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
                                 np.zeros((1, 3, 16, 16, 2), np.float32),
                                 ref.init_states(1, 16, 16))
         rng = np.random.default_rng(2)
-        params = jax.tree.map(
-            lambda s: rng.uniform(-1.0, 1.0, s.shape).astype(np.float32)
-            / np.sqrt(max(np.prod(s.shape[:-1]), 1)), shapes)
+
+        def draw(path, s):
+            if jax.tree_util.keystr(path).endswith("['var']"):
+                return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+            return (rng.uniform(-1.0, 1.0, s.shape).astype(np.float32)
+                    / np.sqrt(max(np.prod(s.shape[:-1]), 1)))
+
+        params = jax.tree_util.tree_map_with_path(draw, shapes)
         port = get_model(name, **args)
         convert.load_flax_params(port, params)
-        out[name] = {rung: _rung_pair(ref, params, port, rung, runs["rec"])
+        out[case] = {rung: _rung_pair(ref, params, port, rung, runs["rec"])
                      for rung in ("f32", "bf16", "int8")}
     return out
 
@@ -716,6 +730,18 @@ def test_unet_family_rung_matches_reference(unet_rungs, name, rung):
     assert abs(f32["esr_psnr"] - port["esr_psnr"]) <= PSNR_DROP_DB
     states = pair["port_windows"][0][2]
     assert states == ["bfloat16" if rung == "bf16" else "float32"] * 4
+
+
+@pytest.mark.parametrize("name", [k for k in sorted(UNET_RUNG_MODELS) if "+" in k])
+def test_unet_norm_model_evaluates_as_the_reference_at_f32(unet_rungs, name):
+    """A UNet-family model with norms through the harness at f32: each
+    window within :data:`WINDOW_TOL` of the reference's, the metric means
+    within RUNG_RTOL plus UNET_RUNG_ATOL."""
+    pair = unet_rungs[name]["f32"]
+    _assert_windows(pair, "f32")
+    for k in RUNG_METRICS:
+        np.testing.assert_allclose(pair["port"][k], pair["ref"][k], rtol=RUNG_RTOL["f32"],
+                                   atol=UNET_RUNG_ATOL, err_msg=k)
 
 
 def _layer_dtypes_ref(ref, params, x, states):

@@ -12,6 +12,7 @@ with its matrix backward. At bf16 (C8): the resize's and each layer's
 output dtype and values against the reference's promotion.
 """
 
+import copy
 import functools
 
 import jax
@@ -574,3 +575,287 @@ def test_bf16_resize_promotes_and_its_gradient_is_bf16(mode):
     _assert_c8(xt.grad, ref_grad, torch.bfloat16)
     _assert_c8(TR.interpolate(torch.from_numpy(x).to(torch.bfloat16), (10, 14), mode).permute(
         0, 3, 1, 2), ref, torch.float32)
+
+
+# -- the norms (BN / IN) ------------------------------------------------------
+#
+# Each layer that takes ``norm``, with BatchNorm and with InstanceNorm, from
+# the flax init with its running statistics, BN's scale and bias drawn away
+# from their defaults. Training (the moments over the batch, the running
+# statistics updated, the gradients of the output's square sum to every
+# parameter and to the input) and evaluation (the running statistics), at
+# f32 within 1e-5 of each tensor's scale, the gradients within 1e-5 of the
+# largest gradient's (an IN conv's bias has a zero gradient in exact
+# arithmetic: f32 noise; measured 1.9e-6 at most); at bf16 (the rung casts
+# every leaf, the statistics too) the output's dtype and its values within
+# one bf16 ulp of its scale.
+
+NORM_LAYERS = {
+    "conv": (lambda n: FL.ConvLayer(5, 3, stride=2, padding=1, norm=n),
+             lambda n: TL.ConvLayer(3, 5, 3, stride=2, padding=1, norm=n),
+             [(2, 9, 11, 3)], "image"),
+    "conv1d": (lambda n: FL.ConvLayer1D(4, 3, padding=1, norm=n),
+               lambda n: TL.ConvLayer1D(3, 4, 3, padding=1, norm=n), [(2, 9, 3)], "image"),
+    "transposed_conv": (lambda n: FL.TransposedConvLayer(4, 3, padding=1, norm=n),
+                        lambda n: TL.TransposedConvLayer(3, 4, 3, padding=1, norm=n),
+                        [(2, 5, 6, 3)], "image"),
+    "upsample_conv": (lambda n: FL.UpsampleConvLayer(4, 3, padding=1, norm=n),
+                      lambda n: TL.UpsampleConvLayer(3, 4, 3, padding=1, norm=n),
+                      [(2, 5, 6, 3)], "image"),
+    "residual_block": (lambda n: FL.ResidualBlock(6, norm=n),
+                       lambda n: TL.ResidualBlock(6, norm=n), [(2, 7, 9, 6)], "image"),
+    "recurrent_convlstm": (
+        lambda n: FL.RecurrentConvLayer(4, 5, stride=2, padding=2,
+                                        recurrent_block_type="convlstm", norm=n),
+        lambda n: TL.RecurrentConvLayer(3, 4, 5, stride=2, padding=2, norm=n,
+                                        recurrent_block_type="convlstm"),
+        [(2, 9, 11, 3), (2, 5, 6, 4), (2, 5, 6, 4)], "lstm"),
+}
+
+
+# at bf16 a norm divides by the batch's spread, so an intermediate's one-ulp
+# rounding flip (the moments summed in another order) can grow by a few
+# ulps through the next conv: measured up to 2.3 bf16 ulps of the output's
+# scale (residual block, train); 4 ulps allowed
+NORM_BF16_TOL = 4 * BF16_SEAM_TOL
+
+
+def _norm_variables(fmod, xs, kind, seed):
+    """The flax variables of ``fmod`` with its running statistics (and
+    BN's affine parameters) drawn away from their initial values."""
+    rng = np.random.default_rng(seed)
+    v = jax.tree.map(np.asarray, fmod.init(jax.random.PRNGKey(seed), *_cell_args(kind, xs)))
+
+    def draw(path, leaf):
+        key = jax.tree_util.keystr(path)
+        if "Torch" not in key:
+            return leaf
+        if key.endswith("['var']") or key.endswith("['scale']"):
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+        return rng.normal(0.0, 0.3, leaf.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, v)
+
+
+def _channels_last(t):
+    return np.moveaxis(t.detach().float().numpy(), 1, -1)
+
+
+def _scaled_close(got, want, tol, scale=None):
+    want = np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1.0) if scale is None else scale
+    assert got.shape == want.shape
+    assert float(np.abs(np.asarray(got, np.float64) - want).max()) <= tol * scale
+
+
+@pytest.fixture(scope="module")
+def norm_layers():
+    """Each norm case's flax module, seeded inputs and variables."""
+    out = {}
+    for name, (fctor, _, shapes, kind) in NORM_LAYERS.items():
+        for norm in ("BN", "IN"):
+            fmod = fctor(norm)
+            rng = np.random.default_rng(sum(map(ord, name + norm)))
+            xs = [rng.standard_normal(s).astype(np.float32) * 2.0 + 0.5 for s in shapes]
+            out[name, norm] = (fmod, xs, _norm_variables(fmod, xs, kind, 5))
+    return out
+
+
+@pytest.mark.parametrize("norm", ["BN", "IN"])
+@pytest.mark.parametrize("name", sorted(NORM_LAYERS))
+def test_norm_layer_trains_and_evaluates_as_flax(norm_layers, name, norm):
+    _, tctor, _, kind = NORM_LAYERS[name]
+    fmod, xs, v = norm_layers[name, norm]
+    tmod = tctor(norm)
+    assert convert.load_flax_params(tmod, v) == len(convert.flatten_tree(v))
+    if norm == "BN":
+        # a conv whose output BN takes has no bias, in both packages
+        flat = convert.flatten_tree(v["params"])
+        parents = {k[:-2] for k in flat if k[-2].startswith("TorchBatchNorm")}
+        assert parents and not any(k[-1] == "bias" and k[:-2] + ("_NormWrapper_0",) in parents
+                                   for k in flat)
+
+    def jloss(p, x0):
+        out, mut = fmod.apply({**v, "params": p}, *_cell_args(kind, [x0] + xs[1:]), True,
+                              mutable=["batch_stats"])
+        return sum(jnp.sum(jnp.square(o)) for o in jax.tree.leaves(out)), (out, mut)
+
+    (_, (jout, jmut)), (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        v["params"], xs[0])
+    tx = [_nchw(x) for x in xs]
+    tx[0].requires_grad_(True)
+    tmod.train()
+    tout = tmod(*_cell_args(kind, tx))
+    sum((o ** 2).sum() for o in torch.utils._pytree.tree_leaves(tout)).backward()
+    for g, r in zip(torch.utils._pytree.tree_leaves(tout), jax.tree.leaves(jout)):
+        _scaled_close(_channels_last(g), r, 1e-5)
+    stats = convert.flatten_tree(convert.export_flax_params(tmod)["batch_stats"])
+    want_stats = convert.flatten_tree(jax.tree.map(np.asarray, jmut["batch_stats"]))
+    assert sorted(stats) == sorted(want_stats) and stats
+    for k in want_stats:
+        _scaled_close(stats[k], want_stats[k], 1e-5)
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in tmod.named_parameters()}
+    graded = copy.deepcopy(tmod)
+    for k, p in graded.named_parameters():
+        p.data = grads[k]
+    tg = convert.flatten_tree(convert.export_flax_params(graded)["params"])
+    jg = convert.flatten_tree(jax.tree.map(np.asarray, jgp))
+    assert sorted(tg) == sorted(jg)
+    gscale = max(float(np.abs(a).max()) for a in jg.values())
+    for k in jg:
+        _scaled_close(tg[k], jg[k], 1e-5, gscale)
+    _scaled_close(_channels_last(tx[0].grad), jgx, 1e-5, float(np.abs(jgx).max()))
+
+    # evaluation: the running statistics the flax variables carry
+    tmod2 = tctor(norm)
+    convert.load_flax_params(tmod2, v)
+    jeval = fmod.apply(v, *_cell_args(kind, xs), False)
+    with torch.no_grad():
+        teval = tmod2.eval()(*_cell_args(kind, [_nchw(x) for x in xs]))
+    for g, r in zip(torch.utils._pytree.tree_leaves(teval), jax.tree.leaves(jeval)):
+        _scaled_close(_channels_last(g), r, 1e-5)
+
+    # the bf16 rung: every leaf cast, both modes
+    vb = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), v)
+    xb = [jnp.asarray(x).astype(jnp.bfloat16) for x in xs]
+    for train in (True, False):
+        ref = fmod.apply(vb, *_cell_args(kind, xb), train, mutable=["batch_stats"])[0]
+        tb = copy.deepcopy(tmod2).to(torch.bfloat16).train(train)
+        with torch.no_grad():
+            got = tb(*_cell_args(kind, [_nchw(x).to(torch.bfloat16) for x in xs]))
+        for g, r in zip(torch.utils._pytree.tree_leaves(got), jax.tree.leaves(ref)):
+            assert str(g.dtype).replace("torch.", "") == str(r.dtype)
+            _scaled_close(_channels_last(g), np.asarray(r.astype(jnp.float32)), NORM_BF16_TOL)
+
+
+def test_unknown_norm_is_refused_as_the_reference():
+    with pytest.raises(NotImplementedError, match="norm='GN'"):
+        TL.ConvLayer(3, 4, norm="GN")
+
+
+# A BN layer in a 2-process gloo group, each process its half of a batch of
+# 4 (``parallel.mesh``): every process's output rows, input-gradient rows and
+# running statistics, and the group's summed parameter gradients, against one
+# process at the whole batch and against the reference over a 2-device mesh
+# (GSPMD takes the global batch's moments). Within 1e-5 of each tensor's
+# scale; the two processes' running statistics are the same bits.
+
+_BN_PROCESS = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+from esr_tpu_torch.inference.checkpoint import read_params
+from esr_tpu_torch.models import convert, layers
+rank, world, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"file://{root}/store", rank=rank,
+                        world_size=world)
+x = np.load(f"{root}/x.npy")
+b = x.shape[0] // world
+layer = layers.ConvLayer(3, 5, 3, stride=2, padding=1, norm="BN").train()
+convert.load_flax_params(layer, read_params(root))
+xr = torch.from_numpy(np.ascontiguousarray(np.moveaxis(x[rank * b:(rank + 1) * b], -1, 1)))
+xr.requires_grad_(True)
+out = layer(xr)
+(out ** 2).sum().backward()
+for p in layer.parameters():
+    dist.all_reduce(p.grad)
+    p.data = p.grad
+tree = convert.export_flax_params(layer)
+flat = {"/".join(k): v for k, v in convert.flatten_tree(tree).items()}
+np.savez(f"{root}/out{rank}.npz", y=out.detach().numpy(), gx=xr.grad.numpy(), **flat)
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def _one_torch_thread():
+    """This process's torch work in one intra-op thread while its two
+    processes (one thread each) share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def bn_two_processes(norm_layers, tmp_path_factory, _one_torch_thread):
+    """The conv BN case's variables, a batch of 4, and what each of the two
+    processes wrote."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from esr_tpu_torch.inference.checkpoint import save_checkpoint
+
+    root = tmp_path_factory.mktemp("bn_two_processes")
+    fmod, _, v = norm_layers["conv", "BN"]
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((4, 9, 11, 3)) * 2.0 + 0.5).astype(np.float32)
+    save_checkpoint(str(root), v, {})
+    np.save(root / "x.npy", x)
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(Path(__file__).resolve().parent.parent)}
+    procs = [subprocess.Popen([sys.executable, "-c", _BN_PROCESS, str(r), "2", str(root)],
+                              env=env, start_new_session=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0].decode() for p in procs]
+    finally:
+        for p in procs:  # a peer left in a collective goes with its group
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+    assert [p.returncode for p in procs] == [0, 0], logs
+    return fmod, v, x, [dict(np.load(root / f"out{r}.npz")) for r in range(2)]
+
+
+def test_two_process_batchnorm_takes_the_global_batch_moments(bn_two_processes):
+    from esr_tpu.parallel.mesh import make_mesh
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    fmod, v, x, got = bn_two_processes
+
+    # one process at the whole batch
+    one = TL.ConvLayer(3, 5, 3, stride=2, padding=1, norm="BN").train()
+    convert.load_flax_params(one, v)
+    xt = _nchw(x).requires_grad_(True)
+    y = one(xt)
+    (y ** 2).sum().backward()
+    stats = {"/".join(k): a for k, a in convert.flatten_tree(
+        {"batch_stats": convert.export_flax_params(one)["batch_stats"]}).items()}
+    for p in one.parameters():
+        p.data = p.grad
+    grads = {"/".join(k): a for k, a in convert.flatten_tree(
+        {"params": convert.export_flax_params(one)["params"]}).items()}
+
+    # the reference over a 2-device mesh
+    mesh = make_mesh(jax.devices()[:2])
+
+    def jloss(p, xx):
+        out, mut = fmod.apply({**v, "params": p}, xx, True, mutable=["batch_stats"])
+        return jnp.sum(jnp.square(out)), (out, mut)
+
+    xs = jax.device_put(x, NamedSharding(mesh, P("data")))
+    (_, (jy, jmut)), (jgp, jgx) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(v["params"], xs)
+    jflat = {"/".join(k): np.asarray(a) for k, a in convert.flatten_tree(
+        {"params": jax.tree.map(np.asarray, jgp),
+         "batch_stats": jax.tree.map(np.asarray, jmut["batch_stats"])}).items()}
+
+    for r, g in enumerate(got):
+        rows = slice(2 * r, 2 * r + 2)
+        for want in (y.detach().numpy()[rows], np.moveaxis(np.asarray(jy), -1, 1)[rows]):
+            _scaled_close(g["y"], want, 1e-5)
+        for want in (xt.grad.numpy()[rows], np.moveaxis(np.asarray(jgx), -1, 1)[rows]):
+            _scaled_close(g["gx"], want, 1e-5)
+        for k, want in {**stats, **grads}.items():
+            _scaled_close(g[k], want, 1e-5)
+            _scaled_close(g[k], jflat[k], 1e-5)
+    for k in stats:
+        np.testing.assert_array_equal(got[0][k], got[1][k])

@@ -163,23 +163,39 @@ UNETS = {
     "multires_transposed": ("MultiResUNet", dict(base_num_channels=4, num_encoders=2,
                                                  num_bins=2, use_upsample_conv=False,
                                                  kernel_size=3)),
+    # norm: the reference's batch_stats collection crosses the bridge with
+    # the params (running statistics drawn positive for the variances)
+    "srunet_sum_lstm_bn": ("SRUNetRecurrent", dict(base_num_channels=4, num_encoders=2,
+                                                   num_bins=2, num_output_channels=2,
+                                                   norm="BN")),
+    "unet_sum_gru_in": ("UNetRecurrent", dict(base_num_channels=4, num_encoders=2,
+                                              recurrent_block_type="convgru", num_bins=2,
+                                              norm="IN")),
+    "unet_concat_transposed_bn": ("UNetRecurrent", dict(
+        base_num_channels=4, num_encoders=2, skip_type="concat", use_upsample_conv=False,
+        kernel_size=3, num_bins=2, norm="BN")),
+    "multires_in": ("MultiResUNet", dict(base_num_channels=4, num_encoders=2, num_bins=2,
+                                         norm="IN")),
 }
 ADAPTERS = {"srunet_seq": "SRUNetRecurrentSeq", "unet_seq": "UNetRecurrentSeq"}
 
 
 def _seeded_params(shapes, rng):
-    def draw(leaf):
+    def draw(path, leaf):
+        if jax.tree_util.keystr(path).endswith("['var']"):
+            # a norm's running variance
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
         bound = 1.0 / np.sqrt(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else 0.3
         return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
 
-    return jax.tree.map(draw, shapes)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def _close(got, ref):
+def _close(got, ref, tol=1e-5):
     ref = np.asarray(ref)
     assert tuple(got.shape) == ref.shape
     scale = max(float(np.abs(ref).max()), 1.0)
-    assert float(np.abs(got.detach().numpy() - ref).max()) <= 1e-5 * scale
+    assert float(np.abs(got.detach().numpy() - ref).max()) <= tol * scale
 
 
 @pytest.fixture(scope="module")
@@ -268,12 +284,51 @@ def test_adapter_matches_flax(unets, case):
         even(torch.zeros((1, 2, UH, UW, 2)), port.init_states(1, UH, UW))
 
 
+@pytest.mark.parametrize("norm", ["BN", "IN"])
+def test_norm_adapter_trains_as_the_reference(norm):
+    """``SRUNetRecurrentSeq`` with ``norm`` in training: two windows of 3
+    frames, each frame's encoders and decoders run (the decoders' norms
+    update their running statistics on every frame, as the reference's
+    whole-frame loop does): the middle frame's output, the states and the
+    ``batch_stats`` after each window against the reference's train-mode
+    apply. Tolerance 1e-5 * max(|ref|, 1), and 1e-4 under IN, whose
+    per-instance ``E[x^2] - E[x]^2`` over a few pixels amplifies the f32
+    summation order (measured 1.4e-5 of the scale)."""
+    import copy
+
+    kw = dict(base_num_channels=4, num_encoders=2, norm=norm)
+    ref = J_REGISTRY["SRUNetRecurrentSeq"](**kw)
+    port = TR.get_model("SRUNetRecurrentSeq", **kw)
+    rng = np.random.default_rng(7)
+    frames = [rng.poisson(0.7, (2, 3, UH, UW, 2)).astype(np.float32) for _ in range(2)]
+    params = _seeded_params(jax.eval_shape(ref.init, jax.random.PRNGKey(0), frames[0],
+                                           ref.init_states(2, UH, UW)), rng)
+    convert.load_flax_params(port, params)
+    port = copy.deepcopy(port).train()
+    tol = 1e-4 if norm == "IN" else 1e-5
+    rs, ts = ref.init_states(2, UH, UW), port.init_states(2, UH, UW)
+    for x in frames:
+        (want, rs), mut = ref.apply(params, x, rs, True, mutable=["batch_stats"])
+        params = {**params, "batch_stats": mut["batch_stats"]}
+        with torch.no_grad():
+            got, ts = port(torch.from_numpy(x), ts)
+        _close(got, want, tol)
+        for t, r in zip(ts, jax.tree.leaves(rs)):
+            _close(t, r, tol)
+        stats = convert.flatten_tree(convert.export_flax_params(port)["batch_stats"])
+        want_stats = convert.flatten_tree(jax.tree.map(np.asarray, mut["batch_stats"]))
+        assert set(stats) == set(want_stats) and len(stats) >= 8
+        for k in want_stats:
+            _close(torch.from_numpy(stats[k]), want_stats[k], tol)
+
+
 @pytest.mark.parametrize("case", sorted(UNETS) + sorted(ADAPTERS))
 def test_converter_consumes_every_unet_leaf(unets, case):
     u = unets[case]
     flat = convert.flatten_tree(u["params"])
     assert u["n_leaves"] == len(flat)
-    assert sum(p.numel() for p in u["port"].parameters()) / 1e6 == _num_params(u["params"])
+    assert (sum(p.numel() for p in u["port"].parameters()) / 1e6
+            == _num_params(u["params"]["params"]))
     back = convert.flatten_tree(convert.export_flax_params(u["port"]))
     assert set(back) == set(flat)
     for k in flat:

@@ -1074,6 +1074,63 @@ def test_unet_serving_matches_jax_serving(unet_served, rung):
 
 
 @pytest.fixture(scope="module")
+def unet_norm_served(corpus):
+    """A SRUNetRecurrentSeq with each norm (running statistics drawn away
+    from their defaults) served by both packages' ``ServingEngine`` over 4
+    streams at f32 and int8: each stream's reports, the reference's and the
+    port's."""
+    return {norm: _serve_norm_model(corpus[:4], norm) for norm in ("BN", "IN")}
+
+
+def _serve_norm_model(streams, norm):
+    from esr_tpu.models.registry import get_model as ref_get_model
+    from esr_tpu_torch.models.registry import get_model
+
+    args = {**UNET_ARGS, "norm": norm}
+    ref = ref_get_model("SRUNetRecurrentSeq", **args)
+    rng = np.random.default_rng(8)
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
+                            np.zeros((1, 3, 16, 16, 2), np.float32), ref.init_states(1, 16, 16))
+
+    def draw(path, s):
+        if jax.tree_util.keystr(path).endswith("['var']"):
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (rng.uniform(-1.0, 1.0, s.shape)
+                / np.sqrt(max(np.prod(s.shape[:-1]), 1))).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(draw, shapes)
+    port = get_model("SRUNetRecurrentSeq", **args)
+    convert.load_flax_params(port, params)
+    models = (ref, params, port.eval())
+    out = {}
+    for rung in ("f32", "int8"):
+        r_srv = _ref(models, precision=rung)
+        r_ids = [r_srv.submit(p) for p in streams]
+        r_srv.run()
+        p_srv = _port(models, precision=rung)
+        p_ids = [p_srv.submit(p) for p in streams]
+        p_srv.run()
+        out[rung] = [(r_srv.report(rid), p_srv.report(pid)) for rid, pid in zip(r_ids, p_ids)]
+    return out
+
+
+@pytest.mark.parametrize("norm", ["BN", "IN"])
+def test_unet_norm_model_serves_as_jax_serving(unet_norm_served, norm):
+    """The model with ``norm`` served by one replica at f32 and int8 (the
+    norms f32 there) against the reference's ``ServingEngine``: every
+    stream's windows and skips equal, its metrics within
+    :data:`UNET_SERVE_RTOL`."""
+    for rung, pairs in unet_norm_served[norm].items():
+        for r, p in pairs:
+            assert p["status"] == "ok"
+            assert (p["n_windows"], p["n_windows_skipped"]) == (r["n_windows"],
+                                                                 r["n_windows_skipped"])
+            for k in METRIC_KEYS:
+                np.testing.assert_allclose(p[k], r[k], rtol=UNET_SERVE_RTOL[rung], atol=1e-5,
+                                           err_msg=f"{rung} {k}")
+
+
+@pytest.fixture(scope="module")
 def unet_handoff(corpus, unet_models, tmp_path_factory):
     """The ``handoff`` fixture's drain -> admit across replicas with a
     UNet-family model at bf16 (its 4 leaves as bf16 words on the wire)."""

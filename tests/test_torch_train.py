@@ -189,14 +189,17 @@ def test_paused_sequence_is_bitwise_the_reference(datasets, case):
             "shipped": n_paused < windows, "flaky": 0 < n_paused < windows}[case]
 
 
+@pytest.mark.parametrize("shard_id,num_shards", [(0, 1), (0, 2), (1, 2), (2, 3)])
 @pytest.mark.parametrize("num_items,batch,shuffle,drop_last", [
     (10, 3, True, True), (10, 3, False, False), (7, 2, True, False),
     (2, 4, True, False), (9, 2, False, True)])
-def test_sampler_deals_the_reference_indices(num_items, batch, shuffle, drop_last):
-    # the reference's sampler at shard 0 of 1: the port has no data parallelism
+def test_sampler_deals_the_reference_indices(num_items, batch, shuffle, drop_last, shard_id,
+                                             num_shards):
+    # each process's share of every global batch, as the reference deals it
     for epoch in (0, 1):
-        port = ShardedSampler(num_items, batch, shuffle, drop_last, seed=4)
-        ref = RefSampler(num_items, batch, 0, 1, shuffle, drop_last, seed=4)
+        port = ShardedSampler(num_items, batch, shuffle, drop_last, seed=4, shard_id=shard_id,
+                              num_shards=num_shards)
+        ref = RefSampler(num_items, batch, shard_id, num_shards, shuffle, drop_last, seed=4)
         port.set_epoch(epoch)
         ref.set_epoch(epoch)
         assert len(port) == len(ref)
@@ -1447,3 +1450,268 @@ def test_srunet_captured_group_is_the_eager_loop_bitwise_on_card(srunet_card_gro
         # the losses, the parameters, Adam-amsgrad's three moments of each
         assert len(e) == len(c) == 1 + 4 * g["n_params"]
         assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(e, c))
+
+
+# -- data parallelism (train --multihost) ------------------------------------
+#
+# configs/train_srunet_2x.yml cut as SR_TINY, with norm BN (its moments are
+# the global batch's) and async checkpoints (the recipe's), from the
+# reference trainer's initial weights: two gloo processes of the port's
+# trainer at batch 2 each (`torch.distributed.run ... --multihost --device
+# cpu`: 2 steps, a validation, a checkpoint, then `-r auto` one step more)
+# against the port in one process at the global batch of 4 and the
+# reference's Trainer on a 2-device mesh at 4. Losses, validation losses
+# and grad norms within rtol 1e-5; parameters and running statistics after
+# Adam within 1e-5 of each leaf's scale against the port (`_leaf_close`) and
+# rtol 2e-3 + atol 1e-6 against the reference; the processes' states the
+# same bits at every save (the trainer's gathered digest).
+
+DP = ["model;args;norm=BN", "trainer;k_steps=1", "train_dataloader;batch_size=4",
+      "valid_dataloader;batch_size=4", "trainer;iteration_based_train;iterations=2",
+      "trainer;iteration_based_train;valid_step=1",
+      "trainer;iteration_based_train;save_period=1"]
+DP_TIMEOUT_S = 120
+
+
+def _torchrun(nproc, run_args, timeout=DP_TIMEOUT_S):
+    """``python -m torch.distributed.run --standalone`` of the port's
+    trainer in ``nproc`` gloo processes, one torch thread each; the launcher
+    and its workers are killed together on a timeout."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "-m", "esr_tpu_torch.train", *run_args,
+           "--multihost", "--device", "cpu"]
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(REPO)}
+    proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    assert proc.returncode == 0, err[-4000:]
+    return out, err
+
+
+def _sr_args(out, corpus, extra):
+    args = ["-c", str(REPO / "configs" / "train_srunet_2x.yml"), "-id", "run0", "-seed", "5"]
+    for ov in SR_TINY + [f"trainer;output_path={out}",
+                         f"train_dataloader;path_to_datalist_txt={corpus / 'datalist2.txt'}",
+                         f"valid_dataloader;path_to_datalist_txt={corpus / 'datalist1.txt'}",
+                         *extra]:
+        args += ["-o", ov]
+    return args
+
+
+def _ckpt(run_dir, iteration):
+    path = Path(run_dir) / f"checkpoint-iteration{iteration}"
+    return {"params": convert.flatten_tree(read_params(str(path))),
+            "optimizer": torch.load(path / "optimizer.pt")}
+
+
+def _train_log(log_dir):
+    with open(Path(log_dir) / "train_log.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.fixture(scope="module")
+def dp_runs(shared_corpus_dir, tmp_path_factory):
+    from esr_tpu.parallel.mesh import make_mesh
+    from esr_tpu.training.trainer import Trainer as RefTrainer
+    from esr_tpu_torch.training.checkpoint import save_checkpoint as t_save_checkpoint
+
+    out = tmp_path_factory.mktemp("dp")
+    corpus = shared_corpus_dir
+    ref = RefTrainer(J_parser.RunConfig.from_args(
+        str(REPO / "configs" / "train_srunet_2x.yml"),
+        SR_TINY + DP + [f"trainer;output_path={out / 'ref'}",
+                        f"train_dataloader;path_to_datalist_txt={corpus / 'datalist2.txt'}",
+                        f"valid_dataloader;path_to_datalist_txt={corpus / 'datalist1.txt'}"],
+        runid="run0", seed=5), mesh=make_mesh(jax.devices()[:2]))
+    start = jax.tree.map(np.asarray, ref.state.params)
+    ref.train()
+    with open(Path(ref.run.log_dir) / "metrics.jsonl") as f:
+        ref_losses = [r["value"] for r in map(json.loads, f) if r["tag"] == "train_loss/train"]
+
+    # the port in one process at the global batch, from the same weights;
+    # its fresh state is also the two processes' starting checkpoint
+    one = Trainer(_sr_run(out / "one", corpus, DP), device="cpu")
+    convert.load_flax_params(one.model, start)
+    init = t_save_checkpoint(str(out / "init"), one.model, one.optimizer, one.run.config, 0,
+                             float("inf"))
+    one.train()
+    one_resumed = Trainer(_sr_run(out / "one", corpus, DP + [
+        "trainer;iteration_based_train;iterations=3"], resume="auto"), device="cpu")
+    one_resumed.train()
+
+    # batch_size is per process: 2 each, the global batch 4
+    two = DP + ["train_dataloader;batch_size=2", "valid_dataloader;batch_size=2"]
+    first = _torchrun(2, _sr_args(out / "two", corpus, two) + ["-r", init, "--reset"])
+    second = _torchrun(2, _sr_args(out / "two", corpus, two + [
+        "trainer;iteration_based_train;iterations=3"]) + ["-r", "auto"])
+    two_dir = out / "two" / "models" / "SRUNetRecurrent2x" / "run0"
+    return {"ref": {"losses": ref_losses,
+                    "params": convert.flatten_tree(jax.tree.map(np.asarray, ref.state.params))},
+            "one": {"log": _train_log(one.run.log_dir), "run": Path(one.run.save_dir)},
+            "two": {"log": _train_log(out / "two" / "logs" / "SRUNetRecurrent2x" / "run0"),
+                    "run": two_dir, "runs": (first, second)}}
+
+
+def test_data_parallel_metrics_are_the_global_batchs(dp_runs):
+    one, two = dp_runs["one"]["log"], dp_runs["two"]["log"]
+    keys = ("train_loss", "train_mse_loss", "grad_norm")
+    steps = [[r for r in log if "train_loss" in r] for log in (one, two)]
+    assert [r["iteration"] for r in steps[1]] == [r["iteration"] for r in steps[0]] == [0, 1, 2]
+    for a, b in zip(*steps):
+        for k in keys:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, err_msg=k)
+    # the resumed step's loss aside, the first two against the reference's
+    np.testing.assert_allclose([r["train_loss"] for r in steps[1][:2]],
+                               dp_runs["ref"]["losses"], rtol=1e-5)
+    valid = [[r for r in log if "valid_stamp" in r] for log in (one, two)]
+    assert [r["iteration"] for r in valid[1]] == [1, 2]
+    for a, b in zip(*valid):
+        for k in ("valid_loss", "valid_mse_loss"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("iteration", [1, 2])
+def test_data_parallel_state_is_one_process_at_the_global_batch(dp_runs, iteration):
+    two = _ckpt(dp_runs["two"]["run"], iteration)
+    one = _ckpt(dp_runs["one"]["run"], iteration)
+    _leaf_close(two["params"], one["params"], f"params at {iteration}")
+    assert any(k[0] == "batch_stats" for k in two["params"])
+    moments = lambda s: {(i, m): np.asarray(v[m]) for i, v in s["state"].items()
+                         for m in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")}
+    _leaf_close(moments(two["optimizer"]["optimizer"]), moments(one["optimizer"]["optimizer"]),
+                "Adam moments")
+    if iteration == 1:
+        ref = dp_runs["ref"]["params"]
+        assert set(two["params"]) == set(ref)
+        for k in ref:
+            np.testing.assert_allclose(two["params"][k], ref[k], rtol=2e-3, atol=1e-6,
+                                       err_msg="/".join(k))
+
+
+def test_data_parallel_ranks_agree_and_rank_zero_writes_once(dp_runs):
+    run_dir = dp_runs["two"]["run"]
+    for (out, err), iters in zip(dp_runs["two"]["runs"], ([1], [2])):
+        # one final line, rank 0's
+        assert len([line for line in out.splitlines() if line.startswith("{")]) == 1
+        for it in iters:
+            assert len(re.findall(rf"replicas' states agree at iteration {it} ", err)) == 1
+            assert len(re.findall(rf"Saved checkpoint: \S+checkpoint-iteration{it}\n",
+                                  err)) == 1
+        assert "dispatch_retries disabled under data parallelism" in err
+    assert sorted(p.name for p in run_dir.iterdir() if p.is_dir()) == [
+        "checkpoint-iteration1", "checkpoint-iteration2", "model_best_until_iteration1",
+        "model_best_until_iteration2"]
+
+
+def test_world_one_group_is_the_no_group_step_bitwise(tmp_path):
+    """A gloo group of one (``train --multihost`` at world 1) runs every
+    collective of the step, the gradient all-reduce and the metrics' and
+    probes' reductions among them, to the same bits as no group: the
+    flagship with its numerics probes, and the SR recipe's model with BN."""
+    import torch.distributed as dist
+
+    from esr_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(21)
+    batches = [{k: torch.from_numpy(rng.poisson(0.7, (B, L, SR_H, SR_W, 2)).astype(np.float32))
+                for k in ("inp", "gt")} for _ in range(2)]
+    builds = {"flagship": lambda: DeepRecurrNet(inch=2, basech=2, num_frame=3, numerics=True),
+              "srunet_bn": lambda: t_get_model("SRUNetRecurrentSeq", **SR_ARGS, norm="BN")}
+
+    def run(build):
+        torch.manual_seed(0)
+        model = build()
+        opt = T_optim.make_optimizer("Adam", model.parameters(), lr=lambda step: 1e-3,
+                                     weight_decay=1e-4, amsgrad=True)
+        step = T_step.make_train_step(model, opt, seqn=3, numerics=True)
+        metrics = [step(b) for b in batches]
+        return metrics, convert.export_flax_params(model)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert sorted(a) == sorted(b)
+            for k in a:
+                same(a[k], b[k])
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    alone = {name: run(build) for name, build in builds.items()}
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        assert mesh.process_shard_info() == (0, 1) and mesh.is_distributed()
+        grouped = {name: run(build) for name, build in builds.items()}
+    finally:
+        dist.destroy_process_group()
+    for name in builds:
+        for a, b in zip(alone[name][0], grouped[name][0]):
+            same(a, b)
+        same(alone[name][1], grouped[name][1])
+    assert "batch_stats" in alone["srunet_bn"][1]
+
+
+@pytest.fixture(scope="module")
+def bn_remat():
+    """Two BPTT steps of the SR recipe's model with BN under ``remat`` in
+    both packages from the same variables (running statistics drawn away
+    from their defaults), and the port's without remat."""
+    ref = j_get_model("SRUNetRecurrentSeq", **SR_ARGS, norm="BN")
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0),
+                            np.zeros((1, 3, SR_H, SR_W, 2), np.float32),
+                            ref.init_states(1, SR_H, SR_W))
+    rng = np.random.default_rng(5)
+
+    def draw(path, leaf):
+        key = jax.tree_util.keystr(path)
+        if key.endswith("['var']") or key.endswith("['scale']"):
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+        bound = 1.0 / np.sqrt(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else 0.3
+        return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
+
+    variables = jax.tree_util.tree_map_with_path(draw, shapes)
+    batches = [{k: rng.poisson(0.7, (B, L, SR_H, SR_W, 2)).astype(np.float32)
+                for k in ("inp", "gt")} for _ in range(SR_STEPS)]
+    j_opt = J_optim.make_optimizer("Adam", lr=1e-3, weight_decay=1e-4, amsgrad=True)
+    j_step = jax.jit(j_make_train_step(ref, j_opt, seqn=3, remat=True))
+    state = TrainState.create(variables, j_opt)
+    for batch in batches:
+        state, _ = j_step(state, batch)
+    out = {"jax": convert.flatten_tree(jax.tree.map(np.asarray, state.params)),
+           "start": convert.flatten_tree(variables)}
+    for remat in (True, False):
+        port = t_get_model("SRUNetRecurrentSeq", **SR_ARGS, norm="BN")
+        convert.load_flax_params(port, variables)
+        t_opt = T_optim.make_optimizer("Adam", port.parameters(), lr=lambda step: 1e-3,
+                                       weight_decay=1e-4, amsgrad=True)
+        t_step = T_step.make_train_step(port, t_opt, seqn=3, remat=remat)
+        for batch in batches:
+            t_step({k: torch.from_numpy(v) for k, v in batch.items()})
+        out[remat] = convert.flatten_tree(convert.export_flax_params(port))
+    return out
+
+
+def test_bn_remat_updates_the_running_stats_once_as_the_reference(bn_remat):
+    """``remat`` recomputes each window's forward in the backward; the
+    running statistics are updated by the forward alone (the reference's
+    ``jax.checkpoint`` is pure): the port's statistics and parameters after
+    two steps are the reference's, and bitwise the port's without remat."""
+    got, want = bn_remat[True], bn_remat["jax"]
+    stats = [k for k in want if k[0] == "batch_stats"]
+    assert len(stats) >= 8
+    _leaf_close({k: got[k] for k in stats}, {k: want[k] for k in stats}, "batch_stats")
+    assert any(not np.array_equal(want[k], bn_remat["start"][k]) for k in stats)
+    params = [k for k in want if k[0] == "params"]
+    for k in params:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-3, atol=1e-6, err_msg="/".join(k))
+    for k in want:
+        np.testing.assert_array_equal(got[k], bn_remat[False][k], err_msg="/".join(k))
