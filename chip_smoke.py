@@ -173,6 +173,26 @@ Phases (any failure exits non-zero):
    f32). The DP worker of (a) runs beside this process's plain run and
    (c)'s checks, which take no time; then each captured step (a) and each
    norm's eager and captured step (c) is timed alone on the card.
+8h. serving ESIM-simulated streams and the event-op library: (a)
+   ``serve.main`` on a port checkpoint of the sparse flagship (phase 7's
+   weights) at lanes 4 with ``--loadgen 4``: the synthetic corpus on one
+   replica, then ``--loadgen_kind simulate`` on one replica and with
+   ``--replicas 2``; each run loses no request, every request's windows
+   finite, only ``dcn_fwd_masked`` launched (counted in that run); the
+   simulate corpus's event counts per rung those of the CPU test
+   (``SIMULATE_EVENTS``); its build seconds beside the windows/s. (b)
+   every op of the event-op library at the flagship's sizes (2048-event
+   windows, 50k-event lists, flow maps and IWEs on the 90x160 and 180x320
+   grids at B=8, PSROI on a [8, 392, 24, 40] map with 64 ROIs, each
+   extended block at its reference width in training, Super-SloMo between
+   two 720x1280 frames at seeded weights, and ``UNetFlow``'s flow through
+   ``event_warping_loss`` back to its parameters) on the card twice, every
+   output and gradient bitwise run to run, against the same suite run on
+   the CPU by a process of this script started after the build
+   (``--event-ops-cpu``, two threads, beside every phase): every integer
+   output (event lists, masks, counts, stacks) bitwise, every float output
+   and gradient within 1e-4 of its own scale; deterministic algorithms on
+   throughout (an op without a deterministic CUDA path fails the phase).
 
 8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
    ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
@@ -259,7 +279,7 @@ Phases (any failure exits non-zero):
    every recording and request within 1.0 dB of f32.
 
 The phases run in the order 1-5, 8, 6, 9, 10, 10b, 10c, 12, 7 (with 11
-inside 7), 8c, 8d, 8e, 8f, 8g, 7c, then the trainer's runtime.
+inside 7), 8c, 8d, 8e, 8f, 8g, 8h, 7c, then the trainer's runtime.
 The line before the last is the ``{"kernels": [...]}`` record (eight
 kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -4175,6 +4195,18 @@ def phase_engine(torch, np, dev, card):
 # bursty stream's tail windows are nearly idle), 1 s recordings at 720x1280;
 # sequences of L 3 (one window each) give 66 windows per stream, so streams
 # still hold their lanes when the last of the 8 arrivals (0.57 s) comes
+# ``make_stream_corpus(n=4, seed=0, kind="simulate")``'s event counts per
+# rung, bitwise the reference's corpus (tests/test_torch_serving.py)
+SIMULATE_EVENTS = {
+    "stream000": {"ori": 1291241, "down2": 336732, "down4": 84026, "down8": 21029,
+                  "down16": 5316},
+    "stream001": {"ori": 1903054, "down2": 485938, "down4": 121549, "down8": 30415,
+                  "down16": 8290},
+    "stream002": {"ori": 679693, "down2": 171922, "down4": 42940, "down8": 10729,
+                  "down16": 2645},
+    "stream003": {"ori": 2857089, "down2": 718299, "down4": 179549, "down8": 45055,
+                  "down16": 11234},
+}
 SERVE_DATA = dict(FLAGSHIP_DATA, mode="time", window=0.01, sliding_window=0.005,
                   sequence=dict(FLAGSHIP_DATA["sequence"], sequence_length=3))
 SERVE_ACTIVITY_TILE = 16
@@ -5311,9 +5343,492 @@ def phase_precision(torch, np, dev, card):
             "drops": drops, "engine_launches": engine_out["int8"][2],
             "windows_per_s": {r: engine_out[r][1] for r in RUNGS}}
 
+# -- 8h. the event-op library and serving ESIM-simulated streams -----------
+
+# a float output or gradient on the card against the CPU's, of its scale:
+# EVENT_TOL, or the op's own bound in EVENT_OP_TOL (the measured envelope
+# times ~2-5). Super-SloMo is 26 convolutions deep at 736x1280 (cuDNN's
+# and oneDNN's f32 sums: 3.1e-4 and 5.2e-4 in two runs; the repo's 1e-3
+# bound of a conv stack); UNetFlow's flow feeds the warping loss, whose
+# taps move between the devices as the flow differs by rounding (9.6e-6
+# to 2.0e-3 in three runs; the CPU's own f32 and f64 runs differ by 0.74
+# of scale there). The extended blocks have kinks (ReLU, LeakyReLU, max
+# pools, a max over neighbours): a pre-activation within rounding of 0
+# takes the other slope on one device, and that one element moves the
+# weight gradients upstream of it. deconv3d_block2's seeded input has such
+# an element in block_0, within f32 rounding of 0: the card's f32 gradients
+# are 5.2e-3 of scale from the CPU's f64 and the CPU's own f32 6.7e-6 (on
+# another x86 host it is the CPU's f32 that lands 5.2e-3 away), while the
+# f64 twins agree to 3e-15. So a kinked block's f32 gradients are held to EVENT_KINK_TOL, its f32 outputs
+# to EVENT_TOL, and its f64 twin (``<op>@f64``: the same block and input in
+# f64 on both devices, where no element lands within rounding of a kink)
+# to EVENT_F64_TOL, outputs and gradients
+EVENT_TOL = 1e-4
+EVENT_OP_TOL = {"interpolate_frame": 1e-3, "unetflow_event_warping": 1e-2}
+EVENT_KINKED = ("inception", "dilated", "self_attention", "conv3d", "deconv3d",
+                "conv3d_block2", "deconv3d_block2", "dense_edge_conv")
+EVENT_KINK_TOL = 1e-2
+EVENT_F64_TOL = 1e-9
+EVENT_B = 8
+EVENT_N = 50_000  # events a list
+EVENT_WINDOW = 2048  # the recipe's window
+EVENT_GRIDS = ((90, 160), (180, 320))
+SLOMO_HW = (720, 1280)  # Super-SloMo's frames
+EVENT_CPU_THREADS = 2
+EVENT_CPU_TIMEOUT_S = 900
+SIMULATE_SERVE = ["--loadgen", "4", "--rate", "50", "--lanes", str(LANES),
+                  "--classes", "standard:8", "--scale", "2", "--ori_scale", "down8",
+                  "--window", "1024", "--sliding_window", "512", "--seql", "4",
+                  "--max_wall", "300"]
+
+
+def _event_lists(np, rng, b, n, h, w):
+    """``[b, n, 4]`` (ts, y, x, p) lists, ts sorted in [0, 1), the last
+    tenth of each list's lanes invalid; their ``[b, n, 2]`` polarity masks."""
+    ev = np.stack([np.sort(rng.random((b, n)), 1), rng.uniform(0, h, (b, n)),
+                   rng.uniform(0, w, (b, n)), rng.choice([-1.0, 1.0], (b, n))], -1)
+    valid = np.arange(n)[None].repeat(b, 0) < int(n * 0.9)
+    pol = np.stack([ev[..., 3] > 0, ev[..., 3] < 0], -1)
+    return ev.astype(np.float32), pol.astype(np.float32), valid
+
+
+def event_op_suite(torch, np, dev, timings=None, f64=False):
+    """Every op of the event-op library at the flagship's sizes on ``dev``
+    from seeded inputs (made on the host, so the card and the CPU see the
+    same): ``{op: {"float": {name: tensor}, "int": {name: tensor}}}`` on
+    the CPU, each float output with the gradient of sum(output * a seeded
+    weight) with respect to its float inputs (``grad_*``), and each
+    integer-valued output (event lists, masks, counts, stacks) under
+    ``"int"``. ``timings`` collects each op's seconds (its first run).
+    ``f64`` adds each kinked block's f64 twin (``<op>@f64``)."""
+    from esr_tpu_torch import losses, ops
+    from esr_tpu_torch.models import extended as X
+    from esr_tpu_torch.models.unet import UNetFlow
+    from esr_tpu_torch.ops import encodings as E
+    from esr_tpu_torch.ops import gradients, iwe, sampling
+    from esr_tpu_torch.tools import upsampling
+
+    out = {}
+
+    def t(a, grad=False):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return x.requires_grad_(True) if grad else x
+
+    def run(name, fn, *inputs):
+        """``fn(*inputs) -> ({float outputs}, {int outputs})``; the float
+        outputs' weighted sum is backpropagated to every input (and every
+        parameter of a module ``fn`` names as ``fn.module``)."""
+        t0 = time.perf_counter()
+        floats, ints = fn(*inputs)
+        rng = np.random.default_rng(zlib.crc32(name.split("@")[0].encode()))  # a twin's too
+        loss = 0.0
+        for v in floats.values():
+            if v.requires_grad:
+                w = torch.from_numpy(rng.standard_normal(tuple(v.shape)).astype(np.float32))
+                loss = loss + (v * w.to(dev)).sum()
+        res = {"float": {k: v.detach() for k, v in floats.items()},
+               "int": {k: v.detach() for k, v in ints.items()}}
+        module = getattr(fn, "module", None)
+        leaves = [x for x in inputs if isinstance(x, torch.Tensor) and x.requires_grad]
+        params = list(module.named_parameters()) if module is not None else []
+        if torch.is_tensor(loss):
+            grads = torch.autograd.grad(loss, leaves + [p for _, p in params],
+                                        allow_unused=True)
+            for i, g in enumerate(grads[:len(leaves)]):
+                res["float"][f"grad_input{i}"] = (torch.zeros_like(leaves[i]) if g is None
+                                                  else g)
+            for (pname, p), g in zip(params, grads[len(leaves):]):
+                res["float"][f"grad_{pname}"] = torch.zeros_like(p) if g is None else g
+        if module is not None:
+            for bname, buf in module.named_buffers():
+                res["float"][f"buffer_{bname}"] = buf.detach().clone()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if timings is not None:
+            timings[name] = time.perf_counter() - t0
+        out[name] = {kind: {k: v.detach().to("cpu") for k, v in d.items()}
+                     for kind, d in res.items()}
+
+    rng = np.random.default_rng(0)
+    b = EVENT_B
+    (h1, w1), (h2, w2) = EVENT_GRIDS
+
+    # sampling and gradients
+    run("grid_sample", lambda img, grid: ({"out": sampling.grid_sample(img, grid)}, {}),
+        t(rng.standard_normal((b, 2, h2, w2)).astype(np.float32), True),
+        t(rng.uniform(-1.05, 1.05, (b, h2, w2, 2)).astype(np.float32), True))
+    run("sobel", lambda img: (dict(zip(("gx", "gy"), gradients.sobel(img))), {}),
+        t(rng.standard_normal((b, 1, h2, w2)).astype(np.float32), True))
+
+    # IWEs and the flow losses over 50k-event lists
+    for (h, w) in EVENT_GRIDS:
+        ev, pol, valid = _event_lists(np, rng, b, EVENT_N, h, w)
+        flow = (rng.standard_normal((b, 2, h, w)) * 0.005).astype(np.float32)
+        evt, polt, vt = t(ev), t(pol), t(valid)
+        res = (h, w)
+        run(f"pol_iwe_bilinear_{h}x{w}", lambda f: ({"iwe": iwe.compute_pol_iwe(
+            f, evt, res, polt[..., 0:1], polt[..., 1:2], max(res), False, vt)}, {}),
+            t(flow, True))
+        # rounded taps: integer counts, exact in f32
+        run(f"pol_iwe_rounded_{h}x{w}", lambda f: ({}, {"iwe": iwe.compute_pol_iwe(
+            f, evt, res, polt[..., 0:1], polt[..., 1:2], max(res), True, vt)}), t(flow))
+        run(f"event_warping_loss_{h}x{w}", lambda f: ({"loss": losses.event_warping_loss(
+            [f], evt, polt, res, vt)}, {}), t(flow, True))
+        run(f"averaged_iwe_{h}x{w}", lambda f: ({"iwe": losses.averaged_iwe(
+            f, evt, polt, res, vt)}, {}), t(flow, True))
+        # the reconstruction in [2, 3), the previous one in [0, 1): the
+        # temporal term's L1 stays away from its kink, where an ulp of the
+        # warp would flip a gradient's sign on one device and not the other
+        img = (rng.random((b, 1, h, w)) + 2.0).astype(np.float32)
+        cnt = (rng.random((b, 2, h, w)) < 0.3).astype(np.float32)
+        bc = losses.BrightnessConstancy(res)
+
+        def brightness(f, im, prev, bc=bc, cnt=t(cnt), evt=evt, polt=polt, vt=vt):
+            return ({"generative": bc.generative_model(f, im, cnt, evt, polt, vt),
+                     "temporal": bc.temporal_consistency(f, prev, im),
+                     "tv": bc.regularization(im)}, {})
+
+        run(f"brightness_constancy_{h}x{w}", brightness, t(flow, True), t(img, True),
+            t(rng.random((b, 1, h, w)).astype(np.float32), True))
+
+    # the encodings over 2048-event windows on the 180x320 grid
+    res = (h2, w2)
+    xs = rng.uniform(-0.5, w2 + 0.5, (b, EVENT_WINDOW)).astype(np.float32)
+    ys = rng.uniform(-0.5, h2 + 0.5, (b, EVENT_WINDOW)).astype(np.float32)
+    ts = np.sort(rng.random((b, EVENT_WINDOW)), 1).astype(np.float32)
+    ps = rng.choice([-1.0, 1.0], (b, EVENT_WINDOW)).astype(np.float32)
+    wvalid = np.arange(EVENT_WINDOW)[None].repeat(b, 0) < EVENT_WINDOW - 48
+
+    def encodings(xs, ys, ts, ps, vs):
+        floats = {"voxel": E.events_to_voxel(xs, ys, ts, ps, 5, res, vs),
+                  "bilinear": E.events_to_image(xs, ys, ps, res, vs, "bilinear")}
+        ints = {}
+        xi, yi = xs.detach(), ys.detach()
+        for k in range(b):
+            one = (xi[k], yi[k], ts[k].detach(), ps[k], vs[k])
+            for pol in (False, True):
+                for binning in ("half_open", "inclusive"):
+                    ints[f"stack_{k}_{pol}_{binning}"] = E.events_to_stack(
+                        *one[:4], 5, res, one[4], pol, binning)
+            cnt, act = E.events_to_channels_activity(xi[k], yi[k], ps[k], res, vs[k])
+            ints[f"channels_{k}"], ints[f"activity_{k}"] = cnt, act
+            ints[f"mask_{k}"] = E.events_to_mask(xi[k], yi[k], ps[k], res, vs[k])
+            ints[f"hot_{k}"] = E.get_hot_event_mask(cnt.sum(-1), 9, 100, 5, 0.8)
+            for cap in (EVENT_WINDOW, EVENT_WINDOW // 2):  # the second truncates
+                ev_list, v = E.cnt2event(cnt, cap)
+                ints[f"cnt2event_{k}_{cap}"], ints[f"cnt2event_valid_{k}_{cap}"] = ev_list, v
+            stack = ints[f"stack_{k}_False_half_open"]
+            for fn_name, grid in (("event_redistribute", stack),
+                                  ("event_redistribute_polarity",
+                                   ints[f"stack_{k}_True_half_open"])):
+                ev_list, v = getattr(E, fn_name)(grid, EVENT_WINDOW)
+                ints[f"{fn_name}_{k}"], ints[f"{fn_name}_valid_{k}"] = ev_list, v
+            ints[f"stack2cnt_{k}"] = E.stack2cnt(stack)
+        ints["polarity_mask"] = E.events_polarity_mask(ps)
+        cloud = torch.stack([xs.detach() / w2, ys.detach() / h2, ts.detach(), ps], -1)
+        conv = E.event_conversion(E.event_restore(cloud, res), 3, res, 5, vs)
+        ints["e_cnt"], ints["e_stack"] = conv["e_cnt"], conv["e_stack"]
+        floats["e_voxel"] = conv["e_voxel"]
+        return floats, ints
+
+    run("encodings_2048", encodings, t(xs, True), t(ys, True), t(ts, True), t(ps), t(wvalid))
+
+    # deformable PSROI pooling: a [8, 392, 24, 40] map, 64 ROIs, half coordinates
+    n_rois = 64
+    x1 = rng.integers(0, 30, n_rois) + rng.choice([0.0, 0.5], n_rois)
+    y1 = rng.integers(0, 16, n_rois) + rng.choice([0.0, 0.5], n_rois)
+    rois = np.stack([rng.integers(0, b, n_rois), x1, y1, x1 + rng.integers(2, 10, n_rois),
+                     y1 + rng.integers(2, 8, n_rois)], 1).astype(np.float32)
+    kw = dict(spatial_scale=1.0, output_dim=8, group_size=7, pooled_size=7, part_size=7,
+              sample_per_part=4, trans_std=0.1)
+
+    def psroi(data, trans):
+        pooled, count = ops.deform_psroi_pooling(data, t(rois), trans, **kw)
+        return {"out": pooled}, {"count": count}
+
+    run("psroi", psroi, t(rng.standard_normal((b, 392, 24, 40)).astype(np.float32), True),
+        t((rng.standard_normal((n_rois, 2, 2, 7, 7)) * 0.5).astype(np.float32), True))
+
+    # the extended blocks at their reference widths, in training
+    blocks = (
+        ("inception", lambda: X.InceptionBlock(64, 64), (b, 64, 24, 40)),
+        ("dilated", lambda: X.DilatedBlock(64, 64), (b, 64, 24, 40)),
+        ("self_attention", lambda: X.SelfAttention(128), (b, 1024, 128)),
+        ("conv3d", lambda: X.Conv3DBlock(2, 16), (b, 2, 8, 24, 40)),
+        ("deconv3d", lambda: X.Deconv3DBlock(16, 16), (b, 16, 4, 12, 20)),
+        # 30k pooling windows: two near-equal maxima whose order the devices'
+        # rounding swaps would move a gradient entry; fewer windows, fewer such
+        ("conv3d_block2", lambda: X.Conv3DBlock2(16, 32), (b, 16, 4, 12, 20)),
+        ("deconv3d_block2", lambda: X.Deconv3DBlock2(32, 16), (b, 32, 4, 12, 20)),
+        ("dense_edge_conv", lambda: X.DenseEdgeConv(3, 24, 3, 16), (b, 1024, 3)),
+        ("mean_shift", lambda: X.MeanShift((0.4488, 0.4371, 0.404), (1.0, 1.0, 1.0)),
+         (b, 3, h2, w2)),
+    )
+    for name, make, shape in blocks:
+        x = rng.standard_normal(shape)
+        if name == "dense_edge_conv":
+            # lattice points: exact distances, so ties and duplicates rank by
+            # the rule (the lower index first) on any device
+            x = np.round(x * 4)
+        for dtype in (torch.float32, torch.float64)[:2 if f64 and name in EVENT_KINKED else 1]:
+            torch.manual_seed(1)
+            module = make().to(dev, dtype).train()
+
+            def block(x, module=module):
+                y = module(x)
+                if isinstance(y, tuple):
+                    return {"out": y[0]}, {"idx": y[1]}
+                return {"out": y}, {}
+
+            block.module = module
+            wide = dtype == torch.float64
+            run(name + "@f64" * wide, block, t(x.astype(np.float32).astype(
+                np.float64 if wide else np.float32), True))
+
+    # Super-SloMo between two 720x1280 frames (edge-padded to 736 rows: its
+    # five 2x pools need sides divisible by 32), seeded weights
+    torch.manual_seed(2)
+    fc, at = (m.to(dev).eval() for m in upsampling.flow_nets(3))
+    fh, fw = SLOMO_HW
+    frames = [np.pad(rng.random((1, 3, fh, fw)).astype(np.float32),
+                     ((0, 0), (0, 0), (0, -fh % 32), (0, -fw % 32)), mode="edge")
+              for _ in range(2)]
+    run("interpolate_frame", lambda i0, i1: ({"frame": upsampling.interpolate_frame(
+        fc, at, i0, i1, 0.5)[:, :, :fh, :fw]}, {}), t(frames[0], True), t(frames[1], True))
+
+    # UNetFlow's flow through event_warping_loss, back to its parameters
+    torch.manual_seed(3)
+    net = UNetFlow(num_bins=5).to(dev).train()
+    fb = 2
+    ev, pol, valid = _event_lists(np, rng, fb, EVENT_N, h2, w2)
+    evt, polt, vt = t(ev), t(pol), t(valid)
+    voxel = E.events_to_voxel(evt[..., 2], evt[..., 1], evt[..., 0], evt[..., 3], 5, res, vt)
+
+    def unetflow(vox):
+        pred, _ = net(vox, net.init_states(fb, h2, w2, device=dev))
+        flow = pred["flow"].permute(0, 3, 1, 2) * 0.01
+        return {"loss": losses.event_warping_loss([flow], evt, polt, res, vt),
+                "flow": flow}, {}
+
+    unetflow.module = net
+    run("unetflow_event_warping", unetflow, voxel)
+    return out
+
+
+def event_ops_cpu_worker(argv) -> int:
+    """``chip_smoke.py --event-ops-cpu <out.pt>``: the suite on the CPU (the
+    card hidden), its results saved for phase 8h."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from esr_tpu_torch.device import resolve_device
+
+    torch.set_num_threads(EVENT_CPU_THREADS)
+    timings = {}
+    t0 = time.perf_counter()
+    results = event_op_suite(torch, np, resolve_device("cpu"), timings, f64=True)
+    torch.save({"results": results, "timings": timings}, argv[0])
+    print(f"event ops on the CPU: {time.perf_counter() - t0:.1f} s in {EVENT_CPU_THREADS} "
+          f"threads: {json.dumps({k: round(v, 3) for k, v in timings.items()})}")
+    return 0
+
+
+def start_event_ops_cpu(out_dir: str):
+    """Start the CPU side of phase 8h in its own process (it runs beside the
+    other phases): ``(process, result path, log path)``."""
+    path = os.path.join(out_dir, "event_ops_cpu.pt")
+    log = os.path.join(out_dir, "event_ops_cpu.log")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--event-ops-cpu",
+                                 path], stdout=f, stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+    atexit.register(end_process_group, proc)
+    return proc, path, log
+
+
+def event_tol(op: str, key: str) -> float:
+    """The bound of one float tensor of phase 8h (see EVENT_TOL)."""
+    if op.endswith("@f64"):
+        return EVENT_F64_TOL
+    if op in EVENT_KINKED and key.startswith("grad_"):
+        return EVENT_KINK_TOL
+    return EVENT_OP_TOL.get(op, EVENT_TOL)
+
+
+def event_distance(torch, res: dict, ref: dict) -> dict:
+    """Each float tensor's max |res - ref| over its scale: max |ref| for an
+    output, the op's largest reference gradient entry for a gradient (a
+    bias before a norm has a true gradient of 0, and rounding noise on both
+    sides)."""
+    grads = [ref[k] for k in res if k.startswith("grad_")]
+    grad_scale = max((float(g.abs().max()) for g in grads if g.numel()), default=0.0)
+    out = {}
+    for k, v in res.items():
+        r = ref[k]
+        scale = grad_scale if k.startswith("grad_") else (
+            float(r.abs().max()) if r.numel() else 0.0)
+        out[k] = (float((v.double() - r.double()).abs().max()) if r.numel() else 0.0) / max(
+            scale, TINY)
+    return out
+
+
+def event_ops_on_card(torch, np, dev, card, cpu_side) -> None:
+    """Phase 8h (b): the suite on the card twice (every tensor bitwise run
+    to run), against the CPU process's results: every integer output
+    bitwise; every float output and gradient within its bound
+    (:func:`event_tol`) of its scale (:func:`event_distance`), the kinked
+    blocks' f64 twins too; for those the card's and the CPU's f32 gradients
+    are also printed against the CPU's f64, so a miss says which side
+    strayed. The numerics policy stays on: an op with no deterministic CUDA
+    path raises, and the phase fails."""
+    proc, path, log = cpu_side
+    timings = {}
+    first = event_op_suite(torch, np, dev, timings, f64=True)
+    again = event_op_suite(torch, np, dev)
+    assert torch.are_deterministic_algorithms_enabled()
+    t0 = time.perf_counter()
+    try:
+        code = proc.wait(timeout=EVENT_CPU_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        end_process_group(proc)
+        fail(f"the event ops' CPU side did not finish in {EVENT_CPU_TIMEOUT_S} s")
+    with open(log) as f:
+        cpu_log = f.read()
+    print(cpu_log.strip().splitlines()[-1] if cpu_log.strip() else "(no CPU log)")
+    if code != 0:
+        fail(f"the event ops' CPU side exited {code}:\n{cpu_log[-4000:]}")
+    print(f"event ops: waited {time.perf_counter() - t0:.1f} s for the CPU side")
+    cpu = torch.load(path)["results"]
+    worst, problems = {}, []
+    for op, res in first.items():
+        for kind in ("float", "int"):
+            for k, v in res[kind].items():
+                if op in again and not torch.equal(v, again[op][kind][k]):
+                    problems.append(f"{op}/{k}: not bitwise run to run")
+                ref = cpu[op][kind][k]
+                if kind == "int" and not torch.equal(v, ref):
+                    problems.append(f"{op}/{k}: integer output differs from the CPU's")
+                elif kind == "float" and (v.shape != ref.shape
+                                          or not bool(torch.isfinite(v).all())):
+                    problems.append(f"{op}/{k}: shape {tuple(v.shape)} vs {tuple(ref.shape)} "
+                                    "or not finite")
+        dist = event_distance(torch, res["float"], cpu[op]["float"])
+        for k, rel in dist.items():
+            if rel > event_tol(op, k):
+                problems.append(f"{op}/{k}: {rel:.3e} of its scale (limit "
+                                f"{event_tol(op, k):g})")
+        worst[op] = max(((rel / event_tol(op, k), rel) for k, rel in dist.items()),
+                        default=(0.0, 0.0))
+        limits = sorted({event_tol(op, k) for k in dist})
+        line = (f"event op {op} on {card}: {timings[op] * 1e3:.2f} ms (first run, its backward "
+                f"included); {len(dist)} float tensors at most {worst[op][1]:.3e} of scale "
+                f"from the CPU's (limit {'/'.join(f'{x:g}' for x in limits) or '-'}), "
+                f"{len(res['int'])} integer tensors bitwise")
+        if op + "@f64" in cpu:
+            wide = cpu[op + "@f64"]["float"]
+            sides = [max((r for k, r in event_distance(torch, side[op]["float"], wide).items()
+                          if k.startswith("grad_")), default=0.0) for side in (first, cpu)]
+            line += (f"; gradients from the CPU's f64: the card's f32 {sides[0]:.3e}, the "
+                     f"CPU's {sides[1]:.3e}")
+        print(line)
+    if problems:
+        fail("the event ops disagree:\n  " + "\n  ".join(problems[:40]))
+    far = max(worst, key=lambda k: worst[k][0])
+    print(f"event ops: {len(first)} ops ({sum(op.endswith('@f64') for op in first)} of them "
+          f"f64 twins), every output and gradient bitwise run to run on the card and within "
+          f"its limit of the CPU (nearest its limit: {far}, {worst[far][0]:.3f} of it); "
+          "deterministic algorithms on")
+
+
+def simulate_serving(torch, np, card, repo: Path, root: str) -> None:
+    """Phase 8h (a): ``serve.main`` on a port checkpoint of the sparse
+    flagship at lanes 4: the synthetic loadgen (one replica), then
+    ``--loadgen_kind simulate`` with one replica and with ``--replicas 2``.
+    Each run: no request lost, every request's windows finite, only
+    ``dcn_fwd_masked`` launched (counted in that run), and the simulate
+    corpus's event counts those of the CPU test (SIMULATE_EVENTS)."""
+    import logging
+
+    from esr_tpu_torch import serve
+    from esr_tpu_torch.inference.checkpoint import save_checkpoint
+    from esr_tpu_torch.inference.engine import METRIC_KEYS
+    from esr_tpu_torch.models import convert
+    from esr_tpu_torch.ops import dcn_cuda
+
+    model = flagship_model(torch, np, dcn_sparse=True)
+    ckpt = os.path.join(root, "ckpt")
+    save_checkpoint(ckpt, convert.export_flax_params(model), {
+        "model": {"name": "DeepRecurrNet",
+                  "args": {"inch": 2, "basech": model.basech, "num_frame": 3,
+                           "dcn_sparse": True}}})
+    slo = str(repo / "configs" / "slo.yml")
+    level = logging.getLogger().level
+    rates, launches = {}, {}
+    for kind, replicas in (("synthetic", 1), ("simulate", 1), ("simulate", 2)):
+        out = os.path.join(root, f"{kind}_r{replicas}")
+        torch.cuda.synchronize()
+        dcn_cuda.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            summary = serve.main(["--model_path", ckpt, "--output_path", out,
+                                  "--loadgen_kind", kind, "--live-slo", slo] + SIMULATE_SERVE
+                                 + (["--replicas", str(replicas)] if replicas > 1 else []))
+        finally:
+            logging.getLogger().setLevel(level)  # serve.main sets INFO
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_of()
+        with open(os.path.join(out, "loadgen_corpus.json")) as f:
+            corpus = json.load(f)
+        rows_file = "fleet_requests.jsonl" if replicas > 1 else "serve_requests.jsonl"
+        with open(os.path.join(out, rows_file)) as f:
+            rows = [json.loads(line) for line in f]
+        finite = all(r["n_windows"] > 0 and all(math.isfinite(r[k]) for k in METRIC_KEYS)
+                     for r in rows)
+        lost = (not summary["zero_lost"]) if replicas > 1 else (
+            summary["completed"] != summary["requests"])
+        rates[(kind, replicas)] = summary["windows_per_sec"]
+        launches[f"{kind}_r{replicas}"] = counts["dcn_fwd_masked"]
+        print(f"serve --loadgen 4 --loadgen_kind {kind} --replicas {replicas} on {card}: "
+              f"corpus built in {corpus['build_s']:.3f} s, {summary['windows']} windows at "
+              f"{summary['windows_per_sec']} windows/s, statuses {summary['statuses']}, "
+              f"{len(rows)} request rows, {wall:.2f} s in all; launches {counts}")
+        if lost or len(rows) != 4 or summary["statuses"] != {"ok": 4} or not finite:
+            fail(f"serve --loadgen_kind {kind} --replicas {replicas} lost a request or "
+                 "returned a non-finite window")
+        if counts != only("dcn_fwd_masked", counts["dcn_fwd_masked"]) or \
+                counts["dcn_fwd_masked"] <= 0:
+            fail(f"serve --loadgen_kind {kind} launched {counts}: dcn_fwd_masked only")
+        if kind == "simulate" and corpus["events"] != SIMULATE_EVENTS:
+            fail(f"the simulate corpus's event counts {corpus['events']} are not the CPU "
+                 f"test's {SIMULATE_EVENTS}")
+    print(f"serving on {card}: simulate {rates[('simulate', 1)]} windows/s against synthetic "
+          f"{rates[('synthetic', 1)]} (one replica), the 2-replica fleet "
+          f"{rates[('simulate', 2)]}")
+    return launches
+
+
+def phase_event_ops(torch, np, dev, card, repo: Path, out_root: str, cpu_side) -> None:
+    """8h: serving ESIM-simulated streams, then the event-op library on the
+    card against the CPU. Returns ``dcn_fwd_masked``'s launches a serving
+    run."""
+    t_phase = time.perf_counter()
+    os.makedirs(out_root, exist_ok=True)
+    launches = simulate_serving(torch, np, card, repo, out_root)
+    t_serve = time.perf_counter() - t_phase
+    event_ops_on_card(torch, np, dev, card, cpu_side)
+    print(f"phase 8h on {card}: {time.perf_counter() - t_phase:.1f} s ({t_serve:.1f} s "
+          "serving)")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--event-ops-cpu"]:
+        return event_ops_cpu_worker(sys.argv[2:])
     t_start = time.perf_counter()
     import torch
 
@@ -5375,6 +5890,11 @@ def main() -> int:
     if native.LIBRARY.load() is None:
         fail(f"the native host kernels did not build:\n{native.LIBRARY.build_log}")
     print(f"build host_kernels.cpp: g++ {time.perf_counter() - t0:.2f} s")
+
+    # phase 8h's CPU side, in its own process beside every phase until 8h
+    events_root = tempfile.mkdtemp(prefix="chip_smoke_event_ops_")
+    atexit.register(shutil.rmtree, events_root, True)
+    cpu_side = start_event_ops_cpu(events_root)
 
     marks = [time.perf_counter()]
 
@@ -5448,6 +5968,10 @@ def main() -> int:
         dp_launches = phase_dp_norms(torch, np, dev, card, repo, os.path.join(out_root, "dp"),
                                      recs, (graph_recs[0][:GRAPH_K], recs[1]), sr_evals)
         done("the data parallelism and norms phase")
+        # -- 8h. serving ESIM-simulated streams, the event-op library -----
+        simulate_launches = phase_event_ops(torch, np, dev, card, repo,
+                                            os.path.join(out_root, "events"), cpu_side)
+        done("the event ops phase")
         # -- 7c. the 4x recipe --------------------------------------------
         totals_4x = phase_train_4x(torch, np, dev, card, repo, os.path.join(out_root, "x4"),
                                    fwd["valid_4x_b8"], train_kernels["train_4x_b8"])
@@ -5489,6 +6013,7 @@ def main() -> int:
     for name, source, b, launches, extra in (
             ("dcn_fwd_masked", "esr_tpu_torch/csrc/dcn_fwd.cu", "b4", engine_launches,
              {"serving_launches": serve_launches, "fleet_launches": fleet_launches,
+              "simulate_serving_launches": simulate_launches,
               "shape": "B=4 lanes, 100% active"}),
             ("dcn_train_fwd_masked", "esr_tpu_torch/csrc/dcn_train.cu", "b32",
              sparse_launches, {"shape": "B=32 flagship training, 100% active"})):

@@ -13,7 +13,8 @@ One table, :func:`_children`, says for each port module which flax name
 each child carries. :func:`load_flax_params` walks it to fill a model and
 raises on any leaf that is missing, left over, or of the wrong shape;
 :func:`export_flax_params` walks it the other way. The table covers the
-models and the LPIPS module (``losses/lpips.py``).
+models, the extended blocks (``models/extended.py``) and the LPIPS module
+(``losses/lpips.py``).
 
 A model with norms (``norm: BN`` / ``IN``) also has the reference's
 ``batch_stats`` collection: each norm's running ``mean`` and ``var`` (the
@@ -32,7 +33,7 @@ import torch
 import torch.nn as nn
 
 from esr_tpu_torch.losses import lpips
-from esr_tpu_torch.models import adapters, esr, layers, unet
+from esr_tpu_torch.models import adapters, esr, extended, layers, unet
 
 
 def _numbered(mod: nn.Module, name: str) -> List[Tuple[str, object]]:
@@ -107,10 +108,37 @@ def _children(mod: nn.Module) -> List[Tuple[str, object]]:
         return [(mod.net, mod.trunk)] + [(f"lin{i}", p) for i, p in enumerate(mod.lins)]
     if isinstance(mod, (lpips._Trunk, lpips._Fire)):
         return list(mod.named_children())
-    if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+    if isinstance(mod, extended.InceptionBlock):
+        return [("Conv_0", mod.conv_0), ("Conv_1", mod.conv_1), ("Conv_2", mod.conv_2)]
+    if isinstance(mod, extended.DilatedBlock):
+        return [(name, getattr(mod, name)) for name in mod.names]
+    if isinstance(mod, extended.SelfAttention):
+        return [("qk", mod.qk), ("v", mod.v), ("trans", mod.trans),
+                ("after_norm", mod.after_norm)]
+    if isinstance(mod, (extended.Conv3DBlock, extended.Deconv3DBlock)):
+        conv = "Conv_0" if isinstance(mod, extended.Conv3DBlock) else "ConvTranspose_0"
+        norm = [] if mod.norm is None else [(f"{_FLAX_NORM[type(mod.norm)]}_0", mod.norm)]
+        return [(conv, mod.conv)] + norm
+    if isinstance(mod, extended.Conv3DBlock2):
+        return [("Conv3DBlock_0", mod.block_0), ("Conv3DBlock_1", mod.block_1)]
+    if isinstance(mod, extended.Deconv3DBlock2):
+        return [("Deconv3DBlock_0", mod.deconv), ("Conv3DBlock_0", mod.block_0),
+                ("Conv3DBlock_1", mod.block_1)]
+    if isinstance(mod, extended.DenseEdgeConv):
+        return [(f"mlp_{i}", m) for i, m in enumerate(mod.mlps)]
+    if isinstance(mod, extended.GroupNormIN):
+        return [("scale", mod.weight), ("bias", mod.bias)]
+    if isinstance(mod, extended.MeanShift):
+        return []
+    if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                        nn.ConvTranspose3d, nn.Linear)):
         # a conv before BatchNorm has no bias
         return [("kernel", mod.weight)] + ([] if mod.bias is None else [("bias", mod.bias)])
     raise TypeError(f"no flax mapping for {type(mod).__name__}")
+
+
+# the flax class name of each norm a 3D block of ``models.extended`` holds
+_FLAX_NORM = {layers.TorchBatchNorm: "TorchBatchNorm", extended.GroupNormIN: "GroupNorm"}
 
 
 def _norms(*norms) -> List[Tuple[str, object]]:
@@ -127,13 +155,15 @@ def _leaves(mod: nn.Module, prefix: Tuple[str, ...] = ()) -> Iterator[
     :func:`_children` nests it), the path led by its
     collection (``params`` or, for a norm's running statistics,
     ``batch_stats``); ``layout`` is ``"kernel"`` for a conv or dense kernel,
-    ``"transposed"`` for a transposed conv's, and None for leaves stored in
+    ``"transposed"`` for a transposed conv's (2D or 3D), and None for leaves stored in
     the flax layout (biases, ``dcn_weight``, the statistics)."""
     for name, child in _children(mod):
         if isinstance(child, nn.Parameter):
             layout = None
             if name == "kernel":
-                layout = "transposed" if isinstance(mod, nn.ConvTranspose2d) else "kernel"
+                layout = ("transposed" if isinstance(mod, (nn.ConvTranspose2d,
+                                                             nn.ConvTranspose3d))
+                          else "kernel")
             yield ("params",) + prefix + (name,), child, layout
         elif isinstance(child, torch.Tensor):
             yield ("batch_stats",) + prefix + (name,), child, None
@@ -142,15 +172,21 @@ def _leaves(mod: nn.Module, prefix: Tuple[str, ...] = ()) -> Iterator[
 
 
 def _transpose(arr: np.ndarray, to_port: bool, layout: Optional[str]) -> np.ndarray:
-    """Conv HWIO <-> OIHW, transposed conv HWIO <-> IOHW flipped in space,
+    """Conv HWIO <-> OIHW (DHWIO <-> OIDHW in 3D), transposed conv HWIO <->
+    IOHW flipped in space (and in 3D),
     1D conv ``[k, in, out]`` <-> ``[out, in, k]``, Dense ``[in, out]`` <->
     ``[out, in]``."""
     if layout is None:
         return arr
     if layout == "transposed":
+        # the spatial axes lead: flip them, move in/out to the front
+        sp = arr.ndim - 2
+        flip = (slice(None, None, -1),) * sp
         if to_port:
-            return arr[::-1, ::-1].transpose(2, 3, 0, 1)
-        return arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            return arr[flip].transpose(sp, sp + 1, *range(sp))
+        return arr.transpose(*range(2, 2 + sp), 0, 1)[flip]
+    if arr.ndim == 5:
+        return arr.transpose((4, 3, 0, 1, 2) if to_port else (2, 3, 4, 1, 0))
     if arr.ndim == 4:
         return arr.transpose((3, 2, 0, 1) if to_port else (2, 3, 1, 0))
     if arr.ndim == 3:

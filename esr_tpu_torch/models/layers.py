@@ -225,7 +225,8 @@ class TorchBatchNorm(nn.Module):
     (1 - m) * old + m * batch`` (``momentum`` weights the new value), the
     variance Bessel-corrected with the global count. In evaluation it
     normalizes with the running statistics. A narrower input is widened to
-    f32 and the output rounded back (the bf16 rung)."""
+    f32 and the output rounded back (the bf16 rung); an f64 input stays
+    f64."""
 
     def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -237,7 +238,7 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         if self.training:
             red = [0] + list(range(2, x.dim()))
             moments = torch.stack([xf.mean(red), (xf * xf).mean(red)])
@@ -266,7 +267,7 @@ class TorchInstanceNorm(nn.Module):
     """``torch.nn.InstanceNorm{1,2}d(affine=False, track_running_stats=True)``
     on ``[B, C, *spatial]`` (``esr_tpu/models/layers.py:TorchInstanceNorm``).
     In training each instance is normalized with its own f32 spatial
-    moments, and the running statistics blend the batch mean of the
+    moments (f64 for an f64 input), and the running statistics blend the batch mean of the
     instances' (the variance Bessel-corrected with the spatial count), the
     batch mean taken over the process group; in evaluation it normalizes
     with the running statistics. No affine parameters."""
@@ -279,7 +280,7 @@ class TorchInstanceNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         if not self.training:
             y = ((xf - _channel_view(self.running_mean, x.dim()))
                  * torch.rsqrt(_channel_view(self.running_var, x.dim()) + self.eps))

@@ -2,7 +2,8 @@
 behind a router, serving a stream corpus.
 
     python -m esr_tpu_torch.serve --model_path <ckpt-dir> --output_path out/ \\
-        (--data_list streams.txt | --loadgen N) [--rate 4] [--seed 0] \\
+        (--data_list streams.txt | --loadgen N [--loadgen_kind synthetic|simulate]) \\
+        [--rate 4] [--seed 0] \\
         [--lanes 4] [--classes interactive:2,standard:8,bulk:16] \\
         [--default_class standard] [--max_pending 64] [--preempt_quantum 4] \\
         [--max_wall S] [--device cuda|cpu] [--live-port P] [--live-slo YAML] \\
@@ -10,11 +11,15 @@ behind a router, serving a stream corpus.
         [--failover_retries 1] [--supervise_interval S] [dataset flags as infer.py]
 
 Arrivals come on a seeded Poisson schedule at ``--rate`` streams/s, with the
-classes dealt round robin; ``--loadgen N`` serves N seeded synthetic
-in-memory streams instead of a datalist. ``--classes`` takes
+classes dealt round robin; ``--loadgen N`` serves N seeded in-memory
+streams instead of a datalist: random-walk ones, or with ``--loadgen_kind
+simulate`` rendered scenes through the ESIM simulator (``tools/simulate.py``,
+no cv2 or h5py), one replica or a fleet alike. ``--classes`` takes
 ``name:chunk_windows[:min_activity]`` entries; a class with
 ``min_activity > 0`` skips windows whose active-tile fraction is below it.
-One replica writes ``serve_requests.jsonl`` (one report per request),
+The load generator's corpus is described in ``loadgen_corpus.json`` (its
+kind, seed, build seconds and each stream's event count per rung). One
+replica writes ``serve_requests.jsonl`` (one report per request),
 ``serve_summary.json`` and ``telemetry.jsonl`` under ``--output_path`` and
 prints the summary; ``--live-port`` (0: ephemeral) serves ``/metrics``,
 ``/healthz``, ``/slo`` (against ``--live-slo``) and ``/snapshot`` while it
@@ -46,6 +51,7 @@ import json
 import logging
 import os
 import sys
+import time
 from typing import Dict, Optional, Sequence
 
 from esr_tpu_torch.config.precision import PRECISION_SPELLINGS, resolve_precision
@@ -56,7 +62,11 @@ def get_flags(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--model_path", type=str, required=True, help="checkpoint dir")
     p.add_argument("--data_list", type=str, default=None, help="datalist of streams")
     p.add_argument("--loadgen", type=int, default=None,
-                   help="serve N seeded synthetic streams instead of a datalist")
+                   help="serve N seeded load-generated streams instead of a datalist")
+    p.add_argument("--loadgen_kind", type=str, default="synthetic",
+                   choices=["synthetic", "simulate"],
+                   help="synthetic = random-walk streams (fast); simulate = ESIM "
+                        "contrast-threshold simulation of rendered scenes")
     p.add_argument("--output_path", type=str, required=True)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--rate", type=float, default=4.0, help="Poisson arrivals per second")
@@ -133,6 +143,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         raise SystemExit("pass exactly one of --data_list / --loadgen")
     logging.basicConfig(level=logging.INFO)
 
+    from esr_tpu_torch.data.records import LADDER
     from esr_tpu_torch.inference.checkpoint import load_checkpoint
     from esr_tpu_torch.obs import TelemetrySink, set_active_sink
     from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
@@ -157,7 +168,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         precision=precision, device=flags.device,
     )
     if flags.loadgen is not None:
-        streams = make_stream_corpus(n=flags.loadgen, seed=flags.seed)
+        t0 = time.perf_counter()
+        streams = make_stream_corpus(n=flags.loadgen, seed=flags.seed, kind=flags.loadgen_kind)
+        corpus_doc = {"kind": flags.loadgen_kind, "seed": flags.seed,
+                      "build_s": time.perf_counter() - t0,
+                      "events": {s.name: {rung: s.stream(rung).num_events for rung in LADDER}
+                                 for s in streams}}
+        logging.info("loadgen: %d %s streams built in %.3f s", len(streams),
+                     flags.loadgen_kind, corpus_doc["build_s"])
     else:
         from esr_tpu_torch.data.loader import read_datalist
 
@@ -165,6 +183,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     schedule = poisson_schedule(streams, rate_hz=flags.rate, seed=flags.seed,
                                 classes=tuple(sorted(classes)))
     os.makedirs(flags.output_path, exist_ok=True)
+    if flags.loadgen is not None:
+        with open(os.path.join(flags.output_path, "loadgen_corpus.json"), "w") as f:
+            json.dump(corpus_doc, f, indent=2)
     aot_programs = export_chunk_programs(flags, streams[0], dataset_config, classes,
                                          precision) if flags.aot else None
     if flags.replicas > 1:

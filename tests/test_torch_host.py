@@ -637,3 +637,404 @@ def test_export_cli_runs_as_a_script(exported):
                           env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert proc.returncode == 0, proc.stderr
     assert sorted(os.listdir(exported["root"] / "cli")) == ["config.json", "params.npz"]
+
+
+# -- the offline tools: the simulator and its cv2-free resize, the
+# packagers, the datalists, the HDF5 tools, the timers, Super-SloMo ------
+#
+# Everything here is numpy and must be bitwise the reference's (frames,
+# event lists, files, splits); Super-SloMo is float: atol 1e-4 + rtol 1e-4
+# on outputs and input gradients (measured <= 2e-6 on values of order 1:
+# the same f32 convolutions summed in another order, 26 of them deep).
+
+import h5py  # noqa: E402
+
+from esr_tpu import tools as ref_tools  # noqa: E402
+from esr_tpu.tools import datalist as ref_datalist  # noqa: E402
+from esr_tpu.tools import h5_tools as ref_h5  # noqa: E402
+from esr_tpu.tools import simulate as ref_sim  # noqa: E402
+from esr_tpu.tools import upsampling as ref_up  # noqa: E402
+from esr_tpu.utils import timers as ref_timers  # noqa: E402
+from esr_tpu_torch import tools as T_tools  # noqa: E402
+from esr_tpu_torch import utils as T_utils  # noqa: E402
+from esr_tpu_torch.data.records import H5Recording  # noqa: E402
+from esr_tpu_torch.tools import datalist as T_datalist  # noqa: E402
+from esr_tpu_torch.tools import h5_tools as T_h5  # noqa: E402
+from esr_tpu_torch.tools import simulate as T_sim  # noqa: E402
+from esr_tpu_torch.tools import upsampling as T_up  # noqa: E402
+from esr_tpu_torch.utils import timers as T_timers  # noqa: E402
+
+RUNG_FACTORS = (1, 2, 4, 8, 16)
+
+
+@pytest.mark.parametrize("size", [(512, 512), (720, 1280)])
+def test_resize_cubic_is_cv2_at_every_rung(size):
+    """The simulator's per-rung downscale, bitwise ``cv2.resize(INTER_CUBIC)``
+    on uint8 frames: a rendered scene frame, noise, and a colour frame."""
+    h, w = size
+    rng = np.random.default_rng(0)
+    frames, _ = T_sim.render_scene_frames(1, 2, h, w)
+    for img in (frames[1], rng.integers(0, 256, (h, w), dtype=np.uint8),
+                rng.integers(0, 256, (h, w, 3), dtype=np.uint8)):
+        for f in RUNG_FACTORS:
+            dsize = (round(w / f), round(h / f))
+            np.testing.assert_array_equal(
+                T_sim.resize_cubic(img, dsize),
+                cv2.resize(img, dsize, interpolation=cv2.INTER_CUBIC), err_msg=str((size, f)))
+
+
+def test_resize_cubic_at_odd_sizes_is_opencvs_own_arithmetic():
+    """Odd sizes, non-integer ratios and upscales, against OpenCV's own
+    resize. A build with IPP (this wheel) hands non-integer ratios to IPP's
+    float resize instead, which is CPU-dispatched: the comparison turns IPP
+    off. IPP's own result differs from OpenCV's by at most one grey level
+    (on ~4% of these pixels on an x86-64 build; the share depends on the
+    CPU IPP dispatches to, so only the one level is held)."""
+    rng = np.random.default_rng(1)
+    cases = []
+    for (h, w) in [(37, 53), (101, 77), (513, 517), (45, 80), (7, 5)]:
+        img = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        smooth = cv2.GaussianBlur(img, (7, 7), 2)
+        for x in (img, smooth):
+            for f in (2, 3, 4, 8, 16):
+                cases.append((x, (max(1, round(w / f)), max(1, round(h / f)))))
+            cases += [(x, (2 * w + 1, 2 * h - 1)), (x, (w + 3, h + 5))]
+    assert cv2.ipp.useIPP()
+    with_ipp = [cv2.resize(x, d, interpolation=cv2.INTER_CUBIC) for x, d in cases]
+    cv2.ipp.setUseIPP(False)
+    try:
+        for x, d in cases:
+            np.testing.assert_array_equal(T_sim.resize_cubic(x, d),
+                                          cv2.resize(x, d, interpolation=cv2.INTER_CUBIC))
+    finally:
+        cv2.ipp.setUseIPP(True)
+    diff = [np.abs(T_sim.resize_cubic(x, d).astype(int) - y.astype(int))
+            for (x, d), y in zip(cases, with_ipp)]
+    assert max(int(d.max()) for d in diff) <= 1
+    with pytest.raises(TypeError, match="uint8"):
+        T_sim.resize_cubic(np.zeros((4, 4), np.float32), (2, 2))
+
+
+def test_png_reader_and_generate_from_folder_without_cv2(tmp_path):
+    rng = np.random.default_rng(2)
+    frames = [cv2.GaussianBlur(rng.integers(0, 256, (33, 47), dtype=np.uint8), (5, 5), 1.5)
+              for _ in range(4)]
+    for i, img in enumerate(frames):
+        cv2.imwrite(str(tmp_path / f"f{i:03d}.png"), img, [cv2.IMWRITE_PNG_COMPRESSION, 3 * i])
+        np.testing.assert_array_equal(T_sim.read_png_gray8(str(tmp_path / f"f{i:03d}.png")),
+                                      cv2.imread(str(tmp_path / f"f{i:03d}.png"),
+                                                 cv2.IMREAD_GRAYSCALE))
+    stamps = tmp_path / "ts.txt"
+    stamps.write_text("\n".join(str(0.05 * i) for i in range(4)))
+    want = ref_sim.EventSimulator(0.2, 0.25).generate_from_folder(str(tmp_path), str(stamps))
+    got = T_sim.EventSimulator(0.2, 0.25).generate_from_folder(str(tmp_path), str(stamps))
+    assert len(want) > 0
+    np.testing.assert_array_equal(got, want)
+    cv2.imwrite(str(tmp_path / "g.jpg"), frames[0])
+    with pytest.raises(ValueError, match="cv2"):
+        T_sim.read_png_gray8(str(tmp_path / "g.jpg"))
+    cv2.imwrite(str(tmp_path / "c.png"), np.stack([frames[0]] * 3, -1))
+    with pytest.raises(ValueError, match="cv2"):
+        T_sim.read_png_gray8(str(tmp_path / "c.png"))
+
+
+def test_scene_renderers_and_simulator_are_the_references_bitwise():
+    for got, want in ((T_sim.render_scene_frames(3, 4, 48, 80, disc_radius_scale=0.3),
+                       ref_sim.render_scene_frames(3, 4, 48, 80, disc_radius_scale=0.3)),
+                      (T_sim.render_natural_frames(4, 3, 40, 64, n_leaves=300),
+                       ref_sim.render_natural_frames(4, 3, 40, 64, n_leaves=300))):
+        for a, b in zip(got[0], want[0]):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(got[1], want[1])
+    frames, ts = ref_sim.render_scene_frames(5, 5, 40, 56, disc_radius_scale=0.3)
+    for cfg in ({}, {"use_log": False, "log_eps": 1e-2}):
+        args = dict(cp=0.15, cn=0.2, refractory_period=0.01, **cfg)
+        ev = T_sim.EventSimulator(**args).generate_from_frames(frames, ts)
+        assert len(ev) > 100
+        np.testing.assert_array_equal(ev, ref_sim.EventSimulator(**args).generate_from_frames(
+            frames, ts))
+    for seed in range(3):
+        assert T_sim.sample_contrast_thresholds(rng=np.random.default_rng(seed)) == \
+            ref_sim.sample_contrast_thresholds(rng=np.random.default_rng(seed))
+    assert T_sim.DEFAULT_SIM_CONFIG == ref_sim.DEFAULT_SIM_CONFIG
+
+
+def _read_h5_tree(path):
+    out = {}
+    with h5py.File(path, "r") as f:
+        out["/attrs"] = {k: np.asarray(v).tolist() for k, v in f.attrs.items()}
+
+        def visit(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                out[name] = (obj[()], {k: np.asarray(v).tolist() for k, v in obj.attrs.items()})
+
+        f.visititems(visit)
+    return out
+
+
+def _assert_same_h5(a, b):
+    ta, tb = _read_h5_tree(a), _read_h5_tree(b)
+    assert sorted(ta) == sorted(tb)
+    assert ta["/attrs"] == tb["/attrs"]
+    for k in ta:
+        if k != "/attrs":
+            np.testing.assert_array_equal(ta[k][0], tb[k][0], err_msg=k)
+            assert ta[k][1] == tb[k][1], k
+
+
+def test_simulate_ladder_recording_is_the_references_h5(tmp_path):
+    """The port's ladder HDF5 is the reference's file, and its in-memory
+    recording reads back the same windows, frames and sensor size."""
+    frames, ts = ref_sim.render_scene_frames(7, 4, 128, 96, disc_radius_scale=0.4)
+    # the two packages' writers on the same frames: the comparison is on them
+    want = ref_sim.simulate_ladder_recording(frames, ts, str(tmp_path / "ref.h5"),  # esr: noqa(TX006)
+                                             seed=3)
+    got = T_sim.simulate_ladder_recording(frames, ts, str(tmp_path / "port.h5"),  # esr: noqa(TX006)
+                                          seed=3)
+    assert got == want
+    _assert_same_h5(tmp_path / "port.h5", tmp_path / "ref.h5")
+    memory, cpcn = T_sim.simulate_memory_recording(frames, ts, seed=3, name="m")
+    assert cpcn == want
+    ref = H5Recording(str(tmp_path / "ref.h5"))
+    assert memory.sensor_resolution == ref.sensor_resolution == (128, 96)
+    for rung in T_sim.DEFAULT_RUNGS:
+        a, b = memory.stream(rung), ref.stream(rung)
+        assert a.num_events > 0
+        np.testing.assert_array_equal(a.window(0, a.num_events), b.window(0, b.num_events))
+    np.testing.assert_array_equal(memory.frame_ts, ref.frame_ts)
+    for k in range(memory.num_frames):
+        np.testing.assert_array_equal(memory.frame(k), ref.frame(k))
+
+
+def test_packagers_and_eventzoom_write_the_references_files(tmp_path):
+    rng = np.random.default_rng(8)
+    for root, mod in (("ref", ref_tools.packagers), ("port", T_tools.packagers)):
+        d = tmp_path / root
+        d.mkdir()
+        with mod.H5Packager(str(d / "single.h5")) as pk:
+            ev = np.random.default_rng(9).random((50, 4))
+            pk.package_events(ev[:, 0] * 10, ev[:, 1] * 8, np.sort(ev[:, 2]), ev[:, 3] > 0.5)
+            pk.package_image(np.full((8, 10), 7, np.uint8), 0.3)
+            pk.package_image(np.zeros((8, 10, 3), np.uint8), 0.6)
+            pk.package_flow(np.ones((2, 8, 10)), 0.5)
+            pk.add_metadata(20, 30, 0.0, 1.0, (8, 10))
+        with mod.H5LadderPackager(str(d / "ladder.h5"), rungs=("ori", "down2")) as pk:
+            pk.package_events("ori", [1, 2], [3, 4], [0.1, 0.2], [1.0, -1.0])
+            pk.package_events("down2", [], [], [], [])
+            pk.package_image("ori", np.eye(4, dtype=np.uint8), 0.15)
+            pk.add_metadata((4, 4))
+            with pytest.raises(KeyError):
+                pk.package_events("down4", [1], [1], [0.1], [1.0])
+        txt = tmp_path / "zoom" / "data"
+        for sub, n in (("ev_hr", 40), ("ev_lr_1", 20), ("ev_llr_1", 10)):
+            (txt / sub).mkdir(parents=True, exist_ok=True)
+            rows = np.stack([np.sort(rng.random(n)), rng.integers(0, 9, n), rng.integers(0, 7, n),
+                             rng.integers(0, 2, n)], 1) if root == "ref" else None
+            if rows is not None:
+                np.savetxt(txt / sub / "seq.txt", rows, header="t x y p", comments="")
+        assert getattr(T_sim if root == "port" else ref_sim, "convert_eventzoom")(
+            str(tmp_path / "zoom"), str(d / "zoom")) == 1
+    for name in ("single.h5", "ladder.h5", "zoom/seq.h5"):
+        _assert_same_h5(tmp_path / "port" / name, tmp_path / "ref" / name)
+    np.testing.assert_array_equal(
+        T_sim.read_txt_events(str(tmp_path / "zoom/data/ev_hr/seq.txt")),
+        ref_sim.read_txt_events(str(tmp_path / "zoom/data/ev_hr/seq.txt")))
+
+
+def test_datalist_modes_and_cli_are_the_references(tmp_path, monkeypatch):
+    data, valid = tmp_path / "data", tmp_path / "valid"
+    for d, n in ((data, 9), (valid, 5)):
+        d.mkdir()
+        for i in range(n):
+            (d / f"r{i:02d}.h5").write_bytes(b"")
+    cases = [dict(mode=0), dict(mode=0, num=4), dict(mode=1, num=4, valid_num=3),
+             dict(mode=2, portion=0.7), dict(mode=3, num=5, valid_num=2,
+                                             valid_data_path=str(valid))]
+    for kw in cases:
+        for seed in (123, 7):
+            assert T_datalist.generate_datalist(str(data), seed=seed, **kw) == \
+                ref_datalist.generate_datalist(str(data), seed=seed, **kw)
+    with pytest.raises(ValueError):
+        T_datalist.generate_datalist(str(data), 4)
+    for root, main in (("ref", ref_datalist.main), ("port", T_datalist.main)):
+        monkeypatch.setattr(sys, "argv", ["datalist", "--data_path", str(data), "--mode", "1",
+                                          "--num", "5", "--valid_num", "2", "--out_dir",
+                                          str(tmp_path / root)])
+        main()
+    for name in ("train.txt", "valid.txt"):
+        assert (tmp_path / "port" / name).read_text() == (tmp_path / "ref" / name).read_text()
+    assert T_tools.generate_datalist is T_datalist.generate_datalist
+
+
+class _Stamp:
+    def __init__(self, t):
+        self.secs = int(t)
+        self.nsecs = int(round((t - int(t)) * 1e9))
+
+
+class _Msg:
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+def _fake_rosbag(messages):
+    """A ``rosbag`` module whose ``Bag(path, "r")`` yields ``messages``."""
+    import types
+
+    class Bag:
+        def __init__(self, path, mode="r"):
+            assert os.path.exists(path)
+
+        def read_messages(self):
+            yield from messages
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    mod = types.ModuleType("rosbag")
+    mod.Bag = Bag
+    return mod
+
+
+def _bag_messages():
+    rng = np.random.default_rng(7)
+    msgs = []
+    for dt, enc in ((0.05, "mono8"), (0.25, "rgb8")):
+        ch = 1 if enc == "mono8" else 3
+        img = rng.integers(0, 255, size=(8, 12 * ch), dtype=np.uint8)
+        msgs.append(("/cam/image", _Msg(header=_Msg(stamp=_Stamp(100 + dt)), height=8,
+                                        width=12, step=12 * ch, encoding=enc,
+                                        data=img.tobytes()), 100 + dt))
+    for k in range(3):
+        evs = [_Msg(x=int(rng.integers(0, 12)), y=int(rng.integers(0, 8)),
+                    ts=_Stamp(100 + 0.1 * k + 0.1 * j / 40), polarity=bool(j % 2))
+               for j in range(40)]
+        msgs.append(("/dvs/events", _Msg(events=evs), 100 + 0.1 * k))
+    msgs.append(("/flow", _Msg(header=_Msg(stamp=_Stamp(100.15)),
+                               flow_x=rng.standard_normal(96).astype(np.float32),
+                               flow_y=rng.standard_normal(96).astype(np.float32),
+                               height=8, width=12), 100.15))
+    return sorted(msgs, key=lambda m: m[2])
+
+
+def test_h5_tools_round_trips_are_the_references(tmp_path, monkeypatch):
+    rng = np.random.default_rng(10)
+    txt = tmp_path / "ev.txt"
+    rows = np.stack([np.sort(rng.random(250)) + 5, rng.integers(0, 30, 250),
+                     rng.integers(0, 20, 250), rng.integers(0, 2, 250)], 1)
+    np.savetxt(txt, rows, header="30 20", comments="")
+    monkeypatch.setitem(sys.modules, "rosbag", _fake_rosbag(_bag_messages()))
+    (tmp_path / "rec.bag").write_bytes(b"fake")
+    frames_dir = tmp_path / "frames" / "seq"
+    frames_dir.mkdir(parents=True)
+    for i, shape in enumerate([(6, 9), (6, 9), (9, 6)]):
+        cv2.imwrite(str(frames_dir / f"{i}.png"), np.full(shape, 40 * i, np.uint8))
+    for root, mod in (("ref", ref_h5), ("port", T_h5)):
+        d = tmp_path / root
+        d.mkdir()
+        assert mod.extract_txt_to_h5(str(txt), str(d / "txt.h5"), zero_timestamps=True,
+                                     chunksize=64) == (int(rows[:, 3].sum()),
+                                                       int(250 - rows[:, 3].sum()))
+        mod.add_hdf5_attribute(mod.get_filepaths(str(d)), "events", "note", 3)
+        mod.h5_to_memmap(str(d / "txt.h5"), str(d / "mm"))
+        stats = mod.extract_rosbag_to_h5(str(tmp_path / "rec.bag"), str(d / "bag.h5"),
+                                         image_topic="/cam/image", flow_topic="/flow",
+                                         zero_timestamps=True)
+        assert stats["num_pos"] == stats["num_neg"] == 60
+        mod.extract_rosbags_to_h5([str(tmp_path / "rec.bag")], str(d / "bags"),
+                                  start_time=100.1, end_time=100.2)
+        assert mod.events_to_ply(rows[:, [1, 2, 0, 3]] * [1, 1, 1, 2] - [0, 0, 0, 1], (20, 30),
+                                 str(d / "ev.ply")) == 250
+        mod.events_to_ply(rows[:5, [1, 2, 0, 3]], (20, 30), str(d / "ev_text.ply"), text=True)
+    for name in ("txt.h5", "bag.h5", "bags/rec.h5"):
+        _assert_same_h5(tmp_path / "port" / name, tmp_path / "ref" / name)
+    for name in ("ev.ply", "ev_text.ply", "mm/memmap/t.npy", "mm/memmap/xy.npy",
+                 "mm/memmap/p.npy", "mm/memmap/metadata.json"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "ref" / name).read_bytes()
+    got = T_h5.read_memmap(str(tmp_path / "port" / "mm" / "memmap"), return_events=True)
+    want = ref_h5.read_memmap(str(tmp_path / "ref" / "mm" / "memmap"), return_events=True)
+    for k in ("t", "xy", "p", "num_events", "t0", "metadata"):
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+    bag = str(tmp_path / "port" / "bag.h5")
+    assert T_h5.read_h5_summary(bag) == ref_h5.read_h5_summary(bag)
+    np.testing.assert_array_equal(T_h5.read_h5_events(bag), ref_h5.read_h5_events(bag))
+    assert T_h5.validate_frame_sizes(str(tmp_path / "frames"), (6, 9), "*.png") == \
+        ref_h5.validate_frame_sizes(str(tmp_path / "frames"), (6, 9), "*.png") == \
+        {"portrait": [str(frames_dir)], "mismatched": [str(frames_dir)], "unreadable": []}
+    monkeypatch.delitem(sys.modules, "rosbag")
+    monkeypatch.setattr(sys, "path", [p for p in sys.path if "ros" not in p])
+    with pytest.raises(ImportError, match="rosbag"):
+        T_h5.extract_rosbag_to_h5("in.bag", "out.h5")
+
+
+def test_timers_record_and_report_as_the_reference(monkeypatch, capsys):
+    for mod in (ref_timers, T_timers):
+        monkeypatch.setattr(mod, "timing_stats", type(mod.timing_stats)(list))
+        for _ in range(3):
+            with mod.Timer("step") as t:
+                pass
+        assert t.interval >= 0 and len(mod.timing_stats["step"]) == 3
+        mod.timing_stats["step"][:] = [0.5, 0.25, 0.75]
+        mod.print_timing_info()
+    ref_out, port_out = capsys.readouterr().out.split("== Timing statistics ==")[1:]
+    assert ref_out == port_out and "step: 0.5000 s (3 samples)" in port_out
+    assert T_utils.Timer is T_timers.Timer
+
+
+@pytest.fixture(scope="module")
+def slomo(tmp_path_factory):
+    """The port's two Super-SloMo nets at seeded weights, saved as the
+    converter's npz and loaded back by both packages."""
+    torch.manual_seed(0)
+    fc, at = T_up.flow_nets(3)
+    path = str(tmp_path_factory.mktemp("slomo") / "slomo.npz")
+    ckpt = path.replace(".npz", ".ckpt")
+    torch.save({"state_dictFC": fc.state_dict(), "state_dictAT": at.state_dict()}, ckpt)
+    T_up.convert_superslomo_checkpoint(ckpt, path)
+    fc_state, at_state = T_up.load_superslomo_npz(path)
+    fc.load_state_dict(fc_state)
+    at.load_state_dict(at_state)
+    return fc.eval(), at.eval(), ref_up.load_superslomo_npz(path), path
+
+
+def test_superslomo_interpolation_matches_reference(slomo):
+    fc, at, (jfc, jat), path = slomo
+    rng = np.random.default_rng(11)
+    i0, i1 = (rng.random((1, 32, 64, 3)).astype(np.float32) for _ in range(2))
+    t = 0.3
+    want = ref_up.interpolate_frame(jfc, jat, jnp.asarray(i0), jnp.asarray(i1), t)
+    x0 = torch.from_numpy(np.moveaxis(i0, -1, 1).copy()).requires_grad_(True)
+    x1 = torch.from_numpy(np.moveaxis(i1, -1, 1).copy()).requires_grad_(True)
+    got = T_up.interpolate_frame(fc, at, x0, x1, t)
+    np.testing.assert_allclose(np.moveaxis(got.detach().numpy(), 1, -1), np.asarray(want),
+                               atol=1e-4, rtol=1e-4)
+    w = rng.standard_normal(np.asarray(want).shape).astype(np.float32)
+    (got * torch.from_numpy(np.moveaxis(w, -1, 1).copy())).sum().backward()
+    g0, g1 = jax.grad(lambda a, b: jnp.sum(ref_up.interpolate_frame(jfc, jat, a, b, t) * w),
+                      argnums=(0, 1))(jnp.asarray(i0), jnp.asarray(i1))
+    for tg, jg in ((x0.grad, g0), (x1.grad, g1)):
+        np.testing.assert_allclose(np.moveaxis(tg.numpy(), 1, -1), np.asarray(jg),
+                                   atol=1e-4, rtol=1e-4)
+    flow = rng.standard_normal((2, 9, 11, 2)).astype(np.float32)
+    img = rng.random((2, 9, 11, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        np.moveaxis(T_up.backwarp(_nchw(img), _nchw(flow)).numpy(), 1, -1),
+        np.asarray(ref_up.backwarp(jnp.asarray(img), jnp.asarray(flow))), atol=1e-5, rtol=1e-5)
+    frames, stamps = T_up.upsample_adaptive(fc, at, x0.detach(), x1.detach(), 1.0, 2.0)
+    ref_frames, ref_stamps = ref_up.upsample_adaptive(jfc, jat, jnp.asarray(i0),
+                                                      jnp.asarray(i1), 1.0, 2.0)
+    assert stamps == ref_stamps and len(frames) == len(ref_frames)
+    for a, b in zip(frames, ref_frames):
+        np.testing.assert_allclose(np.moveaxis(a, 0, -1), b, atol=1e-4, rtol=1e-4)
+    data = dict(np.load(path))
+    del data["at.up3.conv2.bias"]
+    np.savez(path.replace(".npz", "_cut.npz"), **data)
+    with pytest.raises(KeyError, match="at.up3.conv2.bias"):
+        T_up.load_superslomo_npz(path.replace(".npz", "_cut.npz"))
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))

@@ -43,7 +43,11 @@ def test_package_imports_no_jax_and_no_reference():
             "obs/fleetview.py", "obs/aggregate.py",
             "serve.py", "native.py", "ops/encodings.py", "utils/writer.py",
             "utils/vis_events.py", "config/precision.py", "config/quantize.py",
-            "ops/int8_cuda.py"} <= names
+            "ops/int8_cuda.py", "ops/iwe.py", "ops/sampling.py", "ops/gradients.py",
+            "ops/psroi.py", "losses/flow.py", "losses/reconstruction.py",
+            "models/extended.py", "tools/simulate.py", "tools/packagers.py",
+            "tools/upsampling.py", "tools/h5_tools.py", "tools/datalist.py",
+            "utils/timers.py"} <= names
     bad = {str(f.relative_to(PKG.parent)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
@@ -91,6 +95,30 @@ def test_importing_the_harness_loads_no_jax_and_no_h5py():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'esr_tpu', 'h5py', 'triton', 'yaml', "
         "'tensorboard', 'cv2', 'PIL', 'matplotlib')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(PKG.parent))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_simulator_and_event_ops_load_no_jax_cv2_or_h5py():
+    """The simulate loadgen, the simulator and the event-op library import
+    neither the reference nor cv2 nor h5py: the card's machine has neither
+    of the two (the simulator resizes and reads PNGs itself)."""
+    code = (
+        "import sys, esr_tpu_torch.serving.loadgen, esr_tpu_torch.tools.simulate, "
+        "esr_tpu_torch.ops.iwe, esr_tpu_torch.tools, esr_tpu_torch.tools.h5_tools, "
+        "esr_tpu_torch.tools.upsampling, esr_tpu_torch.ops, esr_tpu_torch.losses, "
+        "esr_tpu_torch.models.extended, esr_tpu_torch.utils\n"
+        "from esr_tpu_torch.serving.loadgen import make_stream_corpus\n"
+        "from esr_tpu_torch.tools.simulate import render_scene_frames, simulate_memory_recording\n"
+        "frames, ts = render_scene_frames(0, 3, 32, 32)\n"
+        "rec, _ = simulate_memory_recording(frames, ts, rungs=('ori', 'down2'))\n"
+        "assert rec.stream('down2').num_events > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'esr_tpu', 'cv2', 'h5py')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

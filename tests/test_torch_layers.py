@@ -859,3 +859,260 @@ def test_two_process_batchnorm_takes_the_global_batch_moments(bn_two_processes):
             _scaled_close(g[k], jflat[k], 1e-5)
     for k in stats:
         np.testing.assert_array_equal(got[0][k], got[1][k])
+
+
+# -- the event-op library: sampling, gradients, IWEs, the flow and
+# reconstruction losses, the rest of the encodings and PSROI pooling ------
+#
+# Each op takes the same seeded numpy inputs on both sides; the scalar whose
+# gradient is compared is sum(output * a seeded weight). Float outputs and
+# gradients: atol 1e-5 + rtol 1e-5 (measured 0 to 2e-7: the same f32 ops,
+# scatter-adds summed in another order); integer, index, mask and event-list
+# outputs bitwise. Images are NCHW in the port, NHWC in the reference.
+
+from esr_tpu.losses import flow as JFL
+from esr_tpu.losses import reconstruction as JREC
+from esr_tpu.ops import encodings as JENC
+from esr_tpu.ops import gradients as JGR
+from esr_tpu.ops import iwe as JIWE
+from esr_tpu.ops import psroi as JPS
+from esr_tpu.ops import sampling as JSA
+from esr_tpu_torch import losses as T_losses
+from esr_tpu_torch import ops as T_ops
+from esr_tpu_torch.losses import flow as TFL
+from esr_tpu_torch.losses import reconstruction as TREC
+from esr_tpu_torch.ops import encodings as TENC
+from esr_tpu_torch.ops import gradients as TGR
+from esr_tpu_torch.ops import iwe as TIWE
+from esr_tpu_torch.ops import psroi as TPS
+from esr_tpu_torch.ops import sampling as TSA
+
+EV_TOL = dict(atol=1e-5, rtol=1e-5)
+EV_B, EV_H, EV_W, EV_N = 2, 11, 14, 60
+
+
+def _grads_match(jfn, tfn, arrays, nchw_args=(), tol=EV_TOL):
+    """``jfn`` / ``tfn`` over the same arrays (NHWC for the reference, NCHW
+    for the port at ``nchw_args``): outputs and the gradient of
+    sum(output * w) with respect to every float argument."""
+    t_in = [(_nchw(a) if i in nchw_args else torch.from_numpy(np.array(a))).requires_grad_(True)
+            for i, a in enumerate(arrays)]
+    t_out = tfn(*t_in)
+    j_out = jfn(*[jnp.asarray(a) for a in arrays])
+    j_np = np.asarray(j_out)
+    t_np = t_out.detach().numpy()
+    if j_np.ndim == 4 and t_np.shape != j_np.shape:
+        j_np = np.moveaxis(j_np, -1, 1)
+    np.testing.assert_allclose(t_np, j_np, **tol)
+    w = np.random.default_rng(7).standard_normal(t_np.shape).astype(np.float32)
+    (t_out * torch.from_numpy(w)).sum().backward()
+    wj = np.moveaxis(w, 1, -1) if np.asarray(j_out).shape != t_np.shape else w
+    j_grads = jax.grad(lambda *a: jnp.sum(jfn(*a) * wj), argnums=tuple(range(len(arrays))))(
+        *[jnp.asarray(a) for a in arrays])
+    for i, (tg, jg) in enumerate(zip(t_in, j_grads)):
+        jg = np.asarray(jg)
+        # no path from an argument to the output (a rounded index): zero
+        got = np.zeros(tg.shape, np.float32) if tg.grad is None else tg.grad.numpy()
+        np.testing.assert_allclose(got, np.moveaxis(jg, -1, 1) if i in nchw_args else jg, **tol)
+
+
+def _event_inputs(seed=0, b=EV_B, n=EV_N, h=EV_H, w=EV_W):
+    rng = np.random.default_rng(seed)
+    ev = np.stack([np.sort(rng.random((b, n)), 1), rng.uniform(0, h, (b, n)),
+                   rng.uniform(0, w, (b, n)), rng.choice([-1.0, 1.0], (b, n))], -1)
+    flow = rng.standard_normal((b, h, w, 2)) * 0.03
+    pol = np.stack([ev[..., 3] > 0, ev[..., 3] < 0], -1)
+    valid = rng.random((b, n)) > 0.2
+    return (ev.astype(np.float32), flow.astype(np.float32), pol.astype(np.float32), valid)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_grid_sample_and_sobel_match_reference(align_corners):
+    rng = np.random.default_rng(1)
+    img = rng.standard_normal((2, 7, 9, 3)).astype(np.float32)
+    grid = rng.uniform(-1.2, 1.2, (2, 5, 6, 2)).astype(np.float32)
+    _grads_match(lambda i, g: JSA.grid_sample(i, g, align_corners),
+                 lambda i, g: TSA.grid_sample(i, g, align_corners), [img, grid], nchw_args=(0,))
+    _grads_match(lambda i: JGR.sobel(i)[int(align_corners)],
+                 lambda i: TGR.sobel(i)[int(align_corners)], [img], nchw_args=(0,))
+
+
+@pytest.mark.parametrize("round_idx", [True, False])
+def test_iwe_ops_match_reference(round_idx):
+    ev, flow, pol, valid = _event_inputs()
+    res = (EV_H, EV_W)
+    vj, vt = jnp.asarray(valid), torch.from_numpy(valid)
+    _grads_match(
+        lambda f, e, pm, nm: JIWE.compute_pol_iwe(f, e, res, pm, nm, 9, round_idx, vj),
+        lambda f, e, pm, nm: TIWE.compute_pol_iwe(f, e, res, pm, nm, 9, round_idx, vt),
+        [flow, ev, pol[..., 0:1], pol[..., 1:2]], nchw_args=(0,))
+    idx_j, w_j = JIWE.get_interpolation(jnp.asarray(ev), jnp.asarray(ev[..., 1:3] * 0.01), 0.5,
+                                        res, 9, round_idx)
+    idx_t, w_t = TIWE.get_interpolation(torch.from_numpy(ev),
+                                        torch.from_numpy(ev[..., 1:3] * 0.01), 0.5, res, 9,
+                                        round_idx)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), **EV_TOL)
+
+
+def test_event_warping_loss_and_averaged_iwe_match_reference():
+    ev, flow, pol, valid = _event_inputs(2)
+    # two events warp from one source pixel to one destination: the
+    # averaged IWE's distinct-source count must see them once
+    ev[:, 1] = ev[:, 0] * [1.0, 1.0, 1.0, 0.0] + [0.0, 0.0, 0.0, ev[0, 0, 3]]
+    res = (EV_H, EV_W)
+    vj, vt = jnp.asarray(valid), torch.from_numpy(valid)
+    _grads_match(lambda f, e, p: JFL.event_warping_loss([f, f * 0.5], e, p, res, vj, 0.3),
+                 lambda f, e, p: TFL.event_warping_loss([f, f * 0.5], e, p, res, vt, 0.3),
+                 [flow, ev, pol], nchw_args=(0,))
+    _grads_match(lambda f, e, p: JFL.averaged_iwe(f, e, p, res, vj),
+                 lambda f, e, p: T_losses.averaged_iwe(f, e, p, res, vt),
+                 [flow, ev, pol], nchw_args=(0,))
+
+
+def test_brightness_constancy_matches_reference():
+    ev, flow, pol, valid = _event_inputs(3)
+    res = (EV_H, EV_W)
+    rng = np.random.default_rng(4)
+    img = rng.random((EV_B, EV_H, EV_W, 1)).astype(np.float32)
+    prev = rng.random((EV_B, EV_H, EV_W, 1)).astype(np.float32)
+    cnt = rng.integers(0, 2, (EV_B, EV_H, EV_W, 2)).astype(np.float32)
+    jb, tb = JREC.BrightnessConstancy(res, (0.5, 2.0)), T_losses.BrightnessConstancy(res, (0.5, 2.0))
+    assert isinstance(tb, TREC.BrightnessConstancy)
+    vj, vt = jnp.asarray(valid), torch.from_numpy(valid)
+    _grads_match(lambda f, i: jb.generative_model(f, i, jnp.asarray(cnt), jnp.asarray(ev),
+                                                  jnp.asarray(pol), vj),
+                 lambda f, i: tb.generative_model(f, i, _nchw(cnt), torch.from_numpy(ev),
+                                                  torch.from_numpy(pol), vt),
+                 [flow, img], nchw_args=(0, 1))
+    _grads_match(lambda f, p, i: jb.temporal_consistency(f, p, i),
+                 lambda f, p, i: tb.temporal_consistency(f, p, i),
+                 [flow, prev, img], nchw_args=(0, 1, 2))
+    _grads_match(jb.regularization, tb.regularization, [img], nchw_args=(0,))
+
+
+def _cloud(seed=5, n=400, h=EV_H, w=EV_W, n_valid=370):
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-1, w + 1, n).astype(np.float32)
+    ys = rng.uniform(-1, h + 1, n).astype(np.float32)
+    ts = np.sort(rng.random(n)).astype(np.float32)
+    ts[40:44] = ts[40]  # a run of equal timestamps
+    ps = rng.choice([-1.0, 1.0], n).astype(np.float32)
+    return xs, ys, ts, ps, np.arange(n) < n_valid
+
+
+def test_encodings_match_reference_bitwise_where_integer():
+    xs, ys, ts, ps, valid = _cloud()
+    res = (EV_H, EV_W)
+    J = [jnp.asarray(a) for a in (xs, ys, ts, ps)]
+    T = [torch.from_numpy(a) for a in (xs, ys, ts, ps)]
+    vj, vt = jnp.asarray(valid), torch.from_numpy(valid)
+    for pol in (False, True):
+        for binning in ("half_open", "inclusive"):
+            np.testing.assert_array_equal(
+                TENC.events_to_stack(*T, 5, res, vt, pol, binning).numpy(),
+                np.asarray(JENC.events_to_stack(*J, 5, res, vj, pol, binning)))
+    for few in (3, 4):  # the inclusive guard zeroes a window of <= 3 events
+        np.testing.assert_array_equal(
+            TENC.events_to_stack(*T, 2, res, torch.arange(400) < few, False, "inclusive").numpy(),
+            np.asarray(JENC.events_to_stack(*J, 2, res, jnp.arange(400) < few, False, "inclusive")))
+    np.testing.assert_array_equal(TENC.events_to_mask(T[0], T[1], T[3], res, vt).numpy(),
+                                  np.asarray(JENC.events_to_mask(J[0], J[1], J[3], res, vj)))
+    np.testing.assert_array_equal(TENC.events_polarity_mask(T[3]).numpy(),
+                                  np.asarray(JENC.events_polarity_mask(J[3])))
+    cnt_t, act_t = TENC.events_to_channels_activity(T[0], T[1], T[3], res, vt, tile=4)
+    cnt_j, act_j = JENC.events_to_channels_activity(J[0], J[1], J[3], res, vj, tile=4)
+    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
+    np.testing.assert_array_equal(act_t.numpy(), np.asarray(act_j))
+    assert float(TENC.activity_fraction(act_t)) == float(JENC.activity_fraction(act_j))
+    stack = np.random.default_rng(6).normal(0, 2, (2, EV_H, EV_W, 3)).astype(np.float32)
+    np.testing.assert_array_equal(TENC.stack2cnt(torch.from_numpy(stack)).numpy(),
+                                  np.asarray(JENC.stack2cnt(jnp.asarray(stack))))
+    for a, b in zip(TENC.normalize_events(T[0], T[1], res), JENC.normalize_events(J[0], J[1], res)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_encodings_float_weights_match_reference():
+    xs, ys, ts, ps, valid = _cloud(8)
+    res = (EV_H, EV_W)
+    J = [jnp.asarray(a) for a in (xs, ys, ts, ps)]
+    T = [torch.from_numpy(a) for a in (xs, ys, ts, ps)]
+    vj, vt = jnp.asarray(valid), torch.from_numpy(valid)
+    for round_ts in (False, True):
+        np.testing.assert_allclose(TENC.events_to_voxel(*T, 4, res, vt, round_ts).numpy(),
+                                   np.asarray(JENC.events_to_voxel(*J, 4, res, vj, round_ts)),
+                                   **EV_TOL)
+    np.testing.assert_allclose(
+        TENC.events_to_image(T[0], T[1], T[3], res, vt, "bilinear").numpy(),
+        np.asarray(JENC.events_to_image(J[0], J[1], J[3], res, vj, "bilinear")), **EV_TOL)
+    rng = np.random.default_rng(9)
+    cloud = np.stack([rng.random((2, 300)), rng.random((2, 300)), rng.random((2, 300)),
+                      rng.choice([-1.0, 1.0, 0.0], (2, 300))], -1).astype(np.float32)
+    cv = rng.random((2, 300)) > 0.1
+    restored_t = TENC.event_restore(torch.from_numpy(cloud), res)
+    restored_j = JENC.event_restore(jnp.asarray(cloud), res)
+    np.testing.assert_array_equal(restored_t.numpy(), np.asarray(restored_j))
+    got = TENC.event_conversion(restored_t, 3, res, 4, torch.from_numpy(cv))
+    want = JENC.event_conversion(restored_j, 3, res, 4, jnp.asarray(cv))
+    np.testing.assert_array_equal(got["e_cnt"].numpy(), np.asarray(want["e_cnt"]))
+    np.testing.assert_array_equal(got["e_stack"].numpy(), np.asarray(want["e_stack"]))
+    np.testing.assert_allclose(got["e_voxel"].numpy(), np.asarray(want["e_voxel"]), **EV_TOL)
+
+
+@pytest.mark.parametrize("max_px", [3, 6, 7, 40])
+def test_hot_event_mask_ties_at_the_cutoff_take_the_lower_index(max_px):
+    # integer rates tie all the time: 5 pixels at rate 3 straddle the cutoff
+    # rank for max_px 3 and 6 (the top-k keeps the lower indices)
+    rate = np.zeros((5, 6), np.float32)
+    rate.flat[[4, 9, 11, 20, 27]] = 3.0
+    rate.flat[[2, 17]] = 5.0
+    rate.flat[[0, 1, 3]] = 0.5
+    for idx in (7, 5, jnp.asarray(9)):
+        want = np.asarray(JENC.get_hot_event_mask(jnp.asarray(rate), idx, max_px, 5, 0.8))
+        t_idx = torch.tensor(int(idx)) if isinstance(idx, jax.Array) else idx
+        got = TENC.get_hot_event_mask(torch.from_numpy(rate), t_idx, max_px, 5, 0.8)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == 0).sum() == min(max_px, 7)
+
+
+@pytest.mark.parametrize("capacity", [37, 900])
+def test_inverse_rasterizers_are_the_reference_event_lists_bitwise(capacity):
+    """Past ``capacity`` (37) the lists keep the reference's scan-order
+    prefix; at 900 every event fits."""
+    rng = np.random.default_rng(10)
+    cnt = rng.integers(0, 4, (2, 6, 7, 2)).astype(np.float32)
+    cnt[0, 2, 3, 0] = -0.9  # a negative prediction counts as 0
+    stack = rng.integers(-3, 4, (2, 6, 7, 3)).astype(np.float32) + 0.4
+    pstack = rng.integers(0, 3, (2, 6, 7, 3, 2)).astype(np.float32)
+    for name, grid in (("cnt2event", cnt), ("event_redistribute", stack),
+                       ("event_redistribute_polarity", pstack)):
+        for fn_t, fn_j, g in ((getattr(TENC, name), getattr(JENC, name), grid[0]),
+                              (getattr(TENC, f"{name}_batch"), getattr(JENC, f"{name}_batch"),
+                               grid)):
+            ev_t, v_t = fn_t(torch.from_numpy(g), capacity)
+            ev_j, v_j = fn_j(jnp.asarray(g), capacity)
+            np.testing.assert_array_equal(ev_t.numpy(), np.asarray(ev_j), err_msg=name)
+            np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j), err_msg=name)
+            if capacity == 37:
+                assert bool(v_t.all())  # truncated: every slot holds an event
+
+
+def test_psroi_matches_reference_at_half_coordinates():
+    rng = np.random.default_rng(11)
+    od, g, p = 2, 3, 3
+    data = rng.standard_normal((2, 7, 9, od * g * g)).astype(np.float32)
+    # .5 coordinates: C round() goes away from zero where torch.round goes to even
+    rois = np.array([[0, 0.5, 1.5, 4.5, 5.5], [1, 2.5, -0.5, 8.5, 6.5],
+                     [0, -1.5, 2.5, 3.5, 3.5], [1, 3, 1, 3, 1]], np.float32)
+    trans = rng.standard_normal((4, 2, 2, 3, 3)).astype(np.float32)
+    kw = dict(spatial_scale=0.9, output_dim=od, group_size=g, pooled_size=p,
+              sample_per_part=2, trans_std=0.1)
+    _grads_match(lambda d, t: JPS.deform_psroi_pooling(d, jnp.asarray(rois), t, **kw)[0],
+                 lambda d, t: T_ops.deform_psroi_pooling(d, torch.from_numpy(rois), t, **kw)[0],
+                 [data, trans], nchw_args=(0,))
+    cnt_t = TPS.deform_psroi_pooling(_nchw(data), torch.from_numpy(rois), None, **kw)[1]
+    cnt_j = JPS.deform_psroi_pooling(jnp.asarray(data), jnp.asarray(rois), None, **kw)[1]
+    np.testing.assert_array_equal(cnt_t.numpy(), np.moveaxis(np.asarray(cnt_j), -1, 1))
+    x = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5])
+    assert TPS._round_half_away(x).tolist() == [1.0, 2.0, 3.0, -1.0, -3.0]
+    assert torch.round(x).tolist() != TPS._round_half_away(x).tolist()

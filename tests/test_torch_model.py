@@ -376,3 +376,149 @@ def test_flagship_args_refused_for_unets_as_the_reference(key):
         J_REGISTRY["SRUNetRecurrentSeq"](base_num_channels=4, **{key: True})
     with pytest.raises(TypeError, match=key):
         TR.get_model("SRUNetRecurrentSeq", base_num_channels=4, **{key: True})
+
+
+# -- the extended blocks ----------------------------------------------------
+#
+# Each block's flax init (plus seeded noise, so no parameter is a constant)
+# crosses the weight bridge, ``batch_stats`` included; both sides see the
+# same seeded input. Compared: the output, the gradient of sum(out * w)
+# with respect to the input and every parameter, and in training the
+# updated running statistics. Tolerance: atol 1e-5 + rtol 1e-4 (measured
+# <= 5e-6: the same f32 convolutions and norms summed in other orders); a
+# parameter gradient within 1e-5 of the largest gradient entry of the block
+# (a conv bias before a norm has a true gradient of 0, and both sides
+# return rounding noise there, measured up to 1.3e-4 of a scale ~100).
+
+import jax.numpy as jnp  # noqa: E402
+
+from esr_tpu.models import extended as JX  # noqa: E402
+from esr_tpu_torch.models import extended as TX  # noqa: E402
+
+EXT_TOL = dict(atol=1e-5, rtol=1e-4)
+# name -> (flax block, port block, input shape (channel-last), layout, takes train)
+EXT_CASES = {
+    "inception": (lambda: JX.InceptionBlock(8, 3, 1, 2), lambda: TX.InceptionBlock(6, 8, 3, 1, 2),
+                  (2, 10, 12, 6), "image", False),
+    "dilated": (lambda: JX.DilatedBlock(8), lambda: TX.DilatedBlock(6, 8),
+                (2, 10, 12, 6), "image", False),
+    "self_attention": (lambda: JX.SelfAttention(8), lambda: TX.SelfAttention(8),
+                       (2, 16, 8), "points", True),
+    "conv3d_bn": (lambda: JX.Conv3DBlock(5), lambda: TX.Conv3DBlock(3, 5),
+                  (2, 4, 6, 6, 3), "image", True),
+    "conv3d_in": (lambda: JX.Conv3DBlock(5, norm="IN"), lambda: TX.Conv3DBlock(3, 5, norm="IN"),
+                  (2, 4, 6, 6, 3), "image", True),
+    "deconv3d_bn": (lambda: JX.Deconv3DBlock(5), lambda: TX.Deconv3DBlock(3, 5),
+                    (2, 3, 4, 4, 3), "image", True),
+    "deconv3d_none": (lambda: JX.Deconv3DBlock(5, norm=None, activation=None),
+                      lambda: TX.Deconv3DBlock(3, 5, norm=None, activation=None),
+                      (2, 3, 4, 4, 3), "image", True),
+    "conv3d_block2": (lambda: JX.Conv3DBlock2(5), lambda: TX.Conv3DBlock2(3, 5),
+                      (2, 4, 6, 6, 3), "image", True),
+    "conv3d_block2_padded": (lambda: JX.Conv3DBlock2(4, pool_kernel=3, pool_stride=2,
+                                                     pool_padding=1),
+                             lambda: TX.Conv3DBlock2(3, 4, pool_kernel=3, pool_stride=2,
+                                                     pool_padding=1),
+                             (1, 5, 6, 7, 3), "image", True),
+    "deconv3d_block2": (lambda: JX.Deconv3DBlock2(5), lambda: TX.Deconv3DBlock2(3, 5),
+                        (2, 3, 4, 4, 3), "image", True),
+    "dense_edge_conv": (lambda: JX.DenseEdgeConv(4, 3, 5), lambda: TX.DenseEdgeConv(3, 4, 3, 5),
+                        (2, 20, 3), "points", False),
+}
+
+
+def _to_port(a, layout):
+    return torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(a, -1, 1) if layout == "image" else a))
+
+
+def _from_port(t, layout):
+    a = t.detach().numpy()
+    return np.moveaxis(a, 1, -1) if layout == "image" else a
+
+
+@pytest.mark.parametrize("name,train", [(n, t) for n in sorted(EXT_CASES)
+                                        for t in ((False, True) if EXT_CASES[n][4] else (False,))])
+def test_extended_block_matches_flax(name, train):
+    jmake, tmake, shape, layout, takes_train = EXT_CASES[name]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if name == "dense_edge_conv":
+        x = np.round(x, 1)
+        x[:, 5] = x[:, 2]  # a duplicate point: unique knn ranks it last
+    jm = jmake()
+    args = (jnp.asarray(x),) + ((train,) if takes_train else ())
+    variables = jax.tree.map(np.asarray, dict(jm.init(jax.random.PRNGKey(0), *args)))
+    variables["params"] = jax.tree.map(
+        lambda a: (a + rng.standard_normal(a.shape) * 0.05).astype(np.float32),
+        variables["params"])
+    tm = tmake().train(train)
+    convert.load_flax_params(tm, variables)
+    assert set(convert.flatten_tree(convert.export_flax_params(tm))) == set(
+        convert.flatten_tree(variables))
+
+    def jfwd(params, xx):
+        v = {**variables, "params": params}
+        if takes_train and train:
+            out, mut = jm.apply(v, xx, True, mutable=["batch_stats"])
+            return out, mut
+        out = jm.apply(v, *((xx,) + ((False,) if takes_train else ())))
+        return out, {}
+
+    jout, jmut = jfwd(variables["params"], jnp.asarray(x))
+    xt = _to_port(x, layout).requires_grad_(True)
+    tout = tm(xt)
+    if name == "dense_edge_conv":
+        np.testing.assert_array_equal(tout[1].numpy(), np.asarray(jout[1]))
+        tout, jout = tout[0], jout[0]
+    np.testing.assert_allclose(_from_port(tout, layout), np.asarray(jout), **EXT_TOL)
+    w = rng.standard_normal(np.asarray(jout).shape).astype(np.float32)
+    (tout * _to_port(w, layout)).sum().backward()
+
+    def jloss(params, xx):
+        out = jfwd(params, xx)[0]
+        return jnp.sum((out[0] if isinstance(out, tuple) else out) * w)
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(variables["params"], jnp.asarray(x))
+    np.testing.assert_allclose(_from_port(xt.grad, layout), np.asarray(jgx), **EXT_TOL)
+    for p in tm.parameters():
+        p.data = p.grad
+    got = convert.flatten_tree({"params": convert.export_flax_params(tm)["params"]})
+    want = convert.flatten_tree({"params": jax.tree.map(np.asarray, jgp)})
+    assert set(got) == set(want)
+    scale = max(float(np.abs(v).max()) for v in want.values())
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg="/".join(k), rtol=1e-4,
+                                   atol=1e-5 * max(scale, 1.0))
+    if jmut:
+        stats = convert.flatten_tree({"batch_stats": convert.export_flax_params(tm)["batch_stats"]})
+        jstats = convert.flatten_tree({"batch_stats": jax.tree.map(np.asarray, jmut["batch_stats"])})
+        for k in jstats:
+            np.testing.assert_allclose(stats[k], jstats[k], err_msg="/".join(k), **EXT_TOL)
+
+
+def test_group_knn_ties_and_point_ops_match_flax():
+    """Equal distances rank the lower index first (the reference's
+    ``top_k``): a lattice has many; then the distance matrix, and
+    MeanShift on NCHW."""
+    g = np.stack(np.meshgrid(np.arange(4.0), np.arange(4.0), indexing="ij"), -1)
+    pts = np.concatenate([g.reshape(1, 16, 2), np.zeros((1, 16, 1))], -1).astype(np.float32)
+    pts = np.concatenate([pts, pts[:, ::-1]], 0)
+    for unique in (True, False):
+        jn, ji, jd = JX.group_knn(6, jnp.asarray(pts), jnp.asarray(pts), unique)
+        tn, ti, td = TX.group_knn(6, torch.from_numpy(pts), torch.from_numpy(pts), unique)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), **EXT_TOL)
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((2, 5, 3)).astype(np.float32)
+    b = rng.standard_normal((2, 7, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        TX.batch_distance_matrix(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+        np.asarray(JX.batch_distance_matrix(jnp.asarray(a), jnp.asarray(b))), **EXT_TOL)
+    img = rng.uniform(0, 255, (2, 4, 5, 3)).astype(np.float32)
+    mean, std = (0.4488, 0.4371, 0.4040), (1.0, 0.9, 1.1)
+    for sign in (-1, 1):
+        want = np.asarray(JX.MeanShift(mean, std, sign).apply({}, jnp.asarray(img)))
+        got = TX.MeanShift(mean, std, sign)(_to_port(img, "image"))
+        np.testing.assert_allclose(_from_port(got, "image"), want, **EXT_TOL)

@@ -74,6 +74,9 @@ from esr_tpu.resilience.chaos_fleet import build_fleet_plan as ref_build_plan
 from esr_tpu.serving import RequestClass as RefClass
 from esr_tpu.serving import ServingEngine as RefServing
 from esr_tpu.serving.fleet import HashRing as RefRing
+from esr_tpu.serving.loadgen import cohorts as ref_cohorts
+from esr_tpu.serving.loadgen import fleet_traffic as ref_fleet_traffic
+from esr_tpu.serving.loadgen import make_stream_corpus as ref_corpus
 from esr_tpu.serving.loadgen import poisson_schedule as ref_poisson
 from esr_tpu.serving.replica import pack_lane_state as ref_pack
 from esr_tpu.serving.replica import unpack_lane_state as ref_unpack
@@ -97,7 +100,8 @@ from esr_tpu_torch.obs.report import (
 from esr_tpu_torch.resilience.chaos_fleet import build_fleet_plan, run_fleet_scenario
 from esr_tpu_torch.serving import wire
 from esr_tpu_torch.serving.fleet import HashRing, ReplicaSupervisor
-from esr_tpu_torch.serving.loadgen import make_stream_corpus, poisson_schedule
+from esr_tpu_torch.data.records import H5Recording
+from esr_tpu_torch.serving.loadgen import cohorts, fleet_traffic, make_stream_corpus, poisson_schedule
 from esr_tpu_torch.serving.replica import Replica
 from esr_tpu_torch.serving.scheduler import AdmissionFull, LaneScheduler, RequestClass, StreamRequest
 from esr_tpu_torch.serving.server import ServingEngine
@@ -1318,3 +1322,133 @@ def test_unet_family_entry_points_run(unet_entry_points, what):
     else:
         assert len(got) == 2 and all(r["n_windows"] > 0 and np.isfinite(r["esr_psnr"])
                                      for r in got)
+
+
+# -- serve --loadgen_kind simulate ------------------------------------------
+#
+# The ESIM corpus of seed 0 (4 streams at the default 64x64 sensor, rendered
+# at 512x512) is bitwise the reference's HDF5 corpus, and its event counts
+# are the table chip_smoke.py holds the card's run to.
+
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def reference_simulate_corpus(tmp_path_factory):
+    """The reference's ``kind="simulate"`` corpus of seed 0, read back."""
+    out = tmp_path_factory.mktemp("ref_simulate")
+    paths = ref_corpus(str(out), n=len(chip_smoke.SIMULATE_EVENTS), seed=0, kind="simulate")
+    return [H5Recording(p) for p in paths]
+
+
+def _simulate_args(ckpt, out):
+    return ["--model_path", str(ckpt), "--output_path", str(out), "--device", "cpu",
+            "--loadgen", str(len(chip_smoke.SIMULATE_EVENTS)), "--loadgen_kind", "simulate",
+            "--rate", "50", "--lanes", "2", "--classes", "standard:2", "--scale", "2",
+            "--ori_scale", "down8", "--window", "1024", "--sliding_window", "512",
+            "--seql", "4", "--max_wall", "240", "--live-slo", str(REPO / "configs" / "slo.yml")]
+
+
+@pytest.fixture(scope="module")
+def simulate_served(models, tmp_path_factory):
+    """``serve --loadgen 4 --loadgen_kind simulate --device cpu`` with one
+    replica and with ``--replicas 2``, in this process."""
+    from esr_tpu_torch import serve
+
+    root = tmp_path_factory.mktemp("serve_simulate")
+    ckpt = root / "ckpt"
+    save_checkpoint(str(ckpt), models[1], {
+        "model": {"name": "DeepRecurrNet",
+                  "args": {"inch": 2, "basech": 2, "num_frame": 3, "dcn_sparse": True}}})
+    one = serve.main(_simulate_args(ckpt, root / "one"))
+    fleet = serve.main(_simulate_args(ckpt, root / "fleet") + ["--replicas", "2"])
+    return root, one, fleet
+
+
+@pytest.fixture(scope="module")
+def port_simulate_corpus():
+    """The port's first two streams of the same corpus, in memory."""
+    return make_stream_corpus(n=2, seed=0, kind="simulate")
+
+
+def test_simulate_corpus_is_the_references_bitwise(simulate_served, reference_simulate_corpus,
+                                                    port_simulate_corpus):
+    root = simulate_served[0]
+    for run in ("one", "fleet"):
+        doc = json.loads((root / run / "loadgen_corpus.json").read_text())
+        assert doc["kind"] == "simulate" and doc["build_s"] > 0
+        assert doc["events"] == chip_smoke.SIMULATE_EVENTS
+    for i, ref in enumerate(reference_simulate_corpus):
+        assert {rung: ref.stream(rung).num_events for rung in chip_smoke.SIMULATE_EVENTS[
+            f"stream{i:03d}"]} == chip_smoke.SIMULATE_EVENTS[f"stream{i:03d}"]
+    # the corpus itself, every rung and frame, against the reference's files
+    for p, ref in zip(port_simulate_corpus, reference_simulate_corpus):
+        assert p.sensor_resolution == ref.sensor_resolution == (512, 512)
+        for rung in ("ori", "down2", "down4", "down8", "down16"):
+            a, b = p.stream(rung), ref.stream(rung)
+            np.testing.assert_array_equal(a.window(0, a.num_events), b.window(0, b.num_events))
+        np.testing.assert_array_equal(p.frame_ts, ref.frame_ts)
+        for k in range(p.num_frames):
+            np.testing.assert_array_equal(p.frame(k), ref.frame(k))
+
+
+def test_serve_loadgen_simulate_one_replica_and_fleet(simulate_served):
+    root, one, fleet = simulate_served
+    n = len(chip_smoke.SIMULATE_EVENTS)
+    assert one["requests"] == one["completed"] == n and one["windows"] > 0
+    reports = [json.loads(line) for line in
+               (root / "one" / "serve_requests.jsonl").read_text().splitlines()]
+    assert len(reports) == n and all(r["status"] == "ok" for r in reports)
+    assert all(r["n_windows"] > 0 and np.isfinite(r[k]) for r in reports for k in METRIC_KEYS)
+    assert fleet["zero_lost"] and fleet["statuses"] == {"ok": n}
+    assert fleet["windows"] == one["windows"]
+
+
+@pytest.fixture(scope="module")
+def corpus_refusals(tmp_path_factory):
+    """Each package's ``ValueError`` for ``kind="simulate"`` with a
+    schedule, and for an unknown kind: ``{case: (port, reference)}``."""
+    out = tmp_path_factory.mktemp("refusals")
+    cases = {"events_schedule": {"kind": "simulate", "events_schedule": [400, 4000]},
+             "burst_schedule": {"kind": "simulate", "burst_schedule": [0.4, 1.0]},
+             "unknown_kind": {"kind": "esim"}}
+    got = {}
+    for case, kw in cases.items():
+        messages = []
+        for build in (lambda: make_stream_corpus(n=1, seed=0, **kw),
+                      lambda: ref_corpus(str(out), n=1, seed=0, **kw)):
+            with pytest.raises(ValueError) as err:
+                build()
+            messages.append(str(err.value))
+        got[case] = tuple(messages)
+    return got
+
+
+@pytest.mark.parametrize("case", ["events_schedule", "burst_schedule", "unknown_kind"])
+def test_simulate_with_a_schedule_raises_as_the_reference(corpus_refusals, case):
+    port, ref = corpus_refusals[case]
+    assert port == ref
+
+
+def test_fleet_traffic_and_cohorts_match_reference(tmp_path):
+    recs, sched = fleet_traffic(2, streams_per_replica=2, rate_hz_per_replica=3.0, seed=4,
+                                classes=("a", "b"), base_events=(200, 400), num_frames=3)
+    paths, ref_sched = ref_fleet_traffic(str(tmp_path), 2, streams_per_replica=2,
+                                         rate_hz_per_replica=3.0, seed=4, classes=("a", "b"),
+                                         base_events=(200, 400), num_frames=3)
+    assert [r.name + ".h5" for r in recs] == [Path(p).name for p in paths]
+    assert [(a.t, a.request_class, a.request_id) for a in sched] == \
+        [(a.t, a.request_class, a.request_id) for a in ref_sched]
+    for r, p in zip(recs, paths):
+        ref = H5Recording(p)
+        a, b = r.stream("down8"), ref.stream("down8")
+        np.testing.assert_array_equal(a.window(0, a.num_events), b.window(0, b.num_events))
+    for size in (1, 3, 4):
+        got = [(t, [a.request_id for a in g]) for t, g in cohorts(sched, size)]
+        want = [(t, [a.request_id for a in g]) for t, g in ref_cohorts(ref_sched, size)]
+        assert got == want
+    with pytest.raises(ValueError):
+        fleet_traffic(0)
+    with pytest.raises(ValueError):
+        cohorts(sched, 0)
