@@ -193,6 +193,29 @@ Phases (any failure exits non-zero):
    output (event lists, masks, counts, stacks) bitwise, every float output
    and gradient within 1e-4 of its own scale; deterministic algorithms on
    throughout (an op without a deterministic CUDA path fails the phase).
+8i. tensor and context parallelism (``esr_tpu_torch.parallel.tensor`` and
+   ``context``) on the flagship at its training batch (B=32, L 9, 90x160,
+   phase 10's seeded weights): (a) where the machine has two cards,
+   ``train``'s step split at (data 1, model 2) over NCCL in two processes
+   (this script's ``--tp-worker`` mode under ``torch.distributed.run``),
+   two steps: each rank's losses within 1e-5 relative of the plain step's
+   on one card, the gathered parameters within 1e-3 of their scale, 14
+   launches of each DCN train kernel a step a rank at Cout 32; ring and
+   Ulysses attention at p 2 (outputs within 2e-5, gradients 5e-4); else it
+   prints why it was skipped. (b) world 1 under NCCL in this process: the
+   tensor-parallel step at data 1 (a plan that splits nothing) bitwise the
+   plain step over two steps; ring and Ulysses attention within 1e-6 of
+   full attention at dryrun_multichip(8)'s shapes (gradients 5e-4). (c) at
+   tp 2 and 4, every split layer class of the flagship (the head conv, a
+   ConvGRU gate, the DCN's offset/mask conv, the upsampling conv, the
+   channel MLP's dense, the DCN through its ops) run once per rank with
+   that rank's slice, one rank after another on this card: the outputs
+   concatenated and the input gradients summed in rank order within 1e-5
+   of the whole layer's scale, the parameter gradients concatenated within
+   1e-4 of the whole layer's in f64 (a check of the kernels at a rank's
+   widths, not a stand-in for two ranks); each
+   DCN train op's time through its wrapper at Cout 64, 32 and 16 beside
+   the plain version's and the bound.
 
 8. masked kernels: ``dcn_fwd_masked`` (B=1, 4, 8, 32) and
    ``dcn_train_fwd_masked`` (B=32) bitwise equal to their dense kernels on
@@ -279,7 +302,7 @@ Phases (any failure exits non-zero):
    every recording and request within 1.0 dB of f32.
 
 The phases run in the order 1-5, 8, 6, 9, 10, 10b, 10c, 12, 7 (with 11
-inside 7), 8c, 8d, 8e, 8f, 8g, 8h, 7c, then the trainer's runtime.
+inside 7), 8c, 8d, 8e, 8f, 8g, 8h, 8i, 7c, then the trainer's runtime.
 The line before the last is the ``{"kernels": [...]}`` record (eight
 kernels: the six DCN kernels and K1, K2); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -2496,14 +2519,16 @@ def end_process_group(proc) -> None:
         proc.wait(timeout=60)
 
 
-def torchrun_start(repo: Path, nproc: int, worker_args, log_dir: str):
+def torchrun_start(repo: Path, nproc: int, worker_args, log_dir: str,
+                   mode: str = "--dp-worker"):
     """``python -m torch.distributed.run --standalone`` of this script's
-    ``--dp-worker`` in ``nproc`` processes, one card each, started in the
-    background (its output in files under ``log_dir``); killed with its
-    workers when this script exits before :func:`torchrun_join`."""
+    ``mode`` (``--dp-worker`` or ``--tp-worker``) in ``nproc`` processes,
+    one card each, started in the background (its output in files under
+    ``log_dir``); killed with its workers when this script exits before
+    :func:`torchrun_join`."""
     os.makedirs(log_dir, exist_ok=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc_per_node={nproc}", str(repo / "chip_smoke.py"), "--dp-worker",
+           f"--nproc_per_node={nproc}", str(repo / "chip_smoke.py"), mode,
            *worker_args]
     with open(os.path.join(log_dir, "out.txt"), "w") as out, \
             open(os.path.join(log_dir, "err.txt"), "w") as err:
@@ -2513,10 +2538,11 @@ def torchrun_start(repo: Path, nproc: int, worker_args, log_dir: str):
     return {"proc": proc, "nproc": nproc, "log_dir": log_dir, "t0": time.perf_counter()}
 
 
-def torchrun_join(run, timeout: float = DP_TIMEOUT_S):
+def torchrun_join(run, timeout: float = DP_TIMEOUT_S, tag: str = "dp_worker: "):
     """Wait for :func:`torchrun_start`'s launcher, at most ``timeout`` s
     from its start (then the launcher and its workers are killed
-    together); rank 0's report and the seconds since the start."""
+    together); rank 0's report (its line led by ``tag``) and the seconds
+    since the start."""
     proc, nproc = run["proc"], run["nproc"]
     try:
         proc.wait(timeout=max(1.0, run["t0"] + timeout - time.perf_counter()))
@@ -2530,10 +2556,10 @@ def torchrun_join(run, timeout: float = DP_TIMEOUT_S):
         err = f.read()
     if proc.returncode != 0:
         fail(f"torchrun --nproc_per_node {nproc}: exit {proc.returncode}:\n{err[-4000:]}")
-    lines = [ln for ln in out.splitlines() if ln.startswith("dp_worker: ")]
+    lines = [ln for ln in out.splitlines() if ln.startswith(tag)]
     if len(lines) != 1:
         fail(f"torchrun --nproc_per_node {nproc}: {len(lines)} reports (rank 0 prints one)")
-    return json.loads(lines[0][len("dp_worker: "):]), seconds
+    return json.loads(lines[0][len(tag):]), seconds
 
 
 def run_log(out_dir: str):
@@ -5824,9 +5850,457 @@ def phase_event_ops(torch, np, dev, card, repo: Path, out_root: str, cpu_side) -
     return launches
 
 
+# -- 8i. tensor and context parallelism --------------------------------------
+#
+# The flagship (configs/train_esr_2x.yml: basech 8, seqn 3) at its training
+# batch on its grid (B 32, L 9: 7 windows, 90x160 padded to 96x160, the DCN
+# at 12x20x64) with phase 10's seeded weights. (a) where the machine has two
+# cards: tensor parallelism at (data 1, model 2) over NCCL, a process a
+# card, two steps against the plain step on one card, and ring and Ulysses
+# attention at p 2; (b) world 1 under NCCL in this process, through the
+# package's code: the tensor-parallel step at data 1 (its plan splits
+# nothing) bitwise the plain step, ring and Ulysses within 1e-6 of full
+# attention at dryrun_multichip(8)'s shapes; (c) each rank's share of every
+# split layer class of the flagship computed on this card, one rank after
+# another, against the whole layer, and the DCN ops' times at Cout 64, 32
+# and 16. Two ranks of a gloo group on the one card would take tensor
+# parallelism's all-reduce and all-gather (gloo stages CUDA tensors through
+# the host) but abort on the ring's point-to-point ops ("writev: Bad
+# address"), so (a) runs over NCCL only.
+TP_BATCH, TP_LENGTH, TP_GRID = 32, 9, (90, 160)
+TP_STEPS = 2
+TP_LOSS_RTOL = 1e-5  # two ranks' losses against one card's
+TP_PARAM_TOL = 1e-3  # of each parameter's scale after two Adam steps (8g's world-2 bound)
+TP_SHARD_TOL = 1e-5  # of scale: the shares' outputs and input gradients against the layer's
+# of scale: the shares' parameter gradients against the layer in f64 (the
+# whole layer's own f32 weight gradient, a sum over the batch and the grid
+# in cuDNN's order, lies up to 2.25e-5 of scale from f64 on the card)
+TP_WGRAD_TOL = 1e-4
+CP_SHAPE = (2, 32, 8, 8)  # q, k, v of dryrun_multichip(8)
+CP_TOL = 1e-6  # ring and Ulysses outputs against full attention at world 1
+CP2_TOL = 2e-5  # the outputs at p 2: tests/test_context_parallel.py's bound
+CP_GRAD_TOL = 5e-4  # the gradients: tests/test_context_parallel.py's bound
+TP_TIMEOUT_S = 300
+TP_COUTS = (64, 32, 16)  # the DCN's Cout whole, at tp 2 and at tp 4
+
+
+def tp_batch(torch, np, dev):
+    """A seeded flagship training batch: Poisson counts ``[32, 9, 90, 160,
+    2]`` for ``inp`` and ``gt`` on ``dev``."""
+    rng = np.random.default_rng(19)
+    shape = (TP_BATCH, TP_LENGTH) + TP_GRID + (2,)
+    return {k: torch.from_numpy(rng.poisson(0.7, shape).astype(np.float32)).to(dev)
+            for k in ("inp", "gt")}
+
+
+def tp_optimizer(model):
+    """configs/train_esr_2x.yml's optimizer: Adam-amsgrad, lr 1e-3, weight
+    decay 1e-4."""
+    from esr_tpu_torch.training.optim import make_optimizer
+
+    return make_optimizer("Adam", model.parameters(), lr=1e-3, weight_decay=1e-4,
+                          amsgrad=True)
+
+
+def tp_plain_run(torch, np, dev, batch):
+    """Two plain steps of the seeded flagship on ``dev``: the losses and the
+    parameters by name."""
+    from esr_tpu_torch.training.train_step import make_train_step
+
+    model = flagship_model(torch, np, dcn_sparse=False).to(dev)
+    step = make_train_step(model, tp_optimizer(model), seqn=3)
+    losses = [step(batch)["loss"].detach().clone() for _ in range(TP_STEPS)]
+    return losses, {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def attention_errors(torch, q, k, v, group, index: int, p: int) -> dict:
+    """Ring and Ulysses attention, causal and not, on this process's block
+    of ``q, k, v`` (``index`` of ``p`` in ``group``), against full attention
+    over the whole: ``{name: (worst absolute error of the output, of the
+    gradients of sum(out ** 2))}``."""
+    from esr_tpu_torch.parallel import context
+
+    n = q.shape[1] // p
+    rows = slice(index * n, (index + 1) * n)
+    errs = {}
+    for causal in (False, True):
+        whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = context.full_attention(*whole, causal=causal)
+        (want ** 2).sum().backward()
+        for fn in ("ring", "ulysses"):
+            mine = [t[:, rows].clone().requires_grad_(True) for t in (q, k, v)]
+            got = getattr(context, f"{fn}_attention")(*mine, group=group, causal=causal)
+            (got ** 2).sum().backward()
+            grad = max(float((a.grad - b.grad[:, rows]).abs().max()) for a, b in zip(mine, whole))
+            errs[f"{fn}{'_causal' if causal else ''}"] = (
+                float((got - want[:, rows]).detach().abs().max()), grad)
+    return errs
+
+
+def attention_misses(errs: dict, out_tol: float) -> dict:
+    """The entries of :func:`attention_errors` past ``out_tol`` (outputs) or
+    ``CP_GRAD_TOL`` (gradients)."""
+    return {k: e for k, e in errs.items() if not (e[0] <= out_tol and e[1] <= CP_GRAD_TOL)}
+
+
+def cp_inputs(torch, np, dev):
+    rng = np.random.default_rng(1)
+    return [torch.from_numpy(rng.standard_normal(CP_SHAPE).astype(np.float32)).to(dev)
+            for _ in range(3)]
+
+
+def tp_worker() -> int:
+    """``chip_smoke.py --tp-worker``, one process of ``torch.distributed.run``
+    at world 2 over NCCL, a card a rank: the flagship's tensor-parallel step
+    at (data 1, model 2), two steps, its launches counted; ring and Ulysses
+    attention at p 2. Rank 0 runs the plain step on its card first, and
+    prints the comparison."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    from esr_tpu_torch.device import resolve_device, synchronize
+    from esr_tpu_torch.parallel import tensor
+
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    resolve_device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = tp_batch(torch, np, dev)
+    # rank 0's plain step runs before the group exists: in it the step's
+    # gradient mean would be a collective the other rank never joins
+    rank = int(os.environ["RANK"])
+    plain = tp_plain_run(torch, np, dev, batch) if rank == 0 else None
+    dist.init_process_group("nccl", init_method="env://")
+    t0 = time.perf_counter()
+    mesh = tensor.make_tp_mesh(data=1, device="cuda")
+    model = flagship_model(torch, np, dcn_sparse=False).to(dev)
+    step = tensor.make_tp_train_step(model, tp_optimizer(model), mesh, seqn=3)
+    reset_all_launches()
+    synchronize(dev)
+    t1 = time.perf_counter()
+    losses = [float(step(batch)["loss"]) for _ in range(TP_STEPS)]
+    synchronize(dev)
+    step_s = (time.perf_counter() - t1) / TP_STEPS
+    launches = counts_of()
+    full = tensor.gather_params(model)
+    local_shapes = {n: list(p.shape) for n, p in model.named_parameters()}
+    errs = attention_errors(torch, *cp_inputs(torch, np, dev), None, rank, 2)
+    report = {"rank": rank, "world": dist.get_world_size(), "device": str(dev),
+              "losses": losses, "launches": launches, "step_s": step_s,
+              "setup_s": t1 - t0, "attention": errs,
+              "dcn_weight": local_shapes["spacetime_fuse.dcn_weight"]}
+    gathered = [None, None]
+    dist.all_gather_object(gathered, report)
+    if rank == 0:
+        plain_losses, plain = plain
+        ratios = {n: float((full[n] - p).abs().max()) / max(float(p.abs().max()), TINY)
+                  for n, p in plain.items()}
+        worst = max(ratios, key=ratios.get)
+        print("tp_worker: " + json.dumps(
+            {"ranks": gathered, "plain_losses": [float(x) for x in plain_losses],
+             "param_worst": [worst, ratios[worst]]}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_two_ranks(card, repo: Path, out_root: str) -> None:
+    """(a): :func:`tp_worker` in two processes over NCCL joined and
+    checked."""
+    run = torchrun_start(repo, 2, [], os.path.join(out_root, "torchrun_tp"),
+                         mode="--tp-worker")
+    rep, seconds = torchrun_join(run, timeout=TP_TIMEOUT_S, tag="tp_worker: ")
+    plain = rep["plain_losses"]
+    for r in rep["ranks"]:
+        worst = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], plain))
+        if not worst <= TP_LOSS_RTOL:
+            fail(f"tensor parallelism: rank {r['rank']}'s losses {r['losses']} are "
+                 f"{worst:.3e} from the plain step's {plain}")
+        want = {"dcn_train_fwd": 14 * TP_STEPS, "dcn_bwd": 14 * TP_STEPS,
+                "dcn_wgrad": 14 * TP_STEPS}
+        if any(r["launches"][k] != n for k, n in want.items()) or r["dcn_weight"] != [3, 3, 64, 32]:
+            fail(f"tensor parallelism: rank {r['rank']} launched {r['launches']} with "
+                 f"a DCN weight of {r['dcn_weight']}")
+        bad = attention_misses(r["attention"], CP2_TOL)
+        if bad:
+            fail(f"context parallelism at p 2: (output, gradient) errors {bad} above "
+                 f"({CP2_TOL}, {CP_GRAD_TOL})")
+    name, ratio = rep["param_worst"]
+    if not ratio <= TP_PARAM_TOL:
+        fail(f"tensor parallelism: {name} is {ratio:.3e} of its scale from the plain "
+             "step's after two steps")
+    r0 = rep["ranks"][0]
+    print(f"8i (a) on {card}: tensor parallelism (data 1, model 2) over NCCL, the flagship "
+          f"at B={TP_BATCH}: losses {r0['losses']} against the plain step's {plain} on one "
+          f"card; parameters within {ratio:.3e} of their scale ({name}); a step "
+          f"{r0['step_s'] * 1e3:.1f} ms a rank; launches a rank {r0['launches']} (the DCN at "
+          f"Cout 32); ring / Ulysses at p 2 {r0['attention']}; the run {seconds:.1f} s")
+
+
+def tp_world_one(torch, np, dev, card) -> dict:
+    """(b): world 1 under NCCL in this process. Returns the step's
+    launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from esr_tpu_torch.parallel import context, tensor
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = tensor.make_tp_mesh(data=1, device="cuda")
+        batch = tp_batch(torch, np, dev)
+        model = flagship_model(torch, np, dcn_sparse=False).to(dev)
+        plan = tensor.channel_shardings(model, mesh)
+        if mesh.shape != {"data": 1, "model": 1} or any(l.sharded for l in plan.values()):
+            fail(f"tensor parallelism at world 1: mesh {mesh.shape}, a split plan")
+        step = tensor.make_tp_train_step(model, tp_optimizer(model), mesh, seqn=3)
+        reset_all_launches()
+        losses = [step(batch)["loss"].detach().clone() for _ in range(TP_STEPS)]
+        torch.cuda.synchronize()
+        launches = counts_of()
+        plain_losses, plain = tp_plain_run(torch, np, dev, batch)
+        differ = [n for n, p in model.named_parameters() if not same_bits(torch, p, plain[n])]
+        differ += [f"loss {i}" for i, (a, b) in enumerate(zip(losses, plain_losses))
+                   if not same_bits(torch, a, b)]
+        if differ:
+            fail(f"tensor parallelism at world 1 (NCCL) differs from the plain step: "
+                 f"{differ[:5]}")
+        q, k, v = cp_inputs(torch, np, dev)
+        errs = attention_errors(torch, q, k, v, None, 0, 1)
+        bad = attention_misses(errs, CP_TOL)
+        if bad:
+            fail(f"context parallelism at world 1 (NCCL): (output, gradient) errors {bad} "
+                 f"above ({CP_TOL}, {CP_GRAD_TOL})")
+    finally:
+        dist.destroy_process_group()
+    print(f"8i (b) on {card}: world 1 under NCCL: the tensor-parallel step at data 1 "
+          f"(plan: {len(plan)} leaves, none split) bitwise the plain step over {TP_STEPS} "
+          f"steps at B={TP_BATCH} (losses {[float(x) for x in losses]}, "
+          f"{len(plain)} parameters); launches {launches}; ring / Ulysses against full "
+          f"attention at {CP_SHAPE}, (output, gradient) errors: {errs}")
+    return launches
+
+
+def shard_layer_cases(torch, np, dev):
+    """(name, forward(inputs, params, f64), inputs, how many inputs take a
+    gradient, the output's channel dim, {parameter: (tensor, split dim)}):
+    every split layer class of the flagship at its training shape. The
+    forward runs the package's layer (``torch.func.functional_call`` with
+    the parameters given), and with ``f64`` the same layer in f64 (the DCN
+    there its plain version: its kernels are f32)."""
+    from torch.func import functional_call
+
+    from esr_tpu_torch.models import layers
+    from esr_tpu_torch.models.esr import DeformConv
+    from esr_tpu_torch.ops.dcn import dcn_offsets_from_conv, deform_conv2d
+
+    rng = np.random.default_rng(23)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    def module(m):
+        params = {k: (v.detach(), 0) for k, v in m.named_parameters()}
+        return (lambda inputs, ps, f64: functional_call(m, ps, tuple(inputs))), params
+
+    def dcn_forward(inputs, ps, f64):
+        fn = deform_conv2d if f64 else DeformConv()
+        return fn(*inputs, ps["weight"], ps["bias"])
+
+    b, (h, w), c = TP_BATCH, (12, 20), 64
+    frames = TP_BATCH * 3
+    offsets, mask = dcn_offsets_from_conv(t(b, h, w, 216), 8, 9)
+    cases = [("head Conv2d 2->8", layers.Conv2d(2, 8, 3, padding=1), [t(frames, 2, 96, 160)], 1),
+             ("ConvGRU gate Conv2d 128->64", layers.Conv2d(2 * c, c, 3, padding=1),
+              [t(b, 2 * c, h, w)], 1),
+             ("DCN offset/mask Conv2d 64->216", layers.Conv2d(c, 216, 3, padding=1),
+              [t(b, c, h, w)], 1),
+             ("upsampling Conv2d 64->32 (recon_0)", layers.Conv2d(c, c // 2, 3, padding=1),
+              [t(b, c, 2 * h, 2 * w)], 1),
+             ("channel MLP Linear 32->128", layers.Linear(c // 2, 2 * c), [t(b, c // 2)], -1)]
+    out = []
+    for name, m, inputs, out_dim in cases:
+        fwd, params = module(m.to(dev))
+        out.append((name, fwd, inputs, 1, out_dim, params))
+    out.append(("DCN 64->64 (dcn_train_fwd, dcn_bwd, dcn_wgrad)", dcn_forward,
+                [t(b, h, w, c), offsets.contiguous(), mask.contiguous()], 3, -1,
+                {"weight": (t(3, 3, c, c, scale=0.05), 3), "bias": (t(c, scale=0.1), 0)}))
+    return out
+
+
+def run_layer(torch, fwd, inputs, n_grad: int, params: dict, g, f64: bool = False):
+    """``fwd`` on fresh leaves of ``inputs`` and ``params`` (f32, or f64),
+    backward with ``g``: the output, the gradients of the first ``n_grad``
+    inputs and the parameters' gradients by name."""
+    dtype = torch.float64 if f64 else torch.float32
+    leaves = [x.detach().to(dtype).clone().requires_grad_(i < n_grad)
+              for i, x in enumerate(inputs)]
+    ps = {k: v.detach().to(dtype).clone().requires_grad_(True) for k, v in params.items()}
+    out = fwd(leaves, ps, f64)
+    out.backward(g.to(dtype))
+    return (out.detach(), [x.grad for x in leaves[:n_grad]],
+            {k: p.grad for k, p in ps.items()})
+
+
+def share_of_scale(torch, got, want) -> float:
+    """``max |got - want|`` over ``max |want|``."""
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.abs().max()), TINY)
+
+
+def tp_layer_shares(torch, np, dev, card) -> dict:
+    """(c): at tp 2 and 4, every split layer class run once per rank with
+    that rank's slice (``parallel.tensor.take_shard``) on this card: the
+    outputs concatenated and the input gradients summed in rank order
+    against the whole layer's, within ``TP_SHARD_TOL`` of scale; the
+    parameter gradients concatenated (each a sum over the batch and the
+    grid, which the library orders by the output's width) against the
+    whole layer run in f64, within ``TP_WGRAD_TOL``. Returns the worst of
+    each."""
+    from esr_tpu_torch.parallel.tensor import take_shard
+
+    worst = {"shares": 0.0, "weight gradients from f64": 0.0,
+             "the whole f32 layer's from f64": 0.0}
+    for name, fwd, inputs, n_grad, out_dim, params in shard_layer_cases(torch, np, dev):
+        whole = {k: v for k, (v, _) in params.items()}
+        with torch.no_grad():
+            shape = fwd(inputs, whole, False).shape
+        g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(5), device=dev)
+        out, gin, gparams = run_layer(torch, fwd, inputs, n_grad, whole, g)
+        _, _, gparams64 = run_layer(torch, fwd, inputs, n_grad, whole, g, f64=True)
+        own = max(share_of_scale(torch, gparams[k], gparams64[k]) for k in params)
+        worst["the whole f32 layer's from f64"] = max(worst["the whole f32 layer's from f64"],
+                                                      own)
+        line = []
+        for tp in (2, 4):
+            outs, gins, gps = [], None, {k: [] for k in params}
+            for r in range(tp):
+                part = {k: take_shard(v, params[k][1], r, tp) for k, v in whole.items()}
+                o, gi, gp = run_layer(torch, fwd, inputs, n_grad, part,
+                                      take_shard(g, out_dim % g.dim(), r, tp))
+                outs.append(o)
+                gins = gi if gins is None else [a + b for a, b in zip(gins, gi)]
+                for k in params:
+                    gps[k].append(gp[k])
+            shares = [("output", torch.cat(outs, out_dim), out)]
+            shares += [(f"input {i} gradient", a, b) for i, (a, b) in enumerate(zip(gins, gin))]
+            for what, got, want in shares:
+                share = share_of_scale(torch, got, want)
+                worst["shares"] = max(worst["shares"], share)
+                if not share <= TP_SHARD_TOL:
+                    fail(f"8i (c): {name} at tp {tp}: the ranks' {what} is {share:.3e} of its "
+                         f"scale from the whole layer's")
+            farthest = 0.0
+            for k in params:
+                share = share_of_scale(torch, torch.cat(gps[k], params[k][1]), gparams64[k])
+                farthest = max(farthest, share)
+                if not share <= TP_WGRAD_TOL:
+                    fail(f"8i (c): {name} at tp {tp}: the ranks' {k} gradient is {share:.3e} "
+                         "of its scale from the whole layer's in f64")
+            worst["weight gradients from f64"] = max(worst["weight gradients from f64"], farthest)
+            line.append(f"tp {tp} {farthest:.3e}")
+        print(f"8i (c) on {card}: {name}: the shares of tp 2 and 4, one rank after another on "
+              f"this card: outputs and input gradients within {TP_SHARD_TOL} of the whole "
+              f"layer's scale; parameter gradients from the f64 layer's: the whole f32 layer "
+              f"{own:.3e}, {', '.join(line)}")
+    return worst
+
+
+def dcn_cout_times(torch, np, card) -> dict:
+    """(c): each DCN train op through its wrapper at the flagship's training
+    shape with Cout 64, 32 and 16 (a rank's share at tp 1, 2, 4), beside
+    the plain version and the bound."""
+    from esr_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_backward
+    from esr_tpu_torch.ops.dcn_cuda import dcn_bwd, dcn_train_fwd, dcn_wgrad
+
+    rng = np.random.default_rng(29)
+    record = {}
+    for cout in TP_COUTS:
+        inp = dcn_inputs(torch, rng, b=TP_BATCH, h=12, w=20, cin=64, cout=cout, dg=8)
+        x, off, mask, wt, bias = (inp[k] for k in ("x", "offsets", "mask", "weight", "bias"))
+        g = torch.from_numpy(rng.standard_normal((TP_BATCH, 12, 20, cout)).astype(
+            np.float32)).cuda()
+        out = dcn_train_fwd(**inp)
+        gx, goff, gmask = dcn_bwd(x, off, mask, wt, g)
+        gw = dcn_wgrad(x, off, mask, wt.shape, g)
+        rgx, rgoff, rgmask, rgw, _ = deform_conv2d_backward(x, off, mask, wt, g)
+        for what, got, ref in (("out", out, deform_conv2d(**inp)), ("gx", gx, rgx),
+                               ("goffsets", goff, rgoff), ("gmask", gmask, rgmask),
+                               ("gweight", gw, rgw)):
+            err, limit = err_of(torch, got, ref)
+            if not err <= limit:
+                fail(f"8i (c): the DCN's {what} at Cout {cout}: {err:.3e} > {limit:.3e}")
+
+        def plain_grad(*names):
+            leaves = {k: v.detach().clone().requires_grad_(k in names)
+                      for k, v in (("x", x), ("offsets", off), ("mask", mask), ("weight", wt))}
+            return torch.autograd.grad(deform_conv2d(**leaves), [leaves[k] for k in names], g)
+
+        flops = contraction_flops(inp)
+        ops = {
+            "dcn_train_fwd": (lambda: dcn_train_fwd(**inp), lambda: deform_conv2d(**inp),
+                              roofline(nbytes(x, off, mask, wt, bias, out),
+                                       flops + gather_flops(inp))),
+            "dcn_bwd": (lambda: dcn_bwd(x, off, mask, wt, g),
+                        lambda: plain_grad("x", "offsets", "mask"),
+                        roofline(nbytes(x, off, mask, wt, g, gx, goff, gmask),
+                                 flops + 2 * gather_flops(inp))),
+            "dcn_wgrad": (lambda: dcn_wgrad(x, off, mask, wt.shape, g),
+                          lambda: plain_grad("weight"),
+                          roofline(nbytes(x, off, mask, g, gw), flops + gather_flops(inp))),
+        }
+        for kname, (fn, plain_fn, (bound_ms, bound_by)) in ops.items():
+            record.setdefault(kname, {})[f"cout{cout}"] = dict(
+                ms=time_ms(torch, fn, iters=200), plain_ms=time_ms(torch, plain_fn, iters=10,
+                                                                   warmup=2),
+                bound_ms=bound_ms, bound_by=bound_by)
+    for kname, by in record.items():
+        print(f"8i (c) on {card}: {kname} at B={TP_BATCH} 12x20, Cin 64, through the op: "
+              + ", ".join(f"Cout {c}: {by[f'cout{c}']['ms']:.5f} ms (plain "
+                          f"{by[f'cout{c}']['plain_ms']:.4f}, bound "
+                          f"{by[f'cout{c}']['bound_ms']:.6f} {by[f'cout{c}']['bound_by']})"
+                          for c in TP_COUTS))
+    return record
+
+
+def phase_parallel(torch, np, dev, card, repo: Path, out_root: str) -> dict:
+    """8i: tensor and context parallelism (the comment above TP_BATCH).
+    Returns the DCN ops' times at each Cout and (b)'s launches."""
+    t_phase = time.perf_counter()
+    os.makedirs(out_root, exist_ok=True)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        tp_two_ranks(card, repo, out_root)
+    else:
+        print(f"8i (a): tensor parallelism and ring / Ulysses at two ranks over NCCL skipped: "
+              f"this machine has {n} card(s), NCCL takes one rank a card")
+    launches = tp_world_one(torch, np, dev, card)
+    worst = tp_layer_shares(torch, np, dev, card)
+    print("8i (c): the shares run one rank after another in one process: this holds the "
+          "kernels and layers at a rank's widths against the whole layer, and stands in for "
+          "no run at two ranks")
+    times = dcn_cout_times(torch, np, card)
+    reset_all_launches()
+    print(f"phase 8i on {card}: {time.perf_counter() - t_phase:.1f} s; (c)'s worst, of "
+          f"scale: {json.dumps(worst)}")
+    return {"times": times, "world_one_launches": launches}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-worker"]:
+        return tp_worker()
     if sys.argv[1:2] == ["--event-ops-cpu"]:
         return event_ops_cpu_worker(sys.argv[2:])
     t_start = time.perf_counter()
@@ -5972,6 +6446,10 @@ def main() -> int:
         simulate_launches = phase_event_ops(torch, np, dev, card, repo,
                                             os.path.join(out_root, "events"), cpu_side)
         done("the event ops phase")
+        # -- 8i. tensor and context parallelism ---------------------------
+        parallel = phase_parallel(torch, np, dev, card, repo,
+                                  os.path.join(out_root, "parallel"))
+        done("the tensor and context parallelism phase")
         # -- 7c. the 4x recipe --------------------------------------------
         totals_4x = phase_train_4x(torch, np, dev, card, repo, os.path.join(out_root, "x4"),
                                    fwd["valid_4x_b8"], train_kernels["train_4x_b8"])
@@ -6009,6 +6487,8 @@ def main() -> int:
             "captured_group_launches": graph_launches["graph"][name],
             "data_parallel_run_launches": dp_launches[name],
             "by_shape": {case: train_kernels[case][name] for case in TIMED_TRAIN_CASES[1:]},
+            "tensor_parallel_world1_launches": parallel["world_one_launches"][name],
+            "tensor_parallel_by_cout": parallel["times"][name],
         })
     for name, source, b, launches, extra in (
             ("dcn_fwd_masked", "esr_tpu_torch/csrc/dcn_fwd.cu", "b4", engine_launches,

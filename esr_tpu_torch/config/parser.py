@@ -31,6 +31,7 @@ import re
 from datetime import datetime
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from esr_tpu_torch.utils.logging import setup_logging
 from esr_tpu_torch.utils.trackers import to_yaml
 
 _NULL = {"", "~", "null", "Null", "NULL"}
@@ -326,7 +327,10 @@ class RunConfig:
     ``<output>/models/<experiment>/<runid>`` (checkpoints, the effective
     ``config.yml``) and ``<output>/logs/<experiment>/<runid>``. Under data
     parallelism every process makes the directories and only the main one
-    (``is_main``) writes ``config.yml``."""
+    (``is_main``) writes ``config.yml``. Making them also sets up the
+    logging (:func:`~esr_tpu_torch.utils.logging.setup_logging`): the
+    console, and ``<log_dir>/info.txt``; a process that is not the main one
+    logs WARNING and above only."""
 
     def __init__(self, config: Dict, runid: Optional[str] = None,
                  resume: Optional[str] = None, reset: bool = False, seed: int = 123,
@@ -346,6 +350,7 @@ class RunConfig:
             if is_main:
                 with open(os.path.join(self.save_dir, "config.yml"), "w") as f:
                     f.write(to_yaml(config))
+            setup_logging(self.log_dir, is_main=is_main)
 
     @classmethod
     def from_args(cls, config_path: str, overrides: Sequence[str] = (),

@@ -149,7 +149,7 @@ def _norms(*norms) -> List[Tuple[str, object]]:
             if n is not None]
 
 
-def _leaves(mod: nn.Module, prefix: Tuple[str, ...] = ()) -> Iterator[
+def flax_leaves(mod: nn.Module, prefix: Tuple[str, ...] = ()) -> Iterator[
         Tuple[Tuple[str, ...], torch.Tensor, Optional[str]]]:
     """``(flax path, tensor, layout)`` for every leaf (a ``/`` in a name of
     :func:`_children` nests it), the path led by its
@@ -168,7 +168,7 @@ def _leaves(mod: nn.Module, prefix: Tuple[str, ...] = ()) -> Iterator[
         elif isinstance(child, torch.Tensor):
             yield ("batch_stats",) + prefix + (name,), child, None
         else:
-            yield from _leaves(child, prefix + tuple(name.split("/")))
+            yield from flax_leaves(child, prefix + tuple(name.split("/")))
 
 
 def _transpose(arr: np.ndarray, to_port: bool, layout: Optional[str]) -> np.ndarray:
@@ -221,7 +221,7 @@ def load_flax_params(model: nn.Module, tree: Dict) -> int:
     Returns the number of leaves copied; raises ``ValueError`` on any
     missing, left-over or mis-shaped leaf (nothing is copied then)."""
     flat = flatten_tree(_collections(tree))
-    wanted = list(_leaves(model))
+    wanted = list(flax_leaves(model))
     problems = []
     staged = []
     for path, param, layout in wanted:
@@ -253,7 +253,7 @@ def export_flax_params(model: nn.Module) -> Dict:
     ``"batch_stats"`` for a model with norms) of f32 numpy arrays that own
     their memory (a CPU parameter is copied, not viewed)."""
     root: Dict = {"params": {}}
-    for path, param, layout in _leaves(model):
+    for path, param, layout in flax_leaves(model):
         arr = param.detach().to("cpu", copy=True).numpy()
         node = root
         for name in path[:-1]:

@@ -145,6 +145,19 @@ class _Probed(nn.Module):
                               break_tag=self.numerics_break)
 
 
+class DeformConv(nn.Module):
+    """The DCN call of :meth:`STFusion._fuse` as a module of its own, with
+    no parameters (the weight and bias are :class:`STFusion`'s, passed in),
+    so that forward hooks can wrap the DCN as they wrap a convolution."""
+
+    def forward(self, x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
+                weight: torch.Tensor, bias: torch.Tensor, impl: str = "auto",
+                sparse: bool = False, activity: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        return deform_conv2d_auto(x, offsets, mask, weight, bias, impl=impl, sparse=sparse,
+                                  activity=activity)
+
+
 class STFusion(_Probed):
     """Spatio-temporal fusion + upsampling decoder."""
 
@@ -183,6 +196,7 @@ class STFusion(_Probed):
         # HWIO, the DCN op's weight layout
         self.dcn_weight = nn.Parameter(torch.empty(3, 3, c, c).uniform_(-bound, bound))
         self.dcn_bias = nn.Parameter(torch.empty(c).uniform_(-bound, bound))
+        self.deform = DeformConv()
         self.post_dcn = pair(2 * c)
         self.spatial_kernel = ConvLayer(c, 2, 1, padding=0, activation="sigmoid", norm=norm)
         self.channel_mlp = MLP(c, c // 2, 2 * c, num_layers=2)
@@ -211,7 +225,7 @@ class STFusion(_Probed):
         )
         offsets = self._probe("dcn_offsets", offsets)
         mask = self._probe("dcn_mask", mask)
-        aligned = deform_conv2d_auto(
+        aligned = self.deform(
             feat0.permute(0, 2, 3, 1).contiguous(), offsets, mask,
             self.dcn_weight, self.dcn_bias, impl=self.dcn_impl,
             sparse=self.dcn_sparse, activity=activity,

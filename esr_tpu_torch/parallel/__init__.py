@@ -1,1 +1,2 @@
-"""Data parallelism over ``torch.distributed`` (``parallel.mesh``)."""
+"""Parallelism over ``torch.distributed``: data (``parallel.mesh``), tensor
+(``parallel.tensor``) and context (``parallel.context``)."""

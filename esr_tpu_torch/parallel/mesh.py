@@ -17,12 +17,14 @@ the gradients across the group, so every replica makes the same update.
   group.
 - :func:`stage_batch`: the process's rows to its device.
 - :func:`mean_gradients`: one coalesced all-reduce of every gradient, in
-  the parameters' order, divided by the world size.
+  the parameters' order, divided by the group's size (the world, or the
+  ``group`` given: tensor parallelism's data group, ``parallel.tensor``).
 - :func:`all_reduce_sum`: a differentiable sum across the group (its
   backward is the same sum of the cotangents), for BatchNorm's global batch
   moments (``models.layers``).
 - :func:`reduce_mean` / :func:`gather_merge`: the step's scalars and the
-  numerics probes' stats as the whole group's.
+  numerics probes' stats as the whole group's (``reduce_mean`` over a
+  ``group`` when one is given).
 - :func:`agree`: every process's value gathered and compared; a
   disagreement raises on every process.
 
@@ -139,20 +141,20 @@ def stage_batch(batch: Dict[str, torch.Tensor], device: torch.device
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def mean_gradients(params: Sequence[torch.nn.Parameter]) -> None:
-    """Every process's gradients replaced by their mean across the group,
-    in place: one all-reduce of the gradients flattened in ``params``'
-    order (a parameter without a gradient is left out, the same ones on
-    every process), then divided by the world size. Nothing without a
-    group."""
+def mean_gradients(params: Sequence[torch.nn.Parameter], group=None) -> None:
+    """Every process's gradients replaced by their mean across ``group``
+    (None: the world), in place: one all-reduce of the gradients flattened
+    in ``params``' order (a parameter without a gradient is left out, the
+    same ones on every process), then divided by the group's size. Nothing
+    without a process group."""
     if not is_distributed():
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    flat.div_(dist.get_world_size())
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
     offset = 0
     for g in grads:
         n = g.numel()
@@ -186,14 +188,14 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x)
 
 
-def reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the group, a new tensor (no gradient); ``x``
-    itself without a group."""
+def reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` over ``group`` (None: the world), a new tensor (no
+    gradient); ``x`` itself without a process group."""
     if not is_distributed():
         return x
     y = x.detach().clone()
-    dist.all_reduce(y)
-    return y.div_(dist.get_world_size())
+    dist.all_reduce(y, group=group)
+    return y.div_(dist.get_world_size(group))
 
 
 def gather_merge(stats: Dict[str, torch.Tensor], merge) -> Dict[str, torch.Tensor]:

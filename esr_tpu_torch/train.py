@@ -29,8 +29,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
-import os
 from datetime import datetime
 from typing import Optional, Sequence
 
@@ -60,13 +58,14 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def run(args: argparse.Namespace, log_to_file: bool = False, train_recordings=None,
-        valid_recordings=None):
+def run(args: argparse.Namespace, train_recordings=None, valid_recordings=None):
     """Train as the parsed command line says; returns ``(trainer,
     result)``. With ``--multihost`` the process group stays up (the caller
     leaves it: a captured group replays its collectives).
     ``train_recordings`` / ``valid_recordings`` (in-memory recordings)
-    replace the datalists, as the trainer takes them."""
+    replace the datalists, as the trainer takes them. The run's
+    ``RunConfig`` sets up the logging: the console and ``<log_dir>/info.txt``
+    (rank 0 at INFO, the other ranks WARNING and above)."""
     # config shorthands: appended as overrides, so they land in the
     # effective config (and its fingerprint)
     if args.live_port is not None:
@@ -86,22 +85,16 @@ def run(args: argparse.Namespace, log_to_file: bool = False, train_recordings=No
     config = RunConfig.from_args(args.config, overrides=args.override, runid=runid,
                                  resume=args.resume, reset=args.reset, seed=args.seed,
                                  is_main=is_main)
-    if log_to_file:
-        handlers = [logging.StreamHandler()]
-        if is_main:
-            handlers.append(logging.FileHandler(os.path.join(config.log_dir, "info.txt")))
-        logging.basicConfig(level=logging.INFO, format="%(message)s", handlers=handlers)
     trainer = Trainer(config, device=args.device, train_recordings=train_recordings,
                       valid_recordings=valid_recordings)
     return trainer, trainer.train()
 
 
-def main(argv: Optional[Sequence[str]] = None, log_to_file: bool = False) -> dict:
+def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Parse ``argv``, train, print the final train log (rank 0 alone under
-    ``--multihost``). ``log_to_file`` (the command line's choice) sends the
-    log to the console and to ``<log_dir>/info.txt``."""
+    ``--multihost``)."""
     args = get_args(argv)
-    trainer, result = run(args, log_to_file)
+    trainer, result = run(args)
     if args.multihost:
         # a process that raised leaves the group to the launcher, which ends it
         from esr_tpu_torch.parallel import mesh
@@ -113,4 +106,4 @@ def main(argv: Optional[Sequence[str]] = None, log_to_file: bool = False) -> dic
 
 
 if __name__ == "__main__":
-    main(log_to_file=True)
+    main()

@@ -30,7 +30,10 @@ the gradients are averaged across the group in one all-reduce, before the
 grad norm and the optimizer, and the per-window losses (so ``loss``) are
 averaged too, and the probes' stats merged, so every metric is the global
 batch's, as the reference's step returns it. Without a group the step
-launches no collective.
+launches no collective. Under tensor parallelism (``parallel.tensor
+.make_tp_train_step``) the mean and the metrics are taken over the data
+group alone (``group``), and the grad norm counts each shard of a
+parameter split over the model group (``sharded``, ``model_group``) once.
 
 The train step is capture-safe (``training.multistep`` replays ``k`` of
 them as one CUDA graph): it reads no value back to the host, and
@@ -44,16 +47,17 @@ validation.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from esr_tpu_torch.models.layers import recomputing
 from esr_tpu_torch.ops.encodings import make_device_encoder
 from esr_tpu_torch.ops.numerics import collect, flatten_probes, merge_stat_vectors, tensor_stats
-from esr_tpu_torch.parallel.mesh import gather_merge, mean_gradients, reduce_mean
+from esr_tpu_torch.parallel.mesh import gather_merge, is_distributed, mean_gradients, reduce_mean
 from esr_tpu_torch.training.optim import ScheduledOptimizer
 
 
@@ -92,21 +96,38 @@ def window_losses(model: nn.Module, batch: Dict[str, torch.Tensor], seqn: int,
     return torch.stack(losses), pred
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over all tensors (``optax.global_norm``)."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+def global_norm(tensors, sharded: Sequence[bool] = (), group=None) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over all tensors (``optax.global_norm``).
+    ``sharded`` flags the tensors that are this process's shard of a tensor
+    split over ``group``: their squares are summed over the group, once; the
+    others are the same on every process of it and count once. The flags
+    are known when the step is built, so nothing is read back to the host."""
+    tensors = list(tensors)
+    if not any(sharded):
+        return torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+    shards = torch.stack([t.square().sum() for t, s in zip(tensors, sharded) if s]).sum()
+    if is_distributed():
+        dist.all_reduce(shards, group=group)
+    rest = [t.square().sum() for t, s in zip(tensors, sharded) if not s]
+    return torch.sqrt(torch.stack(rest).sum() + shards if rest else shards)
 
 
 def make_train_step(model: nn.Module, optimizer: ScheduledOptimizer, seqn: int = 3,
-                    remat: bool = False, numerics: bool = False,
+                    remat: bool = False, numerics: bool = False, group=None,
+                    sharded: Sequence[torch.Tensor] = (), model_group=None,
                     ) -> Callable[[Dict[str, torch.Tensor]], Dict]:
     """``metrics = train_step(batch)``: one BPTT update of ``model`` in place.
     ``metrics``: ``loss`` (the window sum), ``loss_per_window``,
     ``grad_norm`` (the global norm of the raw grads, before weight decay)
     and ``last_pred``, all detached tensors on the device, and with
-    ``numerics`` the probes' ``{tag: stats}`` (module docstring)."""
+    ``numerics`` the probes' ``{tag: stats}`` (module docstring).
+    ``group`` (None: the world) takes the gradients' and the losses' mean;
+    ``sharded`` lists the parameters that are shards over ``model_group``
+    (tensor parallelism), for the grad norm."""
     params = [p for p in model.parameters() if p.requires_grad]
+    shard_ids = {id(p) for p in sharded}
+    shard_flags = [id(p) in shard_ids for p in params]
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
@@ -120,11 +141,11 @@ def make_train_step(model: nn.Module, optimizer: ScheduledOptimizer, seqn: int =
             losses, pred = window_losses(model, batch, seqn, remat)
         losses.sum().backward()
         # the group's mean gradient (nothing without a group)
-        mean_gradients(params)
+        mean_gradients(params, group)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, shard_flags, model_group)
         optimizer.step()
-        losses = reduce_mean(losses.detach())
+        losses = reduce_mean(losses.detach(), group)
         metrics = {"loss": losses.sum(), "loss_per_window": losses,
                    "grad_norm": grad_norm, "last_pred": pred.detach()}
         if numerics:

@@ -13,16 +13,26 @@ The 2D renderers compute the reference's images bit for bit:
 
 :func:`save_image` writes a PNG with ``zlib`` and ``struct`` alone (8-bit
 RGB or grayscale, one IDAT, no filtering), so the port needs neither
-OpenCV nor PIL. The reference's 3D renderers (``render_event_3d``,
-``export_event_cloud``, ``animate_event_3d``) need matplotlib and are not
-ported.
+OpenCV nor PIL.
+
+The 3D views need matplotlib, imported inside them (the ``Agg`` backend),
+so importing this module loads none; they run on a host that has it (the
+card's machine has not):
+- ``render_event_3d``: the (x, t, y) scatter of an event cloud, blue
+  positive, red negative, y flipped to point up, an optional GT cloud in a
+  second panel; the figure's RGB pixels;
+- ``animate_event_3d``: windows of (input, GT, frame) as an animated GIF
+  (or an mp4 where ffmpeg is there), input left, GT right, the frame inset
+  below, at one of the reference's view presets (:data:`VIEW_PRESETS`);
+- ``export_event_cloud``: the cloud as a coloured PLY through
+  :func:`esr_tpu_torch.tools.h5_tools.events_to_ply`.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -121,6 +131,116 @@ def render_frame(frame: np.ndarray) -> np.ndarray:
     return img
 
 
+def _pyplot():
+    """matplotlib's pyplot on the ``Agg`` backend (no display)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def _scatter_3d(ax, events: np.ndarray, resolution: Tuple[int, int]) -> list:
+    """The (x, t, y) scatter of ``[N, 4]`` (x, y, t, p) events on ``ax``:
+    blue positive, red negative, y flipped to point up; its artists."""
+    if events is None or not len(events):
+        return []
+    x, y, t, p = events[:, 0], events[:, 1], events[:, 2], events[:, 3]
+    y = resolution[0] - y
+    return [ax.scatter(x[p > 0], t[p > 0], y[p > 0], c="b", marker=".", s=1),
+            ax.scatter(x[p < 0], t[p < 0], y[p < 0], c="r", marker=".", s=1)]
+
+
+def render_event_3d(events: np.ndarray, resolution: Tuple[int, int],
+                    gt_events: Optional[np.ndarray] = None,
+                    gt_resolution: Optional[Tuple[int, int]] = None,
+                    dpi: int = 100) -> np.ndarray:
+    """``[N, 4]`` (x, y, t, p) events -> the RGB uint8 image of their 3D
+    scatter (module docstring), the GT cloud beside it when given."""
+    plt = _pyplot()
+    fig = plt.figure(figsize=(8 if gt_events is None else 14, 6), dpi=dpi)
+    clouds = [(events, resolution)]
+    if gt_events is not None:
+        clouds.append((gt_events, gt_resolution or resolution))
+    for i, (ev, res) in enumerate(clouds):
+        ax = fig.add_subplot(1, len(clouds), i + 1, projection="3d")
+        _scatter_3d(ax, ev, res)
+        ax.set_xlabel("x")
+        ax.set_ylabel("t")
+        ax.set_zlabel("y")
+    fig.canvas.draw()
+    img = np.asarray(fig.canvas.buffer_rgba())[..., :3].copy()
+    plt.close(fig)
+    return img
+
+
+def export_event_cloud(events: np.ndarray, resolution: Tuple[int, int],
+                       output_path: str) -> int:
+    """The event cloud as a binary PLY (red positive, blue negative, ``t``
+    scaled to the sensor height); the vertices written."""
+    from esr_tpu_torch.tools.h5_tools import events_to_ply
+
+    return events_to_ply(events, resolution, output_path)
+
+
+# the reference's numbered view presets (its interactive keys 1-5)
+VIEW_PRESETS = {
+    1: {"elev": 0, "azim": -90},
+    2: {"elev": 30, "azim": -60},
+    3: {"elev": 30, "azim": -120},
+    4: {"elev": -30, "azim": -60},
+    5: {"elev": -30, "azim": -120},
+}
+
+
+def animate_event_3d(windows: Iterable, resolution: Tuple[int, int], out_path: str,
+                     gt_resolution: Optional[Tuple[int, int]] = None, fps: int = 10,
+                     view: Optional[int] = None, dpi: int = 80) -> str:
+    """``windows`` of ``(inp_events, gt_events)`` or ``(inp_events,
+    gt_events, frame)`` (the GT and the frame may be None) -> an animation
+    at ``out_path``: an mp4 when the path ends in ``.mp4`` and ffmpeg is
+    there, else a GIF (``.mp4`` becomes ``.gif``). Returns the path
+    written; raises ``ValueError`` on no windows."""
+    plt = _pyplot()
+    import matplotlib.animation as manim
+
+    gt_resolution = gt_resolution or resolution
+    fig = plt.figure(figsize=(10, 6), dpi=dpi)
+    inp_ax = fig.add_axes([-0.05, 0.3, 0.55, 0.65], projection="3d")
+    gt_ax = fig.add_axes([0.45, 0.3, 0.55, 0.65], projection="3d")
+    frame_ax = fig.add_axes([0.375, 0.0, 0.25, 0.3])
+    frame_ax.axis("off")
+    for ax, title in ((inp_ax, "input"), (gt_ax, "GT")):
+        ax.set_xlabel("x")
+        ax.set_ylabel("t")
+        ax.set_zlabel("y")
+        ax.set_title(title)
+        if view in VIEW_PRESETS:
+            ax.view_init(**VIEW_PRESETS[view])
+    movie = []
+    for win in windows:
+        inp_ev, gt_ev, frame = (tuple(win) + (None, None))[:3]
+        artists = _scatter_3d(inp_ax, np.asarray(inp_ev), resolution)
+        if gt_ev is not None:
+            artists += _scatter_3d(gt_ax, np.asarray(gt_ev), gt_resolution)
+        if frame is not None:
+            artists.append(frame_ax.imshow(render_frame(frame), cmap="gray", animated=True))
+        movie.append(artists)
+    if not movie:
+        plt.close(fig)
+        raise ValueError("animate_event_3d: no windows to render")
+    ani = manim.ArtistAnimation(fig, movie, interval=1000 // fps, repeat=True)
+    if out_path.endswith(".mp4") and manim.writers.is_available("ffmpeg"):
+        ani.save(out_path, writer="ffmpeg", fps=fps)
+    else:
+        if out_path.endswith(".mp4"):
+            out_path = out_path[:-4] + ".gif"
+        ani.save(out_path, writer="pillow", fps=fps)
+    plt.close(fig)
+    return out_path
+
+
 def _chunk(kind: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + kind + data
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
@@ -149,7 +269,8 @@ def save_image(path: str, image: np.ndarray) -> None:
 
 
 class EventVisualizer:
-    """Object API of the reference's ``event_visualisation`` (2D views)."""
+    """Object API of the reference's ``event_visualisation``: the 2D views,
+    and the 3D ones (module docstring)."""
 
     def plot_event_cnt(self, event_cnt: np.ndarray, is_save: bool = False,
                        path: Optional[str] = None, color_scheme: str = "green_red",
@@ -168,6 +289,20 @@ class EventVisualizer:
     def plot_frame(self, frame: np.ndarray, is_save: bool = False,
                    path: Optional[str] = None) -> np.ndarray:
         return self._maybe_save(render_frame(frame), is_save, path)
+
+    def plot_event_3d(self, event_list: np.ndarray, resolution: Tuple[int, int],
+                      gt_event_list: Optional[np.ndarray] = None,
+                      gt_resolution: Optional[Tuple[int, int]] = None,
+                      is_save: bool = False, path: Optional[str] = None) -> np.ndarray:
+        img = render_event_3d(event_list, resolution, gt_event_list, gt_resolution)
+        return self._maybe_save(img, is_save, path)
+
+    def plot_event_3d_animation(self, windows: Iterable, resolution: Tuple[int, int],
+                                path: str, gt_resolution: Optional[Tuple[int, int]] = None,
+                                fps: int = 10, view: Optional[int] = None) -> str:
+        """:func:`animate_event_3d` to ``path``; the path written."""
+        return animate_event_3d(windows, resolution, path, gt_resolution=gt_resolution,
+                                fps=fps, view=view)
 
     @staticmethod
     def _maybe_save(img: np.ndarray, is_save: bool, path: Optional[str]) -> np.ndarray:

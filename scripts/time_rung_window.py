@@ -12,9 +12,11 @@ change, change, parent), in one call on one card. It builds the dense
 flagship of ``chip_smoke.py``'s precision phase (``flagship_model``, seeded
 weights) and one seeded 720x1280 recording, and takes ``--windows`` readings
 of ``chip_smoke.rung_window_profile`` (a warm window, then one under
-``torch.profiler``, read as the union of its kernels' device intervals). It
-prints one JSON line: the card and its power limit, each reading's device ms
-and their median.
+``torch.profiler``, read as the union of its kernels' device intervals), then
+the recording once through ``chip_smoke.rung_window_metrics`` (the harness's
+per-window wall time, host clock to ``synchronize``). It prints one JSON
+line: the card and its power limit, each reading's device ms and their
+median, and the harness's window latency p50.
 """
 
 from __future__ import annotations
@@ -55,9 +57,11 @@ def main() -> int:
     runner = InferenceRunner(model, 3, device=dev, precision=args.precision)
     busy = [cs.rung_window_profile(torch, runner, recording, dev, card)[0]
             for _ in range(args.windows)]
+    lat = sorted(cs.rung_window_metrics(torch, runner, recording, dev)[2])
     print(json.dumps({
         "tag": args.tag, "root": str(args.root), "card": card, "precision": args.precision,
-        "device_ms_per_window": busy, "device_ms_median": sorted(busy)[len(busy) // 2]}))
+        "device_ms_per_window": busy, "device_ms_median": sorted(busy)[len(busy) // 2],
+        "harness_windows": len(lat), "harness_p50_ms": round(lat[len(lat) // 2], 3)}))
     return 0
 
 

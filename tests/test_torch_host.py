@@ -1038,3 +1038,193 @@ def test_superslomo_interpolation_matches_reference(slomo):
 
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
+
+
+# -- the last views (pipeline_vis, the 3D renderers) and the run log --------
+
+
+def _flows():
+    """Seeded flows, a flow of one magnitude, zeros, and flows on the hue
+    wheel's seams (atan2 at +-pi: hue exactly 0 and 1)."""
+    rng = np.random.default_rng(4)
+    fx, fy = rng.normal(size=(2, 13, 17))
+    seams = np.array([[-1.0, -2.0, 3.0], [0.5, -0.0, 0.0]])
+    return [(fx, fy), (np.ones((4, 4)), np.zeros((4, 4))), (np.zeros((3, 5)),) * 2,
+            (seams, np.array([[0.0, 0.0, 0.0], [1.0, 0.0, -0.0]])),
+            (fx.astype(np.float32), fy.astype(np.float32))]
+
+
+def test_flow_to_image_and_hsv_are_the_references_bitwise():
+    import matplotlib.colors
+
+    from esr_tpu.utils import pipeline_vis as ref_pv
+    from esr_tpu_torch.utils import pipeline_vis as pv
+
+    for fx, fy in _flows():
+        np.testing.assert_array_equal(pv.flow_to_image(fx, fy), ref_pv.flow_to_image(fx, fy))
+    rng = np.random.default_rng(5)
+    hsv = rng.random((7, 9, 3))
+    hsv[0, :, 0] = np.linspace(0, 1, 9)  # every sextant and hue 1.0
+    hsv[1, :, 1] = 0.0
+    # f64 of 2 dims or more: what matplotlib takes under numpy 2 (its
+    # np.array(copy=False) refuses an input it would have to copy)
+    for arr in (hsv, hsv[0]):
+        want = matplotlib.colors.hsv_to_rgb(arr)
+        got = pv.hsv_to_rgb(arr)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    x = rng.normal(size=(10, 100))
+    np.testing.assert_array_equal(pv.minmax_norm(x), ref_pv.minmax_norm(x))
+    np.testing.assert_array_equal(pv.minmax_norm(np.ones((3, 3))),
+                                  ref_pv.minmax_norm(np.ones((3, 3))))
+
+
+def _pipeline_frames(rng):
+    return [dict(inputs={"inp_cnt": rng.poisson(1.0, (1, 8, 9, 2)).astype(np.float32),
+                         "inp_frames": rng.uniform(0, 255, (1, 2, 8, 9))},
+                 flow=rng.normal(size=(1, 2, 8, 9)),
+                 iwe=rng.poisson(1.0, (8, 9, 2)).astype(np.float32),
+                 brightness=rng.normal(size=(1, 8, 9)))
+            for _ in range(3)]
+
+
+def test_pipeline_visualizer_renders_and_stores_as_the_reference(tmp_path):
+    from esr_tpu.utils import pipeline_vis as ref_pv
+    from esr_tpu_torch.utils import pipeline_vis as pv
+
+    frames = _pipeline_frames(np.random.default_rng(6))
+    for pair in (True, False):
+        for f in frames:
+            got = pv.PipelineVisualizer().render(**f, frames_pair=pair)
+            want = ref_pv.PipelineVisualizer().render(**f, frames_pair=pair)
+            assert list(got) == list(want) == ["events", "frames", "flow", "iwe",
+                                               "brightness"]
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    trees = {}
+    for name, mod in (("port", pv), ("ref", ref_pv)):
+        root = tmp_path / name
+        viz = mod.PipelineVisualizer(store_dir=str(root), color_scheme="blue_red")
+        written = []
+        for i, (seq, f) in enumerate(zip(("recA", "recB", "recA"), frames)):
+            paths = viz.store(f["inputs"], f["flow"], f["iwe"] if i else None,
+                              f["brightness"], seq, ts=0.25 * i)
+            written.append({k: os.path.relpath(p, root) for k, p in paths.items()})
+        viz.close()
+        files = sorted(str(p.relative_to(root)) for p in root.rglob("*"))
+        trees[name] = (written, files, {
+            f: (p.read_text() if f.endswith(".txt") else
+                cv2.imread(str(p), cv2.IMREAD_UNCHANGED))
+            for f in files if (p := root / f).is_file()})
+    (w_port, f_port, c_port), (w_ref, f_ref, c_ref) = trees["port"], trees["ref"]
+    assert w_port == w_ref and f_port == f_ref
+    assert "recA/flow/000000001.png" in f_port and "recB/iwe" in f_port
+    for f in c_ref:
+        if f.endswith(".txt"):
+            assert c_port[f] == c_ref[f], f
+        else:
+            np.testing.assert_array_equal(c_port[f], c_ref[f], err_msg=f)
+
+
+def _clouds():
+    rng = np.random.default_rng(7)
+
+    def cloud(n, res, t0):
+        return np.stack([rng.integers(0, res[1], n).astype(np.float32),
+                         rng.integers(0, res[0], n).astype(np.float32),
+                         np.sort(rng.uniform(t0, t0 + 0.1, n)).astype(np.float32),
+                         rng.choice([-1.0, 1.0], n).astype(np.float32)], axis=1)
+
+    frame = (rng.random((16, 16)) * 255).astype(np.uint8)
+    return cloud, frame
+
+
+def test_event_3d_views_are_the_references_pixels(tmp_path):
+    from PIL import Image, ImageSequence
+
+    cloud, frame = _clouds()
+    ev, gt = cloud(60, (8, 8), 0.0), cloud(150, (16, 16), 0.0)
+    for args in ((ev, (8, 8)), (ev, (8, 8), gt, (16, 16)), (ev[:0], (8, 8))):
+        got = vis.render_event_3d(*args, dpi=40)
+        want = ref_vis.render_event_3d(*args, dpi=40)
+        assert got.dtype == np.uint8 and got.ndim == 3
+        np.testing.assert_array_equal(got, want)
+    path = str(tmp_path / "view.png")
+    img = vis.EventVisualizer().plot_event_3d(ev, (8, 8), gt, (16, 16), is_save=True,
+                                              path=path)
+    np.testing.assert_array_equal(cv2.imread(path)[..., ::-1], img)
+    windows = [(ev, gt, frame), (cloud(60, (8, 8), 0.1), None, None),
+               (cloud(60, (8, 8), 0.2), cloud(150, (16, 16), 0.2))]
+    movies = []
+    for name, fn in (("port", vis.EventVisualizer().plot_event_3d_animation),
+                     ("ref", ref_vis.EventVisualizer().plot_event_3d_animation)):
+        out = fn(windows, (8, 8), str(tmp_path / f"{name}.mp4"), gt_resolution=(16, 16),
+                 fps=5, view=3)
+        with Image.open(out) as im:
+            movies.append((os.path.basename(out)[len(name):],
+                           [np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(im)]))
+    (ext_p, port), (ext_r, ref) = movies
+    assert ext_p == ext_r and len(port) == len(ref) == 3
+    for a, b in zip(port, ref):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="no windows"):
+        vis.animate_event_3d([], (8, 8), str(tmp_path / "empty.gif"))
+    assert vis.VIEW_PRESETS == ref_vis.VIEW_PRESETS
+
+
+def test_export_event_cloud_writes_the_references_ply(tmp_path):
+    cloud, _ = _clouds()
+    ev = cloud(500, (20, 30), 0.3)
+    n = vis.export_event_cloud(ev, (20, 30), str(tmp_path / "port.ply"))
+    assert n == ref_vis.export_event_cloud(ev, (20, 30), str(tmp_path / "ref.ply")) == 500
+    assert (tmp_path / "port.ply").read_bytes() == (tmp_path / "ref.ply").read_bytes()
+
+
+def test_run_config_writes_the_references_run_log(tmp_path):
+    """C11: a RunConfig sets up the logging as the reference's does: a
+    message-only console, ``<log_dir>/info.txt`` in the reference's format,
+    a non-main rank at WARNING on both, and a second call replaces the
+    handlers rather than adding to them."""
+    import logging
+    import re
+
+    from esr_tpu.config import parser as J_parser
+
+    root = logging.getLogger()
+    saved = (list(root.handlers), root.level)
+    lines = {}
+    try:
+        for name, mod in (("port", T_parser), ("ref", J_parser)):
+            cfg = {"experiment": "exp", "trainer": {"output_path": str(tmp_path / name)}}
+            run = mod.RunConfig(cfg, runid="r0")
+            logging.getLogger("esr_tpu_torch.runlog").info("an info line %d", 7)
+            logging.getLogger("esr_tpu_torch.runlog").debug("a debug line")
+            levels = [(type(h).__name__, h.level, getattr(h.formatter, "_fmt", None))
+                      for h in root.handlers]
+            mod.RunConfig(cfg, runid="r0", is_main=False)
+            logging.getLogger("esr_tpu_torch.runlog").info("an info line a rank drops")
+            logging.getLogger("esr_tpu_torch.runlog").warning("a warning line")
+            others = [(type(h).__name__, h.level) for h in root.handlers]
+            for h in root.handlers:
+                h.flush()
+            text = (Path(run.log_dir) / "info.txt").read_text()
+            lines[name] = (levels, others, root.level,
+                           [re.sub(r"^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3} - ", "", line)
+                            for line in text.splitlines()])
+    finally:
+        for h in list(root.handlers):
+            root.removeHandler(h)
+            h.close()
+        for h in saved[0]:
+            root.addHandler(h)
+        root.setLevel(saved[1])
+    assert lines["port"] == lines["ref"]
+    levels, others, root_level, text = lines["port"]
+    assert levels == [("StreamHandler", logging.INFO, "%(message)s"),
+                      ("RotatingFileHandler", logging.DEBUG,
+                       "%(asctime)s - %(name)s - %(levelname)s - %(message)s")]
+    assert others == [("StreamHandler", logging.WARNING),
+                      ("RotatingFileHandler", logging.WARNING)]
+    assert root_level == logging.INFO
+    assert text == ["esr_tpu_torch.runlog - INFO - an info line 7",
+                    "esr_tpu_torch.runlog - WARNING - a warning line"]

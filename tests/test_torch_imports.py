@@ -47,7 +47,8 @@ def test_package_imports_no_jax_and_no_reference():
             "ops/psroi.py", "losses/flow.py", "losses/reconstruction.py",
             "models/extended.py", "tools/simulate.py", "tools/packagers.py",
             "tools/upsampling.py", "tools/h5_tools.py", "tools/datalist.py",
-            "utils/timers.py"} <= names
+            "utils/timers.py", "utils/logging.py", "utils/pipeline_vis.py",
+            "parallel/tensor.py", "parallel/context.py"} <= names
     bad = {str(f.relative_to(PKG.parent)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
@@ -119,6 +120,28 @@ def test_simulator_and_event_ops_load_no_jax_cv2_or_h5py():
         "assert rec.stream('down2').num_events > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'esr_tpu', 'cv2', 'h5py')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(PKG.parent))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_views_and_parallelism_load_no_matplotlib_and_no_reference():
+    """The views import matplotlib only inside the 3D renderers (the card's
+    machine has none); tensor and context parallelism and the run log import
+    neither the reference nor JAX."""
+    code = (
+        "import sys, esr_tpu_torch.utils, esr_tpu_torch.utils.vis_events, "
+        "esr_tpu_torch.utils.pipeline_vis, esr_tpu_torch.utils.logging, "
+        "esr_tpu_torch.parallel.tensor, esr_tpu_torch.parallel.context, "
+        "esr_tpu_torch.config.parser\n"
+        "import numpy as np\n"
+        "from esr_tpu_torch.utils.pipeline_vis import PipelineVisualizer\n"
+        "PipelineVisualizer().render(flow=np.ones((4, 5, 2)), brightness=np.ones((4, 5, 1)))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'esr_tpu', 'matplotlib', 'cv2', 'PIL')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

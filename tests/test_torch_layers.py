@@ -1116,3 +1116,105 @@ def test_psroi_matches_reference_at_half_coordinates():
     x = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5])
     assert TPS._round_half_away(x).tolist() == [1.0, 2.0, 3.0, -1.0, -3.0]
     assert torch.round(x).tolist() != TPS._round_half_away(x).tolist()
+
+
+# -- context parallelism (parallel.context) ----------------------------------
+#
+# Four gloo processes, one torch thread each: ring and Ulysses attention over
+# the four (p 4) and over two pairs (p 2), causal and not, each process its
+# sequence block of q, k, v [2, 32, 8, 16], with the gradients of
+# sum(out ** 2) (the sum over the processes' blocks); against the
+# reference's full_attention and its jax.grad, the bounds of
+# tests/test_context_parallel.py (outputs 2e-5, gradients 5e-4). Ulysses
+# over 4 processes with 6 heads raises.
+
+_CP_PROCESS = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+from esr_tpu_torch.parallel import context
+rank, world, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"file://{root}/store", rank=rank,
+                        world_size=world)
+pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+q, k, v = (torch.from_numpy(a) for a in np.load(f"{root}/qkv.npy"))
+out = {}
+for p, group, index in ((4, None, rank), (2, pairs[rank // 2], rank % 2)):
+    n = q.shape[1] // p
+    for fn in ("ring", "ulysses"):
+        for causal in (0, 1):
+            leaves = [t[:, index * n:(index + 1) * n].clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            o = getattr(context, fn + "_attention")(*leaves, group=group, causal=bool(causal))
+            (o ** 2).sum().backward()
+            key = f"{fn}_{p}_{causal}"
+            out[key + "_out"] = o.detach().numpy()
+            for name, t in zip("qkv", leaves):
+                out[f"{key}_g{name}"] = t.grad.numpy()
+try:
+    context.ulysses_attention(*(torch.zeros(1, 4, 6, 2) for _ in range(3)))
+    refused = ""
+except ValueError as e:
+    refused = str(e)
+np.savez(f"{root}/cp{rank}.npz", refused=np.array(refused), **out)
+dist.destroy_process_group()
+"""
+
+CP_CASES = [(fn, p, causal) for fn in ("ring", "ulysses") for p in (4, 2)
+            for causal in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def cp_processes(tmp_path_factory, _one_torch_thread):
+    import os
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = tmp_path_factory.mktemp("cp_processes")
+    rng = np.random.default_rng(0)
+    qkv = rng.standard_normal((3, 2, 32, 8, 16)).astype(np.float32)
+    np.save(root / "qkv.npy", qkv)
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(Path(__file__).resolve().parent.parent)}
+    procs = [subprocess.Popen([sys.executable, "-c", _CP_PROCESS, str(r), "4", str(root)],
+                              env=env, start_new_session=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=120)[0].decode() for p in procs]
+    finally:
+        for p in procs:  # a peer left in a collective goes with its group
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+    assert [p.returncode for p in procs] == [0] * 4, logs
+    return qkv, [dict(np.load(root / f"cp{r}.npz")) for r in range(4)]
+
+
+@pytest.mark.parametrize("fn,p,causal", CP_CASES)
+def test_sequence_parallel_attention_matches_full_attention(cp_processes, fn, p, causal):
+    from esr_tpu.parallel.context import full_attention
+
+    qkv, got = cp_processes
+    q, k, v = (jnp.asarray(a) for a in qkv)
+    want = np.asarray(full_attention(q, k, v, causal=causal))
+    grads = jax.grad(lambda *t: (full_attention(*t, causal=causal) ** 2).sum(),
+                     argnums=(0, 1, 2))(q, k, v)
+    n = qkv.shape[2] // p
+    key = f"{fn}_{p}_{int(causal)}"
+    for rank, g in enumerate(got):
+        rows = slice((rank % p) * n, (rank % p + 1) * n)
+        np.testing.assert_allclose(g[key + "_out"], want[:, rows], atol=2e-5)
+        for name, jg in zip("qkv", grads):
+            np.testing.assert_allclose(g[f"{key}_g{name}"], np.asarray(jg)[:, rows],
+                                       atol=5e-4, err_msg=name)
+
+
+def test_ulysses_refuses_heads_that_do_not_split(cp_processes):
+    _, got = cp_processes
+    for g in got:
+        assert "num_heads 6 must divide by the group's size 4" in str(g["refused"])

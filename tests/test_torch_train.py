@@ -1715,3 +1715,245 @@ def test_bn_remat_updates_the_running_stats_once_as_the_reference(bn_remat):
         np.testing.assert_allclose(got[k], want[k], rtol=2e-3, atol=1e-6, err_msg="/".join(k))
     for k in want:
         np.testing.assert_array_equal(got[k], bn_remat[False][k], err_msg="/".join(k))
+
+
+# -- tensor parallelism (parallel.tensor) -----------------------------------
+#
+# The flagship at tests/test_tensor_parallel.py's size (inch 2, basech 8,
+# num_frame 3; B 8, L 4, 16x16; Adam-amsgrad lr 1e-3, wd 1e-4; seqn 3) from
+# the reference's own initial weights: four gloo processes, one torch
+# thread each, run the port's tensor-parallel step at (data 2, model 2) and
+# (data 1, model 4), two steps each on the same global batch, against the
+# reference's single-device step (the JAX test pins its tensor-parallel
+# step to the replicated one at rtol 1e-5). Losses rtol 1e-5, parameters
+# gathered from the shards rtol 2e-3 + atol 1e-6 (this file's bound).
+
+TP_MESHES = ["2x2", "1x4"]
+TP_B, TP_L, TP_H, TP_W = 8, 4, 16, 16
+TP_TIMEOUT_S = 180
+TP_WORKER = '''
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from esr_tpu_torch.models import convert
+from esr_tpu_torch.models.esr import DeepRecurrNet
+from esr_tpu_torch.parallel import tensor as tp
+from esr_tpu_torch.training import optim
+
+torch.set_num_threads(1)
+root = sys.argv[1]
+dist.init_process_group("gloo")
+rank = dist.get_rank()
+tree = {}
+for key, arr in np.load(root + "/params.npz").items():
+    node = tree
+    *parents, leaf = key.split("/")
+    for name in parents:
+        node = node.setdefault(name, {})
+    node[leaf] = arr
+batch = {k: torch.from_numpy(v) for k, v in np.load(root + "/batch.npz").items()}
+report = {}
+for data in (2, 1):
+    mesh = tp.make_tp_mesh(data=data, device="cpu")
+    model = DeepRecurrNet(inch=2, basech=8, num_frame=3)
+    convert.load_flax_params(model, tree)
+    opt = optim.make_optimizer("Adam", model.parameters(), lr=1e-3, weight_decay=1e-4,
+                               amsgrad=True)
+    step = tp.make_tp_train_step(model, opt, mesh, seqn=3)
+    losses = [float(step(batch)["loss"]) for _ in range(2)]
+    state = opt.optimizer.state
+    shapes = {n: [list(p.shape)] + [list(state[p][k].shape)
+                                    for k in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")]
+              for n, p in model.named_parameters()}
+    full = tp.gather_params(model)
+    key = f"{mesh.data}x{mesh.model}"
+    report[key] = {"losses": losses, "shapes": shapes,
+                   "coords": [mesh.data_index, mesh.model_index]}
+    if rank == 0:
+        whole = DeepRecurrNet(inch=2, basech=8, num_frame=3)
+        whole.load_state_dict(full)
+        flat = convert.flatten_tree(convert.export_flax_params(whole))
+        np.savez(f"{root}/params_{key}.npz", **{"/".join(k): v for k, v in flat.items()})
+with open(f"{root}/rank{rank}.json", "w") as f:
+    json.dump(report, f)
+dist.destroy_process_group()
+'''
+
+
+def _torchrun_script(nproc, script, args, timeout):
+    """``python -m torch.distributed.run --standalone`` of ``script`` in
+    ``nproc`` processes, one torch thread each; killed together on a
+    timeout."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(script), *args]
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(REPO)}
+    proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def join():
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+        assert proc.returncode == 0, err[-4000:]
+        return out, err
+
+    return join
+
+
+def _jax_flagship_tp_setup():
+    """The reference's flagship, its initial parameters and the batch of
+    tests/test_tensor_parallel.py."""
+    model = FlaxNet(inch=2, basech=8, num_frame=3, dcn_impl="jnp")
+    rng = np.random.default_rng(0)
+    batch = {k: rng.random((TP_B, TP_L, TP_H, TP_W, 2)).astype(np.float32)
+             for k in ("inp", "gt")}
+    params = model.init(jax.random.PRNGKey(0), jnp.asarray(batch["inp"][:, :3]),
+                        model.init_states(TP_B, TP_H, TP_W))
+    return model, jax.tree.map(np.asarray, params), batch
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("tp")
+    model, params, batch = _jax_flagship_tp_setup()
+    np.savez(root / "params.npz", **{"/".join(k): v
+                                     for k, v in convert.flatten_tree(params).items()})
+    np.savez(root / "batch.npz", **batch)
+    (root / "tp_worker.py").write_text(TP_WORKER)
+    join = _torchrun_script(4, root / "tp_worker.py", [str(root)], TP_TIMEOUT_S)
+    # the reference's replicated step, while the four processes run
+    opt = J_optim.make_optimizer("Adam", lr=1e-3, weight_decay=1e-4, amsgrad=True)
+    step = jax.jit(j_make_train_step(model, opt, seqn=3))
+    state = TrainState.create(params, opt)
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    join()
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(4)]
+    return {"ref": {"losses": losses,
+                    "params": convert.flatten_tree(jax.tree.map(np.asarray, state.params))},
+            "start": convert.flatten_tree(params), "ranks": ranks,
+            "params": {m: {tuple(k.split("/")): v for k, v in np.load(root / f"params_{m}.npz").items()}
+                       for m in TP_MESHES}}
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tensor_parallel_losses_are_the_replicated_steps(tp_runs, mesh):
+    want = tp_runs["ref"]["losses"]
+    for r in tp_runs["ranks"]:
+        np.testing.assert_allclose(r[mesh]["losses"], want, rtol=1e-5)
+    assert want[1] < want[0] and tp_runs["ranks"][0][mesh]["losses"][1] < want[0]
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tensor_parallel_parameters_gathered_after_two_steps(tp_runs, mesh):
+    got, want = tp_runs["params"][mesh], tp_runs["ref"]["params"]
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-3, atol=1e-6, err_msg="/".join(k))
+    assert any(not np.array_equal(want[k], tp_runs["start"][k]) for k in want)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tensor_parallel_state_stays_model_sharded(tp_runs, mesh):
+    """Every rank holds its slice of a leaf the reference's rule splits
+    (trailing flax axis divisible by the model axis), parameters and the
+    three Adam moments alike, at its place on the grid; the rest whole."""
+    data, model = map(int, mesh.split("x"))
+    whole = DeepRecurrNet(inch=2, basech=8, num_frame=3)
+    flat = convert.flatten_tree(convert.export_flax_params(whole))
+    names = {id(p): n for n, p in whole.named_parameters()}
+    flax_shape = {names[id(t)]: flat[path].shape for path, t, _ in convert.flax_leaves(whole)}
+    split = 0
+    for rank, r in enumerate(tp_runs["ranks"]):
+        assert r[mesh]["coords"] == [rank // model, rank % model]
+        for name, p in whole.named_parameters():
+            want = list(p.shape)
+            trailing = flax_shape[name][-1]
+            if trailing % model == 0 and trailing >= model:
+                dim = 3 if name.endswith("dcn_weight") else 0
+                want[dim] //= model
+                split += rank == 0
+            assert r[mesh]["shapes"][name] == [want] * 4, name
+    # the reference's plan splits 240 / 224 of the TrainState's leaves at
+    # model 2 / 4: each parameter with its three Adam moments
+    assert split == {2: 60, 4: 56}[model]
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_tp_plan_names_the_references_sharded_leaves(tp):
+    from esr_tpu.parallel.tensor import channel_shardings as j_channel_shardings
+    from esr_tpu.parallel.tensor import make_tp_mesh as j_make_tp_mesh
+    from esr_tpu_torch.parallel import tensor as T_tp
+
+    model, params, _ = _jax_flagship_tp_setup()
+    j_mesh = j_make_tp_mesh(jax.devices(), data=8 // tp)
+    specs = jax.tree_util.tree_flatten_with_path(j_channel_shardings(params, j_mesh))[0]
+    want = {tuple(getattr(k, "key", k) for k in path) for path, sh in specs
+            if sh.spec and sh.spec[-1] == "model"}
+    plan = T_tp.channel_shardings(DeepRecurrNet(inch=2, basech=8, num_frame=3),
+                                  T_tp.TPMesh(8 // tp, tp, 0, 0))
+    got = {leaf.flax_path for leaf in plan.values() if leaf.sharded}
+    assert got == want
+    assert (len(got) == 0) == (tp == 1)
+    dims = {leaf.flax_path[-1]: leaf.dim for leaf in plan.values() if leaf.sharded}
+    assert tp == 1 or dims == {"kernel": 0, "bias": 0, "dcn_weight": 3, "dcn_bias": 0}
+
+
+def test_tp_refuses_unknown_layers_and_meshes_that_do_not_split():
+    from esr_tpu_torch.parallel import tensor as T_tp
+
+    mesh = T_tp.TPMesh(1, 2, 0, 0)
+    for norm, layer in ((None, "Conv2d at params/"), ("BN", "TorchBatchNorm at params/")):
+        model = t_get_model("SRUNetRecurrentSeq", **SR_ARGS, norm=norm)
+        opt = T_optim.make_optimizer("Adam", model.parameters(), lr=1e-3)
+        before = {n: p.shape for n, p in model.named_parameters()}
+        with pytest.raises(NotImplementedError, match=layer) as err:
+            T_tp.shard_state_tp(model, opt, mesh)
+        assert "ConvLSTMCell_0" in str(err.value) or norm == "BN"
+        assert {n: p.shape for n, p in model.named_parameters()} == before
+    with pytest.raises(ValueError, match="data=3"):
+        T_tp.make_tp_mesh(data=3, device="cpu")
+    with pytest.raises(ValueError, match="2 processes"):
+        T_tp.make_tp_mesh(world=2, data=1, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def tp_without_a_group():
+    """Two steps of the tensor-parallel step on one process (no group) and
+    of the plain step, from the same weights and batch: the losses and the
+    parameters of each."""
+    from esr_tpu_torch.parallel import tensor as T_tp
+
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.random((2, 4, 16, 16, 2)).astype(np.float32))
+             for k in ("inp", "gt")}
+    runs = []
+    for tp_step in (True, False):
+        torch.manual_seed(0)
+        model = DeepRecurrNet(inch=2, basech=4, num_frame=3)
+        opt = T_optim.make_optimizer("Adam", model.parameters(), lr=1e-3, weight_decay=1e-4)
+        step = (T_tp.make_tp_train_step(model, opt, T_tp.make_tp_mesh(data=1, device="cpu"))
+                if tp_step else T_step.make_train_step(model, opt))
+        losses = [step(batch)["loss"] for _ in range(2)]
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+    return runs
+
+
+def test_tp_step_without_a_group_is_the_plain_step_bitwise(tp_without_a_group):
+    """One process: the mesh is (1, 1), the plan splits nothing, and the
+    tensor-parallel step is the plain step to the bit."""
+    (tp_losses, tp_params), (losses, params) = tp_without_a_group
+    for a, b in zip(tp_losses + tp_params, losses + params):
+        assert torch.equal(a, b)
